@@ -10,23 +10,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    versions, the CUDA kernels' build time (``nvcc``, from the sources in
    this checkout); TF32 off for fp32 matmuls and convolutions.
 2. Each kernel against its plain PyTorch version on the card at the main
-   path's shapes (bf16 inputs from a seeded generator). Tolerance: every
+   path's shapes (bf16 inputs from a seeded generator): flash and diag at
+   the prefill's shapes, the decode kernel over an 8-slot, 2,048-row pool
+   (bf16 and int8, t_c 1 and 4, lengths at tile edges). Tolerance: every
    output element within ULP_LIMIT bf16 ulps of the largest |value| of
    its row (one head of one query) in the plain output. Rounding both
    outputs to bf16 differs by at most 1 such ulp; the kernel rounds p to
    bf16 at the running row max and the plain version at the final one,
    which adds up to about one more in the tails. Also checked: padding
    rows exactly 0. Planted faults (kv tiles dropped from the bounds, a key
-   dropped from every window) must fail the same check, so it is shown to
-   see an off-by-one tile at the main path's shapes.
-   Kernel and plain times are CUDA-event medians; work rates are printed
-   from the tiles the kernel visits and from the valid (query, key) pairs.
+   dropped from every window, a slot's last key or last live tile dropped
+   in decode) must fail the same check, so it is shown to see an
+   off-by-one tile at the main path's shapes.
+   Kernel, plain and library times are CUDA-event medians (the card is
+   kept busy while the call is enqueued, so host time is not counted);
+   work rates are printed from the tiles the kernel visits and from the
+   valid (query, key) pairs. Each kernel's bound is the larger of its bytes
+   (inputs read once, outputs written once; for decode the live prefix)
+   over 3.35 TB/s and its flop over 989 TFLOP/s (bf16 dense); the library
+   yardstick is one ``F.scaled_dot_product_attention`` call with the same
+   mask (the port never calls it).
 3. Main path: full-width Qwen2.5-VL-3B with random weights (bf16, seeded),
    one 1036x1456 image and ~40 text ids, ``QwenVLEngine.generate`` with the
    LIS selector at budget 0.2 and with ``orig``, 32 greedy tokens each.
    The kernel launch counters are zeroed just before and read just after;
    every prefill must launch the diag kernel once per window layer and the
-   flash kernel once per full-attention ViT layer and per decoder layer.
+   flash kernel once per full-attention ViT layer and per decoder layer,
+   and every decode step the decode kernel once per decoder layer.
    The same request then runs with the plain attention path, and the
    first-token logits and selected sets are compared.
 4. Where the time goes: unprofiled wall times of prefill, host prep and
@@ -34,6 +44,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    decode: device busy time (the union of kernel and copy intervals in the
    trace), the idle share and the top kernels.
    Per-kernel device times go to ``chiprun_out/profile_*_kernels.txt``.
+5. Serving: ``ContinuousBatcher`` (8 slots, 2,048 rows, chunk 8) over the
+   same weights; 16 requests from 16 threads (4 at once, then one every
+   100 ms): 1036x1456 and 448x448 images, text-only prompts and two
+   ``orig`` requests on a second batcher; three sampled, one with a
+   repetition penalty; then 4 requests through an int8 pool. Checked:
+   tokens in range, the batchers' stats, decode launches = layers x decode
+   steps, each greedy request's first token equals one-shot ``generate``'s,
+   and a teacher-forced step on copies of one admitted pool with the
+   kernel and with ``decode_attn="plain"``. Printed: decode tok/s, time to
+   first token, chunk wall vs device-busy ms (torch.profiler), peak memory
+   and pool bytes.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -54,6 +75,20 @@ MAX_NEW_TOKENS = 32
 PROFILE_DECODE_STEPS = 16
 SRC = "visionselector_tpu_torch/kernels/csrc/"
 TILE = 64  # the kernels' q/kv tile (FLASH_BLOCK)
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+# Decode kernel check: an 8-slot pool of 2,048 rows at the 3B decoder's
+# GQA widths; lengths at the tile edges and the 3B orig prefill length.
+POOL_SLOTS, POOL_ROWS = 8, 2048
+DECODE_LENS = (1, 63, 64, 65, 300, 1302, 1900, 2047)
+# Teacher-forced decode step, kernel vs dense plain path, per slot: the
+# two differ only in decode attention (bf16 out of an fp32 online softmax
+# vs a bf16 einsum of probabilities rounded at the final max), about one
+# bf16 ulp (0.4%) per layer, which 36 random-weight layers carry to 3-4%
+# of max |logit| (measured on the H100; phase 3's whole-model check uses
+# the same 0.1). A slot read from the wrong place or garbage gives O(max
+# |logit|); a dropped key or tile is the kernel check's to catch.
+TEACHER_TOL = 0.1
 
 
 def nvidia_smi() -> str:
@@ -66,7 +101,9 @@ def nvidia_smi() -> str:
 
 def cuda_ms(fn, n=N_TIMED) -> float:
     """Median milliseconds of ``fn`` over n runs (CUDA events), after one
-    warm-up call."""
+    warm-up call. A ~1 ms spin kernel runs first, so the card is busy while
+    the host enqueues the events and ``fn``'s launches: the time is the
+    device's, not the Python wrapper's."""
     import torch
 
     fn()
@@ -75,12 +112,31 @@ def cuda_ms(fn, n=N_TIMED) -> float:
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def bound_ms(nbytes, flop):
+    """(least ms for this work on the card, what bounds it)."""
+    t_bytes, t_flop = nbytes / HBM_BYTES_S * 1e3, flop / BF16_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop,
+                                                          "operations")
+
+
+def sdpa_ms(q, k, v, mask):
+    """Time of one ``F.scaled_dot_product_attention`` call on the same
+    inputs and mask ([B, S, H, D] layouts; GQA when k has fewer heads)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = k.shape[2] != q.shape[2]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=gqa))
 
 
 def bf16_ulp_err(got, want) -> float:
@@ -134,8 +190,8 @@ def request(cfg):
 
 def check_kernels(cfg, engine, input_ids, pixels, grid):
     """Phase 2: each kernel against its plain version. Returns
-    {kernel: (max_abs_err over its cases, ms, plain_ms of its main case)}.
-    """
+    {kernel: {max_abs_err over its cases, and ms, plain_ms, bound_ms,
+    bound_by, library_ms of its main case}}."""
     import numpy as np
     import torch
 
@@ -152,10 +208,13 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     def ivec(x):
         return torch.as_tensor(np.asarray(x), device=dev)[None].int()
 
-    results = {"flash_varlen_fwd": [], "diag_attn_fwd": []}
+    results = {"flash_varlen_fwd": [], "diag_attn_fwd": [],
+               "decode_blocked_fwd": []}
 
-    def case(kernel, name, fn, plain, pad_rows, rate):
-        """Check one shape; ``rate(ms)`` formats the kernel's work rate."""
+    def case(kernel, name, fn, plain, pad_rows, rate, work, library=None):
+        """Check one shape; ``rate(ms)`` formats the kernel's work rate;
+        ``work`` = (bytes, flop) of the call; ``library``: the timed
+        library call (the kernel's main case only)."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -171,7 +230,16 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
             raise AssertionError(
                 f"{kernel} {name} disagrees with its plain version "
                 f"({ulps} ulps, pad rows zero {pad_zero})")
-        results[kernel].append((err, ms, plain_ms))
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        entry["bound_ms"], entry["bound_by"] = bound_ms(*work)
+        entry["library_ms"] = library() if library is not None else None
+        lib = ("" if library is None else
+               f" library_ms={entry['library_ms']!r} (one "
+               f"scaled_dot_product_attention call, same mask)")
+        print(f"[bound] {kernel} {name}: bytes={work[0]} flop={work[1]} "
+              f"bound_ms={entry['bound_ms']!r} ({entry['bound_by']}) "
+              f"share_of_bound={entry['bound_ms'] / ms!r}{lib}", flush=True)
+        results[kernel].append(entry)
 
     def control(kernel, name, got, want):
         """A planted fault: the tolerance check must reject it."""
@@ -191,13 +259,23 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
         seen = (j[None] >= lo[:, None]) & (j[None] < hi[:, None])
         return int(((counts @ counts.T) * seen).sum())
 
-    def bounded_rate(seg, bounds, iters, h, d):
+    def bounded_work(seg, bounds, iters, h, d):
         lo, hi = bounds[:, 0].astype(np.int64), bounds[:, 1].astype(np.int64)
         if iters:
             hi = np.minimum(hi, lo + iters)
-        visited, useful = flash_work(lo, hi, seg_pairs(seg, lo, hi), h, d)
+        return flash_work(lo, hi, seg_pairs(seg, lo, hi), h, d)
+
+    def bounded_rate(seg, bounds, iters, h, d):
+        visited, useful = bounded_work(seg, bounds, iters, h, d)
         return lambda ms: (f"visited_tflops={tflops(visited, ms)!r} "
                            f"valid_pair_tflops={tflops(useful, ms)!r}")
+
+    def seg_mask(seg):
+        """[1, 1, S, S] bool: same nonzero segment (the library call's
+        mask)."""
+        return ((seg[0, :, None] == seg[0, None, :])
+                & (seg[0, None, :] > 0))[None, None]
+
 
     p = engine._prep_vision(input_ids, pixels, grid)
     vb = p.vb
@@ -212,12 +290,16 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
                                                        device=dev)
     iters = vb.full_kv_iters or None
     pad = np.where(vb.full_seg_ids == 0)[0]
+    qkvo_bytes = 4 * s * h * d * 2  # q, k, v read and out written, bf16
     case("flash_varlen_fwd", f"vit_full S={s} H={h} D={d}",
          lambda: A.flash_varlen_fwd(q, k, v, fseg, fseg, kv_bounds=fb,
                                     kv_iters=iters),
          lambda: A.flash_plain(q, k, v, fseg, fseg, kv_bounds=fb,
                                kv_iters=iters), pad,
-         bounded_rate(vb.full_seg_ids, vb.full_kv_bounds, iters, h, d))
+         bounded_rate(vb.full_seg_ids, vb.full_kv_bounds, iters, h, d),
+         (qkvo_bytes + 2 * s * 4, bounded_work(
+             vb.full_seg_ids, vb.full_kv_bounds, iters, h, d)[1]),
+         lambda: sdpa_ms(q, k, v, seg_mask(fseg)))
     # Planted faults at this shape: every q tile's last (or first) kv tile
     # dropped from the bounds, against the plain version on true bounds.
     want = A.flash_plain(q, k, v, fseg, fseg, kv_bounds=fb, kv_iters=iters)
@@ -233,10 +315,14 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     wseg_np = np.asarray(vb.window_seg_ids)
     wseg = ivec(wseg_np)
     pad = np.where(wseg_np == 0)[0]
+    window_pairs = int(sum((wseg_np == i).sum() ** 2
+                           for i in np.unique(wseg_np) if i > 0))
     case("diag_attn_fwd", f"vit_window S={s} H={h} D={d}",
          lambda: A.diag_attn_fwd(q, k, v, wseg),
          lambda: A.diag_plain(q, k, v, wseg), pad,
-         lambda ms: f"tb_s={4 * s * h * d * 2 / (ms * 1e-3) / 1e12!r}")
+         lambda ms: f"tb_s={qkvo_bytes / (ms * 1e-3) / 1e12!r}",
+         (qkvo_bytes + s * 4, 4 * d * h * window_pairs),
+         lambda: sdpa_ms(q, k, v, seg_mask(wseg)))
     # Planted fault: the last key of every window masked out for the
     # kernel; compared on the other rows of each window.
     ids, first_rev = np.unique(wseg_np[::-1], return_index=True)
@@ -275,7 +361,9 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
              np.arange(valid, t),
              lambda ms, v_=visited, u_=useful: (
                  f"visited_tflops={tflops(v_, ms)!r} "
-                 f"valid_pair_tflops={tflops(u_, ms)!r}"))
+                 f"valid_pair_tflops={tflops(u_, ms)!r}"),
+             ((2 * hq + 2 * tc.num_key_value_heads) * t * tc.head_dim * 2
+              + t * 8, useful))
 
     # Flash at the 16,384 bucket with a kv_iters cap (per-frame segments of
     # an 8-frame clip, classic layout): the cap the engine computes, and a
@@ -298,9 +386,91 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
              lambda: A.flash_plain(qb, kb, vb_, bseg, bseg, kv_bounds=bb,
                                    kv_iters=iters), pad,
              bounded_rate(vbig.full_seg_ids, vbig.full_kv_bounds, iters, h,
-                          d))
-    return {name: (max(r[0] for r in rs), rs[0][1], rs[0][2])
+                          d),
+             (4 * 16384 * h * d * 2 + 2 * 16384 * 4, bounded_work(
+                 vbig.full_seg_ids, vbig.full_kv_bounds, iters, h, d)[1]))
+    check_decode(cfg, rnd, case, control)
+    return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in results.items()}
+
+
+def check_decode(cfg, rnd, case, control):
+    """Phase 2, decode kernel: an 8-slot pool at the 3B decoder's widths,
+    bf16 and int8, t_c 1 and 4, against its plain version; two planted
+    faults; its time at two live lengths of the same pool."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl.lm import quantize_kv
+
+    dev = "cuda"
+    tc = cfg.text
+    hq, hkv, dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    t = POOL_ROWS
+    kp, vp = rnd(POOL_SLOTS, t, hkv, dh), rnd(POOL_SLOTS, t, hkv, dh)
+    (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+    lens = torch.tensor(DECODE_LENS, device=dev)
+
+    def work(base, t_c, quant):
+        """(bytes of the live prefix + q + out, flop) for these lengths."""
+        keys = torch.minimum(base[:, None] + torch.arange(
+            1, t_c + 1, device=dev), torch.tensor(t, device=dev))
+        live = int(keys[:, -1].sum())
+        per_key = hkv * dh * (1 if quant else 2) * 2 + (hkv * 8 if quant
+                                                        else 0)
+        qo = 2 * POOL_SLOTS * t_c * hq * dh * 2
+        return live * per_key + qo, 4 * hq * dh * int(keys.sum())
+
+    def mask(base, t_c):
+        """[B, 1, t_c, T]: chunk row i sees positions < base + i + 1."""
+        lim = base[:, None] + torch.arange(1, t_c + 1, device=dev)
+        return (torch.arange(t, device=dev) < lim[..., None])[:, None]
+
+    for quant in (False, True):
+        kc, vc = (k8, v8) if quant else (kp, vp)
+        sc = dict(k_scale=ks, v_scale=vs) if quant else {}
+        for t_c in (1, 4):
+            base = lens if t_c == 1 else (lens - t_c).clamp(min=0)
+            q = rnd(POOL_SLOTS, t_c, hq, dh)
+            nbytes, flop = work(base, t_c, quant)
+            library = None
+            if not quant and t_c == 1:
+                library = (lambda q=q, m=mask(base, t_c):
+                           sdpa_ms(q, kp, vp, m))
+            case("decode_blocked_fwd",
+                 f"{'int8' if quant else 'bf16'} t_c={t_c} B={POOL_SLOTS} "
+                 f"T={t} Hq={hq} Hkv={hkv} D={dh} lens={base.tolist()}",
+                 lambda q=q, b=base, kc=kc, vc=vc, sc=sc:
+                     A.decode_blocked_fwd(q, kc, vc, b, **sc),
+                 lambda q=q, b=base, kc=kc, vc=vc, sc=sc:
+                     A.decode_blocked_plain(q, kc, vc, b, **sc), [],
+                 lambda ms, n=nbytes: f"live_tb_s={n / (ms * 1e-3) / 1e12!r}",
+                 (nbytes, flop), library)
+    q = rnd(POOL_SLOTS, 1, hq, dh)
+    want = A.decode_blocked_plain(q, kp, vp, lens)
+    cut = lens.clone()
+    cut[5] -= 1
+    control("decode_blocked_fwd", f"slot 5 base_len {DECODE_LENS[5]} - 1",
+            A.decode_blocked_fwd(q, kp, vp, cut), want)
+    tile_cut = ((lens + TILE) // TILE - 1) * TILE - 1
+    control("decode_blocked_fwd", "last live tile of every slot skipped",
+            A.decode_blocked_fwd(q, kp, vp, tile_cut), want)
+    times = {}
+    for n in (256, 2000):
+        base = torch.full((POOL_SLOTS,), n - 1, device=dev)
+        times[n] = cuda_ms(lambda b=base: A.decode_blocked_fwd(q, kp, vp, b),
+                           n=2 * N_TIMED)
+        # ten launches back to back: the per-launch time without the gap
+        # before a lone launch
+        run10 = cuda_ms(lambda b=base: [A.decode_blocked_fwd(q, kp, vp, b)
+                                        for _ in range(10)]) / 10
+        b_ms, _ = bound_ms(*work(base, 1, False))
+        print(f"[kernel] decode_blocked_fwd every slot at length {n} of "
+              f"{t}: ms={times[n]!r} back_to_back_ms={run10!r} "
+              f"bound_ms={b_ms!r}", flush=True)
+    if not times[2000] > times[256]:
+        raise AssertionError("decode kernel time does not grow with the "
+                             f"live length: {times}")
 
 
 def run_main_path(cfg, params, input_ids, pixels, grid):
@@ -323,17 +493,21 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
         eng.generate(input_ids, pixels, grid, max_new_tokens=2)
     torch.cuda.synchronize()
 
-    A.FLASH_LAUNCHES = 0
-    A.DIAG_LAUNCHES = 0
+    A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
     results = {}
     for name, eng in engines.items():
-        f0, d0 = A.FLASH_LAUNCHES, A.DIAG_LAUNCHES
+        f0, d0, k0 = A.FLASH_LAUNCHES, A.DIAG_LAUNCHES, A.DECODE_LAUNCHES
         torch.cuda.reset_peak_memory_stats()
         res = eng.generate(input_ids, pixels, grid,
                            max_new_tokens=MAX_NEW_TOKENS)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         flash, diag = A.FLASH_LAUNCHES - f0, A.DIAG_LAUNCHES - d0
+        dec = A.DECODE_LAUNCHES - k0
+        # decode steps run: one per token after the first, plus the step
+        # whose EOS ended the loop early
+        steps = (len(res.tokens) - 1 if len(res.tokens) == MAX_NEW_TOKENS
+                 else len(res.tokens))
         kept = (len(res.selected_indices) if res.selected_indices is not None
                 else res.num_vision_tokens)
         decode_s = res.total_seconds - res.prefill_seconds
@@ -343,8 +517,8 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
               f"kept={kept} prefill_len={res.prefill_len} "
               f"prefill_ms={res.prefill_seconds * 1e3!r} "
               f"decode_tokens={n_decode} decode_tok_s={tok_s!r} "
-              f"peak_mem_bytes={peak} launches flash={flash} diag={diag}",
-              flush=True)
+              f"peak_mem_bytes={peak} launches flash={flash} diag={diag} "
+              f"decode={dec} (decode steps {steps})", flush=True)
         print(f"[main] {name} tokens: {res.tokens}", flush=True)
         logits = res.logits
         if not (torch.isfinite(logits).all()
@@ -360,11 +534,17 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
                 f"expected flash={want_flash} ({n_full} ViT full layers + "
                 f"{cfg.text.num_hidden_layers} decoder layers) and "
                 f"diag={want_diag} (window layers)")
+        if dec != cfg.text.num_hidden_layers * steps:
+            raise AssertionError(
+                f"{name}: decode kernel launches {dec}, expected "
+                f"{cfg.text.num_hidden_layers} per decode step x {steps}")
         results[name] = res
     print(f"[main] expected per prefill: flash={want_flash} "
-          f"diag={want_diag}", flush=True)
+          f"diag={want_diag}; per decode step: decode="
+          f"{cfg.text.num_hidden_layers}", flush=True)
     launches = {"flash_varlen_fwd": A.FLASH_LAUNCHES,
-                "diag_attn_fwd": A.DIAG_LAUNCHES}
+                "diag_attn_fwd": A.DIAG_LAUNCHES,
+                "decode_blocked_fwd": A.DECODE_LAUNCHES}
 
     # The same requests with the plain attention path on the card.
     for name, eng in engines.items():
@@ -433,7 +613,8 @@ def kernel_group(name: str) -> str:
 
 
 def profile_phase(cfg, params, input_ids, pixels, grid):
-    """Phase 4: wall and device time of prefill and decode."""
+    """Phase 4: wall and device time of prefill and decode. Returns the
+    directory the per-kernel summaries went to."""
     import statistics
 
     import torch
@@ -502,6 +683,271 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
         for kname, (ms, count) in top:
             print(f"[profile] {name} prefill kernel {ms:.3f} ms x{count}: "
                   f"{kname[:100]}", flush=True)
+    return out_dir
+
+
+def serve_traffic(cfg, input_ids, pixels, grid):
+    """Phase 5's 16 requests: (engine, request, max_new_tokens, sampling
+    kwargs, arrival delay in s). Questions of 8-40 ids after the 1036x1456
+    image, a seeded 448x448 image, text-only prompts of 20-200 ids; three
+    sampled (distinct seeds), one with a repetition penalty; two ``orig``."""
+    import numpy as np
+
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    rng = np.random.RandomState(SEED + 5)
+    spx, sgrid = preprocess_image(
+        (rng.rand(448, 448, 3) * 255).astype(np.uint8))
+    n_big = int(np.sum(np.asarray(input_ids) == cfg.image_token_id))
+    head = list(np.asarray(input_ids)[:np.argmax(
+        np.asarray(input_ids) == cfg.image_token_id) + n_big + 1])
+
+    def big(n_q):  # the phase-3 image, another question
+        ids = head + rng.randint(100, 5000, n_q).tolist()
+        return dict(input_ids=np.asarray(ids), pixel_values=pixels,
+                    grid_thw=grid)
+
+    def small(n_q):
+        ids = expand_vision_tokens(
+            [100, 101], rng.randint(100, 5000, n_q).tolist(), sgrid,
+            spatial_merge_size=cfg.vision.spatial_merge_size,
+            image_token_id=cfg.image_token_id,
+            vision_start_token_id=cfg.vision_start_token_id,
+            vision_end_token_id=cfg.vision_end_token_id)
+        return dict(input_ids=np.asarray(ids), pixel_values=spx,
+                    grid_thw=sgrid)
+
+    def text(n):
+        return dict(input_ids=rng.randint(100, 5000, n).astype(np.int64))
+
+    samp = dict(temperature=0.7, top_p=0.9, top_k=50)
+    sel = [(big(8), 64, {}), (big(12), 48, dict(samp, seed=1)),
+           (text(20), 32, {}), (big(16), 40, {}),
+           (big(20), 56, dict(repetition_penalty=1.1)), (small(10), 24, {}),
+           (big(24), 32, dict(samp, seed=2)), (text(80), 40, {}),
+           (big(30), 16, {}), (small(14), 48, dict(samp, seed=3)),
+           (text(150), 24, {}), (big(36), 64, {}), (big(40), 32, {}),
+           (text(200), 48, {})]
+    orig = [(big(10), 32, {}), (big(28), 48, {})]
+    return ([("selector", r, m, kw, max(0, i - 3) * 0.1)
+             for i, (r, m, kw) in enumerate(sel)]
+            + [("orig", r, m, kw, i * 0.1) for i, (r, m, kw) in
+               enumerate(orig)])
+
+
+def run_batcher(bat, traffic):
+    """Submit each request from its own thread at its arrival time;
+    returns (results, wall seconds from the first arrival to the last
+    result)."""
+    import concurrent.futures as cf
+
+    t0 = time.perf_counter()
+
+    def one(req, max_new, kw, delay):
+        time.sleep(max(0.0, t0 + delay - time.perf_counter()))
+        return bat.submit(req, max_new, **kw)
+
+    try:
+        with cf.ThreadPoolExecutor(max_workers=len(traffic)) as ex:
+            futs = [ex.submit(one, r, m, kw, d) for _, r, m, kw, d in traffic]
+            results = [f.result(timeout=600) for f in futs]
+    finally:
+        bat.shutdown()
+    return results, time.perf_counter() - t0
+
+
+def serve_phase(cfg, params, input_ids, pixels, grid, out_dir):
+    """Phase 5: continuous batching at full width; profile summaries go to
+    ``out_dir``. Returns the launch counts of the serving run."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+        _decode_chunk_slots,
+        _insert_slot,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    n_layers = cfg.text.num_hidden_layers
+    vocab = cfg.text.vocab_size
+    engines = {
+        "selector": QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                                 device="cuda"),
+        "orig": QwenVLEngine(cfg, params, use_selector=False, device="cuda"),
+    }
+    traffic = serve_traffic(cfg, input_ids, pixels, grid)
+    eos = (-1,)  # random weights: run every request to its budget
+    traffic = [(e, r, m, dict(kw, eos_token_ids=eos), d)
+               for e, r, m, kw, d in traffic]
+
+    # The serving run: the selector batcher, then the orig one.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
+    results, stats, steps = {}, {}, 0
+    for name in ("selector", "orig"):
+        part = [x for x in traffic if x[0] == name]
+        bat = ContinuousBatcher(engines[name], n_slots=POOL_SLOTS,
+                                t_max=POOL_ROWS, chunk=8)
+        res, wall = run_batcher(bat, part)
+        steps += bat.stats["chunks"] * bat.chunk
+        stats[name] = dict(bat.stats)
+        pool_bytes = bat.pool.k.nbytes + bat.pool.v.nbytes
+        n_tok = sum(len(r.tokens) - 1 for r in res)
+        print(f"[serve] {name} batcher: {len(part)} requests in {wall!r} s, "
+              f"decode tokens {n_tok}, aggregate decode tok/s "
+              f"{n_tok / wall!r}, pool bytes {pool_bytes}, stats "
+              f"{bat.stats}", flush=True)
+        results.update(zip([id(x) for x in part], res))
+        del bat
+    torch.cuda.synchronize()
+    launches = {"flash_varlen_fwd": A.FLASH_LAUNCHES,
+                "diag_attn_fwd": A.DIAG_LAUNCHES,
+                "decode_blocked_fwd": A.DECODE_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    ttft = [results[id(x)].first_token_seconds * 1e3 for x in traffic]
+    print(f"[serve] launches {launches} over {steps} decode steps; peak "
+          f"memory {peak} bytes; time to first token ms median "
+          f"{statistics.median(ttft)!r} max {max(ttft)!r}", flush=True)
+    admitted = sum(st["admitted"] for st in stats.values())
+    checks = {
+        "tokens in range": all(
+            len(results[id(x)].tokens) == x[2]
+            and all(0 <= t < vocab for t in results[id(x)].tokens)
+            for x in traffic),
+        "admitted == 16": admitted == len(traffic) == 16,
+        "max_concurrent == 8": stats["selector"]["max_concurrent"] == 8,
+        "mid_flight_joins >= 1": stats["selector"]["mid_flight_joins"] >= 1,
+        "rejected_too_long == 0": all(st["rejected_too_long"] == 0
+                                      for st in stats.values()),
+        "decode launches == layers x steps":
+            launches["decode_blocked_fwd"] == n_layers * steps,
+        "every kernel launched": min(launches.values()) > 0,
+    }
+
+    # Each greedy request against one-shot generate of the same request.
+    first_ok = True
+    for x in traffic:
+        name, req, max_new, kw, _ = x
+        got = results[id(x)].tokens
+        want = engines[name].generate(**req, max_new_tokens=max_new,
+                                      **kw).tokens
+        agree = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+        greedy = kw.get("temperature", 0.0) == 0.0
+        first_ok &= (not greedy) or got[0] == want[0]
+        print(f"[serve] {name} {'greedy' if greedy else 'sampled'} "
+              f"ids={len(req['input_ids'])} image={'pixel_values' in req} "
+              f"rp={kw.get('repetition_penalty', 1.0)}: first token "
+              f"batcher={got[0]} one-shot={want[0]}; {agree} of {max_new} "
+              f"tokens agree", flush=True)
+    checks["greedy first tokens == one-shot"] = first_ok
+
+    # Four requests through an int8 pool.
+    int8_part = [x for x in traffic if x[0] == "selector"
+                 and x[3].get("temperature", 0.0) == 0.0][:4]
+    bat = ContinuousBatcher(engines["selector"], n_slots=POOL_SLOTS,
+                            t_max=POOL_ROWS, chunk=8, kv_quant="int8")
+    res8, wall8 = run_batcher(bat, [(e, r, m, kw, 0.0)
+                                    for e, r, m, kw, _ in int8_part])
+    pool8 = bat.pool
+    int8_bytes = (pool8.k.nbytes + pool8.v.nbytes, pool8.k_scale.nbytes
+                  + pool8.v_scale.nbytes)
+    del bat, pool8
+    for x, r in zip(int8_part, res8):
+        ref = results[id(x)].tokens
+        agree = next((i for i, (a, b) in enumerate(zip(r.tokens, ref))
+                      if a != b), len(ref))
+        print(f"[serve] int8 pool: ids={len(x[1]['input_ids'])} first "
+              f"token {r.tokens[0]} (bf16 pool {ref[0]}); {agree} of "
+              f"{x[2]} tokens agree with the bf16 pool", flush=True)
+    print(f"[serve] int8 pool: 4 requests in {wall8!r} s; pool bytes int8 "
+          f"{int8_bytes[0]} + scales {int8_bytes[1]}", flush=True)
+    checks["int8 tokens in range"] = all(
+        len(r.tokens) == x[2] and all(0 <= t < vocab for t in r.tokens)
+        for x, r in zip(int8_part, res8))
+
+    # Teacher-forced: one admitted pool, one step with the kernel and one
+    # with the dense plain path, on copies of the pool.
+    eng = engines["selector"]
+    admit = [x for x in traffic if x[0] == "selector"][:POOL_SLOTS]
+    states = [eng.generate(**r, max_new_tokens=m, eos_token_ids=eos,
+                           _defer_decode=True) for _, r, m, _, _ in admit]
+    cur = torch.tensor([st.next_token for st in states], device="cuda")
+    pos = torch.tensor([st.start_pos for st in states], device="cuda")
+    live = torch.ones(POOL_SLOTS, dtype=torch.bool, device="cuda")
+    for quant in (False, True):
+        pool = L.init_kv_cache(cfg.text, POOL_SLOTS, POOL_ROWS, "cuda",
+                               torch.bfloat16, quant=quant)
+        for i, st in enumerate(states):
+            _insert_slot(pool, st.cache.k, st.cache.v, st.cache.length, i)
+        logits = {}
+        for impl in (None, "plain"):
+            copy = dataclasses.replace(pool, **{
+                f.name: getattr(pool, f.name).clone()
+                for f in dataclasses.fields(pool)})
+            hidden, _ = L.lm_decode_step(
+                params.lm, copy, L.embed_tokens(params.lm, cur)[:, None],
+                pos[None, :, None].expand(3, POOL_SLOTS, 1), attn_impl=impl)
+            logits[impl] = L.lm_head(params.lm, hidden[:, 0])
+        rel = ((logits[None] - logits["plain"]).abs().amax(-1)
+               / logits["plain"].abs().amax(-1))
+        same = int((logits[None].argmax(-1)
+                    == logits["plain"].argmax(-1)).sum())
+        kind = "int8" if quant else "bf16"
+        print(f"[serve] teacher-forced step, {kind} pool, kernel vs plain: "
+              f"per-slot max|diff| / max|logit| {rel.tolist()!r} (limit "
+              f"{TEACHER_TOL}); argmax equal in {same} of {POOL_SLOTS}",
+              flush=True)
+        checks[f"teacher-forced {kind}"] = bool(
+            (rel <= TEACHER_TOL).all() and torch.isfinite(rel).all())
+        if not quant:
+            bf16_pool = pool
+        del pool
+
+    # Two chunks of the bf16 pool: wall vs device busy.
+    _decode_chunk_slots(params, bf16_pool, cur, pos, live, 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        _decode_chunk_slots(params, bf16_pool, cur, pos, live, 8)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            _decode_chunk_slots(params, bf16_pool, cur, pos, live, 8)
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, "profile_serve_chunks.json")
+    prof.export_chrome_trace(path)
+    busy, kernels = device_busy(path)
+    os.remove(path)
+    with open(path[:-5] + "_kernels.txt", "w") as f:
+        for kname, (ms, count) in sorted(kernels.items(),
+                                         key=lambda kv: -kv[1][0]):
+            f.write(f"{ms:.4f} ms x{count}: {kname}\n")
+    dec_ms = sum(ms for k, (ms, _) in kernels.items() if "decode_blocked" in k)
+    if busy == 0.0:
+        print("[serve] chunk device time not measured (the trace holds no "
+              "device events)", flush=True)
+    else:
+        print(f"[serve] chunk of 8 steps x {POOL_SLOTS} slots: wall_ms="
+              f"{wall_ms!r} device_busy_ms={busy / 2!r} idle_share="
+              f"{1 - busy / 2 / wall_ms!r} decode_kernel_ms={dec_ms / 2!r}",
+              flush=True)
+    del bf16_pool
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[serve] checks: {checks}", flush=True)
+    if bad:
+        raise AssertionError(f"serving phase failed: {bad}")
+    return launches
 
 
 def main() -> int:
@@ -553,17 +999,22 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    profile_phase(cfg, params, input_ids, pixels, grid)
+    out_dir = profile_phase(cfg, params, input_ids, pixels, grid)
+    # The serving path (this slice's main path): its own launch counts.
+    launches = serve_phase(cfg, params, input_ids, pixels, grid, out_dir)
 
     replaces = {
         "flash_varlen_fwd": "visionselector_tpu/kernels/attention.py:203",
         "diag_attn_fwd": "visionselector_tpu/kernels/attention.py:681",
+        "decode_blocked_fwd": "visionselector_tpu/kernels/attention.py:1085",
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + name + ".cu",
          "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in kernels.items()
+         **{k: res[k] for k in keys}}
+        for name, res in kernels.items()
     ]}
     print(f"[done] {time.perf_counter() - t_start!r} s", flush=True)
     print(smi)

@@ -161,3 +161,110 @@ def test_tiny_engine_kernels_match_plain_path(dev):
         assert torch.isfinite(a.logits).all()
         scale = b.logits.abs().max().item()
         assert (a.logits - b.logits).abs().max().item() <= 0.1 * scale
+
+
+def _decode_inputs(gen, b, t_c, hq, h_kv, t, d, quant):
+    q = _rnd(gen, b, t_c, hq, d)
+    if quant:
+        k = torch.randint(-127, 128, (b, t, h_kv, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, t, h_kv, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        ks = torch.rand(b, t, h_kv, generator=gen, device="cuda") * 0.02
+        vs = torch.rand(b, t, h_kv, generator=gen, device="cuda") * 0.02
+        return q, k, v, ks + 1e-3, vs + 1e-3
+    return q, _rnd(gen, b, t, h_kv, d), _rnd(gen, b, t, h_kv, d), None, None
+
+
+@pytest.mark.parametrize("d", [24, 128])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t_c", [1, 4])
+@pytest.mark.parametrize("t", [333, 2048])
+def test_decode_matches_plain(dev, d, quant, t_c, t):
+    """Lengths at tile edges and the ragged last tile; GQA n_rep 8."""
+    gen = torch.Generator(device=dev).manual_seed(d + t_c + quant + t)
+    q, k, v, ks, vs = _decode_inputs(gen, 6, t_c, 16, 2, t, d, quant)
+    base = torch.tensor([0, 63, 64, 65, t // 2, t - t_c], device=dev)
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    assert A.chunk_decode_attention(q, k, v, base, k_scale=ks,
+                                    v_scale=vs).equal(got)
+
+
+def test_decode_reads_pool_layer_views_and_rejects_faults(dev):
+    """A layer of a [L, S, T, H, D] pool (and its scales) is read through
+    strides; a slot's length cut by one, or its last live tile dropped,
+    fails the tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pool = torch.randint(-127, 128, (3, 8, 2048, 2, 128), generator=gen,
+                         device=dev, dtype=torch.int8)
+    scales = torch.rand(3, 8, 2048, 2, generator=gen, device=dev) * 0.02
+    q = _rnd(gen, 8, 1, 16, 128)
+    base = torch.tensor([1, 63, 64, 65, 300, 1302, 1900, 2047], device=dev)
+    k, v, ks, vs = pool[1], pool[2], scales[1], scales[2]
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    cut = base.clone()
+    cut[5] -= 1
+    assert _err(A.decode_blocked_fwd(q, k, v, cut, None, ks, vs),
+                want) > ULP_LIMIT
+    tile_cut = torch.div(base, 64, rounding_mode="floor") * 64 - 1
+    assert _err(A.decode_blocked_fwd(q, k, v, tile_cut, None, ks, vs),
+                want) > ULP_LIMIT
+    bf = _rnd(gen, 2, 8, 2048, 2, 128)
+    got = A.decode_blocked_fwd(q, bf[0], bf[1], base)
+    assert _err(got, A.decode_blocked_plain(q, bf[0], bf[1], base)) \
+        <= ULP_LIMIT
+
+
+def test_decode_counts_launches_and_rejects_bad_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, ks, vs = _decode_inputs(gen, 2, 1, 8, 2, 128, 128, True)
+    base = torch.tensor([5, 100], device=dev)
+    n0 = A.DECODE_LAUNCHES
+    A.decode_attention(q, k, v, base + 1, k_scale=ks, v_scale=vs)
+    A.decode_attention(q, k, v, base + 1, k_scale=ks, v_scale=vs,
+                       impl="plain")
+    assert A.DECODE_LAUNCHES - n0 == 1
+    with pytest.raises(ValueError, match="scales"):
+        A.decode_blocked_fwd(q, k, v, base, None, ks, None)
+    with pytest.raises(ValueError, match="bfloat16 or int8"):
+        A.decode_blocked_fwd(q, k.float(), v.float(), base)
+    with pytest.raises(ValueError, match="head dim"):
+        A.decode_blocked_fwd(q[..., :48], k[..., :48], v[..., :48], base,
+                             None, ks, vs)
+    with pytest.raises(ValueError, match="devices"):
+        A.decode_blocked_fwd(q, k, v, base.cpu(), None, ks, vs)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_tiny_batcher_runs_the_decode_kernel(dev, kv_quant):
+    """The continuous batcher on the card: every decode step of every
+    chunk launches the kernel once per layer, and greedy tokens stay in
+    range."""
+    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+
+    cfg = qwen25vl_tiny()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    eng = QwenVLEngine(cfg, params, device=dev)
+    n0 = A.DECODE_LAUNCHES
+    bat = ContinuousBatcher(eng, n_slots=2, t_max=256, chunk=4,
+                            kv_quant=kv_quant)
+    try:
+        res = [bat.submit(dict(input_ids=np.arange(5, 5 + n)), 9, (-1,),
+                          temperature=0.7 * (n % 2), seed=n)
+               for n in (7, 20)]
+    finally:
+        bat.shutdown()
+    steps = bat.stats["chunks"] * 4
+    assert A.DECODE_LAUNCHES - n0 == cfg.text.num_hidden_layers * steps
+    assert all(len(r.tokens) == 9 and max(r.tokens) < cfg.text.vocab_size
+               for r in res)

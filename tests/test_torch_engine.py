@@ -113,19 +113,23 @@ def test_generate_stops_at_eos(weights):
 
 
 def test_unported_options_raise(weights):
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+
     _, _, tparams = weights
     ids, px, grid = _request(IMAGES[0])
     eng = tmodel.QwenVLEngine(qwen25vl_tiny(), tparams, device="cpu")
-    for kw in ({"temperature": 0.7}, {"top_k": 5},
-               {"repetition_penalty": 1.1}, {"on_token_chunk": print},
+    for kw in ({"on_token_chunk": print},
                {"pixel_values_videos": px, "video_grid_thw": grid}):
         with pytest.raises(NotImplementedError):
             eng.generate(ids, px, grid, max_new_tokens=2, **kw)
     with pytest.raises(NotImplementedError):
-        eng.generate(ids, max_new_tokens=2)
-    with pytest.raises(NotImplementedError):
         tmodel.QwenVLEngine(qwen25vl_tiny(), tparams, strategy=object(),
                             device="cpu")
+    for kw in ({"kv_quant": "int4"}, {"speculative": 2}):
+        with pytest.raises(NotImplementedError):
+            ContinuousBatcher(eng, n_slots=2, t_max=256, **kw)
 
 
 def test_init_params_shapes_and_scales():
@@ -143,20 +147,36 @@ def test_init_params_shapes_and_scales():
 
 
 def test_port_runs_without_jax_or_triton():
-    """Importing the port and running its tiny slice (and the predict CLI)
-    on the CPU loads neither jax nor triton, nor the JAX package, and
-    launches no kernel."""
+    """Importing the port and running its tiny slice (the predict CLI and
+    the continuous batcher) on the CPU loads neither jax nor triton, nor the
+    JAX package, and launches no kernel."""
     code = """
 import json, sys, numpy as np, torch
 import visionselector_tpu_torch
 from visionselector_tpu_torch.api import predict
+from visionselector_tpu_torch.core.config import qwen25vl_tiny
 from visionselector_tpu_torch.kernels import attention as A
-predict.main(["--max-new-tokens", "3"])
-predict.main(["--method", "orig", "--max-new-tokens", "2"])
+from visionselector_tpu_torch.models.qwen25vl.continuous import (
+    ContinuousBatcher)
+from visionselector_tpu_torch.models.qwen25vl.model import (
+    QwenVLEngine, init_params)
+predict.main(["--device", "cpu", "--max-new-tokens", "3"])
+predict.main(["--device", "cpu", "--method", "orig", "--max-new-tokens", "2"])
+cfg = qwen25vl_tiny()
+eng = QwenVLEngine(cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"), device="cpu")
+bat = ContinuousBatcher(eng, n_slots=2, t_max=256, chunk=2, kv_quant="int8")
+try:
+    res = bat.submit(dict(input_ids=np.arange(5, 12)), 5, (-1,),
+                     temperature=0.7, seed=1)
+finally:
+    bat.shutdown()
+assert len(res.tokens) == 5 and bat.stats["chunks"] == 2, res.tokens
 loaded = sorted({m.split(".")[0] for m in sys.modules}
                 & {"jax", "jaxlib", "triton", "visionselector_tpu"})
 print(json.dumps({"loaded": loaded,
-                  "launches": [A.FLASH_LAUNCHES, A.DIAG_LAUNCHES]}))
+                  "launches": [A.FLASH_LAUNCHES, A.DIAG_LAUNCHES,
+                               A.DECODE_LAUNCHES]}))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -165,4 +185,4 @@ print(json.dumps({"loaded": loaded,
     lines = r.stdout.strip().splitlines()
     assert json.loads(lines[0])["tokens"]
     assert json.loads(lines[1])["method"] == "orig"
-    assert json.loads(lines[-1]) == {"loaded": [], "launches": [0, 0]}
+    assert json.loads(lines[-1]) == {"loaded": [], "launches": [0, 0, 0]}

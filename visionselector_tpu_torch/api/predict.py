@@ -1,13 +1,14 @@
 """Single-sample inference CLI for the PyTorch port.
 
 Usage:
-    python -m visionselector_tpu_torch.api.predict --device cuda \\
+    python -m visionselector_tpu_torch.api.predict \\
         --method selector --budget 0.2 [--image photo.jpg] [--prompt-ids 1,2,3]
 
 Without --model-path it runs the tiny random-weight config (smoke mode),
 as ``visionselector_tpu.api.predict`` does. Loading a Hugging Face
-checkpoint is not ported yet. On ``--device cuda`` the attention runs the
-CUDA kernels, which are compiled on first use.
+checkpoint is not ported yet. It runs on the GPU (``--device cuda``, the
+default; the attention runs the CUDA kernels, compiled on first use) and
+fails without one; ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--budget", type=float, default=0.2)
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                   help="cuda (default) or cpu; cuda without a GPU fails")
     p.add_argument("--eval-time", action="store_true",
                    help="print timing probes (EVAL_TIME parity)")
     return p
@@ -56,7 +58,8 @@ def main(argv=None) -> int:
     from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
 
     if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(pass --device cpu to run on the CPU)")
     cfg = qwen25vl_tiny()
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_params(cfg, gen, args.device)

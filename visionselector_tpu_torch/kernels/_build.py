@@ -1,8 +1,9 @@
 """Build and load the CUDA attention kernels.
 
-``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, the first time a CUDA tensor reaches a
-kernel wrapper, and loaded with ``ctypes``. The library goes to
+``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+source, all started together) and linked into one shared library with a
+plain C interface, the first time a CUDA tensor reaches a kernel wrapper,
+and loaded with ``ctypes``. The library goes to
 ``kernels/build/`` (git-ignored) under a name that carries a hash of the
 sources, so an edited source is rebuilt and a stale library is never
 loaded. Nothing here runs at import time.
@@ -17,13 +18,14 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOCK = threading.Lock()
@@ -63,6 +65,14 @@ def nvcc_path() -> str:
     return nvcc
 
 
+def _run(cmd):
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stderr}")
+    return r.stderr
+
+
 def build() -> str:
     """Compile the kernels unless the library for these sources exists."""
     global BUILD_SECONDS, PTXAS_LOG
@@ -72,18 +82,21 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = nvcc_path()
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stderr}")
+    with ThreadPoolExecutor(len(sources)) as ex:
+        logs = list(ex.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                                  for s, o in zip(sources, objs)]))
+    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, so)  # atomic: no half-written library is ever loaded
     BUILD_SECONDS = time.perf_counter() - t0
-    PTXAS_LOG = r.stderr
+    PTXAS_LOG = "".join(logs)
     with open(so + ".ptxas.txt", "w") as f:
-        f.write(r.stderr)
+        f.write(PTXAS_LOG)
     return so
 
 
@@ -99,5 +112,8 @@ def load() -> ctypes.CDLL:
             lib.vst_diag_attn_fwd.argtypes = (
                 [_P] * 5 + [_L] * 9 + [_I] * 5 + [_F, _P])
             lib.vst_diag_attn_fwd.restype = _I
+            lib.vst_decode_blocked_fwd.argtypes = (
+                [_P] * 10 + [_L] * 12 + [_I] * 8 + [_F, _P])
+            lib.vst_decode_blocked_fwd.restype = _I
             _LIB = lib
         return _LIB

@@ -16,15 +16,18 @@ version of the same function beside it:
   ``_flash_pallas_streamed``.
 - ``diag_attn_fwd`` / ``diag_plain``: block-diagonal attention for the
   window-aligned ViT layout. Replaces ``attention_diag``'s ``_diag_kernel``.
+- ``decode_blocked_fwd`` / ``decode_blocked_plain``: GQA decode attention
+  over an unexpanded (bf16 or int8) KV cache that reads only each slot's
+  live prefix. Replaces ``_decode_blocked_pallas``'s
+  ``_decode_blocked_kernel``; every decode step of the port runs it.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
-count kernel launches, so a run can show that it went through the kernels.
-``attention(..., impl="plain")`` asks for the plain version on any device
-(used to compare the whole model against the kernels on the card).
-
-Decode attention (one query row against the KV cache) is plain PyTorch, as
-it is plain XLA in the reference.
+/ ``DECODE_LAUNCHES`` count kernel launches, so a run can show that it went
+through the kernels. ``impl="plain"`` asks for the plain path on any device
+(used to compare the whole model against the kernels on the card); for
+decode that is the dense path over the whole cache, the reference's XLA
+decode.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ DIAG_BLOCK = 64
 DIAG_HEADS_PER_BLOCK = 4
 # Head dims the kernels are built for (the switch in csrc/*.cu): the
 # Qwen2.5-VL ViT (80) and decoder (128), LLaVA-OV's RICE (64), and
-# qwen25vl_tiny's decoder (16) and ViT (24), which ``api.predict`` runs on
+# qwen25vl_tiny's ViT (16) and decoder (24), which ``api.predict`` runs on
 # ``--device cuda`` by default.
 KERNEL_HEAD_DIMS = (16, 24, 64, 80, 128)
 # Rows of queries per step of the plain versions: bounds their fp32 logits
@@ -54,6 +57,7 @@ _PLAIN_Q_CHUNK = 1024
 
 FLASH_LAUNCHES = 0
 DIAG_LAUNCHES = 0
+DECODE_LAUNCHES = 0
 
 
 def segment_block_bounds(seg_ids, block_q: int, block_k: int) -> np.ndarray:
@@ -368,24 +372,199 @@ def attention_diag(q, k, v, seg, scale=None, block_q=None, impl=None):
     return diag_attn_fwd(q, k, v, seg, scale, block_q)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, scale=None):
-    """Single-step decode attention against a KV cache (plain PyTorch).
+def decode_blocked_plain(q, k_cache, v_cache, base_len, scale=None,
+                         k_scale=None, v_scale=None):
+    """Plain PyTorch version of the decode kernel, with its arithmetic.
 
-    q: [B, 1, H, D]; k_cache/v_cache: [B, T_max, H_kv, D]; cache_len: [B]
-    (the query attends to cache positions < cache_len). GQA without
-    expanding the cache: q is grouped to [B, 1, H_kv, n_rep, D].
+    q: [B, t_c, Hq, D]; k_cache/v_cache: [B, T, H_kv, D] (float, or int8
+    with ``k_scale``/``v_scale`` [B, T, H_kv] f32 per-row scales);
+    base_len: [B] lengths before the chunk: chunk row i attends to cache
+    positions < base_len + i + 1. Logits are q.k * scale * k_scale; exp and
+    the row sum l are fp32 over the unscaled p; p is multiplied by v_scale
+    and rounded to q's dtype before P V; the output is divided by l (1 where
+    l == 0, so a row with no valid key is exactly 0). Returns q's dtype.
+    """
+    b, t_c, hq, d = q.shape
+    t, h_kv = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    qg = q.float().reshape(b, t_c, h_kv, hq // h_kv, d)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale.float().permute(0, 2, 1)[:, :, None, None]
+    limit = (base_len.to(q.device)[:, None]
+             + torch.arange(t_c, device=q.device) + 1)  # [B, t_c]
+    mask = (torch.arange(t, device=q.device) < limit[..., None])[:, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None]
+    out = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
+                       v_cache.float()) / torch.where(l == 0.0, 1.0, l)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t_c, hq, d).to(q.dtype)
+
+
+_SM_COUNT = {}
+_DECODE_COUNTERS = {}
+_DECODE_ROWS = 16  # query rows per block (kRows in decode_blocked_fwd.cu)
+_DECODE_MAX_SPLITS = 64  # kMaxSplits in decode_blocked_fwd.cu
+
+
+def _decode_splits(dev, pairs: int, n_tiles: int) -> int:
+    """Blocks per (slot, kv head, row group): enough for two blocks per SM,
+    at most one per 64-key tile of the cache and at most 64."""
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return max(1, min(n_tiles, _DECODE_MAX_SPLITS,
+                      -(-2 * _SM_COUNT[dev] // pairs)))
+
+
+def _decode_counters(dev, pairs: int) -> torch.Tensor:
+    """Per-pair arrival counters of the split merge; zero between launches
+    (the merging block resets its counter)."""
+    c = _DECODE_COUNTERS.get(dev)
+    if c is None or c.numel() < pairs:
+        c = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=dev)
+        _DECODE_COUNTERS[dev] = c
+    return c
+
+
+def decode_blocked_fwd(q, k_cache, v_cache, base_len, scale=None,
+                       k_scale=None, v_scale=None):
+    """Length-aware decode attention: the CUDA kernel for CUDA tensors,
+    ``decode_blocked_plain`` for CPU tensors (shapes as there).
+
+    On CUDA: q bf16 with D in KERNEL_HEAD_DIMS; caches bf16, or int8 with
+    both f32 scales; any T (the kernel masks the ragged last tile). The
+    caches are read through strides, so a layer view of a slot pool needs
+    no copy, and only each slot's live tiles are read.
+    """
+    global DECODE_LAUNCHES
+    if _on_cpu(q, k_cache, v_cache, base_len, k_scale, v_scale):
+        return decode_blocked_plain(q, k_cache, v_cache, base_len, scale,
+                                    k_scale, v_scale)
+    b, t_c, hq, d = q.shape
+    t, h_kv = k_cache.shape[1], k_cache.shape[2]
+    _check_cuda("decode_blocked_fwd", q, k_cache, v_cache, base_len)
+    if (tuple(k_cache.shape) != (b, t, h_kv, d)
+            or tuple(v_cache.shape) != tuple(k_cache.shape) or hq % h_kv):
+        raise ValueError(
+            f"decode_blocked_fwd: q {tuple(q.shape)} / k "
+            f"{tuple(k_cache.shape)} / v {tuple(v_cache.shape)} do not match")
+    if k_cache.dtype != v_cache.dtype:
+        raise ValueError("decode_blocked_fwd: k and v caches differ in dtype")
+    quant = k_cache.dtype == torch.int8
+    if not quant and k_cache.dtype != torch.bfloat16:
+        raise ValueError(f"decode_blocked_fwd: caches must be bfloat16 or "
+                         f"int8, got {k_cache.dtype}")
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise ValueError("decode_blocked_fwd: int8 caches need both scales "
+                         "and bfloat16 caches take none")
+    if tuple(base_len.shape) != (b,):
+        raise ValueError(f"decode_blocked_fwd: base_len shape "
+                         f"{tuple(base_len.shape)} != ({b},)")
+    if scale is None:
+        scale = d**-0.5
+    if quant:
+        for x, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
+            if (x.stride(3) != 1 or x.data_ptr() % 8
+                    or any(st % 8 for st in x.stride()[:3])):
+                raise ValueError(f"decode_blocked_fwd: {name} rows must be "
+                                 f"contiguous and 8-byte aligned")
+        for x in (k_scale, v_scale):
+            if (tuple(x.shape) != (b, t, h_kv) or x.dtype != torch.float32
+                    or x.device != q.device):
+                raise ValueError(f"decode_blocked_fwd: scales must be f32 "
+                                 f"[{b}, {t}, {h_kv}] on {q.device}")
+        if k_scale.stride() != v_scale.stride():
+            raise ValueError("decode_blocked_fwd: k/v scales differ in "
+                             "strides")
+        k_st, v_st = k_cache.stride()[:3], v_cache.stride()[:3]
+        s_st = k_scale.stride()
+        ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
+    else:
+        k_st, v_st = _strides(k_cache, "k_cache"), _strides(v_cache,
+                                                             "v_cache")
+        s_st, ks_ptr, vs_ptr = (0, 0, 0), None, None
+    lens = base_len.to(torch.int64).contiguous()
+    pairs = b * h_kv * -(-t_c * (hq // h_kv) // _DECODE_ROWS)
+    n_splits = _decode_splits(q.device, pairs, -(-t // FLASH_BLOCK))
+    out = torch.empty((b, t_c, hq, d), dtype=q.dtype, device=q.device)
+    part_o = part_ml = None
+    if n_splits > 1:
+        part_o = torch.empty((pairs * n_splits, _DECODE_ROWS, d),
+                             dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((pairs * n_splits, 2, _DECODE_ROWS),
+                              dtype=torch.float32, device=q.device)
+    from visionselector_tpu_torch.kernels import _build
+
+    err = _build.load().vst_decode_blocked_fwd(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks_ptr, vs_ptr,
+        out.data_ptr(), lens.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
+        _decode_counters(q.device, pairs).data_ptr(),
+        *_strides(q, "q"), *k_st, *v_st, *s_st,
+        b, t_c, hq, h_kv, t, d, int(quant), n_splits, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_blocked_fwd launch failed: CUDA error "
+                           f"{err}")
+    DECODE_LAUNCHES += 1
+    return out
+
+
+def _decode_dense(q, k_cache, v_cache, limit, scale, k_scale, v_scale):
+    """The dense plain path over the whole cache (the reference's XLA
+    decode): limit [B, t_c] = the key count each chunk row sees."""
+    b, t_c, hq, d = q.shape
+    h_kv = k_cache.shape[2]
+    qg = q.reshape(b, t_c, h_kv, hq // h_kv, d)
+    logits = torch.einsum(
+        "bqgrd,bkgd->bgrqk", qg.float(), k_cache.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale.float().permute(0, 2, 1)[:, :, None, None]
+    t = torch.arange(k_cache.shape[1], device=q.device)
+    valid = t < limit.to(q.device)[..., None]  # [B, t_c, T]
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.float().permute(0, 2, 1)[:, :, None, None]
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(q.dtype),
+                       v_cache.to(q.dtype))
+    return out.reshape(b, t_c, hq, d).to(q.dtype)
+
+
+def chunk_decode_attention(q, k_cache, v_cache, base_len, scale=None,
+                           k_scale=None, v_scale=None, impl=None):
+    """Multi-token decode attention: chunk row i (its kv just written at
+    cache position base_len + i) attends to positions < base_len + i + 1.
+
+    q: [B, t_c, Hq, D]; caches [B, T, H_kv, D], unexpanded (GQA groups the
+    queries); int8 caches with ``k_scale``/``v_scale`` [B, T, H_kv] f32.
+    The default is ``decode_blocked_fwd`` (the kernel on CUDA tensors);
+    ``impl="plain"`` runs the dense plain path on any device.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    b, t_q, hq, d = q.shape
-    h_kv = k_cache.shape[2]
-    qg = q.reshape(b, t_q, h_kv, hq // h_kv, d)
-    logits = torch.einsum(
-        "bqgrd,bkgd->bgrqk", qg.float(), k_cache.float()) * scale
-    t = torch.arange(k_cache.shape[1], device=q.device)
-    valid = t[None, :] < cache_len[:, None]  # [B, T]
-    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(q.dtype),
-                       v_cache.to(q.dtype))
-    return out.reshape(b, t_q, hq, d).to(q.dtype)
+    if impl == "plain":
+        limit = (base_len[:, None] + 1
+                 + torch.arange(q.shape[1], device=base_len.device))
+        return _decode_dense(q, k_cache, v_cache, limit, scale, k_scale,
+                             v_scale)
+    if impl is not None:
+        raise ValueError(f"unknown decode attention impl {impl!r}")
+    return decode_blocked_fwd(q, k_cache, v_cache, base_len, scale, k_scale,
+                              v_scale)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, scale=None,
+                     k_scale=None, v_scale=None, impl=None):
+    """Single-step decode attention: q [B, 1, Hq, D] attends to cache
+    positions < cache_len [B] (see ``chunk_decode_attention``)."""
+    return chunk_decode_attention(q, k_cache, v_cache, cache_len - 1, scale,
+                                  k_scale, v_scale, impl)

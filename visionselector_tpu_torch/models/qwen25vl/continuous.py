@@ -1,0 +1,433 @@
+"""Continuous batching: requests join and leave the decode loop mid-flight.
+
+Counterpart of ``visionselector_tpu.models.qwen25vl.continuous``. The engine
+keeps a pool of S decode slots on the device — one pre-allocated
+[L, S, T_max, H_kv, D] KV buffer, bf16 or int8 with per-row scales — and
+advances ALL live slots ``chunk`` steps per dispatch; at every chunk
+boundary finished slots are freed and queued requests are admitted into
+free slots. Short requests never wait for long ones, and a request admitted
+mid-decode starts after at most one chunk.
+
+- The chunk is a Python loop of ``chunk`` calls to ``lm_decode_step`` over
+  the pool, written in place; decode attention is the decode kernel on the
+  card, which reads only each slot's live prefix of the pool.
+- EOS detection is on the host, per slot (requests may use different stop
+  tokens); a slot that stops mid-chunk wastes at most chunk - 1 steps.
+- Empty slots still step (their lanes compute garbage) but their lengths
+  are restored after the chunk, so the garbage rows sit above the valid
+  length and are never attended. A freed slot's length is reset to 0, so
+  its writes stay inside the pool.
+- Per-slot sampling: each request carries its own temperature / top-k /
+  top-p and a ``torch.Generator`` seeded from its ``seed``; each step draws
+  one Gumbel vector per sampled slot from that slot's own generator, the
+  same draws its one-shot ``generate`` makes, so a sampled request's tokens
+  equal its one-shot rollout whatever shares the pool.
+- Repetition penalty: a per-slot presence row in a [S, V] bool pool,
+  applied and grown every step (a slot with penalty 1 is untouched).
+
+Speculative slots, the prefix cache, chunked prefill, auto windows and the
+int4 pool are not ported yet (the constructor raises).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from visionselector_tpu_torch.models.qwen25vl import lm as lm_mod
+from visionselector_tpu_torch.models.qwen25vl import model as model_mod
+
+
+@torch.no_grad()
+def _decode_chunk_slots(params, cache, cur, pos, live, k: int,
+                        temps=None, tps=None, tks=None, gens=None,
+                        pres=None, rps=None, attn_impl=None):
+    """Advance every slot ``k`` decode steps.
+
+    cur/pos/live: [S] current token, rope position, live mask (device).
+    Dead slots keep their token frozen and get their cache lengths back.
+    ``temps`` given (the pool holds a sampled slot): temps/tps [S] f32 and
+    tks [S] int64 on the device, and ``gens`` the per-slot generators
+    (None for greedy or dead slots); a live sampled slot draws one Gumbel
+    vector from its generator per step. ``pres`` [S, V] bool / ``rps`` [S]
+    f32 given (a penalized slot is live): every step penalizes the logits
+    and marks the emitted token. Returns (toks [k, S], cache).
+    """
+    len0 = cache.length.clone()
+    s = cur.shape[0]
+    vocab = params.lm.cfg.vocab_size
+    rows = torch.arange(s, device=cur.device)
+    tok, toks = cur, []
+    for _ in range(k):
+        embed = lm_mod.embed_tokens(params.lm, tok)[:, None]  # [S, 1, D]
+        pos3 = pos[None, :, None].expand(3, s, 1)
+        hidden, cache = lm_mod.lm_decode_step(params.lm, cache, embed, pos3,
+                                              attn_impl=attn_impl)
+        logits = lm_mod.lm_head(params.lm, hidden[:, 0])  # [S, V]
+        if pres is not None:
+            logits = model_mod.penalize_logits(logits, pres, rps[:, None])
+        if temps is not None:
+            noise = torch.zeros_like(logits)
+            for i, g in enumerate(gens):
+                if g is not None:
+                    noise[i] = model_mod.gumbel_noise(g, vocab)
+            tok2 = model_mod.sample_token(logits, noise, temps, tps, tks)
+        else:
+            tok2 = torch.argmax(logits, dim=-1)
+        tok2 = torch.where(live, tok2, tok)
+        if pres is not None:
+            pres[rows, tok2] = True  # a dead slot re-marks its frozen token
+        pos = torch.where(live, pos + 1, pos)
+        toks.append(tok2)
+        tok = tok2
+    cache.length = torch.where(live[None, :], cache.length, len0)
+    return torch.stack(toks), cache
+
+
+def _insert_slot(pool, new_k, new_v, new_len, slot: int):
+    """Copy one request's prefill KV ([L, 1, T, H, D]) into pool slot
+    ``slot`` in place, quantized when the pool is int8; rows past it are
+    zeroed, as the reference pads them."""
+    t = min(new_k.shape[2], pool.k.shape[2])
+    if isinstance(pool, lm_mod.QuantKVCache):
+        k8, ks = lm_mod.quantize_kv(new_k[:, 0, :t])
+        v8, vs = lm_mod.quantize_kv(new_v[:, 0, :t])
+        pairs = ((pool.k, k8), (pool.v, v8), (pool.k_scale, ks),
+                 (pool.v_scale, vs))
+    else:
+        pairs = ((pool.k, new_k[:, 0, :t]), (pool.v, new_v[:, 0, :t]))
+    for buf, upd in pairs:
+        buf[:, slot, :t] = upd
+        buf[:, slot, t:] = 0
+    pool.length[:, slot] = new_len[:, 0]
+    return pool
+
+
+@dataclasses.dataclass
+class _Slot:
+    tokens: list
+    max_new: int
+    eos: Tuple[int, ...]
+    result: object  # GenerationResult skeleton from the prefill
+    done_event: threading.Event
+    t_submit: float
+    item: dict = None
+    chunks: int = 0
+
+
+class ContinuousBatcher:
+    """Slot-based continuous-batching decode engine over one model engine.
+
+    ``submit()`` blocks until the request's GenerationResult is ready; a
+    single worker thread owns the engine: it prefills queued requests into
+    free slots and advances all live slots one chunk per dispatch. Stats
+    (``admitted``, ``mid_flight_joins``, ``max_concurrent``, ``chunks``,
+    ``rejected_too_long``, ...) expose the continuous behaviour.
+
+    ``kv_quant="int8"`` (or ``kv_int8=True``) keeps the pool in int8 with
+    per-row scales: half the bytes of a bf16 pool. ``decode_attn``: None
+    (the decode kernel on the card) or "plain" (the dense plain path).
+    """
+
+    def __init__(self, engine, n_slots: int = 8, t_max: int = 2048,
+                 chunk: int = 8, prefix_store=None, speculative: int = 0,
+                 kv_int8: bool = False,
+                 prefill_chunk: int = 0, prefill_vit_segments: int = 0,
+                 decode_attn: str | None = None,
+                 auto_window: bool = False,
+                 kv_quant: Optional[str] = None):
+        unported = dict(speculative=speculative, prefix_store=prefix_store,
+                        prefill_chunk=prefill_chunk,
+                        prefill_vit_segments=prefill_vit_segments,
+                        auto_window=auto_window)
+        for name, val in unported.items():
+            if val:
+                raise NotImplementedError(f"{name} is not ported yet")
+        if kv_quant == "int4":
+            raise NotImplementedError("the int4 pool is not ported yet")
+        if kv_quant not in (None, "", "int8"):
+            raise ValueError(f"kv_quant must be int8 or int4, got "
+                             f"{kv_quant!r}")
+        if decode_attn not in (None, "plain"):
+            raise ValueError(f"decode_attn must be None or 'plain', got "
+                             f"{decode_attn!r}")
+        self.engine = engine
+        self.n_slots = n_slots
+        self.t_max = t_max
+        self.chunk = chunk
+        self.kv_quant = kv_quant or ("int8" if kv_int8 else None)
+        self.decode_attn = decode_attn
+        self.device = engine.device
+        self.cv = threading.Condition()
+        self.queue: collections.deque = collections.deque()
+        self.slots: list[Optional[_Slot]] = [None] * n_slots
+        self.cur = np.zeros(n_slots, np.int64)
+        self.pos = np.zeros(n_slots, np.int64)
+        self.live = np.zeros(n_slots, bool)
+        # per-slot sampling state (temperature 0 = greedy slot)
+        self.temps = np.zeros(n_slots, np.float32)
+        self.tps = np.ones(n_slots, np.float32)
+        self.tks = np.zeros(n_slots, np.int64)  # top-k, <= 0 = off
+        self.gens: list[Optional[torch.Generator]] = [None] * n_slots
+        # per-slot repetition penalty (1.0 = off) and the [S, V] presence
+        # pool (lazy with the KV pool); a freed slot's stale row is
+        # overwritten by a penalized occupant and ignored by others
+        self.rps = np.ones(n_slots, np.float32)
+        self.pres = None
+        self.pool = None  # KVCache or QuantKVCache, lazy
+        self.stats = dict(admitted=0, mid_flight_joins=0, max_concurrent=0,
+                          chunks=0, rejected_too_long=0,
+                          prefill_chunks=0, chunked_admissions=0,
+                          max_decode_gap_ms=0.0,
+                          spec_steps=0, spec_proposed=0, spec_accepted=0,
+                          spec_tokens=0)
+        self._last_decode_t = None
+        self._running = True
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    # -- public API ------------------------------------------------------
+
+    def submit(self, request: dict, max_new_tokens: int = 64,
+               eos_token_ids: Optional[Tuple[int, ...]] = None,
+               temperature: float = 0.0, top_p: float = 1.0,
+               seed: int = 0, top_k: int = 0,
+               repetition_penalty: float = 1.0):
+        """request: generate() kwargs (input_ids, pixel_values, grid_thw);
+        sampling knobs may ride in the dict or as explicit kwargs. Blocks
+        until decode finishes; returns the GenerationResult."""
+        request = dict(request)
+        temperature = float(request.pop("temperature", temperature))
+        top_p = float(request.pop("top_p", top_p))
+        seed = int(request.pop("seed", seed))
+        top_k = int(request.pop("top_k", top_k))
+        repetition_penalty = float(
+            request.pop("repetition_penalty", repetition_penalty))
+        item = dict(request=request, max_new=max_new_tokens,
+                    eos=eos_token_ids, done=threading.Event(),
+                    temperature=temperature, top_p=top_p, seed=seed,
+                    top_k=top_k, repetition_penalty=repetition_penalty,
+                    result=None, error=None, t_submit=time.perf_counter())
+        with self.cv:
+            if not self._running:
+                raise RuntimeError("batcher shut down")
+            self.queue.append(item)
+            self.cv.notify_all()
+        item["done"].wait()
+        if item["error"] is not None:
+            raise item["error"]
+        return item["result"]
+
+    def shutdown(self):
+        with self.cv:
+            self._running = False
+            self.cv.notify_all()
+        self._thread.join(timeout=30)
+
+    # -- worker ----------------------------------------------------------
+
+    def _free_slots(self):
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _mark_decode(self):
+        """Track the max wall gap between consecutive decode dispatches
+        over a continuously live pool (the streaming stall metric)."""
+        now = time.perf_counter()
+        if self._last_decode_t is not None:
+            self.stats["max_decode_gap_ms"] = max(
+                self.stats["max_decode_gap_ms"],
+                (now - self._last_decode_t) * 1e3)
+        self._last_decode_t = now
+
+    def _init_pool(self, proto_cache):
+        cfg = self.engine.cfg.text
+        self.pres = torch.zeros((self.n_slots, cfg.vocab_size),
+                                dtype=torch.bool, device=self.device)
+        self.pool = lm_mod.init_kv_cache(
+            cfg, self.n_slots, self.t_max, self.device, proto_cache.k.dtype,
+            quant=self.kv_quant == "int8")
+
+    def _admit(self, item, slot_idx):
+        """One-shot admission prefill, then slot install."""
+        state = self.engine.generate(
+            **item["request"], max_new_tokens=item["max_new"],
+            eos_token_ids=item["eos"], _defer_decode=True)
+        self._install(state, item, slot_idx)
+
+    def _install(self, state, item, slot_idx):
+        """Move a finished admission prefill into slot ``slot_idx``."""
+        eng = self.engine
+        eos = tuple(state.eos_token_ids)
+        rp = float(item.get("repetition_penalty", 1.0))
+        pres_row = None
+        if rp != 1.0:
+            # HF semantics: the prefill's last-row logits are penalized
+            # too, so the first token is re-picked before any use
+            ids = np.asarray(item["request"]["input_ids"]).reshape(-1)
+            pres_row, state.next_token = model_mod.rep_penalty_setup(
+                eng.cfg.text.vocab_size, ids, state.logits,
+                state.next_token, rp, item["temperature"], item["top_p"],
+                item.get("top_k", 0), item["seed"])
+        state.result.first_token_seconds = (
+            time.perf_counter() - item["t_submit"])
+        if state.next_token in eos or item["max_new"] <= 1:
+            state.result.tokens = (
+                [] if state.next_token in eos or item["max_new"] < 1
+                else [state.next_token])
+            state.result.total_seconds = (
+                time.perf_counter() - item["t_submit"])
+            item["result"] = state.result
+            item["done"].set()
+            return
+        t_valid = int(state.cache.length.max())
+        if t_valid + item["max_new"] + self.chunk > self.t_max:
+            # request too long for the slot pool: serve it one-shot
+            self.stats["rejected_too_long"] += 1
+            item["result"] = eng.generate(
+                **item["request"], max_new_tokens=item["max_new"],
+                eos_token_ids=item["eos"],
+                temperature=item["temperature"], top_p=item["top_p"],
+                seed=item["seed"], top_k=item.get("top_k", 0),
+                repetition_penalty=rp)
+            item["done"].set()
+            return
+        if self.pool is None:
+            self._init_pool(state.cache)
+        self.pool = _insert_slot(self.pool, state.cache.k, state.cache.v,
+                                 state.cache.length, slot_idx)
+        self.cur[slot_idx] = state.next_token
+        self.pos[slot_idx] = state.start_pos
+        self.live[slot_idx] = True
+        self.temps[slot_idx] = item["temperature"]
+        self.tps[slot_idx] = item["top_p"]
+        self.tks[slot_idx] = item.get("top_k", 0)
+        self.rps[slot_idx] = rp
+        if pres_row is not None:
+            self.pres[slot_idx] = pres_row
+        self.gens[slot_idx] = (
+            model_mod.sampling_generator(item["seed"], self.device)
+            if item["temperature"] > 0.0 else None)
+        self.slots[slot_idx] = _Slot(
+            tokens=[state.next_token], max_new=item["max_new"], eos=eos,
+            result=state.result, done_event=item["done"],
+            t_submit=item["t_submit"], item=item)
+        self.stats["admitted"] += 1
+        if sum(s is not None for i, s in enumerate(self.slots)
+               if i != slot_idx):
+            self.stats["mid_flight_joins"] += 1
+        self.stats["max_concurrent"] = max(
+            self.stats["max_concurrent"],
+            sum(s is not None for s in self.slots))
+
+    def _fail_all(self, exc: Exception):
+        """Deliver ``exc`` to every live slot and queued item, then mark
+        the batcher dead (a poisoned pool must not serve further)."""
+        with self.cv:
+            self._running = False
+            for i, slot in enumerate(self.slots):
+                if slot is not None:
+                    slot.item["error"] = exc
+                    slot.done_event.set()
+                    self.slots[i] = None
+                    self.live[i] = False
+            while self.queue:
+                item = self.queue.popleft()
+                item["error"] = exc
+                item["done"].set()
+
+    def _finalize(self, idx, slot):
+        slot.result.tokens = slot.tokens[: slot.max_new]
+        slot.result.total_seconds = time.perf_counter() - slot.t_submit
+        slot.result.decode_dispatches = slot.chunks
+        slot.item["result"] = slot.result
+        slot.done_event.set()
+        self.slots[idx] = None
+        self.live[idx] = False
+        self.gens[idx] = None
+        self.pool.length[:, idx] = 0  # a dead slot writes at rows [0, chunk)
+
+    def _dispatch(self):
+        """One decode chunk over the pool; returns the tokens [k, S]."""
+        dev = self.device
+        live = self.live
+        sampled = bool(np.any(self.temps[live] > 0.0))
+        penalized = bool(np.any(self.rps[live] != 1.0))
+        samp = {}
+        if sampled:
+            samp = dict(
+                temps=torch.as_tensor(self.temps, device=dev),
+                tps=torch.as_tensor(self.tps, device=dev),
+                tks=torch.as_tensor(self.tks, device=dev),
+                gens=[g if ok else None for g, ok in zip(self.gens, live)])
+        if penalized:
+            samp.update(pres=self.pres,
+                        rps=torch.as_tensor(self.rps, device=dev))
+        toks, self.pool = _decode_chunk_slots(
+            self.engine.params, self.pool,
+            torch.as_tensor(self.cur, device=dev),
+            torch.as_tensor(self.pos, device=dev),
+            torch.as_tensor(live, device=dev), self.chunk,
+            attn_impl=self.decode_attn, **samp)
+        return toks.cpu().numpy()  # waits for the chunk
+
+    def _run(self):
+        with torch.no_grad():
+            self._loop()
+
+    def _loop(self):
+        while True:
+            with self.cv:
+                while (self._running and not self.queue
+                       and not any(self.live)):
+                    self.cv.wait()
+                if not self._running:
+                    for item in self.queue:
+                        item["error"] = RuntimeError("batcher shut down")
+                        item["done"].set()
+                    return
+                pending = []
+                free = self._free_slots()
+                while self.queue and free:
+                    pending.append((self.queue.popleft(), free.pop(0)))
+            for item, idx in pending:
+                try:
+                    self._admit(item, idx)
+                except Exception as e:  # noqa: BLE001 — report to waiter
+                    item["error"] = e
+                    item["done"].set()
+            if not any(self.live):
+                self._last_decode_t = None
+                continue
+            try:
+                toks = self._dispatch()
+            except Exception as e:  # noqa: BLE001 — fail fast, not hang
+                # a failed dispatch poisons the shared pool: wake every
+                # waiter with the error rather than leave them hanging
+                self._fail_all(e)
+                return
+            self.stats["chunks"] += 1
+            self._mark_decode()
+            for i, slot in enumerate(self.slots):
+                if slot is None:
+                    continue
+                slot.chunks += 1
+                finished = False
+                for t in toks[:, i].tolist():
+                    if t in slot.eos:
+                        finished = True
+                        break
+                    slot.tokens.append(t)
+                    if len(slot.tokens) >= slot.max_new:
+                        finished = True
+                        break
+                if finished:
+                    self._finalize(i, slot)
+                else:
+                    self.cur[i] = slot.tokens[-1]
+                    self.pos[i] += self.chunk

@@ -1,15 +1,17 @@
 """Qwen2.5 decoder (GQA + M-RoPE).
 
 Counterpart of ``visionselector_tpu.models.qwen25vl.lm`` (bf16 / fp32
-weights; quantization, LoRA, Qwen3 and MoE variants are not ported yet):
+weights; weight quantization, LoRA, Qwen3 and MoE variants are not ported
+yet):
 
 - M-RoPE: cos/sin from 3-axis position ids, each rotary channel taking the
   axis its ``mrope_section`` chunk names, applied in fp32,
 - prefill: segment-masked causal flash attention (the CUDA kernel on the
   card) over the compacted valid-prefix sequence; GQA reads kv head
   h // n_rep inside the kernel, so kv is never expanded,
-- decode: plain dense attention against the KV cache, which is written in
-  place.
+- decode: length-aware attention against the KV cache (the decode kernel
+  on the card), which is written in place; the cache may be bf16 / fp32 or
+  int8 with per-row scales (``QuantKVCache``, serving slot pools).
 """
 
 from __future__ import annotations
@@ -37,6 +39,32 @@ class KVCache:
     k: torch.Tensor  # [n_layers, B, T_max, H_kv, Dh]
     v: torch.Tensor  # [n_layers, B, T_max, H_kv, Dh]
     length: torch.Tensor  # [n_layers, B] int64 valid lengths
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 KV cache (serving slot pools): entry [l, b, t, h] stores
+    ``round(x / s)`` with its scale ``s = absmax / 127`` over the head dim
+    kept beside it. Half the bytes of a bf16 pool, read by the decode kernel
+    as int8 with the scales folded into the logits and p."""
+
+    k: torch.Tensor  # int8 [n_layers, B, T_max, H_kv, Dh]
+    v: torch.Tensor  # int8 [n_layers, B, T_max, H_kv, Dh]
+    k_scale: torch.Tensor  # f32 [n_layers, B, T_max, H_kv]
+    v_scale: torch.Tensor  # f32 [n_layers, B, T_max, H_kv]
+    length: torch.Tensor  # [n_layers, B] int64 valid lengths
+
+
+def quantize_kv(x: torch.Tensor):
+    """[..., Dh] -> (int8 values, f32 scales over the last dim); the
+    reference's per-row absmax rule (round half to even)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0 + 1e-12
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * s[..., None].float()).to(dtype)
 
 
 class DecoderLayer(nn.Module):
@@ -171,16 +199,20 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
 
 
 @torch.no_grad()
-def lm_decode_step(lm: LanguageModel, cache: KVCache, inputs_embeds,
-                   position_ids) -> Tuple[torch.Tensor, KVCache]:
+def lm_decode_step(lm: LanguageModel, cache, inputs_embeds, position_ids,
+                   attn_impl: str | None = None):
     """One decode step.
 
     inputs_embeds: [B, 1, D]; position_ids: [3, B, 1]. Writes the new k/v
-    row of every layer at that layer's length, in place in ``cache.k`` /
-    ``cache.v``. Returns (hidden [B, 1, D] post-norm, the cache with
+    row of every layer at that layer's length (per row: slots of a pool
+    have their own lengths), in place in ``cache.k`` / ``cache.v`` —
+    quantized, with its scales, when ``cache`` is a ``QuantKVCache``.
+    ``attn_impl``: None (the decode kernel on the card) or "plain" (the
+    dense plain path). Returns (hidden [B, 1, D] post-norm, the cache with
     length + 1).
     """
     cfg = lm.cfg
+    quant = isinstance(cache, QuantKVCache)
     cos, sin = mrope_cos_sin(position_ids, cfg)
     x = inputs_embeds
     b = x.shape[0]
@@ -190,14 +222,26 @@ def lm_decode_step(lm: LanguageModel, cache: KVCache, inputs_embeds,
         q, k, v = _qkv(h, p, cfg)
         q, k = _apply_mrope(q, k, cos, sin)
         pos = cache.length[li]  # [B]
-        cache.k[li, rows, pos] = k[:, 0]  # in place
-        cache.v[li, rows, pos] = v[:, 0]
-        attn = decode_attention(q, cache.k[li], cache.v[li], pos + 1)
+        if quant:
+            k8, ks = quantize_kv(k[:, 0])
+            v8, vs = quantize_kv(v[:, 0])
+            cache.k[li, rows, pos] = k8  # in place
+            cache.v[li, rows, pos] = v8
+            cache.k_scale[li, rows, pos] = ks
+            cache.v_scale[li, rows, pos] = vs
+            scales = dict(k_scale=cache.k_scale[li],
+                          v_scale=cache.v_scale[li])
+        else:
+            cache.k[li, rows, pos] = k[:, 0]  # in place
+            cache.v[li, rows, pos] = v[:, 0]
+            scales = {}
+        attn = decode_attention(q, cache.k[li], cache.v[li], pos + 1,
+                                impl=attn_impl, **scales)
         x = x + _dense(attn.reshape(b, 1, -1), p, "o_kernel")
         h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
         x = x + _mlp(h, p)
     x = rms_norm(x, lm.final_ln_scale, cfg.rms_norm_eps)
-    return x, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+    return x, dataclasses.replace(cache, length=cache.length + 1)
 
 
 def embed_tokens(lm: LanguageModel, input_ids: torch.Tensor) -> torch.Tensor:
@@ -222,12 +266,19 @@ def init_lm_params(cfg: TextConfig, generator: torch.Generator, device,
 
 
 def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, device,
-                  dtype) -> KVCache:
+                  dtype, quant: bool = False):
+    """A zeroed ``KVCache`` of ``dtype``, or a ``QuantKVCache`` (int8 with
+    f32 scales) when ``quant``."""
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
              cfg.head_dim)
-    return KVCache(
-        k=torch.zeros(shape, device=device, dtype=dtype),
-        v=torch.zeros(shape, device=device, dtype=dtype),
-        length=torch.zeros((cfg.num_hidden_layers, batch), dtype=torch.int64,
-                           device=device),
-    )
+    length = torch.zeros((cfg.num_hidden_layers, batch), dtype=torch.int64,
+                         device=device)
+    if quant:
+        return QuantKVCache(
+            k=torch.zeros(shape, device=device, dtype=torch.int8),
+            v=torch.zeros(shape, device=device, dtype=torch.int8),
+            k_scale=torch.zeros(shape[:4], device=device),
+            v_scale=torch.zeros(shape[:4], device=device), length=length)
+    return KVCache(k=torch.zeros(shape, device=device, dtype=dtype),
+                   v=torch.zeros(shape, device=device, dtype=dtype),
+                   length=length)
