@@ -12,7 +12,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes (bf16 inputs from a seeded generator): flash and diag at
    the prefill's shapes, the decode kernel over an 8-slot, 2,048-row pool
-   (bf16 and int8, t_c 1 and 4, lengths at tile edges). Tolerance: every
+   (bf16 and int8, t_c 1 and 4, lengths at tile edges), the fused rotary +
+   attention kernel on a ViT layer's qkv slab with full and window bounds,
+   the packed entry point on the ViT full layer with heads padded from 80
+   to 128 and on the LM prefill slabs, and the four full-attention
+   ablation variants at S = 5,632. Tolerance: every
    output element within ULP_LIMIT bf16 ulps of the largest |value| of
    its row (one head of one query) in the plain output. Rounding both
    outputs to bf16 differs by at most 1 such ulp; the kernel rounds p to
@@ -20,16 +24,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    which adds up to about one more in the tails. Also checked: padding
    rows exactly 0. Planted faults (kv tiles dropped from the bounds, a key
    dropped from every window, a slot's last key or last live tile dropped
-   in decode) must fail the same check, so it is shown to see an
-   off-by-one tile at the main path's shapes.
+   in decode, k rotated with the next row's cos/sin, noise in the pad
+   columns of q and k, the ablation's mask switched off) must fail the
+   same check, so it is shown to see an off-by-one tile at the main path's
+   shapes.
    Kernel, plain and library times are CUDA-event medians (the card is
    kept busy while the call is enqueued, so host time is not counted);
    work rates are printed from the tiles the kernel visits and from the
    valid (query, key) pairs. Each kernel's bound is the larger of its bytes
    (inputs read once, outputs written once; for decode the live prefix)
-   over 3.35 TB/s and its flop over 989 TFLOP/s (bf16 dense); the library
-   yardstick is one ``F.scaled_dot_product_attention`` call with the same
-   mask (the port never calls it).
+   over 3.35 TB/s and its flop over 989 TFLOP/s (bf16 dense; the real
+   head dim's flop for padded heads); the library yardstick is one
+   ``F.scaled_dot_product_attention`` call with the same mask (the port
+   never calls it; for the fused kernel it gets q and k already rotated,
+   for padded heads the unpadded d = 80, and the ablation without exp has
+   none).
 3. Main path: full-width Qwen2.5-VL-3B with random weights (bf16, seeded),
    one 1036x1456 image and ~40 text ids, ``QwenVLEngine.generate`` with the
    LIS selector at budget 0.2 and with ``orig``, 32 greedy tokens each.
@@ -38,11 +47,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    flash kernel once per full-attention ViT layer and per decoder layer,
    and every decode step the decode kernel once per decoder layer.
    The same request then runs with the plain attention path, and the
-   first-token logits and selected sets are compared.
+   first-token logits and selected sets are compared. Then the selector
+   request under ``attn_variant="fused"`` and ``"packed"`` (each with its
+   own launch counts, and against its own plain path).
 4. Where the time goes: unprofiled wall times of prefill, host prep and
    decode per token, then ``torch.profiler`` runs of the prefill and of the
    decode: device busy time (the union of kernel and copy intervals in the
-   trace), the idle share and the top kernels.
+   trace), the idle share and the top kernels; the ViT's device time and
+   the prefill's wall and device time under each attention configuration;
+   then the ablation entry point (``visionselector_tpu_torch.tools.
+   bench_fullattn_ablate``) once, with its five times.
    Per-kernel device times go to ``chiprun_out/profile_*_kernels.txt``.
 5. Serving: ``ContinuousBatcher`` (8 slots, 2,048 rows, chunk 8) over the
    same weights; 16 requests from 16 threads (4 at once, then one every
@@ -89,6 +103,24 @@ DECODE_LENS = (1, 63, 64, 65, 300, 1302, 1900, 2047)
 # the same 0.1). A slot read from the wrong place or garbage gives O(max
 # |logit|); a dropped key or tile is the kernel check's to catch.
 TEACHER_TOL = 0.1
+# Each kernel of the port: (source, the TPU kernel it replaces). K1 and K2
+# share flash_varlen_fwd; the packed entry (K3) and the ablation (K7) are
+# launches of the same source's kernel template.
+KERNELS = {
+    "flash_varlen_fwd": ("flash_varlen_fwd.cu",
+                         "visionselector_tpu/kernels/attention.py:203"),
+    "diag_attn_fwd": ("diag_attn_fwd.cu",
+                      "visionselector_tpu/kernels/attention.py:681"),
+    "decode_blocked_fwd": ("decode_blocked_fwd.cu",
+                           "visionselector_tpu/kernels/attention.py:1085"),
+    "fused_vit_attn_fwd": ("fused_vit_attn_fwd.cu",
+                           "visionselector_tpu/kernels/fused_vit_attn.py:144"),
+    "flash_packed_fwd": ("flash_varlen_fwd.cu",
+                         "visionselector_tpu/kernels/attention.py:521"),
+    "fullattn_ablate_fwd": ("flash_varlen_fwd.cu",
+                            "tools/bench_fullattn_ablate.py:83"),
+}
+ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 
 
 def nvidia_smi() -> str:
@@ -208,8 +240,7 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     def ivec(x):
         return torch.as_tensor(np.asarray(x), device=dev)[None].int()
 
-    results = {"flash_varlen_fwd": [], "diag_attn_fwd": [],
-               "decode_blocked_fwd": []}
+    results = {name: [] for name in KERNELS}
 
     def case(kernel, name, fn, plain, pad_rows, rate, work, library=None):
         """Check one shape; ``rate(ms)`` formats the kernel's work rate;
@@ -379,6 +410,10 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     bb = torch.as_tensor(vbig.full_kv_bounds, device=dev)
     pad = np.where(vbig.full_seg_ids == 0)[0]
     for iters in (vbig.full_kv_iters, span // 4):
+        # The library yardstick (K2's main case): one call with the 8-frame
+        # segment mask, a 16,384^2 bool tensor (256 MiB).
+        library = (None if iters != vbig.full_kv_iters else
+                   lambda: sdpa_ms(qb, kb, vb_, seg_mask(bseg)))
         case("flash_varlen_fwd",
              f"streamed S=16384 frames=8 span={span} kv_iters={iters}",
              lambda: A.flash_varlen_fwd(qb, kb, vb_, bseg, bseg,
@@ -388,8 +423,15 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
              bounded_rate(vbig.full_seg_ids, vbig.full_kv_bounds, iters, h,
                           d),
              (4 * 16384 * h * d * 2 + 2 * 16384 * 4, bounded_work(
-                 vbig.full_seg_ids, vbig.full_kv_bounds, iters, h, d)[1]))
+                 vbig.full_seg_ids, vbig.full_kv_bounds, iters, h, d)[1]),
+             library)
+    del qb, kb, vb_
     check_decode(cfg, rnd, case, control)
+    kit = dict(rnd=rnd, case=case, control=control, seg_mask=seg_mask,
+               bounded_work=bounded_work, bounded_rate=bounded_rate)
+    check_fused(cfg, vb, kit)
+    check_packed(cfg, vb, (q, k, v), lengths, kit)
+    check_ablate(kit)
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in results.items()}
 
@@ -473,6 +515,205 @@ def check_decode(cfg, rnd, case, control):
                              f"live length: {times}")
 
 
+def check_fused(cfg, vb, kit):
+    """Phase 2, fused rotary + attention kernel (K6) on the 6,144 bucket:
+    the qkv slab of a ViT layer with full bounds (main case) and window
+    bounds; planted faults: the last kv tile dropped from the full bounds,
+    and the plain version rotating k with the next row's cos/sin."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+    from visionselector_tpu_torch.models.qwen25vl.vit import (
+        apply_rotary,
+        vision_rotary_cos_sin,
+    )
+
+    dev = "cuda"
+    h, d = cfg.vision.num_heads, cfg.vision.head_dim
+    s = vb.pixel_values.shape[0]
+    qkv = kit["rnd"](s, 3 * h * d)
+    cos, sin = (x.bfloat16() for x in vision_rotary_cos_sin(
+        torch.as_tensor(np.asarray(vb.rot_pos_ids), device=dev), d))
+
+    def rotated(k_shift=0):
+        """q, k, v [1, S, H, d] as the plain version rotates them (k with
+        the cos/sin of row i + k_shift when k_shift != 0)."""
+        q, k, v = qkv.view(s, 3, h, d).unbind(1)
+        q, _ = apply_rotary(q, q, cos, sin)
+        _, k = apply_rotary(k, k, cos.roll(-k_shift, 0), sin.roll(-k_shift, 0))
+        return q[None], k[None], v[None]
+
+    # bytes: the slab and cos/sin read, out written (bf16), seg and bounds.
+    nbytes = (3 * s * h * d + 2 * s * d + s * h * d) * 2 + s * 4 + s // 8
+    for name, seg_np, bounds_np in (
+            ("vit_full", vb.full_seg_ids, vb.full_kv_bounds),
+            ("vit_window", vb.window_seg_ids, vb.window_kv_bounds)):
+        seg = torch.as_tensor(np.asarray(seg_np), device=dev).int()
+        bounds = torch.as_tensor(bounds_np, device=dev)
+        q, k, v = rotated()
+        kit["case"](
+            "fused_vit_attn_fwd", f"{name} S={s} H={h} D={d} (qkv slab)",
+            lambda: F_.fused_vit_attention(qkv, seg, cos, sin, bounds, h,
+                                           d).view(1, s, h, d),
+            lambda: F_.fused_plain(qkv, seg, cos, sin, bounds, h,
+                                   d).view(1, s, h, d),
+            np.where(np.asarray(seg_np) == 0)[0],
+            kit["bounded_rate"](seg_np, bounds_np, 0, h, d),
+            (nbytes, kit["bounded_work"](seg_np, bounds_np, 0, h, d)[1]),
+            # the yardstick leaves the rotary out: q and k come rotated
+            lambda: sdpa_ms(q, k, v, kit["seg_mask"](seg[None])))
+        if name == "vit_full":
+            want = F_.fused_plain(qkv, seg, cos, sin, bounds, h, d)
+            live = (bounds[:, 1] > bounds[:, 0]).int()
+            bad = bounds + live[:, None] * torch.tensor([0, -1], device=dev)
+            kit["control"](
+                "fused_vit_attn_fwd", "vit_full last kv tile dropped",
+                F_.fused_vit_attention(qkv, seg, cos, sin, bad, h,
+                                       d).view(1, s, h, d),
+                want.view(1, s, h, d))
+            q, k, v = rotated(k_shift=1)
+            kit["control"](
+                "fused_vit_attn_fwd", "vit_full k rotated with the next "
+                "row's cos/sin",
+                F_.fused_vit_attention(qkv, seg, cos, sin, bounds, h,
+                                       d).view(1, s, h, d),
+                A.flash_plain(q, k, v, seg[None], seg[None],
+                              kv_bounds=bounds))
+
+
+def check_packed(cfg, vb, qkv_vit, lengths, kit):
+    """Phase 2, packed entry point (K3): the ViT full layer with heads of
+    80 zero-padded to 128 (main case; the real 80 ** -0.5 scale, the same
+    q/k/v as the flash check) and the LM prefill at the compacted lengths.
+    Bounds count real-d flop, so the padding's work shows as a gap. Planted
+    fault: noise in the pad columns of q and k (noise in q's alone is
+    invisible: k's pad columns are zero), which must fail the check, so it
+    is shown to see what the pad columns hold."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from visionselector_tpu_torch.kernels import attention as A
+
+    dev, dp = "cuda", 128
+    h, d = cfg.vision.num_heads, cfg.vision.head_dim
+    s = vb.pixel_values.shape[0]
+    fseg = torch.as_tensor(np.asarray(vb.full_seg_ids), device=dev)[None].int()
+    fb = torch.as_tensor(vb.full_kv_bounds, device=dev)
+    q, k, v = qkv_vit
+    qp, kp, vp = (F.pad(x, (0, dp - d)).flatten(2) for x in qkv_vit)
+
+    def packed(qq, kk):
+        return A.flash_packed_fwd(qq, kk, vp, fseg, fseg, h, h, dp,
+                                  scale=d**-0.5,
+                                  kv_bounds=fb).view(1, s, h, dp)
+
+    def plain():
+        return A.flash_packed_plain(qp, kp, vp, fseg, fseg, h, h, dp,
+                                    scale=d**-0.5,
+                                    kv_bounds=fb).view(1, s, h, dp)
+
+    kit["case"](
+        "flash_packed_fwd", f"vit_full S={s} H={h} dp={dp} (real D={d})",
+        lambda: packed(qp, kp), plain, np.where(vb.full_seg_ids == 0)[0],
+        kit["bounded_rate"](vb.full_seg_ids, vb.full_kv_bounds, 0, h, d),
+        (4 * s * h * dp * 2 + 2 * s * 4, kit["bounded_work"](
+            vb.full_seg_ids, vb.full_kv_bounds, 0, h, d)[1]),
+        lambda: sdpa_ms(q, k, v, kit["seg_mask"](fseg)))
+    out = packed(qp, kp)
+    if not (out[..., d:] == 0).all():
+        raise AssertionError("flash_packed_fwd: pad columns of the output "
+                             "are not exactly 0")
+    noisy = [x.clone().view(1, s, h, dp) for x in (qp, kp)]
+    for x in noisy:
+        x[..., d:] = kit["rnd"](1, s, h, dp - d)
+    kit["control"]("flash_packed_fwd", "vit_full noise in the pad columns "
+                   "of q and k",
+                   packed(*(x.flatten(2) for x in noisy)), plain())
+
+    tc = cfg.text
+    hq, hkv, dh = (tc.num_attention_heads, tc.num_key_value_heads,
+                   tc.head_dim)
+    for t, valid in lengths:
+        ql, kl, vl = (kit["rnd"](1, t, n * dh) for n in (hq, hkv, hkv))
+        seg = (torch.arange(t, device=dev) < valid).int()[None]
+        nq = -(-t // TILE)
+        visited, useful = flash_work(np.zeros(nq), np.arange(1, nq + 1),
+                                     valid * (valid + 1) // 2, hq, dh)
+        kit["case"](
+            "flash_packed_fwd", f"lm_prefill T={t} valid={valid} Hq={hq} "
+            f"Hkv={hkv} dp={dh} (slabs)",
+            lambda: A.flash_packed_fwd(ql, kl, vl, seg, seg, hq, hkv, dh,
+                                       causal=True).view(1, t, hq, dh),
+            lambda: A.flash_packed_plain(ql, kl, vl, seg, seg, hq, hkv, dh,
+                                         causal=True).view(1, t, hq, dh),
+            np.arange(valid, t),
+            lambda ms, v_=visited, u_=useful: (
+                f"visited_tflops={tflops(v_, ms)!r} "
+                f"valid_pair_tflops={tflops(u_, ms)!r}"),
+            ((2 * hq + 2 * hkv) * t * dh * 2 + t * 8, useful))
+
+
+def check_ablate(kit):
+    """Phase 2, the full-attention ablation (K7) at S = 5,632 (16 heads, d
+    80, the last 128 rows padding; the bench's inputs): the four variants
+    against ``ablate_plain``, every kv tile visited. Main case: mask and
+    exp (the production kernel without bounds). Planted fault: the kernel
+    without the mask against the masked plain version."""
+    import numpy as np
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.tools import bench_fullattn_ablate as B
+
+    q, k, v, seg = B.inputs(ABLATE_S)
+    s, h, d = ABLATE_S, B.HEADS, B.HEAD_DIM
+    flop = 4 * s * s * h * d  # every (query, key) pair of every tile
+    nbytes = 4 * s * h * d * 2 + s * 4
+    pad = np.arange(s - B.PAD_ROWS, s)
+    for do_mask, do_exp in ((True, True), (False, True), (True, False),
+                            (False, False)):
+        library = None  # no one call computes p = logits (noexp, bare)
+        if do_exp:
+            mask = kit["seg_mask"](seg) if do_mask else None
+            library = lambda m=mask: sdpa_ms(q, k, v, m)  # noqa: E731
+        kit["case"](
+            "fullattn_ablate_fwd",
+            f"S={s} H={h} D={d} mask={do_mask} exp={do_exp}",
+            lambda m=do_mask, e=do_exp: A.fullattn_ablate(q, k, v, seg, m, e),
+            lambda m=do_mask, e=do_exp: A.ablate_plain(q, k, v, seg, m, e),
+            pad if do_mask else [],
+            lambda ms: f"tflops={tflops(flop, ms)!r}", (nbytes, flop),
+            library)
+    valid = slice(0, s - B.PAD_ROWS)  # rows that attend in both
+    kit["control"]("fullattn_ablate_fwd", "mask off against the masked "
+                   "plain version (valid rows)",
+                   A.fullattn_ablate(q, k, v, seg, False, True)[:, valid],
+                   A.ablate_plain(q, k, v, seg, True, True)[:, valid])
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+
+    return {"flash_varlen_fwd": A.FLASH_LAUNCHES,
+            "diag_attn_fwd": A.DIAG_LAUNCHES,
+            "decode_blocked_fwd": A.DECODE_LAUNCHES,
+            "fused_vit_attn_fwd": F_.FUSED_LAUNCHES,
+            "flash_packed_fwd": A.PACKED_LAUNCHES,
+            "fullattn_ablate_fwd": A.ABLATE_LAUNCHES}
+
+
+def zero_counts():
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+
+    A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
+    A.PACKED_LAUNCHES = A.ABLATE_LAUNCHES = F_.FUSED_LAUNCHES = 0
+
+
 def run_main_path(cfg, params, input_ids, pixels, grid):
     """Phase 3. Returns the launch counts of the main path's run."""
     import torch
@@ -493,7 +734,7 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
         eng.generate(input_ids, pixels, grid, max_new_tokens=2)
     torch.cuda.synchronize()
 
-    A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
+    zero_counts()
     results = {}
     for name, eng in engines.items():
         f0, d0, k0 = A.FLASH_LAUNCHES, A.DIAG_LAUNCHES, A.DECODE_LAUNCHES
@@ -579,6 +820,89 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
     return launches
 
 
+def run_variant_paths(cfg, params, input_ids, pixels, grid):
+    """Phase 3, the other attention configurations of the selector request:
+    ``attn_variant="fused"`` and ``"packed"``, 32 greedy tokens each, with
+    the counters zeroed just before and read just after each run. Per
+    image prefill: fused = one fused launch per ViT layer + one flash
+    launch per decoder layer, no diag; packed = one diag launch per window
+    layer + one packed launch per ViT full layer and per decoder layer (the
+    packed wrapper counts PACKED_LAUNCHES only, not FLASH_LAUNCHES); every
+    decode step one decode launch per decoder layer. Each is held against
+    the same request with ``attn_impl="plain"`` and the same variant, with
+    phase 3's tolerance. Returns each variant's launch counts."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    vc, n_layers = cfg.vision, cfg.text.num_hidden_layers
+    n_full = len(vc.fullatt_block_indexes)
+    # the decoder takes the packed entry when its head dim is a multiple
+    # of 128 (the 3B's 128 is)
+    lm_packed = n_layers if cfg.text.head_dim % 128 == 0 else 0
+    want = {
+        "fused": dict(fused_vit_attn_fwd=vc.depth, flash_varlen_fwd=n_layers,
+                      diag_attn_fwd=0, flash_packed_fwd=0),
+        "packed": dict(fused_vit_attn_fwd=0,
+                       flash_varlen_fwd=n_layers - lm_packed,
+                       diag_attn_fwd=vc.depth - n_full,
+                       flash_packed_fwd=n_full + lm_packed),
+    }
+    out = {}
+    for variant, expect in want.items():
+        eng = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                           device="cuda", attn_variant=variant)
+        eng.generate(input_ids, pixels, grid, max_new_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        res = eng.generate(input_ids, pixels, grid,
+                           max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        steps = (len(res.tokens) - 1 if len(res.tokens) == MAX_NEW_TOKENS
+                 else len(res.tokens))
+        n_decode = len(res.tokens) - 1
+        decode_s = res.total_seconds - res.prefill_seconds
+        print(f"[variant] {variant}: kept={len(res.selected_indices)} "
+              f"prefill_len={res.prefill_len} "
+              f"prefill_ms={res.prefill_seconds * 1e3!r} decode_tok_s="
+              f"{n_decode / decode_s if n_decode else float('nan')!r} "
+              f"launches {counts} (decode steps {steps})", flush=True)
+        print(f"[variant] {variant} tokens: {res.tokens}", flush=True)
+        got = {k: counts[k] for k in expect}
+        if got != expect or counts["decode_blocked_fwd"] != n_layers * steps:
+            raise AssertionError(
+                f"{variant}: launches {counts}, expected {expect} and "
+                f"{n_layers} decode launches x {steps} steps")
+        if not (torch.isfinite(res.logits).all() and res.tokens and all(
+                0 <= t < cfg.text.vocab_size for t in res.tokens)):
+            raise AssertionError(f"{variant}: non-finite logits or bad "
+                                 f"tokens {res.tokens}")
+        plain = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda", attn_impl="plain",
+                             attn_variant=variant)
+        res_p = plain.generate(input_ids, pixels, grid, max_new_tokens=1)
+        a = set(res.selected_indices.tolist())
+        b = set(res_p.selected_indices.tolist())
+        overlap = len(a & b) / len(a)
+        diff = (res_p.logits - res.logits).abs().max().item()
+        scale = res.logits.abs().max().item()
+        print(f"[plain] {variant}: first-token logits max_abs_diff={diff!r}"
+              f" (max |logit| {scale!r}) first token kernel={res.tokens[0]} "
+              f"plain={res_p.tokens[0]} selected overlap {len(a & b)}/"
+              f"{len(a)}", flush=True)
+        # phase 3's tolerance: the kept sets mostly agree (near-ties of the
+        # random scorer); where they are equal, so is the decoder's input
+        # and the logits agree within 0.1 of their range.
+        if overlap < 0.9 or (a == b and diff > 0.1 * scale):
+            raise AssertionError(
+                f"{variant}: kernel and plain paths disagree (logits {diff}"
+                f" of {scale}, selection overlap {overlap})")
+        out[variant] = counts
+        del eng, plain
+    return out
+
+
 def device_busy(trace_path):
     """(busy ms, {kernel name: [ms, count]}) from a torch.profiler chrome
     trace: busy is the union of the device's kernel, copy and memset
@@ -612,13 +936,39 @@ def kernel_group(name: str) -> str:
     return "copies" if low.startswith("mem") else "other"
 
 
+def traced(fn, path):
+    """(device busy ms, {kernel name: [ms, count]}, fn's result) of one call
+    of ``fn`` under torch.profiler. The trace (tens of MB) is parsed and
+    removed; a per-kernel summary stays beside ``path``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    busy, kernels = device_busy(path)
+    os.remove(path)
+    with open(path[:-5] + "_kernels.txt", "w") as f:
+        for kname, (ms, count) in sorted(kernels.items(),
+                                         key=lambda kv: -kv[1][0]):
+            f.write(f"{ms:.4f} ms x{count}: {kname}\n")
+    return busy, kernels, result
+
+
+def kernel_groups(kernels) -> dict:
+    """Device ms by ``kernel_group``."""
+    groups = dict.fromkeys(("vst kernels", "gemm", "copies", "other"), 0.0)
+    for kname, (ms, _) in kernels.items():
+        groups[kernel_group(kname)] += ms
+    return groups
+
+
 def profile_phase(cfg, params, input_ids, pixels, grid):
     """Phase 4: wall and device time of prefill and decode. Returns the
     directory the per-kernel summaries went to."""
     import statistics
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
 
@@ -641,30 +991,18 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
         step_ms = statistics.median(
             (r.total_seconds - r.prefill_seconds) * 1e3
             / max(len(r.tokens) - 1, 1) for r in runs)
-        traced = {}
-        for tag, new in (("prefill", 1), ("decode", n_new)):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                res = eng.generate(input_ids, pixels, grid,
-                                   max_new_tokens=new)
-                torch.cuda.synchronize()
-            # The trace (tens of MB) is parsed and removed; a per-kernel
-            # summary stays.
-            path = os.path.join(out_dir, f"profile_{name}_{tag}.json")
-            prof.export_chrome_trace(path)
-            traced[tag] = (*device_busy(path), len(res.tokens))
-            os.remove(path)
-            with open(path[:-5] + "_kernels.txt", "w") as f:
-                for kname, (ms, count) in sorted(traced[tag][1].items(),
-                                                 key=lambda kv: -kv[1][0]):
-                    f.write(f"{ms:.4f} ms x{count}: {kname}\n")
-        busy, kernels, _ = traced["prefill"]
+        runs = {tag: traced(
+            lambda new=new: eng.generate(input_ids, pixels, grid,
+                                         max_new_tokens=new),
+            os.path.join(out_dir, f"profile_{name}_{tag}.json"))
+            for tag, new in (("prefill", 1), ("decode", n_new))}
+        busy, kernels, _ = runs["prefill"]
         if busy == 0.0:
             print(f"[profile] {name}: device time not measured (the trace "
                   f"holds no device events)", flush=True)
             continue
-        steps = max(traced["decode"][2] - 1, 1)
-        step_busy = (traced["decode"][0] - busy) / steps
+        steps = max(len(runs["decode"][2].tokens) - 1, 1)
+        step_busy = (runs["decode"][0] - busy) / steps
         print(f"[profile] {name}: prefill_wall_ms={prefill_ms!r} "
               f"host_prep_ms={statistics.median(prep)!r} "
               f"prefill_device_busy_ms={busy!r} "
@@ -672,18 +1010,76 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
               f"decode_wall_ms_per_token={step_ms!r} "
               f"decode_device_ms_per_token={step_busy!r} "
               f"decode_idle_share={1 - step_busy / step_ms!r}", flush=True)
-        groups = dict.fromkeys(("vst kernels", "gemm", "copies", "other"),
-                               0.0)
-        for kname, (ms, _) in kernels.items():
-            groups[kernel_group(kname)] += ms
         print(f"[profile] {name} prefill device ms by group: "
-              + " ".join(f"{g}={ms!r}" for g, ms in groups.items()),
+              + " ".join(f"{g}={ms!r}"
+                         for g, ms in kernel_groups(kernels).items()),
               flush=True)
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
         for kname, (ms, count) in top:
             print(f"[profile] {name} prefill kernel {ms:.3f} ms x{count}: "
                   f"{kname[:100]}", flush=True)
     return out_dir
+
+
+def profile_variants(cfg, params, input_ids, pixels, grid, out_dir):
+    """Phase 4, the three attention configurations of the selector request:
+    the ViT's device time (one ``vit_forward`` under torch.profiler, by
+    kernel group) and the prefill's wall (median of 3 unprofiled runs) and
+    device busy time. Findings, not claims."""
+    import statistics
+
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import vit as V
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    for variant in (None, "fused", "packed"):
+        eng = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                           device="cuda", attn_variant=variant)
+        vt = eng._vision_tensors(eng._prep_vision(input_ids, pixels,
+                                                  grid).vb)
+        vit_variant = "fused" if variant == "fused" else None
+
+        def vit():
+            return V.vit_forward(eng.params.visual, attn_variant=vit_variant,
+                                 **vt)
+
+        def prefill():
+            return eng.generate(input_ids, pixels, grid, max_new_tokens=1)
+
+        vit()
+        prefill()
+        wall = statistics.median(prefill().prefill_seconds * 1e3
+                                 for _ in range(3))
+        tag = variant or "default"
+        vit_busy, vit_kernels, _ = traced(
+            vit, os.path.join(out_dir, f"profile_vit_{tag}.json"))
+        busy, kernels, _ = traced(
+            prefill, os.path.join(out_dir, f"profile_prefill_{tag}.json"))
+        print(f"[profile] variant={tag}: vit_device_busy_ms={vit_busy!r} "
+              + " ".join(f"vit_{g.replace(' ', '_')}_ms={ms!r}"
+                         for g, ms in kernel_groups(vit_kernels).items())
+              + f" prefill_wall_ms={wall!r} prefill_device_busy_ms={busy!r}"
+              f" prefill_vst_kernels_ms="
+              f"{kernel_groups(kernels)['vst kernels']!r}", flush=True)
+        del eng, vt
+
+
+def run_ablation():
+    """The ablation entry point, once, with the counters zeroed just before
+    and read just after. Returns its launch counts."""
+    from visionselector_tpu_torch.tools import bench_fullattn_ablate
+
+    zero_counts()
+    res = bench_fullattn_ablate.main([str(ABLATE_S)])
+    counts = launch_counts()
+    print("[ablate] ms: " + " ".join(
+        f"{k}={res['ms_' + k]!r}" for k in ("prod", "full_ablate", "nomask",
+                                             "noexp", "bare"))
+          + f"; launches {counts}", flush=True)
+    if counts["fullattn_ablate_fwd"] <= 0:
+        raise AssertionError("the ablation entry point launched no kernel")
+    return counts
 
 
 def serve_traffic(cfg, input_ids, pixels, grid):
@@ -764,7 +1160,6 @@ def serve_phase(cfg, params, input_ids, pixels, grid, out_dir):
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.models.qwen25vl import lm as L
@@ -790,7 +1185,7 @@ def serve_phase(cfg, params, input_ids, pixels, grid, out_dir):
     # The serving run: the selector batcher, then the orig one.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
+    zero_counts()
     results, stats, steps = {}, {}, 0
     for name in ("selector", "orig"):
         part = [x for x in traffic if x[0] == name]
@@ -920,19 +1315,10 @@ def serve_phase(cfg, params, input_ids, pixels, grid, out_dir):
         _decode_chunk_slots(params, bf16_pool, cur, pos, live, 8)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            _decode_chunk_slots(params, bf16_pool, cur, pos, live, 8)
-        torch.cuda.synchronize()
-    path = os.path.join(out_dir, "profile_serve_chunks.json")
-    prof.export_chrome_trace(path)
-    busy, kernels = device_busy(path)
-    os.remove(path)
-    with open(path[:-5] + "_kernels.txt", "w") as f:
-        for kname, (ms, count) in sorted(kernels.items(),
-                                         key=lambda kv: -kv[1][0]):
-            f.write(f"{ms:.4f} ms x{count}: {kname}\n")
+    busy, kernels, _ = traced(
+        lambda: [_decode_chunk_slots(params, bf16_pool, cur, pos, live, 8)
+                 for _ in range(2)],
+        os.path.join(out_dir, "profile_serve_chunks.json"))
     dec_ms = sum(ms for k, (ms, _) in kernels.items() if "decode_blocked" in k)
     if busy == 0.0:
         print("[serve] chunk device time not measured (the trace holds no "
@@ -999,20 +1385,23 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    variants = run_variant_paths(cfg, params, input_ids, pixels, grid)
     out_dir = profile_phase(cfg, params, input_ids, pixels, grid)
-    # The serving path (this slice's main path): its own launch counts.
+    profile_variants(cfg, params, input_ids, pixels, grid, out_dir)
+    ablation = run_ablation()
+    # The serving path: flash, diag and decode launches; the fused and
+    # packed kernels count on their own paths, the ablation on its entry
+    # point's run.
     launches = serve_phase(cfg, params, input_ids, pixels, grid, out_dir)
+    launches["fused_vit_attn_fwd"] = variants["fused"]["fused_vit_attn_fwd"]
+    launches["flash_packed_fwd"] = variants["packed"]["flash_packed_fwd"]
+    launches["fullattn_ablate_fwd"] = ablation["fullattn_ablate_fwd"]
 
-    replaces = {
-        "flash_varlen_fwd": "visionselector_tpu/kernels/attention.py:203",
-        "diag_attn_fwd": "visionselector_tpu/kernels/attention.py:681",
-        "decode_blocked_fwd": "visionselector_tpu/kernels/attention.py:1085",
-    }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SRC + name + ".cu",
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SRC + KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name],
          **{k: res[k] for k in keys}}
         for name, res in kernels.items()
     ]}

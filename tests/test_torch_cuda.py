@@ -268,3 +268,169 @@ def test_tiny_batcher_runs_the_decode_kernel(dev, kv_quant):
     assert A.DECODE_LAUNCHES - n0 == cfg.text.num_hidden_layers * steps
     assert all(len(r.tokens) == 9 and max(r.tokens) < cfg.text.vocab_size
                for r in res)
+
+
+def _fused_inputs(gen, s, h, d):
+    """A qkv slab, bf16 cos/sin of random (h, w) positions, and window- and
+    full-attention segments with a padding tail."""
+    from visionselector_tpu_torch.models.qwen25vl.vit import (
+        vision_rotary_cos_sin,
+    )
+
+    qkv = _rnd(gen, s, 3 * h * d)
+    pos = torch.randint(0, 40, (s, 2), generator=gen, device="cuda")
+    cos, sin = (x.bfloat16() for x in vision_rotary_cos_sin(pos, d))
+    wseg = np.zeros(s, np.int32)
+    r, i = 0, 1
+    while r + 64 <= s - 20:
+        n = 16 + (i * 23) % 49
+        wseg[r:r + n] = i
+        r, i = r + n, i + 1
+    return qkv, cos, sin, {"window": wseg, "full": _seg(s, "cpu")[0].numpy()}
+
+
+@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("kind", ["window", "full"])
+@pytest.mark.parametrize("s", [256, 333])
+def test_fused_matches_plain(dev, d, kind, s):
+    """K6 against fused_plain: window and full bounds, a ragged last tile
+    (333 rows) and padding rows."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    h = 4
+    qkv, cos, sin, segs = _fused_inputs(gen, s, h, d)
+    seg_np = segs[kind]
+    seg = torch.as_tensor(seg_np, device=dev)
+    bounds = A.segment_block_bounds(seg_np, 64, 64) if s % 64 == 0 else None
+    n0 = F_.FUSED_LAUNCHES
+    got = F_.fused_vit_attention(qkv, seg, cos, sin, bounds, h, d)
+    assert F_.FUSED_LAUNCHES - n0 == 1
+    want = F_.fused_plain(qkv, seg, cos, sin, bounds, h, d)
+    assert _err(got.view(s, h, d), want.view(s, h, d)) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+
+
+def test_fused_planted_faults_fail(dev):
+    """A kv tile dropped from the bounds, and k rotated with the next
+    row's cos/sin, both fail the tolerance."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+    from visionselector_tpu_torch.models.qwen25vl.vit import apply_rotary
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    s, h, d = 512, 4, 80
+    qkv, cos, sin, segs = _fused_inputs(gen, s, h, d)
+    seg = torch.as_tensor(segs["full"], device=dev)
+    bounds = torch.as_tensor(A.segment_block_bounds(segs["full"], 64, 64),
+                             device=dev)
+    got = F_.fused_vit_attention(qkv, seg, cos, sin, bounds, h, d)
+    want = F_.fused_plain(qkv, seg, cos, sin, bounds, h, d)
+    assert _err(got.view(s, h, d), want.view(s, h, d)) <= ULP_LIMIT
+    live = (bounds[:, 1] > bounds[:, 0]).int()
+    bad = bounds - live[:, None] * torch.tensor([0, 1], device=dev)
+    cut = F_.fused_vit_attention(qkv, seg, cos, sin, bad, h, d)
+    assert _err(cut.view(s, h, d), want.view(s, h, d)) > ULP_LIMIT
+    q, k, v = qkv.view(s, 3, h, d).unbind(1)
+    q, _ = apply_rotary(q, q, cos, sin)
+    _, k = apply_rotary(k, k, cos.roll(-1, 0), sin.roll(-1, 0))
+    shifted = A.flash_plain(q[None], k[None], v[None], seg[None], seg[None],
+                            kv_bounds=bounds)[0]
+    assert _err(got.view(s, h, d), shifted) > ULP_LIMIT
+    with pytest.raises(ValueError, match="width"):
+        F_.fused_vit_attention(qkv[:, :-8], seg, cos, sin, bounds, h, d)
+
+
+@pytest.mark.parametrize("real_d", [16, 80])
+@pytest.mark.parametrize("causal", [False, True])
+def test_packed_matches_plain_and_keeps_pad_zero(dev, real_d, causal):
+    """K3: heads of real_d zero-padded to 128 in [1, S, H*128] slabs (q, k,
+    v column slices of one slab), GQA 8/2, the real scale; pad columns of
+    the output exactly 0; noise in the pad columns of q and k fails the
+    tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(real_d + causal)
+    s, h, h_kv, dp = 333, 8, 2, 128
+    slab = torch.zeros(1, s, (h + 2 * h_kv), dp, device=dev,
+                       dtype=torch.bfloat16)
+    slab[..., :real_d] = _rnd(gen, 1, s, h + 2 * h_kv, real_d)
+    q, k, v = slab.flatten(2).split([h * dp, h_kv * dp, h_kv * dp], -1)
+    seg = _seg(s, dev)
+    kw = dict(causal=causal, scale=real_d**-0.5)
+    p0, f0 = A.PACKED_LAUNCHES, A.FLASH_LAUNCHES
+    got = A.flash_packed_fwd(q, k, v, seg, seg, h, h_kv, dp, **kw)
+    assert (A.PACKED_LAUNCHES - p0, A.FLASH_LAUNCHES - f0) == (1, 0)
+    want = A.flash_packed_plain(q, k, v, seg, seg, h, h_kv, dp, **kw)
+    got, want = got.view(1, s, h, dp), want.view(1, s, h, dp)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[..., real_d:] == 0).all() and (got[:, seg[0] == 0] == 0).all()
+    noisy = slab.clone()
+    noisy[..., real_d:] = _rnd(gen, 1, s, h + 2 * h_kv, dp - real_d)
+    nq, nk, _ = noisy.flatten(2).split([h * dp, h_kv * dp, h_kv * dp], -1)
+    bad = A.flash_packed_fwd(nq, nk, v, seg, seg, h, h_kv, dp, **kw)
+    assert _err(bad.view(1, s, h, dp), want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("do_mask", [True, False])
+@pytest.mark.parametrize("do_exp", [True, False])
+def test_ablate_matches_plain(dev, d, do_mask, do_exp):
+    """K7: the four compile-time variants, every tile visited, padding
+    rows; S must be a multiple of 64."""
+    gen = torch.Generator(device=dev).manual_seed(d + 2 * do_mask + do_exp)
+    s, h = 320, 4
+    q, k, v = (_rnd(gen, 1, s, h, d) * 0.3 for _ in range(3))
+    seg = torch.ones(1, s, dtype=torch.int32, device=dev)
+    seg[:, -40:] = 0
+    n0 = A.ABLATE_LAUNCHES
+    got = A.fullattn_ablate(q, k, v, seg, do_mask, do_exp)
+    assert A.ABLATE_LAUNCHES - n0 == 1
+    want = A.ablate_plain(q, k, v, seg, do_mask, do_exp)
+    assert _err(got, want) <= ULP_LIMIT
+    if do_mask:
+        assert (got[:, -40:] == 0).all()
+    with pytest.raises(ValueError, match="multiple"):
+        A.fullattn_ablate(q[:, :300], k[:, :300], v[:, :300], seg[:, :300])
+
+
+@pytest.mark.parametrize("variant", ["fused", "packed"])
+def test_tiny_engine_variants_launch_counts(dev, variant):
+    """The tiny engine under each attention configuration: per image
+    prefill, fused = 4 fused + 2 flash (decoder) and no diag; packed = 2
+    diag + 2 packed (the ViT full layers; the tiny decoder's head dim 24
+    keeps the flash entry) ; first-token logits within 0.1 of the plain
+    path's range. Padded weights raise."""
+    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+    from visionselector_tpu_torch.models.qwen25vl.model import (
+        QwenVLEngine,
+        QwenVLParams,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        init_params,
+        pad_vit_head_dim,
+    )
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    cfg = qwen25vl_tiny()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    rng = np.random.RandomState(0)
+    img = (rng.rand(224, 280, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9)
+    ids = expand_vision_tokens([100, 200], [300, 400], grid)
+    eng = QwenVLEngine(cfg, params, device=dev, attn_variant=variant)
+    counts = lambda: (F_.FUSED_LAUNCHES, A.FLASH_LAUNCHES,  # noqa: E731
+                      A.DIAG_LAUNCHES, A.PACKED_LAUNCHES)
+    c0 = counts()
+    a = eng.generate(ids, px, grid, max_new_tokens=1)
+    got = tuple(x - y for x, y in zip(counts(), c0))
+    assert got == {"fused": (4, 2, 0, 0), "packed": (0, 2, 2, 2)}[variant]
+    b = QwenVLEngine(cfg, params, device=dev, attn_variant=variant,
+                     attn_impl="plain").generate(ids, px, grid,
+                                                 max_new_tokens=1)
+    scale = b.logits.abs().max().item()
+    assert (a.logits - b.logits).abs().max().item() <= 0.1 * scale
+    padded = QwenVLParams(pad_vit_head_dim(params.visual, cfg.vision),
+                          params.lm, params.scorer)
+    with pytest.raises(ValueError, match="unpadded"):
+        QwenVLEngine(cfg, padded, device=dev, attn_variant=variant)

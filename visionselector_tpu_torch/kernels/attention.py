@@ -13,7 +13,11 @@ version of the same function beside it:
 - ``flash_varlen_fwd`` / ``flash_plain``: flash attention with per-q-tile
   kv-tile bounds, optional causal mask and the ``kv_iters`` truncation
   contract. Replaces the TPU kernels ``_flash_pallas`` and
-  ``_flash_pallas_streamed``.
+  ``_flash_pallas_streamed``. ``flash_packed_fwd`` / ``flash_packed_plain``
+  run the same kernel on [B, S, H * dp] slabs through strided views
+  (replaces ``_flash_pallas_packed``), and ``fullattn_ablate`` /
+  ``ablate_plain`` run its compile-time variants without bounds, mask or
+  exp (replaces the TPU bench kernel of ``tools/bench_fullattn_ablate.py``).
 - ``diag_attn_fwd`` / ``diag_plain``: block-diagonal attention for the
   window-aligned ViT layout. Replaces ``attention_diag``'s ``_diag_kernel``.
 - ``decode_blocked_fwd`` / ``decode_blocked_plain``: GQA decode attention
@@ -23,7 +27,8 @@ version of the same function beside it:
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
-/ ``DECODE_LAUNCHES`` count kernel launches, so a run can show that it went
+/ ``DECODE_LAUNCHES`` / ``PACKED_LAUNCHES`` / ``ABLATE_LAUNCHES`` count
+kernel launches, each wrapper its own, so a run can show that it went
 through the kernels. ``impl="plain"`` asks for the plain path on any device
 (used to compare the whole model against the kernels on the card); for
 decode that is the dense path over the whole cache, the reference's XLA
@@ -58,6 +63,8 @@ _PLAIN_Q_CHUNK = 1024
 FLASH_LAUNCHES = 0
 DIAG_LAUNCHES = 0
 DECODE_LAUNCHES = 0
+PACKED_LAUNCHES = 0
+ABLATE_LAUNCHES = 0
 
 
 def segment_block_bounds(seg_ids, block_q: int, block_k: int) -> np.ndarray:
@@ -254,26 +261,19 @@ def _on_cpu(*tensors) -> bool:
     raise ValueError(f"attention inputs on unsupported devices {devices}")
 
 
-def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
-                     kv_bounds=None, kv_iters=None):
-    """Flash attention: the CUDA kernel for CUDA tensors, ``flash_plain``
-    for CPU tensors. Shapes as ``flash_plain``; on CUDA q/k/v are bf16 with
-    D in KERNEL_HEAD_DIMS, kv_bounds (if given) has one row per 64-row q
-    tile.
-    """
-    global FLASH_LAUNCHES
-    if _on_cpu(q, k, v, q_seg, kv_seg):
-        return flash_plain(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
-                           kv_iters)
+def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
+                  kv_iters):
+    """Check the inputs of a flash launch on CUDA tensors and launch the
+    kernel (the caller counts it). Returns the [B, Sq, H, D] output."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
-    _check_cuda("flash_varlen_fwd", q, k, v, q_seg, kv_seg)
+    _check_cuda(name, q, k, v, q_seg, kv_seg)
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_varlen_fwd: q, k, v dtypes differ")
+        raise ValueError(f"{name}: q, k, v dtypes differ")
     if (k.shape[0] != b or tuple(v.shape) != tuple(k.shape)
             or k.shape[3] != d or h % h_kv):
         raise ValueError(
-            f"flash_varlen_fwd: q {tuple(q.shape)} / k {tuple(k.shape)} / "
+            f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)} / "
             f"v {tuple(v.shape)} do not match")
     if scale is None:
         scale = d**-0.5
@@ -283,8 +283,8 @@ def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
         kv_bounds = torch.as_tensor(kv_bounds, device=q.device)
         if tuple(kv_bounds.shape) != (nq, 2):
             raise ValueError(
-                f"flash_varlen_fwd: kv_bounds shape {tuple(kv_bounds.shape)}"
-                f" != ({nq}, 2): bounds must be built at the kernel's "
+                f"{name}: kv_bounds shape {tuple(kv_bounds.shape)} != "
+                f"({nq}, 2): bounds must be built at the kernel's "
                 f"{FLASH_BLOCK}-row tile")
         kv_bounds = kv_bounds.to(torch.int32).contiguous()
         bounds_ptr = kv_bounds.data_ptr()
@@ -301,8 +301,135 @@ def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"flash_varlen_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
+                     kv_bounds=None, kv_iters=None):
+    """Flash attention: the CUDA kernel for CUDA tensors, ``flash_plain``
+    for CPU tensors. Shapes as ``flash_plain``; on CUDA q/k/v are bf16 with
+    D in KERNEL_HEAD_DIMS, kv_bounds (if given) has one row per 64-row q
+    tile.
+    """
+    global FLASH_LAUNCHES
+    if _on_cpu(q, k, v, q_seg, kv_seg):
+        return flash_plain(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
+                           kv_iters)
+    out = _launch_flash("flash_varlen_fwd", q, k, v, q_seg, kv_seg, causal,
+                        scale, kv_bounds, kv_iters)
     FLASH_LAUNCHES += 1
+    return out
+
+
+def _heads(x: torch.Tensor, heads: int, dp: int, name: str) -> torch.Tensor:
+    """[B, S, heads * dp] slab -> its [B, S, heads, dp] view (no copy: the
+    slab's last dim must be contiguous, as a projection output or a column
+    slice of one is)."""
+    if x.shape[-1] != heads * dp:
+        raise ValueError(f"{name}: last dim {x.shape[-1]} != {heads} heads "
+                         f"x {dp}")
+    return x.unflatten(-1, (heads, dp))
+
+
+def flash_packed_plain(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp,
+                       causal=False, scale=None, kv_bounds=None):
+    """Plain PyTorch version of the packed entry point: ``flash_plain`` on
+    the [B, S, H, dp] views of the [B, S, H * dp] slabs; returns
+    [B, Sq, H * dp]."""
+    return flash_plain(
+        _heads(q, num_heads, dp, "q"), _heads(k, num_kv_heads, dp, "k"),
+        _heads(v, num_kv_heads, dp, "v"), q_seg, kv_seg, causal, scale,
+        kv_bounds).flatten(2)
+
+
+def flash_packed_fwd(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp,
+                     causal=False, scale=None, kv_bounds=None):
+    """Packed-head flash attention (the port of ``_flash_pallas_packed``).
+
+    q: [B, Sq, H * dp]; k, v: [B, Sk, H_kv * dp] (GQA unexpanded), each a
+    slab or a column slice of one. The flash kernel reads the [B, S, H, dp]
+    views through strides: no transpose and no copy. For zero-padded heads
+    (the ViT's 80 padded to dp = 128 in the weights) pass the real
+    ``scale`` (80 ** -0.5); pad columns of q, k and v are zero, so they add
+    nothing to the logits and the output's pad columns come out exactly 0.
+    CPU tensors take ``flash_packed_plain``. Returns [B, Sq, H * dp];
+    counted in PACKED_LAUNCHES (not FLASH_LAUNCHES).
+    """
+    global PACKED_LAUNCHES
+    if _on_cpu(q, k, v, q_seg, kv_seg):
+        return flash_packed_plain(q, k, v, q_seg, kv_seg, num_heads,
+                                  num_kv_heads, dp, causal, scale, kv_bounds)
+    out = _launch_flash(
+        "flash_packed_fwd", _heads(q, num_heads, dp, "q"),
+        _heads(k, num_kv_heads, dp, "k"), _heads(v, num_kv_heads, dp, "v"),
+        q_seg, kv_seg, causal, scale, kv_bounds, None)
+    PACKED_LAUNCHES += 1
+    return out.flatten(2)
+
+
+def ablate_plain(q, k, v, seg, do_mask=True, do_exp=True, scale=None):
+    """Plain PyTorch version of the full-attention ablation kernel.
+
+    q, k, v: [B, S, H, D]; seg: [B, S]. Every key is visited (no bounds).
+    ``do_mask=False`` drops the segment mask, padding included;
+    ``do_exp=False`` takes p = the (masked) logits * scale in place of the
+    softmax and divides by nothing. With both on it is ``flash_plain``
+    without bounds. Returns [B, S, H, D] in q's dtype.
+    """
+    b, s, h, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    kf = k.float()
+    out = torch.empty(b, s, h, 1, d, dtype=torch.float32, device=q.device)
+    for s0 in range(0, s, _PLAIN_Q_CHUNK):
+        s1 = min(s, s0 + _PLAIN_Q_CHUNK)
+        qg = q[:, s0:s1].float().reshape(b, s1 - s0, h, 1, d)
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+        mask = (_seg_mask(seg[:, s0:s1], seg)[:, None, None] if do_mask
+                else torch.ones((), dtype=torch.bool, device=q.device))
+        if do_exp:
+            out[:, s0:s1] = _masked_softmax_pv(logits, mask, v)
+        else:
+            p = torch.where(mask, logits, 0.0).to(v.dtype).float()
+            out[:, s0:s1] = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def fullattn_ablate(q, k, v, seg, do_mask=True, do_exp=True, scale=None):
+    """The full-attention ablation (port of the TPU bench kernel in
+    ``tools/bench_fullattn_ablate.py``): the flash kernel's grid, tiles and
+    loads with no bounds and the mask and/or the exp compiled out
+    (``ablate_plain`` for the function). CUDA tensors launch the kernel
+    (bf16, D in KERNEL_HEAD_DIMS, S a multiple of 64 so no key lies past
+    the sequence); CPU tensors take ``ablate_plain``."""
+    global ABLATE_LAUNCHES
+    if _on_cpu(q, k, v, seg):
+        return ablate_plain(q, k, v, seg, do_mask, do_exp, scale)
+    b, s, h, d = q.shape
+    _check_cuda("fullattn_ablate", q, k, v, seg)
+    if (tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape)
+            or k.dtype != q.dtype or v.dtype != q.dtype):
+        raise ValueError("fullattn_ablate: q, k, v shapes or dtypes differ")
+    if s % FLASH_BLOCK:
+        raise ValueError(f"fullattn_ablate: S={s} not a multiple of "
+                         f"{FLASH_BLOCK}")
+    if scale is None:
+        scale = d**-0.5
+    seg = _seg_i32(seg, (b, s), "seg")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    from visionselector_tpu_torch.kernels import _build
+
+    err = _build.load().vst_fullattn_ablate_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        seg.data_ptr(), *_strides(q, "q"), *_strides(k, "k"),
+        *_strides(v, "v"), b, s, h, d, int(bool(do_mask)),
+        int(bool(do_exp)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"fullattn_ablate launch failed: CUDA error {err}")
+    ABLATE_LAUNCHES += 1
     return out
 
 
@@ -358,6 +485,20 @@ def attention(q, k, v, q_seg, kv_seg, causal=False, scale=None, impl=None,
         raise ValueError(f"unknown attention impl {impl!r}")
     return flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
                             kv_iters)
+
+
+def attention_packed(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp,
+                     causal=False, scale=None, kv_bounds=None, impl=None):
+    """Segment-masked attention over [B, S, H * dp] slabs
+    (``flash_packed_fwd``); ``impl="plain"`` runs ``flash_packed_plain`` on
+    any device."""
+    if impl == "plain":
+        return flash_packed_plain(q, k, v, q_seg, kv_seg, num_heads,
+                                  num_kv_heads, dp, causal, scale, kv_bounds)
+    if impl is not None:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return flash_packed_fwd(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads,
+                            dp, causal, scale, kv_bounds)
 
 
 def attention_diag(q, k, v, seg, scale=None, block_q=None, impl=None):

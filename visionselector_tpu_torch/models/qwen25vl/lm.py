@@ -8,7 +8,9 @@ yet):
   axis its ``mrope_section`` chunk names, applied in fp32,
 - prefill: segment-masked causal flash attention (the CUDA kernel on the
   card) over the compacted valid-prefix sequence; GQA reads kv head
-  h // n_rep inside the kernel, so kv is never expanded,
+  h // n_rep inside the kernel, so kv is never expanded; under
+  ``attn_variant="packed"`` a head dim that is a multiple of 128 takes the
+  packed entry point on the q/k/v slabs (the same kernel),
 - decode: length-aware attention against the KV cache (the decode kernel
   on the card), which is written in place; the cache may be bf16 / fp32 or
   int8 with per-row scales (``QuantKVCache``, serving slot pools).
@@ -27,6 +29,7 @@ from visionselector_tpu_torch.core.config import TextConfig
 from visionselector_tpu_torch.core.params import add_params, init_random_
 from visionselector_tpu_torch.kernels.attention import (
     attention,
+    attention_packed,
     decode_attention,
 )
 from visionselector_tpu_torch.models.qwen25vl.vit import rms_norm, rotate_half
@@ -165,7 +168,7 @@ def _mlp(x, p: DecoderLayer):
 
 @torch.no_grad()
 def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
-               attn_impl: str | None = None
+               attn_impl: str | None = None, attn_variant: str | None = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence forward.
 
@@ -174,6 +177,10 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
             via seg_ids == 0).
         position_ids: [3, B, T] M-RoPE ids.
         seg_ids: [B, T] int32; 0 = padding.
+        attn_variant: "packed" routes attention through the packed entry
+            point on the [B, T, H * Dh] slabs when Dh is a multiple of 128
+            (the reference's rule); any other value, or another Dh, runs
+            the flash entry point.
     Returns:
         (final hidden [B, T, D] post-norm, (k_layers, v_layers) each
          [n_layers, B, T, H_kv, Dh] rotated keys / values for the cache).
@@ -182,13 +189,20 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
     cos, sin = mrope_cos_sin(position_ids, cfg)
     x = inputs_embeds
     b, t = x.shape[:2]
+    packed = attn_variant == "packed" and cfg.head_dim % 128 == 0
     ks, vs = [], []
     for p in lm.layers:
         h = rms_norm(x, p.input_ln_scale, cfg.rms_norm_eps)
         q, k, v = _qkv(h, p, cfg)
         q, k = _apply_mrope(q, k, cos, sin)
-        attn = attention(q, k, v, seg_ids, seg_ids, causal=True,
-                         impl=attn_impl)
+        if packed:
+            attn = attention_packed(
+                q.flatten(2), k.flatten(2), v.flatten(2), seg_ids, seg_ids,
+                cfg.num_attention_heads, cfg.num_key_value_heads,
+                cfg.head_dim, causal=True, impl=attn_impl)
+        else:
+            attn = attention(q, k, v, seg_ids, seg_ids, causal=True,
+                             impl=attn_impl)
         x = x + _dense(attn.reshape(b, t, -1), p, "o_kernel")
         h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
         x = x + _mlp(h, p)

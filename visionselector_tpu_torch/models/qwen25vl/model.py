@@ -84,10 +84,13 @@ def init_params(cfg: VLConfig, generator: torch.Generator, device,
 def _compact_stage(params: QwenVLParams, k_max: int,
                    use_selector: bool, vb: dict, num_merged: int, k: int,
                    input_ids, image_positions, text_positions,
-                   num_text: int, position_ids_orig, attn_impl=None):
-    """ViT -> selection -> compaction (no decoder layers)."""
-    vision_embeds = vit_mod.vit_forward(params.visual, attn_impl=attn_impl,
-                                        **vb)
+                   num_text: int, position_ids_orig, attn_impl=None,
+                   attn_variant=None):
+    """ViT -> selection -> compaction (no decoder layers). Under "packed"
+    the ViT's padded heads pick the packed layout themselves."""
+    vision_embeds = vit_mod.vit_forward(
+        params.visual, attn_impl=attn_impl,
+        attn_variant="fused" if attn_variant == "fused" else None, **vb)
     return _select_and_compact(
         params, k_max, use_selector, vision_embeds, num_merged, k,
         input_ids, image_positions, text_positions, num_text,
@@ -123,16 +126,16 @@ def _select_and_compact(params: QwenVLParams, k_max: int,
 def _prefill_core(params: QwenVLParams, k_max: int,
                   use_selector: bool, vb: dict, num_merged: int, k: int,
                   input_ids, image_positions, text_positions, num_text: int,
-                  position_ids_orig, attn_impl=None):
+                  position_ids_orig, attn_impl=None, attn_variant=None):
     """ViT -> selection -> compaction -> LM. Returns (hidden, comp,
     selection, (k_layers, v_layers))."""
     comp, selection = _compact_stage(
         params, k_max, use_selector, vb, num_merged, k, input_ids,
         image_positions, text_positions, num_text, position_ids_orig,
-        attn_impl)
+        attn_impl, attn_variant)
     hidden, kv = lm_mod.lm_prefill(
         params.lm, comp.embeds[None], comp.position_ids[:, None, :],
-        comp.seg_ids[None], attn_impl=attn_impl)
+        comp.seg_ids[None], attn_impl=attn_impl, attn_variant=attn_variant)
     return hidden, comp, selection, kv
 
 
@@ -140,13 +143,13 @@ def _prefill_core(params: QwenVLParams, k_max: int,
 def _prefill(params: QwenVLParams, k_max: int,
              use_selector: bool, vb: dict, num_merged: int, k: int,
              input_ids, image_positions, text_positions, num_text: int,
-             position_ids_orig, attn_impl=None):
+             position_ids_orig, attn_impl=None, attn_variant=None):
     """Returns (next_token, selection indices, valid, scores, compacted
     valid_len, (k_layers, v_layers), logits row)."""
     hidden, comp, selection, kv = _prefill_core(
         params, k_max, use_selector, vb, num_merged, k, input_ids,
         image_positions, text_positions, num_text, position_ids_orig,
-        attn_impl)
+        attn_impl, attn_variant)
     logits = lm_mod.lm_head(params.lm, hidden[0, comp.valid_len - 1])
     next_token = torch.argmax(logits, dim=-1)
     return (next_token, selection.indices, selection.valid, selection.scores,
@@ -155,13 +158,14 @@ def _prefill(params: QwenVLParams, k_max: int,
 
 @torch.no_grad()
 def _prefill_text(params: QwenVLParams, input_ids, position_ids, seg_ids,
-                  valid_len: int, attn_impl=None):
+                  valid_len: int, attn_impl=None, attn_variant=None):
     """Causal prefill with no vision branch (text-only requests). Returns
     (next_token, (k_layers, v_layers), logits row)."""
     embeds = lm_mod.embed_tokens(params.lm, input_ids)
     hidden, kv = lm_mod.lm_prefill(params.lm, embeds[None],
                                    position_ids[:, None, :], seg_ids[None],
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl,
+                                   attn_variant=attn_variant)
     logits = lm_mod.lm_head(params.lm, hidden[0, valid_len - 1])
     return torch.argmax(logits, dim=-1), kv, logits
 
@@ -376,7 +380,7 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
                        seed: int = 0, text_buckets=TEXT_BUCKETS,
                        _defer_decode: bool = False, top_k: int = 0,
                        repetition_penalty: float = 1.0, *, device,
-                       attn_impl=None):
+                       attn_impl=None, attn_variant=None):
     """Text-only generation: plain causal prefill (1-D rope on all three
     M-RoPE axes) + decode, no vision branch."""
     input_ids = np.asarray(input_ids).reshape(-1)
@@ -392,7 +396,7 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
     next_token, (k_l, v_l), logits = _prefill_text(
         params, torch.as_tensor(ids_padded, device=device),
         torch.as_tensor(pos, device=device),
-        torch.as_tensor(seg, device=device), t_orig, attn_impl)
+        torch.as_tensor(seg, device=device), t_orig, attn_impl, attn_variant)
     first = int(next_token)  # waits for the prefill
     t_prefill = time.perf_counter() - t_start
     result = GenerationResult(
@@ -416,16 +420,45 @@ class QwenVLEngine:
     the plain PyTorch paths (to compare the whole model against the
     kernels on the card); the default runs the CUDA kernels on a CUDA
     device.
+
+    ``attn_variant`` picks the attention configuration of the prefill (the
+    reference's ``VST_FUSED_ATTN`` / ``VST_PACKED_ATTN``, which are not
+    read): None (diag kernel for ViT window layers, flash for ViT full
+    layers and LM prefill); "fused" (every ViT layer through the fused
+    rotary + attention kernel on the qkv slab; LM prefill as None);
+    "packed" (the ViT's heads zero-padded to 128 in a copy of its weights,
+    made once here; window layers run the diag kernel at head dim 128, the
+    ViT full layers and an LM prefill with a head dim that is a multiple of
+    128 the packed flash entry point). Either takes the unpadded weights
+    (ValueError otherwise); with ``attn_impl="plain"`` it runs its plain
+    versions. Decode is the same under all three.
     """
 
     def __init__(self, cfg: VLConfig, params: QwenVLParams,
                  use_selector: bool = True, budget: float = 0.2,
                  vision_buckets=VISION_BUCKETS, text_buckets=TEXT_BUCKETS,
-                 strategy=None, *, device, attn_impl: Optional[str] = None):
+                 strategy=None, *, device, attn_impl: Optional[str] = None,
+                 attn_variant: Optional[str] = None):
         if strategy is not None:
             raise NotImplementedError(
                 "training-free strategies (and FastV/DART two-stage "
                 "prefill) are not ported yet")
+        if attn_variant not in (None, "fused", "packed"):
+            raise ValueError(f"attn_variant must be None, 'fused' or "
+                             f"'packed', got {attn_variant!r}")
+        dp = vit_mod.head_width(params.visual)
+        if attn_variant is not None and dp != cfg.vision.head_dim:
+            raise ValueError(
+                f"attn_variant={attn_variant!r} takes the unpadded ViT "
+                f"weights; these hold heads padded to {dp} (head dim "
+                f"{cfg.vision.head_dim})")
+        if attn_variant == "packed" and cfg.vision.head_dim % 128:
+            from visionselector_tpu_torch.models.qwen25vl.weights import (
+                pad_vit_head_dim,
+            )
+
+            params = QwenVLParams(pad_vit_head_dim(params.visual, cfg.vision),
+                                  params.lm, params.scorer)
         self.cfg = cfg
         self.params = params
         self.use_selector = use_selector and params.scorer is not None
@@ -434,6 +467,7 @@ class QwenVLEngine:
         self.text_buckets = text_buckets
         self.device = torch.device(device)
         self.attn_impl = attn_impl
+        self.attn_variant = attn_variant
 
     def _prep_vision(self, input_ids, pixel_values, grid_thw):
         """Host-side prep, as the reference engine's: bucket choice,
@@ -573,7 +607,7 @@ class QwenVLEngine:
                 self.params, cfg, input_ids, max_new_tokens, eos_token_ids,
                 temperature, top_p, seed, self.text_buckets, _defer_decode,
                 top_k, repetition_penalty, device=dev,
-                attn_impl=self.attn_impl)
+                attn_impl=self.attn_impl, attn_variant=self.attn_variant)
         if grid_thw is None or len(np.asarray(grid_thw)) != 1:
             raise NotImplementedError("one image per request")
         t_start = time.perf_counter()
@@ -587,7 +621,7 @@ class QwenVLEngine:
             torch.as_tensor(p.image_pos_padded, device=dev),
             torch.as_tensor(p.text_pos_padded, device=dev), p.num_text,
             torch.as_tensor(p.position_ids, device=dev),
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, attn_variant=self.attn_variant,
         )
         first = int(next_token)  # waits for the prefill
         t_prefill = time.perf_counter() - t_start

@@ -9,7 +9,14 @@ Counterpart of ``visionselector_tpu.models.qwen25vl.vit``:
   applied with rotate-half in the activation dtype,
 - attention: window layers run the diag kernel on the window-aligned
   layout (the flash kernel with window bounds otherwise), full-attention
-  layers the flash kernel with per-image bounds.
+  layers the flash kernel with per-image bounds;
+- ``attn_variant="fused"``: every layer hands the raw qkv slab to the
+  fused rotary + attention kernel (window bounds for window layers, full
+  bounds for full layers);
+- heads zero-padded in the weights (``weights.pad_vit_head_dim``, d = 80
+  padded to dp = 128) select the packed layout by themselves: window
+  layers run the diag kernel at head dim dp, full layers the packed flash
+  entry point on the slab's column views, all with the real d ** -0.5.
 
 Shapes: S = padded patch count, L = S / merge_unit merged tokens.
 """
@@ -27,6 +34,12 @@ from visionselector_tpu_torch.core.params import add_params, init_random_
 from visionselector_tpu_torch.kernels.attention import (
     attention,
     attention_diag,
+    attention_packed,
+)
+from visionselector_tpu_torch.kernels.fused_vit_attn import (  # noqa: F401
+    apply_rotary,
+    fused_vit_attention,
+    rotate_half,  # also the decoder's (lm.py)
 )
 
 
@@ -38,17 +51,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (scale * (xf * torch.rsqrt(var + eps)).to(x.dtype)).to(x.dtype)
 
 
-def rotate_half(x: torch.Tensor) -> torch.Tensor:
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([-x2, x1], dim=-1)
-
-
-def apply_rotary(q, k, cos, sin):
-    """q, k: [S, H, D]; cos/sin: [S, D] fp32. The rotation runs in the
-    activation dtype (the decoder's M-RoPE runs in fp32)."""
-    cos = cos[:, None, :].to(q.dtype)
-    sin = sin[:, None, :].to(q.dtype)
-    return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+def apply_rotary_padded(q, k, cos, sin, real_d: int):
+    """Rotary for heads zero-padded in the weights: q, k [S, H, dp] with
+    dp > real_d; cos/sin [S, real_d]. Rotate-half pairs channel i with
+    i +- d/2 of the real d channels, written as a fixed channel permutation
+    and a signed sin so the padded tail stays zero (cos' = 1, sin' = 0
+    there); rounded where ``apply_rotary`` rounds."""
+    s, _, dp = q.shape
+    d, half = real_d, real_d // 2
+    dev = q.device
+    perm = torch.cat([torch.arange(half, d, device=dev),
+                      torch.arange(half, device=dev),
+                      torch.arange(d, dp, device=dev)])
+    cos_pad = F.pad(cos[:, :d], (0, dp - d), value=1.0)
+    sin_pad = torch.cat([-sin[:, :half], sin[:, half:d],
+                         sin.new_zeros(s, dp - d)], dim=-1)
+    cos_pad = cos_pad[:, None, :].to(q.dtype)
+    sin_pad = sin_pad[:, None, :].to(q.dtype)
+    return (q * cos_pad + q[..., perm] * sin_pad,
+            k * cos_pad + k[..., perm] * sin_pad)
 
 
 def vision_rotary_cos_sin(rot_pos_ids: torch.Tensor,
@@ -65,15 +86,18 @@ def vision_rotary_cos_sin(rot_pos_ids: torch.Tensor,
 
 
 class VisionBlock(nn.Module):
-    """One ViT block's weights (kernels ``[in, out]``)."""
+    """One ViT block's weights (kernels ``[in, out]``); ``dp`` is the
+    attention head width in the weights (the head dim, or a zero-padded
+    width, ``weights.pad_vit_head_dim``)."""
 
-    def __init__(self, cfg: VisionConfig, device, dtype):
+    def __init__(self, cfg: VisionConfig, device, dtype, dp=None):
         super().__init__()
         d, i = cfg.hidden_size, cfg.intermediate_size
+        hp = cfg.num_heads * (dp or cfg.head_dim)  # padded q/k/v width
         add_params(self, {
             "norm1_scale": (d,), "norm2_scale": (d,),
-            "qkv_kernel": (d, 3 * d), "qkv_bias": (3 * d,),
-            "proj_kernel": (d, d), "proj_bias": (d,),
+            "qkv_kernel": (d, 3 * hp), "qkv_bias": (3 * hp,),
+            "proj_kernel": (hp, d), "proj_bias": (d,),
             "gate_kernel": (d, i), "gate_bias": (i,),
             "up_kernel": (d, i), "up_bias": (i,),
             "down_kernel": (i, d), "down_bias": (d,),
@@ -81,16 +105,17 @@ class VisionBlock(nn.Module):
 
 
 class VisionTower(nn.Module):
-    """Patch embed, ``depth`` blocks and the patch merger."""
+    """Patch embed, ``depth`` blocks (heads ``dp`` wide in the weights,
+    default the head dim) and the patch merger."""
 
-    def __init__(self, cfg: VisionConfig, device, dtype):
+    def __init__(self, cfg: VisionConfig, device, dtype, dp=None):
         super().__init__()
         self.cfg = cfg
         d, m = cfg.hidden_size, cfg.spatial_merge_unit
         add_params(self, {"patch_embed_kernel": (cfg.patch_dim, d)},
                    device, dtype)
         self.blocks = nn.ModuleList(
-            VisionBlock(cfg, device, dtype) for _ in range(cfg.depth))
+            VisionBlock(cfg, device, dtype, dp) for _ in range(cfg.depth))
         add_params(self, {
             "merger_ln_scale": (d,),
             "merger_fc1_kernel": (m * d, m * d),
@@ -103,14 +128,33 @@ class VisionTower(nn.Module):
         return vit_forward(self, *args, **kwargs)
 
 
-def _block(x, p: VisionBlock, cos, sin, cfg: VisionConfig, attn_fn):
-    """One ViT block: pre-RMSNorm attention + pre-RMSNorm SwiGLU MLP."""
+def head_width(tower: VisionTower) -> int:
+    """The attention head width in the weights: the head dim, or the
+    zero-padded dp of ``weights.pad_vit_head_dim``."""
+    return tower.blocks[0].qkv_kernel.shape[-1] // (3 * tower.cfg.num_heads)
+
+
+def _block(x, p: VisionBlock, cos, sin, cfg: VisionConfig, attn_fn=None,
+           fused_fn=None):
+    """One ViT block: pre-RMSNorm attention + pre-RMSNorm SwiGLU MLP.
+
+    ``fused_fn(qkv) -> [S, H*d]`` takes the raw qkv slab (rotary inside
+    the fused kernel); otherwise the slab is viewed as q, k, v [S, H, dp]
+    (dp detected from the qkv kernel: padded heads get the padded rotary)
+    and ``attn_fn(q, k, v)`` gets them as [1, S, H, dp]."""
     h = rms_norm(x, p.norm1_scale, cfg.rms_norm_eps)
     s = h.shape[0]
-    qkv = h @ p.qkv_kernel + p.qkv_bias  # [S, 3*H*D]
-    q, k, v = qkv.view(s, 3, cfg.num_heads, cfg.head_dim).unbind(1)
-    q, k = apply_rotary(q, k, cos, sin)
-    attn = attn_fn(q[None], k[None], v[None])[0]  # v read through strides
+    dp = p.qkv_kernel.shape[-1] // (3 * cfg.num_heads)
+    qkv = h @ p.qkv_kernel + p.qkv_bias  # [S, 3*H*dp]
+    if fused_fn is not None:
+        attn = fused_fn(qkv)
+    else:
+        q, k, v = qkv.view(s, 3, cfg.num_heads, dp).unbind(1)
+        if dp == cfg.head_dim:
+            q, k = apply_rotary(q, k, cos, sin)
+        else:
+            q, k = apply_rotary_padded(q, k, cos, sin, cfg.head_dim)
+        attn = attn_fn(q[None], k[None], v[None])[0]  # v read through strides
     x = x + attn.reshape(s, -1) @ p.proj_kernel + p.proj_bias
     h = rms_norm(x, p.norm2_scale, cfg.rms_norm_eps)
     gate = h @ p.gate_kernel + p.gate_bias
@@ -149,6 +193,7 @@ def vit_forward(
     window_kv_iters: int = 0,
     full_kv_iters: int = 0,
     attn_impl: str | None = None,
+    attn_variant: str | None = None,
 ) -> torch.Tensor:
     """Vision tower forward.
 
@@ -161,12 +206,20 @@ def vit_forward(
             ranges of the flash kernel (``build_vision_batch``).
         window_diag: the batch uses the window-aligned layout; window layers
             then run the block-diagonal kernel.
-        attn_impl: None (kernels on CUDA tensors) or "plain".
+        attn_impl: None (kernels on CUDA tensors) or "plain" (each kernel's
+            plain version).
+        attn_variant: None, or "fused": every layer runs the fused rotary +
+            attention kernel on the qkv slab (heads padded in the weights
+            do not fit it: ValueError). Padded heads select the packed
+            layout by themselves.
     Returns:
         merged hidden states [L, out_hidden] in ORIGINAL (unpermuted) order.
     """
+    if attn_variant not in (None, "fused"):
+        raise ValueError(f"vit_forward: attn_variant must be None or "
+                         f"'fused', got {attn_variant!r}")
     cfg = tower.cfg
-    d = cfg.head_dim
+    d, dp, heads = cfg.head_dim, head_width(tower), cfg.num_heads
     x = vit_embed(tower, pixel_values)
     cos, sin = vision_rotary_cos_sin(rot_pos_ids, d)
     wseg, fseg = window_seg_ids[None], full_seg_ids[None]
@@ -184,13 +237,33 @@ def vit_forward(
                          kv_iters=window_kv_iters or None)
 
     def full_attn(q, k, v):
+        if dp != d:  # padded heads: the packed entry on [1, S, H*dp] views
+            return attention_packed(
+                q.flatten(2), k.flatten(2), v.flatten(2), fseg, fseg, heads,
+                heads, dp, scale=d**-0.5, kv_bounds=full_kv_bounds,
+                impl=attn_impl).unflatten(-1, (heads, dp))
         return attention(q, k, v, fseg, fseg, scale=d**-0.5, impl=attn_impl,
                          kv_bounds=full_kv_bounds,
                          kv_iters=full_kv_iters or None)
 
+    fns = {False: dict(attn_fn=window_attn), True: dict(attn_fn=full_attn)}
+    if attn_variant == "fused":
+        if dp != d:
+            raise ValueError(
+                f"vit_forward: the fused kernel takes unpadded heads, the "
+                f"weights hold heads padded to {dp} (head dim {d})")
+        cs = cos.to(x.dtype), sin.to(x.dtype)  # cast once for all layers
+
+        def fused(seg, bounds):
+            return dict(fused_fn=lambda qkv: fused_vit_attention(
+                qkv, seg, *cs, bounds, heads, d, scale=d**-0.5,
+                impl=attn_impl))
+
+        fns = {False: fused(window_seg_ids, window_kv_bounds),
+               True: fused(full_seg_ids, full_kv_bounds)}
     for i, blk in enumerate(tower.blocks):
-        attn_fn = full_attn if i in cfg.fullatt_block_indexes else window_attn
-        x = _block(x, blk, cos, sin, cfg, attn_fn)
+        x = _block(x, blk, cos, sin, cfg,
+                   **fns[i in cfg.fullatt_block_indexes])
     return vit_merge(tower, x, reverse_index, cfg)
 
 
