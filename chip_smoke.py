@@ -16,7 +16,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    attention kernel on a ViT layer's qkv slab with full and window bounds,
    the packed entry point on the ViT full layer with heads padded from 80
    to 128 and on the LM prefill slabs, and the four full-attention
-   ablation variants at S = 5,632. Tolerance: every
+   ablation variants at S = 5,632. The fused kernel's two launches are
+   also timed apart (the rotary prologue and the wgmma main loop, each
+   beside its bound), its tile images must equal the plain prologue's bit
+   for bit, and the share of visited kv tiles that took the mask-free step
+   and both kernels' ptxas registers and shared memory are printed.
+   Tolerance: every
    output element within ULP_LIMIT bf16 ulps of the largest |value| of
    its row (one head of one query) in the plain output. Rounding both
    outputs to bf16 differs by at most 1 such ulp; the kernel rounds p to
@@ -24,7 +29,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    which adds up to about one more in the tails. Also checked: padding
    rows exactly 0. Planted faults (kv tiles dropped from the bounds, a key
    dropped from every window, a slot's last key or last live tile dropped
-   in decode, k rotated with the next row's cos/sin, noise in the pad
+   in decode, k rotated with the next row's cos/sin, a straddling tile
+   forced onto the fused kernel's mask-free step, noise in the pad
    columns of q and k, the ablation's mask switched off) must fail the
    same check, so it is shown to see an off-by-one tile at the main path's
    shapes.
@@ -78,6 +84,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -515,14 +522,40 @@ def check_decode(cfg, rnd, case, control):
                              f"live length: {times}")
 
 
+def ptxas_report(*parts) -> dict:
+    """{kernel: its ptxas lines (registers, barriers, static shared memory,
+    stack and spills)} for the kernels whose mangled name holds every one
+    of ``parts``, from the report the build saved beside the library."""
+    from visionselector_tpu_torch.kernels import _build
+
+    with open(_build.library_path() + ".ptxas.txt") as f:
+        log = f.read()
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if all(x in m.group(1) for x in parts) else None
+            if cur:
+                out[cur] = []
+        elif cur and ("Used" in line or "spill" in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def check_fused(cfg, vb, kit):
     """Phase 2, fused rotary + attention kernel (K6) on the 6,144 bucket:
     the qkv slab of a ViT layer with full bounds (main case) and window
-    bounds; planted faults: the last kv tile dropped from the full bounds,
-    and the plain version rotating k with the next row's cos/sin."""
+    bounds. For each: the prologue's tile images against the plain
+    prologue (bit for bit) and its tile_seg against the plain one; the
+    prologue and the main loop timed apart beside their bounds; the share
+    of visited kv tiles that took the mask-free step. Planted faults: the
+    last kv tile dropped from the full bounds, the plain version rotating k
+    with the next row's cos/sin, and a tile that holds padding rows marked
+    uniform so the main loop skips its mask."""
     import numpy as np
     import torch
 
+    from visionselector_tpu_torch.kernels import _build
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
     from visionselector_tpu_torch.models.qwen25vl.vit import (
@@ -547,6 +580,57 @@ def check_fused(cfg, vb, kit):
 
     # bytes: the slab and cos/sin read, out written (bf16), seg and bounds.
     nbytes = (3 * s * h * d + 2 * s * d + s * h * d) * 2 + s * 4 + s // 8
+    nt, dp = -(-s // TILE), F_.padded_head_dim(d)
+    img_bytes = 3 * h * nt * TILE * dp * 2  # the three tile images, bf16
+    lib = _build.load()
+    for kname, usage in ptxas_report("fused", f"ILi{d}E").items():
+        print(f"[build] {kname}: {usage}", flush=True)
+    print(f"[build] fused_attn_main_kernel<{d}> dynamic shared memory "
+          f"{lib.vst_fused_main_smem_bytes(d)} bytes; scratch "
+          f"{img_bytes} bytes of tile images", flush=True)
+
+    def phases(name, seg, seg_np, bounds, bounds_np):
+        """The prologue's images and tile_seg against the plain prologue,
+        bit for bit; the prologue and the main loop timed apart beside
+        their bounds (bounds already on the card: a host copy inside the
+        timed call would stall it); the share of visited kv tiles whose
+        step was mask-free."""
+        _, scratch = F_._launch(qkv, seg, cos, sin, bounds, h, d, d**-0.5)
+        torch.cuda.synchronize()
+        exact = [torch.equal(a, b) for a, b in zip(
+            scratch[:3], F_.prologue_plain(qkv, cos, sin, h, d))]
+        ts = scratch[3].cpu().numpy()
+        ts_exact = bool((ts == F_.tile_seg_plain(seg.cpu()).numpy()).all())
+        lo, hi = np.asarray(bounds_np)[:, 0], np.asarray(bounds_np)[:, 1]
+        visited = interior = 0
+        for iq in range(nt):
+            js = np.arange(lo[iq], hi[iq])
+            visited += len(js)
+            interior += int(((ts[js] == ts[iq]) & (ts[iq] >= 0)).sum())
+        print(f"[kernel] fused_vit_attn_fwd {name} prologue images equal "
+              f"the plain prologue's bit for bit (q, k, v^T): {exact}; "
+              f"tile_seg equal: {ts_exact}; visited kv tiles {visited}, "
+              f"mask-free {interior}, share {interior / visited!r}",
+              flush=True)
+        if not (all(exact) and ts_exact):
+            raise AssertionError(f"fused_vit_attn_fwd {name}: the prologue "
+                                 f"disagrees with prologue_plain")
+        times = {}
+        for step in (1, 2):
+            times[step] = cuda_ms(lambda st=step: F_._launch(
+                qkv, seg, cos, sin, bounds, h, d, d**-0.5, phases=st,
+                scratch=scratch))
+        # prologue: the slab, cos/sin and seg read, the images and
+        # tile_seg written; main: the images, seg, tile_seg and bounds
+        # read, out written, the flop of the valid pairs.
+        pro = bound_ms(3 * s * h * d * 2 + 2 * s * d * 2 + s * 4
+                       + img_bytes + nt * 4, 0)
+        main = bound_ms(img_bytes + s * h * d * 2 + s * 4 + nt * 12,
+                        kit["bounded_work"](seg_np, bounds_np, 0, h, d)[1])
+        print(f"[kernel] fused_vit_attn_fwd {name} prologue_ms="
+              f"{times[1]!r} bound_ms={pro[0]!r} ({pro[1]}) main_ms="
+              f"{times[2]!r} bound_ms={main[0]!r} ({main[1]})", flush=True)
+
     for name, seg_np, bounds_np in (
             ("vit_full", vb.full_seg_ids, vb.full_kv_bounds),
             ("vit_window", vb.window_seg_ids, vb.window_kv_bounds)):
@@ -581,6 +665,19 @@ def check_fused(cfg, vb, kit):
                                        d).view(1, s, h, d),
                 A.flash_plain(q, k, v, seg[None], seg[None],
                               kv_bounds=bounds))
+            # A tile of one image's rows and padding rows, marked uniform.
+            forced = F_.tile_seg_plain(seg)
+            mixed = [t for t in range(len(forced)) if forced[t] < 0
+                     and (seg[t * TILE:(t + 1) * TILE] > 0).any()]
+            t0 = mixed[0] * TILE
+            forced[mixed[0]] = int(seg[t0:t0 + TILE].max())
+            kit["control"](
+                "fused_vit_attn_fwd", f"vit_full tile {mixed[0]} (image and "
+                f"padding rows) forced onto the mask-free step",
+                F_._launch(qkv, seg, cos, sin, bounds, h, d, d**-0.5,
+                           tile_seg=forced)[0].view(1, s, h, d),
+                want.view(1, s, h, d))
+        phases(name, seg, seg_np, bounds, bounds_np)
 
 
 def check_packed(cfg, vb, qkv_vit, lengths, kit):

@@ -340,6 +340,97 @@ def test_fused_planted_faults_fail(dev):
         F_.fused_vit_attention(qkv[:, :-8], seg, cos, sin, bounds, h, d)
 
 
+def _tile_seg_np(seg):
+    """Numpy reference of the prologue's tile_seg: a 64-row tile's segment
+    id if all its rows (rows past S count as 0) share one id > 0, else -1."""
+    t = np.zeros(-(-len(seg) // 64) * 64, np.int32)
+    t[:len(seg)] = seg
+    t = t.reshape(-1, 64)
+    return np.where((t == t[:, :1]).all(1) & (t[:, 0] > 0), t[:, 0], -1)
+
+
+@pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
+def test_fused_prologue_images_bit_exact(dev, d):
+    """The rotary prologue's q, k and v^T tile images equal prologue_plain
+    (apply_rotary, packed) bit for bit, zero pads included; tile_seg
+    equals numpy; the main loop's output is within ULP_LIMIT."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+
+    gen = torch.Generator(device=dev).manual_seed(100 + d)
+    s, h = 333, 3
+    qkv, cos, sin, segs = _fused_inputs(gen, s, h, d)
+    seg = torch.as_tensor(segs["full"], device=dev)
+    out, scratch = F_._launch(qkv, seg, cos, sin, None, h, d, d**-0.5)
+    for got, want in zip(scratch[:3], F_.prologue_plain(qkv, cos, sin, h, d)):
+        assert got.shape == want.shape and torch.equal(got, want)
+    np.testing.assert_array_equal(scratch[3].cpu().numpy(),
+                                  _tile_seg_np(segs["full"]))
+    want = F_.fused_plain(qkv, seg, cos, sin, None, h, d)
+    assert _err(out.view(s, h, d), want.view(s, h, d)) <= ULP_LIMIT
+    assert (out[seg == 0] == 0).all()
+
+
+def _straddling(layout):
+    """(S, seg, bounds or None): segments that cross 64-row tiles."""
+    if layout == "windows40":  # 40-row windows, 32 padding rows
+        s = 512
+        seg = np.where(np.arange(s) < s - 32, 1 + np.arange(s) // 40, 0)
+    elif layout == "frames8":  # 8 frames of 60 rows, 32 padding rows
+        s = 512
+        seg = np.where(np.arange(s) < 480, 1 + np.arange(s) // 60, 0)
+    else:  # ragged S = 333: two images, the last 20 rows padding
+        s = 333
+        seg = np.where(np.arange(s) < 150, 1, 2)
+        seg[s - 20:] = 0
+    seg = seg.astype(np.int32)
+    if layout == "ragged_nobounds":
+        return s, seg, None
+    padded = np.zeros(-(-s // 64) * 64, np.int32)
+    padded[:s] = seg
+    return s, seg, A.segment_block_bounds(padded, 64, 64)
+
+
+@pytest.mark.parametrize("layout", ["windows40", "frames8", "ragged_bounds",
+                                    "ragged_nobounds"])
+def test_fused_straddling_segments_take_the_masked_path(dev, layout):
+    """Tiles that segments straddle get tile_seg -1 (the masked step) and
+    the output stays within ULP_LIMIT of fused_plain."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s, seg_np, bounds = _straddling(layout)
+    h, d = 4, 80
+    qkv, cos, sin, _ = _fused_inputs(gen, s, h, d)
+    seg = torch.as_tensor(seg_np, device=dev)
+    out, scratch = F_._launch(qkv, seg, cos, sin, bounds, h, d, d**-0.5)
+    want_ts = _tile_seg_np(seg_np)
+    np.testing.assert_array_equal(scratch[3].cpu().numpy(), want_ts)
+    assert (want_ts == -1).sum() >= 2
+    want = F_.fused_plain(qkv, seg, cos, sin, bounds, h, d)
+    assert _err(out.view(s, h, d), want.view(s, h, d)) <= ULP_LIMIT
+    assert (out[seg == 0] == 0).all()
+
+
+def test_fused_straddling_tile_forced_mask_free_fails(dev):
+    """Planted fault: tile_seg marks tile 0 of 40-row windows (rows of
+    segments 1 and 2) uniform, so its step skips the mask: the check must
+    reject the output."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    s, seg_np, bounds = _straddling("windows40")
+    h, d = 4, 80
+    qkv, cos, sin, _ = _fused_inputs(gen, s, h, d)
+    seg = torch.as_tensor(seg_np, device=dev)
+    forced = torch.as_tensor(_tile_seg_np(seg_np), device=dev)
+    assert forced[0] == -1
+    forced[0] = 1
+    bad, _ = F_._launch(qkv, seg, cos, sin, bounds, h, d, d**-0.5,
+                        tile_seg=forced)
+    want = F_.fused_plain(qkv, seg, cos, sin, bounds, h, d)
+    assert _err(bad.view(s, h, d), want.view(s, h, d)) > ULP_LIMIT
+
+
 @pytest.mark.parametrize("real_d", [16, 80])
 @pytest.mark.parametrize("causal", [False, True])
 def test_packed_matches_plain_and_keeps_pad_zero(dev, real_d, causal):

@@ -56,8 +56,9 @@ def params():
 
 
 def _layouts(s):
-    """Window segments (ragged windows of 20-64 rows) and full segments
-    (two images), both with a padding tail of 16 rows."""
+    """Window segments (ragged windows of 20-64 rows), full segments (two
+    images) and video segments (8 frames of equal length), each with a
+    padding tail of 16 rows."""
     wseg = np.zeros(s, np.int32)
     r, i = 0, 1
     while r + 64 <= s - 16:
@@ -66,7 +67,10 @@ def _layouts(s):
         r, i = r + n, i + 1
     fseg = np.zeros(s, np.int32)
     fseg[:150], fseg[150:s - 16] = 1, 2
-    return {"window": wseg, "full": fseg}
+    n = (s - 16) // 8
+    vseg = np.zeros(s, np.int32)
+    vseg[:8 * n] = np.repeat(np.arange(1, 9), n)
+    return {"window": wseg, "full": fseg, "video": vseg}
 
 
 @pytest.mark.parametrize("d", [16, 80])

@@ -112,8 +112,11 @@ def load() -> ctypes.CDLL:
             lib.vst_fullattn_ablate_fwd.argtypes = (
                 [_P] * 5 + [_L] * 9 + [_I] * 6 + [_F, _P])
             lib.vst_fullattn_ablate_fwd.restype = _I
-            lib.vst_fused_vit_attn_fwd.argtypes = [_P] * 6 + [_I] * 3 + [_F, _P]
+            lib.vst_fused_vit_attn_fwd.argtypes = (
+                [_P] * 10 + [_I] * 3 + [_F, _I, _P])
             lib.vst_fused_vit_attn_fwd.restype = _I
+            lib.vst_fused_main_smem_bytes.argtypes = [_I]
+            lib.vst_fused_main_smem_bytes.restype = _I
             lib.vst_diag_attn_fwd.argtypes = (
                 [_P] * 5 + [_L] * 9 + [_I] * 5 + [_F, _P])
             lib.vst_diag_attn_fwd.restype = _I

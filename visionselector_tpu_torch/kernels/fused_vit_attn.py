@@ -1,18 +1,24 @@
-"""Fused ViT attention: rotary and multi-head flash attention in one kernel.
+"""Fused ViT attention: rotary and multi-head flash attention from the slab.
 
 Counterpart of ``visionselector_tpu.kernels.fused_vit_attn``. The kernel
 (``csrc/fused_vit_attn_fwd.cu``) takes the qkv projection slab [S, 3*H*d]
-as it comes out of the matmul, applies rotate-half rotary to q and k inside
-the kernel, runs each head's segment-masked online-softmax attention over
-the kv tiles of the bounds, and writes [S, H*d], ready for the proj matmul:
-no split, rotary pass or layout copy in device memory.
+as it comes out of the matmul and makes two launches per call: a rotary
+prologue writes rotated q, rotated k and transposed v as per-tile images
+laid out the way Hopper's ``wgmma`` reads shared memory (3 x H x S x dp
+bf16 of scratch, dp = d rounded up to 16) plus ``tile_seg``, a segment id
+per 64-row tile (-1 where the tile's rows differ); the main kernel runs each
+head's segment-masked online-softmax attention over the kv tiles of the
+bounds and writes [S, H*d], ready for the proj matmul.
 
 ``fused_plain`` is the plain PyTorch version of the same function
 (``apply_rotary``, then ``flash_plain``); CPU tensors take it, CUDA
-tensors launch the kernel (or raise). ``FUSED_LAUNCHES`` counts launches.
-Bounds are built at the kernel's 64-row tile (``FLASH_BLOCK``), as for the
-flash kernel. ``rotate_half`` / ``apply_rotary`` live here because the
-kernel's rounding is defined by them; the ViT imports them.
+tensors launch the kernels (or raise). ``FUSED_LAUNCHES`` counts wrapper
+calls (two launches each). ``prologue_plain``, ``pack_tiles`` /
+``unpack_tiles`` and ``tile_seg_plain`` are the plain versions of the
+prologue's outputs. Bounds are built at the kernel's 64-row tile
+(``FLASH_BLOCK``), as for the flash kernel. ``rotate_half`` /
+``apply_rotary`` live here because the kernel's rounding is defined by
+them; the ViT imports them.
 """
 
 from __future__ import annotations
@@ -58,32 +64,93 @@ def fused_plain(qkv, seg, cos, sin, kv_bounds, num_heads, head_dim,
     return out[0].reshape(s, num_heads * head_dim)
 
 
-def fused_vit_attention(qkv, seg, cos, sin, kv_bounds, num_heads: int,
-                        head_dim: int, scale=None, impl=None):
-    """Rotary + segment-masked attention straight from the qkv slab.
+def padded_head_dim(d: int) -> int:
+    """dp: the head dim rounded up to one 16-element wgmma k step."""
+    return -(-d // 16) * 16
 
-    qkv: [S, 3*H*d] (the projection output, pre-rotary; contiguous on
-    CUDA); seg: [S] int (0 = padding); cos/sin: [S, d] (fp32 or the slab's
-    dtype); kv_bounds: [ceil(S/64), 2] kv-tile ranges, or None for the full
-    range. Returns [S, H*d]. The kernel for CUDA tensors (bf16, d in
-    KERNEL_HEAD_DIMS), ``fused_plain`` for CPU tensors or ``impl="plain"``.
-    Heads zero-padded in the weights do not fit: the slab must be exactly
-    3 * num_heads * head_dim wide.
-    """
-    global FUSED_LAUNCHES
-    s, width = qkv.shape
+
+def _to_image(x: torch.Tensor) -> torch.Tensor:
+    """[..., R, C] -> [..., R * C] in the no-swizzle K-major core-matrix
+    layout (hopper_common.cuh): 8 x 8 core matrices of 128 contiguous
+    bytes, rows 16 bytes apart, core matrix (r // 8, c // 8) at index
+    (r // 8) * (C // 8) + c // 8."""
+    *lead, r, c = x.shape
+    x = x.reshape(*lead, r // 8, 8, c // 8, 8).transpose(-3, -2)
+    return x.reshape(*lead, r * c)
+
+
+def _from_image(img: torch.Tensor, r: int, c: int) -> torch.Tensor:
+    """Inverse of ``_to_image``: [..., R * C] -> [..., R, C]."""
+    *lead, _ = img.shape
+    x = img.reshape(*lead, r // 8, c // 8, 8, 8).transpose(-3, -2)
+    return x.reshape(*lead, r, c)
+
+
+def pack_tiles(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """[S, H, d] -> tile images [H, ceil(S/64), 64 * dp]: 64 token rows x
+    dp (K-major), or with ``transpose`` dp rows x 64 keys (the v^T image).
+    Rows past S and columns past d are zero."""
+    s, h, d = x.shape
+    nt, dp = -(-s // FLASH_BLOCK), padded_head_dim(d)
+    t = x.new_zeros(h, nt * FLASH_BLOCK, dp)
+    t[:, :s, :d] = x.transpose(0, 1)
+    t = t.view(h, nt, FLASH_BLOCK, dp)
+    return _to_image(t.transpose(-1, -2) if transpose else t)
+
+
+def unpack_tiles(img: torch.Tensor, s: int, d: int,
+                 transpose: bool = False) -> torch.Tensor:
+    """Inverse of ``pack_tiles``: tile images -> [S, H, d]."""
+    h, nt, _ = img.shape
+    dp = padded_head_dim(d)
+    if transpose:
+        t = _from_image(img, dp, FLASH_BLOCK).transpose(-1, -2)
+    else:
+        t = _from_image(img, FLASH_BLOCK, dp)
+    return t.reshape(h, nt * FLASH_BLOCK, dp)[:, :s, :d].transpose(0, 1)
+
+
+def prologue_plain(qkv, cos, sin, num_heads: int, head_dim: int):
+    """Plain version of the rotary prologue: the (q, k, v^T) tile images
+    of the slab, q and k rotated by ``apply_rotary``."""
+    s = qkv.shape[0]
+    q, k, v = qkv.view(s, 3, num_heads, head_dim).unbind(1)
+    q, k = apply_rotary(q, k, cos, sin)
+    return pack_tiles(q), pack_tiles(k), pack_tiles(v, transpose=True)
+
+
+def tile_seg_plain(seg: torch.Tensor) -> torch.Tensor:
+    """[ceil(S/64)] int32: the tile's segment id where all 64 rows (rows
+    past S count as segment 0) share one id > 0, else -1. A kv tile with
+    the same id >= 0 as the q tile is interior: no pair in it is masked."""
+    s = seg.shape[0]
+    t = seg.new_zeros(-(-s // FLASH_BLOCK) * FLASH_BLOCK, dtype=torch.int32)
+    t[:s] = seg
+    t = t.view(-1, FLASH_BLOCK)
+    first = t[:, 0]
+    uniform = (t == first[:, None]).all(1) & (first > 0)
+    return torch.where(uniform, first, torch.full_like(first, -1))
+
+
+def _check_width(qkv, num_heads: int, head_dim: int):
+    width = qkv.shape[1]
     if width != 3 * num_heads * head_dim:
         raise ValueError(
             f"fused_vit_attention: qkv width {width} != 3 x {num_heads} "
             f"heads x {head_dim} (heads padded in the weights do not fit "
             f"the fused kernel)")
-    if scale is None:
-        scale = head_dim**-0.5
-    if impl == "plain" or (impl is None and _on_cpu(qkv, seg, cos, sin)):
-        return fused_plain(qkv, seg, cos, sin, kv_bounds, num_heads,
-                           head_dim, scale)
-    if impl is not None:
-        raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _launch(qkv, seg, cos, sin, kv_bounds, num_heads: int, head_dim: int,
+            scale: float, phases: int = 3, scratch=None, tile_seg=None):
+    """Check the inputs and launch the kernels on CUDA tensors (the caller
+    counts the call). ``phases``: 1 the rotary prologue, 2 the attention
+    main loop (on ``scratch`` that a prologue filled), 3 both. Returns
+    (out [S, H*d], scratch = (q_img, k_img, vt_img, tile_seg)). ``tile_seg``
+    replaces the prologue's tile segment ids before the main loop; only
+    the card tests pass it, to plant a fault."""
+    s = qkv.shape[0]
+    _check_width(qkv, num_heads, head_dim)
     dev = qkv.device
     if any(t.device != dev for t in (seg, cos, sin)):
         raise ValueError(f"fused_vit_attention: all tensors must be on {dev}")
@@ -101,10 +168,13 @@ def fused_vit_attention(qkv, seg, cos, sin, kv_bounds, num_heads: int,
                          f"[{s}, {head_dim}]")
     cos = cos.to(qkv.dtype).contiguous()
     sin = sin.to(qkv.dtype).contiguous()
+    if cos.data_ptr() % 16 or sin.data_ptr() % 16:  # 16-byte row loads
+        raise ValueError("fused_vit_attention: cos/sin must be 16-byte "
+                         "aligned")
+    nq = -(-s // FLASH_BLOCK)
     bounds_ptr = None
     if kv_bounds is not None:
         kv_bounds = torch.as_tensor(kv_bounds, device=dev)
-        nq = -(-s // FLASH_BLOCK)
         if tuple(kv_bounds.shape) != (nq, 2):
             raise ValueError(
                 f"fused_vit_attention: kv_bounds shape "
@@ -113,16 +183,56 @@ def fused_vit_attention(qkv, seg, cos, sin, kv_bounds, num_heads: int,
         kv_bounds = kv_bounds.to(torch.int32).contiguous()
         bounds_ptr = kv_bounds.data_ptr()
     seg = _seg_i32(seg, (s,), "seg")
+    if scratch is None:
+        images = torch.empty((3, num_heads, nq,
+                              FLASH_BLOCK * padded_head_dim(head_dim)),
+                             dtype=qkv.dtype, device=dev)
+        scratch = (*images.unbind(0),
+                   torch.empty(nq, dtype=torch.int32, device=dev))
     out = torch.empty((s, num_heads * head_dim), dtype=qkv.dtype, device=dev)
     from visionselector_tpu_torch.kernels import _build
 
-    err = _build.load().vst_fused_vit_attn_fwd(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-        seg.data_ptr(), bounds_ptr, s, num_heads, head_dim, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"fused_vit_attention launch failed: CUDA error "
-                           f"{err}")
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # With a tile_seg to plant, the prologue and the main loop are two calls
+    # and the planted ids go in between.
+    steps = [phases] if tile_seg is None else [p for p in (1, 2)
+                                               if phases & p]
+    for step in steps:
+        if step == 2 and tile_seg is not None:
+            scratch[3].copy_(tile_seg)
+        err = lib.vst_fused_vit_attn_fwd(
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+            seg.data_ptr(), bounds_ptr, *(t.data_ptr() for t in scratch), s,
+            num_heads, head_dim, float(scale), step, stream)
+        if err:
+            raise RuntimeError(f"fused_vit_attention launch failed: CUDA "
+                               f"error {err}")
+    return out, scratch
+
+
+def fused_vit_attention(qkv, seg, cos, sin, kv_bounds, num_heads: int,
+                        head_dim: int, scale=None, impl=None):
+    """Rotary + segment-masked attention straight from the qkv slab.
+
+    qkv: [S, 3*H*d] (the projection output, pre-rotary; contiguous on
+    CUDA); seg: [S] int (0 = padding); cos/sin: [S, d] (fp32 or the slab's
+    dtype); kv_bounds: [ceil(S/64), 2] kv-tile ranges, or None for the full
+    range. Returns [S, H*d]. The kernels for CUDA tensors (bf16, d in
+    KERNEL_HEAD_DIMS), ``fused_plain`` for CPU tensors or ``impl="plain"``.
+    Heads zero-padded in the weights do not fit: the slab must be exactly
+    3 * num_heads * head_dim wide.
+    """
+    global FUSED_LAUNCHES
+    _check_width(qkv, num_heads, head_dim)
+    if scale is None:
+        scale = head_dim**-0.5
+    if impl == "plain" or (impl is None and _on_cpu(qkv, seg, cos, sin)):
+        return fused_plain(qkv, seg, cos, sin, kv_bounds, num_heads,
+                           head_dim, scale)
+    if impl is not None:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    out, _ = _launch(qkv, seg, cos, sin, kv_bounds, num_heads, head_dim,
+                     scale)
     FUSED_LAUNCHES += 1
     return out
