@@ -16,11 +16,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    attention kernel on a ViT layer's qkv slab with full and window bounds,
    the packed entry point on the ViT full layer with heads padded from 80
    to 128 and on the LM prefill slabs, and the four full-attention
-   ablation variants at S = 5,632. The fused kernel's two launches are
-   also timed apart (the rotary prologue and the wgmma main loop, each
-   beside its bound), its tile images must equal the plain prologue's bit
-   for bit, and the share of visited kv tiles that took the mask-free step
-   and both kernels' ptxas registers and shared memory are printed.
+   ablation variants at S = 5,632. Every non-causal call (flash with
+   bounds or a kv_iters cap, packed, ablation, fused) makes two launches,
+   an image prologue and the wgmma main loop: they are also timed apart,
+   each beside its bound, the prologue's tile images and tile_segs must
+   equal their plain versions bit for bit, and the share of visited kv
+   tiles that took the mask-free step is printed, with the kernels' ptxas
+   registers, shared memory and blocks per SM (D = 80 and 128).
    Tolerance: every
    output element within ULP_LIMIT bf16 ulps of the largest |value| of
    its row (one head of one query) in the plain output. Rounding both
@@ -30,8 +32,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rows exactly 0. Planted faults (kv tiles dropped from the bounds, a key
    dropped from every window, a slot's last key or last live tile dropped
    in decode, k rotated with the next row's cos/sin, a straddling tile
-   forced onto the fused kernel's mask-free step, noise in the pad
-   columns of q and k, the ablation's mask switched off) must fail the
+   forced onto the mask-free step of the flash and the fused kernels,
+   noise in the pad columns of q and k, the ablation's mask switched off)
+   must fail the
    same check, so it is shown to see an off-by-one tile at the main path's
    shapes.
    Kernel, plain and library times are CUDA-event medians (the card is
@@ -41,17 +44,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    (inputs read once, outputs written once; for decode the live prefix)
    over 3.35 TB/s and its flop over 989 TFLOP/s (bf16 dense; the real
    head dim's flop for padded heads); the library yardstick is one
-   ``F.scaled_dot_product_attention`` call with the same mask (the port
-   never calls it; for the fused kernel it gets q and k already rotated,
-   for padded heads the unpadded d = 80, and the ablation without exp has
-   none).
+   ``F.scaled_dot_product_attention`` call with the same mask (causal and
+   padding for the LM prefill, GQA; the port never calls it; for the
+   fused kernel it gets q and k already rotated, for padded heads the
+   unpadded d = 80, and the ablation without exp has none).
 3. Main path: full-width Qwen2.5-VL-3B with random weights (bf16, seeded),
    one 1036x1456 image and ~40 text ids, ``QwenVLEngine.generate`` with the
    LIS selector at budget 0.2 and with ``orig``, 32 greedy tokens each.
    The kernel launch counters are zeroed just before and read just after;
    every prefill must launch the diag kernel once per window layer and the
-   flash kernel once per full-attention ViT layer and per decoder layer,
-   and every decode step the decode kernel once per decoder layer.
+   flash kernel once per full-attention ViT layer (the wgmma route) and
+   per decoder layer (causal: the mma.sync kernel), and every decode step
+   the decode kernel once per decoder layer.
    The same request then runs with the plain attention path, and the
    first-token logits and selected sets are compared. Then the selector
    request under ``attn_variant="fused"`` and ``"packed"`` (each with its
@@ -112,7 +116,8 @@ DECODE_LENS = (1, 63, 64, 65, 300, 1302, 1900, 2047)
 TEACHER_TOL = 0.1
 # Each kernel of the port: (source, the TPU kernel it replaces). K1 and K2
 # share flash_varlen_fwd; the packed entry (K3) and the ablation (K7) are
-# launches of the same source's kernel template.
+# launches of the same source's kernels (non-causal: the image prologue and
+# the wgmma main loop of wgmma_attn.cuh, which the fused kernel shares).
 KERNELS = {
     "flash_varlen_fwd": ("flash_varlen_fwd.cu",
                          "visionselector_tpu/kernels/attention.py:203"),
@@ -235,6 +240,7 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
     from visionselector_tpu_torch.preprocess.indices import build_vision_batch
 
     dev = "cuda"
@@ -252,7 +258,8 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     def case(kernel, name, fn, plain, pad_rows, rate, work, library=None):
         """Check one shape; ``rate(ms)`` formats the kernel's work rate;
         ``work`` = (bytes, flop) of the call; ``library``: the timed
-        library call (the kernel's main case only)."""
+        library call, where one computes the same function (the JSON line
+        takes the kernel's first case)."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -314,10 +321,19 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
         return ((seg[0, :, None] == seg[0, None, :])
                 & (seg[0, None, :] > 0))[None, None]
 
+    def causal_mask(seg):
+        """[1, 1, T, T] bool: the segment mask and i >= j (the causal LM
+        prefill's library call: causal plus padding, GQA)."""
+        n = seg.shape[1]
+        return seg_mask(seg) & torch.ones(n, n, dtype=torch.bool,
+                                          device=seg.device).tril()
+
 
     p = engine._prep_vision(input_ids, pixels, grid)
     vb = p.vb
     h, d = cfg.vision.num_heads, cfg.vision.head_dim
+    for dd in (d, 128):  # the ViT's head dim, and K3's padded one
+        wgmma_build_report(dd)
     s = vb.pixel_values.shape[0]
     print(f"[kernel] image grid {grid.tolist()} patches {vb.num_patches} "
           f"bucket {s} merged {vb.num_merged} window_diag {vb.window_diag}")
@@ -339,7 +355,9 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
              vb.full_seg_ids, vb.full_kv_bounds, iters, h, d)[1]),
          lambda: sdpa_ms(q, k, v, seg_mask(fseg)))
     # Planted faults at this shape: every q tile's last (or first) kv tile
-    # dropped from the bounds, against the plain version on true bounds.
+    # dropped from the bounds, against the plain version on true bounds;
+    # a tile of image and padding rows marked uniform in the q and kv
+    # tile_segs, so its steps skip the mask.
     want = A.flash_plain(q, k, v, fseg, fseg, kv_bounds=fb, kv_iters=iters)
     live = (fb[:, 1] > fb[:, 0]).int()
     for name, shift in (("last kv tile dropped", [0, -1]),
@@ -348,6 +366,18 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
         control("flash_varlen_fwd", f"vit_full {name}",
                 A.flash_varlen_fwd(q, k, v, fseg, fseg, kv_bounds=bad,
                                    kv_iters=iters), want)
+    forced = T.tile_seg_plain(fseg[0])
+    mixed = [t for t in range(len(forced)) if forced[t] < 0
+             and (fseg[0, t * TILE:(t + 1) * TILE] > 0).any()]
+    t0 = mixed[0] * TILE
+    forced[mixed[0]] = int(fseg[0, t0:t0 + TILE].max())
+    control("flash_varlen_fwd", f"vit_full tile {mixed[0]} (image and "
+            f"padding rows) forced onto the mask-free step",
+            A._launch_flash("flash_varlen_fwd", q, k, v, fseg, fseg, False,
+                            None, fb, iters,
+                            tile_seg=(forced[None], forced[None]))[0], want)
+    flash_phases("flash_varlen_fwd", f"vit_full S={s} H={h} D={d}", q, k, v,
+                 fseg, vb.full_kv_bounds, iters)
 
     # Diag, ViT window layers (aligned window segments).
     wseg_np = np.asarray(vb.window_seg_ids)
@@ -401,7 +431,9 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
                  f"visited_tflops={tflops(v_, ms)!r} "
                  f"valid_pair_tflops={tflops(u_, ms)!r}"),
              ((2 * hq + 2 * tc.num_key_value_heads) * t * tc.head_dim * 2
-              + t * 8, useful))
+              + t * 8, useful),
+             lambda ql=ql, kl=kl, vl=vl, seg=seg: sdpa_ms(
+                 ql, kl, vl, causal_mask(seg)))
 
     # Flash at the 16,384 bucket with a kv_iters cap (per-frame segments of
     # an 8-frame clip, classic layout): the cap the engine computes, and a
@@ -432,10 +464,13 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
              (4 * 16384 * h * d * 2 + 2 * 16384 * 4, bounded_work(
                  vbig.full_seg_ids, vbig.full_kv_bounds, iters, h, d)[1]),
              library)
+        flash_phases("flash_varlen_fwd", f"streamed S=16384 kv_iters={iters}",
+                     qb, kb, vb_, bseg, vbig.full_kv_bounds, iters)
     del qb, kb, vb_
     check_decode(cfg, rnd, case, control)
     kit = dict(rnd=rnd, case=case, control=control, seg_mask=seg_mask,
-               bounded_work=bounded_work, bounded_rate=bounded_rate)
+               causal_mask=causal_mask, bounded_work=bounded_work,
+               bounded_rate=bounded_rate)
     check_fused(cfg, vb, kit)
     check_packed(cfg, vb, (q, k, v), lengths, kit)
     check_ablate(kit)
@@ -542,6 +577,124 @@ def ptxas_report(*parts) -> dict:
     return {k: "; ".join(v) for k, v in out.items()}
 
 
+def wgmma_build_report(d):
+    """The ptxas lines of the wgmma route's kernels for head dim d (the
+    flash route's prologue and main-loop variants, the fused kernel's), the
+    main loop's dynamic shared memory and its blocks per SM."""
+    from visionselector_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    for parts in (("flash_images_prologue",), ("flash_wgmma_main",),
+                  ("fused",)):
+        for kname, usage in ptxas_report(*parts, f"ILi{d}E").items():
+            print(f"[build] {kname}: {usage}", flush=True)
+    print(f"[build] wgmma main loop D={d}: dynamic shared memory "
+          f"{lib.vst_wgmma_main_smem_bytes(d)} bytes, "
+          f"{lib.vst_wgmma_main_blocks_per_sm(d)} blocks per SM", flush=True)
+
+
+def wgmma_phases(kernel, name, run, plain_images, lo, hi, pro_bytes,
+                 main_work, masked=True):
+    """The two launches of one wgmma-route call (a prologue, then the main
+    loop): the prologue's tile images and tile_segs against their plain
+    versions bit for bit; the share of visited kv tiles whose step was
+    mask-free (all of them without the mask); the prologue and the main
+    loop timed apart, each beside its bound. ``run(phases, scratch)`` ->
+    (out, scratch) with tile_segs last (q, kv; one shared by both for the
+    fused kernel); ``lo``, ``hi``: each q tile's visited kv tiles;
+    ``pro_bytes``: the prologue's bytes; ``main_work``: (bytes, flop) of
+    the main loop. Bounds and inputs are already on the card (a host copy
+    inside the timed call would stall it). Returns the line's numbers."""
+    import numpy as np
+    import torch
+
+    _, scratch = run(3, None)
+    torch.cuda.synchronize()
+    exact = [torch.equal(a, b) for a, b in zip(scratch, plain_images)]
+    q_ts = scratch[-2 if len(scratch) == 5 else -1].cpu().numpy().reshape(-1)
+    kv_ts = scratch[-1].cpu().numpy().reshape(-1)
+    visited = interior = 0
+    for iq in range(len(q_ts)):
+        js = np.arange(lo[iq], hi[iq])
+        visited += len(js)
+        interior += (len(js) if not masked else
+                     int(((kv_ts[js] == q_ts[iq]) & (q_ts[iq] >= 0)).sum()))
+    share = interior / max(visited, 1)
+    print(f"[kernel] {kernel} {name} prologue images and tile_segs equal "
+          f"the plain ones bit for bit: {exact}; visited kv tiles {visited},"
+          f" mask-free {interior}, share {share!r}", flush=True)
+    if not all(exact):
+        raise AssertionError(f"{kernel} {name}: the prologue disagrees with "
+                             f"its plain version")
+    times = {st: cuda_ms(lambda st=st: run(st, scratch)) for st in (1, 2)}
+    pro, main = bound_ms(pro_bytes, 0), bound_ms(*main_work)
+    print(f"[kernel] {kernel} {name} prologue_ms={times[1]!r} bound_ms="
+          f"{pro[0]!r} ({pro[1]}) main_ms={times[2]!r} bound_ms={main[0]!r} "
+          f"({main[1]}) share_of_bound prologue={pro[0] / times[1]!r} "
+          f"main={main[0] / times[2]!r}", flush=True)
+    return dict(prologue_ms=times[1], main_ms=times[2], share=share)
+
+
+def flash_phases(kernel, name, q, k, v, seg, bounds_np, iters, d_real=None,
+                 ablate=None):
+    """``wgmma_phases`` for a flash-route call on [1, S, H, D] q, k, v with
+    one seg [1, S] for queries and keys: bounds (numpy, or None for the
+    full range), a kv_iters cap, ``ablate=(do_mask, do_exp)`` for the
+    ablation's variants. Bytes: q, k, v and seg read, the images and
+    tile_segs written (prologue); the images, segs, tile_segs and bounds
+    read and out written (main loop); flop of the valid pairs at the real
+    head dim ``d_real`` (every pair of every visited tile without the
+    mask)."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    _, s, h, d = q.shape
+    nt, dp = -(-s // TILE), T.padded_head_dim(d)
+    d_real = d_real or d
+    if bounds_np is None:
+        lo, hi = np.zeros(nt, np.int64), np.full(nt, nt, np.int64)
+    else:
+        lo = np.asarray(bounds_np)[:, 0].astype(np.int64)
+        hi = np.asarray(bounds_np)[:, 1].astype(np.int64)
+    if iters:
+        hi = np.minimum(hi, lo + iters)
+    bounds = (None if bounds_np is None
+              else torch.as_tensor(bounds_np, device="cuda"))
+    if ablate is None:
+        def run(phases, scratch):
+            return A._launch_flash(kernel, q, k, v, seg, seg, False,
+                                   d_real**-0.5, bounds, iters,
+                                   phases=phases, scratch=scratch)
+    else:
+        def run(phases, scratch):
+            return A._launch_ablate(q, k, v, seg, *ablate, d_real**-0.5,
+                                    phases=phases, scratch=scratch)
+    seg_np = seg[0].cpu().numpy()
+    if ablate is None:  # the valid pairs; the ablation's function: all
+        tiles = np.zeros(nt * TILE, np.int64)
+        tiles[:s] = seg_np
+        tiles = tiles.reshape(nt, TILE)
+        ids = [i for i in np.unique(seg_np) if i > 0]
+        counts = np.stack([(tiles == i).sum(1) for i in ids], 1)
+        seen = ((np.arange(nt)[None] >= lo[:, None])
+                & (np.arange(nt)[None] < hi[:, None]))
+        pairs = int(((counts @ counts.T) * seen).sum())
+    else:
+        pairs = int((hi - lo).sum()) * TILE * TILE
+    img_bytes = 3 * h * nt * TILE * dp * 2
+    qkv_bytes = 3 * s * h * d * 2
+    return wgmma_phases(
+        kernel, name, run,
+        T.flash_images_plain(q, k, v, seg, seg), lo, hi,
+        qkv_bytes + s * 4 + img_bytes + 2 * nt * 4,
+        (img_bytes + s * h * d * 2 + s * 4 + 2 * nt * 4 + nt * 8,
+         4 * d_real * h * pairs),
+        masked=ablate is None or ablate[0])
+
+
 def check_fused(cfg, vb, kit):
     """Phase 2, fused rotary + attention kernel (K6) on the 6,144 bucket:
     the qkv slab of a ViT layer with full bounds (main case) and window
@@ -555,7 +708,6 @@ def check_fused(cfg, vb, kit):
     import numpy as np
     import torch
 
-    from visionselector_tpu_torch.kernels import _build
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
     from visionselector_tpu_torch.models.qwen25vl.vit import (
@@ -582,54 +734,22 @@ def check_fused(cfg, vb, kit):
     nbytes = (3 * s * h * d + 2 * s * d + s * h * d) * 2 + s * 4 + s // 8
     nt, dp = -(-s // TILE), F_.padded_head_dim(d)
     img_bytes = 3 * h * nt * TILE * dp * 2  # the three tile images, bf16
-    lib = _build.load()
-    for kname, usage in ptxas_report("fused", f"ILi{d}E").items():
-        print(f"[build] {kname}: {usage}", flush=True)
-    print(f"[build] fused_attn_main_kernel<{d}> dynamic shared memory "
-          f"{lib.vst_fused_main_smem_bytes(d)} bytes; scratch "
-          f"{img_bytes} bytes of tile images", flush=True)
 
     def phases(name, seg, seg_np, bounds, bounds_np):
-        """The prologue's images and tile_seg against the plain prologue,
-        bit for bit; the prologue and the main loop timed apart beside
-        their bounds (bounds already on the card: a host copy inside the
-        timed call would stall it); the share of visited kv tiles whose
-        step was mask-free."""
-        _, scratch = F_._launch(qkv, seg, cos, sin, bounds, h, d, d**-0.5)
-        torch.cuda.synchronize()
-        exact = [torch.equal(a, b) for a, b in zip(
-            scratch[:3], F_.prologue_plain(qkv, cos, sin, h, d))]
-        ts = scratch[3].cpu().numpy()
-        ts_exact = bool((ts == F_.tile_seg_plain(seg.cpu()).numpy()).all())
-        lo, hi = np.asarray(bounds_np)[:, 0], np.asarray(bounds_np)[:, 1]
-        visited = interior = 0
-        for iq in range(nt):
-            js = np.arange(lo[iq], hi[iq])
-            visited += len(js)
-            interior += int(((ts[js] == ts[iq]) & (ts[iq] >= 0)).sum())
-        print(f"[kernel] fused_vit_attn_fwd {name} prologue images equal "
-              f"the plain prologue's bit for bit (q, k, v^T): {exact}; "
-              f"tile_seg equal: {ts_exact}; visited kv tiles {visited}, "
-              f"mask-free {interior}, share {interior / visited!r}",
-              flush=True)
-        if not (all(exact) and ts_exact):
-            raise AssertionError(f"fused_vit_attn_fwd {name}: the prologue "
-                                 f"disagrees with prologue_plain")
-        times = {}
-        for step in (1, 2):
-            times[step] = cuda_ms(lambda st=step: F_._launch(
-                qkv, seg, cos, sin, bounds, h, d, d**-0.5, phases=st,
-                scratch=scratch))
-        # prologue: the slab, cos/sin and seg read, the images and
-        # tile_seg written; main: the images, seg, tile_seg and bounds
-        # read, out written, the flop of the valid pairs.
-        pro = bound_ms(3 * s * h * d * 2 + 2 * s * d * 2 + s * 4
-                       + img_bytes + nt * 4, 0)
-        main = bound_ms(img_bytes + s * h * d * 2 + s * 4 + nt * 12,
-                        kit["bounded_work"](seg_np, bounds_np, 0, h, d)[1])
-        print(f"[kernel] fused_vit_attn_fwd {name} prologue_ms="
-              f"{times[1]!r} bound_ms={pro[0]!r} ({pro[1]}) main_ms="
-              f"{times[2]!r} bound_ms={main[0]!r} ({main[1]})", flush=True)
+        """The prologue's images and tile_seg against prologue_plain bit for
+        bit, the two launches timed apart, the mask-free share. Prologue:
+        the slab, cos/sin and seg read, the images and tile_seg written;
+        main loop: the images, seg, tile_seg and bounds read, out written,
+        the flop of the valid pairs."""
+        wgmma_phases(
+            "fused_vit_attn_fwd", name,
+            lambda ph, sc: F_._launch(qkv, seg, cos, sin, bounds, h, d,
+                                      d**-0.5, phases=ph, scratch=sc),
+            (*F_.prologue_plain(qkv, cos, sin, h, d), F_.tile_seg_plain(seg)),
+            np.asarray(bounds_np)[:, 0], np.asarray(bounds_np)[:, 1],
+            3 * s * h * d * 2 + 2 * s * d * 2 + s * 4 + img_bytes + nt * 4,
+            (img_bytes + s * h * d * 2 + s * 4 + nt * 12,
+             kit["bounded_work"](seg_np, bounds_np, 0, h, d)[1]))
 
     for name, seg_np, bounds_np in (
             ("vit_full", vb.full_seg_ids, vb.full_kv_bounds),
@@ -729,6 +849,9 @@ def check_packed(cfg, vb, qkv_vit, lengths, kit):
     kit["control"]("flash_packed_fwd", "vit_full noise in the pad columns "
                    "of q and k",
                    packed(*(x.flatten(2) for x in noisy)), plain())
+    flash_phases("flash_packed_fwd", f"vit_full S={s} H={h} dp={dp}",
+                 *(A._heads(x, h, dp, n) for x, n in zip((qp, kp, vp), "qkv")),
+                 fseg, vb.full_kv_bounds, None, d_real=d)
 
     tc = cfg.text
     hq, hkv, dh = (tc.num_attention_heads, tc.num_key_value_heads,
@@ -750,7 +873,10 @@ def check_packed(cfg, vb, qkv_vit, lengths, kit):
             lambda ms, v_=visited, u_=useful: (
                 f"visited_tflops={tflops(v_, ms)!r} "
                 f"valid_pair_tflops={tflops(u_, ms)!r}"),
-            ((2 * hq + 2 * hkv) * t * dh * 2 + t * 8, useful))
+            ((2 * hq + 2 * hkv) * t * dh * 2 + t * 8, useful),
+            lambda q_=ql, k_=kl, v_=vl, t_=t, seg_=seg: sdpa_ms(
+                q_.view(1, t_, hq, dh), k_.view(1, t_, hkv, dh),
+                v_.view(1, t_, hkv, dh), kit["causal_mask"](seg_)))
 
 
 def check_ablate(kit):
@@ -783,6 +909,9 @@ def check_ablate(kit):
             pad if do_mask else [],
             lambda ms: f"tflops={tflops(flop, ms)!r}", (nbytes, flop),
             library)
+        flash_phases("fullattn_ablate_fwd",
+                     f"S={s} mask={do_mask} exp={do_exp}", q, k, v, seg,
+                     None, None, ablate=(do_mask, do_exp))
     valid = slice(0, s - B.PAD_ROWS)  # rows that attend in both
     kit["control"]("fullattn_ablate_fwd", "mask off against the masked "
                    "plain version (valid rows)",
@@ -809,6 +938,8 @@ def zero_counts():
 
     A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
     A.PACKED_LAUNCHES = A.ABLATE_LAUNCHES = F_.FUSED_LAUNCHES = 0
+    for route in A.FLASH_ROUTE_LAUNCHES:
+        A.FLASH_ROUTE_LAUNCHES[route] = 0
 
 
 def run_main_path(cfg, params, input_ids, pixels, grid):
@@ -821,6 +952,7 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
     n_full = len(cfg.vision.fullatt_block_indexes)
     want_diag = cfg.vision.depth - n_full
     want_flash = n_full + cfg.text.num_hidden_layers
+    want_routes = {"wgmma": n_full, "mma_sync": cfg.text.num_hidden_layers}
     engines = {
         "selector": QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
                                  device="cuda"),
@@ -835,6 +967,7 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
     results = {}
     for name, eng in engines.items():
         f0, d0, k0 = A.FLASH_LAUNCHES, A.DIAG_LAUNCHES, A.DECODE_LAUNCHES
+        r0 = dict(A.FLASH_ROUTE_LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         res = eng.generate(input_ids, pixels, grid,
                            max_new_tokens=MAX_NEW_TOKENS)
@@ -842,6 +975,7 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
         peak = torch.cuda.max_memory_allocated()
         flash, diag = A.FLASH_LAUNCHES - f0, A.DIAG_LAUNCHES - d0
         dec = A.DECODE_LAUNCHES - k0
+        routes = {r: n - r0[r] for r, n in A.FLASH_ROUTE_LAUNCHES.items()}
         # decode steps run: one per token after the first, plus the step
         # whose EOS ended the loop early
         steps = (len(res.tokens) - 1 if len(res.tokens) == MAX_NEW_TOKENS
@@ -856,7 +990,8 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
               f"prefill_ms={res.prefill_seconds * 1e3!r} "
               f"decode_tokens={n_decode} decode_tok_s={tok_s!r} "
               f"peak_mem_bytes={peak} launches flash={flash} diag={diag} "
-              f"decode={dec} (decode steps {steps})", flush=True)
+              f"decode={dec} (decode steps {steps}) flash routes {routes}",
+              flush=True)
         print(f"[main] {name} tokens: {res.tokens}", flush=True)
         logits = res.logits
         if not (torch.isfinite(logits).all()
@@ -876,10 +1011,15 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
             raise AssertionError(
                 f"{name}: decode kernel launches {dec}, expected "
                 f"{cfg.text.num_hidden_layers} per decode step x {steps}")
+        if routes != want_routes:
+            raise AssertionError(
+                f"{name}: flash routes {routes}, expected {want_routes} (the "
+                f"ViT full layers on the wgmma route, the causal decoder "
+                f"layers on the mma.sync kernel)")
         results[name] = res
     print(f"[main] expected per prefill: flash={want_flash} "
-          f"diag={want_diag}; per decode step: decode="
-          f"{cfg.text.num_hidden_layers}", flush=True)
+          f"diag={want_diag} flash routes {want_routes}; per decode step: "
+          f"decode={cfg.text.num_hidden_layers}", flush=True)
     launches = {"flash_varlen_fwd": A.FLASH_LAUNCHES,
                 "diag_attn_fwd": A.DIAG_LAUNCHES,
                 "decode_blocked_fwd": A.DECODE_LAUNCHES}
@@ -925,11 +1065,14 @@ def run_variant_paths(cfg, params, input_ids, pixels, grid):
     launch per decoder layer, no diag; packed = one diag launch per window
     layer + one packed launch per ViT full layer and per decoder layer (the
     packed wrapper counts PACKED_LAUNCHES only, not FLASH_LAUNCHES); every
-    decode step one decode launch per decoder layer. Each is held against
-    the same request with ``attn_impl="plain"`` and the same variant, with
-    phase 3's tolerance. Returns each variant's launch counts."""
+    decode step one decode launch per decoder layer. Flash routes per
+    prefill: the ViT's full layers on the wgmma route (none under "fused"),
+    every decoder layer's causal prefill on the mma.sync kernel. Each is
+    held against the same request with ``attn_impl="plain"`` and the same
+    variant, with phase 3's tolerance. Returns each variant's launch counts."""
     import torch
 
+    from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
 
     vc, n_layers = cfg.vision, cfg.text.num_hidden_layers
@@ -939,11 +1082,13 @@ def run_variant_paths(cfg, params, input_ids, pixels, grid):
     lm_packed = n_layers if cfg.text.head_dim % 128 == 0 else 0
     want = {
         "fused": dict(fused_vit_attn_fwd=vc.depth, flash_varlen_fwd=n_layers,
-                      diag_attn_fwd=0, flash_packed_fwd=0),
+                      diag_attn_fwd=0, flash_packed_fwd=0,
+                      routes={"wgmma": 0, "mma_sync": n_layers}),
         "packed": dict(fused_vit_attn_fwd=0,
                        flash_varlen_fwd=n_layers - lm_packed,
                        diag_attn_fwd=vc.depth - n_full,
-                       flash_packed_fwd=n_full + lm_packed),
+                       flash_packed_fwd=n_full + lm_packed,
+                       routes={"wgmma": n_full, "mma_sync": n_layers}),
     }
     out = {}
     for variant, expect in want.items():
@@ -956,6 +1101,7 @@ def run_variant_paths(cfg, params, input_ids, pixels, grid):
                            max_new_tokens=MAX_NEW_TOKENS)
         torch.cuda.synchronize()
         counts = launch_counts()
+        counts["routes"] = dict(A.FLASH_ROUTE_LAUNCHES)
         steps = (len(res.tokens) - 1 if len(res.tokens) == MAX_NEW_TOKENS
                  else len(res.tokens))
         n_decode = len(res.tokens) - 1
@@ -1159,21 +1305,28 @@ def profile_variants(cfg, params, input_ids, pixels, grid, out_dir):
               + f" prefill_wall_ms={wall!r} prefill_device_busy_ms={busy!r}"
               f" prefill_vst_kernels_ms="
               f"{kernel_groups(kernels)['vst kernels']!r}", flush=True)
+        for kname, (ms, count) in sorted(vit_kernels.items()):
+            if kernel_group(kname) == "vst kernels":
+                print(f"[profile] variant={tag} vit kernel {ms!r} ms x{count}:"
+                      f" {kname[:100]}", flush=True)
         del eng, vt
 
 
 def run_ablation():
     """The ablation entry point, once, with the counters zeroed just before
     and read just after. Returns its launch counts."""
+    from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.tools import bench_fullattn_ablate
 
     zero_counts()
     res = bench_fullattn_ablate.main([str(ABLATE_S)])
     counts = launch_counts()
-    print("[ablate] ms: " + " ".join(
-        f"{k}={res['ms_' + k]!r}" for k in ("prod", "full_ablate", "nomask",
-                                             "noexp", "bare"))
-          + f"; launches {counts}", flush=True)
+    print("[ablate] ms (prologue + main loop): " + " ".join(
+        f"{k}={res['ms_' + k]!r} ({res['ms_' + k + '_prologue']!r} + "
+        f"{res['ms_' + k + '_main']!r})"
+        for k in ("prod", "full_ablate", "nomask", "noexp", "bare"))
+          + f"; launches {counts} flash routes {A.FLASH_ROUTE_LAUNCHES}",
+          flush=True)
     if counts["fullattn_ablate_fwd"] <= 0:
         raise AssertionError("the ablation entry point launched no kernel")
     return counts

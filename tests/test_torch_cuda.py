@@ -525,3 +525,139 @@ def test_tiny_engine_variants_launch_counts(dev, variant):
                           params.lm, params.scorer)
     with pytest.raises(ValueError, match="unpadded"):
         QwenVLEngine(cfg, padded, device=dev, attn_variant=variant)
+
+
+@pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
+def test_flash_prologue_images_bit_exact(dev, d):
+    """The flash route's prologue (no rotation): q, k and v^T tile images
+    and both tile_segs equal flash_images_plain bit for bit, zero pads
+    included, for GQA 4/2, B = 2 and Sq = 200 against Sk = 333; the main
+    loop's output is within ULP_LIMIT of flash_plain."""
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    gen = torch.Generator(device=dev).manual_seed(200 + d)
+    sq, sk = 200, 333
+    q = _rnd(gen, 2, sq, 4, d)
+    k, v = _rnd(gen, 2, sk, 2, d), _rnd(gen, 2, sk, 2, d)
+    q_seg = torch.cat([_seg(sq, dev), _seg(sq, dev).flip(1)])
+    kv_seg = torch.cat([_seg(sk, dev), _seg(sk, dev).flip(1)])
+    out, scratch = A._launch_flash("flash_varlen_fwd", q, k, v, q_seg, kv_seg,
+                                   False, None, None, None)
+    want_imgs = T.flash_images_plain(q, k, v, q_seg, kv_seg)
+    for got, want in zip(scratch, want_imgs):
+        assert got.shape == want.shape and torch.equal(got, want)
+    for i in range(2):
+        np.testing.assert_array_equal(scratch[4][i].cpu().numpy(),
+                                      _tile_seg_np(kv_seg[i].cpu().numpy()))
+    want = A.flash_plain(q, k, v, q_seg, kv_seg)
+    assert _err(out, want) <= ULP_LIMIT
+    assert (out[q_seg == 0] == 0).all()
+
+
+def test_flash_routes_are_counted(dev):
+    """Non-causal calls (flash, packed, ablation) take the wgmma route,
+    causal calls the mma.sync kernel; plain calls count nothing."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (_rnd(gen, 1, 128, 2, 64) for _ in range(3))
+    seg = _seg(128, dev)
+    before = dict(A.FLASH_ROUTE_LAUNCHES)
+    A.flash_varlen_fwd(q, k, v, seg, seg)
+    A.flash_varlen_fwd(q, k, v, seg, seg, causal=True)
+    A.flash_packed_fwd(q.flatten(2), k.flatten(2), v.flatten(2), seg, seg, 2,
+                       2, 64)
+    A.flash_packed_fwd(q.flatten(2), k.flatten(2), v.flatten(2), seg, seg, 2,
+                       2, 64, causal=True)
+    A.fullattn_ablate(q, k, v, seg, False, True)
+    A.attention(q, k, v, seg, seg, impl="plain")
+    got = {r: A.FLASH_ROUTE_LAUNCHES[r] - before[r] for r in before}
+    assert got == {"wgmma": 3, "mma_sync": 2}
+
+
+def test_flash_misaligned_views_raise(dev):
+    """The prologue reads 16 bytes at a time: a base pointer or a row or
+    head stride off 16 bytes raises ValueError, never falls back."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    s, h, d = 128, 2, 80
+    seg = _seg(s, dev)
+    good = _rnd(gen, 1, s, h, d)
+    shifted = _rnd(gen, s * h * d + 4)[4:].view(1, s, h, d)  # base + 8 B
+    narrow = _rnd(gen, 1, s, h, d + 4)[..., :d]  # head stride 84
+    f0 = A.FLASH_LAUNCHES
+    for bad in (shifted, narrow):
+        with pytest.raises(ValueError, match="16-byte"):
+            A.flash_varlen_fwd(bad, good, good, seg, seg)
+        with pytest.raises(ValueError, match="16-byte"):
+            A.flash_varlen_fwd(good, good, bad, seg, seg)
+    assert A.FLASH_LAUNCHES == f0
+
+
+@pytest.mark.parametrize("layout", ["windows40", "frames8", "ragged_bounds",
+                                    "ragged_nobounds"])
+def test_flash_straddling_segments_take_the_masked_path(dev, layout):
+    """Segments that cross 64-row tiles: those tiles get tile_seg -1 (the
+    masked step) and the output stays within ULP_LIMIT of flash_plain."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+    s, seg_np, bounds = _straddling(layout)
+    q, k, v = (_rnd(gen, 1, s, 4, 80) for _ in range(3))
+    seg = torch.as_tensor(seg_np, device=dev)[None]
+    out, scratch = A._launch_flash("flash_varlen_fwd", q, k, v, seg, seg,
+                                   False, None, bounds, None)
+    want_ts = _tile_seg_np(seg_np)
+    np.testing.assert_array_equal(scratch[3][0].cpu().numpy(), want_ts)
+    assert (want_ts == -1).sum() >= 2
+    want = A.flash_plain(q, k, v, seg, seg, kv_bounds=bounds)
+    assert _err(out, want) <= ULP_LIMIT
+    assert (out[:, seg[0] == 0] == 0).all()
+
+
+def test_flash_planted_faults_fail(dev):
+    """A kv tile dropped from the bounds, and a straddling tile (rows of
+    segments 1 and 2) forced onto the mask-free step, both fail the
+    tolerance on the wgmma route."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+    s, seg_np, bounds = _straddling("windows40")
+    q, k, v = (_rnd(gen, 1, s, 4, 80) for _ in range(3))
+    seg = torch.as_tensor(seg_np, device=dev)[None]
+    bounds = torch.as_tensor(bounds, device=dev)
+    want = A.flash_plain(q, k, v, seg, seg, kv_bounds=bounds)
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, kv_bounds=bounds)
+    assert _err(got, want) <= ULP_LIMIT
+    live = (bounds[:, 1] > bounds[:, 0]).int()
+    cut = bounds - live[:, None] * torch.tensor([0, 1], device=dev)
+    assert _err(A.flash_varlen_fwd(q, k, v, seg, seg, kv_bounds=cut),
+                want) > ULP_LIMIT
+    forced = torch.as_tensor(_tile_seg_np(seg_np), device=dev)[None]
+    assert forced[0, 0] == -1
+    forced[0, 0] = 1
+    bad, _ = A._launch_flash("flash_varlen_fwd", q, k, v, seg, seg, False,
+                             None, bounds, None, tile_seg=(forced, forced))
+    assert _err(bad, want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("variant", [None, "fused", "packed"])
+def test_tiny_engine_flash_routes(dev, variant):
+    """Per image prefill of the tiny engine (2 ViT full layers, 2 decoder
+    layers): the ViT's full layers take the wgmma route (flash or packed),
+    the decoder's causal prefill the mma.sync kernel; "fused" runs its own
+    kernel in the ViT."""
+    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    cfg = qwen25vl_tiny()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    rng = np.random.RandomState(0)
+    img = (rng.rand(224, 280, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9)
+    ids = expand_vision_tokens([100, 200], [300, 400], grid)
+    eng = QwenVLEngine(cfg, params, device=dev, attn_variant=variant)
+    before = dict(A.FLASH_ROUTE_LAUNCHES)
+    eng.generate(ids, px, grid, max_new_tokens=1)
+    got = {r: A.FLASH_ROUTE_LAUNCHES[r] - before[r] for r in before}
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    n_lm = cfg.text.num_hidden_layers
+    assert got == {"wgmma": 0 if variant == "fused" else n_full,
+                   "mma_sync": n_lm}

@@ -107,16 +107,18 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             lib.vst_flash_varlen_fwd.argtypes = (
-                [_P] * 7 + [_L] * 9 + [_I] * 8 + [_F, _P])
+                [_P] * 7 + [_L] * 9 + [_I] * 8 + [_F] + [_P] * 5 + [_I, _P])
             lib.vst_flash_varlen_fwd.restype = _I
             lib.vst_fullattn_ablate_fwd.argtypes = (
-                [_P] * 5 + [_L] * 9 + [_I] * 6 + [_F, _P])
+                [_P] * 5 + [_L] * 9 + [_I] * 6 + [_F] + [_P] * 5 + [_I, _P])
             lib.vst_fullattn_ablate_fwd.restype = _I
             lib.vst_fused_vit_attn_fwd.argtypes = (
                 [_P] * 10 + [_I] * 3 + [_F, _I, _P])
             lib.vst_fused_vit_attn_fwd.restype = _I
-            lib.vst_fused_main_smem_bytes.argtypes = [_I]
-            lib.vst_fused_main_smem_bytes.restype = _I
+            for fn in (lib.vst_wgmma_main_smem_bytes,
+                       lib.vst_wgmma_main_blocks_per_sm):
+                fn.argtypes = [_I]
+                fn.restype = _I
             lib.vst_diag_attn_fwd.argtypes = (
                 [_P] * 5 + [_L] * 9 + [_I] * 5 + [_F, _P])
             lib.vst_diag_attn_fwd.restype = _I

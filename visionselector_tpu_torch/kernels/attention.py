@@ -7,8 +7,8 @@ exact zeros. The same flash kernel serves ViT full attention (per-image
 segments, kv-tile bounds), ViT window attention on the classic layout, and
 causal LM prefill (GQA without expanding kv).
 
-Two hand-written CUDA kernels (``csrc/``), each with a plain PyTorch
-version of the same function beside it:
+Hand-written CUDA kernels (``csrc/``), each with a plain PyTorch version
+of the same function beside it:
 
 - ``flash_varlen_fwd`` / ``flash_plain``: flash attention with per-q-tile
   kv-tile bounds, optional causal mask and the ``kv_iters`` truncation
@@ -18,6 +18,12 @@ version of the same function beside it:
   (replaces ``_flash_pallas_packed``), and ``fullattn_ablate`` /
   ``ablate_plain`` run its compile-time variants without bounds, mask or
   exp (replaces the TPU bench kernel of ``tools/bench_fullattn_ablate.py``).
+  Two routes, chosen by ``causal``: a non-causal call (the ViT's full
+  layers, K2, K3, the ablation) makes two launches, a prologue that writes
+  q, k and v as wgmma tile images (``tiles.py``; its plain version is
+  ``tiles.flash_images_plain``) into scratch, then the wgmma main loop it
+  shares with the fused ViT kernel; a causal call (the LM prefill) runs
+  the mma.sync kernel. ``FLASH_ROUTE_LAUNCHES`` counts calls by route.
 - ``diag_attn_fwd`` / ``diag_plain``: block-diagonal attention for the
   window-aligned ViT layout. Replaces ``attention_diag``'s ``_diag_kernel``.
 - ``decode_blocked_fwd`` / ``decode_blocked_plain``: GQA decode attention
@@ -28,11 +34,11 @@ version of the same function beside it:
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
 / ``DECODE_LAUNCHES`` / ``PACKED_LAUNCHES`` / ``ABLATE_LAUNCHES`` count
-kernel launches, each wrapper its own, so a run can show that it went
-through the kernels. ``impl="plain"`` asks for the plain path on any device
-(used to compare the whole model against the kernels on the card); for
-decode that is the dense path over the whole cache, the reference's XLA
-decode.
+wrapper calls that launched kernels, each wrapper its own, so a run can
+show that it went through the kernels. ``impl="plain"`` asks for the plain
+path on any device (used to compare the whole model against the kernels on
+the card); for decode that is the dense path over the whole cache, the
+reference's XLA decode.
 """
 
 from __future__ import annotations
@@ -65,6 +71,10 @@ DIAG_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 ABLATE_LAUNCHES = 0
+# Calls of the flash kernel source (flash, packed and ablation wrappers) by
+# route: "wgmma" (non-causal: image prologue + wgmma main loop) and
+# "mma_sync" (causal).
+FLASH_ROUTE_LAUNCHES = {"wgmma": 0, "mma_sync": 0}
 
 
 def segment_block_bounds(seg_ids, block_q: int, block_k: int) -> np.ndarray:
@@ -261,10 +271,34 @@ def _on_cpu(*tensors) -> bool:
     raise ValueError(f"attention inputs on unsupported devices {devices}")
 
 
+def _flash_scratch(b, h, h_kv, sq, sk, d, dev):
+    """The wgmma route's scratch: q images [B, H, nq, 64 * dp], k and v^T
+    images [B, H_kv, nk, 64 * dp] (bf16), q and kv tile_seg [B, nq] and
+    [B, nk] (int32)."""
+    from visionselector_tpu_torch.kernels.tiles import padded_head_dim
+
+    img = FLASH_BLOCK * padded_head_dim(d)
+    nq, nk = -(-sq // FLASH_BLOCK), -(-sk // FLASH_BLOCK)
+    kv = torch.empty((2, b, h_kv, nk, img), dtype=torch.bfloat16, device=dev)
+    return (torch.empty((b, h, nq, img), dtype=torch.bfloat16, device=dev),
+            *kv.unbind(0), torch.empty((b, nq), dtype=torch.int32, device=dev),
+            torch.empty((b, nk), dtype=torch.int32, device=dev))
+
+
 def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
-                  kv_iters):
+                  kv_iters, ablate=None, phases=3, scratch=None,
+                  tile_seg=None):
     """Check the inputs of a flash launch on CUDA tensors and launch the
-    kernel (the caller counts it). Returns the [B, Sq, H, D] output."""
+    kernels (the caller counts the call; the route is counted here).
+
+    Non-causal calls take the wgmma route: ``phases`` 1 the image
+    prologue, 2 the main loop (on ``scratch`` that a prologue filled), 3
+    both; ``ablate=(do_mask, do_exp)`` launches the ablation's variants
+    (no bounds, ``q_seg`` for queries and keys); ``tile_seg=(q, kv)``
+    replaces the prologue's tile segment ids before the main loop (only the
+    card tests and ``chip_smoke.py`` pass it, to plant a fault). Causal
+    calls run the mma.sync kernel. Returns (out [B, Sq, H, D], scratch:
+    (q_img, k_img, vt_img, q tile_seg, kv tile_seg), None when causal)."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     _check_cuda(name, q, k, v, q_seg, kv_seg)
@@ -290,19 +324,45 @@ def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
         bounds_ptr = kv_bounds.data_ptr()
     q_seg = _seg_i32(q_seg, (b, sq), "q_seg")
     kv_seg = _seg_i32(kv_seg, (b, sk), "kv_seg")
+    # the prologue's 16-byte loads: base pointers and strides checked here
+    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     from visionselector_tpu_torch.kernels import _build
 
-    err = _build.load().vst_flash_varlen_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q_seg.data_ptr(), kv_seg.data_ptr(), bounds_ptr,
-        *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-        b, sq, sk, h, h_kv, d, int(bool(causal)), int(kv_iters or 0),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return out
+    lib = _build.load()
+    if causal:
+        if ablate is not None or tile_seg is not None or phases != 3:
+            raise ValueError(f"{name}: a causal call is one mma.sync launch")
+        steps, scratch, ptrs = [3], None, [None] * 5
+    else:
+        if scratch is None:
+            scratch = _flash_scratch(b, h, h_kv, sq, sk, d, q.device)
+        ptrs = [t.data_ptr() for t in scratch]
+        # With a tile_seg to plant, the prologue and the main loop are two
+        # calls and the planted ids go in between.
+        steps = [phases] if tile_seg is None else [
+            st for st in (1, 2) if phases & st]
+    for step in steps:
+        if step == 2 and tile_seg is not None:
+            scratch[3].copy_(tile_seg[0])
+            scratch[4].copy_(tile_seg[1])
+        if ablate is None:
+            err = lib.vst_flash_varlen_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q_seg.data_ptr(), kv_seg.data_ptr(), bounds_ptr, *strides,
+                b, sq, sk, h, h_kv, d, int(bool(causal)),
+                int(kv_iters or 0), float(scale), *ptrs, step, stream)
+        else:
+            err = lib.vst_fullattn_ablate_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q_seg.data_ptr(), *strides, b, sq, h, d,
+                int(bool(ablate[0])), int(bool(ablate[1])), float(scale),
+                *ptrs, step, stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    FLASH_ROUTE_LAUNCHES["mma_sync" if causal else "wgmma"] += 1
+    return out, scratch
 
 
 def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
@@ -316,8 +376,8 @@ def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
     if _on_cpu(q, k, v, q_seg, kv_seg):
         return flash_plain(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
                            kv_iters)
-    out = _launch_flash("flash_varlen_fwd", q, k, v, q_seg, kv_seg, causal,
-                        scale, kv_bounds, kv_iters)
+    out, _ = _launch_flash("flash_varlen_fwd", q, k, v, q_seg, kv_seg,
+                           causal, scale, kv_bounds, kv_iters)
     FLASH_LAUNCHES += 1
     return out
 
@@ -360,7 +420,7 @@ def flash_packed_fwd(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp,
     if _on_cpu(q, k, v, q_seg, kv_seg):
         return flash_packed_plain(q, k, v, q_seg, kv_seg, num_heads,
                                   num_kv_heads, dp, causal, scale, kv_bounds)
-    out = _launch_flash(
+    out, _ = _launch_flash(
         "flash_packed_fwd", _heads(q, num_heads, dp, "q"),
         _heads(k, num_kv_heads, dp, "k"), _heads(v, num_kv_heads, dp, "v"),
         q_seg, kv_seg, causal, scale, kv_bounds, None)
@@ -398,39 +458,32 @@ def ablate_plain(q, k, v, seg, do_mask=True, do_exp=True, scale=None):
 
 def fullattn_ablate(q, k, v, seg, do_mask=True, do_exp=True, scale=None):
     """The full-attention ablation (port of the TPU bench kernel in
-    ``tools/bench_fullattn_ablate.py``): the flash kernel's grid, tiles and
-    loads with no bounds and the mask and/or the exp compiled out
-    (``ablate_plain`` for the function). CUDA tensors launch the kernel
-    (bf16, D in KERNEL_HEAD_DIMS, S a multiple of 64 so no key lies past
-    the sequence); CPU tensors take ``ablate_plain``."""
+    ``tools/bench_fullattn_ablate.py``): the flash kernel's non-causal
+    route (image prologue, wgmma main loop) with no bounds and the mask
+    and/or the exp compiled out (``ablate_plain`` for the function). CUDA
+    tensors launch the kernels (bf16, D in KERNEL_HEAD_DIMS, S a multiple
+    of 64 so no key lies past the sequence); CPU tensors take
+    ``ablate_plain``."""
     global ABLATE_LAUNCHES
     if _on_cpu(q, k, v, seg):
         return ablate_plain(q, k, v, seg, do_mask, do_exp, scale)
-    b, s, h, d = q.shape
-    _check_cuda("fullattn_ablate", q, k, v, seg)
+    out, _ = _launch_ablate(q, k, v, seg, do_mask, do_exp, scale)
+    ABLATE_LAUNCHES += 1
+    return out
+
+
+def _launch_ablate(q, k, v, seg, do_mask, do_exp, scale, **kw):
+    """Check the ablation's inputs and launch it (``_launch_flash``'s
+    ``phases`` / ``scratch`` in ``kw``); returns (out, scratch)."""
+    s = q.shape[1]
     if (tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape)
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError("fullattn_ablate: q, k, v shapes or dtypes differ")
     if s % FLASH_BLOCK:
         raise ValueError(f"fullattn_ablate: S={s} not a multiple of "
                          f"{FLASH_BLOCK}")
-    if scale is None:
-        scale = d**-0.5
-    seg = _seg_i32(seg, (b, s), "seg")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    from visionselector_tpu_torch.kernels import _build
-
-    err = _build.load().vst_fullattn_ablate_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        seg.data_ptr(), *_strides(q, "q"), *_strides(k, "k"),
-        *_strides(v, "v"), b, s, h, d, int(bool(do_mask)),
-        int(bool(do_exp)), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"fullattn_ablate launch failed: CUDA error {err}")
-    ABLATE_LAUNCHES += 1
-    return out
+    return _launch_flash("fullattn_ablate", q, k, v, seg, seg, False, scale,
+                         None, None, ablate=(do_mask, do_exp), **kw)
 
 
 def diag_attn_fwd(q, k, v, seg, scale=None, block_q=DIAG_BLOCK):

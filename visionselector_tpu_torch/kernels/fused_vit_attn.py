@@ -14,9 +14,11 @@ bounds and writes [S, H*d], ready for the proj matmul.
 (``apply_rotary``, then ``flash_plain``); CPU tensors take it, CUDA
 tensors launch the kernels (or raise). ``FUSED_LAUNCHES`` counts wrapper
 calls (two launches each). ``prologue_plain``, ``pack_tiles`` /
-``unpack_tiles`` and ``tile_seg_plain`` are the plain versions of the
-prologue's outputs. Bounds are built at the kernel's 64-row tile
-(``FLASH_BLOCK``), as for the flash kernel. ``rotate_half`` /
+``unpack_tiles`` and ``tile_seg_plain`` (from ``tiles.py``, which the
+flash route shares) are the plain versions of the prologue's outputs.
+Bounds are built at the kernel's 64-row tile (``FLASH_BLOCK``), as for the
+flash kernel. The main loop is the flash route's (``csrc/wgmma_attn.cuh``).
+``rotate_half`` /
 ``apply_rotary`` live here because the kernel's rounding is defined by
 them; the ViT imports them.
 """
@@ -31,6 +33,14 @@ from visionselector_tpu_torch.kernels.attention import (
     _on_cpu,
     _seg_i32,
     flash_plain,
+)
+from visionselector_tpu_torch.kernels.tiles import (  # noqa: F401
+    _from_image,
+    _to_image,
+    pack_tiles,
+    padded_head_dim,
+    tile_seg_plain,
+    unpack_tiles,
 )
 
 FUSED_LAUNCHES = 0
@@ -64,52 +74,6 @@ def fused_plain(qkv, seg, cos, sin, kv_bounds, num_heads, head_dim,
     return out[0].reshape(s, num_heads * head_dim)
 
 
-def padded_head_dim(d: int) -> int:
-    """dp: the head dim rounded up to one 16-element wgmma k step."""
-    return -(-d // 16) * 16
-
-
-def _to_image(x: torch.Tensor) -> torch.Tensor:
-    """[..., R, C] -> [..., R * C] in the no-swizzle K-major core-matrix
-    layout (hopper_common.cuh): 8 x 8 core matrices of 128 contiguous
-    bytes, rows 16 bytes apart, core matrix (r // 8, c // 8) at index
-    (r // 8) * (C // 8) + c // 8."""
-    *lead, r, c = x.shape
-    x = x.reshape(*lead, r // 8, 8, c // 8, 8).transpose(-3, -2)
-    return x.reshape(*lead, r * c)
-
-
-def _from_image(img: torch.Tensor, r: int, c: int) -> torch.Tensor:
-    """Inverse of ``_to_image``: [..., R * C] -> [..., R, C]."""
-    *lead, _ = img.shape
-    x = img.reshape(*lead, r // 8, c // 8, 8, 8).transpose(-3, -2)
-    return x.reshape(*lead, r, c)
-
-
-def pack_tiles(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
-    """[S, H, d] -> tile images [H, ceil(S/64), 64 * dp]: 64 token rows x
-    dp (K-major), or with ``transpose`` dp rows x 64 keys (the v^T image).
-    Rows past S and columns past d are zero."""
-    s, h, d = x.shape
-    nt, dp = -(-s // FLASH_BLOCK), padded_head_dim(d)
-    t = x.new_zeros(h, nt * FLASH_BLOCK, dp)
-    t[:, :s, :d] = x.transpose(0, 1)
-    t = t.view(h, nt, FLASH_BLOCK, dp)
-    return _to_image(t.transpose(-1, -2) if transpose else t)
-
-
-def unpack_tiles(img: torch.Tensor, s: int, d: int,
-                 transpose: bool = False) -> torch.Tensor:
-    """Inverse of ``pack_tiles``: tile images -> [S, H, d]."""
-    h, nt, _ = img.shape
-    dp = padded_head_dim(d)
-    if transpose:
-        t = _from_image(img, dp, FLASH_BLOCK).transpose(-1, -2)
-    else:
-        t = _from_image(img, FLASH_BLOCK, dp)
-    return t.reshape(h, nt * FLASH_BLOCK, dp)[:, :s, :d].transpose(0, 1)
-
-
 def prologue_plain(qkv, cos, sin, num_heads: int, head_dim: int):
     """Plain version of the rotary prologue: the (q, k, v^T) tile images
     of the slab, q and k rotated by ``apply_rotary``."""
@@ -117,19 +81,6 @@ def prologue_plain(qkv, cos, sin, num_heads: int, head_dim: int):
     q, k, v = qkv.view(s, 3, num_heads, head_dim).unbind(1)
     q, k = apply_rotary(q, k, cos, sin)
     return pack_tiles(q), pack_tiles(k), pack_tiles(v, transpose=True)
-
-
-def tile_seg_plain(seg: torch.Tensor) -> torch.Tensor:
-    """[ceil(S/64)] int32: the tile's segment id where all 64 rows (rows
-    past S count as segment 0) share one id > 0, else -1. A kv tile with
-    the same id >= 0 as the q tile is interior: no pair in it is masked."""
-    s = seg.shape[0]
-    t = seg.new_zeros(-(-s // FLASH_BLOCK) * FLASH_BLOCK, dtype=torch.int32)
-    t[:s] = seg
-    t = t.view(-1, FLASH_BLOCK)
-    first = t[:, 0]
-    uniform = (t == first[:, None]).all(1) & (first > 0)
-    return torch.where(uniform, first, torch.full_like(first, -1))
 
 
 def _check_width(qkv, num_heads: int, head_dim: int):

@@ -15,10 +15,13 @@ bf16, q/k/v = 0.1 * normal, the last 128 rows padding; default S = 5632):
   noexp        mask kept, p = the masked logits (no exp, no division)
   bare         the two matrix products and the accumulation only
 
-Every case has the production kernel's grid, tiles and loads and visits
-every kv tile. Times are CUDA-event medians of 10 calls, each after a ~1 ms
-spin kernel so the host's enqueue time is not counted. Prints one line per
-case, then one JSON line. Needs a CUDA device; raises without one.
+Every case runs the production kernel's route (an image prologue, then
+the wgmma main loop), with its grid, tiles and loads, and visits every kv
+tile. Each case is timed as one call and as its two launches apart (the
+prologue, which is the same in every case, and the main loop). Times are
+CUDA-event medians of 10 calls, each after a ~1 ms spin kernel so the
+host's enqueue time is not counted. Prints one line per case, then one
+JSON line. Needs a CUDA device; raises without one.
 """
 
 from __future__ import annotations
@@ -80,6 +83,26 @@ def cases(q, k, v, seg) -> dict:
     }
 
 
+def phase_runs(q, k, v, seg) -> dict:
+    """name -> run(phases, scratch): the case's launches (phases 1 the
+    prologue, 2 the main loop on the images a prologue wrote into
+    ``scratch``, 3 both); returns (out, scratch)."""
+    from visionselector_tpu_torch.kernels import attention as A
+
+    def prod(phases=3, scratch=None):
+        return A._launch_flash("prod", q, k, v, seg, seg, False, None, None,
+                               None, phases=phases, scratch=scratch)
+
+    def ablate(do_mask, do_exp):
+        return lambda phases=3, scratch=None: A._launch_ablate(
+            q, k, v, seg, do_mask, do_exp, None, phases=phases,
+            scratch=scratch)
+
+    return {"prod": prod, "full_ablate": ablate(True, True),
+            "nomask": ablate(False, True), "noexp": ablate(True, False),
+            "bare": ablate(False, False)}
+
+
 def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else argv
     s = int(argv[0]) if argv else 5632
@@ -88,10 +111,18 @@ def main(argv=None) -> dict:
                            "torch.cuda.is_available() is false")
     result = {"s": s, "heads": HEADS, "head_dim": HEAD_DIM,
               "device": torch.cuda.get_device_name(0)}
-    for name, fn in cases(*inputs(s)).items():
+    args = inputs(s)
+    runs = phase_runs(*args)
+    for name, fn in cases(*args).items():
         ms = cuda_ms(fn)
+        _, scratch = runs[name]()
+        pro, main_ms = (cuda_ms(lambda st=st: runs[name](st, scratch))
+                        for st in (1, 2))
         result[f"ms_{name}"] = ms
-        print(f"[{name}] {ms!r} ms", flush=True)
+        result[f"ms_{name}_prologue"] = pro
+        result[f"ms_{name}_main"] = main_ms
+        print(f"[{name}] {ms!r} ms = prologue {pro!r} + main loop "
+              f"{main_ms!r}", flush=True)
     print(json.dumps(result), flush=True)
     return result
 
