@@ -16,13 +16,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    attention kernel on a ViT layer's qkv slab with full and window bounds,
    the packed entry point on the ViT full layer with heads padded from 80
    to 128 and on the LM prefill slabs, and the four full-attention
-   ablation variants at S = 5,632. Every non-causal call (flash with
-   bounds or a kv_iters cap, packed, ablation, fused) makes two launches,
-   an image prologue and the wgmma main loop: they are also timed apart,
-   each beside its bound, the prologue's tile images and tile_segs must
-   equal their plain versions bit for bit, and the share of visited kv
-   tiles that took the mask-free step is printed, with the kernels' ptxas
-   registers, shared memory and blocks per SM (D = 80 and 128).
+   ablation variants at S = 5,632. Every flash-source call (flash with
+   bounds, a kv_iters cap or the causal mask, packed, ablation) and every
+   fused call makes two launches, an image prologue and the wgmma main
+   loop: they are also timed apart, each beside its bound, the prologue's
+   tile images and tile_segs must equal their plain versions bit for bit,
+   and the share of visited kv tiles that take the mask-free step (from
+   ``tiles.flash_steps_plain``) is printed, with the kernels' ptxas
+   registers, shared memory and blocks per SM (D = 80 and 128, the causal
+   main loop's too).
    Tolerance: every
    output element within ULP_LIMIT bf16 ulps of the largest |value| of
    its row (one head of one query) in the plain output. Rounding both
@@ -32,8 +34,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rows exactly 0. Planted faults (kv tiles dropped from the bounds, a key
    dropped from every window, a slot's last key or last live tile dropped
    in decode, k rotated with the next row's cos/sin, a straddling tile
-   forced onto the mask-free step of the flash and the fused kernels,
-   noise in the pad columns of q and k, the ablation's mask switched off)
+   forced onto the mask-free step of the flash and the fused kernels and
+   of the causal LM prefill, each causal q tile's diagonal kv tile cut
+   from the bounds, noise in the pad columns of q and k, the ablation's
+   mask switched off)
    must fail the
    same check, so it is shown to see an off-by-one tile at the main path's
    shapes.
@@ -53,9 +57,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    LIS selector at budget 0.2 and with ``orig``, 32 greedy tokens each.
    The kernel launch counters are zeroed just before and read just after;
    every prefill must launch the diag kernel once per window layer and the
-   flash kernel once per full-attention ViT layer (the wgmma route) and
-   per decoder layer (causal: the mma.sync kernel), and every decode step
-   the decode kernel once per decoder layer.
+   flash kernel once per full-attention ViT layer and per decoder layer
+   (causal), all on the wgmma route, and every decode step the decode
+   kernel once per decoder layer.
    The same request then runs with the plain attention path, and the
    first-token logits and selected sets are compared. Then the selector
    request under ``attn_variant="fused"`` and ``"packed"`` (each with its
@@ -196,14 +200,11 @@ def bf16_ulp_err(got, want) -> float:
     return ((g - w).abs() / ulp).max().item()
 
 
-def flash_work(lo, hi, valid_pairs, h, d):
+def flash_work(tiles, valid_pairs, h, d):
     """(flop over the kv tiles the kernel visits, flop over the valid
-    (query, key) pairs) for [lo, hi) tile ranges per q tile: QK^T and PV
-    are 2 * d flop per pair each."""
-    import numpy as np
-
-    tiles = int(np.maximum(np.asarray(hi) - np.asarray(lo), 0).sum())
-    return 4 * d * h * tiles * TILE * TILE, 4 * d * h * int(valid_pairs)
+    (query, key) pairs), for ``tiles`` visited kv tiles of all q tiles of
+    one head: QK^T and PV are 2 * d flop per pair each."""
+    return 4 * d * h * int(tiles) * TILE * TILE, 4 * d * h * int(valid_pairs)
 
 
 def tflops(flop, ms):
@@ -295,20 +296,11 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
             raise AssertionError(f"the tolerance check passes a planted "
                                  f"fault ({kernel} {name}): it is too loose")
 
-    def seg_pairs(seg, lo, hi):
-        """Valid (query, key) pairs inside the visited tiles."""
-        tiles = np.asarray(seg).reshape(-1, TILE)
-        counts = np.stack([(tiles == i).sum(1)
-                           for i in range(1, int(tiles.max()) + 1)], 1)
-        j = np.arange(len(tiles))
-        seen = (j[None] >= lo[:, None]) & (j[None] < hi[:, None])
-        return int(((counts @ counts.T) * seen).sum())
-
     def bounded_work(seg, bounds, iters, h, d):
-        lo, hi = bounds[:, 0].astype(np.int64), bounds[:, 1].astype(np.int64)
-        if iters:
-            hi = np.minimum(hi, lo + iters)
-        return flash_work(lo, hi, seg_pairs(seg, lo, hi), h, d)
+        visited = T.flash_steps_plain(seg, seg, False, bounds,
+                                      iters)[0].numpy()
+        return flash_work(visited.sum(), valid_pairs(seg, visited, False), h,
+                          d)
 
     def bounded_rate(seg, bounds, iters, h, d):
         visited, useful = bounded_work(seg, bounds, iters, h, d)
@@ -416,10 +408,11 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
         kl = rnd(1, t, tc.num_key_value_heads, tc.head_dim)
         vl = rnd(1, t, tc.num_key_value_heads, tc.head_dim)
         seg = (torch.arange(t, device=dev) < valid).int()[None]
-        # No bounds: q tile iq visits kv tiles [0, iq + 1) (causal cap).
+        # No bounds: q tile iq visits kv tiles [0, iq + 1) (causal cap), a
+        # q tile of padding rows only none.
         nq = -(-t // TILE)
-        visited, useful = flash_work(np.zeros(nq), np.arange(1, nq + 1),
-                                     valid * (valid + 1) // 2, hq,
+        n_steps = int(T.flash_steps_plain(seg[0], seg[0], True)[0].sum())
+        visited, useful = flash_work(n_steps, valid * (valid + 1) // 2, hq,
                                      tc.head_dim)
         case("flash_varlen_fwd",
              f"lm_prefill T={t} valid={valid} Hq={hq} "
@@ -434,6 +427,29 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
               + t * 8, useful),
              lambda ql=ql, kl=kl, vl=vl, seg=seg: sdpa_ms(
                  ql, kl, vl, causal_mask(seg)))
+        flash_phases("flash_varlen_fwd", f"lm_prefill T={t} valid={valid}",
+                     ql, kl, vl, seg, None, None, causal=True)
+        if (t, valid) != lengths[-1] or not valid % TILE:
+            continue
+        # Planted faults at the orig length: each q tile's diagonal kv tile
+        # cut from the bounds; the q tile of valid and padding rows marked
+        # uniform, so its steps below the diagonal skip the mask.
+        want = A.flash_plain(ql, kl, vl, seg, seg, causal=True)
+        iq = torch.arange(nq, device=dev)
+        cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
+        control("flash_varlen_fwd", f"lm_prefill T={t} diagonal kv tile "
+                f"cut from every q tile",
+                A.flash_varlen_fwd(ql, kl, vl, seg, seg, causal=True,
+                                   kv_bounds=cut), want)
+        ts = T.tile_seg_plain(seg[0])
+        forced = ts.clone()
+        forced[valid // TILE] = 1
+        control("flash_varlen_fwd", f"lm_prefill T={t} q tile "
+                f"{valid // TILE} (valid and padding rows) forced onto the "
+                f"mask-free step",
+                A._launch_flash("flash_varlen_fwd", ql, kl, vl, seg, seg,
+                                True, None, None, None,
+                                tile_seg=(forced[None], ts[None]))[0], want)
 
     # Flash at the 16,384 bucket with a kv_iters cap (per-frame segments of
     # an 8-frame clip, classic layout): the cap the engine computes, and a
@@ -579,8 +595,10 @@ def ptxas_report(*parts) -> dict:
 
 def wgmma_build_report(d):
     """The ptxas lines of the wgmma route's kernels for head dim d (the
-    flash route's prologue and main-loop variants, the fused kernel's), the
-    main loop's dynamic shared memory and its blocks per SM."""
+    flash route's prologue and main-loop variants
+    ``flash_wgmma_main_kernel<D, kMask, kExp, kCausal>``, the fused
+    kernel's), the main loop's dynamic shared memory and its blocks per SM
+    (non-causal and causal)."""
     from visionselector_tpu_torch.kernels import _build
 
     lib = _build.load()
@@ -590,35 +608,29 @@ def wgmma_build_report(d):
             print(f"[build] {kname}: {usage}", flush=True)
     print(f"[build] wgmma main loop D={d}: dynamic shared memory "
           f"{lib.vst_wgmma_main_smem_bytes(d)} bytes, "
-          f"{lib.vst_wgmma_main_blocks_per_sm(d)} blocks per SM", flush=True)
+          f"{lib.vst_wgmma_main_blocks_per_sm(d, 0)} blocks per SM, causal "
+          f"{lib.vst_wgmma_main_blocks_per_sm(d, 1)}", flush=True)
 
 
-def wgmma_phases(kernel, name, run, plain_images, lo, hi, pro_bytes,
-                 main_work, masked=True):
+def wgmma_phases(kernel, name, run, plain_images, steps, pro_bytes,
+                 main_work):
     """The two launches of one wgmma-route call (a prologue, then the main
     loop): the prologue's tile images and tile_segs against their plain
-    versions bit for bit; the share of visited kv tiles whose step was
-    mask-free (all of them without the mask); the prologue and the main
-    loop timed apart, each beside its bound. ``run(phases, scratch)`` ->
-    (out, scratch) with tile_segs last (q, kv; one shared by both for the
-    fused kernel); ``lo``, ``hi``: each q tile's visited kv tiles;
-    ``pro_bytes``: the prologue's bytes; ``main_work``: (bytes, flop) of
-    the main loop. Bounds and inputs are already on the card (a host copy
-    inside the timed call would stall it). Returns the line's numbers."""
-    import numpy as np
+    versions bit for bit; the share of visited kv tiles whose step is
+    mask-free; the prologue and the main loop timed apart, each beside its
+    bound. ``run(phases, scratch)`` -> (out, scratch); ``steps``: (visited,
+    mask_free) [nq, nk] bool, the main loop's schedule
+    (``tiles.flash_steps_plain`` on the tile_segs the images check holds
+    equal); ``pro_bytes``: the prologue's bytes; ``main_work``: (bytes,
+    flop) of the main loop. Bounds and inputs are already on the card (a
+    host copy inside the timed call would stall it). Returns the line's
+    numbers."""
     import torch
 
     _, scratch = run(3, None)
     torch.cuda.synchronize()
     exact = [torch.equal(a, b) for a, b in zip(scratch, plain_images)]
-    q_ts = scratch[-2 if len(scratch) == 5 else -1].cpu().numpy().reshape(-1)
-    kv_ts = scratch[-1].cpu().numpy().reshape(-1)
-    visited = interior = 0
-    for iq in range(len(q_ts)):
-        js = np.arange(lo[iq], hi[iq])
-        visited += len(js)
-        interior += (len(js) if not masked else
-                     int(((kv_ts[js] == q_ts[iq]) & (q_ts[iq] >= 0)).sum()))
+    visited, interior = (int(x.sum()) for x in steps)
     share = interior / max(visited, 1)
     print(f"[kernel] {kernel} {name} prologue images and tile_segs equal "
           f"the plain ones bit for bit: {exact}; visited kv tiles {visited},"
@@ -635,64 +647,75 @@ def wgmma_phases(kernel, name, run, plain_images, lo, hi, pro_bytes,
     return dict(prologue_ms=times[1], main_ms=times[2], share=share)
 
 
-def flash_phases(kernel, name, q, k, v, seg, bounds_np, iters, d_real=None,
-                 ablate=None):
-    """``wgmma_phases`` for a flash-route call on [1, S, H, D] q, k, v with
-    one seg [1, S] for queries and keys: bounds (numpy, or None for the
-    full range), a kv_iters cap, ``ablate=(do_mask, do_exp)`` for the
-    ablation's variants. Bytes: q, k, v and seg read, the images and
-    tile_segs written (prologue); the images, segs, tile_segs and bounds
-    read and out written (main loop); flop of the valid pairs at the real
-    head dim ``d_real`` (every pair of every visited tile without the
-    mask)."""
+def valid_pairs(seg_np, visited, causal):
+    """(query, key) pairs inside the visited tiles ([nq, nq] bool) that the
+    mask lets through for one seg [S] of queries and keys: the same nonzero
+    segment and, when causal, query row >= key (counted densely; the causal
+    calls are the LM prefill's, S <= 2,048)."""
     import numpy as np
+
+    nt = visited.shape[0]
+    rows = np.zeros(nt * TILE, np.int64)
+    rows[:len(seg_np)] = seg_np
+    if causal:
+        n = nt * TILE
+        ok = ((rows[:, None] == rows[None]) & (rows[None] > 0)
+              & (np.arange(n)[:, None] >= np.arange(n)[None]))
+        per_tile = ok.reshape(nt, TILE, nt, TILE).sum((1, 3))
+    else:
+        tiles = rows.reshape(nt, TILE)
+        counts = np.stack([(tiles == i).sum(1) for i in np.unique(rows)
+                           if i > 0], 1)
+        per_tile = counts @ counts.T
+    return int((per_tile * visited).sum())
+
+
+def flash_phases(kernel, name, q, k, v, seg, bounds_np, iters, d_real=None,
+                 ablate=None, causal=False):
+    """``wgmma_phases`` for a flash-route call on [1, S, H, D] q and [1, S,
+    H_kv, D] k, v with one seg [1, S] for queries and keys: bounds (numpy,
+    or None for the full range), a kv_iters cap, the causal mask,
+    ``ablate=(do_mask, do_exp)`` for the ablation's variants. Bytes: q, k,
+    v and seg read, the images and tile_segs written (prologue); the
+    images, segs, tile_segs and bounds read and out written (main loop);
+    flop of the valid pairs at the real head dim ``d_real`` (every pair of
+    every visited tile without the mask)."""
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.kernels import tiles as T
 
     _, s, h, d = q.shape
+    h_kv = k.shape[2]
     nt, dp = -(-s // TILE), T.padded_head_dim(d)
     d_real = d_real or d
-    if bounds_np is None:
-        lo, hi = np.zeros(nt, np.int64), np.full(nt, nt, np.int64)
-    else:
-        lo = np.asarray(bounds_np)[:, 0].astype(np.int64)
-        hi = np.asarray(bounds_np)[:, 1].astype(np.int64)
-    if iters:
-        hi = np.minimum(hi, lo + iters)
     bounds = (None if bounds_np is None
               else torch.as_tensor(bounds_np, device="cuda"))
     if ablate is None:
         def run(phases, scratch):
-            return A._launch_flash(kernel, q, k, v, seg, seg, False,
+            return A._launch_flash(kernel, q, k, v, seg, seg, causal,
                                    d_real**-0.5, bounds, iters,
                                    phases=phases, scratch=scratch)
     else:
         def run(phases, scratch):
             return A._launch_ablate(q, k, v, seg, *ablate, d_real**-0.5,
                                     phases=phases, scratch=scratch)
-    seg_np = seg[0].cpu().numpy()
-    if ablate is None:  # the valid pairs; the ablation's function: all
-        tiles = np.zeros(nt * TILE, np.int64)
-        tiles[:s] = seg_np
-        tiles = tiles.reshape(nt, TILE)
-        ids = [i for i in np.unique(seg_np) if i > 0]
-        counts = np.stack([(tiles == i).sum(1) for i in ids], 1)
-        seen = ((np.arange(nt)[None] >= lo[:, None])
-                & (np.arange(nt)[None] < hi[:, None]))
-        pairs = int(((counts @ counts.T) * seen).sum())
-    else:
-        pairs = int((hi - lo).sum()) * TILE * TILE
-    img_bytes = 3 * h * nt * TILE * dp * 2
-    qkv_bytes = 3 * s * h * d * 2
+    visited, mask_free = (x.cpu().numpy() for x in T.flash_steps_plain(
+        seg[0], seg[0], causal, bounds_np, iters))
+    if ablate is None:
+        pairs = valid_pairs(seg[0].cpu().numpy(), visited, causal)
+    else:  # the ablation's function: every pair of every visited tile
+        pairs = int(visited.sum()) * TILE * TILE
+        if not ablate[0]:
+            mask_free = visited
+    img_bytes = (h + 2 * h_kv) * nt * TILE * dp * 2
+    qkv_bytes = (h + 2 * h_kv) * s * d * 2
     return wgmma_phases(
         kernel, name, run,
-        T.flash_images_plain(q, k, v, seg, seg), lo, hi,
+        T.flash_images_plain(q, k, v, seg, seg), (visited, mask_free),
         qkv_bytes + s * 4 + img_bytes + 2 * nt * 4,
         (img_bytes + s * h * d * 2 + s * 4 + 2 * nt * 4 + nt * 8,
-         4 * d_real * h * pairs),
-        masked=ablate is None or ablate[0])
+         4 * d_real * h * pairs))
 
 
 def check_fused(cfg, vb, kit):
@@ -710,6 +733,7 @@ def check_fused(cfg, vb, kit):
 
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+    from visionselector_tpu_torch.kernels import tiles as T
     from visionselector_tpu_torch.models.qwen25vl.vit import (
         apply_rotary,
         vision_rotary_cos_sin,
@@ -746,7 +770,8 @@ def check_fused(cfg, vb, kit):
             lambda ph, sc: F_._launch(qkv, seg, cos, sin, bounds, h, d,
                                       d**-0.5, phases=ph, scratch=sc),
             (*F_.prologue_plain(qkv, cos, sin, h, d), F_.tile_seg_plain(seg)),
-            np.asarray(bounds_np)[:, 0], np.asarray(bounds_np)[:, 1],
+            tuple(x.cpu().numpy() for x in T.flash_steps_plain(
+                seg, seg, False, bounds_np)),
             3 * s * h * d * 2 + 2 * s * d * 2 + s * 4 + img_bytes + nt * 4,
             (img_bytes + s * h * d * 2 + s * 4 + nt * 12,
              kit["bounded_work"](seg_np, bounds_np, 0, h, d)[1]))
@@ -813,6 +838,7 @@ def check_packed(cfg, vb, qkv_vit, lengths, kit):
     import torch.nn.functional as F
 
     from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
 
     dev, dp = "cuda", 128
     h, d = cfg.vision.num_heads, cfg.vision.head_dim
@@ -859,9 +885,9 @@ def check_packed(cfg, vb, qkv_vit, lengths, kit):
     for t, valid in lengths:
         ql, kl, vl = (kit["rnd"](1, t, n * dh) for n in (hq, hkv, hkv))
         seg = (torch.arange(t, device=dev) < valid).int()[None]
-        nq = -(-t // TILE)
-        visited, useful = flash_work(np.zeros(nq), np.arange(1, nq + 1),
-                                     valid * (valid + 1) // 2, hq, dh)
+        n_steps = int(T.flash_steps_plain(seg[0], seg[0], True)[0].sum())
+        visited, useful = flash_work(n_steps, valid * (valid + 1) // 2,
+                                     hq, dh)
         kit["case"](
             "flash_packed_fwd", f"lm_prefill T={t} valid={valid} Hq={hq} "
             f"Hkv={hkv} dp={dh} (slabs)",
@@ -877,6 +903,10 @@ def check_packed(cfg, vb, qkv_vit, lengths, kit):
             lambda q_=ql, k_=kl, v_=vl, t_=t, seg_=seg: sdpa_ms(
                 q_.view(1, t_, hq, dh), k_.view(1, t_, hkv, dh),
                 v_.view(1, t_, hkv, dh), kit["causal_mask"](seg_)))
+        flash_phases("flash_packed_fwd", f"lm_prefill T={t} (slabs)",
+                     *(A._heads(x, n, dh, nm) for x, n, nm in zip(
+                         (ql, kl, vl), (hq, hkv, hkv), "qkv")),
+                     seg, None, None, causal=True)
 
 
 def check_ablate(kit):
@@ -952,7 +982,7 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
     n_full = len(cfg.vision.fullatt_block_indexes)
     want_diag = cfg.vision.depth - n_full
     want_flash = n_full + cfg.text.num_hidden_layers
-    want_routes = {"wgmma": n_full, "mma_sync": cfg.text.num_hidden_layers}
+    want_routes = {"wgmma": n_full + cfg.text.num_hidden_layers}
     engines = {
         "selector": QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
                                  device="cuda"),
@@ -1014,8 +1044,8 @@ def run_main_path(cfg, params, input_ids, pixels, grid):
         if routes != want_routes:
             raise AssertionError(
                 f"{name}: flash routes {routes}, expected {want_routes} (the "
-                f"ViT full layers on the wgmma route, the causal decoder "
-                f"layers on the mma.sync kernel)")
+                f"ViT full layers and the causal decoder layers, all on the "
+                f"wgmma route)")
         results[name] = res
     print(f"[main] expected per prefill: flash={want_flash} "
           f"diag={want_diag} flash routes {want_routes}; per decode step: "
@@ -1066,8 +1096,8 @@ def run_variant_paths(cfg, params, input_ids, pixels, grid):
     layer + one packed launch per ViT full layer and per decoder layer (the
     packed wrapper counts PACKED_LAUNCHES only, not FLASH_LAUNCHES); every
     decode step one decode launch per decoder layer. Flash routes per
-    prefill: the ViT's full layers on the wgmma route (none under "fused"),
-    every decoder layer's causal prefill on the mma.sync kernel. Each is
+    prefill: the ViT's full layers (none under "fused") and every decoder
+    layer's causal prefill, all on the wgmma route. Each is
     held against the same request with ``attn_impl="plain"`` and the same
     variant, with phase 3's tolerance. Returns each variant's launch counts."""
     import torch
@@ -1083,12 +1113,12 @@ def run_variant_paths(cfg, params, input_ids, pixels, grid):
     want = {
         "fused": dict(fused_vit_attn_fwd=vc.depth, flash_varlen_fwd=n_layers,
                       diag_attn_fwd=0, flash_packed_fwd=0,
-                      routes={"wgmma": 0, "mma_sync": n_layers}),
+                      routes={"wgmma": n_layers}),
         "packed": dict(fused_vit_attn_fwd=0,
                        flash_varlen_fwd=n_layers - lm_packed,
                        diag_attn_fwd=vc.depth - n_full,
                        flash_packed_fwd=n_full + lm_packed,
-                       routes={"wgmma": n_full, "mma_sync": n_layers}),
+                       routes={"wgmma": n_full + n_layers}),
     }
     out = {}
     for variant, expect in want.items():

@@ -555,8 +555,8 @@ def test_flash_prologue_images_bit_exact(dev, d):
 
 
 def test_flash_routes_are_counted(dev):
-    """Non-causal calls (flash, packed, ablation) take the wgmma route,
-    causal calls the mma.sync kernel; plain calls count nothing."""
+    """Every kernel call (flash and packed, causal or not, the ablation)
+    takes the wgmma route; plain calls count nothing."""
     gen = torch.Generator(device=dev).manual_seed(31)
     q, k, v = (_rnd(gen, 1, 128, 2, 64) for _ in range(3))
     seg = _seg(128, dev)
@@ -570,7 +570,7 @@ def test_flash_routes_are_counted(dev):
     A.fullattn_ablate(q, k, v, seg, False, True)
     A.attention(q, k, v, seg, seg, impl="plain")
     got = {r: A.FLASH_ROUTE_LAUNCHES[r] - before[r] for r in before}
-    assert got == {"wgmma": 3, "mma_sync": 2}
+    assert got == {"wgmma": 5}
 
 
 def test_flash_misaligned_views_raise(dev):
@@ -637,9 +637,9 @@ def test_flash_planted_faults_fail(dev):
 @pytest.mark.parametrize("variant", [None, "fused", "packed"])
 def test_tiny_engine_flash_routes(dev, variant):
     """Per image prefill of the tiny engine (2 ViT full layers, 2 decoder
-    layers): the ViT's full layers take the wgmma route (flash or packed),
-    the decoder's causal prefill the mma.sync kernel; "fused" runs its own
-    kernel in the ViT."""
+    layers): the ViT's full layers (flash or packed) and the decoder's
+    causal prefill all take the wgmma route; "fused" runs its own kernel in
+    the ViT."""
     from visionselector_tpu_torch.core.config import qwen25vl_tiny
     from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
     from visionselector_tpu_torch.models.qwen25vl.weights import init_params
@@ -659,5 +659,61 @@ def test_tiny_engine_flash_routes(dev, variant):
     got = {r: A.FLASH_ROUTE_LAUNCHES[r] - before[r] for r in before}
     n_full = len(cfg.vision.fullatt_block_indexes)
     n_lm = cfg.text.num_hidden_layers
-    assert got == {"wgmma": 0 if variant == "fused" else n_full,
-                   "mma_sync": n_lm}
+    assert got == {"wgmma": (0 if variant == "fused" else n_full) + n_lm}
+
+
+def _prefix_inputs(gen, b, t, h, h_kv, d, valid):
+    """q [b, t, h, d], k, v [b, t, h_kv, d] and valid-prefix segments (the
+    LM prefill's layout), one length per batch row."""
+    q = _rnd(gen, b, t, h, d)
+    k, v = _rnd(gen, b, t, h_kv, d), _rnd(gen, b, t, h_kv, d)
+    seg = (torch.arange(t, device="cuda")[None]
+           < torch.tensor(valid, device="cuda")[:, None]).int()
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("d", A.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("h, h_kv", [(16, 2), (4, 2)])
+@pytest.mark.parametrize("t", [200, 333, 1664])
+def test_flash_causal_wgmma_matches_plain(dev, d, h, h_kv, t):
+    """K1's causal path on the wgmma route: GQA, B = 2, ragged valid
+    prefixes (the second leaves q tiles of padding only, which visit no kv
+    tile): images bit for bit equal to flash_images_plain, the output
+    within ULP_LIMIT of flash_plain, padding rows exactly 0."""
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    gen = torch.Generator(device=dev).manual_seed(300 + d + h + t)
+    q, k, v, seg = _prefix_inputs(gen, 2, t, h, h_kv, d, [t - 45, t // 3])
+    out, scratch = A._launch_flash("flash_varlen_fwd", q, k, v, seg, seg,
+                                   True, None, None, None)
+    for got, want in zip(scratch, T.flash_images_plain(q, k, v, seg, seg)):
+        assert got.shape == want.shape and torch.equal(got, want)
+    want = A.flash_plain(q, k, v, seg, seg, causal=True)
+    assert _err(out, want) <= ULP_LIMIT
+    assert (out[seg == 0] == 0).all()
+
+
+def test_flash_causal_planted_faults_fail(dev):
+    """At the 3B orig prefill's layout (T = 1664, 1302 valid, GQA 16/2, D =
+    128): bounds that cut each live q tile's diagonal kv tile, and the
+    straddling q tile 20 (valid and padding rows) forced onto the
+    mask-free step, both fail the tolerance; the true call passes."""
+    gen = torch.Generator(device=dev).manual_seed(35)
+    t, valid = 1664, 1302
+    q, k, v, seg = _prefix_inputs(gen, 1, t, 16, 2, 128, [valid])
+    want = A.flash_plain(q, k, v, seg, seg, causal=True)
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, causal=True)
+    assert _err(got, want) <= ULP_LIMIT
+    nq = t // 64
+    iq = torch.arange(nq, device=dev)
+    cut = torch.stack([torch.zeros_like(iq), iq], 1).int()  # [0, iq)
+    assert _err(A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
+                                   kv_bounds=cut), want) > ULP_LIMIT
+    ts = torch.as_tensor(_tile_seg_np(seg[0].cpu().numpy()), device=dev)
+    assert ts[valid // 64] == -1 and (ts[:valid // 64] == 1).all()
+    forced = ts.clone()
+    forced[valid // 64] = 1
+    bad, _ = A._launch_flash("flash_varlen_fwd", q, k, v, seg, seg, True,
+                             None, None, None,
+                             tile_seg=(forced[None], ts[None]))
+    assert _err(bad, want) > ULP_LIMIT

@@ -5,7 +5,9 @@ dp = 128, GQA, B = 2, Sq != Sk), its tile segment ids equal numpy, and
 attention from the images (``images_attention_plain``) equals the JAX
 package's Pallas kernels in interpret mode, as
 ``tests/test_torch_attention.py`` and ``tests/test_torch_ablate.py`` run
-them. Same numpy inputs from a seed go to both; fp32.
+them, causal GQA included (kv expanded for the JAX side as its decoder
+does). ``flash_steps_plain``, the main loop's schedule, is held to the
+masks of ``flash_plain``. Same numpy inputs from a seed go to both; fp32.
 
 Tolerances: atol 1e-5 against the flash kernels (fp32 sum-order
 differences between a dense softmax and the kernels' online softmax); the
@@ -201,6 +203,93 @@ def test_images_attention_matches_pallas_packed(real_d):
     assert (got[..., real_d:] == 0).all()
 
 
+@pytest.mark.parametrize("s", [200, 333])
+@pytest.mark.parametrize("h, h_kv", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("d", [24, 128])
+def test_images_attention_causal_matches_pallas(d, h, h_kv, s):
+    """K1's causal path (the LM prefill): GQA, B = 2, ragged valid prefixes
+    (one leaves q tiles of padding only), against ``_flash_pallas`` on kv
+    expanded to H heads as the JAX decoder expands it."""
+    rng = np.random.RandomState(d + h + s)
+    q = rng.randn(2, s, h, d).astype(np.float32)
+    k, v = (rng.randn(2, s, h_kv, d).astype(np.float32) for _ in range(2))
+    valid = np.array([s - 45, s // 3])
+    seg = (np.arange(s)[None] < valid[:, None]).astype(np.int32)
+    n_rep = h // h_kv
+    want = jattn._flash_pallas(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, n_rep, 2)),
+        jnp.asarray(np.repeat(v, n_rep, 2)), jnp.asarray(seg),
+        jnp.asarray(seg), True, d**-0.5, BLOCK, BLOCK, interpret=True)
+    imgs = T.flash_images_plain(_t(q), _t(k), _t(v), _t(seg), _t(seg))
+    got = T.images_attention_plain(*imgs[:3], _t(seg), _t(seg), d,
+                                   causal=True).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+    assert (got[seg == 0] == 0).all()
+
+
+def _step_layouts():
+    """(name, seg [S]): valid prefixes (the LM prefill's layout, the two
+    ``chip_smoke.py`` lengths among them), two images, and 8 video frames
+    of 128 rows: layouts with whole tiles of one segment."""
+    out = [(f"prefix{t}_{n}", (np.arange(t) < n).astype(np.int32))
+           for t, n in ((1664, 1302), (384, 294), (200, 155), (333, 222))]
+    return out + [("full", _layouts(333)["full"]),
+                  ("video", _layouts(1040)["video"])]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name, seg", _step_layouts())
+def test_flash_steps_mask_free_pairs_are_valid(name, seg, causal):
+    """Every (query, key) pair of a mask-free step is valid under
+    ``flash_plain``'s segment (and causal) mask, rows past S counted as
+    padding; every valid pair lies in a visited tile."""
+    s = len(seg)
+    visited, mask_free = T.flash_steps_plain(_t(seg), _t(seg), causal)
+    n = visited.shape[0] * BLOCK
+    rows = np.zeros(n, np.int32)
+    rows[:s] = seg
+    ok = (rows[:, None] == rows[None]) & (rows[None] > 0)
+    if causal:
+        ok &= np.arange(n)[:, None] >= np.arange(n)[None]
+    tiles = ok.reshape(n // BLOCK, BLOCK, n // BLOCK, BLOCK)
+    all_ok, any_ok = tiles.all((1, 3)), tiles.any((1, 3))
+    assert not (mask_free.numpy() & ~all_ok).any()
+    assert not (any_ok & ~visited.numpy()).any()
+    assert mask_free.any()
+
+
+@pytest.mark.parametrize("t, valid", [(1664, 1302), (384, 294), (200, 155),
+                                      (333, 111)])
+def test_flash_steps_causal_diagonal_never_mask_free(t, valid):
+    seg = _t((np.arange(t) < valid).astype(np.int32))
+    visited, mask_free = T.flash_steps_plain(seg, seg, causal=True)
+    assert not mask_free.diagonal().any()
+    assert not visited.triu(1).any()  # nothing past the diagonal
+    live = -(-valid // BLOCK)
+    assert visited[:live].diagonal().all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_steps_padding_q_tiles(causal):
+    """Under causal, q tiles of padding rows only visit nothing; without
+    it (the ablation's schedule) every q tile visits the full range."""
+    t, valid = 384, 150  # q tiles 3-5 hold padding rows only
+    seg = _t((np.arange(t) < valid).astype(np.int32))
+    visited, _ = T.flash_steps_plain(seg, seg, causal)
+    counts = visited.sum(1).tolist()
+    assert counts == ([1, 2, 3, 0, 0, 0] if causal else [6] * 6)
+
+
+@pytest.mark.parametrize("t, valid, free, steps", [(1664, 1302, 190, 231),
+                                                   (384, 294, 6, 15)])
+def test_flash_steps_shares_at_the_prefill_layouts(t, valid, free, steps):
+    """The two LM prefill lengths of the 3B request (orig and selector 0.2):
+    visited steps per head and the mask-free ones."""
+    seg = _t((np.arange(t) < valid).astype(np.int32))
+    visited, mask_free = T.flash_steps_plain(seg, seg, causal=True)
+    assert (int(visited.sum()), int(mask_free.sum())) == (steps, free)
+
+
 @pytest.mark.parametrize("do_exp", [True, False])
 @pytest.mark.parametrize("do_mask", [True, False])
 def test_images_ablation_matches_jax_bench_kernel(jbench, do_mask,  # noqa: F811
@@ -218,6 +307,8 @@ def test_images_ablation_takes_no_bounds():
     q, k, v, seg = _ablate_inputs()
     with pytest.raises(ValueError, match="no bounds"):
         _from_images(q, k, v, seg, do_exp=False, kv_iters=2)
+    with pytest.raises(ValueError, match="no causal"):
+        _from_images(q, k, v, seg, do_mask=False, causal=True)
 
 
 @pytest.mark.parametrize("d, nbytes", [(80, 47_185_920), (128, 75_497_472)])

@@ -115,10 +115,10 @@ def load() -> ctypes.CDLL:
             lib.vst_fused_vit_attn_fwd.argtypes = (
                 [_P] * 10 + [_I] * 3 + [_F, _I, _P])
             lib.vst_fused_vit_attn_fwd.restype = _I
-            for fn in (lib.vst_wgmma_main_smem_bytes,
-                       lib.vst_wgmma_main_blocks_per_sm):
-                fn.argtypes = [_I]
-                fn.restype = _I
+            lib.vst_wgmma_main_smem_bytes.argtypes = [_I]
+            lib.vst_wgmma_main_smem_bytes.restype = _I
+            lib.vst_wgmma_main_blocks_per_sm.argtypes = [_I, _I]
+            lib.vst_wgmma_main_blocks_per_sm.restype = _I
             lib.vst_diag_attn_fwd.argtypes = (
                 [_P] * 5 + [_L] * 9 + [_I] * 5 + [_F, _P])
             lib.vst_diag_attn_fwd.restype = _I

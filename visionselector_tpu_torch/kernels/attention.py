@@ -18,12 +18,12 @@ of the same function beside it:
   (replaces ``_flash_pallas_packed``), and ``fullattn_ablate`` /
   ``ablate_plain`` run its compile-time variants without bounds, mask or
   exp (replaces the TPU bench kernel of ``tools/bench_fullattn_ablate.py``).
-  Two routes, chosen by ``causal``: a non-causal call (the ViT's full
-  layers, K2, K3, the ablation) makes two launches, a prologue that writes
-  q, k and v as wgmma tile images (``tiles.py``; its plain version is
+  Every call (the ViT's full layers, K2, K3, the ablation, the causal LM
+  prefill) makes two launches: a prologue that writes q, k and v as wgmma
+  tile images (``tiles.py``; its plain version is
   ``tiles.flash_images_plain``) into scratch, then the wgmma main loop it
-  shares with the fused ViT kernel; a causal call (the LM prefill) runs
-  the mma.sync kernel. ``FLASH_ROUTE_LAUNCHES`` counts calls by route.
+  shares with the fused ViT kernel (causal or not: its schedule is
+  ``tiles.flash_steps_plain``). ``FLASH_ROUTE_LAUNCHES`` counts the calls.
 - ``diag_attn_fwd`` / ``diag_plain``: block-diagonal attention for the
   window-aligned ViT layout. Replaces ``attention_diag``'s ``_diag_kernel``.
 - ``decode_blocked_fwd`` / ``decode_blocked_plain``: GQA decode attention
@@ -72,9 +72,8 @@ DECODE_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 ABLATE_LAUNCHES = 0
 # Calls of the flash kernel source (flash, packed and ablation wrappers) by
-# route: "wgmma" (non-causal: image prologue + wgmma main loop) and
-# "mma_sync" (causal).
-FLASH_ROUTE_LAUNCHES = {"wgmma": 0, "mma_sync": 0}
+# route; there is one, "wgmma": the image prologue, then the wgmma main loop.
+FLASH_ROUTE_LAUNCHES = {"wgmma": 0}
 
 
 def segment_block_bounds(seg_ids, block_q: int, block_k: int) -> np.ndarray:
@@ -291,14 +290,13 @@ def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
     """Check the inputs of a flash launch on CUDA tensors and launch the
     kernels (the caller counts the call; the route is counted here).
 
-    Non-causal calls take the wgmma route: ``phases`` 1 the image
-    prologue, 2 the main loop (on ``scratch`` that a prologue filled), 3
-    both; ``ablate=(do_mask, do_exp)`` launches the ablation's variants
-    (no bounds, ``q_seg`` for queries and keys); ``tile_seg=(q, kv)``
-    replaces the prologue's tile segment ids before the main loop (only the
-    card tests and ``chip_smoke.py`` pass it, to plant a fault). Causal
-    calls run the mma.sync kernel. Returns (out [B, Sq, H, D], scratch:
-    (q_img, k_img, vt_img, q tile_seg, kv tile_seg), None when causal)."""
+    ``phases`` 1 the image prologue, 2 the main loop (on ``scratch`` that a
+    prologue filled; causal or not), 3 both; ``ablate=(do_mask, do_exp)``
+    launches the ablation's variants (non-causal, no bounds, ``q_seg`` for
+    queries and keys); ``tile_seg=(q, kv)`` replaces the prologue's tile
+    segment ids before the main loop (only the card tests and
+    ``chip_smoke.py`` pass it, to plant a fault). Returns (out [B, Sq, H,
+    D], scratch: (q_img, k_img, vt_img, q tile_seg, kv tile_seg))."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     _check_cuda(name, q, k, v, q_seg, kv_seg)
@@ -331,18 +329,13 @@ def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
     from visionselector_tpu_torch.kernels import _build
 
     lib = _build.load()
-    if causal:
-        if ablate is not None or tile_seg is not None or phases != 3:
-            raise ValueError(f"{name}: a causal call is one mma.sync launch")
-        steps, scratch, ptrs = [3], None, [None] * 5
-    else:
-        if scratch is None:
-            scratch = _flash_scratch(b, h, h_kv, sq, sk, d, q.device)
-        ptrs = [t.data_ptr() for t in scratch]
-        # With a tile_seg to plant, the prologue and the main loop are two
-        # calls and the planted ids go in between.
-        steps = [phases] if tile_seg is None else [
-            st for st in (1, 2) if phases & st]
+    if scratch is None:
+        scratch = _flash_scratch(b, h, h_kv, sq, sk, d, q.device)
+    ptrs = [t.data_ptr() for t in scratch]
+    # With a tile_seg to plant, the prologue and the main loop are two
+    # calls and the planted ids go in between.
+    steps = [phases] if tile_seg is None else [
+        st for st in (1, 2) if phases & st]
     for step in steps:
         if step == 2 and tile_seg is not None:
             scratch[3].copy_(tile_seg[0])
@@ -361,7 +354,7 @@ def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
                 *ptrs, step, stream)
         if err:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    FLASH_ROUTE_LAUNCHES["mma_sync" if causal else "wgmma"] += 1
+    FLASH_ROUTE_LAUNCHES["wgmma"] += 1
     return out, scratch
 
 

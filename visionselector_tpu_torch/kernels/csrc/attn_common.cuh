@@ -1,4 +1,5 @@
-// Building blocks shared by the attention kernels (sm_90a).
+// Building blocks of the mma.sync attention kernels (diag_attn_fwd.cu,
+// decode_blocked_fwd.cu), and the helpers the wgmma main loop shares (sm_90a).
 //
 // Tiles are 64 query rows by 64 key rows, bf16 in shared memory. The head
 // dim D (a multiple of 8) is zero-padded in shared memory to Dp, the next
@@ -182,62 +183,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// One kv tile of the online softmax for this warp's query rows g and g + 8.
-// s holds the tile's raw logits Q K^T (s[n] = key columns [8n, 8n + 8));
-// valid(n, e) says whether element e of s[n] is a key its row may attend.
-// s * scale is masked, p = exp(s * scale - m) with the running row max m
-// (in base 2) and row sum l, o is rescaled to the new max, and o += P V
-// with p rounded to bf16. A masked element gets p = 0 explicitly (a fully
-// masked row would otherwise give exp(0) = 1), so a row with no valid key
-// keeps l = 0.
-template <int D, typename Valid>
-__device__ __forceinline__ void online_softmax_pv(
-    float s[8][4], float o[Dims<D>::kPad / 8][4], float& m0, float& m1,
-    float& l0, float& l1, float scale, const bf16* sv, int lane,
-    const Valid& valid) {
-  const float sl2 = scale * kLog2e;  // softmax in base 2: e^x = 2^(x log2 e)
-  float mx0 = kNegInf, mx1 = kNegInf;
-  unsigned ok = 0;  // bit 4n + e: element (n, e) is a valid key
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool v = valid(n, e);
-      s[n][e] = v ? s[n][e] * sl2 : kNegInf;
-      ok |= (unsigned)v << (4 * n + e);
-      if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
-      else mx1 = fmaxf(mx1, s[n][e]);
-    }
-  }
-  const float mn0 = fmaxf(m0, quad_max(mx0));
-  const float mn1 = fmaxf(m1, quad_max(mx1));
-  const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool v = (ok >> (4 * n + e)) & 1u;
-      const float pe = v ? exp2f(s[n][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-      s[n][e] = pe;
-      if (e < 2) sum0 += pe;
-      else sum1 += pe;
-    }
-  }
-  l0 = l0 * a0 + quad_sum(sum0);
-  l1 = l1 * a1 + quad_sum(sum1);
-  m0 = mn0;
-  m1 = mn1;
-#pragma unroll
-  for (int n = 0; n < Dims<D>::kPad / 8; ++n) {
-    o[n][0] *= a0;
-    o[n][1] *= a0;
-    o[n][2] *= a1;
-    o[n][3] *= a1;
-  }
-  pv_tile<D>(o, s, sv, lane);
 }
 
 // Write this warp's two output rows (bf16, the D real columns): o / l, and

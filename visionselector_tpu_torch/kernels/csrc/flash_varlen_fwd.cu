@@ -22,19 +22,19 @@
 // reads kv head h / (H / H_kv), so the caller never expands kv. out is a
 // contiguous [B, Sq, H, D].
 //
-// Two routes, chosen by the `causal` argument:
-//
-// Non-causal (the ViT's full-attention layers, K1 with bounds; K2 with a
-// kv_iters cap; K3 on the padded slab; K7's four variants): two launches.
+// Every call makes two launches (the ViT's full-attention layers, K1 with
+// bounds; K2 with a kv_iters cap; K3 on the padded slab; K7's four
+// variants; the causal LM prefill, K1 and K3 with causal = 1):
 //  1. flash_images_prologue_kernel: one block of 128 threads per (64-row
 //     tile, head, q | k | v, batch) reads the tile with 16-byte loads and
 //     writes it as a wgmma tile image (wgmma_attn.cuh: q and k K-major, v
 //     transposed, zero pads and rows past S zero) into scratch; the head-0
 //     blocks of q and of v also write the q and kv tile_seg. No rotation.
 //     Bound: bytes, q, k and v read once and the images written once (47.2
-//     MB each way at S = 6144, H = 16, D = 80).
-//  2. flash_wgmma_main_kernel<D, kMask, kExp>: the wgmma main loop of
-//     wgmma_attn.cuh (shared with the fused ViT kernel): a producer warp
+//     MB each way at S = 6144, H = 16, D = 80; at GQA 16/2 it writes 2
+//     heads of k and v^T images and 16 of q).
+//  2. flash_wgmma_main_kernel<D, kMask, kExp, kCausal>: the wgmma main loop
+//     of wgmma_attn.cuh (shared with the fused ViT kernel): a producer warp
 //     feeds a 3-stage ring of k and v^T images by bulk async copies, one
 //     consumer warpgroup runs wgmma for Q K^T and P V with the softmax in
 //     registers, and a kv tile whose tile_seg equals the q tile's takes the
@@ -43,14 +43,11 @@
 //     Dynamic shared memory: the q image and 3 stages of k and v^T images,
 //     71,736 bytes at D = 80 (three blocks per SM), 114,744 at Dp = 128
 //     (two blocks per SM; 3 stages kept, 2 would not fit a third block).
-//
-// Causal (the LM prefill): flash_causal_fwd_kernel, one block of 128
-// threads per (q tile, head, batch), mma.sync m16n8k16 with S and P in
-// registers (the C fragment of S reused as the A fragment of P), K/V tiles
-// double-buffered with cp.async, kv tiles past the diagonal skipped, a
-// segment-id and position compare per element. Bound: operations (half the
-// pairs of the tiles up to the diagonal). Moving it onto the wgmma main
-// loop is later work.
+//     kCausal (the LM prefill): kv tiles past the diagonal are not visited
+//     and the diagonal tile compares positions, so a q tile carries iq + 1
+//     steps (half the pairs of the tiles up to the diagonal); a q tile of
+//     padding rows only visits none. Its grid is (H, nq, B) with q tile
+//     nq - 1 - blockIdx.y: the heaviest tiles of every head start first.
 #include "attn_common.cuh"
 #include "wgmma_attn.cuh"
 
@@ -70,7 +67,7 @@ struct FlashParams {
   int B, Sq, Sk, H, Hkv;
   int kv_iters;  // 0: no cap
   float scale;
-  // The non-causal route's scratch: tile images and tile segment ids.
+  // Scratch: tile images and tile segment ids.
   bf16* q_img;   // [B, H, ceil(Sq / 64), 64 * Dp]
   bf16* k_img;   // [B, H_kv, ceil(Sk / 64), 64 * Dp]
   bf16* vt_img;  // [B, H_kv, ceil(Sk / 64), 64 * Dp]
@@ -78,7 +75,7 @@ struct FlashParams {
   int* kv_tseg;  // [B, ceil(Sk / 64)]
 };
 
-// --- non-causal: image prologue, then the wgmma main loop -----------------
+// --- the image prologue, then the wgmma main loop -----------------------
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -117,17 +114,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kMask, bool kExp>
+template <int D, bool kMask, bool kExp, bool kCausal>
 __global__ void __launch_bounds__(kMainThreads, 2)
     flash_wgmma_main_kernel(const WgmmaAttnParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  wgmma_attn_block<D, kMask, kExp>(p, smem_raw, blockIdx.x, blockIdx.y,
-                                   blockIdx.z);
+  if constexpr (kCausal) {  // grid (H, nq, B), the last q tile first
+    wgmma_attn_block<D, kMask, kExp, true>(
+        p, smem_raw, gridDim.y - 1 - blockIdx.y, blockIdx.x, blockIdx.z);
+  } else {  // grid (nq, H, B)
+    wgmma_attn_block<D, kMask, kExp, false>(p, smem_raw, blockIdx.x,
+                                            blockIdx.y, blockIdx.z);
+  }
 }
 
 // phases: 1 = the prologue, 2 = the main loop (on images a prologue
 // wrote), 3 = both.
-template <int D, bool kMask, bool kExp>
+template <int D, bool kMask, bool kExp, bool kCausal>
 int launch_wgmma(const FlashParams& p, int phases, cudaStream_t stream) {
   const int nq = (p.Sq + kTile - 1) / kTile, nk = (p.Sk + kTile - 1) / kTile;
   if (phases & 1) {
@@ -155,12 +157,12 @@ int launch_wgmma(const FlashParams& p, int phases, cudaStream_t stream) {
     m.kv_iters = p.kv_iters;
     m.scale = p.scale;
     constexpr int smem = main_smem_bytes<D>();
+    auto kernel = flash_wgmma_main_kernel<D, kMask, kExp, kCausal>;
     const cudaError_t attr = cudaFuncSetAttribute(
-        flash_wgmma_main_kernel<D, kMask, kExp>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_wgmma_main_kernel<D, kMask, kExp>
-        <<<dim3(nq, p.H, p.B), kMainThreads, smem, stream>>>(m);
+    const dim3 grid = kCausal ? dim3(p.H, nq, p.B) : dim3(nq, p.H, p.B);
+    kernel<<<grid, kMainThreads, smem, stream>>>(m);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -170,119 +172,18 @@ int launch_wgmma(const FlashParams& p, int phases, cudaStream_t stream) {
 template <int D>
 int launch_ablate(const FlashParams& p, int do_mask, int do_exp, int phases,
                   cudaStream_t stream) {
-  if (do_mask && do_exp) return launch_wgmma<D, true, true>(p, phases, stream);
-  if (do_mask) return launch_wgmma<D, true, false>(p, phases, stream);
-  if (do_exp) return launch_wgmma<D, false, true>(p, phases, stream);
-  return launch_wgmma<D, false, false>(p, phases, stream);
-}
-
-// --- causal: the mma.sync kernel -------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_causal_fwd_kernel(const FlashParams p) {
-  constexpr int kLd = Dims<D>::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem_raw);  // [2][64][kLd]
-  bf16* s_v = s_k + 2 * kTile * kLd;              // [2][64][kLd]
-  int* s_seg = reinterpret_cast<int*>(s_v + 2 * kTile * kLd);  // [2][64]
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = iq * kTile;
-
-  const bf16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + hk * p.v_sh;
-  const int* kseg = p.kv_seg + (long long)b * p.Sk;
-
-  int lo = 0, hi = (p.Sk + kTile - 1) / kTile;
-  if (p.bounds != nullptr) {
-    lo = p.bounds[2 * iq];
-    hi = p.bounds[2 * iq + 1];
+  if (do_mask && do_exp) {
+    return launch_wgmma<D, true, true, false>(p, phases, stream);
   }
-  if (p.kv_iters > 0) hi = min(hi, lo + p.kv_iters);
-  hi = min(hi, iq + 1);  // tiles starting past the last row
-
-  // Q tile through the first K buffer into registers.
-  load_tile_async<D>(s_k, qg, p.q_ss, q0, p.Sq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[Dims<D>::kPad / 16][4];
-  load_q_frags<D>(qf, s_k, warp, lane);
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int* qseg = p.q_seg + (long long)b * p.Sq;
-  const int seg0 = row0 < p.Sq ? qseg[row0] : 0;
-  const int seg1 = row0 + 8 < p.Sq ? qseg[row0 + 8] : 0;
-  __syncthreads();
-
-  // K, V and the key segment ids of tile j into buffer `buf`.
-  auto load_kv = [&](int j, int buf) {
-    load_tile_async<D>(s_k + buf * kTile * kLd, kg, p.k_ss, j * kTile, p.Sk);
-    load_tile_async<D>(s_v + buf * kTile * kLd, vg, p.v_ss, j * kTile, p.Sk);
-    if (threadIdx.x < kTile) {
-      const int r = j * kTile + threadIdx.x;
-      s_seg[buf * kTile + threadIdx.x] = r < p.Sk ? kseg[r] : 0;
-    }
-    cp_async_commit();
-  };
-
-  float o[Dims<D>::kPad / 8][4];
-#pragma unroll
-  for (int n = 0; n < Dims<D>::kPad / 8; ++n) {
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  }
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  if (lo < hi) load_kv(lo, 0);
-  for (int j = lo; j < hi; ++j) {
-    const int buf = (j - lo) & 1;
-    if (j + 1 < hi) {  // prefetch the next tile into the other buffer
-      load_kv(j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sk = s_k + buf * kTile * kLd;
-    const bf16* sv = s_v + buf * kTile * kLd;
-    const int* sseg = s_seg + buf * kTile;
-
-    float s[8][4];
-    qk_tile<D>(s, qf, sk, lane);
-    online_softmax_pv<D>(s, o, m0, m1, l0, l1, p.scale, sv, lane,
-                         [&](int n, int e) {
-                           const int col = n * 8 + 2 * t + (e & 1);
-                           const int ks = sseg[col];
-                           const int row = e < 2 ? row0 : row0 + 8;
-                           return (e < 2 ? seg0 : seg1) == ks && ks > 0 &&
-                                  row >= j * kTile + col;
-                         });
-    __syncthreads();  // this buffer is refilled two iterations from now
-  }
-
-  bf16* og = p.out + ((long long)b * p.Sq * p.H + h) * D;
-  store_rows<D>(og, (long long)p.H * D, row0, p.Sq, o, l0, l1, lane);
-}
-
-template <int D>
-int launch_causal(const FlashParams& p, cudaStream_t stream) {
-  constexpr int kLd = Dims<D>::kLd;
-  const size_t smem = 2 * 2 * kTile * kLd * sizeof(bf16) + 2 * kTile * sizeof(int);
-  cudaFuncSetAttribute(flash_causal_fwd_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
-  flash_causal_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  if (do_mask) return launch_wgmma<D, true, false, false>(p, phases, stream);
+  if (do_exp) return launch_wgmma<D, false, true, false>(p, phases, stream);
+  return launch_wgmma<D, false, false, false>(p, phases, stream);
 }
 
 template <int D>
 int launch(const FlashParams& p, int causal, int phases, cudaStream_t stream) {
-  return causal ? launch_causal<D>(p, stream)
-                : launch_wgmma<D, true, true>(p, phases, stream);
+  return causal ? launch_wgmma<D, true, true, true>(p, phases, stream)
+                : launch_wgmma<D, true, true, false>(p, phases, stream);
 }
 
 FlashParams make_params(const void* q, const void* k, const void* v,
@@ -317,9 +218,9 @@ FlashParams make_params(const void* q, const void* k, const void* v,
 
 }  // namespace vst
 
-// causal = 0 takes the wgmma route (q_img .. kv_tseg: its scratch; phases
-// 1 = the prologue, 2 = the main loop, 3 = both); causal = 1 the mma.sync
-// kernel (the scratch and phases unused).
+// q_img .. kv_tseg: the scratch the prologue writes and the main loop reads;
+// phases 1 = the prologue, 2 = the main loop, 3 = both; causal selects the
+// main loop's instantiation.
 extern "C" int vst_flash_varlen_fwd(
     const void* q, const void* k, const void* v, void* out, const int* q_seg,
     const int* kv_seg, const int* bounds, long long q_sb, long long q_ss,
@@ -368,9 +269,9 @@ extern "C" int vst_fullattn_ablate_fwd(
   }
 }
 
-// Dynamic shared memory of the wgmma main loop (both routes that run it)
-// for head dim D, and how many of its blocks fit on one SM; 0 if D is not
-// one the kernels take.
+// Dynamic shared memory of the wgmma main loop (the flash and the fused
+// kernels') for head dim D, and how many blocks of the flash main loop
+// (causal or not) fit on one SM; 0 if D is not one the kernels take.
 extern "C" int vst_wgmma_main_smem_bytes(int D) {
   switch (D) {
     case 16: return vst::main_smem_bytes<16>();
@@ -382,10 +283,10 @@ extern "C" int vst_wgmma_main_smem_bytes(int D) {
   }
 }
 
-template <int D>
+template <int D, bool kCausal>
 static int blocks_per_sm() {
   constexpr int smem = vst::main_smem_bytes<D>();
-  auto kernel = vst::flash_wgmma_main_kernel<D, true, true>;
+  auto kernel = vst::flash_wgmma_main_kernel<D, true, true, kCausal>;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess) {
     return 0;
@@ -398,13 +299,18 @@ static int blocks_per_sm() {
   return n;
 }
 
-extern "C" int vst_wgmma_main_blocks_per_sm(int D) {
+template <int D>
+static int blocks_per_sm(int causal) {
+  return causal ? blocks_per_sm<D, true>() : blocks_per_sm<D, false>();
+}
+
+extern "C" int vst_wgmma_main_blocks_per_sm(int D, int causal) {
   switch (D) {
-    case 16: return blocks_per_sm<16>();
-    case 24: return blocks_per_sm<24>();
-    case 64: return blocks_per_sm<64>();
-    case 80: return blocks_per_sm<80>();
-    case 128: return blocks_per_sm<128>();
+    case 16: return blocks_per_sm<16>(causal);
+    case 24: return blocks_per_sm<24>(causal);
+    case 64: return blocks_per_sm<64>(causal);
+    case 80: return blocks_per_sm<80>(causal);
+    case 128: return blocks_per_sm<128>(causal);
     default: return 0;
   }
 }

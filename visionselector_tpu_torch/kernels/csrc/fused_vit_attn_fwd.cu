@@ -120,7 +120,8 @@ template <int D>
 __global__ void __launch_bounds__(kMainThreads, 2)
     fused_attn_main_kernel(const WgmmaAttnParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  wgmma_attn_block<D, true, true>(p, smem_raw, blockIdx.x, blockIdx.y, 0);
+  wgmma_attn_block<D, true, true, false>(p, smem_raw, blockIdx.x, blockIdx.y,
+                                         0);
 }
 
 template <int D>

@@ -1,7 +1,7 @@
 // The wgmma attention main loop and the tile-image writes, shared by the
 // fused ViT kernel (fused_vit_attn_fwd.cu, after its rotary prologue) and
-// the non-causal route of the flash kernel (flash_varlen_fwd.cu, after its
-// prologue without rotation). sm_90a.
+// every call of the flash kernel (flash_varlen_fwd.cu, after its prologue
+// without rotation), causal or not. sm_90a.
 //
 // Tile images (hopper_common.cuh; plain versions in kernels/tiles.py): one
 // 64-row tile of one head is one contiguous no-swizzle K-major image of
@@ -23,19 +23,25 @@
 // through its `empty` mbarrier. The consumer warpgroup computes S = Q K^T
 // with wgmma m64n64k16 (both operands from shared memory, Dp / 16 k
 // steps), the online softmax in base 2 in registers (the accumulator has
-// mma.sync's C layout, so the masking, max and sum logic is the mma.sync
-// flash kernel's), rounds P to bf16 in registers and adds P V with wgmma
+// mma.sync's C layout, so the masking, max and sum logic is that of the
+// mma.sync kernels of attn_common.cuh), rounds P to bf16 in registers and adds P V with wgmma
 // m64nDpk16 (A from registers, B the v^T image), fenced, committed and
 // waited around each product. Query head h reads kv head h / (H / H_kv).
 // The kv tiles visited are [lo, hi) of the 64-row bounds (the full range
-// without bounds), capped at lo + kv_iters when kv_iters > 0.
+// without bounds), capped at lo + kv_iters when kv_iters > 0, and with
+// kCausal at iq + 1 (no tile past the diagonal). With kCausal a q tile with
+// no row of segment > 0 visits nothing: its block votes on its 64 segment
+// ids before the roles split, moves no image and stores exact zeros.
 //
 // Mask-free steps: a kv tile whose tile_seg equals the q tile's (and is
 // not -1) is interior: every (query, key) pair of it is valid, so its step
 // reads no segment ids and compares nothing. Other tiles mask per element
 // (keys past the sequence have segment 0); a masked element gets p = 0
 // explicitly, so a padding key never gives exp(0) and a row with no valid
-// key keeps l = 0 and is stored as exact zeros. kMask = false (the
+// key keeps l = 0 and is stored as exact zeros. With kCausal the diagonal
+// tile (j == iq) always takes the masked step, whose compare adds query
+// row >= key index; the tiles below it are mask-free on the tile_seg rule
+// (the LM prefill's valid prefix makes every full one so). kMask = false (the
 // ablation) takes the mask-free step everywhere; kExp = false (the
 // ablation) takes p = the scaled logit with no exp and no running max, so
 // l stays 0 and the rows are stored undivided.
@@ -245,7 +251,7 @@ constexpr int main_smem_bytes() {
 // The main loop of one block: q tile iq of head h of batch b. smem_raw:
 // main_smem_bytes<D>() of dynamic shared memory, 128-byte aligned. Every
 // thread of a kMainThreads block calls it.
-template <int D, bool kMask, bool kExp>
+template <int D, bool kMask, bool kExp, bool kCausal>
 __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
                                                  unsigned char* smem_raw,
                                                  int iq, int h, int b) {
@@ -270,7 +276,9 @@ __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
     hi = p.bounds[2 * iq + 1];
   }
   if (p.kv_iters > 0) hi = min(hi, lo + p.kv_iters);
+  if constexpr (kCausal) hi = min(hi, iq + 1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* q_seg = p.q_seg + (long long)b * p.Sq;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -281,10 +289,19 @@ __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
     }
     mbar_fence_init();
   }
-  __syncthreads();  // the last barrier of the block: the roles split here
+  // The last barrier of the block: the roles split here.
+  bool live = true;  // the q tile has a row of segment > 0
+  if constexpr (kCausal) {
+    const int row = iq * kTile + threadIdx.x;
+    live = __syncthreads_or(threadIdx.x < kTile && row < p.Sq &&
+                            q_seg[row] > 0);
+    if (!live) hi = lo;
+  } else {
+    __syncthreads();
+  }
 
   if (warp == kWarps) {  // producer warp
-    if (lane == 0) {
+    if (lane == 0 && live) {
       mbar_arrive_expect_tx(q_full, kImgBytes);
       bulk_g2s(s_q, p.q_img + (((long long)b * p.H + h) * nq + iq) * kImg,
                kImgBytes, q_full);
@@ -304,7 +321,6 @@ __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
   // Consumer warpgroup: warp w owns query rows [16w, 16w + 16) of the tile.
   const int g = lane >> 2, t = lane & 3;
   const int row0 = iq * kTile + warp * 16 + g;  // rows row0 and row0 + 8
-  const int* q_seg = p.q_seg + (long long)b * p.Sq;
   const int* kv_seg = p.kv_seg + (long long)b * p.Sk;
   const int* kv_tseg = p.kv_tseg + (long long)b * nk;
   const int seg0 = row0 < p.Sq ? q_seg[row0] : 0;
@@ -319,7 +335,7 @@ __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
   for (int n = 0; n < kDp / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  mbar_wait(q_full, 0);
+  if (live) mbar_wait(q_full, 0);
   const uint64_t dq = image_desc(s_q, 128, kDp * 16);
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int st = i % kStages;
@@ -336,7 +352,8 @@ __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
     fence_regs<32>(s);
 
     const bf16* sv = s_v + st * kImg;
-    if (!kMask || (q_uniform >= 0 && kv_tseg[j] == q_uniform)) {
+    if (!kMask || (q_uniform >= 0 && kv_tseg[j] == q_uniform &&
+                   (!kCausal || j < iq))) {
       softmax_pv<D, kExp>(s, o, m0, m1, l0, l1, p.scale, sv,
                           [](int, int) { return true; });
     } else {
@@ -354,7 +371,13 @@ __device__ __forceinline__ void wgmma_attn_block(const WgmmaAttnParams& p,
       softmax_pv<D, kExp>(s, o, m0, m1, l0, l1, p.scale, sv,
                           [&](int n, int e) {
                             const int k = ks[n][e & 1];
-                            return (e < 2 ? seg0 : seg1) == k && k > 0;
+                            bool ok = (e < 2 ? seg0 : seg1) == k && k > 0;
+                            if constexpr (kCausal) {  // query row >= key
+                              ok = ok && (e < 2 ? row0 : row0 + 8) >=
+                                             j * kTile + n * 8 + 2 * t +
+                                                 (e & 1);
+                            }
+                            return ok;
                           });
     }
     __syncwarp();

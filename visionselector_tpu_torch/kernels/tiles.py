@@ -16,7 +16,8 @@ fused ViT kernel (``fused_vit_attn.py``, whose plain version is
 ``prologue_plain`` there) and the flash route's prologue without rotation
 (``attention.py``), whose plain version is ``flash_images_plain`` here.
 ``images_attention_plain`` is the plain version of the main loop: unpack,
-then the plain attention.
+then the plain attention; ``flash_steps_plain`` is its schedule, the kv
+tiles each q tile visits and which of them take the mask-free step.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from visionselector_tpu_torch.kernels.attention import (
     FLASH_BLOCK,
+    _block_ranges,
     ablate_plain,
     flash_plain,
 )
@@ -106,11 +108,12 @@ def flash_images_plain(q, k, v, q_seg, kv_seg):
 
 def images_attention_plain(q_img, k_img, vt_img, q_seg, kv_seg, d,
                            scale=None, kv_bounds=None, kv_iters=None,
-                           do_mask=True, do_exp=True):
+                           do_mask=True, do_exp=True, causal=False):
     """Plain version of the wgmma main loop on the flash route: the images
     unpacked to q [B, Sq, H, d], k, v [B, Sk, H_kv, d], then ``flash_plain``
-    (bounds, kv_iters, segments), or ``ablate_plain`` when the mask or the
-    exp is off (no bounds then, one seg for queries and keys)."""
+    (bounds, kv_iters, segments, causal), or ``ablate_plain`` when the mask
+    or the exp is off (no bounds then, not causal, one seg for queries and
+    keys)."""
     sq, sk = q_seg.shape[1], kv_seg.shape[1]
 
     def unpack(img, s, **kw):
@@ -119,9 +122,36 @@ def images_attention_plain(q_img, k_img, vt_img, q_seg, kv_seg, d,
     q, k = unpack(q_img, sq), unpack(k_img, sk)
     v = unpack(vt_img, sk, transpose=True)
     if do_mask and do_exp:
-        return flash_plain(q, k, v, q_seg, kv_seg, scale=scale,
+        return flash_plain(q, k, v, q_seg, kv_seg, causal=causal, scale=scale,
                            kv_bounds=kv_bounds, kv_iters=kv_iters)
-    if kv_bounds is not None or kv_iters or sq != sk:
-        raise ValueError("the ablation variants take no bounds, no kv_iters "
-                         "and one sequence")
+    if kv_bounds is not None or kv_iters or causal or sq != sk:
+        raise ValueError("the ablation variants take no bounds, no kv_iters, "
+                         "no causal mask and one sequence")
     return ablate_plain(q, k, v, q_seg, do_mask, do_exp, scale)
+
+
+def flash_steps_plain(q_seg, kv_seg, causal=False, kv_bounds=None,
+                      kv_iters=None):
+    """The wgmma main loop's schedule for one batch row: (visited,
+    mask_free), [ceil(Sq/64), ceil(Sk/64)] bool. q tile iq visits kv tiles
+    [lo, hi) of the bounds (the full range without), capped at lo +
+    kv_iters and, when causal, at iq + 1; a causal q tile with no row of
+    segment > 0 visits none. A visited tile takes the mask-free step iff
+    its ``tile_seg`` equals the q tile's and is not -1, and, when causal,
+    it lies below the diagonal (the diagonal tile compares positions).
+
+    q_seg: [Sq], kv_seg: [Sk] int (rows past them count as segment 0)."""
+    q_seg, kv_seg = torch.as_tensor(q_seg), torch.as_tensor(kv_seg)
+    nq, nk = -(-q_seg.shape[0] // FLASH_BLOCK), -(-kv_seg.shape[0] //
+                                                   FLASH_BLOCK)
+    visited = _block_ranges(nq, nk, q_seg.device, causal, kv_bounds,
+                            kv_iters)
+    q_ts, kv_ts = tile_seg_plain(q_seg), tile_seg_plain(kv_seg)
+    mask_free = visited & (q_ts[:, None] >= 0) & (kv_ts[None] == q_ts[:, None])
+    if causal:
+        rows = q_seg.new_zeros(nq * FLASH_BLOCK)
+        rows[:q_seg.shape[0]] = q_seg
+        visited = visited & (rows.view(nq, FLASH_BLOCK) > 0).any(1)[:, None]
+        mask_free = mask_free & visited & torch.ones(
+            nq, nk, dtype=torch.bool, device=q_seg.device).tril(-1)
+    return visited, mask_free
