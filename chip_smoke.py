@@ -12,7 +12,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes (bf16 inputs from a seeded generator): flash and diag at
    the prefill's shapes, the decode kernel over an 8-slot, 2,048-row pool
-   (bf16 and int8, t_c 1 and 4, lengths at tile edges), the fused rotary +
+   and over one slot of the one-shot ``orig`` cache (bf16 and int8, t_c 1
+   and 4, lengths at tile edges; also against its schedule's plain mirror
+   ``decode_split_plain``, with its times at four live lengths, their
+   intercept and slope, its cluster size, ptxas lines and occupancy at
+   D = 128), the fused rotary +
    attention kernel on a ViT layer's qkv slab with full and window bounds,
    the packed entry point on the ViT full layer with heads padded from 80
    to 128 and on the LM prefill slabs, and the four full-attention
@@ -33,7 +37,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    which adds up to about one more in the tails. Also checked: padding
    rows exactly 0. Planted faults (kv tiles dropped from the bounds, a key
    dropped from every window, a slot's last key or last live tile dropped
-   in decode, k rotated with the next row's cos/sin, a straddling tile
+   in decode, the last rank's share left out of the decode kernel's
+   cluster merge, k rotated with the next row's cos/sin, a straddling tile
    forced onto the mask-free step of the flash and the fused kernels and
    of the causal LM prefill, each causal q tile's diagonal kv tile cut
    from the bounds, noise in the pad columns of q and k, the ablation's
@@ -49,9 +54,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    over 3.35 TB/s and its flop over 989 TFLOP/s (bf16 dense; the real
    head dim's flop for padded heads); the library yardstick is one
    ``F.scaled_dot_product_attention`` call with the same mask (causal and
-   padding for the LM prefill, GQA; the port never calls it; for the
-   fused kernel it gets q and k already rotated, for padded heads the
-   unpadded d = 80, and the ablation without exp has none).
+   padding for the LM prefill, GQA; for decode the length mask, causal
+   within the chunk at t_c 4; the port never calls it; for the fused
+   kernel it gets q and k already rotated, for padded heads the unpadded
+   d = 80, and int8 decode and the ablation without exp have none).
 3. Main path: full-width Qwen2.5-VL-3B with random weights (bf16, seeded),
    one 1036x1456 image and ~40 text ids, ``QwenVLEngine.generate`` with the
    LIS selector at budget 0.2 and with ``orig``, 32 greedy tokens each.
@@ -110,6 +116,11 @@ BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # GQA widths; lengths at the tile edges and the 3B orig prefill length.
 POOL_SLOTS, POOL_ROWS = 8, 2048
 DECODE_LENS = (1, 63, 64, 65, 300, 1302, 1900, 2047)
+# Live lengths of the decode time sweep (0 = base_len 0), and the one-shot
+# engine's cache under orig: the 1,664-row prefill (1,302 valid) plus room
+# for MAX_NEW_TOKENS, decoded from base length 1,302.
+DECODE_SWEEP = (0, 256, 1024, 2000)
+ORIG_CACHE_ROWS, ORIG_BASE_LEN = 1664 + MAX_NEW_TOKENS, 1302
 # Teacher-forced decode step, kernel vs dense plain path, per slot: the
 # two differ only in decode attention (bf16 out of an fp32 online softmax
 # vs a bf16 einsum of probabilities rounded at the final max), about one
@@ -496,56 +507,103 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
 
 def check_decode(cfg, rnd, case, control):
     """Phase 2, decode kernel: an 8-slot pool at the 3B decoder's widths,
-    bf16 and int8, t_c 1 and 4, against its plain version; two planted
-    faults; its time at two live lengths of the same pool."""
+    bf16 and int8, t_c 1 and 4, and one slot at the one-shot ``orig``
+    cache, against its plain version and its schedule's plain mirror
+    (``decode_split_plain`` at the kernel's cluster size); three planted
+    faults; its time at four live lengths of the same pool, with the
+    intercept and slope; ptxas, cluster size and occupancy at D = 128."""
+    import numpy as np
     import torch
 
+    from visionselector_tpu_torch.kernels import _build
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.models.qwen25vl.lm import quantize_kv
 
     dev = "cuda"
     tc = cfg.text
     hq, hkv, dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
-    t = POOL_ROWS
-    kp, vp = rnd(POOL_SLOTS, t, hkv, dh), rnd(POOL_SLOTS, t, hkv, dh)
-    (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
-    lens = torch.tensor(DECODE_LENS, device=dev)
+    lib = _build.load()
+    for quant in (False, True):
+        for kname, usage in ptxas_report("decode_blocked_fwd",
+                                         f"ILi{dh}ELb{int(quant)}E").items():
+            print(f"[build] {kname}: {usage}", flush=True)
+        for t_c in (1, 4):
+            shape = (t_c, hq, hkv, dh, int(quant))
+            c = A.decode_cluster_size(dev, POOL_SLOTS, t_c, hq, hkv, dh,
+                                      quant)
+            print(f"[build] decode_blocked_fwd D={dh} "
+                  f"{'int8' if quant else 'bf16'} t_c={t_c}: cluster "
+                  f"{c} (B={POOL_SLOTS}), "
+                  f"{A.decode_cluster_size(dev, 1, t_c, hq, hkv, dh, quant)}"
+                  f" (B=1); dynamic shared memory "
+                  f"{lib.vst_decode_blocked_query(*shape, c, 2)} bytes, "
+                  f"{lib.vst_decode_blocked_query(*shape, c, 1)} blocks per "
+                  f"SM, {lib.vst_decode_blocked_query(*shape, c, 0)} "
+                  f"clusters resident", flush=True)
 
-    def work(base, t_c, quant):
+    def work(base, t_c, quant, t):
         """(bytes of the live prefix + q + out, flop) for these lengths."""
         keys = torch.minimum(base[:, None] + torch.arange(
             1, t_c + 1, device=dev), torch.tensor(t, device=dev))
         live = int(keys[:, -1].sum())
         per_key = hkv * dh * (1 if quant else 2) * 2 + (hkv * 8 if quant
                                                         else 0)
-        qo = 2 * POOL_SLOTS * t_c * hq * dh * 2
+        qo = 2 * base.shape[0] * t_c * hq * dh * 2
         return live * per_key + qo, 4 * hq * dh * int(keys.sum())
 
-    def mask(base, t_c):
-        """[B, 1, t_c, T]: chunk row i sees positions < base + i + 1."""
+    def mask(base, t_c, t):
+        """[B, 1, t_c, T]: chunk row i sees positions < base + i + 1
+        (causal within the chunk, and the length mask)."""
         lim = base[:, None] + torch.arange(1, t_c + 1, device=dev)
         return (torch.arange(t, device=dev) < lim[..., None])[:, None]
 
-    for quant in (False, True):
-        kc, vc = (k8, v8) if quant else (kp, vp)
-        sc = dict(k_scale=ks, v_scale=vs) if quant else {}
-        for t_c in (1, 4):
-            base = lens if t_c == 1 else (lens - t_c).clamp(min=0)
-            q = rnd(POOL_SLOTS, t_c, hq, dh)
-            nbytes, flop = work(base, t_c, quant)
-            library = None
-            if not quant and t_c == 1:
-                library = (lambda q=q, m=mask(base, t_c):
-                           sdpa_ms(q, kp, vp, m))
-            case("decode_blocked_fwd",
-                 f"{'int8' if quant else 'bf16'} t_c={t_c} B={POOL_SLOTS} "
-                 f"T={t} Hq={hq} Hkv={hkv} D={dh} lens={base.tolist()}",
-                 lambda q=q, b=base, kc=kc, vc=vc, sc=sc:
-                     A.decode_blocked_fwd(q, kc, vc, b, **sc),
-                 lambda q=q, b=base, kc=kc, vc=vc, sc=sc:
-                     A.decode_blocked_plain(q, kc, vc, b, **sc), [],
-                 lambda ms, n=nbytes: f"live_tb_s={n / (ms * 1e-3) / 1e12!r}",
-                 (nbytes, flop), library)
+    def split_check(name, q, kc, vc, b, sc, t_c, quant):
+        """The kernel against its schedule's mirror at its cluster size."""
+        c = A.decode_cluster_size(dev, q.shape[0], t_c, hq, hkv, dh, quant)
+        ulps = bf16_ulp_err(A.decode_blocked_fwd(q, kc, vc, b, **sc),
+                            A.decode_split_plain(q, kc, vc, b, cluster=c,
+                                                 **sc))
+        print(f"[kernel] decode_blocked_fwd {name} against decode_split_plain"
+              f" (cluster {c}): ulp_err={ulps!r} (limit {ULP_LIMIT})",
+              flush=True)
+        if not ulps <= ULP_LIMIT:
+            raise AssertionError(f"decode {name}: {ulps} ulps from "
+                                 f"decode_split_plain")
+
+    t = POOL_ROWS
+    kp, vp = rnd(POOL_SLOTS, t, hkv, dh), rnd(POOL_SLOTS, t, hkv, dh)
+    (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+    lens = torch.tensor(DECODE_LENS, device=dev)
+    k1, v1 = rnd(1, ORIG_CACHE_ROWS, hkv, dh), rnd(1, ORIG_CACHE_ROWS, hkv, dh)
+    (k18, k1s), (v18, v1s) = quantize_kv(k1), quantize_kv(v1)
+    one = torch.tensor([ORIG_BASE_LEN], device=dev)
+    pools = [(POOL_SLOTS, t, lens, (kp, vp, k8, ks, v8, vs)),
+             (1, ORIG_CACHE_ROWS, one, (k1, v1, k18, k1s, v18, v1s))]
+    for n_slots, rows, slot_lens, (kb, vb, kq, ksq, vq, vsq) in pools:
+        for quant in (False, True):
+            kc, vc = (kq, vq) if quant else (kb, vb)
+            sc = dict(k_scale=ksq, v_scale=vsq) if quant else {}
+            for t_c in (1, 4):
+                base = slot_lens if t_c == 1 else (slot_lens - t_c).clamp(
+                    min=0)
+                q = rnd(n_slots, t_c, hq, dh)
+                nbytes, flop = work(base, t_c, quant, rows)
+                library = None
+                if not quant:
+                    library = (lambda q=q, kb=kb, vb=vb,
+                               m=mask(base, t_c, rows): sdpa_ms(q, kb, vb, m))
+                name = (f"{'int8' if quant else 'bf16'} t_c={t_c} "
+                        f"B={n_slots} T={rows} Hq={hq} Hkv={hkv} D={dh} "
+                        f"lens={base.tolist()}")
+                case("decode_blocked_fwd", name,
+                     lambda q=q, b=base, kc=kc, vc=vc, sc=sc:
+                         A.decode_blocked_fwd(q, kc, vc, b, **sc),
+                     lambda q=q, b=base, kc=kc, vc=vc, sc=sc:
+                         A.decode_blocked_plain(q, kc, vc, b, **sc), [],
+                     lambda ms, n=nbytes:
+                         f"live_tb_s={n / (ms * 1e-3) / 1e12!r}",
+                     (nbytes, flop), library)
+                split_check(name, q, kc, vc, base, sc, t_c, quant)
     q = rnd(POOL_SLOTS, 1, hq, dh)
     want = A.decode_blocked_plain(q, kp, vp, lens)
     cut = lens.clone()
@@ -555,22 +613,38 @@ def check_decode(cfg, rnd, case, control):
     tile_cut = ((lens + TILE) // TILE - 1) * TILE - 1
     control("decode_blocked_fwd", "last live tile of every slot skipped",
             A.decode_blocked_fwd(q, kp, vp, tile_cut), want)
-    times = {}
-    for n in (256, 2000):
-        base = torch.full((POOL_SLOTS,), n - 1, device=dev)
-        times[n] = cuda_ms(lambda b=base: A.decode_blocked_fwd(q, kp, vp, b),
-                           n=2 * N_TIMED)
-        # ten launches back to back: the per-launch time without the gap
-        # before a lone launch
-        run10 = cuda_ms(lambda b=base: [A.decode_blocked_fwd(q, kp, vp, b)
-                                        for _ in range(10)]) / 10
-        b_ms, _ = bound_ms(*work(base, 1, False))
-        print(f"[kernel] decode_blocked_fwd every slot at length {n} of "
-              f"{t}: ms={times[n]!r} back_to_back_ms={run10!r} "
-              f"bound_ms={b_ms!r}", flush=True)
-    if not times[2000] > times[256]:
-        raise AssertionError("decode kernel time does not grow with the "
-                             f"live length: {times}")
+    c = A.decode_cluster_size(dev, POOL_SLOTS, 1, hq, hkv, dh, False)
+    control("decode_blocked_fwd", f"the last of {c} ranks left out of the "
+            f"cluster merge", A._decode_launch(q, kp, vp, lens,
+                                               drop_rank=c - 1), want)
+    for quant in (False, True):
+        kc, vc = (k8, v8) if quant else (kp, vp)
+        sc = dict(k_scale=ks, v_scale=vs) if quant else {}
+        times, nbytes = {}, {}
+        for n in DECODE_SWEEP:
+            base = torch.full((POOL_SLOTS,), max(n - 1, 0), device=dev)
+            times[n] = cuda_ms(lambda b=base: A.decode_blocked_fwd(
+                q, kc, vc, b, **sc), n=2 * N_TIMED)
+            # ten launches back to back: the per-launch time without the
+            # gap before a lone launch
+            run10 = cuda_ms(lambda b=base: [A.decode_blocked_fwd(
+                q, kc, vc, b, **sc) for _ in range(10)]) / 10
+            nbytes[n], _ = work(base, 1, quant, t)
+            b_ms, _ = bound_ms(nbytes[n], 0)
+            print(f"[kernel] decode_blocked_fwd {'int8' if quant else 'bf16'}"
+                  f" every slot at length {n} of {t}: ms={times[n]!r} "
+                  f"back_to_back_ms={run10!r} bytes={nbytes[n]} "
+                  f"bound_ms={b_ms!r}", flush=True)
+        slope, icpt = (float(x) for x in np.polyfit(
+            [nbytes[n] / 1e6 for n in DECODE_SWEEP],
+            [times[n] for n in DECODE_SWEEP], 1))
+        print(f"[kernel] decode_blocked_fwd {'int8' if quant else 'bf16'} "
+              f"over lengths {DECODE_SWEEP}: intercept_ms={icpt!r} "
+              f"slope_ms_per_MB={slope!r} (the card's rate "
+              f"{1e9 / HBM_BYTES_S!r})", flush=True)
+        if not times[2000] > times[256]:
+            raise AssertionError("decode kernel time does not grow with the "
+                                 f"live length: {times}")
 
 
 def ptxas_report(*parts) -> dict:

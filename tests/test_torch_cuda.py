@@ -239,6 +239,78 @@ def test_decode_counts_launches_and_rejects_bad_inputs(dev):
         A.decode_blocked_fwd(q, k, v, base.cpu(), None, ks, vs)
 
 
+def _decode_bases(b, t, t_c, dev):
+    """Base lengths at tile edges, the ragged last tile and 0."""
+    edge = [0, 1, 63, 64, 65, t // 2, t - t_c - 1, t - t_c]
+    return torch.tensor(edge[-b:] if b < len(edge) else edge, device=dev)
+
+
+@pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t_c", [1, 4, 9])
+def test_decode_matches_split_plain(dev, d, quant, b, t_c):
+    """The cluster kernel against its schedule's plain mirror (same
+    cluster size) and against the plain version: every head dim (int8 at
+    D = 24 takes 8-byte copies), one slot and eight, t_c 9 makes 72 rows
+    per kv head, two row groups."""
+    gen = torch.Generator(device=dev).manual_seed(d * 7 + t_c + 3 * b + quant)
+    t = 700
+    q, k, v, ks, vs = _decode_inputs(gen, b, t_c, 16, 2, t, d, quant)
+    base = _decode_bases(b, t, t_c, dev)
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    cluster = A.decode_cluster_size(dev, b, t_c, 16, 2, d, quant)
+    assert 1 <= cluster <= A.DECODE_MAX_CLUSTER
+    split = A.decode_split_plain(q, k, v, base, None, ks, vs, cluster)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, split) <= ULP_LIMIT
+    assert _err(got, want) <= ULP_LIMIT
+    assert torch.isfinite(got).all()
+
+
+def test_decode_merge_fault_fails(dev):
+    """The last rank's share (each slot's last live tile) left out of the
+    cluster merge: the kernel agrees with the mirror's same fault and fails
+    the tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, _, _ = _decode_inputs(gen, 8, 1, 16, 2, 2048, 128, False)
+    base = torch.tensor([1, 63, 64, 65, 300, 1302, 1900, 2047], device=dev)
+    cluster = A.decode_cluster_size(dev, 8, 1, 16, 2, 128, False)
+    want = A.decode_blocked_plain(q, k, v, base)
+    bad = A._decode_launch(q, k, v, base, drop_rank=cluster - 1)
+    assert _err(bad, want) > ULP_LIMIT
+    assert _err(bad, A.decode_split_plain(q, k, v, base, cluster=cluster,
+                                          drop_rank=cluster - 1)) <= ULP_LIMIT
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_cuda_graph_replays_new_lengths(dev, quant):
+    """One decode launch captured in a CUDA graph, replayed after base_len
+    changes in place: equal to eager at both lengths, so the launch reads
+    lengths on the device only."""
+    gen = torch.Generator(device=dev).manual_seed(22 + quant)
+    q, k, v, ks, vs = _decode_inputs(gen, 8, 1, 16, 2, 2048, 128, quant)
+    base = torch.tensor([1, 63, 64, 65, 300, 1302, 1900, 2047], device=dev)
+    first = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)  # warm-up
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    torch.cuda.current_stream().wait_stream(stream)
+    for lens in ([1, 63, 64, 65, 300, 1302, 1900, 2047],
+                 [700, 5, 129, 2040, 0, 64, 1000, 17]):
+        base.copy_(torch.tensor(lens, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+        assert out.equal(eager)
+        assert _err(out, A.decode_blocked_plain(q, k, v, base, None, ks,
+                                                vs)) <= ULP_LIMIT
+    assert not first.equal(out)
+
+
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
 def test_tiny_batcher_runs_the_decode_kernel(dev, kv_quant):
     """The continuous batcher on the card: every decode step of every

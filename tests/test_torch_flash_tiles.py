@@ -131,6 +131,61 @@ def _qkv(seed, s, h, h_kv, d):
             rng.randn(1, s, h_kv, d).astype(np.float32))
 
 
+def _oracle(q, k, v, seg):
+    """Segment-masked attention in float64 numpy (GQA by repetition)."""
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    rep = q.shape[2] // k.shape[2]
+    k, v = np.repeat(k, rep, 2), np.repeat(v, rep, 2)
+    logits = np.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    mask = (seg[:, None, :, None] == seg[:, None, None, :]) & (
+        seg[:, None, None, :] > 0)
+    logits = np.where(mask, logits, -np.inf)
+    m = logits.max(-1, keepdims=True)
+    p = np.where(mask, np.exp(logits - np.where(np.isfinite(m), m, 0.0)), 0)
+    l = p.sum(-1, keepdims=True)
+    out = np.einsum("bhqk,bkhd->bqhd", p / np.where(l == 0, 1, l), v)
+    return out
+
+
+def _host_context() -> str:
+    """The host facts a CPU numerics difference could follow."""
+    import os
+
+    import jax
+
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = set(next((ln for ln in f if ln.startswith("flags")),
+                             "").split())
+    except OSError:
+        flags = set()
+    cpu = sorted(x for x in flags if x in ("avx512f", "avx512_bf16")
+                 or x.startswith("amx"))
+    return (f"cpu flags {cpu}, os.cpu_count {os.cpu_count()}, torch threads "
+            f"{torch.get_num_threads()} / interop "
+            f"{torch.get_num_interop_threads()}, XLA_FLAGS "
+            f"{os.environ.get('XLA_FLAGS', '')!r}, jax {jax.__version__} "
+            f"devices {len(jax.devices())}")
+
+
+def _assert_close_with_context(got, want, q, k, v, seg, atol):
+    """``assert_allclose(got, want, atol)``; on failure the message says
+    where and by how much, each side's distance from a float64 oracle, and
+    the host's numerics context."""
+    err = np.abs(got - want)
+    if err.max() <= atol:
+        return
+    b, row, h, col = np.unravel_index(err.argmax(), err.shape)
+    oracle = _oracle(q, k, v, seg)
+    raise AssertionError(
+        f"max |port - jax| {err.max()!r} > atol {atol}: {(err > atol).sum()} "
+        f"of {err.size} elements; worst at row {row} head {h} column {col} "
+        f"(segment {seg[b, row]}, q tile {row // BLOCK}; rows off "
+        f"{sorted(set(np.nonzero(err > atol)[1].tolist()))[:16]}); "
+        f"max |port - float64| {np.abs(got - oracle).max()!r}, max |jax - "
+        f"float64| {np.abs(want - oracle).max()!r}; {_host_context()}")
+
+
 @pytest.mark.parametrize("kind", ["full", "window", "video"])
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_images_attention_matches_pallas_with_bounds(d, kind):
@@ -144,7 +199,7 @@ def test_images_attention_matches_pallas_with_bounds(d, kind):
         jnp.asarray(seg), False, d**-0.5, BLOCK, BLOCK,
         kv_bounds=jnp.asarray(bounds), interpret=True)
     got = _from_images(q, k, v, seg, kv_bounds=bounds)
-    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+    _assert_close_with_context(got, np.asarray(want), q, k, v, seg, ATOL)
     assert (got[0, seg[0] == 0] == 0).all()
 
 

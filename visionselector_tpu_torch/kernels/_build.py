@@ -123,7 +123,9 @@ def load() -> ctypes.CDLL:
                 [_P] * 5 + [_L] * 9 + [_I] * 5 + [_F, _P])
             lib.vst_diag_attn_fwd.restype = _I
             lib.vst_decode_blocked_fwd.argtypes = (
-                [_P] * 10 + [_L] * 12 + [_I] * 8 + [_F, _P])
+                [_P] * 7 + [_L] * 12 + [_I] * 9 + [_F, _P])
             lib.vst_decode_blocked_fwd.restype = _I
+            lib.vst_decode_blocked_query.argtypes = [_I] * 7
+            lib.vst_decode_blocked_query.restype = _I
             _LIB = lib
         return _LIB

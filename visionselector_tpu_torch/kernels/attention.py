@@ -30,6 +30,9 @@ of the same function beside it:
   over an unexpanded (bf16 or int8) KV cache that reads only each slot's
   live prefix. Replaces ``_decode_blocked_pallas``'s
   ``_decode_blocked_kernel``; every decode step of the port runs it.
+  ``decode_split_plain`` / ``decode_split_ranges_plain`` mirror its
+  schedule (the live tiles split over a thread-block cluster's ranks,
+  then merged).
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
@@ -593,29 +596,97 @@ def decode_blocked_plain(q, k_cache, v_cache, base_len, scale=None,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t_c, hq, d).to(q.dtype)
 
 
-_SM_COUNT = {}
-_DECODE_COUNTERS = {}
-_DECODE_ROWS = 16  # query rows per block (kRows in decode_blocked_fwd.cu)
-_DECODE_MAX_SPLITS = 64  # kMaxSplits in decode_blocked_fwd.cu
+def decode_split_ranges_plain(base_len, t_c: int, t: int, cluster: int):
+    """The decode kernel's split of each slot's live 64-row tiles over the
+    ``cluster`` ranks of its cluster: [B, cluster, 2] int64 (lo, hi) tile
+    ranges. A slot has ceil((base_len + t_c) / 64) live tiles, at most
+    ceil(T / 64) (the TPU kernel's clamped kv index); rank r takes
+    [r * n // cluster, (r + 1) * n // cluster), which may be empty."""
+    base = torch.as_tensor(base_len).to(torch.int64)
+    live = (base + t_c).clamp(min=0, max=t)
+    n = (live + FLASH_BLOCK - 1) // FLASH_BLOCK
+    r = torch.arange(cluster + 1, device=base.device)
+    cuts = r[None] * n[:, None] // cluster  # [B, cluster + 1]
+    return torch.stack([cuts[:, :-1], cuts[:, 1:]], dim=-1)
 
 
-def _decode_splits(dev, pairs: int, n_tiles: int) -> int:
-    """Blocks per (slot, kv head, row group): enough for two blocks per SM,
-    at most one per 64-key tile of the cache and at most 64."""
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return max(1, min(n_tiles, _DECODE_MAX_SPLITS,
-                      -(-2 * _SM_COUNT[dev] // pairs)))
+def decode_split_plain(q, k_cache, v_cache, base_len, scale=None,
+                       k_scale=None, v_scale=None, cluster: int = 8,
+                       drop_rank: int = -1):
+    """Plain PyTorch mirror of the decode kernel's schedule: each rank's
+    live-tile range (``decode_split_ranges_plain``), its (m, l, acc) in the
+    kernel's arithmetic (fp32 statistics over the rank's keys, p times the v
+    scale rounded to q's dtype before P V), then the ranks' merge: m = max
+    m_r, l = sum l_r exp(m_r - m), out = sum acc_r exp(m_r - m) / l (1
+    where l == 0, so a row with no valid key is exactly 0; m_r = NEG_INF is
+    finite, so an empty rank gives no NaN). ``drop_rank`` leaves one rank
+    out of the merge (a planted fault). Shapes as ``decode_blocked_plain``.
+    """
+    b, t_c, hq, d = q.shape
+    t, h_kv = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    dev = q.device
+    base = base_len.to(dev)
+    qg = q.float().reshape(b, t_c, h_kv, hq // h_kv, d)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale.float().permute(0, 2, 1)[:, :, None, None]
+    limit = base[:, None] + torch.arange(t_c, device=dev) + 1  # [B, t_c]
+    keys = torch.arange(t, device=dev)
+    valid = keys < limit[..., None]  # [B, t_c, T]
+    ranges = decode_split_ranges_plain(base, t_c, t, cluster).to(dev)
+    tile = keys // FLASH_BLOCK
+    own = ((tile >= ranges[..., :1]) & (tile < ranges[..., 1:]))  # [B, C, T]
+    mask = (own[:, :, None] & valid[:, None])[:, :, None, None]
+    x = torch.where(mask, logits[:, None], NEG_INF)  # [B, C, g, r, q, T]
+    m = x.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(x - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, None, :, None, None]
+    acc = torch.einsum("bcgrqk,bkgd->bcgrqd", p.to(q.dtype).float(),
+                       v_cache.float())
+    if drop_rank >= 0:
+        m[:, drop_rank] = NEG_INF
+        l[:, drop_rank] = 0.0
+        acc[:, drop_rank] = 0.0
+    mx = m.amax(dim=1, keepdim=True)
+    w = torch.exp(m - mx)
+    lt = (l * w).sum(dim=1)
+    out = (acc * w).sum(dim=1) / torch.where(lt == 0.0, 1.0, lt)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t_c, hq, d).to(q.dtype)
 
 
-def _decode_counters(dev, pairs: int) -> torch.Tensor:
-    """Per-pair arrival counters of the split merge; zero between launches
-    (the merging block resets its counter)."""
-    c = _DECODE_COUNTERS.get(dev)
-    if c is None or c.numel() < pairs:
-        c = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=dev)
-        _DECODE_COUNTERS[dev] = c
+_DECODE_CLUSTER = {}
+DECODE_MAX_CLUSTER = 16  # kMaxCluster in decode_blocked_fwd.cu
+
+
+def decode_rows(t_c: int, n_rep: int):
+    """(m16 tiles per block, row groups per kv head) of the decode kernel
+    for t_c * n_rep query rows per kv head: a block holds up to 32 rows."""
+    r = t_c * n_rep
+    mt = min(2, -(-r // 16))
+    return mt, -(-r // (16 * mt))
+
+
+def decode_cluster_size(dev, b, t_c, hq, h_kv, d, quant) -> int:
+    """Ranks per (slot, kv head, row group): the largest power of two up to
+    16 with which the card holds every cluster of the launch at once (one
+    wave; the card's answer for this block size and shared memory). Shapes
+    and the card only, never lengths, so a captured launch replays for
+    any."""
+    key = (torch.device(dev), b, t_c, hq, h_kv, d, bool(quant))
+    c = _DECODE_CLUSTER.get(key)
+    if c is None:
+        from visionselector_tpu_torch.kernels import _build
+
+        pairs = b * h_kv * decode_rows(t_c, hq // h_kv)[1]
+        query = _build.load().vst_decode_blocked_query
+        c = DECODE_MAX_CLUSTER
+        while c > 1 and query(t_c, hq, h_kv, d, int(quant), c, 0) < pairs:
+            c //= 2
+        _DECODE_CLUSTER[key] = c
     return c
 
 
@@ -627,12 +698,22 @@ def decode_blocked_fwd(q, k_cache, v_cache, base_len, scale=None,
     On CUDA: q bf16 with D in KERNEL_HEAD_DIMS; caches bf16, or int8 with
     both f32 scales; any T (the kernel masks the ragged last tile). The
     caches are read through strides, so a layer view of a slot pool needs
-    no copy, and only each slot's live tiles are read.
+    no copy, and only each slot's live tiles are read. The launch reads
+    ``base_len`` on the device only and allocates only the output.
     """
-    global DECODE_LAUNCHES
     if _on_cpu(q, k_cache, v_cache, base_len, k_scale, v_scale):
         return decode_blocked_plain(q, k_cache, v_cache, base_len, scale,
                                     k_scale, v_scale)
+    return _decode_launch(q, k_cache, v_cache, base_len, scale, k_scale,
+                          v_scale)
+
+
+def _decode_launch(q, k_cache, v_cache, base_len, scale=None, k_scale=None,
+                   v_scale=None, drop_rank: int = -1):
+    """One launch of the decode kernel (CUDA tensors). ``drop_rank`` >= 0
+    leaves that rank out of the cluster merge: a planted fault for the
+    checks, never used by the model."""
+    global DECODE_LAUNCHES
     b, t_c, hq, d = q.shape
     t, h_kv = k_cache.shape[1], k_cache.shape[2]
     _check_cuda("decode_blocked_fwd", q, k_cache, v_cache, base_len)
@@ -656,11 +737,14 @@ def decode_blocked_fwd(q, k_cache, v_cache, base_len, scale=None,
     if scale is None:
         scale = d**-0.5
     if quant:
+        # int8 rows go by 16-byte bulk copies, except 24-byte rows (D = 24),
+        # which go by 8-byte copies
+        align = 8 if d % 16 else 16
         for x, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
-            if (x.stride(3) != 1 or x.data_ptr() % 8
-                    or any(st % 8 for st in x.stride()[:3])):
+            if (x.stride(3) != 1 or x.data_ptr() % align
+                    or any(st % align for st in x.stride()[:3])):
                 raise ValueError(f"decode_blocked_fwd: {name} rows must be "
-                                 f"contiguous and 8-byte aligned")
+                                 f"contiguous and {align}-byte aligned")
         for x in (k_scale, v_scale):
             if (tuple(x.shape) != (b, t, h_kv) or x.dtype != torch.float32
                     or x.device != q.device):
@@ -677,26 +761,16 @@ def decode_blocked_fwd(q, k_cache, v_cache, base_len, scale=None,
                                                              "v_cache")
         s_st, ks_ptr, vs_ptr = (0, 0, 0), None, None
     lens = base_len.to(torch.int64).contiguous()
-    pairs = b * h_kv * -(-t_c * (hq // h_kv) // _DECODE_ROWS)
-    n_splits = _decode_splits(q.device, pairs, -(-t // FLASH_BLOCK))
+    cluster = decode_cluster_size(q.device, b, t_c, hq, h_kv, d, quant)
     out = torch.empty((b, t_c, hq, d), dtype=q.dtype, device=q.device)
-    part_o = part_ml = None
-    if n_splits > 1:
-        part_o = torch.empty((pairs * n_splits, _DECODE_ROWS, d),
-                             dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((pairs * n_splits, 2, _DECODE_ROWS),
-                              dtype=torch.float32, device=q.device)
     from visionselector_tpu_torch.kernels import _build
 
     err = _build.load().vst_decode_blocked_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks_ptr, vs_ptr,
         out.data_ptr(), lens.data_ptr(),
-        None if part_o is None else part_o.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        _decode_counters(q.device, pairs).data_ptr(),
         *_strides(q, "q"), *k_st, *v_st, *s_st,
-        b, t_c, hq, h_kv, t, d, int(quant), n_splits, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, t_c, hq, h_kv, t, d, int(quant), cluster, int(drop_rank),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"decode_blocked_fwd launch failed: CUDA error "

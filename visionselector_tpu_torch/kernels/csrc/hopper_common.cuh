@@ -80,8 +80,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
 // global to shared memory; completion is counted on `bar`'s transaction
-// count. A block is its own cluster, so its shared::cta addresses are valid
-// shared::cluster addresses.
+// count. A shared::cta address names the issuing block's own shared memory
+// inside the shared::cluster window too, whether or not the block is
+// launched in a cluster of several.
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
@@ -89,6 +90,16 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies (not bulk
+// copies) have landed. The arrival counts against the barrier's expected
+// count (.noinc), so a barrier that waits for it is initialised with one
+// more arrival per thread that makes it.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // --- wgmma --------------------------------------------------------------------
