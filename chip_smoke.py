@@ -20,7 +20,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    attention kernel on a ViT layer's qkv slab with full and window bounds,
    the packed entry point on the ViT full layer with heads padded from 80
    to 128 and on the LM prefill slabs, and the four full-attention
-   ablation variants at S = 5,632. Every flash-source call (flash with
+   ablation variants at S = 5,632; the window kernel (K4) also on the
+   "packed" window layer (heads padded from 80 to 128, v a view of the
+   qkv slab), with its ptxas lines, shared memory, ring, blocks per SM and
+   grid at D = 80 and 128 and ``tools/diag_floor``'s breakdown (full, no
+   store, no products, empty launch). Every flash-source call (flash with
    bounds, a kv_iters cap or the causal mask, packed, ablation) and every
    fused call makes two launches, an image prologue and the wgmma main
    loop: they are also timed apart, each beside its bound, the prologue's
@@ -42,7 +46,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    forced onto the mask-free step of the flash and the fused kernels and
    of the causal LM prefill, each causal q tile's diagonal kv tile cut
    from the bounds, noise in the pad columns of q and k, the ablation's
-   mask switched off)
+   mask switched off, a mixed tile of the window kernel forced onto its
+   mask-free path)
    must fail the
    same check, so it is shown to see an off-by-one tile at the main path's
    shapes.
@@ -187,7 +192,7 @@ def bound_ms(nbytes, flop):
                                                           "operations")
 
 
-def sdpa_ms(q, k, v, mask):
+def sdpa_ms(q, k, v, mask, scale=None):
     """Time of one ``F.scaled_dot_product_attention`` call on the same
     inputs and mask ([B, S, H, D] layouts; GQA when k has fewer heads)."""
     import torch.nn.functional as F
@@ -195,7 +200,7 @@ def sdpa_ms(q, k, v, mask):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = k.shape[2] != q.shape[2]
     return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=gqa))
+        qt, kt, vt, attn_mask=mask, enable_gqa=gqa, scale=scale))
 
 
 def bf16_ulp_err(got, want) -> float:
@@ -254,6 +259,7 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.kernels import tiles as T
     from visionselector_tpu_torch.preprocess.indices import build_vision_batch
+    from visionselector_tpu_torch.tools import diag_floor
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -388,11 +394,14 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     pad = np.where(wseg_np == 0)[0]
     window_pairs = int(sum((wseg_np == i).sum() ** 2
                            for i in np.unique(wseg_np) if i > 0))
+    # The bytes it must move: q, k, v read for the rows of a window (not
+    # for padding rows), out written and seg read for every row.
+    diag_bytes = diag_floor.needed_bytes(wseg, h, d)
     case("diag_attn_fwd", f"vit_window S={s} H={h} D={d}",
          lambda: A.diag_attn_fwd(q, k, v, wseg),
          lambda: A.diag_plain(q, k, v, wseg), pad,
-         lambda ms: f"tb_s={qkvo_bytes / (ms * 1e-3) / 1e12!r}",
-         (qkvo_bytes + s * 4, 4 * d * h * window_pairs),
+         lambda ms: f"tb_s={diag_bytes / (ms * 1e-3) / 1e12!r}",
+         (diag_bytes, 4 * d * h * window_pairs),
          lambda: sdpa_ms(q, k, v, seg_mask(wseg)))
     # Planted fault: the last key of every window masked out for the
     # kernel; compared on the other rows of each window.
@@ -404,6 +413,8 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     control("diag_attn_fwd", "vit_window last key of each window dropped",
             A.diag_attn_fwd(q, k, v, ivec(cut))[:, keep],
             A.diag_plain(q, k, v, wseg)[:, keep])
+    check_diag((q, k, v), wseg, window_pairs, dict(
+        case=case, control=control, seg_mask=seg_mask))
 
     # Flash, LM causal prefill (GQA 16/2, valid-prefix segments) at the
     # compacted lengths of this request: selector 0.2 and orig.
@@ -503,6 +514,77 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     check_ablate(kit)
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in results.items()}
+
+
+def check_diag(qkv, wseg, window_pairs, kit):
+    """Phase 2, window kernel (K4), after its main case: a mixed tile (a
+    partial window and padding rows) forced onto the mask-free path through
+    the wrapper's tile-kind hook, a planted fault that must fail the check;
+    the "packed" window layer (heads of 80 zero-padded to dp = 128, q and k
+    contiguous, v a view of the padded qkv slab, the real 80 ** -0.5
+    scale) with its bound and one SDPA call on the same padded inputs; the
+    kernel's ptxas lines, shared memory, ring, blocks per SM and grid at D
+    = 80 and 128; then ``tools/diag_floor``'s breakdown (full, no store, no
+    math, empty launch) at both head dims."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from visionselector_tpu_torch.kernels import _build
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
+    from visionselector_tpu_torch.tools import diag_floor
+
+    q, k, v = qkv
+    _, s, h, d = q.shape
+    dp = 128
+    want = A.diag_plain(q, k, v, wseg)
+    kinds = T.diag_tile_kinds_plain(wseg.cpu())
+    counts = torch.bincount(kinds.flatten(), minlength=3).tolist()
+    print(f"[kernel] diag_attn_fwd tile kinds: uniform {counts[T.DIAG_UNIFORM]}"
+          f" mixed {counts[T.DIAG_MIXED]} padding {counts[T.DIAG_PAD]}",
+          flush=True)
+    forced = kinds.clone()
+    mixed = int((kinds[0] == T.DIAG_MIXED).nonzero()[0])
+    forced[0, mixed] = T.DIAG_UNIFORM
+    kit["control"]("diag_attn_fwd", f"vit_window tile {mixed} (a partial "
+                   f"window and padding rows) forced onto the mask-free path",
+                   A._launch_diag(q, k, v, wseg, tile_kind=forced), want)
+
+    pad = np.where(wseg[0].cpu().numpy() == 0)[0]
+    qp, kp = (F.pad(x, (0, dp - d)) for x in (q, k))
+    slab = torch.zeros(s, 3, h, dp, dtype=v.dtype, device=v.device)
+    slab[:, 2, :, :d] = v[0]
+    vp = slab[:, 2][None]
+    scale = d**-0.5
+    nbytes = diag_floor.needed_bytes(wseg, h, dp)
+    kit["case"](
+        "diag_attn_fwd", f"vit_window_packed S={s} H={h} dp={dp} (real D={d},"
+        f" v a slab view)",
+        lambda: A.diag_attn_fwd(qp, kp, vp, wseg, scale=scale),
+        lambda: A.diag_plain(qp, kp, vp, wseg, scale=scale), pad,
+        lambda ms: f"tb_s={nbytes / (ms * 1e-3) / 1e12!r}",
+        (nbytes, 4 * d * h * window_pairs),
+        lambda: sdpa_ms(qp, kp, vp, kit["seg_mask"](wseg), scale=scale))
+    out = A.diag_attn_fwd(qp, kp, vp, wseg, scale=scale)
+    if not (out[..., d:] == 0).all():
+        raise AssertionError("diag_attn_fwd (packed): pad columns of the "
+                             "output are not exactly 0")
+
+    lib = _build.load()
+    for dd in (d, dp):
+        for kname, usage in ptxas_report("diag_attn_fwd",
+                                         f"ILi{dd}E").items():
+            print(f"[build] {kname}: {usage}", flush=True)
+        smem, per_sm, stages, wgs, sms = (
+            lib.vst_diag_attn_query(dd, w) for w in range(5))
+        items = s // TILE * h
+        print(f"[build] diag_attn_fwd D={dd}: dynamic shared memory {smem} "
+              f"bytes, ring {stages} stages, {wgs} consumer warpgroup(s) + "
+              f"1 producer warp, {per_sm} blocks per SM x {sms} SMs, grid "
+              f"{min(items, per_sm * sms)} for {items} items", flush=True)
+    diag_floor.main(["--variants", "full,no_store,no_math,empty",
+                     "--dims", f"{d},{dp}"])
 
 
 def check_decode(cfg, rnd, case, control):

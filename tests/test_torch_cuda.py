@@ -98,7 +98,7 @@ def test_flash_reads_strided_views(dev):
 @pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
 def test_diag_matches_plain(dev, d):
     gen = torch.Generator(device=dev).manual_seed(d)
-    s, h = 384, 6  # 6 heads: the last head group of 4 is partial
+    s, h = 384, 6  # 6 heads: no power of two, items not a multiple of 4
     q, k, v = (_rnd(gen, 2, s, h, d) for _ in range(3))
     seg_np = np.zeros(s, np.int32)
     for w in range(s // 16):
@@ -109,6 +109,122 @@ def test_diag_matches_plain(dev, d):
     want = A.diag_plain(q, k, v, seg)
     assert _err(got, want) <= ULP_LIMIT
     assert (got[:, seg[0] == 0] == 0).all()
+
+
+def _diag_layout(s, b):
+    """[b, s] segment ids of every tile kind, cycling per 64-row tile: one
+    64-row window (uniform), four 16-patch windows with the last two cut
+    short (mixed), padding only, one 40-row window then padding (mixed),
+    two 32-row windows (mixed); batch row 1 shifted by one tile."""
+    rows = []
+    for r in range(b):
+        seg, nxt = np.zeros(s, np.int32), 1
+        for t in range(s // 64):
+            kind, base = (t + r) % 5, t * 64
+            spans = {0: [(0, 64)], 1: [(0, 16), (16, 32), (32, 46), (48, 60)],
+                     2: [], 3: [(0, 40)], 4: [(0, 32), (32, 64)]}[kind]
+            for a, e in spans:
+                seg[base + a:base + e] = nxt
+                nxt += 1
+        rows.append(seg)
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
+def test_diag_tile_kinds_and_slab_view(dev, d):
+    """B = 2, H = 6, every tile kind, v a strided view of a qkv slab (row
+    stride 3 H d), q and k contiguous: within ULP_LIMIT of diag_plain,
+    padding rows exactly 0."""
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    gen = torch.Generator(device=dev).manual_seed(40 + d)
+    b, s, h = 2, 640, 6
+    q, k = _rnd(gen, b, s, h, d), _rnd(gen, b, s, h, d)
+    v = _rnd(gen, b, s, 3, h, d)[:, :, 2]
+    seg = torch.as_tensor(_diag_layout(s, b), device=dev)
+    kinds = T.diag_tile_kinds_plain(seg.cpu())
+    assert set(kinds.flatten().tolist()) == {T.DIAG_PAD, T.DIAG_UNIFORM,
+                                             T.DIAG_MIXED}
+    got = A.diag_attn_fwd(q, k, v, seg)
+    want = A.diag_plain(q, k, v, seg)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+
+
+@pytest.mark.parametrize("b, s, h", [(1, 64, 1), (3, 192, 5), (1, 6144, 16)])
+def test_diag_persistent_grid_shapes(dev, b, s, h):
+    """Fewer items than the grid's blocks, a few, and the main path's 1,536
+    (several per block): every item is computed once."""
+    gen = torch.Generator(device=dev).manual_seed(s + h)
+    q, k, v = (_rnd(gen, b, s, h, 80) for _ in range(3))
+    seg = torch.as_tensor(_diag_layout(s, b), device=dev)
+    got = A.diag_attn_fwd(q, k, v, seg)
+    want = A.diag_plain(q, k, v, seg)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+
+
+def test_diag_packed_padded_views(dev):
+    """The "packed" window layer: heads of 80 zero-padded to dp = 128, q
+    and k contiguous, v a view of the padded qkv slab, the real 80 ** -0.5
+    scale, the window-aligned layout of a 420x728 image: within ULP_LIMIT
+    of diag_plain, padding rows and pad columns exactly 0."""
+    from visionselector_tpu_torch.preprocess.indices import (
+        build_vision_batch,
+    )
+
+    grid = np.asarray([[1, 30, 52]])
+    n = int(np.prod(grid))
+    vb = build_vision_batch(np.zeros((n, 1), np.float32), grid, pad_to=2048,
+                            align_windows=True)
+    assert vb.window_diag
+    seg = torch.as_tensor(np.asarray(vb.window_seg_ids), device=dev)[None]
+    s, h, d, dp = seg.shape[1], 16, 80, 128
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k = _rnd(gen, 1, s, h, dp), _rnd(gen, 1, s, h, dp)
+    slab = _rnd(gen, s, 3, h, dp)
+    for x in (q, k, slab):
+        x[..., d:] = 0
+    v = slab[:, 2][None]
+    got = A.diag_attn_fwd(q, k, v, seg, scale=d**-0.5)
+    want = A.diag_plain(q, k, v, seg, scale=d**-0.5)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+    assert (got[..., d:] == 0).all()
+
+
+def test_diag_mixed_tile_forced_mask_free_fails(dev):
+    """The tile-kind hook: the true kinds reproduce the kernel; a mixed
+    tile forced onto the mask-free path is a planted fault the check must
+    reject."""
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s, h, d = 1, 320, 4, 80
+    q, k, v = (_rnd(gen, b, s, h, d) for _ in range(3))
+    seg = torch.as_tensor(_diag_layout(s, b), device=dev)
+    want = A.diag_plain(q, k, v, seg)
+    kinds = T.diag_tile_kinds_plain(seg.cpu())
+    same = A._launch_diag(q, k, v, seg, tile_kind=kinds)
+    assert _err(same, want) <= ULP_LIMIT
+    forced = kinds.clone()
+    mixed = int((kinds[0] == T.DIAG_MIXED).nonzero()[0])
+    forced[0, mixed] = T.DIAG_UNIFORM
+    bad = A._launch_diag(q, k, v, seg, tile_kind=forced)
+    assert _err(bad, want) > ULP_LIMIT
+
+
+def test_diag_rejects_misaligned_views(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    seg = _seg(128, dev)
+    q, k = _rnd(gen, 1, 128, 2, 80), _rnd(gen, 1, 128, 2, 80)
+    v = _rnd(gen, 1, 128, 2, 84)[..., :80]  # head stride 84: not 16-byte
+    with pytest.raises(ValueError, match="16-byte"):
+        A.diag_attn_fwd(q, k, v, seg)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        A.diag_attn_fwd(q[:, :100], k[:, :100], k[:, :100], seg[:, :100])
+    with pytest.raises(ValueError, match="tile_kind"):
+        A._launch_diag(q, k, k, seg, tile_kind=np.zeros((1, 3), np.int32))
 
 
 def test_wrappers_count_launches_and_reject_bad_inputs(dev):

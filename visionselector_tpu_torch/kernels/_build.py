@@ -120,8 +120,10 @@ def load() -> ctypes.CDLL:
             lib.vst_wgmma_main_blocks_per_sm.argtypes = [_I, _I]
             lib.vst_wgmma_main_blocks_per_sm.restype = _I
             lib.vst_diag_attn_fwd.argtypes = (
-                [_P] * 5 + [_L] * 9 + [_I] * 5 + [_F, _P])
+                [_P] * 6 + [_L] * 9 + [_I] * 4 + [_F, _P])
             lib.vst_diag_attn_fwd.restype = _I
+            lib.vst_diag_attn_query.argtypes = [_I, _I]
+            lib.vst_diag_attn_query.restype = _I
             lib.vst_decode_blocked_fwd.argtypes = (
                 [_P] * 7 + [_L] * 12 + [_I] * 9 + [_F, _P])
             lib.vst_decode_blocked_fwd.restype = _I

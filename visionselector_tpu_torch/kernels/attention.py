@@ -26,6 +26,11 @@ of the same function beside it:
   ``tiles.flash_steps_plain``). ``FLASH_ROUTE_LAUNCHES`` counts the calls.
 - ``diag_attn_fwd`` / ``diag_plain``: block-diagonal attention for the
   window-aligned ViT layout. Replaces ``attention_diag``'s ``_diag_kernel``.
+  One persistent launch: a producer warp copies each (batch, 64-row tile,
+  head) item's q, k and v tiles by TMA from the strided views, consumer
+  warpgroups run wgmma and store each output tile by TMA; tiles of
+  padding only are not read. Its schedule and tile kinds are mirrored by
+  ``tiles.diag_items_plain`` / ``tiles.diag_tile_kinds_plain``.
 - ``decode_blocked_fwd`` / ``decode_blocked_plain``: GQA decode attention
   over an unexpanded (bf16 or int8) KV cache that reads only each slot's
   live prefix. Replaces ``_decode_blocked_pallas``'s
@@ -57,9 +62,6 @@ NEG_INF = -1e30
 # kernel's block equals the 64-patch window slot of the aligned layout.
 FLASH_BLOCK = 64
 DIAG_BLOCK = 64
-# Heads per thread block of the diag kernel (the block prefetches the next
-# head's tiles while computing the current one).
-DIAG_HEADS_PER_BLOCK = 4
 # Head dims the kernels are built for (the switch in csrc/*.cu): the
 # Qwen2.5-VL ViT (80) and decoder (128), LLaVA-OV's RICE (64), and
 # qwen25vl_tiny's ViT (16) and decoder (24), which ``api.predict`` runs on
@@ -488,6 +490,21 @@ def diag_attn_fwd(q, k, v, seg, scale=None, block_q=DIAG_BLOCK):
     global DIAG_LAUNCHES
     if _on_cpu(q, k, v, seg):
         return diag_plain(q, k, v, seg, scale, block_q)
+    out = _launch_diag(q, k, v, seg, scale, block_q)
+    DIAG_LAUNCHES += 1
+    return out
+
+
+def _launch_diag(q, k, v, seg, scale=None, block_q=DIAG_BLOCK,
+                 tile_kind=None):
+    """Check the inputs of a diag launch on CUDA tensors and launch the
+    kernel (the caller counts the call). q, k, v: [B, S, H, D] bf16 views
+    (the head dim contiguous; base and batch, row and head strides 16-byte
+    aligned), S a multiple of 64; seg [B, S]. ``tile_kind`` ([B, S / 64]
+    int, ``tiles.DIAG_PAD`` / ``DIAG_UNIFORM`` / ``DIAG_MIXED``) replaces
+    the kinds the kernel reads from ``seg`` (only the card tests and
+    ``chip_smoke.py`` pass it, to plant a fault). Returns out [B, S, H, D]
+    (contiguous)."""
     b, s, h, d = q.shape
     _check_cuda("diag_attn_fwd", q, k, v, seg)
     if block_q != DIAG_BLOCK:
@@ -504,18 +521,24 @@ def diag_attn_fwd(q, k, v, seg, scale=None, block_q=DIAG_BLOCK):
     if scale is None:
         scale = d**-0.5
     seg = _seg_i32(seg, (b, s), "seg")
+    kind_ptr = None
+    if tile_kind is not None:
+        tile_kind = _seg_i32(torch.as_tensor(tile_kind, device=q.device),
+                             (b, s // DIAG_BLOCK), "tile_kind")
+        kind_ptr = tile_kind.data_ptr()
+    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     from visionselector_tpu_torch.kernels import _build
 
     err = _build.load().vst_diag_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        seg.data_ptr(), *_strides(q, "q"), *_strides(k, "k"),
-        *_strides(v, "v"), b, s, h, d, DIAG_HEADS_PER_BLOCK, float(scale),
+        seg.data_ptr(), kind_ptr, *strides, b, s, h, d, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"diag_attn_fwd launch failed: CUDA error {err}")
-    DIAG_LAUNCHES += 1
+        what = (f"tensor map encoding failed: CUresult {err - 10000}"
+                if err >= 10000 else f"CUDA error {err}")
+        raise RuntimeError(f"diag_attn_fwd launch failed: {what}")
     return out
 
 

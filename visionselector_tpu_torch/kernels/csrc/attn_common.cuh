@@ -1,14 +1,12 @@
-// Building blocks of the mma.sync attention kernels (diag_attn_fwd.cu,
-// decode_blocked_fwd.cu), and the helpers the wgmma main loop shares (sm_90a).
+// Building blocks of the mma.sync decode kernel (decode_blocked_fwd.cu),
+// and the helpers the wgmma kernels share (sm_90a).
 //
 // Tiles are 64 query rows by 64 key rows, bf16 in shared memory. The head
-// dim D (a multiple of 8) is zero-padded in shared memory to Dp, the next
-// multiple of 16 (one mma k-step), and each row gets 8 more elements of
-// pitch, which makes the fragment reads below free of bank conflicts. D = 80
-// needs no padding (five k-steps); D = 24 is padded to 32 by the loads'
-// zero fill and its pad columns are never stored. A block has four warps;
-// warp w owns query rows [16w, 16w + 16) of the tile and does its own
-// softmax, so warps only meet at the tile loads.
+// dim D (a multiple of 8) is padded to Dp, the next multiple of 16 (one
+// mma / wgmma k-step); D = 80 needs no padding (five k-steps); D = 24 is
+// padded to 32 and its pad columns are never stored. A consumer
+// warpgroup has four warps; warp w owns query rows [16w, 16w + 16) of the
+// tile and does its own softmax.
 //
 // Products use mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Fragment
 // layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with lane =
@@ -18,7 +16,8 @@
 //   B (16x8, col):  b[0] = (k 2t..2t+1, col g),   b[1] = (k 2t+8.., col g)
 //   C (16x8, f32):  c[0..1] = (row g, col 2t..2t+1), c[2..3] = (row g+8, ..)
 // The C layout of two neighbouring n-blocks of S = Q K^T is exactly the A
-// layout of P for P V, so P never leaves registers.
+// layout of P for P V, so P never leaves registers (wgmma's accumulator
+// has the same layout per warp).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,91 +87,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [row0, row0 + 64) of a [S, D] bf16 matrix whose rows are
-// `stride` elements apart into a [64][Dp + 8] shared tile. Rows at or past
-// `n_rows` (the sequence end) and the pad columns D..Dp are zero-filled, so
-// padded keys contribute 0 * 0 to P V instead of whatever lies past the
-// tensor, and pad columns add 0 to Q K^T.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* smem, const bf16* g,
-                                                long long stride, int row0,
-                                                int n_rows) {
-  constexpr int kChunks = Dims<D>::kPad / 8;  // 16-byte chunks per row
-  constexpr int kLd = Dims<D>::kLd;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool ok = row0 + r < n_rows && col < D;
-    const bf16* src = ok ? g + (long long)(row0 + r) * stride + col : g;
-    cp_async_16(smem + r * kLd + col, src, ok);
-  }
-}
-
-// This warp's Q rows as A fragments, read from a [64][Dp + 8] shared tile.
-template <int D>
-__device__ __forceinline__ void load_q_frags(uint32_t qf[Dims<D>::kPad / 16][4],
-                                             const bf16* sq, int warp,
-                                             int lane) {
-  constexpr int kLd = Dims<D>::kLd;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* base = sq + (warp * 16 + g) * kLd + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < Dims<D>::kPad / 16; ++kk) {
-    qf[kk][0] = lds32(base + kk * 16);
-    qf[kk][1] = lds32(base + 8 * kLd + kk * 16);
-    qf[kk][2] = lds32(base + kk * 16 + 8);
-    qf[kk][3] = lds32(base + 8 * kLd + kk * 16 + 8);
-  }
-}
-
-// S = Q K^T for this warp's 16 rows against the 64 keys of a tile:
-// s[n] holds key columns [8n, 8n + 8).
-template <int D>
-__device__ __forceinline__ void qk_tile(float s[8][4],
-                                        const uint32_t qf[Dims<D>::kPad / 16][4],
-                                        const bf16* sk, int lane) {
-  constexpr int kLd = Dims<D>::kLd;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    const bf16* kb = sk + (n * 8 + g) * kLd + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < Dims<D>::kPad / 16; ++kk) {
-      mma_16816(s[n], qf[kk], lds32(kb + kk * 16), lds32(kb + kk * 16 + 8));
-    }
-  }
-}
-
-// o += P V for this warp's 16 rows, P (bf16-rounded, as the reference
-// rounds p to v's dtype) taken from the fp32 probabilities in registers.
-template <int D>
-__device__ __forceinline__ void pv_tile(float o[Dims<D>::kPad / 8][4],
-                                        const float p[8][4], const bf16* sv,
-                                        int lane) {
-  constexpr int kLd = Dims<D>::kLd;
-  // ldmatrix lane address: matrices 0/1 are key rows 0-7 / 8-15 of the
-  // 16-key step at columns [16nd, 16nd + 8); matrices 2/3 the next 8 columns.
-  const int key_off = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col_off = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* vrow = sv + (kk * 16 + key_off) * kLd + col_off;
-#pragma unroll
-    for (int nd = 0; nd < Dims<D>::kPad / 16; ++nd) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vrow + nd * 16);
-      mma_16816(o[2 * nd], a, b[0], b[1]);
-      mma_16816(o[2 * nd + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, 1-D bulk copies into shared
-// memory completed on an mbarrier, and warpgroup matrix products (wgmma)
-// reading no-swizzle K-major tile images.
+// memory completed on an mbarrier, tensor copies (TMA) in and out of shared
+// memory, and warpgroup matrix products (wgmma) reading no-swizzle K-major
+// tile images or swizzled tiles (B K-major or MN-major).
 //
 // Tile image (the layout wgmma reads from shared memory without swizzle;
 // PTX ISA "Shared memory matrix layout", canonical K-major INTERLEAVE): an
@@ -102,6 +103,69 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
                : "memory");
 }
 
+// --- tensor copies (TMA) ----------------------------------------------------
+
+// The tensor map's descriptor into the cache ahead of its first copy. `map`
+// is the generic address of a __grid_constant__ CUtensorMap parameter.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
+}
+
+// Copy the box at coordinates {c0, .., c3} (innermost first) of a 4-D
+// tensor map into shared memory (1,024-byte aligned for a swizzled box);
+// completion counted on `bar`'s transaction count. Out-of-bounds elements
+// land as zeros and count towards the box's bytes.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Store a box from shared memory to the tensor map's coordinates {c0, ..};
+// elements out of bounds are not written. The copy joins this thread's
+// current bulk group (bulk_commit, then bulk_wait_read before the buffer is
+// written again).
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their shared
+// memory (.read) / are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's earlier shared-memory writes before later reads of
+// the async proxy (a bulk copy's read of a staged tile).
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // --- wgmma --------------------------------------------------------------------
 
 // Descriptor of a no-swizzle K-major tile image (layout in the header note):
@@ -111,6 +175,15 @@ __device__ __forceinline__ uint64_t image_desc(const void* smem, uint32_t lbo,
   return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// Descriptor of a swizzled tile (layout 1 = 128-byte, 2 = 64-byte, 3 =
+// 32-byte swizzle; the start address may step along K inside a swizzle
+// row, 1,024-byte aligned atoms).
+__device__ __forceinline__ uint64_t swizzled_desc(const void* smem,
+                                                  uint32_t lbo, uint32_t sbo,
+                                                  uint64_t layout) {
+  return image_desc(smem, lbo, sbo) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -163,27 +236,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a,
 }
 
 // d[N / 2] += A B^T: A 64 x 16 bf16 in registers (mma.sync A layout per
-// warp), B N x 16 from a shared-memory tile image (K-major).
-template <int N>
+// warp), B N x 16 from shared memory: K-major (kTransB = 0, a tile image),
+// or MN-major (kTransB = 1: the N values of one k row contiguous), as its
+// descriptor lays it out.
+template <int N, int kTransB = 0>
 struct WgmmaRS;
 
-template <>
-struct WgmmaRS<16> {
+template <int kTransB>
+struct WgmmaRS<16, kTransB> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
                                              uint64_t desc_b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+          "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRS<32> {
+template <int kTransB>
+struct WgmmaRS<32, kTransB> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
                                              uint64_t desc_b) {
     asm volatile(
@@ -191,16 +267,17 @@ struct WgmmaRS<32> {
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7,"
         "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+          "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRS<64> {
+template <int kTransB>
+struct WgmmaRS<64, kTransB> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
                                              uint64_t desc_b) {
     asm volatile(
@@ -210,19 +287,20 @@ struct WgmmaRS<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+          "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRS<80> {
+template <int kTransB>
+struct WgmmaRS<80, kTransB> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
                                              uint64_t desc_b) {
     asm volatile(
@@ -233,7 +311,7 @@ struct WgmmaRS<80> {
         "%16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+        "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -241,12 +319,13 @@ struct WgmmaRS<80> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+          "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRS<128> {
+template <int kTransB>
+struct WgmmaRS<128, kTransB> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
                                              uint64_t desc_b) {
     asm volatile(
@@ -260,7 +339,7 @@ struct WgmmaRS<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55,"
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -272,7 +351,8 @@ struct WgmmaRS<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+          "n"(kTransB));
   }
 };
 

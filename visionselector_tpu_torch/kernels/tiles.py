@@ -18,6 +18,12 @@ fused ViT kernel (``fused_vit_attn.py``, whose plain version is
 ``images_attention_plain`` is the plain version of the main loop: unpack,
 then the plain attention; ``flash_steps_plain`` is its schedule, the kv
 tiles each q tile visits and which of them take the mask-free step.
+
+The window kernel (``diag_attn_fwd``) writes no images: its producer warp
+copies q, k and v tiles straight from the strided views. Its persistent
+schedule is mirrored by ``diag_items_plain`` (which block takes which
+(batch, tile, head) item), its tile kinds (mask-free, masked, or padding
+only: not loaded, zeros stored) by ``diag_tile_kinds_plain``.
 """
 
 from __future__ import annotations
@@ -155,3 +161,35 @@ def flash_steps_plain(q_seg, kv_seg, causal=False, kv_bounds=None,
         mask_free = mask_free & visited & torch.ones(
             nq, nk, dtype=torch.bool, device=q_seg.device).tril(-1)
     return visited, mask_free
+
+
+# Tile kinds of the window kernel (the enum in csrc/diag_attn_fwd.cu).
+DIAG_PAD, DIAG_UNIFORM, DIAG_MIXED = 0, 1, 2
+
+
+def diag_tile_kinds_plain(seg: torch.Tensor) -> torch.Tensor:
+    """[B, S] segment ids (S a multiple of 64) -> [B, S / 64] int32 kinds
+    of the window kernel's tiles: DIAG_UNIFORM where ``tile_seg_plain``
+    gives the tile a segment id (all 64 rows one segment > 0: no mask),
+    DIAG_PAD where every row is padding (segment 0: not loaded, zeros
+    stored), DIAG_MIXED otherwise (the segment mask per element)."""
+    seg = torch.as_tensor(seg)
+    b, s = seg.shape
+    if s % FLASH_BLOCK:
+        raise ValueError(f"sequence {s} is not a multiple of {FLASH_BLOCK}")
+    ts = torch.stack([tile_seg_plain(x) for x in seg])
+    pad = (seg.view(b, -1, FLASH_BLOCK) == 0).all(-1)
+    kinds = torch.where(ts >= 0, DIAG_UNIFORM, DIAG_MIXED)
+    return torch.where(pad, DIAG_PAD, kinds).to(torch.int32)
+
+
+def diag_items_plain(b: int, s: int, h: int, n_blocks: int):
+    """The window kernel's persistent schedule: for each of its
+    min(n_blocks, items) blocks, the (batch, tile, head) items it walks in
+    order. Item i = (batch * S / 64 + tile) * H + head; block j takes
+    items j, j + grid, j + 2 grid, ..."""
+    nt = s // FLASH_BLOCK
+    n = b * nt * h
+    return [[(i // h // nt, i // h % nt, i % h)
+             for i in range(blk, n, n_blocks)]
+            for blk in range(min(n_blocks, n))]
