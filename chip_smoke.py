@@ -94,6 +94,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    kernel and with ``decode_attn="plain"``. Printed: decode tok/s, time to
    first token, chunk wall vs device-busy ms (torch.profiler), peak memory
    and pool bytes.
+6. Training (``train``): K1's gradient at the LM's training shape (B = 2,
+   T = 1,536 with padding tails, GQA 16/2, D = 128, causal): the autograd
+   Function (kernel forward, the blocked mirror backward) against the
+   plain forward with the same backward, output within ULP_LIMIT, dq /
+   dk / dv within GRAD_TOL of their largest |value| (its comment says
+   why), and two planted faults (delta from zeros, the diagonal kv block
+   left out of dk) must exceed it. Then 8 selector steps at full width
+   on one fixed batch (2 samples of the phase-3 image, its 40 prompt ids
+   and a 32-id answer each, text bucket 1,536; lr 5e-3, reg_weight 1.0):
+   loss and BCE fall, 28 K4 + 4 K1 launches per sample and 36 K1 per LM
+   call every step, scorer gradients finite and non-zero, every frozen
+   weight bit-equal (per-tensor checksums) and without ``.grad``. Before
+   the steps, the CE's scorer gradients (the part that crosses the LM)
+   with remat equal the default run's, and agree within TRAIN_GRAD_TOL
+   with plain attention differentiated by autograd (no kernel, no mirror;
+   the LM's alone, and the ViT's too), which two planted mirror faults
+   must exceed.
+   Printed: step wall, device busy and idle share (the last step under
+   torch.profiler, against its own wall), forward, backward and update
+   device ms and the mirror's share of the backward (each kernel placed
+   by the host code that launched it, in that trace), tokens/s, peak
+   memory with and without remat. Then an HF-layout safetensors
+   directory of the weights at reduced depth (ViT blocks 0 and 7, LM
+   layers 0 and 1, bf16, the trained scorer) in both prefix layouts,
+   loaded onto the card bit for bit, and served by ``api.predict
+   --model-path``; the trained scorer exported, reloaded bit for bit and
+   served (first token equal to the in-memory scorer's); ``api.train
+   --smoke --total-steps 3`` on the card (the two CLI runs beside the
+   rest of the phase). Its files go under ``.smoke_tmp/`` and are
+   removed.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -101,6 +131,8 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -227,20 +259,27 @@ def tflops(flop, ms):
     return flop / (ms * 1e-3) / 1e12
 
 
+PROMPT_BEFORE, PROMPT_AFTER = list(range(100, 120)), list(range(300, 320))
+
+
+def request_image():
+    """The main path's seeded 1036x1456 RGB image."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return (rng.rand(1036, 1456, 3) * 255).astype(np.uint8)
+
+
 def request(cfg):
     """The main path's request: a seeded 1036x1456 RGB image (grid
     (1, 60, 84), 5,040 patches, the 6,144 bucket) and 40 text ids around
     it."""
-    import numpy as np
-
     from visionselector_tpu_torch.preprocess.image import preprocess_image
     from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
 
-    rng = np.random.RandomState(SEED)
-    img = (rng.rand(1036, 1456, 3) * 255).astype(np.uint8)
-    pixels, grid = preprocess_image(img)
+    pixels, grid = preprocess_image(request_image())
     input_ids = expand_vision_tokens(
-        list(range(100, 120)), list(range(300, 320)), grid,
+        PROMPT_BEFORE, PROMPT_AFTER, grid,
         spatial_merge_size=cfg.vision.spatial_merge_size,
         image_token_id=cfg.image_token_id,
         vision_start_token_id=cfg.vision_start_token_id,
@@ -1365,10 +1404,11 @@ def kernel_group(name: str) -> str:
     return "copies" if low.startswith("mem") else "other"
 
 
-def traced(fn, path):
+def traced(fn, path, parse=None):
     """(device busy ms, {kernel name: [ms, count]}, fn's result) of one call
-    of ``fn`` under torch.profiler. The trace (tens of MB) is parsed and
-    removed; a per-kernel summary stays beside ``path``."""
+    of ``fn`` under torch.profiler, and ``parse(trace path)`` fourth when
+    ``parse`` is given. The trace (tens of MB) is parsed and removed; a
+    per-kernel summary stays beside ``path``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1378,12 +1418,56 @@ def traced(fn, path):
         torch.cuda.synchronize()
     prof.export_chrome_trace(path)
     busy, kernels = device_busy(path)
+    parsed = parse(path) if parse else None
     os.remove(path)
     with open(path[:-5] + "_kernels.txt", "w") as f:
         for kname, (ms, count) in sorted(kernels.items(),
                                          key=lambda kv: -kv[1][0]):
             f.write(f"{ms:.4f} ms x{count}: {kname}\n")
-    return busy, kernels, result
+    return (busy, kernels, result) + ((parsed,) if parse else ())
+
+
+def step_split(trace_path, mirror="FlashAttentionFnBackward"):
+    """Device ms of a training step's trace by the host code that launched
+    each kernel, copy or memset (matched by its correlation id):
+    "forward" before the autograd engine's first node, "backward" inside
+    its nodes ("mirror": inside the ``mirror`` nodes, a part of
+    "backward"), "update" after its last (clipping and AdamW). None when
+    the trace holds no autograd node or no device event."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    nodes, mirrors, launches, device = [], [], {}, []
+    for e in events:
+        cat, name, args = e.get("cat"), e.get("name", ""), e.get("args") or {}
+        if cat == "cpu_op" and name.startswith(
+                "autograd::engine::evaluate_function"):
+            span = (e["tid"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            nodes.append(span)
+            if name.endswith(mirror):
+                mirrors.append(span)
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launches[args["correlation"]] = (e["tid"], float(e["ts"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            device.append((args.get("correlation"), float(e["dur"]) / 1e3))
+    if not nodes or not device:
+        return None
+    b0, b1 = min(n[1] for n in nodes), max(n[2] for n in nodes)
+    out = dict.fromkeys(("forward", "backward", "mirror", "update",
+                         "unmatched"), 0.0)
+    for corr, ms in device:
+        if corr not in launches:
+            out["unmatched"] += ms
+            continue
+        tid, ts = launches[corr]
+        if ts < b0:
+            out["forward"] += ms
+        elif ts <= b1:
+            out["backward"] += ms
+            if any(t == tid and a <= ts <= b for t, a, b in mirrors):
+                out["mirror"] += ms
+        else:
+            out["update"] += ms
+    return out
 
 
 def kernel_groups(kernels) -> dict:
@@ -1772,6 +1856,537 @@ def serve_phase(cfg, params, input_ids, pixels, grid, out_dir):
     return launches
 
 
+# Phase 6 (training). The selector trains on one fixed batch: 2 samples of
+# the phase-3 image, its 40 prompt ids and a 32-id answer each, text
+# bucket 1,536, 8 steps at lr 5e-3 with reg_weight pinned to 1.0.
+TRAIN_STEPS, TRAIN_LR, TRAIN_BATCH = 8, 5e-3, 2
+TRAIN_S_BUCKET, TRAIN_T_BUCKET, ANSWER_LEN = 6144, 1536, 32
+# K1's gradient (kernel forward + mirror backward) against the plain
+# forward + the same backward, each of dq, dk, dv within GRAD_TOL of its
+# largest |value|: the gradients are bf16 (one ulp of the largest |value|
+# is 2^-8 = 3.9e-3 of it, so last-bit rounding differences stay below
+# that), and delta = rowsum(dO * O) reads two forwards that differ by <=
+# ULP_LIMIT ulps per row, which moves dS by ~1e-3 of |dP - delta|. The
+# planted faults (delta from zeros; the diagonal kv block left out of dk)
+# move the gradients by O(1) of their range.
+GRAD_TOL = 1e-2
+# remat recomputes the same kernels on the same inputs, so its scorer
+# gradients should equal the plain run's; the tolerance only admits a
+# reduction that changes order between the two runs.
+REMAT_TOL = 1e-5
+# The CE's scorer gradients (kernel forwards, FlashAttentionFn's mirror
+# backward) against plain attention differentiated by autograd (no kernel,
+# no mirror), each leaf within TRAIN_GRAD_TOL of its largest |value|. Both
+# sides round every activation and activation gradient to bf16 through 32
+# ViT and 36 LM layers, and the soft top-k's VJP (g_i - mean g, weighted)
+# cancels most of what reaches the scores. Readings at the initial
+# parameters on an H100 80GB HBM3 (700 W): the kernel path against the
+# LM's plain attention by autograd 0.040, against every attention plain
+# 0.071; the planted mirror faults 0.35 (the diagonal kv block out of dk)
+# and 1.34 (delta from zeros). At the trained parameters the soft mask is
+# saturated (BCE ~5e-4) and the gradient is ill-conditioned (the phase
+# prints that comparison unchecked), so the check runs before the steps.
+TRAIN_GRAD_TOL = 0.15
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def check_flash_grad(cfg):
+    """Phase 6.1: the gradient of K1 at the LM's training shape (B = 2,
+    T = 1,536 with padding tails, GQA 16/2, D = 128, causal), and the
+    kernel forward's and the mirror backward's ms (CUDA events)."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+
+    b, t = TRAIN_BATCH, TRAIN_T_BUCKET
+    hq, hkv, d = (cfg.text.num_attention_heads, cfg.text.num_key_value_heads,
+                  cfg.text.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v, g = rnd(b, t, hq, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d), \
+        rnd(b, t, hq, d)
+    valid = torch.tensor([t - 202, t - 335], device="cuda")  # 1334, 1201
+    seg = (torch.arange(t, device="cuda")[None] < valid[:, None]).int()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = A.attention(*leaves, seg, seg, causal=True)
+    out.backward(g)
+    plain = A.flash_plain(q, k, v, seg, seg, causal=True)
+    want = A.flash_backward_plain(q, k, v, seg, seg, True, None, plain, g)
+    ulp = bf16_ulp_err(out.detach(), plain)
+    errs = [rel_err(x.grad, w) for x, w in zip(leaves, want)]
+    pad_zero = bool((leaves[0].grad[seg == 0] == 0).all()
+                    and (leaves[1].grad[seg == 0] == 0).all())
+    faults = {}
+    for fault in ("delta_zero", "drop_diag_dk"):
+        bad = A.flash_backward_plain(q, k, v, seg, seg, True, None,
+                                     out.detach(), g, fault=fault)
+        faults[fault] = max(rel_err(x, w) for x, w in zip(bad, want))
+    fwd_ms = cuda_ms(lambda: A.flash_varlen_fwd(q, k, v, seg, seg,
+                                                causal=True))
+    mirror_ms = cuda_ms(lambda: A.flash_backward_plain(
+        q, k, v, seg, seg, True, None, plain, g), n=5)
+    print(f"[train] K1 gradient B={b} T={t} Hq={hq} Hkv={hkv} D={d} causal "
+          f"valid={valid.tolist()}: out ulp_err={ulp!r} (limit {ULP_LIMIT}) "
+          f"dq/dk/dv rel_err={errs!r} (limit {GRAD_TOL}) pad_rows_zero="
+          f"{pad_zero} planted faults {faults!r} (must exceed {GRAD_TOL}); "
+          f"kernel forward ms={fwd_ms!r} mirror backward ms={mirror_ms!r}",
+          flush=True)
+    ok = (ulp <= ULP_LIMIT and max(errs) <= GRAD_TOL and pad_zero
+          and min(faults.values()) > GRAD_TOL)
+    if not ok:
+        raise AssertionError("K1 gradient check failed")
+
+
+def train_batch(cfg):
+    """Phase 6's fixed batch, stacked on the host."""
+    import numpy as np
+
+    from visionselector_tpu_torch.train.data import (
+        build_train_sample,
+        stack_samples,
+    )
+
+    img = request_image()
+    answers = [list(range(500 + 40 * i, 500 + 40 * i + ANSWER_LEN))
+               for i in range(TRAIN_BATCH)]
+    batch = stack_samples([build_train_sample(
+        cfg, img, PROMPT_BEFORE, PROMPT_AFTER, a, budget=0.2,
+        s_bucket=TRAIN_S_BUCKET, t_bucket=TRAIN_T_BUCKET) for a in answers])
+    assert int(np.asarray(batch.k)[0]) == int(
+        np.asarray(batch.num_merged)[0]) // 5
+    return batch
+
+
+def frozen_checksums(params) -> dict:
+    """Every non-scorer parameter's bits as integers, summed plainly and
+    weighted by position (mod 65,521): a change to any element moves one
+    of the two sums. Computed in chunks on the card (no copy of the
+    weights)."""
+    import torch
+
+    sums = {}
+    for name, p in params.named_parameters():
+        if name.startswith("scorer."):
+            continue
+        bits = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32)
+        acc = torch.zeros(2, dtype=torch.int64, device=p.device)
+        for i in range(0, bits.numel(), 1 << 24):
+            x = bits[i:i + (1 << 24)].long()
+            w = torch.arange(i, i + x.numel(), device=p.device) % 65521 + 1
+            acc += torch.stack([x.sum(), (x * w).sum()])
+        sums[name] = acc
+    return sums
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` is ``value`` inside the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+class PlainAutogradAttention:
+    """Stands in for FlashAttentionFn: the plain forward, differentiated by
+    autograd (no kernel, no mirror backward). Only calls that need a
+    gradient reach it, so the frozen ViT (under ``no_grad``) keeps its
+    kernels."""
+
+    @staticmethod
+    def apply(fwd, q, k, v, q_seg, kv_seg, causal, scale):
+        from visionselector_tpu_torch.kernels.attention import flash_plain
+
+        return flash_plain(q, k, v, q_seg, kv_seg, causal, scale)
+
+
+def ce_scorer_grads(cfg, params, state, batch, k_max, remat,
+                    attn_impl=None):
+    """({scorer leaf: gradient}, peak memory bytes) of the batch's CE alone
+    (reg_weight 0), with no update."""
+    import torch
+
+    from visionselector_tpu_torch.train.train_step import batch_loss
+
+    state.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = batch_loss(params, batch, cfg, 0.0, k_max, remat=remat,
+                         attn_impl=attn_impl)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.clone() for n, p in params.scorer.named_parameters()}
+    state.optimizer.zero_grad(set_to_none=True)
+    return grads, torch.cuda.max_memory_allocated()
+
+
+def grad_err(got, want) -> float:
+    """The largest ``rel_err`` over the scorer's leaves but q_bias, whose
+    gradient is zero analytically (a shift of every score leaves the soft
+    top-k unchanged)."""
+    return max(rel_err(got[n], w) for n, w in want.items() if n != "q_bias")
+
+
+def gradient_checks(cfg, params, state, batch, k_max) -> dict:
+    """Phase 6.2's gradient checks at the initial parameters (no update):
+    the scorer gradients of the CE alone (reg_weight 0: the part that
+    crosses the LM, its attention gradient and the soft top-k's VJP; the
+    BCE's part reaches the scorer directly and would hide it) on the
+    default path, with remat, and against two references: the LM's
+    attention plain and differentiated by autograd (the frozen ViT keeps
+    its kernels), and every attention plain. Each planted mirror fault
+    must exceed the tolerance against the first."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+
+    def grads_of(remat, attn_impl=None):
+        return ce_scorer_grads(cfg, params, state, batch, k_max, remat,
+                               attn_impl)
+
+    checks = {}
+    g_kernel, peak_plain = grads_of(False)
+    g_remat, peak_remat = grads_of(True)
+    with patched(A, "FlashAttentionFn", PlainAutogradAttention):
+        g_lm, peak_ref = grads_of(True)
+        g_all = grads_of(True, attn_impl="plain")[0]
+    faults = {}
+    for fault in ("delta_zero", "drop_diag_dk"):
+        with patched(A, "flash_backward_plain", functools.partial(
+                A.flash_backward_plain, fault=fault)):
+            faults[fault] = grad_err(grads_of(False)[0], g_lm)
+    remat_err = grad_err(g_remat, g_kernel)
+    equal = all(torch.equal(g_remat[n], g) for n, g in g_kernel.items())
+    checks["remat gradients"] = remat_err <= REMAT_TOL
+    print(f"[train] remat: CE scorer grad rel_err={remat_err!r} (limit "
+          f"{REMAT_TOL}; q_bias's gradient is zero analytically) bit_equal="
+          f"{equal} peak_mem_bytes remat={peak_remat} no_remat={peak_plain}",
+          flush=True)
+    lm_err, all_err = grad_err(g_kernel, g_lm), grad_err(g_kernel, g_all)
+    checks["CE scorer gradients vs plain attention by autograd"] = (
+        bool(all(torch.isfinite(g).all() for g in g_lm.values()))
+        and max(lm_err, all_err) <= TRAIN_GRAD_TOL
+        and min(faults.values()) > TRAIN_GRAD_TOL)
+    print(f"[train] CE scorer gradients at the initial parameters, kernel "
+          f"forwards + mirror backward against plain attention "
+          f"differentiated by autograd (remat, peak_mem_bytes={peak_ref}): "
+          f"the LM's rel_err={lm_err!r} per leaf "
+          f"{ {n: rel_err(g, g_lm[n]) for n, g in g_kernel.items()}!r}, "
+          f"the ViT's too rel_err={all_err!r} (limit {TRAIN_GRAD_TOL}); "
+          f"planted mirror faults against the first {faults!r} (must "
+          f"exceed it)", flush=True)
+    return checks
+
+
+def train_phase(cfg, params, out_dir):
+    """Phase 6.2: the gradient checks, then 8 selector steps at full
+    width (the last under the profiler). Returns the checks' results."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train.loss import IGNORE_INDEX, to_device
+    from visionselector_tpu_torch.train.train_step import (
+        ScheduleConfig,
+        init_train_state,
+        train_step,
+    )
+
+    host = train_batch(cfg)
+    batch = to_device(host, "cuda")
+    k_max = max(1, int(TRAIN_S_BUCKET // cfg.vision.spatial_merge_unit
+                       * 0.2))
+    sup = int((np.asarray(host.labels)[:, 1:] != IGNORE_INDEX).sum())
+    valid = int(np.asarray(host.seg_ids).sum())
+    print(f"[train] batch: {TRAIN_BATCH} samples, merged="
+          f"{np.asarray(host.num_merged).tolist()} k="
+          f"{np.asarray(host.k).tolist()} k_max={k_max} s_bucket="
+          f"{TRAIN_S_BUCKET} t_bucket={TRAIN_T_BUCKET} valid_tokens={valid} "
+          f"supervised_tokens={sup}", flush=True)
+    sched = ScheduleConfig(total_steps=TRAIN_STEPS, lr=TRAIN_LR,
+                           reg_weight_start=1.0, reg_weight_end=1.0)
+    frozen = frozen_checksums(params)
+    state = init_train_state(params, sched)
+    checks = gradient_checks(cfg, params, state, batch, k_max)
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    want = {"diag_attn_fwd": TRAIN_BATCH * (cfg.vision.depth - n_full),
+            "flash_varlen_fwd": TRAIN_BATCH * n_full
+            + cfg.text.num_hidden_layers}
+    metrics, walls, counts = [], [], []
+
+    def step():
+        t0 = time.perf_counter()
+        out = train_step(state, params, batch, cfg, k_max, sched)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        zero_counts()
+        if i == TRAIN_STEPS - 1:  # the last step under the profiler
+            busy, kernels, ((state, m), prof_wall), split = traced(
+                step, os.path.join(out_dir, "profile_train_step.json"),
+                parse=step_split)
+        else:
+            (state, m), wall = step()
+            walls.append(wall)
+        counts.append({n: c for n, c in launch_counts().items() if c})
+        metrics.append({k: float(v) for k, v in m.items()})
+        print(f"[train] step {i + 1}: " + " ".join(
+            f"{k}={v!r}" for k, v in metrics[-1].items())
+            + f" launches {counts[-1]}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad for n, p in params.scorer.named_parameters()}
+    checks["launches per step"] = all(c == want for c in counts)
+    checks["loss falls"] = metrics[-1]["loss"] < metrics[0]["loss"]
+    checks["bce falls"] = metrics[-1]["bce"] < metrics[0]["bce"]
+    checks["first step lr 0"] = metrics[0]["lr"] == 0.0
+    checks["scorer grads finite, non-zero"] = bool(
+        all(torch.isfinite(g).all() for g in grads.values())
+        and all(grads[n].abs().max() > 0
+                for n in ("q_kernel", "k_kernel", "k_bias")))
+    after = frozen_checksums(params)
+    checks["frozen bit-equal, no grad"] = all(
+        torch.equal(after[n], frozen[n]) and p.grad is None
+        for n, p in params.named_parameters() if n in frozen)
+    step_ms = statistics.median(walls)
+    idle = (f"device_busy_ms={busy!r} wall_ms={prof_wall!r} idle_share="
+            f"{1 - busy / prof_wall!r} (step {TRAIN_STEPS}, profiled)"
+            if busy else "device busy and idle share not measured (the "
+            "trace holds no device events)")
+    print(f"[train] {TRAIN_STEPS} steps: step_wall_ms median={step_ms!r} "
+          f"(steps 1-{TRAIN_STEPS - 1}, unprofiled: {walls!r}); expected "
+          f"launches per step {want}; {idle} "
+          f"supervised_tok_s={sup / step_ms * 1e3!r} "
+          f"valid_tok_s={valid / step_ms * 1e3!r} "
+          f"max_memory_allocated={peak}", flush=True)
+    print("[train] step device ms by group: " + " ".join(
+        f"{g}={ms!r}" for g, ms in kernel_groups(kernels).items()),
+        flush=True)
+    if split:
+        print(f"[train] step {TRAIN_STEPS} device ms by the host code that "
+              f"launched it: forward={split['forward']!r} backward="
+              f"{split['backward']!r} update={split['update']!r} unmatched="
+              f"{split['unmatched']!r}; the mirror backward (inside "
+              f"FlashAttentionFn's backward nodes) {split['mirror']!r} ms, "
+              f"{split['mirror'] / split['backward']!r} of the backward",
+              flush=True)
+    else:
+        print("[train] forward / backward device time not measured (the "
+              "trace holds no autograd node or device event)", flush=True)
+    g_kernel = ce_scorer_grads(cfg, params, state, batch, k_max, False)[0]
+    with patched(A, "FlashAttentionFn", PlainAutogradAttention):
+        g_all = ce_scorer_grads(cfg, params, state, batch, k_max, True,
+                                "plain")[0]
+    print(f"[train] not checked: the CE scorer gradients at the trained "
+          f"parameters (soft mask saturated), kernel forwards + mirror "
+          f"against every attention plain by autograd rel_err="
+          f"{grad_err(g_kernel, g_all)!r}", flush=True)
+    return checks
+
+
+def start_cli(procs, tmp, name, *args):
+    """Start ``python -m visionselector_tpu_torch.api.<name> args`` with
+    its output in files under ``tmp``."""
+    out = open(os.path.join(tmp, f"{name}.out"), "w")
+    err = open(os.path.join(tmp, f"{name}.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"visionselector_tpu_torch.api.{name}",
+         *args], stdout=out, stderr=err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    out.close()
+    err.close()
+    procs[name] = (proc, os.path.join(tmp, name), time.perf_counter())
+
+
+def finish_cli(procs, name):
+    """(return code, stdout, stderr, seconds since its start) of a CLI run
+    started by ``start_cli``, waiting up to 300 s for it."""
+    proc, base, t0 = procs[name]
+    rc = proc.wait(timeout=300)
+    with open(base + ".out") as f, open(base + ".err") as g:
+        return rc, f.read(), g.read(), time.perf_counter() - t0
+
+
+def hf_phase(cfg, params, input_ids, pixels, grid, tmp, procs):
+    """Phase 6.3: an HF-layout directory of the 3B weights at reduced depth
+    (ViT block 0 and the first full-attention block, 7; LM layers 0 and 1;
+    bf16; the trained scorer) written in both prefix layouts and
+    loaded onto the card bit for bit; the trained scorer exported,
+    reloaded bit for bit and served; ``api.train --smoke`` on the card.
+    The two CLI runs are processes of their own (in ``procs``), run beside
+    the rest of the phase and waited for at its end. Returns the checks'
+    results."""
+    import dataclasses
+
+    import torch
+
+    from visionselector_tpu_torch.core.safetensors import (
+        open_checkpoint,
+        save_sharded,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import (
+        QwenVLEngine,
+        QwenVLParams,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        config_from_hf,
+        export_scorer_to_safetensors,
+        load_hf_checkpoint,
+        load_scorer_params,
+        to_hf_tensors,
+    )
+
+    checks = {}
+    smoke_out = os.path.join(tmp, "smoke_train")
+    start_cli(procs, tmp, "train", "--smoke", "--total-steps", "3",
+              "--log-steps", "1", "--output-dir", smoke_out)
+    src = to_hf_tensors(params)  # views, no copies
+    full = cfg.vision.fullatt_block_indexes[0]
+    keep = {"visual.blocks.0.": "visual.blocks.0.",
+            f"visual.blocks.{full}.": "visual.blocks.1.",
+            "model.layers.0.": "model.layers.0.",
+            "model.layers.1.": "model.layers.1."}
+    small = {}
+    for name, t in src.items():
+        for old, new in keep.items():
+            if name.startswith(old):
+                small[new + name[len(old):]] = t
+                break
+        else:
+            if ".blocks." not in name and ".layers." not in name:
+                small[name] = t
+    vis = dataclasses.asdict(cfg.vision)
+    vis.update(depth=2, fullatt_block_indexes=[1])
+    text = dict(dataclasses.asdict(cfg.text), num_hidden_layers=2,
+                rope_scaling={"type": "mrope",
+                              "mrope_section": list(cfg.text.mrope_section)})
+    for layout in ("visual.", "model.visual."):
+        lm_prefix = "model." if layout == "visual." else \
+            "model.language_model."
+        d = os.path.join(tmp, f"hf_{layout.rstrip('.')}")
+        names = {}
+        for name in small:
+            if name.startswith("visual."):
+                names[layout + name[len("visual."):]] = name
+            elif name.startswith("model."):
+                names[lm_prefix + name[len("model."):]] = name
+            else:
+                names[name] = name
+        t0 = time.perf_counter()
+        save_sharded({n: small[o] for n, o in names.items()}, d, shards=2)
+        conf = {"vision_config": vis, "image_token_id": cfg.image_token_id,
+                "eos_token_id": cfg.eos_token_id}
+        if layout == "visual.":
+            conf.update(text)
+        else:
+            conf["text_config"] = text
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(conf, f)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small_cfg = config_from_hf(d)
+        loaded = load_hf_checkpoint(d, small_cfg, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        back = to_hf_tensors(loaded, layout, lm_prefix)
+        same = (back.keys() == names.keys() and all(
+            back[n].dtype == small[o].dtype and torch.equal(back[n], small[o])
+            for n, o in names.items()))
+        nbytes = sum(t.numel() * t.element_size() for t in small.values())
+        print(f"[train] HF dir ({layout} / {lm_prefix}, 2 shards, "
+              f"{len(names)} tensors, {nbytes} bytes): write_s={write_s!r} "
+              f"load_to_card_s={load_s!r} config depth="
+              f"{small_cfg.vision.depth} layers="
+              f"{small_cfg.text.num_hidden_layers} bit_equal={same}",
+              flush=True)
+        checks[f"HF load bit-equal ({layout})"] = bool(
+            same and small_cfg.vision.fullatt_block_indexes == (1,))
+        del loaded, back
+    # the last directory (nested layout) through the predict CLI on the card
+    start_cli(procs, tmp, "predict", "--model-path", d, "--max-new-tokens",
+              "2")
+
+    path = os.path.join(tmp, "importance_scorer.safetensors")
+    export_scorer_to_safetensors(params.scorer, path)
+    reloaded = load_scorer_params(open_checkpoint(path), cfg, "cuda")
+    checks["scorer export bit-equal"] = all(
+        torch.equal(p, q) for p, q in zip(params.scorer.parameters(),
+                                          reloaded.parameters()))
+    firsts = []
+    for scorer in (params.scorer, reloaded):
+        eng = QwenVLEngine(cfg, QwenVLParams(params.visual, params.lm,
+                                             scorer),
+                           use_selector=True, budget=0.2, device="cuda")
+        res = eng.generate(input_ids, pixels, grid, max_new_tokens=1)
+        firsts.append((res.tokens[:1], res.selected_indices.tolist()))
+    checks["served first token equal"] = firsts[0] == firsts[1]
+    print(f"[train] served with the trained scorer in memory and reloaded "
+          f"from its export: first tokens {firsts[0][0]} / {firsts[1][0]}, "
+          f"selected sets equal {firsts[0][1] == firsts[1][1]}", flush=True)
+
+    rc, stdout, stderr, secs = finish_cli(procs, "predict")
+    out = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 else {}
+    checks["api.predict --model-path on cuda"] = bool(
+        out.get("tokens") and out.get("selector") and out["device"] == "cuda")
+    print(f"[train] api.predict --model-path (cuda): rc={rc} in {secs!r} s "
+          f"{out or stderr[-2000:]}", flush=True)
+    rc, _, stderr, secs = finish_cli(procs, "train")
+    log = os.path.join(smoke_out, "train_log.jsonl")
+    ok = (rc == 0 and os.path.isfile(log) and os.path.isfile(
+        os.path.join(smoke_out, "importance_scorer.safetensors")))
+    lines = open(log).read().splitlines() if ok else []
+    checks["api.train --smoke on cuda"] = ok and len(lines) == 3
+    print(f"[train] api.train --smoke --total-steps 3 (cuda): rc={rc} in "
+          f"{secs!r} s; last log line "
+          f"{lines[-1] if lines else stderr[-2000:]}", flush=True)
+    return checks
+
+
+def training(cfg, params, input_ids, pixels, grid, out_dir):
+    """Phase 6: K1's gradient, training at full width, load / export /
+    serve. Raises if any check failed."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    print(f"[train] card: {nvidia_smi()}", flush=True)
+    check_flash_grad(cfg)
+    checks = train_phase(cfg, params, out_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, ".smoke_tmp")
+    os.makedirs(scratch, exist_ok=True)
+    tmp, procs = tempfile.mkdtemp(dir=scratch), {}
+    try:
+        checks.update(hf_phase(cfg, params, input_ids, pixels, grid, tmp,
+                               procs))
+    finally:
+        for proc, _, _ in procs.values():  # stopped if the phase failed
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[train] checks: {checks}", flush=True)
+    print(f"[train] phase seconds {time.perf_counter() - t0!r}", flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"training phase failed: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -1832,6 +2447,7 @@ def main() -> int:
     launches["fused_vit_attn_fwd"] = variants["fused"]["fused_vit_attn_fwd"]
     launches["flash_packed_fwd"] = variants["packed"]["flash_packed_fwd"]
     launches["fullattn_ablate_fwd"] = ablation["fullattn_ablate_fwd"]
+    training(cfg, params, input_ids, pixels, grid, out_dir)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -905,3 +905,92 @@ def test_flash_causal_planted_faults_fail(dev):
                              None, None, None,
                              tile_seg=(forced[None], ts[None]))
     assert _err(bad, want) > ULP_LIMIT
+
+
+# Gradient of the flash kernel (``attention`` under autograd): the kernel
+# forward with the blocked mirror backward against the plain forward with
+# the same backward. The gradients are bf16, so the two sides differ by
+# their last-bit rounding (one bf16 ulp of the largest |value| is 2^-8 =
+# 3.9e-3 of it) and by delta = rowsum(dO * O) taken from two forwards that
+# differ by <= ULP_LIMIT ulps per row. A planted fault gives O(1).
+GRAD_TOL = 1e-2
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [333, 1024])
+def test_flash_gradient_kernel_forward_matches_plain(dev, causal, s):
+    """GQA 8/2, B = 2, a padding tail; S = 1,024 takes two 512-key blocks,
+    333 the dense fallback. One kernel launch, none in the backward;
+    padding rows get zero gradients; both planted faults fail."""
+    gen = torch.Generator(device=dev).manual_seed(s + causal)
+    q = _rnd(gen, 2, s, 8, 128)
+    k, v = _rnd(gen, 2, s, 2, 128), _rnd(gen, 2, s, 2, 128)
+    g = _rnd(gen, 2, s, 8, 128)
+    seg = (_seg(s, dev) if not causal else
+           (torch.arange(s, device=dev) < s - 50).int()[None]).repeat(2, 1)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0 = A.FLASH_LAUNCHES
+    out = A.attention(*leaves, seg, seg, causal=causal)
+    out.backward(g)
+    assert A.FLASH_LAUNCHES - f0 == 1
+    want_out = A.flash_plain(q, k, v, seg, seg, causal=causal)
+    assert _err(out.detach(), want_out) <= ULP_LIMIT
+    want = A.flash_backward_plain(q, k, v, seg, seg, causal, None, want_out,
+                                  g)
+    for got, ref in zip(leaves, want):
+        assert _rel(got.grad, ref) <= GRAD_TOL
+    assert (leaves[0].grad[seg == 0] == 0).all()
+    assert (leaves[1].grad[seg == 0] == 0).all()
+    for fault in ("delta_zero", "drop_diag_dk"):
+        bad = A.flash_backward_plain(q, k, v, seg, seg, causal, None,
+                                     out.detach(), g, fault=fault)
+        assert max(_rel(b, w) for b, w in zip(bad, want)) > GRAD_TOL, fault
+
+
+def test_tiny_train_step_launches_and_freezes(dev):
+    """Two tiny selector steps on the card: per step, each sample's ViT
+    launches the diag kernel per window layer and the flash kernel per
+    full layer, the decoder the flash kernel per layer once for the
+    batch; the loss is finite, only the scorer moves."""
+    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+    from visionselector_tpu_torch.train.data import (
+        build_train_sample,
+        stack_samples,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+    from visionselector_tpu_torch.train.train_step import (
+        ScheduleConfig,
+        init_train_state,
+        train_step,
+    )
+
+    cfg = qwen25vl_tiny()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    rng = np.random.RandomState(0)
+    batch = to_device(stack_samples([build_train_sample(
+        cfg, (rng.rand(112, 112, 3) * 255).astype(np.uint8), [101], [102],
+        [201, 202], budget=0.25, s_bucket=128, t_bucket=64, min_pixels=1,
+        max_pixels=10**9) for _ in range(2)]), dev)
+    sched = ScheduleConfig(total_steps=2, lr=5e-3)
+    state = init_train_state(params, sched)
+    frozen = {n: p.detach().clone() for n, p in params.named_parameters()
+              if not n.startswith("scorer.")}
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    for _ in range(2):
+        f0, d0 = A.FLASH_LAUNCHES, A.DIAG_LAUNCHES
+        state, m = train_step(state, params, batch, cfg, 8, sched)
+        torch.cuda.synchronize()
+        assert A.DIAG_LAUNCHES - d0 == 2 * (cfg.vision.depth - n_full)
+        assert (A.FLASH_LAUNCHES - f0
+                == 2 * n_full + cfg.text.num_hidden_layers)
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    for n, p in params.named_parameters():
+        if n in frozen:
+            assert torch.equal(p, frozen[n]) and p.grad is None, n

@@ -146,20 +146,67 @@ def test_init_params_shapes_and_scales():
     assert torch.equal(p.lm.layers[0].q_kernel, again.lm.layers[0].q_kernel)
 
 
-def test_port_runs_without_jax_or_triton():
-    """Importing the port and running its tiny slice (the predict CLI and
-    the continuous batcher) on the CPU loads neither jax nor triton, nor the
-    JAX package, and launches no kernel."""
+def test_serving_builds_no_graph(weights):
+    """With every parameter requiring grad (as after training), one-shot
+    ``generate`` (image and text-only) and a batcher run still return
+    tensors without a ``grad_fn``: inference stays under ``no_grad``."""
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+
+    _, _, tparams = weights
+    params = tmodel.QwenVLParams(tparams.visual, tparams.lm, tparams.scorer)
+    flags = [p.requires_grad for p in params.parameters()]
+    try:
+        for p in params.parameters():
+            p.requires_grad_(True)
+        eng = tmodel.QwenVLEngine(qwen25vl_tiny(), params, device="cpu")
+        ids, px, grid = _request(IMAGES[0])
+        res = eng.generate(ids, px, grid, max_new_tokens=3)
+        state = eng.generate(ids, px, grid, max_new_tokens=3,
+                             _defer_decode=True)
+        text = eng.generate(np.arange(5, 12), max_new_tokens=2)
+        assert res.logits.grad_fn is None and text.logits.grad_fn is None
+        assert state.cache.k.grad_fn is None and state.logits.grad_fn is None
+        bat = ContinuousBatcher(eng, n_slots=2, t_max=256, chunk=2)
+        try:
+            out = bat.submit(dict(input_ids=ids, pixel_values=px,
+                                  grid_thw=grid), 3)
+            assert out.tokens == res.tokens
+            assert bat.pool.k.grad_fn is None
+            assert out.logits is None or out.logits.grad_fn is None
+        finally:
+            bat.shutdown()
+    finally:
+        for p, f in zip(params.parameters(), flags):
+            p.requires_grad_(f)
+
+
+def test_port_runs_without_jax_or_triton(tmp_path):
+    """Importing the port and running its tiny slice (the predict CLI, the
+    continuous batcher and the training CLI) on the CPU with jax, triton,
+    safetensors, transformers and the JAX package blocked from import
+    works, and launches no kernel."""
     code = """
-import json, sys, numpy as np, torch
+import json, sys
+BLOCKED = ("jax", "jaxlib", "triton", "visionselector_tpu", "safetensors",
+           "transformers")
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of them raises ImportError
+import numpy as np, torch
 import visionselector_tpu_torch
 from visionselector_tpu_torch.api import predict
+from visionselector_tpu_torch.api import train as train_cli
+from visionselector_tpu_torch.core import checkpoint, safetensors
 from visionselector_tpu_torch.core.config import qwen25vl_tiny
 from visionselector_tpu_torch.kernels import attention as A
 from visionselector_tpu_torch.models.qwen25vl.continuous import (
     ContinuousBatcher)
 from visionselector_tpu_torch.models.qwen25vl.model import (
     QwenVLEngine, init_params)
+from visionselector_tpu_torch.models.qwen25vl import weights
+from visionselector_tpu_torch.train import (
+    data, dataset, loss, prefetch, train_step)
 predict.main(["--device", "cpu", "--max-new-tokens", "3"])
 predict.main(["--device", "cpu", "--method", "orig", "--max-new-tokens", "2"])
 cfg = qwen25vl_tiny()
@@ -172,17 +219,23 @@ try:
 finally:
     bat.shutdown()
 assert len(res.tokens) == 5 and bat.stats["chunks"] == 2, res.tokens
-loaded = sorted({m.split(".")[0] for m in sys.modules}
-                & {"jax", "jaxlib", "triton", "visionselector_tpu"})
+train_cli.main(["--smoke", "--device", "cpu", "--total-steps", "2",
+                "--batch-size", "1", "--output-dir", sys.argv[1]])
+loaded = sorted({m.split(".")[0] for m, mod in sys.modules.items()
+                 if mod is not None}
+                & {"jax", "jaxlib", "triton", "visionselector_tpu",
+                   "safetensors", "transformers"})
 print(json.dumps({"loaded": loaded,
                   "launches": [A.FLASH_LAUNCHES, A.DIAG_LAUNCHES,
                                A.DECODE_LAUNCHES]}))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300, cwd=REPO, env=env)
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path / "run")],
+                       capture_output=True, text=True, timeout=300, cwd=REPO,
+                       env=env)
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
     assert json.loads(lines[0])["tokens"]
     assert json.loads(lines[1])["method"] == "orig"
     assert json.loads(lines[-1]) == {"loaded": [], "launches": [0, 0, 0]}
+    assert os.path.isfile(tmp_path / "run" / "importance_scorer.safetensors")

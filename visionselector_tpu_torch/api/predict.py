@@ -5,10 +5,15 @@ Usage:
         --method selector --budget 0.2 [--image photo.jpg] [--prompt-ids 1,2,3]
 
 Without --model-path it runs the tiny random-weight config (smoke mode),
-as ``visionselector_tpu.api.predict`` does. Loading a Hugging Face
-checkpoint is not ported yet. It runs on the GPU (``--device cuda``, the
-default; the attention runs the CUDA kernels, compiled on first use) and
-fails without one; ``--device cpu`` asks for the CPU.
+as ``visionselector_tpu.api.predict`` does. ``--model-path`` loads a
+Qwen2.5-VL Hugging Face checkpoint directory (``config.json`` and one or
+more ``*.safetensors``, a trained ``importance_scorer`` among them or not:
+``api.train`` writes ``importance_scorer.safetensors``, which can be
+copied into the directory); without a scorer ``--method selector`` runs
+as ``orig``. Prompts are token ids (``--prompt-ids``). It runs on the GPU
+(``--device cuda``, the default; the attention runs the CUDA kernels,
+compiled on first use) and fails without one; ``--device cpu`` asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -24,8 +29,7 @@ METHODS = ("orig", "selector")
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model-path", default=None,
-                   help="HF checkpoint dir (not ported yet)")
+    p.add_argument("--model-path", default=None, help="HF checkpoint dir")
     p.add_argument("--image", default=None, help="image file path")
     p.add_argument("--prompt-ids", default=None,
                    help="comma-separated token ids after the image")
@@ -44,25 +48,31 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if os.environ.get("EVAL_TIME", "").lower() == "true":
         args.eval_time = True
-    if args.model_path:
-        raise NotImplementedError(
-            "loading HF checkpoints is not ported yet: omit --model-path to "
-            "run the tiny random-weight config")
-
     import torch
 
     from visionselector_tpu_torch.core.config import qwen25vl_tiny
     from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
-    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        config_from_hf,
+        init_params,
+        load_hf_checkpoint,
+    )
     from visionselector_tpu_torch.preprocess.image import preprocess_image
     from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
-    cfg = qwen25vl_tiny()
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = init_params(cfg, gen, args.device)
+    if args.model_path:
+        cfg = config_from_hf(args.model_path)
+        params = load_hf_checkpoint(args.model_path, cfg, args.device)
+    else:
+        cfg = qwen25vl_tiny()
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        # bf16 on the card: the kernels' dtype (the tiny config is fp32)
+        params = init_params(cfg, gen, args.device,
+                             torch.bfloat16 if args.device == "cuda"
+                             else None)
 
     tp = cfg.vision.temporal_patch_size
     if args.image:
@@ -96,6 +106,7 @@ def main(argv=None) -> int:
         "budget": args.budget,
         "device": args.device,
         "tokens": res.tokens,
+        "selector": engine.use_selector,
         "num_vision_tokens": res.num_vision_tokens,
         "kept_vision_tokens": (
             len(res.selected_indices) if res.selected_indices is not None

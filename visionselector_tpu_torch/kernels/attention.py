@@ -39,6 +39,12 @@ of the same function beside it:
   schedule (the live tiles split over a thread-block cluster's ranks,
   then merged).
 
+Training differentiates the flash kernel through ``FlashAttentionFn``:
+its forward is the kernel (the plain version on CPU tensors), its backward
+``flash_backward_plain``, a blocked PyTorch mirror of the reference's XLA
+backward (the reference has no Pallas backward kernel). ``attention`` and
+``attention_packed`` take it only when q, k or v requires grad.
+
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
 / ``DECODE_LAUNCHES`` / ``PACKED_LAUNCHES`` / ``ABLATE_LAUNCHES`` count
@@ -542,35 +548,175 @@ def _launch_diag(q, k, v, seg, scale=None, block_q=DIAG_BLOCK,
     return out
 
 
+# Gradient of the flash kernel. The reference gives its Pallas forwards a
+# backward computed in XLA (``_with_reference_vjp``: ``_flash_stats_blocked``
+# then ``_mha_backward_blocked``); the port's backward is the same blocked
+# computation in PyTorch.
+BACKWARD_BLOCK = 512
+
+
+def _backward_block(sq: int, sk: int) -> int:
+    """The kv block of the blocked backward, by the reference's rule:
+    ``min(BACKWARD_BLOCK, sk)``, else the largest of 384 / 256 / 128 / 64
+    dividing sk; unaligned or unequal lengths take one block over every
+    key (the reference differentiates its dense attention there: the same
+    gradient, computed densely)."""
+    block = min(BACKWARD_BLOCK, sk)
+    if sk % block:
+        block = next((bb for bb in (384, 256, 128, 64) if sk % bb == 0), 0)
+    return block if block and sq == sk else sk
+
+
+def flash_backward_plain(q, k, v, q_seg, kv_seg, causal, scale, out, g,
+                         fault=None):
+    """dq, dk, dv of segment-masked (optionally causal) attention, streamed
+    over kv blocks: the reference's ``_flash_stats_blocked`` (each row's
+    max m and normaliser l) then ``_mha_backward_blocked`` (with P =
+    softmax(S), delta = rowsum(dO * O): dV = P^T dO, dS = P * (dO V^T -
+    delta), dQ = dS K * scale, dK = dS^T Q * scale), fp32 throughout.
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, H_kv, D] with query head h reading kv
+    head h // (H / H_kv), so dk and dv sum the group's heads (the gradient
+    the reference takes through its kv head expansion); out: the forward's
+    output; g: its cotangent. Rows and keys of padding (segment 0) get zero
+    gradients. Returns (dq, dk, dv) in q's, k's and v's dtypes.
+
+    ``fault`` plants a known error for checks that must catch it:
+    "delta_zero" computes delta from zeros, "drop_diag_dk" leaves each kv
+    block's own q rows (the diagonal block) out of dk.
+    """
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    r = h // h_kv
+    if scale is None:
+        scale = d**-0.5
+    block = _backward_block(sq, sk)
+
+    def grouped(x):  # [B, S, H, D] -> [B, H_kv, R, S, D] fp32
+        return x.float().reshape(b, sq, h_kv, r, d).permute(0, 2, 3, 1, 4)
+
+    qf, gf, of = grouped(q), grouped(g), grouped(out)
+    kf = k.float().permute(0, 2, 1, 3)  # [B, H_kv, Sk, D]
+    vf = v.float().permute(0, 2, 1, 3)
+    qi = torch.arange(sq, device=q.device)
+
+    def logits_mask(j0):
+        ks = kf[:, :, j0:j0 + block]
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, ks) * scale
+        kseg = kv_seg[:, j0:j0 + block]
+        mask = ((q_seg[:, :, None] == kseg[:, None, :])
+                & (kseg[:, None, :] > 0))
+        if causal:
+            ki = j0 + torch.arange(kseg.shape[1], device=q.device)
+            mask = mask & (qi[:, None] >= ki[None, :])
+        return s, mask[:, None, None]
+
+    m = torch.full((b, h_kv, r, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, h_kv, r, sq), device=q.device)
+    for j0 in range(0, sk, block):
+        s, mask = logits_mask(j0)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.where(
+            mask, torch.exp(s - m_new[..., None]), 0.0).sum(-1)
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    delta = (gf * of).sum(-1)  # [B, H_kv, R, Sq]
+    if fault == "delta_zero":
+        delta = torch.zeros_like(delta)
+
+    dq = torch.zeros_like(qf)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for j0 in range(0, sk, block):
+        j1 = min(sk, j0 + block)
+        s, mask = logits_mask(j0)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        p = p / l_safe[..., None]
+        dv[:, :, j0:j1] = torch.einsum("bgrqk,bgrqd->bgkd", p, gf)
+        dp = torch.einsum("bgrqd,bgkd->bgrqk", gf, vf[:, :, j0:j1])
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bgrqk,bgkd->bgrqd", ds, kf[:, :, j0:j1]) * scale
+        if fault == "drop_diag_dk":
+            ds = ds.clone()
+            ds[:, :, :, j0:j1] = 0.0
+        dk[:, :, j0:j1] = torch.einsum("bgrqk,bgrqd->bgkd", ds, qf) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash forward (``fwd(q, k, v)``: the kernel on CUDA tensors, its
+    plain version on CPU tensors) with ``flash_backward_plain`` as its
+    backward. No fallback: a forward that fails raises."""
+
+    @staticmethod
+    def forward(ctx, fwd, q, k, v, q_seg, kv_seg, causal, scale):
+        out = fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_seg, kv_seg, out = ctx.saved_tensors
+        dq, dk, dv = flash_backward_plain(q, k, v, q_seg, kv_seg, ctx.causal,
+                                          ctx.scale, out, g)
+        return None, dq, dk, dv, None, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def attention(q, k, v, q_seg, kv_seg, causal=False, scale=None, impl=None,
               kv_bounds=None, kv_iters=None):
     """Segment-masked multi-head attention (``flash_varlen_fwd``).
 
     q: [B, Sq, H, D]; k, v: [B, Sk, H_kv, D]; segs [B, S] (0 = padding).
     ``impl="plain"`` runs the plain version on any device; the default runs
-    the kernel on CUDA tensors and the plain version on CPU tensors.
+    the kernel on CUDA tensors and the plain version on CPU tensors. When
+    q, k or v requires grad (and grad mode is on) the call goes through
+    ``FlashAttentionFn``: the same forward, ``flash_backward_plain`` behind
+    it; otherwise nothing is saved.
     """
     if impl == "plain":
-        return flash_plain(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
-                           kv_iters)
-    if impl is not None:
+        fwd = flash_plain
+    elif impl is None:
+        fwd = flash_varlen_fwd
+    else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    return flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
-                            kv_iters)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(
+            lambda q, k, v: fwd(q, k, v, q_seg, kv_seg, causal, scale,
+                                kv_bounds, kv_iters),
+            q, k, v, q_seg, kv_seg, causal, scale)
+    return fwd(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds, kv_iters)
 
 
 def attention_packed(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp,
                      causal=False, scale=None, kv_bounds=None, impl=None):
     """Segment-masked attention over [B, S, H * dp] slabs
     (``flash_packed_fwd``); ``impl="plain"`` runs ``flash_packed_plain`` on
-    any device."""
+    any device. Differentiable as ``attention``."""
     if impl == "plain":
-        return flash_packed_plain(q, k, v, q_seg, kv_seg, num_heads,
-                                  num_kv_heads, dp, causal, scale, kv_bounds)
-    if impl is not None:
+        fwd = flash_packed_plain
+    elif impl is None:
+        fwd = flash_packed_fwd
+    else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    return flash_packed_fwd(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads,
-                            dp, causal, scale, kv_bounds)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(
+            lambda q, k, v: fwd(
+                q.flatten(2), k.flatten(2), v.flatten(2), q_seg, kv_seg,
+                num_heads, num_kv_heads, dp, causal, scale,
+                kv_bounds).unflatten(-1, (num_heads, dp)),
+            _heads(q, num_heads, dp, "q"), _heads(k, num_kv_heads, dp, "k"),
+            _heads(v, num_kv_heads, dp, "v"), q_seg, kv_seg, causal,
+            scale).flatten(2)
+    return fwd(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp, causal,
+               scale, kv_bounds)
 
 
 def attention_diag(q, k, v, seg, scale=None, block_q=None, impl=None):

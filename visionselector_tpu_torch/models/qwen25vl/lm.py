@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from visionselector_tpu_torch.core.config import TextConfig
@@ -166,11 +167,33 @@ def _mlp(x, p: DecoderLayer):
     return _dense(h, p, "down_kernel")
 
 
-@torch.no_grad()
+def _prefill_layer(x, p: DecoderLayer, cos, sin, seg_ids, cfg: TextConfig,
+                   packed: bool, attn_impl):
+    """One decoder layer over the full sequence: (x out, rotated k, v)."""
+    b, t = x.shape[:2]
+    h = rms_norm(x, p.input_ln_scale, cfg.rms_norm_eps)
+    q, k, v = _qkv(h, p, cfg)
+    q, k = _apply_mrope(q, k, cos, sin)
+    if packed:
+        attn = attention_packed(
+            q.flatten(2), k.flatten(2), v.flatten(2), seg_ids, seg_ids,
+            cfg.num_attention_heads, cfg.num_key_value_heads,
+            cfg.head_dim, causal=True, impl=attn_impl)
+    else:
+        attn = attention(q, k, v, seg_ids, seg_ids, causal=True,
+                         impl=attn_impl)
+    x = x + _dense(attn.reshape(b, t, -1), p, "o_kernel")
+    h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
+    return x + _mlp(h, p), k, v
+
+
 def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
-               attn_impl: str | None = None, attn_variant: str | None = None
+               attn_impl: str | None = None, attn_variant: str | None = None,
+               remat: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence forward.
+    """Full-sequence forward (training and prefill). Differentiable: with
+    inputs that require grad, attention goes through the flash kernel's
+    autograd Function; inference callers run it under ``no_grad``.
 
     Args:
         inputs_embeds: [B, T, D] (valid-prefix layout; padding rows masked
@@ -181,6 +204,10 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
             point on the [B, T, H * Dh] slabs when Dh is a multiple of 128
             (the reference's rule); any other value, or another Dh, runs
             the flash entry point.
+        remat: wrap each decoder layer in ``torch.utils.checkpoint``
+            (non-reentrant; the reference's ``jax.checkpoint``): the
+            backward recomputes a layer's activations instead of keeping
+            them, the same values and gradients.
     Returns:
         (final hidden [B, T, D] post-norm, (k_layers, v_layers) each
          [n_layers, B, T, H_kv, Dh] rotated keys / values for the cache).
@@ -188,24 +215,15 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
     cfg = lm.cfg
     cos, sin = mrope_cos_sin(position_ids, cfg)
     x = inputs_embeds
-    b, t = x.shape[:2]
     packed = attn_variant == "packed" and cfg.head_dim % 128 == 0
     ks, vs = [], []
     for p in lm.layers:
-        h = rms_norm(x, p.input_ln_scale, cfg.rms_norm_eps)
-        q, k, v = _qkv(h, p, cfg)
-        q, k = _apply_mrope(q, k, cos, sin)
-        if packed:
-            attn = attention_packed(
-                q.flatten(2), k.flatten(2), v.flatten(2), seg_ids, seg_ids,
-                cfg.num_attention_heads, cfg.num_key_value_heads,
-                cfg.head_dim, causal=True, impl=attn_impl)
+        args = (x, p, cos, sin, seg_ids, cfg, packed, attn_impl)
+        if remat:
+            x, k, v = torch.utils.checkpoint.checkpoint(
+                _prefill_layer, *args, use_reentrant=False)
         else:
-            attn = attention(q, k, v, seg_ids, seg_ids, causal=True,
-                             impl=attn_impl)
-        x = x + _dense(attn.reshape(b, t, -1), p, "o_kernel")
-        h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
-        x = x + _mlp(h, p)
+            x, k, v = _prefill_layer(*args)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, lm.final_ln_scale, cfg.rms_norm_eps)

@@ -1,11 +1,14 @@
-"""Token selection: hard top-k and sequence compaction (inference).
+"""Token selection: hard top-k and sequence compaction (inference), soft
+masking (training).
 
 Counterpart of ``visionselector_tpu.selector.select``: scores ->
 topk(k).indices -> ascending sort -> gather kept vision tokens; the LLM
 sequence is compacted to text + kept-vision positions, and M-RoPE position
 ids are computed on the ORIGINAL sequence then gathered. Unselected slots
 hold a beyond-range sentinel that sorts last, so the compacted sequence is
-a valid prefix of static length k_max + T_text_max.
+a valid prefix of static length k_max + T_text_max. Training multiplies
+the merged tokens by the soft top-k mask instead (no dropping), with the
+hard top-k mask of the detached scores as the BCE target.
 """
 
 from __future__ import annotations
@@ -15,7 +18,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from visionselector_tpu_torch.kernels.topk import hard_topk_indices
+from visionselector_tpu_torch.kernels.topk import (
+    hard_topk_indices,
+    hard_topk_mask,
+    soft_topk,
+)
 from visionselector_tpu_torch.selector.scorer import Scorer, score_tokens
 
 
@@ -36,6 +43,29 @@ def select_hard(scorer: Scorer, merged_tokens: torch.Tensor, num_valid: int,
     scores = score_tokens(scorer, merged_tokens, valid_len=num_valid)
     idx, valid = hard_topk_indices(scores, k, k_max, valid_len=num_valid)
     return Selection(indices=idx, valid=valid, scores=scores, k=k)
+
+
+class SoftSelection(NamedTuple):
+    masked_tokens: torch.Tensor  # [N_pad, D] tokens * soft mask
+    soft_mask: torch.Tensor  # [N_pad] fp32, sums to k over valid rows
+    hard_mask: torch.Tensor  # [N_pad] fp32 0/1 constraint target (no grad)
+
+
+def select_soft(scorer: Scorer, merged_tokens: torch.Tensor, num_valid: int,
+                k: int, k_max: int) -> SoftSelection:
+    """Differentiable selection for training: the tokens times the soft
+    top-k mask. Padding rows take part in the bisection with a score floor
+    of -1e4 (finite, so the bracket stays sane; their sigmoid mass is ~0)
+    and the mask is zeroed there."""
+    scores = score_tokens(scorer, merged_tokens, valid_len=num_valid)
+    n = scores.shape[0]
+    row_ok = torch.arange(n, device=scores.device) < num_valid
+    masked_scores = torch.where(row_ok, scores, -1e4)
+    soft = soft_topk(masked_scores[None], k)[0] * row_ok
+    hard = hard_topk_mask(scores.detach(), k, k_max, valid_len=num_valid)
+    masked_tokens = (merged_tokens * soft[:, None]).to(merged_tokens.dtype)
+    return SoftSelection(masked_tokens=masked_tokens, soft_mask=soft,
+                         hard_mask=hard)
 
 
 class CompactedSequence(NamedTuple):

@@ -1,0 +1,163 @@
+"""Training step of the LIS selector against a frozen backbone.
+
+Counterpart of ``visionselector_tpu.train.train_step`` (the reference's
+``train_qwen_selector.py``: only ``importance_scorer`` trains, AdamW,
+warmup-cosine learning rate, reg_weight annealed 0.1 -> 2.0). Every other
+parameter has ``requires_grad`` off: only the 12.85M-parameter scorer has
+a gradient or optimizer state.
+
+The optimizer is ``torch.optim.AdamW`` set up to take the reference's
+optax steps:
+- the learning rate of update n (n = 0, 1, ...) is optax's
+  ``warmup_cosine_decay_schedule(init 0, peak lr, warmup, decay = max(total,
+  warmup + 1), end 0)`` at n, in its fp32 arithmetic: the first update
+  has lr 0 and moves nothing;
+- gradients are clipped as ``optax.clip_by_global_norm``: scaled by
+  max / norm only when norm >= max (not ``clip_grad_norm_``'s
+  max / (norm + 1e-6));
+- weight decay is the schedule's (default 0.0, where torch's default is
+  0.01), betas (0.9, 0.999), eps 1e-8 outside the square root, bias
+  correction counted from 1, as optax's ``adamw``.
+``reg_weight`` follows ``TrainState.step``, the count of updates taken.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from visionselector_tpu_torch.core.config import VLConfig
+from visionselector_tpu_torch.train.loss import (
+    TrainBatchSample,
+    reg_weight_schedule,
+    selector_batch_forward,
+)
+
+
+class ScheduleConfig(NamedTuple):
+    total_steps: int = 1000
+    lr: float = 5e-5
+    reg_weight_start: float = 0.1
+    reg_weight_end: float = 2.0
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.03
+    # reference TrainingArguments default: clip at global norm 1.0
+    max_grad_norm: float = 1.0
+    # gradient checkpointing of the decoder layers: exact, trades one extra
+    # forward for activation memory
+    remat: bool = False
+
+
+@dataclasses.dataclass
+class TrainState:
+    scorer: torch.nn.Module  # the trained parameters (fp32)
+    optimizer: torch.optim.AdamW
+    step: int = 0  # updates taken
+
+
+def lr_schedule(sched: ScheduleConfig) -> Callable[[int], float]:
+    """Learning rate of update n: optax's warmup-cosine schedule in fp32."""
+    warmup = max(1, int(sched.total_steps * sched.warmup_ratio))
+    decay = max(sched.total_steps, warmup + 1) - warmup
+    peak, f32 = np.float32(sched.lr), np.float32
+
+    def lr_at(n: int) -> float:
+        if n < warmup:  # linear from 0 to peak
+            frac = f32(1) - f32(min(max(n, 0), warmup)) / f32(warmup)
+            return float((f32(0) - peak) * frac + peak)
+        c = f32(min(n - warmup, decay))
+        cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay)))
+        return float(peak * cos)
+
+    return lr_at
+
+
+def make_optimizer(scorer: torch.nn.Module,
+                   sched: ScheduleConfig) -> torch.optim.AdamW:
+    return torch.optim.AdamW(scorer.parameters(), lr=0.0,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=sched.weight_decay)
+
+
+def init_train_state(params, sched: ScheduleConfig) -> TrainState:
+    """Freeze every parameter but the scorer's and make its optimizer."""
+    for p in params.parameters():
+        p.requires_grad_(False)
+    for p in params.scorer.parameters():
+        p.requires_grad_(True)
+    return TrainState(params.scorer, make_optimizer(params.scorer, sched))
+
+
+def batch_loss(params, batch: TrainBatchSample, cfg: VLConfig, reg_weight,
+               k_max: int, remat: bool = False, attn_impl=None):
+    """Mean of the batch's per-sample losses, and the metrics' means."""
+    losses, metrics = selector_batch_forward(params, batch, cfg, reg_weight,
+                                             k_max, remat, attn_impl)
+    return losses.mean(), {k: v.mean() for k, v in metrics.items()}
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+
+
+def _update(state: TrainState, sched: ScheduleConfig) -> dict:
+    """Clip the scorer's gradients (optax's rule) and take one AdamW step
+    at the schedule's lr; returns {"grad_norm", "lr"}."""
+    params = list(state.scorer.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    norm = global_norm([p.grad for p in params])
+    if sched.max_grad_norm > 0:
+        keep = norm < sched.max_grad_norm
+        for p in params:
+            p.grad.copy_(torch.where(
+                keep, p.grad, p.grad / norm * sched.max_grad_norm))
+    lr = lr_schedule(sched)(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.step += 1
+    return {"grad_norm": norm, "lr": lr}
+
+
+def train_step(state: TrainState, params, batch: TrainBatchSample,
+               cfg: VLConfig, k_max: int, sched: ScheduleConfig,
+               attn_impl=None) -> Tuple[TrainState, dict]:
+    """One update on ``batch`` (``loss.to_device``). Returns (state, metrics:
+    loss, ce, bce, soft_mass, reg_weight, grad_norm (before clipping),
+    lr); tensors stay on the device."""
+    return train_step_accum(state, params, [batch], cfg, k_max, sched,
+                            attn_impl)
+
+
+def train_step_accum(state: TrainState, params,
+                     batches: List[TrainBatchSample], cfg: VLConfig,
+                     k_max: int, sched: ScheduleConfig,
+                     attn_impl=None) -> Tuple[TrainState, dict]:
+    """One update from equal-sized micro-batches: the gradients of their
+    mean losses summed in fp32 and divided by their count (equal to
+    ``train_step`` on the concatenated batch), with one micro-batch's
+    activations live at a time."""
+    reg_weight = reg_weight_schedule(state.step, sched.total_steps,
+                                     sched.reg_weight_start,
+                                     sched.reg_weight_end)
+    state.optimizer.zero_grad(set_to_none=True)
+    losses, metric_list = [], []
+    for mb in batches:
+        loss, metrics = batch_loss(params, mb, cfg, reg_weight, k_max,
+                                   sched.remat, attn_impl)
+        loss.backward()  # .grad accumulates the sum
+        losses.append(loss.detach())
+        metric_list.append(metrics)
+    for p in state.scorer.parameters():
+        if p.grad is not None:
+            p.grad.div_(len(batches))
+    metrics = {k: torch.stack([m[k].detach() for m in metric_list]).mean()
+               for k in metric_list[0]}
+    metrics.update(loss=torch.stack(losses).mean(), reg_weight=reg_weight)
+    metrics.update(_update(state, sched))
+    return state, metrics
