@@ -13,7 +13,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    path's shapes (bf16 inputs from a seeded generator): flash and diag at
    the prefill's shapes, the decode kernel over an 8-slot, 2,048-row pool
    and over one slot of the one-shot ``orig`` cache (bf16 and int8, t_c 1
-   and 4, lengths at tile edges; also against its schedule's plain mirror
+   and 4, lengths at tile edges; at t_c 16 and 32, multiple-choice
+   scoring's chunk, at the cache's base, 0 and across a tile edge, with a
+   planted fault: chunk row i sees position base + i + 1; also against its
+   schedule's plain mirror
    ``decode_split_plain``, with its times at four live lengths, their
    intercept and slope, its cluster size, ptxas lines and occupancy at
    D = 128), the fused rotary +
@@ -110,7 +113,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    with remat equal the default run's, and agree within TRAIN_GRAD_TOL
    with plain attention differentiated by autograd (no kernel, no mirror;
    the LM's alone, and the ViT's too), which two planted mirror faults
-   must exceed.
+   must exceed; both bf16 paths' distances from an fp32 reference (an fp32
+   copy of the weights, every attention plain) are printed, the plain
+   path's being the noise floor of bf16 rounding.
    Printed: step wall, device busy and idle share (the last step under
    torch.profiler, against its own wall), forward, backward and update
    device ms and the mirror's share of the backward (each kernel placed
@@ -123,7 +128,27 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    served (first token equal to the in-memory scorer's); ``api.train
    --smoke --total-steps 3`` on the card (the two CLI runs beside the
    rest of the phase). Its files go under ``.smoke_tmp/`` and are
-   removed.
+   removed after phase 7.
+7. Eval (``eval``), on phase 3's weights with phase 6's scorer:
+   ``QwenVLEngine.loglikelihood`` of a 12-id continuation after the
+   phase-3 request (selector 0.2 and ``orig``) and after 200 text ids,
+   and ``run_loglikelihood_choices`` with choices of 1, 5, 12 and 20 ids
+   (one prefill, one chunked decode forward of 32 rows per choice), each
+   against ``attn_impl="plain"`` within LL_TOL nats per continuation
+   token (LL_TOL_SAME for the full-prefill ll of ``orig`` and text-only,
+   whose kept tokens cannot differ; LL_TOL_CHUNK for ``orig``'s
+   choices), planted faults exceeding the tolerance they are planted in
+   (the continuation scored one position late; a choice's token j read
+   from chunk row j), the choices in reverse order equal, on ``orig``
+   each choice against its own full prefill, and the launches (28 K4 + 40 K1
+   per image prefill, 36 K1 per text prefill, 36 K5 per choice and none
+   otherwise); then ``evaluate`` through the port's ``EngineAdapter``
+   (``_IdTokenizer``, EVAL_TIME) on synthetic tasks under
+   ``.smoke_tmp/`` (4 text-only generate docs of 16 tokens, 4 text-only
+   MC docs of 2-4 choices, and an image MC doc when PIL imports): every
+   doc predicted, the reference harness's metric keys, MC predictions the
+   argmax of their lls; and ``api.run_eval --model-path`` (phase 6's
+   reduced-depth HF directory) ``--device cuda`` in a process of its own.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -136,8 +161,10 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ULP_LIMIT = 4
@@ -177,6 +204,11 @@ KERNELS = {
                       "visionselector_tpu/kernels/attention.py:681"),
     "decode_blocked_fwd": ("decode_blocked_fwd.cu",
                            "visionselector_tpu/kernels/attention.py:1085"),
+    # K5 at t_c = 32 rows per slot: the chunked decode forward of
+    # multiple-choice scoring (phase 7), a launch shape of its own
+    "decode_blocked_fwd_t_c32": ("decode_blocked_fwd.cu",
+                                 "visionselector_tpu/kernels/attention.py:"
+                                 "1085"),
     "fused_vit_attn_fwd": ("fused_vit_attn_fwd.cu",
                            "visionselector_tpu/kernels/fused_vit_attn.py:144"),
     "flash_packed_fwd": ("flash_varlen_fwd.cu",
@@ -648,7 +680,7 @@ def check_decode(cfg, rnd, case, control):
         for kname, usage in ptxas_report("decode_blocked_fwd",
                                          f"ILi{dh}ELb{int(quant)}E").items():
             print(f"[build] {kname}: {usage}", flush=True)
-        for t_c in (1, 4):
+        for t_c in (1, 4, 16, 32):
             shape = (t_c, hq, hkv, dh, int(quant))
             c = A.decode_cluster_size(dev, POOL_SLOTS, t_c, hq, hkv, dh,
                                       quant)
@@ -738,6 +770,40 @@ def check_decode(cfg, rnd, case, control):
     control("decode_blocked_fwd", f"the last of {c} ranks left out of the "
             f"cluster merge", A._decode_launch(q, kp, vp, lens,
                                                drop_rank=c - 1), want)
+    # The chunked decode of multiple-choice scoring (run_loglikelihood_choices
+    # runs lm_decode_chunk at t_c = c_max rows per slot): one slot of the
+    # orig cache, based at its 1,302 valid rows, at 0 and straddling a tile
+    # edge; R = t_c x 8 query rows per kv head in row groups of 32.
+    kname = "decode_blocked_fwd_t_c32"
+    for t_c in (32, 16):
+        for quant in (False, True):
+            kc, vc = (k18, v18) if quant else (k1, v1)
+            sc = dict(k_scale=k1s, v_scale=v1s) if quant else {}
+            for b0 in (ORIG_BASE_LEN, 0, 2 * TILE - t_c // 2):
+                base = torch.tensor([b0], device=dev)
+                qc = rnd(1, t_c, hq, dh)
+                nbytes, flop = work(base, t_c, quant, ORIG_CACHE_ROWS)
+                library = None
+                if not quant:
+                    library = (lambda q=qc, m=mask(base, t_c, ORIG_CACHE_ROWS):
+                               sdpa_ms(q, k1, v1, m))
+                name = (f"{'int8' if quant else 'bf16'} t_c={t_c} B=1 "
+                        f"T={ORIG_CACHE_ROWS} Hq={hq} Hkv={hkv} D={dh} "
+                        f"base={b0} row_groups="
+                        f"{A.decode_rows(t_c, hq // hkv)[1]}")
+                case(kname, name,
+                     lambda q=qc, b=base, kc=kc, vc=vc, sc=sc:
+                         A.decode_blocked_fwd(q, kc, vc, b, **sc),
+                     lambda q=qc, b=base, kc=kc, vc=vc, sc=sc:
+                         A.decode_blocked_plain(q, kc, vc, b, **sc), [],
+                     lambda ms, n=nbytes:
+                         f"live_tb_s={n / (ms * 1e-3) / 1e12!r}",
+                     (nbytes, flop), library)
+                split_check(name, qc, kc, vc, base, sc, t_c, quant)
+    qc = rnd(1, 32, hq, dh)
+    control(kname, "chunk row i sees position base + i + 1",
+            A.decode_blocked_fwd(qc, k1, v1, one + 1),
+            A.decode_blocked_plain(qc, k1, v1, one))
     for quant in (False, True):
         kc, vc = (k8, v8) if quant else (kp, vp)
         sc = dict(k_scale=ks, v_scale=vs) if quant else {}
@@ -2031,6 +2097,29 @@ def ce_scorer_grads(cfg, params, state, batch, k_max, remat,
     return grads, torch.cuda.max_memory_allocated()
 
 
+def fp32_ce_scorer_grads(cfg, params, batch, k_max) -> dict:
+    """The CE's scorer gradients (reg_weight 0) with an fp32 copy of every
+    weight and every attention plain, differentiated by autograd (remat):
+    the reference the bf16 paths are held to."""
+    import copy
+
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train.train_step import batch_loss
+
+    p32 = copy.deepcopy(params).float()
+    with patched(A, "FlashAttentionFn", PlainAutogradAttention):
+        loss, _ = batch_loss(p32, batch, cfg, 0.0, k_max, remat=True,
+                             attn_impl="plain")
+        loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.clone() for n, p in p32.scorer.named_parameters()}
+    del p32, loss
+    torch.cuda.empty_cache()
+    return grads
+
+
 def grad_err(got, want) -> float:
     """The largest ``rel_err`` over the scorer's leaves but q_bias, whose
     gradient is zero analytically (a shift of every score leaves the soft
@@ -2073,6 +2162,18 @@ def gradient_checks(cfg, params, state, batch, k_max) -> dict:
           f"{REMAT_TOL}; q_bias's gradient is zero analytically) bit_equal="
           f"{equal} peak_mem_bytes remat={peak_remat} no_remat={peak_plain}",
           flush=True)
+    # The fp32 reference: the bf16 plain path's distance from it is the
+    # noise floor of bf16 rounding, the kernel path's is held beside it.
+    g_fp32 = fp32_ce_scorer_grads(cfg, params, batch, k_max)
+    floor, kern = grad_err(g_all, g_fp32), grad_err(g_kernel, g_fp32)
+    print(f"[train] CE scorer gradients at the initial parameters against "
+          f"the fp32 reference (fp32 weights, every attention plain, "
+          f"autograd): the bf16 plain path rel_err={floor!r} (the noise "
+          f"floor), the bf16 kernel path rel_err={kern!r}; per leaf plain "
+          f"{ {n: rel_err(g, g_fp32[n]) for n, g in g_all.items()}!r} kernel "
+          f"{ {n: rel_err(g, g_fp32[n]) for n, g in g_kernel.items()}!r}; "
+          f"the kernel path {'is' if kern <= floor else 'is not'} within "
+          f"the plain path's distance (ratio {kern / floor!r})", flush=True)
     lm_err, all_err = grad_err(g_kernel, g_lm), grad_err(g_kernel, g_all)
     checks["CE scorer gradients vs plain attention by autograd"] = (
         bool(all(torch.isfinite(g).all() for g in g_lm.values()))
@@ -2354,37 +2455,365 @@ def hf_phase(cfg, params, input_ids, pixels, grid, tmp, procs):
     print(f"[train] api.train --smoke --total-steps 3 (cuda): rc={rc} in "
           f"{secs!r} s; last log line "
           f"{lines[-1] if lines else stderr[-2000:]}", flush=True)
-    return checks
+    return checks, d
 
 
-def training(cfg, params, input_ids, pixels, grid, out_dir):
+def training(cfg, params, input_ids, pixels, grid, out_dir, tmp) -> str:
     """Phase 6: K1's gradient, training at full width, load / export /
-    serve. Raises if any check failed."""
-    import shutil
-    import tempfile
-
+    serve, with its files under ``tmp``. Raises if any check failed;
+    returns the reduced-depth HF directory (nested layout, with the
+    trained scorer), which phase 7 evaluates."""
     t0 = time.perf_counter()
     print(f"[train] card: {nvidia_smi()}", flush=True)
     check_flash_grad(cfg)
     checks = train_phase(cfg, params, out_dir)
-    root = os.path.dirname(os.path.abspath(__file__))
-    scratch = os.path.join(root, ".smoke_tmp")
-    os.makedirs(scratch, exist_ok=True)
-    tmp, procs = tempfile.mkdtemp(dir=scratch), {}
+    procs = {}
     try:
-        checks.update(hf_phase(cfg, params, input_ids, pixels, grid, tmp,
-                               procs))
+        hf_checks, hf_dir = hf_phase(cfg, params, input_ids, pixels, grid,
+                                     tmp, procs)
+        checks.update(hf_checks)
     finally:
         for proc, _, _ in procs.values():  # stopped if the phase failed
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
     print(f"[train] checks: {checks}", flush=True)
     print(f"[train] phase seconds {time.perf_counter() - t0!r}", flush=True)
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"training phase failed: {bad}")
+    return hf_dir
+
+
+# Phase 7 (eval). Loglikelihood scoring and the evaluation harness on the
+# phase-3 weights (the scorer as phase 6 trained it).
+LL_CONT_LEN = 12
+CHOICE_LENS = (1, 5, 12, 20)  # c_max 32
+TEXT_CTX_LEN = 200
+# Kernel path against attn_impl="plain" (and a choice's chunk against its
+# full prefill), |ll difference| per continuation token in nats. Both sides
+# round activations to bf16 through 32 ViT and 36 decoder layers and sum
+# attention in another order; with the selector, near-ties may also swap a
+# kept token, and a chunk goes through the decode kernel where the prefill
+# goes through K1. Readings on an H100 80GB HBM3 (700 W): selector ll
+# 0.013, choices and chunk against per-pair 0.0015-0.0186 per token.
+LL_TOL = 0.05
+# The same for the full-prefill ll where the kept tokens cannot differ
+# (orig, text-only): readings 0.0003 and 0.0037 per token.
+LL_TOL_SAME = 0.01
+# The planted fault (the continuation scored one position late) must
+# exceed the tolerance of the comparison it is planted in. Random weights
+# give a near-uniform next-token distribution that hardly changes from
+# one position to the next, so it moved the ll by 0.20 (selector), 0.022
+# (orig, after 1,302 context rows) and 0.048 (text-only) per token there.
+# The choices' planted fault reads token j from chunk row j (one row late,
+# the chunk path's off-by-one). On ``orig`` the choices are held against
+# the plain chunk and against each choice's own full prefill at
+# LL_TOL_CHUNK, between the sound readings there (at most 0.0176 and
+# 0.0107 per token; the 1-id choice's 0.0176 is the context's last-row
+# logits, K1 against plain) and what the fault reads (at most 0.080 and
+# 0.083; 0.170 on the selector's, held at LL_TOL).
+LL_TOL_CHUNK = 0.03
+EVAL_TASKS = [
+    {"name": "smoke_gen", "metric": "exact_match", "max_new_tokens": 16},
+    {"name": "smoke_mc", "metric": "multiple_choice",
+     "request_type": "loglikelihood"},
+]
+# The reference harness's result keys (visionselector_tpu/eval/
+# evaluator.py:453-458, tasks.py aggregate_scores, EvalTimeStats.summary).
+EVAL_TIME_KEYS = ("avg_prefill_ms", "avg_latency_ms", "avg_visual_tokens",
+                  "avg_input_tokens", "avg_output_tokens")
+
+
+def ll_per_token(a, b, n) -> float:
+    return abs(a - b) / n
+
+
+def eval_task_dir(tmp, with_image) -> str:
+    """Phase 7's synthetic tasks under ``tmp``: a generate_until task of 4
+    text-only docs (16 new tokens) and an MC loglikelihood task of 4
+    text-only docs with 2-4 choices, plus one doc with the phase-3 image
+    (a PNG) when PIL imports."""
+    d = os.path.join(tmp, "eval_tasks")
+    os.makedirs(d)
+    with open(os.path.join(d, "tasks.json"), "w") as f:
+        json.dump(EVAL_TASKS, f)
+    gen = [{"question": q, "answers": [a]} for q, a in (
+        ("What is two plus two?", "4"), ("Name a primary color.", "red"),
+        ("Spell the word cat.", "cat"), ("Is water wet?", "yes"))]
+    mc = [{"question": "Pick the animal.", "answers": ["B"],
+           "choices": ["a rock", "a dog"]},
+          {"question": "Which is largest?", "answers": ["C"],
+           "choices": ["one", "ten", "one hundred"]},
+          {"question": "Which shape has three sides?", "answers": ["A"],
+           "choices": ["triangle", "square", "circle", "line"]},
+          {"question": "Which is a fruit?", "answers": ["A"],
+           "choices": ["apple pie slice", "brick"]}]
+    if with_image:
+        from PIL import Image
+
+        Image.fromarray(request_image()).save(os.path.join(d, "image.png"))
+        mc.append({"question": "What does the image show?", "answers": ["A"],
+                   "image": "image.png", "choices": ["noise", "a cat"]})
+    for name, docs in (("smoke_gen", gen), ("smoke_mc", mc)):
+        with open(os.path.join(d, f"{name}.jsonl"), "w") as f:
+            f.writelines(json.dumps(doc) + "\n" for doc in docs)
+    return d
+
+
+def ll_checks(cfg, params, input_ids, pixels, grid):
+    """Phase 7.2-7.3: ``loglikelihood`` and ``run_loglikelihood_choices``
+    on the kernel path against the plain path, launch counts, the planted
+    fault, reverse order, the chunk against per-pair prefills. Returns
+    (checks, the selector choices run's K5 launches)."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    rng = np.random.RandomState(SEED + 7)
+    cont = rng.randint(1000, 100000, LL_CONT_LEN)
+    text_ctx = rng.randint(1000, 100000, TEXT_CTX_LEN)
+    choices = [rng.randint(1000, 100000, n) for n in CHOICE_LENS]
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    n_layers = cfg.text.num_hidden_layers
+    want_vision = {"diag_attn_fwd": cfg.vision.depth - n_full,
+                   "flash_varlen_fwd": n_full + n_layers,
+                   "decode_blocked_fwd": 0}
+    vision = dict(pixel_values=pixels, grid_thw=grid)
+    checks = {}
+    chunk_of = M.lm_mod.lm_decode_chunk
+
+    def chunk_one_row_late(*a, **kw):
+        # hidden row j - 1 (which scores token j) replaced by row j
+        hidden, cache = chunk_of(*a, **kw)
+        return torch.cat([hidden[:, 1:], hidden[:, -1:]], 1), cache
+
+    def counted(fn):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        c = launch_counts()
+        return out, wall, {k: c[k] for k in want_vision}
+
+    k5_launches = 0
+    for name, use_sel in (("selector", True), ("orig", False)):
+        eng = M.QwenVLEngine(cfg, params, use_selector=use_sel, budget=0.2,
+                             device="cuda")
+        plain = M.QwenVLEngine(cfg, params, use_selector=use_sel, budget=0.2,
+                               device="cuda", attn_impl="plain")
+        eng.loglikelihood(input_ids, cont, **vision)  # warm-up
+        (ll_k, gr_k), ms, launches = counted(
+            lambda: eng.loglikelihood(input_ids, cont, **vision))
+        ll_p, gr_p = plain.loglikelihood(input_ids, cont, **vision)
+        late = M._score_continuation
+        with patched(M, "_score_continuation",
+                     lambda p, h, n, *a: late(p, h, n + 1, *a)):
+            ll_f, _ = eng.loglikelihood(input_ids, cont, **vision)
+        err, fault = (ll_per_token(ll_k, ll_p, LL_CONT_LEN),
+                      ll_per_token(ll_f, ll_p, LL_CONT_LEN))
+        tol = LL_TOL if use_sel else LL_TOL_SAME
+        print(f"[eval] loglikelihood {name} (image, {len(input_ids)} ids, "
+              f"{LL_CONT_LEN}-id continuation): kernel ll={ll_k!r} greedy="
+              f"{gr_k} plain ll={ll_p!r} greedy={gr_p}: |diff| per token "
+              f"{err!r} (limit {tol}); planted fault (scored one position "
+              f"late) ll={ll_f!r}, {fault!r} per token (must exceed the "
+              f"limit); wall_ms={ms!r} launches {launches} (expected "
+              f"{want_vision})", flush=True)
+        checks[f"ll {name} kernel vs plain"] = bool(
+            err <= tol and gr_k == gr_p and np.isfinite(ll_k))
+        checks[f"ll {name} planted fault fails"] = fault > tol
+        checks[f"ll {name} launches"] = launches == want_vision
+
+        shared, ms_shared, launches = counted(
+            lambda: M.run_loglikelihood_choices(eng, input_ids, choices,
+                                                **vision))
+        if use_sel:
+            k5_launches = launches["decode_blocked_fwd"]
+        want = dict(want_vision,
+                    decode_blocked_fwd=n_layers * len(choices))
+        rev = M.run_loglikelihood_choices(eng, input_ids, choices[::-1],
+                                          **vision)[::-1]
+        plain_sh = M.run_loglikelihood_choices(plain, input_ids, choices,
+                                               **vision)
+        with patched(M.lm_mod, "lm_decode_chunk", chunk_one_row_late):
+            faulty = M.run_loglikelihood_choices(eng, input_ids, choices,
+                                                 **vision)
+        errs = [ll_per_token(a[0], b[0], n) for a, b, n in
+                zip(shared, plain_sh, CHOICE_LENS)]
+        faults = [ll_per_token(a[0], b[0], n) for a, b, n in
+                  zip(faulty, plain_sh, CHOICE_LENS)]
+        rev_diff = max(abs(a[0] - b[0]) for a, b in zip(shared, rev))
+        tol = LL_TOL if use_sel else LL_TOL_CHUNK
+        print(f"[eval] run_loglikelihood_choices {name} ({len(choices)} "
+              f"choices of {CHOICE_LENS} ids, c_max 32): kernel "
+              f"{[round(x[0], 4) for x in shared]} plain "
+              f"{[round(x[0], 4) for x in plain_sh]}: |diff| per token "
+              f"{errs!r} (limit {tol}); planted fault (token j read from "
+              f"chunk row j) {[round(x[0], 4) for x in faulty]}, {faults!r} "
+              f"per token (the largest must exceed the limit); reverse "
+              f"order max |diff| {rev_diff!r} (expected 0: each choice "
+              f"rewrites the rows it reads); wall_ms={ms_shared!r} "
+              f"launches {launches} (expected {want})", flush=True)
+        checks[f"choices {name} kernel vs plain"] = (
+            max(errs) <= tol
+            and [x[1] for x in shared] == [x[1] for x in plain_sh])
+        checks[f"choices {name} planted fault fails"] = max(faults) > tol
+        checks[f"choices {name} reverse order"] = rev_diff == 0.0
+        checks[f"choices {name} launches"] = launches == want
+        if not use_sel:
+            pairs, ms_pairs, _ = counted(lambda: [
+                eng.loglikelihood(input_ids, c, **vision) for c in choices])
+            perr = [ll_per_token(a[0], b[0], n) for a, b, n in
+                    zip(shared, pairs, CHOICE_LENS)]
+            pfault = [ll_per_token(a[0], b[0], n) for a, b, n in
+                      zip(faulty, pairs, CHOICE_LENS)]
+            print(f"[eval] orig: each choice's chunk against its per-pair "
+                  f"loglikelihood (full prefill): |diff| per token {perr!r} "
+                  f"(limit {LL_TOL_CHUNK}), greedy flags equal "
+                  f"{[x[1] for x in shared] == [x[1] for x in pairs]}; "
+                  f"planted fault (token j read from chunk row j) "
+                  f"{pfault!r} per token (the largest must exceed the "
+                  f"limit); wall ms: shared prefill + {len(choices)} chunks "
+                  f"{ms_shared!r} against {len(choices)} per-pair prefills "
+                  f"{ms_pairs!r}", flush=True)
+            checks["choices orig vs per-pair"] = (
+                max(perr) <= LL_TOL_CHUNK
+                and [x[1] for x in shared] == [x[1] for x in pairs])
+            checks["choices orig vs per-pair planted fault fails"] = (
+                max(pfault) > LL_TOL_CHUNK)
+
+    eng = M.QwenVLEngine(cfg, params, device="cuda")
+    plain = M.QwenVLEngine(cfg, params, device="cuda", attn_impl="plain")
+    (ll_k, gr_k), ms, launches = counted(
+        lambda: eng.loglikelihood(text_ctx, cont))
+    ll_p, gr_p = plain.loglikelihood(text_ctx, cont)
+    late = M._score_continuation
+    with patched(M, "_score_continuation",
+                 lambda p, h, n, *a: late(p, h, n + 1, *a)):
+        ll_f, _ = eng.loglikelihood(text_ctx, cont)
+    err, fault = (ll_per_token(ll_k, ll_p, LL_CONT_LEN),
+                  ll_per_token(ll_f, ll_p, LL_CONT_LEN))
+    want = {"diag_attn_fwd": 0, "flash_varlen_fwd": n_layers,
+            "decode_blocked_fwd": 0}
+    print(f"[eval] loglikelihood text-only ({TEXT_CTX_LEN} ids): kernel "
+          f"ll={ll_k!r} plain ll={ll_p!r}: |diff| per token {err!r} (limit "
+          f"{LL_TOL_SAME}); planted fault (scored one position late) ll="
+          f"{ll_f!r}, {fault!r} per token (must exceed the limit); wall_ms="
+          f"{ms!r} launches {launches} (expected {want})", flush=True)
+    checks["ll text kernel vs plain"] = err <= LL_TOL_SAME and gr_k == gr_p
+    checks["ll text planted fault fails"] = fault > LL_TOL_SAME
+    checks["ll text launches"] = launches == want
+    return checks, k5_launches
+
+
+def harness_checks(cfg, params, tmp, hf_dir):
+    """Phase 7.4-7.5: ``evaluate`` through the port's EngineAdapter on the
+    synthetic tasks (``_IdTokenizer``, EVAL_TIME=true), then the
+    ``api.run_eval`` CLI on phase 6's HF directory in a process of its
+    own. Returns the checks' results."""
+    import numpy as np
+
+    from visionselector_tpu_torch.api.run_eval import _IdTokenizer
+    from visionselector_tpu_torch.eval.evaluator import EngineAdapter, evaluate
+    from visionselector_tpu_torch.eval.tasks import (
+        TASKS,
+        load_task_configs,
+        load_task_docs,
+    )
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    try:
+        import PIL  # noqa: F401
+        with_image = True
+    except ImportError:
+        with_image = False
+    print(f"[eval] PIL imports: {with_image} (image docs through the "
+          f"adapter {'included' if with_image else 'left out'})", flush=True)
+    task_dir = eval_task_dir(tmp, with_image)
+    names = load_task_configs(task_dir)
+    checks = {}
+    saved = os.environ.get("EVAL_TIME")
+    os.environ["EVAL_TIME"] = "true"
+    try:
+        eng = M.QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda")
+        adapter = EngineAdapter(eng, _IdTokenizer())
+        log = os.path.join(tmp, "eval_samples.jsonl")
+        t0 = time.perf_counter()
+        res = evaluate(adapter, names, task_dir, log_samples_path=log)
+        wall = time.perf_counter() - t0
+        with open(log) as f:
+            recs = [json.loads(line) for line in f]
+        n_docs = {n: len(load_task_docs(TASKS[n], task_dir)) for n in names}
+        want_keys = {f"{n}/{k}" for n in names for k in (
+            TASKS[n].metric, "stderr", "n", "wall_s")} | set(EVAL_TIME_KEYS)
+        preds_ok = (len(recs) == sum(n_docs.values()) and all(
+            isinstance(r["prediction"], str) for r in recs))
+        mc = [r for r in recs if r["task"] == "smoke_mc"]
+        argmax_ok = True
+        for req, rec in zip(load_task_docs(TASKS["smoke_mc"], task_dir), mc):
+            kw, _ = adapter._prepare_request(req)
+            conts = [np.asarray(_IdTokenizer().encode(" " + c.strip()))
+                     for c in req.choices]
+            lls = M.run_loglikelihood_choices(eng, kw.pop("input_ids"),
+                                              conts, **kw)
+            argmax_ok &= rec["prediction"] == "ABCD"[int(np.argmax(
+                [ll for ll, _ in lls]))]
+        print(f"[eval] evaluate (selector 0.2, _IdTokenizer, EVAL_TIME): "
+              f"{n_docs} docs in {wall!r} s; predictions "
+              f"{[r['prediction'] for r in recs]}; results {res}; "
+              f"avg_prefill_ms={res.get('avg_prefill_ms')!r} "
+              f"avg_latency_ms={res.get('avg_latency_ms')!r} wall_s "
+              f"{ {n: res.get(f'{n}/wall_s') for n in names}!r}", flush=True)
+        checks["evaluate: every doc predicted"] = preds_ok
+        checks["evaluate: the reference's metric keys"] = set(res) == \
+            want_keys
+        checks["evaluate: MC = argmax of the lls"] = argmax_ok
+
+        out_dir = os.path.join(tmp, "run_eval_out")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "visionselector_tpu_torch.api.run_eval",
+             "--model-path", hf_dir, "--data-dir", task_dir,
+             "--task-config-dir", task_dir, "--tasks", ",".join(names),
+             "--budgets", "0.2", "--device", "cuda", "--output-dir",
+             out_dir], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        tail = (r.stdout.strip().splitlines()[-1] if r.returncode == 0
+                else r.stderr[-3000:])
+        print(f"[eval] api.run_eval --model-path <phase-6 HF dir> --device "
+              f"cuda: rc={r.returncode} in {secs!r} s, files {files}; "
+              f"{tail}", flush=True)
+        checks["api.run_eval on cuda"] = (
+            r.returncode == 0 and "selector_0.2_rank0.json" in files
+            and "samples_selector_0.2_rank0.jsonl" in files)
+    finally:
+        if saved is None:
+            os.environ.pop("EVAL_TIME", None)
+        else:
+            os.environ["EVAL_TIME"] = saved
+    return checks
+
+
+def eval_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir) -> int:
+    """Phase 7. Raises if any check failed; returns the K5 launches of the
+    selector request's ``run_loglikelihood_choices`` (t_c = 32)."""
+    t0 = time.perf_counter()
+    print(f"[eval] card: {nvidia_smi()}", flush=True)
+    checks, k5 = ll_checks(cfg, params, input_ids, pixels, grid)
+    checks.update(harness_checks(cfg, params, tmp, hf_dir))
+    print(f"[eval] checks: {checks}", flush=True)
+    print(f"[eval] phase seconds {time.perf_counter() - t0!r}", flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"eval phase failed: {bad}")
+    return k5
 
 
 def main() -> int:
@@ -2447,7 +2876,20 @@ def main() -> int:
     launches["fused_vit_attn_fwd"] = variants["fused"]["fused_vit_attn_fwd"]
     launches["flash_packed_fwd"] = variants["packed"]["flash_packed_fwd"]
     launches["fullattn_ablate_fwd"] = ablation["fullattn_ablate_fwd"]
-    training(cfg, params, input_ids, pixels, grid, out_dir)
+    # Phases 6 and 7 write under .smoke_tmp/ (git-ignored), removed at the
+    # end: phase 7 evaluates phase 6's HF directory.
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ".smoke_tmp")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        hf_dir = training(cfg, params, input_ids, pixels, grid, out_dir, tmp)
+        # The eval path: the selector request's choices, counted on their
+        # own (phase 7 zeroes the counts just before and reads them after).
+        launches["decode_blocked_fwd_t_c32"] = eval_phase(
+            cfg, params, input_ids, pixels, grid, tmp, hf_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

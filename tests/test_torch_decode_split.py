@@ -1,8 +1,10 @@
 """The decode kernel's schedule, mirrored in plain PyTorch, against the JAX
 package: ``decode_split_ranges_plain`` (each rank's live-tile range) and
 ``decode_split_plain`` (per-rank online-softmax states merged as the
-cluster merges them) for clusters of 1, 8 and 16 ranks, t_c 1 and 4, float
-and int8 caches, and lengths 0, 1, 63, 64, 65 and T - t_c. fp32, atol 1e-5
+cluster merges them) for clusters of 1, 8 and 16 ranks, t_c 1, 4 and 32
+(the chunk of multiple-choice scoring: 256 query rows per kv head, eight
+row groups on the card), float and int8 caches, and lengths 0, 1, 63,
+64, 65 and T - t_c. fp32, atol 1e-5
 against ``decode_blocked_plain`` and the Pallas ``_decode_blocked_pallas``
 in interpret mode (sum-order differences of the merge), as in
 ``test_torch_decode.py``."""
@@ -49,7 +51,7 @@ def _j(x):
 
 
 @pytest.mark.parametrize("cluster", [1, 8, 16])
-@pytest.mark.parametrize("t_c", [1, 4])
+@pytest.mark.parametrize("t_c", [1, 4, 32])
 def test_ranges_cover_each_live_tile_once(cluster, t_c):
     """Every live tile of each slot in exactly one rank, in rank order, and
     none past the JAX kernel's clamped kv index."""
@@ -70,7 +72,7 @@ def test_ranges_cover_each_live_tile_once(cluster, t_c):
 
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("cluster", [1, 8, 16])
-@pytest.mark.parametrize("t_c", [1, 4])
+@pytest.mark.parametrize("t_c", [1, 4, 32])
 def test_split_plain_matches_blocked_and_pallas(t_c, cluster, quant):
     q, k, v, ks, vs, base = _inputs(31 + t_c + 2 * quant + cluster, t_c,
                                     quant)

@@ -194,12 +194,14 @@ def test_images_attention_matches_pallas_with_bounds(d, kind):
     q, k, v = _qkv(d, s, 2, 2, d)
     seg = _layouts(s)[kind][None]
     bounds = jattn.segment_block_bounds(seg[0], BLOCK, BLOCK)
-    want = jattn._flash_pallas(
+    # the JAX result is read back before the port's side runs, so the two
+    # never execute at once (XLA dispatches asynchronously)
+    want = np.asarray(jattn._flash_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg),
         jnp.asarray(seg), False, d**-0.5, BLOCK, BLOCK,
-        kv_bounds=jnp.asarray(bounds), interpret=True)
+        kv_bounds=jnp.asarray(bounds), interpret=True))
     got = _from_images(q, k, v, seg, kv_bounds=bounds)
-    _assert_close_with_context(got, np.asarray(want), q, k, v, seg, ATOL)
+    _assert_close_with_context(got, want, q, k, v, seg, ATOL)
     assert (got[0, seg[0] == 0] == 0).all()
 
 

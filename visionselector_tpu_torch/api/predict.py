@@ -10,7 +10,10 @@ Qwen2.5-VL Hugging Face checkpoint directory (``config.json`` and one or
 more ``*.safetensors``, a trained ``importance_scorer`` among them or not:
 ``api.train`` writes ``importance_scorer.safetensors``, which can be
 copied into the directory); without a scorer ``--method selector`` runs
-as ``orig``. Prompts are token ids (``--prompt-ids``). It runs on the GPU
+as ``orig``. The prompt is ``--prompt``, in the Qwen chat template,
+when the directory holds a tokenizer that ``transformers`` can load
+(``load_tokenizer``), else token ids (``--prompt-ids``; a host without
+``transformers`` takes these). It runs on the GPU
 (``--device cuda``, the default; the attention runs the CUDA kernels,
 compiled on first use) and fails without one; ``--device cpu`` asks for
 the CPU.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -31,8 +35,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model-path", default=None, help="HF checkpoint dir")
     p.add_argument("--image", default=None, help="image file path")
+    p.add_argument("--prompt", default="Describe this image.",
+                   help="the question, through the checkpoint's tokenizer "
+                        "(needs --model-path and transformers)")
     p.add_argument("--prompt-ids", default=None,
-                   help="comma-separated token ids after the image")
+                   help="comma-separated token ids after the image (skips "
+                        "the tokenizer)")
     p.add_argument("--method", default="selector", choices=METHODS)
     p.add_argument("--budget", type=float, default=0.2)
     p.add_argument("--max-new-tokens", type=int, default=64)
@@ -42,6 +50,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-time", action="store_true",
                    help="print timing probes (EVAL_TIME parity)")
     return p
+
+
+def load_tokenizer(model_path):
+    """The checkpoint directory's tokenizer through ``transformers``
+    (imported here only), or None, with the reason on stderr, when
+    ``transformers`` is missing or the directory holds no tokenizer."""
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(model_path, local_files_only=True)
+    except (ImportError, OSError, ValueError) as e:
+        print(f"[predict] tokenizer unavailable ({e}); use --prompt-ids",
+              file=sys.stderr)
+        return None
+
+
+def chat_prompt_ids(tokenizer, prompt: str):
+    """Qwen2.5-VL chat template around one image: returns (before, after)
+    token ids."""
+    before = tokenizer.encode(
+        "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
+        "<|im_start|>user\n")
+    after = tokenizer.encode(f"{prompt}<|im_end|>\n<|im_start|>assistant\n")
+    return before, after
 
 
 def main(argv=None) -> int:
@@ -63,9 +95,12 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
+    tokenizer = None
     if args.model_path:
         cfg = config_from_hf(args.model_path)
         params = load_hf_checkpoint(args.model_path, cfg, args.device)
+        if not args.prompt_ids:
+            tokenizer = load_tokenizer(args.model_path)
     else:
         cfg = qwen25vl_tiny()
         gen = torch.Generator(device=args.device).manual_seed(args.seed)
@@ -87,6 +122,8 @@ def main(argv=None) -> int:
                                         temporal_patch_size=tp)
     if args.prompt_ids:
         before, after = [], [int(x) for x in args.prompt_ids.split(",")]
+    elif tokenizer is not None:
+        before, after = chat_prompt_ids(tokenizer, args.prompt)
     else:
         before, after = [100, 200], [300, 400]  # smoke-mode placeholder
     input_ids = expand_vision_tokens(
@@ -106,6 +143,8 @@ def main(argv=None) -> int:
         "budget": args.budget,
         "device": args.device,
         "tokens": res.tokens,
+        "text": (tokenizer.decode(res.tokens, skip_special_tokens=True)
+                 if tokenizer is not None else None),
         "selector": engine.use_selector,
         "num_vision_tokens": res.num_vision_tokens,
         "kept_vision_tokens": (

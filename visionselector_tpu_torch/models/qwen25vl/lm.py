@@ -13,7 +13,9 @@ yet):
   packed entry point on the q/k/v slabs (the same kernel),
 - decode: length-aware attention against the KV cache (the decode kernel
   on the card), which is written in place; the cache may be bf16 / fp32 or
-  int8 with per-row scales (``QuantKVCache``, serving slot pools).
+  int8 with per-row scales (``QuantKVCache``, serving slot pools). One
+  step takes one row per slot (``lm_decode_step``), a chunk t_c rows,
+  causal within the chunk (``lm_decode_chunk``: multiple-choice scoring).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from visionselector_tpu_torch.core.params import add_params, init_random_
 from visionselector_tpu_torch.kernels.attention import (
     attention,
     attention_packed,
-    decode_attention,
+    chunk_decode_attention,
 )
 from visionselector_tpu_torch.models.qwen25vl.vit import rms_norm, rotate_half
 
@@ -233,7 +235,7 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
 @torch.no_grad()
 def lm_decode_step(lm: LanguageModel, cache, inputs_embeds, position_ids,
                    attn_impl: str | None = None):
-    """One decode step.
+    """One decode step: ``lm_decode_chunk`` with one row per slot.
 
     inputs_embeds: [B, 1, D]; position_ids: [3, B, 1]. Writes the new k/v
     row of every layer at that layer's length (per row: slots of a pool
@@ -243,37 +245,58 @@ def lm_decode_step(lm: LanguageModel, cache, inputs_embeds, position_ids,
     dense plain path). Returns (hidden [B, 1, D] post-norm, the cache with
     length + 1).
     """
+    return lm_decode_chunk(lm, cache, inputs_embeds, position_ids,
+                           attn_impl)
+
+
+@torch.no_grad()
+def lm_decode_chunk(lm: LanguageModel, cache, inputs_embeds, position_ids,
+                    attn_impl: str | None = None):
+    """Multi-token decode step: t_c rows per slot in one forward.
+
+    inputs_embeds: [B, t_c, D]; position_ids: [3, B, t_c]. Row i's k/v is
+    written in place at ``cache.length[li] + i`` of every layer (quantized
+    with its scales into a ``QuantKVCache``), and row i attends to the
+    cache positions < length + i + 1: causal within the chunk plus the
+    committed prefix (``chunk_decode_attention``, the decode kernel on the
+    card). The rows must fit: length + t_c <= T_max. Returns (hidden [B,
+    t_c, D] post-norm, a cache over the same tensors with length + t_c;
+    ``cache.length`` itself is not changed, so a caller that scores
+    several chunks from one prefix passes the same cache each time).
+    """
     cfg = lm.cfg
     quant = isinstance(cache, QuantKVCache)
     cos, sin = mrope_cos_sin(position_ids, cfg)
     x = inputs_embeds
-    b = x.shape[0]
-    rows = torch.arange(b, device=x.device)
+    b, t_c = x.shape[:2]
+    rows = torch.arange(b, device=x.device)[:, None]
+    chunk = torch.arange(t_c, device=x.device)
     for li, p in enumerate(lm.layers):
         h = rms_norm(x, p.input_ln_scale, cfg.rms_norm_eps)
         q, k, v = _qkv(h, p, cfg)
         q, k = _apply_mrope(q, k, cos, sin)
-        pos = cache.length[li]  # [B]
+        base = cache.length[li]  # [B]
+        at = base[:, None] + chunk  # [B, t_c]
         if quant:
-            k8, ks = quantize_kv(k[:, 0])
-            v8, vs = quantize_kv(v[:, 0])
-            cache.k[li, rows, pos] = k8  # in place
-            cache.v[li, rows, pos] = v8
-            cache.k_scale[li, rows, pos] = ks
-            cache.v_scale[li, rows, pos] = vs
+            k8, ks = quantize_kv(k)
+            v8, vs = quantize_kv(v)
+            cache.k[li, rows, at] = k8  # in place
+            cache.v[li, rows, at] = v8
+            cache.k_scale[li, rows, at] = ks
+            cache.v_scale[li, rows, at] = vs
             scales = dict(k_scale=cache.k_scale[li],
                           v_scale=cache.v_scale[li])
         else:
-            cache.k[li, rows, pos] = k[:, 0]  # in place
-            cache.v[li, rows, pos] = v[:, 0]
+            cache.k[li, rows, at] = k  # in place
+            cache.v[li, rows, at] = v
             scales = {}
-        attn = decode_attention(q, cache.k[li], cache.v[li], pos + 1,
-                                impl=attn_impl, **scales)
-        x = x + _dense(attn.reshape(b, 1, -1), p, "o_kernel")
+        attn = chunk_decode_attention(q, cache.k[li], cache.v[li], base,
+                                      impl=attn_impl, **scales)
+        x = x + _dense(attn.reshape(b, t_c, -1), p, "o_kernel")
         h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
         x = x + _mlp(h, p)
     x = rms_norm(x, lm.final_ln_scale, cfg.rms_norm_eps)
-    return x, dataclasses.replace(cache, length=cache.length + 1)
+    return x, dataclasses.replace(cache, length=cache.length + t_c)
 
 
 def embed_tokens(lm: LanguageModel, input_ids: torch.Tensor) -> torch.Tensor:

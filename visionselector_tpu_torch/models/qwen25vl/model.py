@@ -16,6 +16,12 @@ top-p sampling, with an optional repetition penalty. Sampling noise comes
 from a ``torch.Generator`` seeded from the request's ``seed``: each decode
 step draws one vocabulary-sized Gumbel vector from it, so a request's
 rollout does not depend on what else shares a batch (``continuous.py``).
+
+Scoring (the evaluation harness's ``loglikelihood`` requests):
+``QwenVLEngine.loglikelihood`` prefills context + continuation once and
+reads the continuation's log-probs from the prefill's hidden states;
+``run_loglikelihood_choices`` prefills a context once and scores each
+choice with one chunked decode forward (``lm.lm_decode_chunk``).
 """
 
 from __future__ import annotations
@@ -156,16 +162,109 @@ def _prefill(params: QwenVLParams, k_max: int,
             comp.valid_len, kv, logits)
 
 
+def _score_continuation(params: QwenVLParams, hidden, valid_len: int,
+                        cont_ids, cont_len: int, c_max: int):
+    """Sum of the log-probs of the last ``cont_len`` tokens of the
+    (compacted) sequence, whose ids are ``cont_ids[:cont_len]``, and whether
+    each is the argmax: (ll, greedy) 0-d tensors.
+
+    The compacted layout sorts real tokens by original position with
+    padding after, so the continuation (a text suffix that compaction
+    always keeps) sits at positions [valid_len - cont_len, valid_len) of
+    the compacted sequence; token i is predicted by the hidden state one
+    position earlier. ``valid_len`` is the compacted length, not the
+    original one."""
+    dev = hidden.device
+    c_idx = torch.arange(c_max, device=dev)
+    pos = valid_len - cont_len + c_idx  # continuation token positions
+    valid = c_idx < cont_len
+    logits = lm_mod.lm_head(params.lm, hidden[0, (pos - 1).clamp(min=0)])
+    logp = torch.log_softmax(logits, dim=-1)
+    ids = cont_ids.long()
+    tok_lp = logp.gather(-1, ids[:, None])[:, 0]
+    ll = torch.where(valid, tok_lp, 0.0).sum()
+    greedy = torch.where(valid, logits.argmax(-1) == ids, True).all()
+    return ll, greedy
+
+
+@torch.no_grad()
+def _prefill_ll(params: QwenVLParams, k_max: int, use_selector: bool,
+                c_max: int, vb: dict, num_merged: int, k: int, input_ids,
+                image_positions, text_positions, num_text: int,
+                position_ids_orig, cont_ids, cont_len: int, attn_impl=None,
+                attn_variant=None):
+    """Loglikelihood prefill: (sum log-prob of the continuation, greedy).
+    The whole prompt (context + continuation) is prefilled once; the
+    vision tokens are selected (or not, for ``orig``) as in generation."""
+    hidden, comp, _, _ = _prefill_core(
+        params, k_max, use_selector, vb, num_merged, k, input_ids,
+        image_positions, text_positions, num_text, position_ids_orig,
+        attn_impl, attn_variant)
+    return _score_continuation(params, hidden, comp.valid_len, cont_ids,
+                               cont_len, c_max)
+
+
+def ll_continuation_arrays(continuation_ids):
+    """(cont_padded [c_max] int64, c, c_max) for loglikelihood scoring:
+    c_max is c rounded up to a multiple of 16, at least 16."""
+    continuation_ids = np.asarray(continuation_ids).reshape(-1)
+    c = len(continuation_ids)
+    if c == 0:
+        raise ValueError("empty continuation")
+    c_max = max(16, -(-c // 16) * 16)
+    cont_padded = np.zeros(c_max, np.int64)
+    cont_padded[:c] = continuation_ids
+    return cont_padded, c, c_max
+
+
+def _text_inputs(input_ids, text_buckets, device):
+    """A text-only request's prefill inputs, right-padded to its bucket (a
+    multiple of 128): ids [T_pad], 1-D positions on all three M-RoPE axes
+    [3, T_pad], segment ids [T_pad] (1 on the ids, 0 after)."""
+    t_orig = len(input_ids)
+    t_bucket = pick_bucket(t_orig, list(text_buckets))
+    t_bucket += (-t_bucket) % 128
+    ids_padded = np.zeros(t_bucket, np.int64)
+    ids_padded[:t_orig] = input_ids
+    pos = np.zeros((3, t_bucket), np.int64)
+    pos[:, :t_orig] = np.arange(t_orig)
+    seg = (np.arange(t_bucket) < t_orig).astype(np.int32)
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (ids_padded, pos, seg))
+
+
+def _text_prefill(params: QwenVLParams, input_ids, position_ids, seg_ids,
+                  attn_impl=None, attn_variant=None):
+    """Causal prefill with no vision branch: (hidden [1, T, D], (k_layers,
+    v_layers))."""
+    embeds = lm_mod.embed_tokens(params.lm, input_ids)
+    return lm_mod.lm_prefill(params.lm, embeds[None],
+                             position_ids[:, None, :], seg_ids[None],
+                             attn_impl=attn_impl, attn_variant=attn_variant)
+
+
+def text_only_loglikelihood(params: QwenVLParams, full_ids, cont_padded,
+                            c: int, c_max: int, text_buckets=TEXT_BUCKETS, *,
+                            device, attn_impl=None, attn_variant=None):
+    """Text-only (ll, greedy) over the padded causal prefill of
+    ``full_ids`` (context + continuation)."""
+    with torch.no_grad():
+        hidden, _ = _text_prefill(
+            params, *_text_inputs(full_ids, text_buckets, device),
+            attn_impl, attn_variant)
+        ll, greedy = _score_continuation(
+            params, hidden, len(full_ids),
+            torch.as_tensor(cont_padded, device=device), c, c_max)
+    return float(ll), bool(greedy)
+
+
 @torch.no_grad()
 def _prefill_text(params: QwenVLParams, input_ids, position_ids, seg_ids,
                   valid_len: int, attn_impl=None, attn_variant=None):
     """Causal prefill with no vision branch (text-only requests). Returns
     (next_token, (k_layers, v_layers), logits row)."""
-    embeds = lm_mod.embed_tokens(params.lm, input_ids)
-    hidden, kv = lm_mod.lm_prefill(params.lm, embeds[None],
-                                   position_ids[:, None, :], seg_ids[None],
-                                   attn_impl=attn_impl,
-                                   attn_variant=attn_variant)
+    hidden, kv = _text_prefill(params, input_ids, position_ids, seg_ids,
+                               attn_impl, attn_variant)
     logits = lm_mod.lm_head(params.lm, hidden[0, valid_len - 1])
     return torch.argmax(logits, dim=-1), kv, logits
 
@@ -386,17 +485,9 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
     input_ids = np.asarray(input_ids).reshape(-1)
     t_orig = len(input_ids)
     t_start = time.perf_counter()
-    t_bucket = pick_bucket(t_orig, list(text_buckets))
-    t_bucket += (-t_bucket) % 128
-    ids_padded = np.zeros(t_bucket, np.int64)
-    ids_padded[:t_orig] = input_ids
-    pos = np.zeros((3, t_bucket), np.int64)
-    pos[:, :t_orig] = np.arange(t_orig)
-    seg = (np.arange(t_bucket) < t_orig).astype(np.int32)
     next_token, (k_l, v_l), logits = _prefill_text(
-        params, torch.as_tensor(ids_padded, device=device),
-        torch.as_tensor(pos, device=device),
-        torch.as_tensor(seg, device=device), t_orig, attn_impl, attn_variant)
+        params, *_text_inputs(input_ids, text_buckets, device), t_orig,
+        attn_impl, attn_variant)
     first = int(next_token)  # waits for the prefill
     t_prefill = time.perf_counter() - t_start
     result = GenerationResult(
@@ -442,7 +533,7 @@ class QwenVLEngine:
         if strategy is not None:
             raise NotImplementedError(
                 "training-free strategies (and FastV/DART two-stage "
-                "prefill) are not ported yet")
+                "prefill) are not ported yet (ROADMAP §1 item 4)")
         if attn_variant not in (None, "fused", "packed"):
             raise ValueError(f"attn_variant must be None, 'fused' or "
                              f"'packed', got {attn_variant!r}")
@@ -562,6 +653,57 @@ class QwenVLEngine:
             full_kv_iters=vb.full_kv_iters,
         )
 
+    def loglikelihood(
+        self,
+        input_ids: np.ndarray,
+        continuation_ids: np.ndarray,
+        pixel_values: Optional[np.ndarray] = None,
+        grid_thw: Optional[np.ndarray] = None,
+        pixel_values_videos: Optional[np.ndarray] = None,
+        video_grid_thw: Optional[np.ndarray] = None,
+        second_per_grid_ts: Optional[np.ndarray] = None,
+    ) -> Tuple[float, bool]:
+        """Score a continuation given a context with one image or none:
+        (sum log P(continuation | context), is_greedy), the lmms model
+        ABC's ``loglikelihood``.
+
+        The whole prompt, context + continuation, is prefilled once; the
+        selector (or no compression, for ``orig``) applies to the vision
+        tokens as in generation, and the continuation, a text suffix that
+        compaction always keeps, is scored from the prefill's hidden
+        states. Video and several images are not ported yet (ROADMAP §1
+        item 6) and raise NotImplementedError."""
+        if pixel_values_videos is not None or video_grid_thw is not None:
+            raise NotImplementedError(
+                "video input is not ported yet (ROADMAP §1 item 6)")
+        input_ids = np.asarray(input_ids).reshape(-1)
+        if len(input_ids) == 0:
+            raise ValueError(
+                "loglikelihood needs a non-empty context: token 0 has no "
+                "position before it to be predicted from")
+        cont_padded, c, c_max = ll_continuation_arrays(continuation_ids)
+        full_ids = np.concatenate([input_ids, cont_padded[:c]])
+        dev = self.device
+        if pixel_values is None:
+            return text_only_loglikelihood(
+                self.params, full_ids, cont_padded, c, c_max,
+                self.text_buckets, device=dev, attn_impl=self.attn_impl,
+                attn_variant=self.attn_variant)
+        if grid_thw is None or len(np.asarray(grid_thw)) != 1:
+            raise NotImplementedError(
+                "one image per request (several images: ROADMAP §1 item 6)")
+        p = self._prep_vision(full_ids, pixel_values, grid_thw)
+        ll, greedy = _prefill_ll(
+            self.params, p.k_max, self.use_selector, c_max,
+            self._vision_tensors(p.vb), p.n, p.k,
+            torch.as_tensor(full_ids, device=dev),
+            torch.as_tensor(p.image_pos_padded, device=dev),
+            torch.as_tensor(p.text_pos_padded, device=dev), p.num_text,
+            torch.as_tensor(p.position_ids, device=dev),
+            torch.as_tensor(cont_padded, device=dev), c,
+            attn_impl=self.attn_impl, attn_variant=self.attn_variant)
+        return float(ll), bool(greedy)
+
     @torch.no_grad()
     def generate(
         self,
@@ -593,9 +735,11 @@ class QwenVLEngine:
         NotImplementedError.
         """
         if pixel_values_videos is not None or video_grid_thw is not None:
-            raise NotImplementedError("video input is not ported yet")
+            raise NotImplementedError(
+                "video input is not ported yet (ROADMAP §1 item 6)")
         if on_token_chunk is not None:
-            raise NotImplementedError("streaming is not ported yet")
+            raise NotImplementedError(
+                "streaming is not ported yet (ROADMAP §1 item 7)")
         cfg = self.cfg
         dev = self.device
         if eos_token_ids is None:
@@ -609,7 +753,8 @@ class QwenVLEngine:
                 top_k, repetition_penalty, device=dev,
                 attn_impl=self.attn_impl, attn_variant=self.attn_variant)
         if grid_thw is None or len(np.asarray(grid_thw)) != 1:
-            raise NotImplementedError("one image per request")
+            raise NotImplementedError(
+                "one image per request (several images: ROADMAP §1 item 6)")
         t_start = time.perf_counter()
 
         p = self._prep_vision(input_ids, pixel_values, grid_thw)
@@ -647,3 +792,66 @@ class QwenVLEngine:
             return state
         return _decode_request(self.params, state, input_ids, *sampling,
                                attn_impl=self.attn_impl)
+
+
+@torch.no_grad()
+def _score_chunk(params: QwenVLParams, cache, cont_padded, cont_len: int,
+                 pos_start: int, ctx_logits, c_max: int, attn_impl=None):
+    """(ll, greedy) of one continuation given a prefilled cache and the
+    context's last-row logits: one chunked decode forward of the c_max
+    padded ids (``lm_decode_chunk``) instead of a prefill. The chunk
+    writes rows [length, length + c_max) of ``cache`` in place, every one
+    before it is read (row i sees positions < length + i + 1), and
+    ``cache.length`` stays as it was, so every choice scored from the
+    same cache starts at the same length and none reads another's rows.
+    Positions follow the decode convention: pos_start + i on all three
+    M-RoPE axes."""
+    ids = cont_padded.long()
+    embeds = lm_mod.embed_tokens(params.lm, ids)[None]
+    pos = pos_start + torch.arange(c_max, device=ids.device)
+    pos3 = pos.expand(3, 1, c_max)
+    hidden, _ = lm_mod.lm_decode_chunk(params.lm, cache, embeds, pos3,
+                                       attn_impl=attn_impl)
+    rows = lm_mod.lm_head(params.lm, hidden[0])  # [c_max, V] fp32
+
+    ll = torch.log_softmax(ctx_logits.float(), dim=-1)[ids[0]]
+    greedy = ctx_logits.argmax() == ids[0]
+    # token j >= 1 is predicted by chunk row j - 1
+    lp_rows = torch.log_softmax(rows, dim=-1)
+    tok_lp = lp_rows[:-1].gather(-1, ids[1:, None])[:, 0]
+    tail_valid = torch.arange(1, c_max, device=ids.device) < cont_len
+    ll = ll + torch.where(tail_valid, tok_lp, 0.0).sum()
+    greedy = greedy & torch.where(
+        tail_valid, rows[:-1].argmax(-1) == ids[1:], True).all()
+    return ll, greedy
+
+
+def run_loglikelihood_choices(engine: QwenVLEngine, input_ids,
+                              choices_ids: List[np.ndarray],
+                              **gen_kwargs) -> List[Tuple[float, bool]]:
+    """Score several continuations of one context with a single prefill:
+    the context prefills once (``generate(..., _defer_decode=True)``), then
+    each choice costs one chunked decode forward of c_max rows, c_max the
+    largest choice's, so an N-choice doc is about N times cheaper than N
+    ``engine.loglikelihood`` calls.
+
+    On ``orig`` this equals per-pair ``loglikelihood`` up to fp32 order;
+    under compression the chunk numbers its positions by the decode
+    convention (those generated tokens would get) where the full prefill
+    numbers them on the original sequence, so the two agree in ranking,
+    not in value."""
+    prepped = [ll_continuation_arrays(c) for c in choices_ids]
+    c_max = max(p[2] for p in prepped)
+    state = engine.generate(
+        np.asarray(input_ids), max_new_tokens=c_max + 1,
+        eos_token_ids=(-1,), _defer_decode=True, **gen_kwargs)
+    out = []
+    for padded, c, _ in prepped:
+        padded_u = np.zeros(c_max, np.int64)
+        padded_u[:len(padded)] = padded
+        ll, greedy = _score_chunk(
+            engine.params, state.cache,
+            torch.as_tensor(padded_u, device=engine.device), c,
+            state.start_pos, state.logits, c_max, engine.attn_impl)
+        out.append((float(ll), bool(greedy)))
+    return out
