@@ -149,6 +149,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    doc predicted, the reference harness's metric keys, MC predictions the
    argmax of their lls; and ``api.run_eval --model-path`` (phase 6's
    reduced-depth HF directory) ``--device cuda`` in a process of its own.
+8. Strategies (``strategies``), on phase 3's weights and request: every
+   training-free baseline (``selector.baselines``) through
+   ``QwenVLEngine(strategy=...).generate`` at budget 0.2, 8 greedy tokens,
+   the counters zeroed just before and read just after each: its prefill
+   wall, kept count, ``prefill_len`` and K1 / K4 / K5 launches (ViT-side:
+   the last ViT block through ``attention_with_received``, so one ViT K1
+   fewer; LLM-side: 36 causal K1 split between stage A and stage B).
+   visionzip, fastv and dart again under ``attn_impl="plain"``: the first
+   token equal and the kept sets within phase 3's overlap (VisionZip's
+   dominant tokens: its stride-picked contextual ones shift with any
+   dominant one). A teacher-forced decode step on the FastV cache (layers
+   [0, 2) at t_orig rows, the rest at the kept ones, from t_orig +
+   rope_delta): each layer's K5 call against ``decode_blocked_plain``
+   within ULP_LIMIT, the logits against the dense plain step within
+   TEACHER_TOL. ``attention_with_received`` at the last ViT block's shape
+   (timed) and against a dense [H, S, S] softmax at S = 2,048, the FastV
+   column sum at the ``orig`` length against a dense causal softmax (timed),
+   each with a planted fault (padding keys left visible, the causal mask
+   dropped) that must fail; the host strategies' times;
+   ``api.run_token_compression --methods fastv,visionzip`` (``api.run_eval
+   --method`` once per method) on phase 6's HF directory in a process of
+   its own.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2816,6 +2838,379 @@ def eval_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir) -> int:
     return k5
 
 
+# Phase 8 (strategies): every training-free baseline on the phase-3
+# request at budget 0.2, 8 greedy tokens each.
+STRATEGY_BUDGET = 0.2
+STRATEGY_TOKENS = 8
+# run again with attn_impl="plain": one ViT-side baseline that reads the
+# stats block, and both statistics of the two-stage prefill
+STRATEGY_PLAIN = ("visionzip", "fastv", "dart")
+# attention_with_received's received mass and the FastV column sum against
+# dense fp32 softmaxes on the card: both sides fp32 from the same bf16
+# inputs, so they differ by summation order (~1e-6 of the largest value);
+# a padding key left visible or the causal mask dropped moves them by
+# percents. attention_with_received's output is rounded to q's bf16, so
+# it is held to ULP_LIMIT as the kernels are.
+STATS_TOL = 1e-4
+RECV_CHECK_S, RECV_CHECK_VALID = 2048, 1900
+
+
+def strategy_task_dir(tmp, with_image) -> str:
+    """A generate task for ``api.run_eval --method fastv``: two text-only
+    docs and, when PIL imports, one doc with the phase-3 image (the only
+    kind a strategy compresses; scoring tasks refuse a strategy)."""
+    d = os.path.join(tmp, "strategy_tasks")
+    os.makedirs(d)
+    with open(os.path.join(d, "tasks.json"), "w") as f:
+        json.dump([{"name": "strategy_gen", "metric": "exact_match",
+                    "max_new_tokens": 8}], f)
+    docs = [{"question": "What is two plus two?", "answers": ["4"]},
+            {"question": "Name a primary color.", "answers": ["red"]}]
+    if with_image:
+        from PIL import Image
+
+        Image.fromarray(request_image()).save(os.path.join(d, "image.png"))
+        docs.append({"question": "What does the image show?",
+                     "answers": ["noise"], "image": "image.png"})
+    with open(os.path.join(d, "strategy_gen.jsonl"), "w") as f:
+        f.writelines(json.dumps(doc) + "\n" for doc in docs)
+    return d
+
+
+def strategy_launches(cfg, llm_side: bool, steps: int) -> dict:
+    """Launches of one strategy request: a ViT-side strategy runs the last
+    ViT block through ``attention_with_received`` (no kernel), the
+    two-stage prefill the whole default ViT; the decoder's 36 causal K1
+    launches are split between stage A and stage B; K5 once per layer per
+    decode step."""
+    vc, n = cfg.vision, cfg.text.num_hidden_layers
+    full = set(vc.fullatt_block_indexes)
+    diag = vc.depth - len(full)
+    vit_flash = len(full)
+    if not llm_side:
+        last = vc.depth - 1
+        vit_flash -= last in full
+        diag -= last not in full
+    return {"flash_varlen_fwd": vit_flash + n, "diag_attn_fwd": diag,
+            "decode_blocked_fwd": n * steps}
+
+
+def stats_checks(cfg, vb, k1_ms) -> dict:
+    """``attention_with_received`` (the stats block's attention) and the
+    FastV column sum on the card: each against a dense fp32 softmax, each
+    with a planted fault that must exceed STATS_TOL, and their times."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    checks = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    vh, vd = cfg.vision.num_heads, cfg.vision.head_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    # The main path's shape: the last ViT block over the 6,144 bucket.
+    fseg = torch.as_tensor(vb.full_seg_ids, device="cuda")
+    s_main = fseg.shape[0]
+    q, k, v = (randn(s_main, vh, vd) for _ in range(3))
+    ms = cuda_ms(lambda: A.attention_with_received(q, k, v, fseg))
+    sdpa = sdpa_ms(q[None], k[None], v[None],
+                   ((fseg[:, None] == fseg[None, :]) & (fseg[None, :] > 0)),
+                   vd**-0.5)
+    print(f"[strategies] attention_with_received S={s_main} H={vh} D={vd} "
+          f"(the stats block's attention, plain blocked fp32): {ms!r} ms; "
+          f"K1 on the same layer (phase 2's main case) {k1_ms!r} ms; one "
+          f"SDPA call with the segment mask (no received mass) {sdpa!r} ms",
+          flush=True)
+
+    def rel(got, want):
+        return ((got.float() - want).abs().max()
+                / want.abs().max()).item()
+
+    s2 = RECV_CHECK_S
+    seg = (torch.arange(s2, device="cuda") < RECV_CHECK_VALID).int()
+    q, k, v = (randn(s2, vh, vd) for _ in range(3))
+    logits = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * vd**-0.5
+    mask = (seg[:, None] == seg[None, :]) & (seg[None, :] > 0)
+    probs = torch.where(mask, torch.softmax(
+        torch.where(mask, logits, A.NEG_INF), -1), 0.0)
+    out_ref = torch.einsum("hqk,khd->qhd", probs, v.float())
+    recv_ref = probs.mean(0).sum(0) / RECV_CHECK_VALID
+    for fault in (None, "unmask_padding_keys"):
+        out, recv = A.attention_with_received(q, k, v, seg, fault=fault)
+        e_out, e_recv = bf16_ulp_err(out, out_ref), rel(recv, recv_ref)
+        ok = e_out <= ULP_LIMIT and e_recv <= STATS_TOL
+        print(f"[strategies] attention_with_received S={s2} "
+              f"({s2 - RECV_CHECK_VALID} padding rows) against a dense "
+              f"[H, S, S] "
+              f"softmax{', planted fault ' + fault if fault else ''}: out "
+              f"(bf16, q's dtype) {e_out!r} bf16 ulps of its row's largest "
+              f"|value| (limit {ULP_LIMIT}), recv (fp32) {e_recv!r} of its "
+              f"largest value (limit {STATS_TOL})", flush=True)
+        checks[f"attention_with_received{' ' + fault if fault else ''}"] = (
+            ok if fault is None else not ok)
+    del logits, probs
+
+    # The FastV column sum at the orig length: 1,664 rows, 1,302 valid,
+    # the decoder's 16 heads (k expanded), D = 128.
+    tc = cfg.text
+    t, valid = ORIG_CACHE_ROWS - MAX_NEW_TOKENS, ORIG_BASE_LEN
+    q, k = (randn(t, tc.num_attention_heads, tc.head_dim) for _ in range(2))
+    seg = (torch.arange(t, device="cuda") < valid).int()
+    scale = tc.head_dim**-0.5
+    logits = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * scale
+    ok_pair = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+               & (seg > 0)[None] & (seg > 0)[:, None])
+    ref = torch.where(ok_pair, torch.softmax(
+        torch.where(ok_pair, logits, -1e30), -1), 0.0).mean(0).sum(0) / valid
+    ms_col = cuda_ms(lambda: M._fastv_attention_colsum(q, k, seg, scale))
+    sdpa_col = sdpa_ms(q[None], k[None], k[None],
+                       ok_pair & (seg > 0)[:, None], scale)
+    for fault in (None, "no_causal"):
+        got = M._fastv_attention_colsum(q, k, seg, scale, fault=fault)
+        err = rel(got, ref)
+        ok = err <= STATS_TOL
+        print(f"[strategies] FastV column sum T={t} ({valid} valid) H="
+              f"{tc.num_attention_heads} D={tc.head_dim} against a dense "
+              f"causal softmax{', planted fault ' + fault if fault else ''}"
+              f": {err!r} of the largest value (limit {STATS_TOL})",
+              flush=True)
+        checks[f"colsum{' ' + fault if fault else ''}"] = (
+            ok if fault is None else not ok)
+    print(f"[strategies] FastV column sum (plain, 128-row query blocks): "
+          f"{ms_col!r} ms; one causal SDPA call on the same q, k "
+          f"{sdpa_col!r} ms", flush=True)
+    return checks
+
+
+def strategies_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir,
+                     k1_ms):
+    """Phase 8: the training-free strategies at full width. Raises if any
+    check failed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+    from visionselector_tpu_torch.selector.baselines import (
+        available_baselines,
+        get_baseline,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"[strategies] card: {nvidia_smi()}", flush=True)
+    checks = {}
+    runs = {}
+    vocab = cfg.text.vocab_size
+    for name in available_baselines():
+        eng = M.QwenVLEngine(cfg, params, budget=STRATEGY_BUDGET,
+                             strategy=get_baseline(name), device="cuda")
+        eng.generate(input_ids, pixels, grid, max_new_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        res = eng.generate(input_ids, pixels, grid,
+                           max_new_tokens=STRATEGY_TOKENS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        routes = dict(A.FLASH_ROUTE_LAUNCHES)
+        steps = (len(res.tokens) - 1 if len(res.tokens) == STRATEGY_TOKENS
+                 else len(res.tokens))
+        llm_side = getattr(eng.strategy, "llm_side", False)
+        want = strategy_launches(cfg, llm_side, steps)
+        got = {k: counts[k] for k in want}
+        kept = len(res.selected_indices)
+        print(f"[strategies] {name}: prefill_ms="
+              f"{res.prefill_seconds * 1e3!r} kept={kept} of "
+              f"{res.num_vision_tokens} prefill_len={res.prefill_len} "
+              f"launches K1={got['flash_varlen_fwd']} K4="
+              f"{got['diag_attn_fwd']} K5={got['decode_blocked_fwd']} "
+              f"(decode steps {steps}; expected {want}) routes {routes} "
+              f"tokens {res.tokens}", flush=True)
+        checks[f"{name}: launches"] = (
+            got == want and routes == {"wgmma": want["flash_varlen_fwd"]}
+            and counts["fused_vit_attn_fwd"] == counts["flash_packed_fwd"]
+            == 0)
+        checks[f"{name}: finite logits, tokens in range"] = bool(
+            torch.isfinite(res.logits).all() and res.tokens
+            and all(0 <= x < vocab for x in res.tokens))
+        checks[f"{name}: kept within the vision tokens"] = (
+            0 < kept < res.num_vision_tokens)
+        runs[name] = (eng, res)
+
+    # The same requests with every attention plain: the first token and,
+    # to phase 3's tolerance, the kept set.
+    p = runs["fastv"][0]._prep_vision(input_ids, pixels, grid)
+    vb = runs["fastv"][0]._vision_tensors(p.vb)
+    for name in STRATEGY_PLAIN:
+        eng, res = runs[name]
+        plain = M.QwenVLEngine(cfg, params, budget=STRATEGY_BUDGET,
+                               strategy=get_baseline(name), device="cuda",
+                               attn_impl="plain")
+        res_p = plain.generate(input_ids, pixels, grid, max_new_tokens=1)
+        a = set(res.selected_indices.tolist())
+        b = set(res_p.selected_indices.tolist())
+        overlap = len(a & b) / max(len(a), len(b))
+        diff = (res_p.logits - res.logits).abs().max().item()
+        scale = res.logits.abs().max().item()
+        line = (f"[plain] {name}: first-token logits max_abs_diff={diff!r} "
+                f"(max |logit| {scale!r}) first token kernel="
+                f"{res.tokens[0]} plain={res_p.tokens[0]} kept overlap "
+                f"{len(a & b)}/{max(len(a), len(b))}")
+        if name == "visionzip":
+            # VisionZip's contextual tokens are a uniform stride over the
+            # tokens left after the dominant ones, so each dominant token
+            # that differs shifts every later stride pick and the kept
+            # sets' overlap understates the agreement (on the card: 207 of
+            # 252 for a handful of near-tied dominant tokens). The
+            # dominant tokens, the top by received attention, are held to
+            # phase 3's tolerance.
+            n = p.n
+            dom = int(n * (STRATEGY_BUDGET - eng.strategy.contextual_ratio))
+
+            def top(impl):
+                recv = M._vision_stats(params, vb, impl)[1][:n]
+                return set(torch.argsort(-recv, stable=True)[:dom].tolist())
+
+            both = len(top(None) & top("plain"))
+            overlap = both / dom
+            line += (f"; dominant (top {dom} by received attention) "
+                     f"{both}/{dom}")
+        print(line, flush=True)
+        checks[f"{name}: plain first token"] = (
+            res_p.tokens[0] == res.tokens[0])
+        checks[f"{name}: plain kept overlap"] = overlap >= 0.9
+        del plain
+
+    # A teacher-forced decode step on the FastV cache: layers [0, target)
+    # hold t_orig rows, the rest the kept ones. Every layer's K5 call is
+    # held against its plain version on the same inputs (ULP_LIMIT), and
+    # the step's logits against the dense plain decode (TEACHER_TOL).
+    eng, res = runs["fastv"]
+    state = eng.generate(input_ids, pixels, grid, max_new_tokens=2,
+                         _defer_decode=True)
+    target = eng.strategy.target_layer
+    lengths = state.cache.length[:, 0].tolist()
+    n_layers = cfg.text.num_hidden_layers
+    checks["fastv: per-layer cache lengths"] = lengths == (
+        [p.t_orig] * target + [res.prefill_len] * (n_layers - target))
+    checks["fastv: decode starts at t_orig + rope_delta"] = (
+        state.start_pos == p.t_orig + int(p.rope_delta))
+    errs = []
+    decode_attention = L.chunk_decode_attention
+
+    def held(q, k_cache, v_cache, base_len, impl=None, **kw):
+        out = decode_attention(q, k_cache, v_cache, base_len, impl=impl, **kw)
+        if impl is None:
+            want = A.decode_blocked_plain(q, k_cache, v_cache, base_len, **kw)
+            errs.append((int(base_len[0]), bf16_ulp_err(out, want)))
+        return out
+
+    tok = torch.tensor([[state.next_token]], device="cuda")
+    pos3 = torch.full((3, 1, 1), state.start_pos, device="cuda")
+    logits = {}
+    for impl in (None, "plain"):
+        cache = dataclasses.replace(state.cache, **{
+            f.name: getattr(state.cache, f.name).clone()
+            for f in dataclasses.fields(state.cache)})
+        with patched(L, "chunk_decode_attention", held):
+            hidden, _ = L.lm_decode_step(
+                params.lm, cache, L.embed_tokens(params.lm, tok), pos3,
+                attn_impl=impl)
+        logits[impl] = L.lm_head(params.lm, hidden[0, 0])
+    worst = max(e for _, e in errs)
+    rel = ((logits[None] - logits["plain"]).abs().max()
+           / logits["plain"].abs().max()).item()
+    print(f"[strategies] fastv teacher-forced decode step at position "
+          f"{state.start_pos} (t_orig {p.t_orig} + rope_delta "
+          f"{int(p.rope_delta)}), per-layer base lengths "
+          f"{sorted(set(b for b, _ in errs))}: K5 vs its plain version "
+          f"worst {worst!r} bf16 ulps over {len(errs)} layers (limit "
+          f"{ULP_LIMIT}); logits kernel vs dense plain step {rel!r} of max "
+          f"|logit| (limit {TEACHER_TOL}); argmax "
+          f"{int(logits[None].argmax())} / {int(logits['plain'].argmax())}",
+          flush=True)
+    checks["fastv: K5 over per-layer lengths within ULP_LIMIT"] = (
+        len(errs) == n_layers and worst <= ULP_LIMIT)
+    checks["fastv: teacher-forced logits"] = rel <= TEACHER_TOL
+
+    checks.update(stats_checks(cfg, p.vb, k1_ms))
+
+    # The host strategies' times on this request's inputs (the stats block
+    # once; stage A once per capture).
+    merged, recv, keys = M._vision_stats(params, vb)
+    n = p.n
+    host = (merged[:n].float().cpu().numpy(), recv[:n].cpu().numpy(),
+            keys[:n].cpu().numpy())
+    times = {}
+    for name in ("visionzip", "prumerge_plus", "divprune", "holov",
+                 "random"):
+        strat = get_baseline(name)
+        t0 = time.perf_counter()
+        strat(*host, STRATEGY_BUDGET, np.asarray(grid))
+        times[name] = (time.perf_counter() - t0) * 1e3
+    t_orig = p.t_orig
+    for name in ("fastv", "dart", "dynamic"):
+        eng = runs[name][0]
+        strat = eng.strategy
+        out = M._stage_a(params, strat.target_layer, strat.capture, vb, n,
+                         *eng._sequence_tensors(p, input_ids))
+        hidden_t, fv, key_l1 = out[0], out[2], out[3]
+        args = (fv[:t_orig].cpu().numpy() if fv is not None else None,
+                key_l1[:t_orig].cpu().numpy(),
+                hidden_t[0, :t_orig].float().cpu().numpy())
+        t0 = time.perf_counter()
+        strat.select(*args, p.image_pos, STRATEGY_BUDGET)
+        times[name] = (time.perf_counter() - t0) * 1e3
+    print(f"[strategies] host strategy ms (numpy on the host; dynamic's "
+          f"predictor on the card), N={n} merged tokens, T={t_orig}: "
+          f"{ {k: round(v, 3) for k, v in times.items()}!r}", flush=True)
+
+    # api.run_token_compression, which runs api.run_eval --method fastv
+    # and --method visionzip, on phase 6's reduced-depth HF directory.
+    try:
+        import PIL  # noqa: F401
+        with_image = True
+    except ImportError:
+        with_image = False
+    task_dir = strategy_task_dir(tmp, with_image)
+    out_dir = os.path.join(tmp, "strategy_eval_out")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m",
+         "visionselector_tpu_torch.api.run_token_compression",
+         "--methods", "fastv,visionzip", "--model-path", hf_dir,
+         "--data-dir", task_dir, "--task-config-dir", task_dir, "--tasks",
+         "strategy_gen", "--budgets", "0.2", "--device", "cuda",
+         "--output-dir", out_dir], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    tail = (" | ".join(r.stdout.strip().splitlines()[-3:])
+            if r.returncode == 0 else r.stderr[-3000:])
+    print(f"[strategies] api.run_token_compression --methods fastv,visionzip"
+          f" --model-path <phase-6 HF dir> --device cuda ("
+          f"{'with' if with_image else 'without'} the image doc): rc="
+          f"{r.returncode} in {secs!r} s, files {files}; {tail}", flush=True)
+    checks["api.run_token_compression (run_eval --method fastv, "
+           "visionzip) on cuda"] = r.returncode == 0 and all(
+        f"{pre}{m}_0.2_rank0.json{post}" in files
+        for m in ("fastv", "visionzip")
+        for pre, post in (("", ""), ("samples_", "l")))
+
+    print(f"[strategies] checks: {checks}", flush=True)
+    print(f"[strategies] phase seconds {time.perf_counter() - t_phase!r}",
+          flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"strategies phase failed: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -2888,6 +3283,8 @@ def main() -> int:
         # own (phase 7 zeroes the counts just before and reads them after).
         launches["decode_blocked_fwd_t_c32"] = eval_phase(
             cfg, params, input_ids, pixels, grid, tmp, hf_dir)
+        strategies_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir,
+                         kernels["flash_varlen_fwd"]["ms"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

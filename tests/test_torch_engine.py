@@ -124,9 +124,12 @@ def test_unported_options_raise(weights):
                {"pixel_values_videos": px, "video_grid_thw": grid}):
         with pytest.raises(NotImplementedError):
             eng.generate(ids, px, grid, max_new_tokens=2, **kw)
+    from visionselector_tpu_torch.selector.baselines import get_baseline
+
+    strat = tmodel.QwenVLEngine(qwen25vl_tiny(), tparams, device="cpu",
+                                strategy=get_baseline("fastv"))
     with pytest.raises(NotImplementedError):
-        tmodel.QwenVLEngine(qwen25vl_tiny(), tparams, strategy=object(),
-                            device="cpu")
+        strat.loglikelihood(ids, [5], px, grid)
     for kw in ({"kv_quant": "int4"}, {"speculative": 2}):
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(eng, n_slots=2, t_max=256, **kw)

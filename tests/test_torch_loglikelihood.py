@@ -170,9 +170,14 @@ def test_unported_and_invalid_requests_raise(engines, image_request):
         teng.loglikelihood(ids, [])
     with pytest.raises(ValueError):
         teng.loglikelihood([], [5])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmodel.QwenVLEngine(qwen25vl_tiny(), teng.params, strategy=object(),
-                            device="cpu")
+    # a strategy engine scores nothing, as the reference's (its
+    # compression adapters give only generate_until)
+    from visionselector_tpu_torch.selector.baselines import get_baseline
+
+    strat = tmodel.QwenVLEngine(qwen25vl_tiny(), teng.params, device="cpu",
+                                strategy=get_baseline("visionzip"))
+    with pytest.raises(NotImplementedError, match="selector and orig"):
+        strat.loglikelihood(ids, [5], px, grid)
 
 
 # lm_decode_chunk: a prefix of VALID committed rows, t_c rows on top.

@@ -149,7 +149,7 @@ def test_merge_and_from_log_match_reference(tmp_path, mode, capsys):
 
 @pytest.mark.parametrize("flags, item", [
     (["--family", "llava_ov15"], 8),
-    (["--method", "visionzip"], 4),
+    (["--family", "llava_ov15", "--method", "visionzip"], 8),
     (["--quantize", "int8"], 9),
     (["--decode-batch", "2"], 7),
     (["--speculative", "3"], 7),

@@ -10,8 +10,11 @@ Qwen2.5-VL Hugging Face checkpoint directory (``config.json`` and one or
 more ``*.safetensors``, a trained ``importance_scorer`` among them or not:
 ``api.train`` writes ``importance_scorer.safetensors``, which can be
 copied into the directory); without a scorer ``--method selector`` runs
-as ``orig``. The prompt is ``--prompt``, in the Qwen chat template,
-when the directory holds a tokenizer that ``transformers`` can load
+as ``orig``; any other ``--method`` is a training-free baseline
+(``selector.baselines``: visionzip, prumerge_plus, divprune, holov, random,
+fastv, dart, dynamic) at ``--budget``. The prompt is ``--prompt``, in the
+Qwen chat template, when the directory holds a tokenizer that
+``transformers`` can load
 (``load_tokenizer``), else token ids (``--prompt-ids``; a host without
 ``transformers`` takes these). It runs on the GPU
 (``--device cuda``, the default; the attention runs the CUDA kernels,
@@ -28,7 +31,13 @@ import sys
 
 import numpy as np
 
-METHODS = ("orig", "selector")
+METHODS = ("orig", "selector", "visionzip", "prumerge_plus", "divprune",
+           "holov", "fastv", "dart", "dynamic", "random",
+           # the reference CLI's spellings
+           "visionzip_official", "prumerge+")
+# reference name -> registry name
+METHOD_ALIASES = {"visionzip_official": "visionzip",
+                  "prumerge+": "prumerge_plus"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,6 +87,7 @@ def chat_prompt_ids(tokenizer, prompt: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    args.method = METHOD_ALIASES.get(args.method, args.method)
     if os.environ.get("EVAL_TIME", "").lower() == "true":
         args.eval_time = True
     import torch
@@ -91,6 +101,7 @@ def main(argv=None) -> int:
     )
     from visionselector_tpu_torch.preprocess.image import preprocess_image
     from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+    from visionselector_tpu_torch.selector.baselines import get_baseline
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -134,8 +145,11 @@ def main(argv=None) -> int:
         vision_end_token_id=cfg.vision_end_token_id,
     )
 
+    strategy = (None if args.method in ("orig", "selector")
+                else get_baseline(args.method))
     engine = QwenVLEngine(cfg, params, use_selector=args.method == "selector",
-                          budget=args.budget, device=args.device)
+                          budget=args.budget, strategy=strategy,
+                          device=args.device)
     res = engine.generate(input_ids, pixels, grid,
                           max_new_tokens=args.max_new_tokens)
     out = {

@@ -8,7 +8,10 @@ Usage:
         --limit 8 --output-dir results/
 
 Runs each (task x budget) cell on the Qwen2.5-VL engine (``--method``
-``selector`` or ``orig``), writes ``<output-dir>/<method>_<budget>_rank<r>
+``selector``, ``orig`` or a training-free baseline of
+``selector.baselines``: visionzip, prumerge_plus, divprune, holov, random,
+fastv, dart, dynamic; ``api.run_token_compression`` sweeps several),
+writes ``<output-dir>/<method>_<budget>_rank<r>
 .json`` and the per-rank sample log beside it, and prints the EVAL_TIME
 probes when ``EVAL_TIME=true`` (scraped by ``eval.extract_time``).
 ``--rank`` / ``--world-size`` shard the requests across processes;
@@ -25,7 +28,7 @@ processes unless ``PYTHONHASHSEED`` is fixed. It runs on the GPU
 asks for the CPU.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP §1 item:
-``--family llava_ov15`` (8), another ``--method`` (4), ``--quantize`` (9),
+``--family llava_ov15`` (8), ``--quantize`` (9),
 ``--decode-batch`` > 1 and ``--speculative`` (7), ``--http-endpoint`` (3).
 """
 
@@ -36,7 +39,8 @@ import glob
 import json
 import os
 
-METHODS = ("orig", "selector")
+METHODS = ("orig", "selector", "visionzip", "prumerge_plus", "divprune",
+           "holov", "random", "fastv", "dart", "dynamic")
 
 
 def build_parser():
@@ -44,7 +48,7 @@ def build_parser():
     p.add_argument("--model-path", required=False, default=None)
     p.add_argument("--data-dir", required=True)
     p.add_argument("--tasks", required=True, help="comma-separated task names")
-    p.add_argument("--method", default="selector")
+    p.add_argument("--method", default="selector", choices=METHODS)
     p.add_argument("--family", default="qwen25vl",
                    choices=("qwen25vl", "llava_ov15"))
     p.add_argument("--budgets", default="0.2", help="comma-separated ratios")
@@ -89,7 +93,6 @@ def build_parser():
 def _refuse_unported(args) -> None:
     refused = [
         (args.family == "llava_ov15", "--family llava_ov15", 8),
-        (args.method not in METHODS, f"--method {args.method}", 4),
         (args.quantize is not None, "--quantize", 9),
         ((args.decode_batch or 1) > 1, "--decode-batch > 1", 7),
         (bool(args.speculative), "--speculative", 7),
@@ -176,6 +179,7 @@ def main(argv=None) -> int:
         init_params,
         load_hf_checkpoint,
     )
+    from visionselector_tpu_torch.selector.baselines import get_baseline
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -198,9 +202,12 @@ def main(argv=None) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     tasks = args.tasks.split(",")
     for budget in [float(b) for b in args.budgets.split(",")]:
+        strategy = (None if args.method in ("orig", "selector")
+                    else get_baseline(args.method))
         engine = QwenVLEngine(cfg, params,
                               use_selector=args.method == "selector",
-                              budget=budget, device=args.device)
+                              budget=budget, strategy=strategy,
+                              device=args.device)
         adapter = EngineAdapter(
             engine, tokenizer, visualize_dir=args.visualize_dir,
             model_tag=f"{args.family}:{args.model_path or 'smoke'}",

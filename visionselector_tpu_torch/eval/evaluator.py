@@ -341,7 +341,9 @@ def evaluate(adapter, task_names: Sequence[str], data_dir: str,
 
     cache = ResponseCache()
     engine = adapter.engine
-    method = "selector" if getattr(engine, "use_selector", False) else "orig"
+    method = (
+        getattr(getattr(engine, "strategy", None), "name", None)
+        or ("selector" if getattr(engine, "use_selector", False) else "orig"))
     budget = float(getattr(engine, "budget", 0.0))
 
     results: Dict[str, float] = {}

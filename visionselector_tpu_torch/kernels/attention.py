@@ -39,6 +39,10 @@ of the same function beside it:
   schedule (the live tiles split over a thread-block cluster's ranks,
   then merged).
 
+``attention_with_received`` (the training-free baselines' last ViT block:
+attention and each key's received mass) is plain blocked PyTorch, as the
+reference computes it outside any Pallas kernel.
+
 Training differentiates the flash kernel through ``FlashAttentionFn``:
 its forward is the kernel (the plain version on CPU tensors), its backward
 ``flash_backward_plain``, a blocked PyTorch mirror of the reference's XLA
@@ -567,6 +571,41 @@ def _backward_block(sq: int, sk: int) -> int:
     return block if block and sq == sk else sk
 
 
+def _block_logits(qf, kf, q_seg, kv_seg, causal, scale, j0, block):
+    """Logits of kv block [j0, j0 + block) and their mask (same nonzero
+    segment, and causal when asked): qf [B, G, R, Sq, D] (query head g * R
+    + r), kf [B, G, Sk, D], fp32. Returns (s [B, G, R, Sq, bk], mask [B, 1,
+    1, Sq, bk])."""
+    ks = kf[:, :, j0:j0 + block]
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, ks) * scale
+    kseg = kv_seg[:, j0:j0 + block]
+    mask = (q_seg[:, :, None] == kseg[:, None, :]) & (kseg[:, None, :] > 0)
+    if causal:
+        qi = torch.arange(q_seg.shape[1], device=qf.device)
+        ki = j0 + torch.arange(kseg.shape[1], device=qf.device)
+        mask = mask & (qi[:, None] >= ki[None, :])
+    return s, mask[:, None, None]
+
+
+def _flash_stats_blocked(qf, kf, q_seg, kv_seg, causal, scale, block):
+    """Each row's softmax max m and normaliser l [B, G, R, Sq] by a loop
+    over kv blocks (the reference's ``_flash_stats_blocked``): O(Sq *
+    block) memory, the logits never materialised whole. Layouts as
+    ``_block_logits``; a row with no visible key keeps m = NEG_INF, l = 0."""
+    b, g, r, sq, _ = qf.shape
+    m = torch.full((b, g, r, sq), NEG_INF, device=qf.device)
+    l = torch.zeros((b, g, r, sq), device=qf.device)
+    for j0 in range(0, kf.shape[2], block):
+        s, mask = _block_logits(qf, kf, q_seg, kv_seg, causal, scale, j0,
+                                block)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.where(
+            mask, torch.exp(s - m_new[..., None]), 0.0).sum(-1)
+        m = m_new
+    return m, l
+
+
 def flash_backward_plain(q, k, v, q_seg, kv_seg, causal, scale, out, g,
                          fault=None):
     """dq, dk, dv of segment-masked (optionally causal) attention, streamed
@@ -598,28 +637,7 @@ def flash_backward_plain(q, k, v, q_seg, kv_seg, causal, scale, out, g,
     qf, gf, of = grouped(q), grouped(g), grouped(out)
     kf = k.float().permute(0, 2, 1, 3)  # [B, H_kv, Sk, D]
     vf = v.float().permute(0, 2, 1, 3)
-    qi = torch.arange(sq, device=q.device)
-
-    def logits_mask(j0):
-        ks = kf[:, :, j0:j0 + block]
-        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, ks) * scale
-        kseg = kv_seg[:, j0:j0 + block]
-        mask = ((q_seg[:, :, None] == kseg[:, None, :])
-                & (kseg[:, None, :] > 0))
-        if causal:
-            ki = j0 + torch.arange(kseg.shape[1], device=q.device)
-            mask = mask & (qi[:, None] >= ki[None, :])
-        return s, mask[:, None, None]
-
-    m = torch.full((b, h_kv, r, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b, h_kv, r, sq), device=q.device)
-    for j0 in range(0, sk, block):
-        s, mask = logits_mask(j0)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        l = l * torch.exp(m - m_new) + torch.where(
-            mask, torch.exp(s - m_new[..., None]), 0.0).sum(-1)
-        m = m_new
+    m, l = _flash_stats_blocked(qf, kf, q_seg, kv_seg, causal, scale, block)
     l_safe = torch.where(l == 0.0, 1.0, l)
     delta = (gf * of).sum(-1)  # [B, H_kv, R, Sq]
     if fault == "delta_zero":
@@ -630,7 +648,8 @@ def flash_backward_plain(q, k, v, q_seg, kv_seg, causal, scale, out, g,
     dv = torch.empty_like(vf)
     for j0 in range(0, sk, block):
         j1 = min(sk, j0 + block)
-        s, mask = logits_mask(j0)
+        s, mask = _block_logits(qf, kf, q_seg, kv_seg, causal, scale, j0,
+                                block)
         p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
         p = p / l_safe[..., None]
         dv[:, :, j0:j1] = torch.einsum("bgrqk,bgrqd->bgkd", p, gf)
@@ -644,6 +663,56 @@ def flash_backward_plain(q, k, v, q_seg, kv_seg, causal, scale, out, g,
     dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
     return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+RECV_BLOCK = 512
+
+
+def attention_with_received(q, k, v, seg, scale=None, block=RECV_BLOCK,
+                            fault=None):
+    """Segment-masked attention and each key's received attention mass,
+    streamed over kv blocks: the port of the reference's
+    ``attention_with_received`` (plain XLA there, no Pallas kernel), the
+    statistics the ViT-side training-free baselines read (VisionZip /
+    PruMerge+ / HoloV capture semantics) without the [H, S, S] map.
+
+    q, k, v: [S, H, D] (one image); seg: [S] (0 = padding). Two passes over
+    kv blocks of ``block`` keys (the last one may be shorter), fp32: each
+    query row's max and normaliser, then p = exp(s - m) / l per block,
+    accumulated into the output and, as the mean over heads summed over
+    queries, into the block's received mass. Padding keys get no mass and
+    padding queries give none (exactly as at the reference's mask).
+    Returns (out [S, H, D] in q's dtype, recv [S] fp32 normalised by the
+    valid query count).
+
+    ``fault="unmask_padding_keys"`` lets every query see the padding keys
+    (a planted error for checks that must catch it).
+    """
+    s_len, h, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    seg1 = seg.reshape(1, s_len)
+    qf = q.float().permute(1, 0, 2)[None, :, None]  # [1, H, 1, S, D]
+    kf = k.float().permute(1, 0, 2)[None]  # [1, H, S, D]
+    vf = v.float().permute(1, 0, 2)[None]
+    if fault == "unmask_padding_keys":
+        kv_seg = torch.where(seg1 > 0, seg1, seg1.amax())
+    else:
+        kv_seg = seg1
+    m, l = _flash_stats_blocked(qf, kf, seg1, kv_seg, False, scale, block)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    n_valid = (seg > 0).sum().clamp(min=1).float()
+    out = torch.zeros_like(qf[:, :, 0])  # [1, H, S, D]
+    recv = torch.empty(s_len, dtype=torch.float32, device=q.device)
+    for j0 in range(0, s_len, block):
+        j1 = min(s_len, j0 + block)
+        s, mask = _block_logits(qf, kf, seg1, kv_seg, False, scale, j0,
+                                block)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        p = (p / l_safe[..., None])[:, :, 0]  # [1, H, S, bk]
+        out += torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, j0:j1])
+        recv[j0:j1] = p[0].mean(dim=0).sum(dim=0) / n_valid
+    return out[0].permute(1, 0, 2).to(q.dtype), recv
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -189,11 +189,51 @@ def _prefill_layer(x, p: DecoderLayer, cos, sin, seg_ids, cfg: TextConfig,
     return x + _mlp(h, p), k, v
 
 
+def lm_prefill_layers(lm: LanguageModel, layers, inputs_embeds,
+                      position_ids, seg_ids, attn_impl: str | None = None,
+                      attn_variant: str | None = None, remat: bool = False
+                      ) -> Tuple[torch.Tensor,
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+    """Decoder layers ``layers`` (a ``range`` of layer indices: the whole
+    stack, or a contiguous part of it for the two-stage LLM-side prefill)
+    over a full sequence, no final norm. Arguments as ``lm_prefill``'s.
+
+    Returns (hidden [B, T, D] after the last of ``layers``, (k, v) each
+    [len(layers), B, T, H_kv, Dh]). Raises ValueError when ``layers``
+    reaches past the stack: the reference clamps such an index to the
+    last layer, which the port does not copy.
+    """
+    cfg = lm.cfg
+    n = len(lm.layers)
+    if len(layers) and (min(layers) < 0 or max(layers) >= n):
+        raise ValueError(f"decoder layers {layers} out of range for a "
+                         f"{n}-layer model")
+    cos, sin = mrope_cos_sin(position_ids, cfg)
+    x = inputs_embeds
+    packed = attn_variant == "packed" and cfg.head_dim % 128 == 0
+    ks, vs = [], []
+    for li in layers:
+        args = (x, lm.layers[li], cos, sin, seg_ids, cfg, packed, attn_impl)
+        if remat:
+            x, k, v = torch.utils.checkpoint.checkpoint(
+                _prefill_layer, *args, use_reentrant=False)
+        else:
+            x, k, v = _prefill_layer(*args)
+        ks.append(k)
+        vs.append(v)
+    if not ks:  # an empty range: no cache rows
+        b, t = x.shape[:2]
+        empty = x.new_zeros(0, b, t, cfg.num_key_value_heads, cfg.head_dim)
+        return x, (empty, empty)
+    return x, (torch.stack(ks), torch.stack(vs))
+
+
 def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
                attn_impl: str | None = None, attn_variant: str | None = None,
                remat: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence forward (training and prefill). Differentiable: with
+    """Full-sequence forward (training and prefill): every decoder layer
+    (``lm_prefill_layers``), then the final norm. Differentiable: with
     inputs that require grad, attention goes through the flash kernel's
     autograd Function; inference callers run it under ``no_grad``.
 
@@ -214,22 +254,30 @@ def lm_prefill(lm: LanguageModel, inputs_embeds, position_ids, seg_ids,
         (final hidden [B, T, D] post-norm, (k_layers, v_layers) each
          [n_layers, B, T, H_kv, Dh] rotated keys / values for the cache).
     """
+    x, kv = lm_prefill_layers(lm, range(len(lm.layers)), inputs_embeds,
+                              position_ids, seg_ids, attn_impl, attn_variant,
+                              remat)
+    return rms_norm(x, lm.final_ln_scale, lm.cfg.rms_norm_eps), kv
+
+
+def layer_qk(lm: LanguageModel, layer_idx: int, hidden, position_ids):
+    """Post-rotary (q, k) of decoder layer ``layer_idx`` given its INPUT
+    hidden states [B, T, D] (the reference's ``layer_qk``: LLM-side
+    compression recomputes the capture layer's attention statistics). k is
+    expanded to q's head count (kv head h // n_rep for query head h).
+    Returns q, k: [B, T, H, Dh]. Raises ValueError for an index outside the
+    stack (the reference clamps it and reads the last layer)."""
     cfg = lm.cfg
+    if not 0 <= layer_idx < len(lm.layers):
+        raise ValueError(f"layer_qk: layer {layer_idx} out of range for a "
+                         f"{len(lm.layers)}-layer model")
+    p = lm.layers[layer_idx]
     cos, sin = mrope_cos_sin(position_ids, cfg)
-    x = inputs_embeds
-    packed = attn_variant == "packed" and cfg.head_dim % 128 == 0
-    ks, vs = [], []
-    for p in lm.layers:
-        args = (x, p, cos, sin, seg_ids, cfg, packed, attn_impl)
-        if remat:
-            x, k, v = torch.utils.checkpoint.checkpoint(
-                _prefill_layer, *args, use_reentrant=False)
-        else:
-            x, k, v = _prefill_layer(*args)
-        ks.append(k)
-        vs.append(v)
-    x = rms_norm(x, lm.final_ln_scale, cfg.rms_norm_eps)
-    return x, (torch.stack(ks), torch.stack(vs))
+    h = rms_norm(hidden, p.input_ln_scale, cfg.rms_norm_eps)
+    q, k, _ = _qkv(h, p, cfg)
+    q, k = _apply_mrope(q, k, cos, sin)
+    n_rep = cfg.num_attention_heads // cfg.num_key_value_heads
+    return q, k.repeat_interleave(n_rep, dim=2)
 
 
 @torch.no_grad()

@@ -11,6 +11,15 @@ as the reference engine does, and the device runs
   _prefill_text: causal prefill of a text-only request,
   _decode:       one token against the KV cache (written in place),
 
+and, for the training-free strategies (``selector.baselines``),
+
+  _vision_stats -> host strategy -> _prefill_from_vision: the ViT-side
+                 baselines (the ViT's last block also returns each key's
+                 received attention and its keys),
+  _stage_a -> host strategy -> _stage_b: FastV / DART / Dynamic-Qwen,
+                 decoder layers [0, target) over the whole sequence, then
+                 [target, n) over the kept one (per-layer cache lengths),
+
 then a decode loop with early EOS exit: greedy, or temperature / top-k /
 top-p sampling, with an optional repetition penalty. Sampling noise comes
 from a ``torch.Generator`` seeded from the request's ``seed``: each decode
@@ -33,6 +42,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from visionselector_tpu_torch.core.config import VLConfig
@@ -202,6 +212,178 @@ def _prefill_ll(params: QwenVLParams, k_max: int, use_selector: bool,
         attn_impl, attn_variant)
     return _score_continuation(params, hidden, comp.valid_len, cont_ids,
                                cont_len, c_max)
+
+
+def _vision_stats(params: QwenVLParams, vb: dict, attn_impl=None):
+    """ViT forward with the last block's attention statistics (the
+    ViT-side baselines): (merged [L_pad, D], recv [L_pad], keys [L_pad,
+    H * dp])."""
+    return vit_mod.vit_forward_stats(params.visual, attn_impl=attn_impl,
+                                     **vb)
+
+
+def _from_vision_core(params: QwenVLParams, vision_embeds, indices, valid,
+                      k: int, input_ids, image_positions, text_positions,
+                      num_text: int, position_ids_orig, attn_impl=None):
+    """Compaction of externally selected vision tokens + causal prefill:
+    (hidden [1, T, D], comp, (k_layers, v_layers)). Family-agnostic: it
+    takes merged vision embeddings from any tower."""
+    text_embeds = lm_mod.embed_tokens(params.lm, input_ids)
+    selection = Selection(
+        indices=indices.to(torch.int32), valid=valid,
+        scores=torch.zeros(vision_embeds.shape[0], dtype=torch.float32,
+                           device=vision_embeds.device), k=k)
+    comp = compact_sequence(text_embeds, vision_embeds, selection,
+                            image_positions, text_positions, num_text,
+                            position_ids_orig)
+    hidden, kv = lm_mod.lm_prefill(
+        params.lm, comp.embeds[None], comp.position_ids[:, None, :],
+        comp.seg_ids[None], attn_impl=attn_impl)
+    return hidden, comp, kv
+
+
+@torch.no_grad()
+def _prefill_from_vision(params: QwenVLParams, vision_embeds, indices,
+                         valid, k: int, input_ids, image_positions,
+                         text_positions, num_text: int, position_ids_orig,
+                         attn_impl=None):
+    """Compaction + causal prefill given vision tokens a training-free
+    strategy selected (``vision_embeds`` [L_pad, D] with its replacement
+    embeddings written in; ``indices`` [k_max] ascending, sentinel L_pad
+    where ``valid`` is False). Returns (next_token, compacted valid_len,
+    (k_layers, v_layers), logits row)."""
+    hidden, comp, kv = _from_vision_core(
+        params, vision_embeds, indices, valid, k, input_ids, image_positions,
+        text_positions, num_text, position_ids_orig, attn_impl)
+    logits = lm_mod.lm_head(params.lm, hidden[0, comp.valid_len - 1])
+    return torch.argmax(logits, dim=-1), comp.valid_len, kv, logits
+
+
+def capture_layer(target: int, capture: str, n_layers: int) -> int:
+    """The decoder layer whose statistics an LLM-side strategy reads: FastV
+    the attention of layer target - 1, DART (and Dynamic-Qwen) the keys or
+    hidden states at layer target. Raises ValueError when that layer is not
+    in the stack: the reference clamps a static out-of-range index (on a
+    2-layer model DART's target 2 reads layer 1's weights and stage B runs
+    no layer), which the port does not copy."""
+    cap = target - 1 if capture == "fastv" else target
+    if capture not in ("fastv", "dart") or not 0 <= cap < n_layers:
+        raise ValueError(
+            f"LLM-side strategy: capture {capture!r} at target layer "
+            f"{target} reads layer {cap}, outside the {n_layers}-layer "
+            f"decoder")
+    return cap
+
+
+@torch.no_grad()
+def _stage_a(params: QwenVLParams, target: int, capture: str, vb: dict,
+             num_merged: int, input_ids, image_positions, text_positions,
+             num_text: int, position_ids_orig, attn_impl=None):
+    """LLM-side compression, stage A: the ViT, then decoder layers [0,
+    target) over the whole (uncompressed) sequence with the capture
+    layer's statistics (``_stage_a_core``)."""
+    vision_embeds = vit_mod.vit_forward(params.visual, attn_impl=attn_impl,
+                                        **vb)
+    return _stage_a_core(params, target, capture, vision_embeds, num_merged,
+                         input_ids, image_positions, text_positions,
+                         num_text, position_ids_orig, attn_impl)
+
+
+def _stage_a_core(params: QwenVLParams, target: int, capture: str,
+                  vision_embeds, num_merged: int, input_ids, image_positions,
+                  text_positions, num_text: int, position_ids_orig,
+                  attn_impl=None):
+    """Stage A given merged vision embeddings (family-agnostic).
+
+    FastV ranks image positions by the attention they receive in layer
+    target - 1 (``capture="fastv"``); DART picks pivots by key L1 norm at
+    layer target (``capture="dart"``, which Dynamic-Qwen shares for its
+    hidden states). Both then gather the sequence at layer ``target``.
+    The reference also computes the attention column sum under "dart",
+    where nothing reads it; the port skips it there (None).
+
+    Returns (hidden at layer target's input [1, T, D], (k_a, v_a) for
+    layers [0, target) each [target, 1, T, H_kv, Dh], fastv_scores [T] or
+    None, key_l1 [T] (|k| summed over the GQA-expanded heads, so each kv
+    head counts n_rep times, as in the reference), the valid length,
+    position ids [3, T], the selected positions [T]).
+    """
+    n_pad = vision_embeds.shape[0]
+    comp, _ = _select_and_compact(
+        params, n_pad, False, vision_embeds, num_merged, num_merged,
+        input_ids, image_positions, text_positions, num_text,
+        position_ids_orig)
+    cfg = params.lm.cfg
+    cap = capture_layer(target, capture, cfg.num_hidden_layers)
+    pos, seg = comp.position_ids[:, None, :], comp.seg_ids[None]
+    hidden, (k_a, v_a) = lm_mod.lm_prefill_layers(
+        params.lm, range(cap), comp.embeds[None], pos, seg, attn_impl)
+    q_cap, k_cap = lm_mod.layer_qk(params.lm, cap, hidden, pos)
+    key_l1 = k_cap[0].float().abs().sum(dim=(1, 2))
+    fastv_scores = None
+    if capture == "fastv":
+        fastv_scores = _fastv_attention_colsum(
+            q_cap[0], k_cap[0], comp.seg_ids, cfg.head_dim**-0.5)
+        # the capture layer itself, to reach layer target's input
+        hidden, (k1, v1) = lm_mod.lm_prefill_layers(
+            params.lm, range(cap, target), hidden, pos, seg, attn_impl)
+        k_a, v_a = torch.cat([k_a, k1]), torch.cat([v_a, v1])
+    return (hidden, (k_a, v_a), fastv_scores, key_l1, comp.valid_len,
+            comp.position_ids, comp.selected_positions)
+
+
+def _fastv_attention_colsum(q, k, seg_ids, scale, block: int = 128,
+                            fault=None):
+    """Mean attention received per key under the causal masked softmax,
+    streamed over query blocks of ``block`` rows (the FastV capture without
+    the [H, T, T] map; plain fp32 PyTorch, as the reference computes it
+    outside any Pallas kernel).
+
+    q, k: [T, H, D] (k expanded to q's heads); seg_ids: [T] (0 = padding).
+    Returns [T] fp32: the softmax probabilities, masked to causal pairs
+    between valid positions, averaged over heads and summed over the valid
+    queries, over the valid query count. ``fault="no_causal"`` drops the
+    causal mask (a planted error for checks that must catch it).
+    """
+    t = q.shape[0]
+    valid = seg_ids > 0
+    kf = k.float()
+    ki = torch.arange(t, device=q.device)
+    colsum = torch.zeros(t, dtype=torch.float32, device=q.device)
+    for q0 in range(0, t, block):
+        q1 = min(t, q0 + block)
+        logits = torch.einsum("bhd,khd->hbk", q[q0:q1].float(), kf) * scale
+        mask = valid[None, :] & valid[q0:q1, None]
+        if fault != "no_causal":
+            mask = mask & (ki[q0:q1, None] >= ki[None, :])
+        probs = torch.softmax(torch.where(mask[None], logits, -1e30), dim=-1)
+        probs = torch.where(mask[None], probs, 0.0)
+        colsum += probs.mean(dim=0).sum(dim=0)
+    return colsum / valid.sum().clamp(min=1)
+
+
+@torch.no_grad()
+def _stage_b(params: QwenVLParams, target: int, hidden, position_ids_full,
+             keep_indices, keep_valid_len: int, attn_impl=None):
+    """LLM-side compression, stage B: gather the sequence at layer
+    ``target`` (``keep_indices`` [T_keep] ascending positions into the
+    stage-A sequence, sentinel T for padding: a zero row at position 0),
+    then layers [target, n), the final norm and the head. Returns
+    (next_token, (k_b, v_b) each [n - target, 1, T_keep, H_kv, Dh], logits
+    row)."""
+    lm = params.lm
+    h_pad = torch.cat([hidden[0], torch.zeros_like(hidden[0, :1])])
+    h_comp = h_pad[keep_indices][None]
+    pos_comp = F.pad(position_ids_full, (0, 1))[:, keep_indices]
+    t_keep = keep_indices.shape[0]
+    seg = (torch.arange(t_keep, device=hidden.device)
+           < keep_valid_len).to(torch.int32)
+    x, kv = lm_mod.lm_prefill_layers(
+        lm, range(target, len(lm.layers)), h_comp, pos_comp[:, None, :],
+        seg[None], attn_impl)
+    x = vit_mod.rms_norm(x, lm.final_ln_scale, lm.cfg.rms_norm_eps)
+    logits = lm_mod.lm_head(lm, x[0, keep_valid_len - 1])
+    return torch.argmax(logits, dim=-1), kv, logits
 
 
 def ll_continuation_arrays(continuation_ids):
@@ -427,9 +609,12 @@ class PrefillState:
     """Deferred-decode prefill output (``generate(..., _defer_decode=True)``):
     what a slot pool needs to take the request over."""
 
-    cache: object  # KVCache [L, 1, T, H_kv, Dh] (T = prefill len + max_new)
+    # KVCache [L, 1, T, H_kv, Dh] (T = prefill len + max_new); per-layer
+    # lengths differ on the LLM-side strategies' path
+    cache: object
     next_token: int
-    start_pos: int  # valid_len + rope_delta
+    # valid_len + rope_delta (t_orig + rope_delta on the LLM-side path)
+    start_pos: int
     eos_token_ids: Tuple[int, ...]
     max_new_tokens: int
     result: GenerationResult  # tokens empty; filled after decode
@@ -437,17 +622,28 @@ class PrefillState:
     logits: Optional[torch.Tensor] = None  # prefill's last-row logits [V]
 
 
-def _prefill_state(cfg: VLConfig, k_l, v_l, valid_len: int, next_token: int,
-                   start_pos: int, eos_token_ids, max_new_tokens: int,
+def _prefill_state(cfg: VLConfig, parts, next_token: int, start_pos: int,
+                   eos_token_ids, max_new_tokens: int,
                    result: GenerationResult, t_start: float, logits):
-    """The prefill's k/v [L, 1, T, H, D] in a cache with room for
-    ``max_new_tokens`` more rows."""
-    rows = k_l.shape[2]
+    """The prefill's k/v in a cache with room for ``max_new_tokens`` more
+    rows. ``parts``: [(k, v [L_i, 1, T_i, H, D], valid length)] in layer
+    order, covering every decoder layer: one part for a one-stage prefill;
+    two for the LLM-side strategies, whose layers [0, target) hold the
+    whole sequence and the others the kept one."""
+    rows = max(k.shape[2] for k, _, _ in parts)
+    k0 = parts[0][0]
     cache = lm_mod.init_kv_cache(cfg.text, 1, rows + max_new_tokens,
-                                 k_l.device, k_l.dtype)
-    cache.k[:, :, :rows] = k_l
-    cache.v[:, :, :rows] = v_l
-    cache.length.fill_(valid_len)
+                                 k0.device, k0.dtype)
+    l0 = 0
+    for k, v, length in parts:
+        l1 = l0 + k.shape[0]
+        cache.k[l0:l1, :, :k.shape[2]] = k
+        cache.v[l0:l1, :, :v.shape[2]] = v
+        cache.length[l0:l1] = length
+        l0 = l1
+    if l0 != cfg.text.num_hidden_layers:
+        raise ValueError(f"_prefill_state: the parts cover {l0} layers, the "
+                         f"decoder has {cfg.text.num_hidden_layers}")
     return PrefillState(
         cache=cache, next_token=next_token, start_pos=start_pos,
         eos_token_ids=tuple(eos_token_ids), max_new_tokens=max_new_tokens,
@@ -494,7 +690,7 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
         tokens=[], selected_indices=None, num_vision_tokens=0,
         prefill_len=t_orig, prefill_seconds=t_prefill, logits=logits,
         first_token_seconds=t_prefill)
-    state = _prefill_state(cfg, k_l, v_l, t_orig, first, t_orig,
+    state = _prefill_state(cfg, [(k_l, v_l, t_orig)], first, t_orig,
                            eos_token_ids, max_new_tokens, result, t_start,
                            logits)
     if _defer_decode:
@@ -523,6 +719,14 @@ class QwenVLEngine:
     128 the packed flash entry point). Either takes the unpadded weights
     (ValueError otherwise); with ``attn_impl="plain"`` it runs its plain
     versions. Decode is the same under all three.
+
+    ``strategy``: a training-free baseline (``selector.baselines.
+    get_baseline(name)``) in place of the LIS selector. A ViT-side one
+    (VisionZip, PruMerge+, DivPrune, HoloV, Random) runs the ViT with its
+    last block's statistics (``vit_forward_stats``), selects on the host,
+    and prefills the compacted sequence; an LLM-side one (FastV, DART,
+    Dynamic-Qwen) runs the two-stage prefill. Both take the default
+    attention route: ``attn_variant`` with a strategy raises ValueError.
     """
 
     def __init__(self, cfg: VLConfig, params: QwenVLParams,
@@ -530,10 +734,6 @@ class QwenVLEngine:
                  vision_buckets=VISION_BUCKETS, text_buckets=TEXT_BUCKETS,
                  strategy=None, *, device, attn_impl: Optional[str] = None,
                  attn_variant: Optional[str] = None):
-        if strategy is not None:
-            raise NotImplementedError(
-                "training-free strategies (and FastV/DART two-stage "
-                "prefill) are not ported yet (ROADMAP §1 item 4)")
         if attn_variant not in (None, "fused", "packed"):
             raise ValueError(f"attn_variant must be None, 'fused' or "
                              f"'packed', got {attn_variant!r}")
@@ -550,15 +750,24 @@ class QwenVLEngine:
 
             params = QwenVLParams(pad_vit_head_dim(params.visual, cfg.vision),
                                   params.lm, params.scorer)
+        if strategy is not None and attn_variant is not None:
+            raise ValueError(
+                f"attn_variant={attn_variant!r} with a strategy: the "
+                f"strategies run the default attention route (the "
+                f"reference's vit_forward_stats and two-stage prefill)")
         self.cfg = cfg
         self.params = params
-        self.use_selector = use_selector and params.scorer is not None
+        self.strategy = strategy
+        self.use_selector = (strategy is None and use_selector
+                             and params.scorer is not None)
         self.budget = budget
         self.vision_buckets = vision_buckets
         self.text_buckets = text_buckets
         self.device = torch.device(device)
         self.attn_impl = attn_impl
         self.attn_variant = attn_variant
+        if getattr(strategy, "device", False) is None:
+            strategy.device = self.device  # Dynamic-Qwen's predictor
 
     def _prep_vision(self, input_ids, pixel_values, grid_thw):
         """Host-side prep, as the reference engine's: bucket choice,
@@ -598,6 +807,9 @@ class QwenVLEngine:
             k = max(1, int(n * self.budget))
             k_max = max(1, int(l_pad * self.budget))
             k = min(k, k_max)
+        elif self.strategy is not None:
+            k = None  # the strategy decides
+            k_max = min(l_pad, int(l_pad * self.budget) + 2)
         else:
             k = n
             k_max = l_pad
@@ -632,6 +844,7 @@ class QwenVLEngine:
             image_pos_padded=image_pos_padded,
             text_pos_padded=text_pos_padded, t_text_bucket=t_text_bucket,
             position_ids=position_ids, rope_delta=rope_delta, t_orig=t_orig,
+            grid_thw=grid_thw,
         )
 
     def _vision_tensors(self, vb) -> dict:
@@ -653,6 +866,15 @@ class QwenVLEngine:
             full_kv_iters=vb.full_kv_iters,
         )
 
+    def _sequence_tensors(self, p, input_ids):
+        """The prefill's sequence inputs on the device: ids, padded image
+        and text positions, the text count, the original M-RoPE ids."""
+        dev = self.device
+        return (torch.as_tensor(input_ids, device=dev),
+                torch.as_tensor(p.image_pos_padded, device=dev),
+                torch.as_tensor(p.text_pos_padded, device=dev), p.num_text,
+                torch.as_tensor(p.position_ids, device=dev))
+
     def loglikelihood(
         self,
         input_ids: np.ndarray,
@@ -672,7 +894,12 @@ class QwenVLEngine:
         tokens as in generation, and the continuation, a text suffix that
         compaction always keeps, is scored from the prefill's hidden
         states. Video and several images are not ported yet (ROADMAP §1
-        item 6) and raise NotImplementedError."""
+        item 6) and raise NotImplementedError, as does an engine with a
+        training-free strategy (the reference's compression adapters give
+        only ``generate_until``)."""
+        if self.strategy is not None:
+            raise NotImplementedError(
+                "loglikelihood supports the selector and orig paths only")
         if pixel_values_videos is not None or video_grid_thw is not None:
             raise NotImplementedError(
                 "video input is not ported yet (ROADMAP §1 item 6)")
@@ -696,10 +923,7 @@ class QwenVLEngine:
         ll, greedy = _prefill_ll(
             self.params, p.k_max, self.use_selector, c_max,
             self._vision_tensors(p.vb), p.n, p.k,
-            torch.as_tensor(full_ids, device=dev),
-            torch.as_tensor(p.image_pos_padded, device=dev),
-            torch.as_tensor(p.text_pos_padded, device=dev), p.num_text,
-            torch.as_tensor(p.position_ids, device=dev),
+            *self._sequence_tensors(p, full_ids),
             torch.as_tensor(cont_padded, device=dev), c,
             attn_impl=self.attn_impl, attn_variant=self.attn_variant)
         return float(ll), bool(greedy)
@@ -758,40 +982,128 @@ class QwenVLEngine:
         t_start = time.perf_counter()
 
         p = self._prep_vision(input_ids, pixel_values, grid_thw)
-        (next_token, sel_idx, sel_valid, sel_scores, valid_len,
-         (k_l, v_l), logits) = _prefill(
-            self.params, p.k_max, self.use_selector,
-            self._vision_tensors(p.vb), p.n, p.k,
-            torch.as_tensor(input_ids, device=dev),
-            torch.as_tensor(p.image_pos_padded, device=dev),
-            torch.as_tensor(p.text_pos_padded, device=dev), p.num_text,
-            torch.as_tensor(p.position_ids, device=dev),
-            attn_impl=self.attn_impl, attn_variant=self.attn_variant,
-        )
-        first = int(next_token)  # waits for the prefill
-        t_prefill = time.perf_counter() - t_start
-        valid_len = int(valid_len)
-
-        sel_valid_np = sel_valid.cpu().numpy()
-        result = GenerationResult(
-            tokens=[],
-            selected_indices=(sel_idx.cpu().numpy()[sel_valid_np]
-                              if self.use_selector else None),
-            num_vision_tokens=p.n,
-            prefill_len=valid_len,
-            prefill_seconds=t_prefill,
-            scores=(sel_scores.cpu().numpy()[:p.n]
-                    if self.use_selector else None),
-            logits=logits,
-            first_token_seconds=t_prefill,
-        )
-        state = _prefill_state(
-            cfg, k_l, v_l, valid_len, first, valid_len + int(p.rope_delta),
-            eos_token_ids, max_new_tokens, result, t_start, logits)
+        if getattr(self.strategy, "llm_side", False):
+            state = self._prefill_llm_side(p, input_ids, eos_token_ids,
+                                           max_new_tokens, t_start)
+        else:
+            state = self._prefill_one_stage(p, input_ids, eos_token_ids,
+                                            max_new_tokens, t_start)
         if _defer_decode:
             return state
         return _decode_request(self.params, state, input_ids, *sampling,
                                attn_impl=self.attn_impl)
+
+    def _select_vit_side(self, p):
+        """ViT with the last block's statistics, then the host strategy:
+        (vision embeddings [L_pad, D] with the replacement embeddings
+        written in, kept indices [k] ascending)."""
+        vb = self._vision_tensors(p.vb)
+        merged, recv, keys = _vision_stats(self.params, vb, self.attn_impl)
+        n, stats = p.n, self.strategy.needs_stats
+        # bf16 has no numpy dtype: the host strategies get fp32 copies, and
+        # replacement embeddings are rounded to the model's dtype when they
+        # are written back into the vision rows, before compaction
+        idx, new_embeds = self.strategy(
+            merged[:n].float().cpu().numpy(),
+            recv[:n].cpu().numpy() if stats else None,
+            keys[:n].cpu().numpy() if stats else None,
+            self.budget, p.grid_thw)
+        idx = np.asarray(idx, np.int64)[:p.k_max]
+        if new_embeds is not None:
+            merged = merged.clone()
+            rows = torch.as_tensor(idx, device=self.device)
+            merged[rows] = torch.as_tensor(
+                np.asarray(new_embeds)[:len(idx)],
+                device=self.device).to(merged.dtype)
+        return merged, idx
+
+    def _prefill_one_stage(self, p, input_ids, eos_token_ids,
+                           max_new_tokens: int, t_start: float):
+        """Selector, ``orig`` or a ViT-side strategy: one prefill over the
+        compacted sequence."""
+        dev = self.device
+        args = self._sequence_tensors(p, input_ids)
+        scores = None
+        if self.strategy is not None:
+            vision_embeds, idx = self._select_vit_side(p)
+            k = len(idx)
+            idx_padded = np.full(p.k_max, p.l_pad, np.int64)
+            idx_padded[:k] = idx
+            next_token, valid_len, (k_l, v_l), logits = _prefill_from_vision(
+                self.params, vision_embeds,
+                torch.as_tensor(idx_padded, device=dev),
+                torch.arange(p.k_max, device=dev) < k, k, *args,
+                attn_impl=self.attn_impl)
+            selected = idx
+        else:
+            (next_token, sel_idx, sel_valid, sel_scores, valid_len,
+             (k_l, v_l), logits) = _prefill(
+                self.params, p.k_max, self.use_selector,
+                self._vision_tensors(p.vb), p.n, p.k, *args,
+                attn_impl=self.attn_impl, attn_variant=self.attn_variant)
+            selected = None
+            if self.use_selector:
+                selected = sel_idx.cpu().numpy()[sel_valid.cpu().numpy()]
+                scores = sel_scores.cpu().numpy()[:p.n]
+        first = int(next_token)  # waits for the prefill
+        t_prefill = time.perf_counter() - t_start
+        valid_len = int(valid_len)
+        result = GenerationResult(
+            tokens=[], selected_indices=selected, num_vision_tokens=p.n,
+            prefill_len=valid_len, prefill_seconds=t_prefill, scores=scores,
+            logits=logits, first_token_seconds=t_prefill)
+        return _prefill_state(
+            self.cfg, [(k_l, v_l, valid_len)], first,
+            valid_len + int(p.rope_delta), eos_token_ids, max_new_tokens,
+            result, t_start, logits)
+
+    def _prefill_llm_side(self, p, input_ids, eos_token_ids,
+                          max_new_tokens: int, t_start: float):
+        """FastV / DART / Dynamic-Qwen: the two-stage prefill. Stage A runs
+        the ViT and decoder layers [0, target) over the whole sequence; the
+        strategy picks image positions on the host from stage A's
+        statistics; stage B gathers the kept positions at layer target and
+        runs the rest. The cache's layers [0, target) hold t_orig rows,
+        the others the kept ones, and decode continues at t_orig +
+        rope_delta, the original sequence's next position (the reference's
+        convention)."""
+        dev = self.device
+        target = self.strategy.target_layer
+        t_orig = p.t_orig
+        (hidden_t, (k_a, v_a), fv, key_l1, _, pos_full, _) = _stage_a(
+            self.params, target, self.strategy.capture,
+            self._vision_tensors(p.vb), p.n,
+            *self._sequence_tensors(p, input_ids), attn_impl=self.attn_impl)
+        t_pad_full = hidden_t.shape[1]
+        retained = np.asarray(self.strategy.select(
+            fv[:t_orig].cpu().numpy() if fv is not None else None,
+            key_l1[:t_orig].cpu().numpy(),
+            hidden_t[0, :t_orig].float().cpu().numpy(),
+            p.image_pos, self.budget), np.int64)
+        keep = np.sort(np.concatenate([retained, p.text_pos]))
+        k_img_max = p.k_max + 8  # DART's pivots can exceed the budget
+        t_keep_pad = k_img_max + p.t_text_bucket
+        keep_padded = np.full(t_keep_pad, t_pad_full, np.int64)
+        keep_padded[:len(keep)] = keep
+        keep_valid = len(keep)
+        next_token, (k_b, v_b), logits = _stage_b(
+            self.params, target, hidden_t, pos_full,
+            torch.as_tensor(keep_padded, device=dev), keep_valid,
+            attn_impl=self.attn_impl)
+        first = int(next_token)  # waits for the prefill
+        t_prefill = time.perf_counter() - t_start
+        # retained sequence positions -> vision-token indices
+        pos_to_vis = {int(q): j for j, q in enumerate(p.image_pos)}
+        selected = np.asarray(sorted(pos_to_vis[int(q)] for q in retained),
+                              np.int64)
+        result = GenerationResult(
+            tokens=[], selected_indices=selected, num_vision_tokens=p.n,
+            prefill_len=keep_valid, prefill_seconds=t_prefill, logits=logits,
+            first_token_seconds=t_prefill)
+        return _prefill_state(
+            self.cfg, [(k_a, v_a, t_orig), (k_b, v_b, keep_valid)], first,
+            t_orig + int(p.rope_delta), eos_token_ids, max_new_tokens,
+            result, t_start, logits)
 
 
 @torch.no_grad()
@@ -839,7 +1151,11 @@ def run_loglikelihood_choices(engine: QwenVLEngine, input_ids,
     under compression the chunk numbers its positions by the decode
     convention (those generated tokens would get) where the full prefill
     numbers them on the original sequence, so the two agree in ranking,
-    not in value."""
+    not in value. An engine with a training-free strategy raises
+    NotImplementedError, as ``loglikelihood`` does."""
+    if engine.strategy is not None:
+        raise NotImplementedError(
+            "loglikelihood supports the selector and orig paths only")
     prepped = [ll_continuation_arrays(c) for c in choices_ids]
     c_max = max(p[2] for p in prepped)
     state = engine.generate(

@@ -16,7 +16,10 @@ Counterpart of ``visionselector_tpu.models.qwen25vl.vit``:
 - heads zero-padded in the weights (``weights.pad_vit_head_dim``, d = 80
   padded to dp = 128) select the packed layout by themselves: window
   layers run the diag kernel at head dim dp, full layers the packed flash
-  entry point on the slab's column views, all with the real d ** -0.5.
+  entry point on the slab's column views, all with the real d ** -0.5;
+- ``vit_forward_stats`` (the training-free baselines' ViT): the default
+  route, the last block through ``attention_with_received``, which also
+  returns each key's received attention mass.
 
 Shapes: S = padded patch count, L = S / merge_unit merged tokens.
 """
@@ -35,6 +38,7 @@ from visionselector_tpu_torch.kernels.attention import (
     attention,
     attention_diag,
     attention_packed,
+    attention_with_received,
 )
 from visionselector_tpu_torch.kernels.fused_vit_attn import (  # noqa: F401
     apply_rotary,
@@ -222,10 +226,44 @@ def vit_forward(
     d, dp, heads = cfg.head_dim, head_width(tower), cfg.num_heads
     x = vit_embed(tower, pixel_values)
     cos, sin = vision_rotary_cos_sin(rot_pos_ids, d)
+    fns = _default_attn(tower, pixel_values.shape[0], window_seg_ids,
+                        full_seg_ids, window_kv_bounds, full_kv_bounds,
+                        window_diag, window_kv_iters, full_kv_iters,
+                        attn_impl)
+    if attn_variant == "fused":
+        if dp != d:
+            raise ValueError(
+                f"vit_forward: the fused kernel takes unpadded heads, the "
+                f"weights hold heads padded to {dp} (head dim {d})")
+        cs = cos.to(x.dtype), sin.to(x.dtype)  # cast once for all layers
+
+        def fused(seg, bounds):
+            return dict(fused_fn=lambda qkv: fused_vit_attention(
+                qkv, seg, *cs, bounds, heads, d, scale=d**-0.5,
+                impl=attn_impl))
+
+        fns = {False: fused(window_seg_ids, window_kv_bounds),
+               True: fused(full_seg_ids, full_kv_bounds)}
+    for i, blk in enumerate(tower.blocks):
+        x = _block(x, blk, cos, sin, cfg,
+                   **fns[i in cfg.fullatt_block_indexes])
+    return vit_merge(tower, x, reverse_index, cfg)
+
+
+def _default_attn(tower: VisionTower, s_pad: int, window_seg_ids,
+                  full_seg_ids, window_kv_bounds, full_kv_bounds,
+                  window_diag: bool, window_kv_iters: int,
+                  full_kv_iters: int, attn_impl) -> dict:
+    """The default route's ``_block`` keywords, keyed by "is a full
+    attention layer": window layers run the diag kernel on the
+    window-aligned layout (the flash kernel with window bounds otherwise),
+    full layers the flash kernel with per-image bounds (the packed entry
+    point on padded heads)."""
+    cfg = tower.cfg
+    d, dp, heads = cfg.head_dim, head_width(tower), cfg.num_heads
     wseg, fseg = window_seg_ids[None], full_seg_ids[None]
     have_bounds = window_kv_bounds is not None and full_kv_bounds is not None
     if have_bounds:
-        s_pad = pixel_values.shape[0]
         wblock = s_pad // window_kv_bounds.shape[0]
 
     def window_attn(q, k, v):
@@ -246,25 +284,70 @@ def vit_forward(
                          kv_bounds=full_kv_bounds,
                          kv_iters=full_kv_iters or None)
 
-    fns = {False: dict(attn_fn=window_attn), True: dict(attn_fn=full_attn)}
-    if attn_variant == "fused":
-        if dp != d:
-            raise ValueError(
-                f"vit_forward: the fused kernel takes unpadded heads, the "
-                f"weights hold heads padded to {dp} (head dim {d})")
-        cs = cos.to(x.dtype), sin.to(x.dtype)  # cast once for all layers
+    return {False: dict(attn_fn=window_attn), True: dict(attn_fn=full_attn)}
 
-        def fused(seg, bounds):
-            return dict(fused_fn=lambda qkv: fused_vit_attention(
-                qkv, seg, *cs, bounds, heads, d, scale=d**-0.5,
-                impl=attn_impl))
 
-        fns = {False: fused(window_seg_ids, window_kv_bounds),
-               True: fused(full_seg_ids, full_kv_bounds)}
-    for i, blk in enumerate(tower.blocks):
+def vit_forward_stats(
+    tower: VisionTower,
+    pixel_values: torch.Tensor,
+    rot_pos_ids: torch.Tensor,
+    window_seg_ids: torch.Tensor,
+    full_seg_ids: torch.Tensor,
+    reverse_index: torch.Tensor,
+    window_kv_bounds: torch.Tensor | None = None,
+    full_kv_bounds: torch.Tensor | None = None,
+    window_diag: bool = False,
+    window_kv_iters: int = 0,
+    full_kv_iters: int = 0,
+    attn_impl: str | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ViT forward that also returns the last block's attention statistics
+    (the reference's ``vit_forward_stats``), which the training-free
+    baselines read: VisionZip, PruMerge+ and HoloV take the last block's
+    attention map and keys.
+
+    Blocks 0 .. depth-2 take ``vit_forward``'s default route; the last
+    block's attention is ``attention_with_received`` (plain blocked fp32:
+    the reference computes it outside any Pallas kernel). Arguments as
+    ``vit_forward``'s.
+
+    Returns:
+        (merged hidden [L, out] in original order,
+         attn_received [L] fp32: mean attention mass received per merged
+             token (mean over heads and valid queries, 4 -> 1 pooled,
+             unpermuted),
+         pooled_keys [L, H * dp] fp32: the last block's post-rotary keys,
+             heads concatenated, 4 -> 1 pooled, unpermuted; zero pad
+             channels of padded heads stay zero).
+    """
+    cfg = tower.cfg
+    d = cfg.head_dim
+    x = vit_embed(tower, pixel_values)
+    cos, sin = vision_rotary_cos_sin(rot_pos_ids, d)
+    fns = _default_attn(tower, pixel_values.shape[0], window_seg_ids,
+                        full_seg_ids, window_kv_bounds, full_kv_bounds,
+                        window_diag, window_kv_iters, full_kv_iters,
+                        attn_impl)
+    for i, blk in enumerate(tower.blocks[:-1]):
         x = _block(x, blk, cos, sin, cfg,
                    **fns[i in cfg.fullatt_block_indexes])
-    return vit_merge(tower, x, reverse_index, cfg)
+    last = cfg.depth - 1
+    seg = full_seg_ids if last in cfg.fullatt_block_indexes else \
+        window_seg_ids
+    captured = {}
+
+    def stats_attn(q, k, v):
+        out, captured["recv"] = attention_with_received(
+            q[0], k[0], v[0], seg, scale=d**-0.5)
+        captured["k"] = k[0]
+        return out[None]
+
+    x = _block(x, tower.blocks[-1], cos, sin, cfg, attn_fn=stats_attn)
+    s, m = x.shape[0], cfg.spatial_merge_unit
+    recv = captured["recv"].reshape(-1, m).mean(dim=1)  # [L] window order
+    keys = captured["k"].reshape(s // m, m, -1).float().mean(dim=1)
+    return (vit_merge(tower, x, reverse_index, cfg), recv[reverse_index],
+            keys[reverse_index])
 
 
 def init_vit_params(cfg: VisionConfig, generator: torch.Generator, device,

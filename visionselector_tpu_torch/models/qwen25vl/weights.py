@@ -42,6 +42,7 @@ from visionselector_tpu_torch.models.qwen25vl.vit import (
     VisionTower,
     head_width,
 )
+from visionselector_tpu_torch.selector.baselines.dynamic import Predictor
 from visionselector_tpu_torch.selector.scorer import Scorer
 
 
@@ -88,6 +89,22 @@ def from_jax_params(tree: dict, cfg: VLConfig, device,
         scorer = Scorer(cfg.selector or cfg.with_selector().selector, device)
         _load(scorer, tree["scorer"], device, torch.float32)
     return QwenVLParams(visual, lm, scorer)
+
+
+def predictor_from_jax(tree: dict, device, num_heads: int = 8) -> Predictor:
+    """The reference's Dynamic-Qwen predictor tree
+    (``baselines.dynamic.init_predictor_params`` layout, leaves as numpy
+    arrays) as the port's fp32 ``Predictor``; its widths and depth are read
+    from the tree, the head count (not in the tree) is ``num_heads``."""
+    blocks = tree["blocks"]
+    input_dim, d_model = np.shape(tree["down_kernel"])
+    layers, _, hidden = np.shape(blocks["fc1_kernel"])
+    pred = Predictor(input_dim, d_model, num_heads, hidden / d_model, layers,
+                     device)
+    _load(pred, tree, device, torch.float32)
+    for i, blk in enumerate(pred.blocks):
+        _load(blk, blocks, device, torch.float32, layer=i)
+    return pred
 
 
 @torch.no_grad()
