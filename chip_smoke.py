@@ -14,8 +14,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the prefill's shapes, the decode kernel over an 8-slot, 2,048-row pool
    and over one slot of the one-shot ``orig`` cache (bf16 and int8, t_c 1
    and 4, lengths at tile edges; at t_c 16 and 32, multiple-choice
-   scoring's chunk, at the cache's base, 0 and across a tile edge, with a
-   planted fault: chunk row i sees position base + i + 1; also against its
+   scoring's chunk, at the cache's base, 0 and across a tile edge, and at
+   t_c 256, a chunked admission's decoder segment, at bases 256, 0, 1,280
+   and 1,312, each with a planted fault: chunk row i sees position base +
+   i + 1; also against its
    schedule's plain mirror
    ``decode_split_plain``, with its times at four live lengths, their
    intercept and slope, its cluster size, ptxas lines and occupancy at
@@ -128,7 +130,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    served (first token equal to the in-memory scorer's); ``api.train
    --smoke --total-steps 3`` on the card (the two CLI runs beside the
    rest of the phase). Its files go under ``.smoke_tmp/`` and are
-   removed after phase 7.
+   removed after phase 9.
 7. Eval (``eval``), on phase 3's weights with phase 6's scorer:
    ``QwenVLEngine.loglikelihood`` of a 12-id continuation after the
    phase-3 request (selector 0.2 and ``orig``) and after 200 text ids,
@@ -171,6 +173,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``api.run_token_compression --methods fastv,visionzip`` (``api.run_eval
    --method`` once per method) on phase 6's HF directory in a process of
    its own.
+9. Serve (``http``): ``api.serve.Server`` with no tokenizer (the stub
+   prompt ids) on a ``ThreadingHTTPServer`` at 127.0.0.1 over phase 3's
+   engine. ``/health`` and ``/``; ``/generate`` with the phase-3 image as
+   a PNG (``preprocess.png.encode_png``), 32 tokens, equal to one-shot
+   ``generate`` of the same ids; the same request streamed (ndjson: the
+   chunks concatenate to those tokens; the first chunk's arrival time);
+   ``/v1/chat/completions`` plain and SSE; a three-turn session on an
+   ``orig`` server (turn 2's first token equals a fresh prefill of the
+   concatenated stream's); two requests sharing their prefix through
+   ``--prefix-cache 2`` (a hit, the first token unchanged); ``--micro-batch
+   4`` with four concurrent requests (first tokens equal one-shot; decode
+   tok/s). Then servers built as ``--continuous 8 --continuous-prefill-chunk
+   256 --continuous-prefill-vit-segments 4`` take phase 5's arrival pattern
+   (its 14 selector requests, then a text request decoding when phase 5's
+   two ``orig`` requests arrive), submitted to their batchers from threads
+   as handler threads do, and the same mix with one-shot admissions:
+   chunked admissions and steps counted, K1 / K4 / K5 launches (K5 per t_c)
+   equal to what the admissions' segments and the decode steps make, first
+   tokens equal one-shot, ``max_decode_gap_ms``, TTFT and tok/s of both.
+   Last, ``python -m visionselector_tpu_torch.api.serve --device cuda
+   --model-path`` on phase 6's HF directory in a process of its own:
+   ``/health`` and one ``/generate``, then it is terminated.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -187,6 +211,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ULP_LIMIT = 4
@@ -231,6 +256,11 @@ KERNELS = {
     "decode_blocked_fwd_t_c32": ("decode_blocked_fwd.cu",
                                  "visionselector_tpu/kernels/attention.py:"
                                  "1085"),
+    # K5 at t_c = 256 rows: a decoder segment of a chunked admission
+    # (phase 9), a launch shape of its own
+    "decode_blocked_fwd_t_c256": ("decode_blocked_fwd.cu",
+                                  "visionselector_tpu/kernels/attention.py:"
+                                  "1085"),
     "fused_vit_attn_fwd": ("fused_vit_attn_fwd.cu",
                            "visionselector_tpu/kernels/fused_vit_attn.py:144"),
     "flash_packed_fwd": ("flash_varlen_fwd.cu",
@@ -239,6 +269,12 @@ KERNELS = {
                             "tools/bench_fullattn_ablate.py:83"),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
+# Chunked admission's decoder segment (the reference's default
+# prefill_chunk) and the bases K5 is checked at there: the second segment
+# (the main case), the first, the orig admission's last (1,302 valid rows)
+# and one across a tile edge.
+ADMIT_SEG = 256
+ADMIT_BASES = (256, 0, 1280, 1312)
 
 
 def nvidia_smi() -> str:
@@ -702,7 +738,7 @@ def check_decode(cfg, rnd, case, control):
         for kname, usage in ptxas_report("decode_blocked_fwd",
                                          f"ILi{dh}ELb{int(quant)}E").items():
             print(f"[build] {kname}: {usage}", flush=True)
-        for t_c in (1, 4, 16, 32):
+        for t_c in (1, 4, 16, 32, ADMIT_SEG):
             shape = (t_c, hq, hkv, dh, int(quant))
             c = A.decode_cluster_size(dev, POOL_SLOTS, t_c, hq, hkv, dh,
                                       quant)
@@ -826,6 +862,42 @@ def check_decode(cfg, rnd, case, control):
     control(kname, "chunk row i sees position base + i + 1",
             A.decode_blocked_fwd(qc, k1, v1, one + 1),
             A.decode_blocked_plain(qc, k1, v1, one))
+    # Chunked admission (phase 9): each decoder segment is lm_decode_chunk
+    # at t_c = ADMIT_SEG rows of one slot, R = 2,048 query rows per kv head
+    # in 64 row groups of 32, each group re-reading the live prefix; at the
+    # bases of the orig admission's segments (the first listed is the JSON
+    # line's case) and across a tile edge.
+    kname = "decode_blocked_fwd_t_c256"
+    for quant in (False, True):
+        kc, vc = (k18, v18) if quant else (k1, v1)
+        sc = dict(k_scale=k1s, v_scale=v1s) if quant else {}
+        for b0 in ADMIT_BASES:
+            base = torch.tensor([b0], device=dev)
+            qc = rnd(1, ADMIT_SEG, hq, dh)
+            nbytes, flop = work(base, ADMIT_SEG, quant, ORIG_CACHE_ROWS)
+            library = None
+            if not quant:
+                library = (lambda q=qc, m=mask(base, ADMIT_SEG,
+                                               ORIG_CACHE_ROWS):
+                           sdpa_ms(q, k1, v1, m))
+            name = (f"{'int8' if quant else 'bf16'} t_c={ADMIT_SEG} B=1 "
+                    f"T={ORIG_CACHE_ROWS} Hq={hq} Hkv={hkv} D={dh} base={b0} "
+                    f"row_groups={A.decode_rows(ADMIT_SEG, hq // hkv)[1]}")
+            case(kname, name,
+                 lambda q=qc, b=base, kc=kc, vc=vc, sc=sc:
+                     A.decode_blocked_fwd(q, kc, vc, b, **sc),
+                 lambda q=qc, b=base, kc=kc, vc=vc, sc=sc:
+                     A.decode_blocked_plain(q, kc, vc, b, **sc), [],
+                 lambda ms, n=nbytes, f=flop:
+                     (f"live_tb_s={n / (ms * 1e-3) / 1e12!r} "
+                      f"tflops={tflops(f, ms)!r}"),
+                 (nbytes, flop), library)
+            split_check(name, qc, kc, vc, base, sc, ADMIT_SEG, quant)
+    qc = rnd(1, ADMIT_SEG, hq, dh)
+    base = torch.tensor([ADMIT_BASES[0]], device=dev)
+    control(kname, "chunk row i sees position base + i + 1",
+            A.decode_blocked_fwd(qc, k1, v1, base + 1),
+            A.decode_blocked_plain(qc, k1, v1, base))
     for quant in (False, True):
         kc, vc = (k8, v8) if quant else (kp, vp)
         sc = dict(k_scale=ks, v_scale=vs) if quant else {}
@@ -1253,6 +1325,7 @@ def zero_counts():
     A.PACKED_LAUNCHES = A.ABLATE_LAUNCHES = F_.FUSED_LAUNCHES = 0
     for route in A.FLASH_ROUTE_LAUNCHES:
         A.FLASH_ROUTE_LAUNCHES[route] = 0
+    A.DECODE_LAUNCHES_BY_ROWS.clear()
 
 
 def run_main_path(cfg, params, input_ids, pixels, grid):
@@ -3211,6 +3284,457 @@ def strategies_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir,
         raise AssertionError(f"strategies phase failed: {bad}")
 
 
+# Phase 9 (serve): the HTTP server (``api/serve.py``) over phase 3's
+# engine, with no tokenizer (the reference's stub prompt ids).
+HTTP_TOKENS = 32
+HTTP_TIMEOUT = 600  # seconds per HTTP call: a stuck server fails the phase
+ADMIT_VIT_SEGMENTS = 4  # 32 ViT blocks in groups of 8
+
+
+class _Http:
+    """A ``Server`` on a ThreadingHTTPServer at 127.0.0.1 on a free port,
+    and the JSON calls the phase makes to it."""
+
+    def __init__(self, engine, method, budget, **kw):
+        from http.server import ThreadingHTTPServer
+
+        from visionselector_tpu_torch.api import serve
+
+        self.srv = serve.Server(engine, None, method, budget, **kw)
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                         serve.make_handler(self.srv))
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.srv.close()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+    def post(self, path, body):
+        """The response, parsed; a stream's lines with their arrival
+        seconds since the request was sent: [(seconds, line)]."""
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            if not body.get("stream"):
+                return json.loads(r.read())
+            return [(time.perf_counter() - t0, line.decode())
+                    for line in r if line.strip()]
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path,
+                                    timeout=HTTP_TIMEOUT) as r:
+            return r.read().decode()
+
+
+def first_agree(got, want):
+    """How many leading tokens agree."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def http_requests(engine, pixels, grid):
+    """Steps 9.2-9.7: /generate plain and streamed, chat completions, a
+    session, the prefix cache and the micro-batcher. Returns the checks."""
+    import base64
+
+    import numpy as np
+
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.png import encode_png
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    cfg = engine.cfg
+    checks = {}
+    t0 = time.perf_counter()
+    png = encode_png(request_image())
+    b64 = base64.b64encode(png).decode()
+    print(f"[http] the phase-3 image as a PNG: {len(png)} bytes (base64 "
+          f"{len(b64)}), encoded in {time.perf_counter() - t0!r} s",
+          flush=True)
+
+    def stub_ids(g):  # the server's prompt without a tokenizer
+        if g is None:
+            return np.asarray([100, 200, 300, 400], np.int64)
+        return expand_vision_tokens(
+            [100, 200], [300, 400], g,
+            spatial_merge_size=cfg.vision.spatial_merge_size,
+            image_token_id=cfg.image_token_id,
+            vision_start_token_id=cfg.vision_start_token_id,
+            vision_end_token_id=cfg.vision_end_token_id)
+
+    ids = stub_ids(grid)
+    body = {"prompt": "describe", "image_b64": b64,
+            "max_new_tokens": HTTP_TOKENS}
+    http = _Http(engine, "selector", 0.2)
+    try:
+        health = json.loads(http.get("/health"))
+        page = http.get("/")
+        t0 = time.perf_counter()
+        out = http.post("/generate", body)
+        wall = time.perf_counter() - t0
+        want = engine.generate(ids, pixels, grid,
+                               max_new_tokens=HTTP_TOKENS).tokens
+        print(f"[http] /health {health}; / {len(page)} bytes; /generate "
+              f"(image, {HTTP_TOKENS} tokens): {wall!r} s of wall, "
+              f"prefill_ms={out['prefill_ms']!r} latency_ms="
+              f"{out['latency_ms']!r} kept {out['kept_vision_tokens']} of "
+              f"{out['num_vision_tokens']}; {first_agree(out['tokens'], want)}"
+              f" of {HTTP_TOKENS} tokens equal one-shot generate of the same "
+              f"ids", flush=True)
+        checks["/health"] = health.get("ok") is True and "/generate" in page
+        checks["/generate == one-shot"] = out["tokens"] == want
+        lines = http.post("/generate", dict(body, stream=True))
+        recs = [json.loads(line) for _, line in lines]
+        chunks = [r["tokens"] for r in recs[:-1]]
+        print(f"[http] streamed /generate: first chunk after "
+              f"{lines[0][0] * 1e3!r} ms (the one-shot prefill_ms "
+              f"{out['prefill_ms']!r}), last line after {lines[-1][0]!r} s; "
+              f"chunk sizes {[len(c) for c in chunks]}", flush=True)
+        checks["stream chunks == tokens"] = (
+            sum(chunks, []) == out["tokens"] == recs[-1]["tokens"]
+            and recs[-1].get("done") is True
+            and [len(c) for c in chunks][:2] == [1, 8])
+        msg = [{"role": "user", "content": [
+            {"type": "text", "text": "describe"},
+            {"type": "image_url", "image_url": {
+                "url": f"data:image/png;base64,{b64}"}}]}]
+        oai = http.post("/v1/chat/completions",
+                        {"messages": msg, "max_tokens": HTTP_TOKENS})
+        sse = http.post("/v1/chat/completions",
+                        {"messages": msg, "max_tokens": HTTP_TOKENS,
+                         "stream": True})
+        events = [line.strip()[len("data: "):] for _, line in sse
+                  if line.startswith("data: ")]
+        deltas = [json.loads(e)["choices"][0] for e in events[:-1]]
+        text = " ".join(d["delta"]["content"] for d in deltas
+                        if d["delta"].get("content"))
+        ids_text = " ".join(map(str, out["tokens"]))
+        print(f"[http] /v1/chat/completions: {oai['usage']}; SSE "
+              f"{len(events)} events, first after {sse[0][0] * 1e3!r} ms",
+              flush=True)
+        checks["chat completions"] = (
+            oai["choices"][0]["message"]["content"] == ids_text
+            and text == ids_text and events[-1] == "[DONE]"
+            and deltas[-1]["finish_reason"] == "stop")
+    finally:
+        http.close()
+
+    # A three-turn session, on orig: there a fresh prefill of the
+    # concatenated stream numbers every row as the session did (under
+    # compression decode numbers the answer from the compacted length).
+    orig = QwenVLEngine(cfg, engine.params, use_selector=False,
+                        device="cuda")
+    http = _Http(orig, "orig", 1.0)
+    try:
+        turns = [dict(body, max_new_tokens=16, session="p9"),
+                 {"prompt": "what else is there", "max_new_tokens": 16,
+                  "session": "p9"},
+                 {"prompt": "and then", "max_new_tokens": 8,
+                  "session": "p9"}]
+        got = []
+        for t in turns:
+            t0 = time.perf_counter()
+            got.append(http.post("/generate", t))
+            print(f"[http] session turn {len(got)}: {len(got[-1]['tokens'])}"
+                  f" tokens, prefill_ms={got[-1]['prefill_ms']!r} wall "
+                  f"{time.perf_counter() - t0!r} s", flush=True)
+        stream = np.concatenate([stub_ids(grid), got[0]["tokens"],
+                                 http.srv._turn_ids(turns[1]["prompt"])])
+        fresh = orig.generate(stream.astype(np.int64), pixels, grid,
+                              max_new_tokens=1)
+        top2 = fresh.logits.topk(2).values.tolist()
+        print(f"[http] session turn 2 first token {got[1]['tokens'][0]}; a "
+              f"fresh orig prefill of the {len(stream)}-id stream "
+              f"{fresh.tokens[0]} (its top-2 logits {top2!r})", flush=True)
+        checks["session turn 2 == fresh prefill"] = (
+            got[1]["tokens"][0] == fresh.tokens[0]
+            and [len(g["tokens"]) for g in got] == [16, 16, 8])
+    finally:
+        http.close()
+    del orig
+
+    # Two requests that share their prefix (the same image and stub ids).
+    http = _Http(engine, "selector", 0.2, prefix_cache=2, prefix_cache_min=1)
+    try:
+        a = http.post("/generate", dict(body, max_new_tokens=8))
+        b = http.post("/generate", dict(body, max_new_tokens=8))
+        pc = json.loads(http.get("/health"))["prefix_cache"]
+        print(f"[http] prefix cache: {pc}; miss prefill_ms "
+              f"{a['prefill_ms']!r}, hit prefill_ms {b['prefill_ms']!r}; "
+              f"first tokens {a['tokens'][0]} / {b['tokens'][0]} (one-shot "
+              f"{want[0]})", flush=True)
+        checks["prefix cache hit"] = (pc["hits"] == 1 and pc["misses"] == 1
+                                      and b["tokens"][0] == want[0]
+                                      == a["tokens"][0])
+    finally:
+        http.close()
+
+    # --micro-batch 4: four concurrent requests.
+    rng = np.random.RandomState(SEED + 9)
+    small = (rng.rand(448, 448, 3) * 255).astype(np.uint8)
+    spx, sgrid = preprocess_image(small)
+    s64 = base64.b64encode(encode_png(small)).decode()
+    bodies = [dict(body, max_new_tokens=16),
+              {"prompt": "a", "image_b64": s64, "max_new_tokens": 16},
+              {"prompt": "b", "max_new_tokens": 16},
+              {"prompt": "c", "image_b64": s64, "max_new_tokens": 16}]
+    refs = [(ids, pixels, grid), (stub_ids(sgrid), spx, sgrid),
+            (stub_ids(None), None, None), (stub_ids(sgrid), spx, sgrid)]
+    sizes = []
+    batch = engine.generate_batch
+
+    def counted(reqs, **kw):
+        sizes.append(len(reqs))
+        return batch(reqs, **kw)
+
+    engine.generate_batch = counted
+    # a window long enough for all four to join (the handlers decode and
+    # preprocess their images first)
+    http = _Http(engine, "selector", 0.2, micro_batch=4, batch_window_ms=250)
+    try:
+        outs = [None] * len(bodies)
+
+        def one(i):
+            outs[i] = http.post("/generate", bodies[i])
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+    finally:
+        http.close()
+        del engine.generate_batch
+    firsts = [engine.generate(i, p, g, max_new_tokens=1).tokens[0]
+              for i, p, g in refs]
+    n_tok = sum(len(o["tokens"]) - 1 for o in outs if o)
+    print(f"[http] --micro-batch 4: 4 concurrent requests in {wall!r} s, "
+          f"batches {sizes}, decode tokens {n_tok}, aggregate decode tok/s "
+          f"{n_tok / wall!r}; first tokens {[o['tokens'][0] for o in outs]}"
+          f" (one-shot {firsts})", flush=True)
+    checks["micro-batch first tokens == one-shot"] = (
+        all(o is not None for o in outs)
+        and [o["tokens"][0] for o in outs] == firsts and max(sizes) > 1)
+    return checks
+
+
+def admission_mix(cfg, input_ids, pixels, grid):
+    """Step 9.8's traffic: phase 5's 14 selector requests (4 at once, then
+    one every 100 ms), then an orig part: a text request decoding when two
+    orig image requests (phase 5's) arrive; its budget (192 tokens) keeps
+    it live through both admissions, chunked or not."""
+    import numpy as np
+
+    traffic = serve_traffic(cfg, input_ids, pixels, grid)
+    sel = [x for x in traffic if x[0] == "selector"]
+    origs = [x for x in traffic if x[0] == "orig"]
+    text = dict(input_ids=np.random.RandomState(SEED + 8).randint(
+        100, 5000, 30).astype(np.int64))
+    orig = ([("orig", text, 192, {}, 0.0)]
+            + [(e, r, m, kw, 0.3 + 0.2 * i)
+               for i, (e, r, m, kw, _) in enumerate(origs)])
+    eos = (-1,)  # random weights: run every request to its budget
+    return [[(e, r, m, dict(kw, eos_token_ids=eos), d)
+             for e, r, m, kw, d in part] for part in (sel, orig)]
+
+
+def chunked_admissions(engines, parts, prefill_chunk):
+    """One run of step 9.8's traffic through servers built as ``--continuous
+    8 --continuous-t-max 2048 --continuous-prefill-chunk <prefill_chunk>
+    --continuous-prefill-vit-segments 4`` (the selector part on phase 3's
+    engine, the orig part on an orig one), each request submitted to the
+    server's batcher from a thread of its own at its arrival time, as a
+    handler thread does. The counts are zeroed just before and read just
+    after. Returns (results by request id, stats by part, launches)."""
+    from visionselector_tpu_torch.api.serve import Server
+    from visionselector_tpu_torch.kernels import attention as A
+
+    results, stats = {}, {}
+    zero_counts()
+    for part in parts:
+        name = part[0][0]
+        srv = Server(engines[name], None, name, 0.2, continuous=POOL_SLOTS,
+                     continuous_t_max=POOL_ROWS, continuous_chunk=8,
+                     continuous_prefill_chunk=prefill_chunk,
+                     continuous_prefill_vit_segments=ADMIT_VIT_SEGMENTS)
+        res, wall = run_batcher(srv.batcher, part)
+        stats[name] = dict(srv.batcher.stats, wall=wall,
+                           tokens=sum(len(r.tokens) - 1 for r in res))
+        results.update(zip([id(x) for x in part], res))
+        del srv
+    import torch
+
+    torch.cuda.synchronize()
+    launches = dict(launch_counts(), **{
+        f"decode_t_c{k}": v for k, v in A.DECODE_LAUNCHES_BY_ROWS.items()})
+    return results, stats, launches
+
+
+def http_phase(cfg, params, engine, input_ids, pixels, grid, hf_dir) -> int:
+    """Phase 9. Raises if any check failed; returns the K5 launches at
+    t_c = ADMIT_SEG of step 9.8's chunked run."""
+    import statistics
+
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    t_phase = time.perf_counter()
+    print(f"[http] card: {nvidia_smi()}", flush=True)
+    checks = http_requests(engine, pixels, grid)
+
+    # 9.8: chunked admissions against the same mix admitted one-shot.
+    n_layers = cfg.text.num_hidden_layers
+    engines = {"selector": engine,
+               "orig": QwenVLEngine(cfg, params, use_selector=False,
+                                    device="cuda")}
+    parts = admission_mix(cfg, input_ids, pixels, grid)
+    traffic = parts[0] + parts[1]
+    runs = {}
+    for chunk in (ADMIT_SEG, 0):
+        runs[chunk] = chunked_admissions(engines, parts, chunk)
+        res, stats, launches = runs[chunk]
+        ttft = [res[id(x)].first_token_seconds * 1e3 for x in traffic]
+        for name, st in stats.items():
+            print(f"[http] --continuous {POOL_SLOTS} --continuous-prefill-"
+                  f"chunk {chunk} ({name} part): max_decode_gap_ms="
+                  f"{st['max_decode_gap_ms']!r} aggregate decode tok/s "
+                  f"{st['tokens'] / st['wall']!r} stats {st}", flush=True)
+        print(f"[http] prefill chunk {chunk}: time to first token ms median "
+              f"{statistics.median(ttft)!r} max {max(ttft)!r}; launches "
+              f"{launches}", flush=True)
+    res, stats, launches = runs[ADMIT_SEG]
+    images = [x for x in traffic if "pixel_values" in x[1]]
+    texts = [x for x in traffic if "pixel_values" not in x[1]]
+    n_seg = sum(-(-res[id(x)].prefill_len // ADMIT_SEG) for x in images)
+    steps = sum(st["chunks"] for st in stats.values()) * 8
+    vit = cfg.vision.depth
+    groups = -(-vit // -(-vit // ADMIT_VIT_SEGMENTS))
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    want = {"diag_attn_fwd": (vit - n_full) * len(images),
+            "flash_varlen_fwd": n_full * len(images) + n_layers * len(texts),
+            f"decode_t_c{ADMIT_SEG}": n_layers * n_seg,
+            "decode_t_c1": n_layers * steps}
+    got = {k: launches.get(k, 0) for k in want}
+    chunks = sum(st["prefill_chunks"] for st in stats.values())
+    admitted = sum(st["chunked_admissions"] for st in stats.values())
+    print(f"[http] chunked run: launches {got}, expected {want} ({len(images)}"
+          f" image admissions in {n_seg} segments of {ADMIT_SEG}, "
+          f"{len(texts)} text prefills, {steps} decode steps); prefill_chunks"
+          f" {chunks} (expected {len(images) * (groups + 1) + n_seg})",
+          flush=True)
+    checks["chunked launches == segments' counts"] = (
+        got == want and launches["decode_blocked_fwd"]
+        == want[f"decode_t_c{ADMIT_SEG}"] + want["decode_t_c1"])
+    checks["chunked_admissions and prefill_chunks"] = (
+        admitted == len(images) and chunks == len(images) * (groups + 1)
+        + n_seg and all(st["rejected_too_long"] == 0
+                        for r in runs.values() for st in r[1].values()))
+    # both orig admissions joined a live pool, chunked and one-shot
+    checks["orig admissions mid-decode"] = all(
+        r[1]["orig"]["mid_flight_joins"] == 2 for r in runs.values())
+    first_ok = True
+    for x in traffic:
+        name, req, max_new, kw, _ = x
+        if kw.get("temperature", 0.0) > 0.0:
+            continue
+        want_first = engines[name].generate(
+            **req, max_new_tokens=1, eos_token_ids=kw["eos_token_ids"]
+        ).tokens[0]
+        got_first = [r[0][id(x)].tokens[0] for r in runs.values()]
+        first_ok &= got_first == [want_first] * 2
+    checks["chunked and one-shot admissions: first tokens == one-shot"] = \
+        first_ok
+    del engines
+
+    # 9.9: the CLI on phase 6's HF directory, a process of its own.
+    checks["api.serve --model-path on cuda"] = serve_cli(hf_dir)
+    print(f"[http] checks: {checks}", flush=True)
+    print(f"[http] phase seconds {time.perf_counter() - t_phase!r}",
+          flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"http phase failed: {bad}")
+    return launches[f"decode_t_c{ADMIT_SEG}"]
+
+
+def serve_cli(hf_dir) -> bool:
+    """``python -m visionselector_tpu_torch.api.serve --device cuda
+    --model-path <hf_dir> --port 0`` in a process of its own: /health and
+    one /generate, then terminate it."""
+    import base64
+    import queue
+    import urllib.request
+
+    import numpy as np
+
+    from visionselector_tpu_torch.preprocess.png import encode_png
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "visionselector_tpu_torch.api.serve",
+         "--device", "cuda", "--model-path", hf_dir, "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    log, url = [], None
+    try:
+        while url is None and time.perf_counter() - t0 < 300:
+            try:
+                line = lines.get(timeout=5)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            log.append(line.rstrip())
+            m = re.search(r"listening on ([\d.]+):(\d+)", line)
+            if m:
+                url = f"http://{m.group(1)}:{m.group(2)}"
+        if url is None:
+            print(f"[http] api.serve did not start: {log[-20:]}", flush=True)
+            return False
+        up = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        img = (np.random.RandomState(SEED + 10).rand(448, 448, 3)
+               * 255).astype(np.uint8)
+        body = {"prompt": "hi", "max_new_tokens": 4, "image_b64":
+                base64.b64encode(encode_png(img)).decode()}
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            out = json.loads(r.read())
+        print(f"[http] api.serve --device cuda --model-path <phase-6 HF dir>"
+              f": up after {up!r} s ({log[-1]}); /health {health}; "
+              f"/generate {out['tokens']} kept {out['kept_vision_tokens']} "
+              f"of {out['num_vision_tokens']}, prefill_ms "
+              f"{out['prefill_ms']!r}", flush=True)
+        return health.get("ok") is True and len(out["tokens"]) == 4
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
 def main() -> int:
     import torch
 
@@ -3272,7 +3796,7 @@ def main() -> int:
     launches["flash_packed_fwd"] = variants["packed"]["flash_packed_fwd"]
     launches["fullattn_ablate_fwd"] = ablation["fullattn_ablate_fwd"]
     # Phases 6 and 7 write under .smoke_tmp/ (git-ignored), removed at the
-    # end: phase 7 evaluates phase 6's HF directory.
+    # end: phases 7-9 use phase 6's HF directory.
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            ".smoke_tmp")
     os.makedirs(scratch, exist_ok=True)
@@ -3285,6 +3809,10 @@ def main() -> int:
             cfg, params, input_ids, pixels, grid, tmp, hf_dir)
         strategies_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir,
                          kernels["flash_varlen_fwd"]["ms"])
+        # The admission path: the segments' K5 launches at t_c = 256 in
+        # phase 9's chunked run (zeroed just before, read just after).
+        launches["decode_blocked_fwd_t_c256"] = http_phase(
+            cfg, params, engine, input_ids, pixels, grid, hf_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

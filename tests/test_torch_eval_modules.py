@@ -30,6 +30,12 @@ from visionselector_tpu_torch.eval import tasks as ttasks
 from visionselector_tpu_torch.eval import tracker as ttracker
 from visionselector_tpu_torch.eval import visualize as tvisualize
 
+# The built-in task registries, as imported: a test of another file run
+# earlier in the same worker may register a task at run time
+# (tests/test_eval.py registers "mytask" in the JAX package's registry).
+JAX_TASKS = dict(jtasks.TASKS)
+PORT_TASKS = dict(ttasks.TASKS)
+
 PREDICTIONS = ["104", "The answer is (B).", "yes, it is", "the cat",
                "12 dollars", "helo world", "25%", "no\nmaybe", "", "C"]
 ANSWERS = [["100"], ["B"], ["yes"], ["cat"] * 3 + ["dog"] * 7,
@@ -77,9 +83,9 @@ def test_filter_pipeline_matches_reference(name):
 
 
 def test_task_registry_matches_reference():
-    assert sorted(ttasks.TASKS) == sorted(jtasks.TASKS)
-    for name, task in jtasks.TASKS.items():
-        assert dataclasses.asdict(ttasks.TASKS[name]) == dataclasses.asdict(
+    assert sorted(PORT_TASKS) == sorted(JAX_TASKS)
+    for name, task in JAX_TASKS.items():
+        assert dataclasses.asdict(PORT_TASKS[name]) == dataclasses.asdict(
             task)
 
 

@@ -151,7 +151,7 @@ def test_merge_and_from_log_match_reference(tmp_path, mode, capsys):
     (["--family", "llava_ov15"], 8),
     (["--family", "llava_ov15", "--method", "visionzip"], 8),
     (["--quantize", "int8"], 9),
-    (["--decode-batch", "2"], 7),
+    (["--decode-batch", "2", "--speculative", "3"], 7),
     (["--speculative", "3"], 7),
     (["--http-endpoint", "http://localhost:1"], 3),
 ])

@@ -9,8 +9,9 @@ a thin wrapper over ``api.run_eval``:
         --tasks chartqa,textvqa_val --batch_size 1 \\
         --limit 8 --output_path results/ --log_samples --data_dir /data
 
-The LLaVA-OV-1.5 adapters, ``openai_compatible`` and ``--batch_size`` > 1
-map to ``run_eval`` flags that raise NotImplementedError there.
+``--batch_size`` > 1 maps to ``run_eval --decode-batch`` (decode
+micro-batching). The LLaVA-OV-1.5 adapters and ``openai_compatible`` map
+to ``run_eval`` flags that raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ def build_parser():
     p.add_argument("--tasks", required=True)
     p.add_argument("--batch_size", default="1",
                    help="prefill stays batch 1 (reference parity); an "
-                        "integer > 1 asks for decode micro-batching, not "
-                        "ported")
+                        "integer > 1 asks for decode micro-batching "
+                        "(run_eval --decode-batch)")
     p.add_argument("--limit", type=float, default=None)
     p.add_argument("--output_path", default="eval_results")
     p.add_argument("--log_samples", action="store_true")

@@ -27,9 +27,13 @@ processes unless ``PYTHONHASHSEED`` is fixed. It runs on the GPU
 (``--device cuda``, the default) and fails without one; ``--device cpu``
 asks for the CPU.
 
+``--decode-batch N`` decodes up to N requests of a task together
+(``QwenVLEngine.generate_batch``; each request's tokens are its own
+``generate``'s).
+
 Not ported yet, each raising NotImplementedError with its ROADMAP §1 item:
-``--family llava_ov15`` (8), ``--quantize`` (9),
-``--decode-batch`` > 1 and ``--speculative`` (7), ``--http-endpoint`` (3).
+``--family llava_ov15`` (8), ``--quantize`` (9), ``--speculative`` (7),
+``--http-endpoint`` (3).
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ def build_parser():
                    help="write per-sample heatmap/mask PNGs (run_visual.sh "
                         "parity)")
     p.add_argument("--decode-batch", type=int, default=None,
-                   help="requests per decode dispatch; only 1 is ported")
+                   help="requests per batched decode (default 1)")
     p.add_argument("--quantize", default=None,
                    help="weight-only LM quantization (not ported)")
     p.add_argument("--from-log", default=None,
@@ -94,7 +98,6 @@ def _refuse_unported(args) -> None:
     refused = [
         (args.family == "llava_ov15", "--family llava_ov15", 8),
         (args.quantize is not None, "--quantize", 9),
-        ((args.decode_batch or 1) > 1, "--decode-batch > 1", 7),
         (bool(args.speculative), "--speculative", 7),
         (args.http_endpoint is not None, "--http-endpoint (eval."
                                          "http_adapter)", 3),
@@ -211,7 +214,8 @@ def main(argv=None) -> int:
         adapter = EngineAdapter(
             engine, tokenizer, visualize_dir=args.visualize_dir,
             model_tag=f"{args.family}:{args.model_path or 'smoke'}",
-            min_pixels=args.min_pixels, max_pixels=args.max_pixels)
+            min_pixels=args.min_pixels, max_pixels=args.max_pixels,
+            decode_batch=args.decode_batch or 1)
         results = evaluate(
             adapter, tasks, args.data_dir, limit=args.limit, rank=args.rank,
             world_size=args.world_size,

@@ -63,14 +63,15 @@ class EngineAdapter:
     over the port's ``QwenVLEngine`` and a tokenizer (``encode(str) ->
     ids``, ``decode(ids, skip_special_tokens=True) -> str``).
 
-    ``generate_until`` prepares the next request's host inputs (image
+    ``generate_until`` prepares the next group's host inputs (image
     decode, patchify, tokenize) on a worker thread while the engine runs
-    the current one."""
+    the current one. ``decode_batch`` > 1 decodes up to that many requests
+    of the same ``max_new_tokens`` together (``engine.generate_batch``)."""
 
     def __init__(self, engine, tokenizer, eval_time: bool = False,
                  visualize_dir: Optional[str] = None,
                  model_tag: str = "", min_pixels: Optional[int] = None,
-                 max_pixels: Optional[int] = None):
+                 max_pixels: Optional[int] = None, decode_batch: int = 1):
         from visionselector_tpu_torch.preprocess.image import (
             PROCESSOR_MAX_PIXELS,
             PROCESSOR_MIN_PIXELS,
@@ -97,6 +98,7 @@ class EngineAdapter:
         # qwen2_5_vl_with_token_compression_visual.py:418-663)
         self.visualize_dir = visualize_dir
         self.stats = EvalTimeStats()
+        self.decode_batch = max(1, int(decode_batch))
 
     def _encode_prompt(self, question: str):
         """(before, after) ids of the Qwen chat template around the
@@ -236,27 +238,46 @@ class EngineAdapter:
         return text.strip()
 
     def generate_until(self, requests: Sequence[Request],
-                       until: Sequence[str] = ("<|im_end|>",)) -> List[str]:
+                       until: Sequence[str] = ("<|im_end|>",)
+                       ) -> List[str]:
         """Greedy answers in the requests' order, run sorted by vision
-        bucket, each to its task's ``max_new_tokens``."""
+        bucket, each to its task's ``max_new_tokens``: in groups of up to
+        the adapter's ``decode_batch`` consecutive requests of the same
+        ``max_new_tokens``, one batched decode per group."""
         order = sorted(range(len(requests)),
                        key=lambda i: self._bucket_key(requests[i]))
+        groups, i = [], 0
+        while i < len(order):
+            mnt = requests[order[i]].task.max_new_tokens
+            group = [order[i]]
+            while (len(group) < self.decode_batch and i + len(group) < len(order)
+                   and requests[order[i + len(group)]].task.max_new_tokens
+                   == mnt):
+                group.append(order[i + len(group)])
+            i += len(group)
+            groups.append(group)
         out_by_pos = [None] * len(requests)
         ex = ThreadPoolExecutor(max_workers=1)
 
-        def prep(i):
-            return self._prepare_request(requests[i])
+        def prep(group):
+            return [self._prepare_request(requests[j]) for j in group]
 
         try:
-            fut = ex.submit(prep, order[0]) if order else None
-            for n, i in enumerate(order):
-                kw, grid = fut.result()
-                fut = (ex.submit(prep, order[n + 1])
-                       if n + 1 < len(order) else None)
-                res = self.engine.generate(
-                    **kw, max_new_tokens=requests[i].task.max_new_tokens)
-                out_by_pos[i] = self._postprocess(requests[i], res, grid,
-                                                  until)
+            fut = ex.submit(prep, groups[0]) if groups else None
+            for n, group in enumerate(groups):
+                prepared = fut.result()
+                fut = (ex.submit(prep, groups[n + 1])
+                       if n + 1 < len(groups) else None)
+                mnt = requests[group[0]].task.max_new_tokens
+                if len(group) == 1:
+                    results = [self.engine.generate(**prepared[0][0],
+                                                    max_new_tokens=mnt)]
+                else:
+                    results = self.engine.generate_batch(
+                        [kw for kw, _ in prepared], max_new_tokens=mnt)
+                for j, (_, grid), res in zip(group, prepared, results):
+                    out_by_pos[j] = self._postprocess(requests[j], res, grid,
+                                                      until)
         finally:
             # stop the prep worker even when generate or _postprocess
             # raises: a pending future would keep its thread alive

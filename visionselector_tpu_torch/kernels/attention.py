@@ -89,6 +89,10 @@ ABLATE_LAUNCHES = 0
 # Calls of the flash kernel source (flash, packed and ablation wrappers) by
 # route; there is one, "wgmma": the image prologue, then the wgmma main loop.
 FLASH_ROUTE_LAUNCHES = {"wgmma": 0}
+# Decode kernel launches by query rows per slot (t_c): 1 for a decode step,
+# a chunk's rows for scoring, chat appends and admission segments. Every
+# launch also counts in DECODE_LAUNCHES.
+DECODE_LAUNCHES_BY_ROWS: dict = {}
 
 
 def segment_block_bounds(seg_ids, block_q: int, block_k: int) -> np.ndarray:
@@ -1014,6 +1018,7 @@ def _decode_launch(q, k_cache, v_cache, base_len, scale=None, k_scale=None,
         raise RuntimeError(f"decode_blocked_fwd launch failed: CUDA error "
                            f"{err}")
     DECODE_LAUNCHES += 1
+    DECODE_LAUNCHES_BY_ROWS[t_c] = DECODE_LAUNCHES_BY_ROWS.get(t_c, 0) + 1
     return out
 
 

@@ -24,9 +24,20 @@ mid-decode starts after at most one chunk.
   equal its one-shot rollout whatever shares the pool.
 - Repetition penalty: a per-slot presence row in a [S, V] bool pool,
   applied and grown every step (a slot with penalty 1 is untouched).
+- Prefix cache (``prefix_store``): admissions prefill through
+  ``model.prefix_cached_prefill``; penalized requests bypass it.
+- Chunked admission (``prefill_chunk`` > 0): an image request on an engine
+  without a strategy is admitted as a ``model.ChunkedPrefill``, one step
+  (a tower block group, the compaction or a ``prefill_chunk``-row decoder
+  segment) per loop iteration with a decode chunk in between, so a live
+  slot waits at most one step, not a whole prefill, between its chunks
+  (``stats["max_decode_gap_ms"]``).
+- ``lock``: the engine lock, shared with the server, held around every
+  engine call.
 
-Speculative slots, the prefix cache, chunked prefill, auto windows and the
-int4 pool are not ported yet (the constructor raises).
+Speculative slots and the int4 pool are not ported yet (the constructor
+raises NotImplementedError); auto windows are not ported at all (ValueError:
+the decode kernel already reads only each slot's live prefix).
 """
 
 from __future__ import annotations
@@ -42,6 +53,11 @@ import torch
 
 from visionselector_tpu_torch.models.qwen25vl import lm as lm_mod
 from visionselector_tpu_torch.models.qwen25vl import model as model_mod
+
+AUTO_WINDOW_REFUSAL = (
+    "auto_window is not ported: the decode kernel already reads only each "
+    "slot's live prefix of the pool, which is what the reference's static "
+    "attention windows bound (ROADMAP §1, \"Do not port\")")
 
 
 @torch.no_grad()
@@ -60,32 +76,14 @@ def _decode_chunk_slots(params, cache, cur, pos, live, k: int,
     and marks the emitted token. Returns (toks [k, S], cache).
     """
     len0 = cache.length.clone()
-    s = cur.shape[0]
-    vocab = params.lm.cfg.vocab_size
-    rows = torch.arange(s, device=cur.device)
     tok, toks = cur, []
     for _ in range(k):
-        embed = lm_mod.embed_tokens(params.lm, tok)[:, None]  # [S, 1, D]
-        pos3 = pos[None, :, None].expand(3, s, 1)
-        hidden, cache = lm_mod.lm_decode_step(params.lm, cache, embed, pos3,
-                                              attn_impl=attn_impl)
-        logits = lm_mod.lm_head(params.lm, hidden[:, 0])  # [S, V]
-        if pres is not None:
-            logits = model_mod.penalize_logits(logits, pres, rps[:, None])
-        if temps is not None:
-            noise = torch.zeros_like(logits)
-            for i, g in enumerate(gens):
-                if g is not None:
-                    noise[i] = model_mod.gumbel_noise(g, vocab)
-            tok2 = model_mod.sample_token(logits, noise, temps, tps, tks)
-        else:
-            tok2 = torch.argmax(logits, dim=-1)
-        tok2 = torch.where(live, tok2, tok)
-        if pres is not None:
-            pres[rows, tok2] = True  # a dead slot re-marks its frozen token
+        tok, cache = model_mod._decode_rows(
+            params, cache, tok, pos, live,
+            gens if temps is not None else None, temps, tps, tks, pres,
+            None if rps is None else rps[:, None], attn_impl)
         pos = torch.where(live, pos + 1, pos)
-        toks.append(tok2)
-        tok = tok2
+        toks.append(tok)
     cache.length = torch.where(live[None, :], cache.length, len0)
     return torch.stack(toks), cache
 
@@ -133,24 +131,29 @@ class ContinuousBatcher:
     ``kv_quant="int8"`` (or ``kv_int8=True``) keeps the pool in int8 with
     per-row scales: half the bytes of a bf16 pool. ``decode_attn``: None
     (the decode kernel on the card) or "plain" (the dense plain path).
+    ``prefill_chunk`` > 0 admits image requests in steps
+    (``ChunkedPrefill``; ``prefill_vit_segments`` > 1 also splits the
+    tower): ``prefill_chunks`` counts the steps, ``chunked_admissions``
+    the requests, and ``max_decode_gap_ms`` is the longest wall gap between
+    two decode chunks while a slot was live.
     """
 
     def __init__(self, engine, n_slots: int = 8, t_max: int = 2048,
-                 chunk: int = 8, prefix_store=None, speculative: int = 0,
+                 chunk: int = 8, lock: Optional[threading.Lock] = None,
+                 prefix_store=None, speculative: int = 0,
                  kv_int8: bool = False,
                  prefill_chunk: int = 0, prefill_vit_segments: int = 0,
                  decode_attn: str | None = None,
                  auto_window: bool = False,
                  kv_quant: Optional[str] = None):
-        unported = dict(speculative=speculative, prefix_store=prefix_store,
-                        prefill_chunk=prefill_chunk,
-                        prefill_vit_segments=prefill_vit_segments,
-                        auto_window=auto_window)
-        for name, val in unported.items():
-            if val:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if speculative:
+            raise NotImplementedError(
+                "speculative slots are not ported yet (ROADMAP §1 item 7)")
         if kv_quant == "int4":
-            raise NotImplementedError("the int4 pool is not ported yet")
+            raise NotImplementedError(
+                "the int4 pool is not ported yet (ROADMAP §1 item 7)")
+        if auto_window:
+            raise ValueError(AUTO_WINDOW_REFUSAL)
         if kv_quant not in (None, "", "int8"):
             raise ValueError(f"kv_quant must be int8 or int4, got "
                              f"{kv_quant!r}")
@@ -164,6 +167,12 @@ class ContinuousBatcher:
         self.kv_quant = kv_quant or ("int8" if kv_int8 else None)
         self.decode_attn = decode_attn
         self.device = engine.device
+        self.prefix_store = prefix_store
+        self.prefill_chunk = prefill_chunk
+        self.prefill_vit_segments = prefill_vit_segments
+        # held around every engine call; the server passes its own
+        self.engine_lock = lock if lock is not None else threading.Lock()
+        self._admitting = None  # (ChunkedPrefill, item, slot index)
         self.cv = threading.Condition()
         self.queue: collections.deque = collections.deque()
         self.slots: list[Optional[_Slot]] = [None] * n_slots
@@ -233,7 +242,9 @@ class ContinuousBatcher:
     # -- worker ----------------------------------------------------------
 
     def _free_slots(self):
-        return [i for i, s in enumerate(self.slots) if s is None]
+        busy = self._admitting[2] if self._admitting is not None else -1
+        return [i for i, s in enumerate(self.slots)
+                if s is None and i != busy]
 
     def _mark_decode(self):
         """Track the max wall gap between consecutive decode dispatches
@@ -254,11 +265,30 @@ class ContinuousBatcher:
             quant=self.kv_quant == "int8")
 
     def _admit(self, item, slot_idx):
-        """One-shot admission prefill, then slot install."""
-        state = self.engine.generate(
-            **item["request"], max_new_tokens=item["max_new"],
-            eos_token_ids=item["eos"], _defer_decode=True)
+        """One-shot admission prefill, then slot install. Through the
+        prefix store when there is one, except for penalized requests: its
+        reuse path does not give the prefill's last-row logits that the
+        penalized first token is picked from (``generate_prefix_cached``
+        bypasses the store the same way)."""
+        if (self.prefix_store is not None
+                and item.get("repetition_penalty", 1.0) == 1.0):
+            state = model_mod.prefix_cached_prefill(
+                self.engine, self.prefix_store, **item["request"],
+                max_new_tokens=item["max_new"], eos_token_ids=item["eos"])
+        else:
+            state = self.engine.generate(
+                **item["request"], max_new_tokens=item["max_new"],
+                eos_token_ids=item["eos"], _defer_decode=True)
         self._install(state, item, slot_idx)
+
+    def _chunk_eligible(self, item) -> bool:
+        """Chunked admission takes image requests on an engine without a
+        strategy (strategy captures are one program and text-only prefills
+        are short), and only without a prefix store (its reuse path wins
+        over segmenting)."""
+        return (self.prefill_chunk > 0 and self.prefix_store is None
+                and getattr(self.engine, "strategy", None) is None
+                and item["request"].get("pixel_values") is not None)
 
     def _install(self, state, item, slot_idx):
         """Move a finished admission prefill into slot ``slot_idx``."""
@@ -330,6 +360,11 @@ class ContinuousBatcher:
         the batcher dead (a poisoned pool must not serve further)."""
         with self.cv:
             self._running = False
+            if self._admitting is not None:
+                _, item, _ = self._admitting
+                item["error"] = exc
+                item["done"].set()
+                self._admitting = None
             for i, slot in enumerate(self.slots):
                 if slot is not None:
                     slot.item["error"] = exc
@@ -384,28 +419,73 @@ class ContinuousBatcher:
         while True:
             with self.cv:
                 while (self._running and not self.queue
-                       and not any(self.live)):
+                       and not any(self.live) and self._admitting is None):
                     self.cv.wait()
                 if not self._running:
+                    if self._admitting is not None:
+                        _, item, _ = self._admitting
+                        item["error"] = RuntimeError("batcher shut down")
+                        item["done"].set()
+                        self._admitting = None
                     for item in self.queue:
                         item["error"] = RuntimeError("batcher shut down")
                         item["done"].set()
                     return
-                pending = []
+                pending, start_chunked = [], None
                 free = self._free_slots()
-                while self.queue and free:
-                    pending.append((self.queue.popleft(), free.pop(0)))
+                while self.queue and free and self._admitting is None:
+                    item, idx = self.queue.popleft(), free.pop(0)
+                    if self._chunk_eligible(item):
+                        # one segmented admission at a time; it starts
+                        # below, outside the condition
+                        start_chunked = (item, idx)
+                        break
+                    pending.append((item, idx))
             for item, idx in pending:
                 try:
-                    self._admit(item, idx)
+                    with self.engine_lock:
+                        self._admit(item, idx)
                 except Exception as e:  # noqa: BLE001 — report to waiter
+                    item["error"] = e
+                    item["done"].set()
+            if start_chunked is not None:
+                item, idx = start_chunked
+                try:
+                    with self.engine_lock:
+                        job = self.engine.start_chunked_prefill(
+                            **item["request"], max_new_tokens=item["max_new"],
+                            eos_token_ids=item["eos"],
+                            prefill_chunk=self.prefill_chunk,
+                            vit_segments=self.prefill_vit_segments)
+                        if job is None:  # not eligible after all
+                            self._admit(item, idx)
+                        else:
+                            self._admitting = (job, item, idx)
+                except Exception as e:  # noqa: BLE001 — report to waiter
+                    item["error"] = e
+                    item["done"].set()
+            if self._admitting is not None:
+                # one step of the segmented admission per iteration; live
+                # slots get their decode chunk in between
+                job, item, idx = self._admitting
+                try:
+                    with self.engine_lock:
+                        done = job.step()
+                        self.stats["prefill_chunks"] += 1
+                        if done:
+                            self._admitting = None
+                            self._install(job.finish(), item, idx)
+                            self.stats["chunked_admissions"] += 1
+                except Exception as e:  # noqa: BLE001 — report to waiter
+                    self._admitting = None
                     item["error"] = e
                     item["done"].set()
             if not any(self.live):
                 self._last_decode_t = None
                 continue
             try:
-                toks = self._dispatch()
+                with self.engine_lock:
+                    toks = self._dispatch()
             except Exception as e:  # noqa: BLE001 — fail fast, not hang
                 # a failed dispatch poisons the shared pool: wake every
                 # waiter with the error rather than leave them hanging

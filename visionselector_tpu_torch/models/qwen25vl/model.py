@@ -31,11 +31,19 @@ Scoring (the evaluation harness's ``loglikelihood`` requests):
 reads the continuation's log-probs from the prefill's hidden states;
 ``run_loglikelihood_choices`` prefills a context once and scores each
 choice with one chunked decode forward (``lm.lm_decode_chunk``).
+
+Serving (the last section): streaming (``generate(on_token_chunk=)``),
+decode-batched generation (``generate_batch``), segmented admission
+prefills for the continuous batcher (``start_chunked_prefill`` ->
+``ChunkedPrefill``), multi-turn chat sessions and the cross-request prefix
+cache, the last two through chunked appends (``lm_decode_chunk``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import time
 from types import SimpleNamespace
 from typing import List, Optional, Tuple
@@ -550,41 +558,166 @@ def rep_penalty_setup(vocab_size: int, input_ids, last_logits, next_token,
     return pres, first
 
 
+def _decode_rows(params: QwenVLParams, cache, tok, pos, live=None,
+                 gens=None, temperature=0.0, top_p=1.0, top_k=0,
+                 presence=None, penalty=1.0, attn_impl=None):
+    """One decode step of B rows, the body every decode loop shares.
+
+    The k/v of ``tok`` [B] at rope positions ``pos`` [B] go into ``cache``
+    in place; then each row's next token: its logits penalized where
+    ``presence`` [B, V] is given (``penalty`` a scalar or [B, 1]), sampled
+    with one Gumbel vector from ``gens[i]`` (None: no draw) under
+    temperature / top_p / top_k (scalars or [B]) when ``gens`` is given,
+    else greedy. Rows where ``live`` [B] is False keep ``tok``. The chosen
+    tokens are marked in ``presence``. Returns (next [B] int64, cache)."""
+    b = tok.shape[0]
+    embed = lm_mod.embed_tokens(params.lm, tok)[:, None]  # [B, 1, D]
+    pos3 = pos[None, :, None].expand(3, b, 1)
+    hidden, cache = lm_mod.lm_decode_step(params.lm, cache, embed, pos3,
+                                          attn_impl=attn_impl)
+    logits = lm_mod.lm_head(params.lm, hidden[:, 0])  # [B, V]
+    if presence is not None:
+        logits = penalize_logits(logits, presence, penalty)
+    if gens is not None:
+        vocab = logits.shape[-1]
+        noise = torch.stack([gumbel_noise(g, vocab) if g is not None
+                             else logits.new_zeros(vocab) for g in gens])
+        nxt = sample_token(logits, noise, temperature, top_p, top_k)
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    if live is not None:
+        nxt = torch.where(live, nxt, tok)
+    if presence is not None:
+        presence[torch.arange(b, device=nxt.device), nxt] = True
+    return nxt, cache
+
+
+@torch.no_grad()
+def _decode_batch(params: QwenVLParams, cache, firsts, starts,
+                  eos_token_ids, max_steps: int, temperature: float = 0.0,
+                  top_p: float = 1.0, seed: int = 0, top_k: int = 0,
+                  repetition_penalty: float = 1.0, presence=None,
+                  attn_impl=None, on_token=None):
+    """Decode of B requests over one pool-shaped cache [L, B, T, H_kv, Dh]
+    with per-layer and per-row lengths (selector, ``orig``, text-only and
+    the LLM-side strategies' caches batch together).
+
+    firsts / starts: [B] first tokens and rope positions. Each step writes
+    its input tokens' k/v rows into ``cache`` in place. A row that emits
+    an EOS stays frozen on its last token while the others step; its
+    further cache writes land above its valid rows and are never read. A
+    sampled row draws one Gumbel vector per live step from its own
+    ``sampling_generator(seed)``, so each row's rollout equals its own
+    ``generate``. ``presence`` [B, V] (from ``rep_penalty_setup``) is
+    required when ``repetition_penalty != 1`` and grows in place.
+    ``on_token(t)`` (B = 1 only) sees each emitted token that is not an
+    EOS. Stops once every row is done. Returns (toks [steps, B] int64
+    numpy, counts [B]: each row's tokens before its EOS, the cache with
+    its lengths advanced by the steps run)."""
+    dev = cache.k.device
+    b = len(firsts)
+    if on_token is not None and b != 1:
+        raise ValueError("_decode_batch: on_token needs a batch of one")
+    if max_steps > 0 and (int(cache.length.max()) + max_steps
+                          > cache.k.shape[2]):
+        raise ValueError(f"decode: {max_steps} steps do not fit the "
+                         f"{cache.k.shape[2]}-row cache")
+    tok = torch.as_tensor(np.asarray(firsts, np.int64), device=dev)
+    pos = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+    eos = list(eos_token_ids)
+    done = np.isin(np.asarray(firsts), eos)
+    finish = np.where(done, -1, max_steps)
+    gens = ([sampling_generator(seed, dev) for _ in range(b)]
+            if temperature > 0.0 else None)
+    live = None  # all rows live: no freeze needed
+    toks = []
+    for step in range(max_steps):
+        if done.all():
+            break
+        if done.any():
+            live = torch.as_tensor(~done, device=dev)
+        tok, cache = _decode_rows(
+            params, cache, tok, pos + step, live,
+            None if gens is None else
+            [None if d else g for d, g in zip(done, gens)],
+            temperature, top_p, top_k, presence, repetition_penalty,
+            attn_impl)
+        host = tok.cpu().numpy()  # host sync: the EOS check
+        toks.append(host)
+        now = np.isin(host, eos) & ~done
+        finish = np.where(now, step, finish)
+        done = done | now
+        if on_token is not None and not done[0]:
+            on_token(int(host[0]))
+    toks = np.stack(toks) if toks else np.zeros((0, b), np.int64)
+    counts = np.clip(np.minimum(finish, len(toks)), 0, None)
+    return toks, counts, cache
+
+
+def _decode_steps(params: QwenVLParams, cache, first_token: int,
+                  start_pos: int, eos_token_ids, max_steps: int,
+                  temperature: float = 0.0, top_p: float = 1.0,
+                  seed: int = 0, top_k: int = 0,
+                  repetition_penalty: float = 1.0, presence=None,
+                  attn_impl=None, on_token=None):
+    """``_decode_batch`` of one request from ``first_token`` at rope
+    position ``start_pos`` (``presence`` [V]). Returns (the emitted tokens
+    without the EOS, the cache with its lengths advanced by the steps run,
+    the last token emitted: the EOS when one stopped the loop,
+    ``first_token`` when no step ran)."""
+    toks, counts, cache = _decode_batch(
+        params, cache, [first_token], [start_pos], eos_token_ids, max_steps,
+        temperature, top_p, seed, top_k, repetition_penalty,
+        None if presence is None else presence[None], attn_impl, on_token)
+    last = int(toks[-1, 0]) if len(toks) else first_token
+    return toks[:int(counts[0]), 0].tolist(), cache, last
+
+
+STREAM_CHUNK = 8  # tokens per streamed chunk after the first token
+
+
 def _run_decode_loop(params: QwenVLParams, cache, first_token: int,
                      start_pos: int, eos_token_ids, max_new_tokens: int,
                      temperature: float = 0.0, top_p: float = 1.0,
                      seed: int = 0, top_k: int = 0,
                      repetition_penalty: float = 1.0, presence=None,
-                     attn_impl=None) -> List[int]:
+                     attn_impl=None, on_chunk=None) -> List[int]:
     """Decode with early EOS exit. Returns the tokens, the first one
-    included, without a trailing EOS (the reference's count). A sampled
-    request draws one Gumbel vector per step from
-    ``sampling_generator(seed)``; ``presence`` (from ``rep_penalty_setup``)
-    is required when ``repetition_penalty != 1`` and grows in place."""
+    included, without a trailing EOS (the reference's count).
+
+    ``on_chunk`` (streaming): called with the first token alone, then with
+    each run of up to STREAM_CHUNK decoded tokens, the reference's chunk
+    boundaries: a chunk that an EOS cuts short is delivered without the
+    EOS (empty when the EOS opens it), and a first-token EOS delivers one
+    empty chunk. The reference splits its sampling key per chunk; here the
+    request's generator simply continues, so a streamed sampled rollout
+    equals this loop's own non-streamed one (greedy equals the
+    reference's)."""
     if first_token in eos_token_ids:
+        if on_chunk is not None:
+            on_chunk([])
         return []
-    out = [first_token]
     if max_new_tokens <= 1:
-        return out
-    dev = cache.k.device
-    vocab = params.lm.cfg.vocab_size
-    gen = sampling_generator(seed, dev) if temperature > 0.0 else None
-    tok = torch.tensor(first_token, device=dev)
-    for step in range(max_new_tokens - 1):
-        greedy, cache, logits = _decode(params, cache, tok, start_pos + step,
-                                        attn_impl)
-        if repetition_penalty != 1.0:
-            logits = penalize_logits(logits, presence, repetition_penalty)
-            greedy = torch.argmax(logits, dim=-1)
-        tok = (sample_token(logits, gumbel_noise(gen, vocab), temperature,
-                            top_p, top_k) if gen is not None else greedy)
-        if repetition_penalty != 1.0:
-            presence[tok] = True
-        t = int(tok)  # host sync: the EOS check needs the token
-        if t in eos_token_ids:
-            break
-        out.append(t)
-    return out
+        if on_chunk is not None:
+            on_chunk([first_token])
+        return [first_token]
+    on_token, pending = None, []
+    if on_chunk is not None:
+        on_chunk([first_token])
+
+        def on_token(t):
+            pending.append(t)
+            if len(pending) == STREAM_CHUNK:
+                on_chunk(pending[:])
+                pending.clear()
+
+    toks, _, last = _decode_steps(
+        params, cache, first_token, start_pos, eos_token_ids,
+        max_new_tokens - 1, temperature, top_p, seed, top_k,
+        repetition_penalty, presence, attn_impl, on_token)
+    if on_chunk is not None and (pending or last in eos_token_ids):
+        on_chunk(pending[:])
+    return [first_token] + toks
 
 
 @dataclasses.dataclass
@@ -620,11 +753,17 @@ class PrefillState:
     result: GenerationResult  # tokens empty; filled after decode
     t_start: float = 0.0
     logits: Optional[torch.Tensor] = None  # prefill's last-row logits [V]
+    # rope delta of the ORIGINAL (uncompacted) prompt: a trailing text token
+    # at ids index i sits at rope position i + rope_delta. The prefix
+    # cache's suffix append needs it: under compression start_pos is
+    # valid_len + delta, which does not give the kept rows' positions
+    rope_delta: int = 0
 
 
 def _prefill_state(cfg: VLConfig, parts, next_token: int, start_pos: int,
                    eos_token_ids, max_new_tokens: int,
-                   result: GenerationResult, t_start: float, logits):
+                   result: GenerationResult, t_start: float, logits,
+                   rope_delta: int = 0):
     """The prefill's k/v in a cache with room for ``max_new_tokens`` more
     rows. ``parts``: [(k, v [L_i, 1, T_i, H, D], valid length)] in layer
     order, covering every decoder layer: one part for a one-stage prefill;
@@ -647,13 +786,14 @@ def _prefill_state(cfg: VLConfig, parts, next_token: int, start_pos: int,
     return PrefillState(
         cache=cache, next_token=next_token, start_pos=start_pos,
         eos_token_ids=tuple(eos_token_ids), max_new_tokens=max_new_tokens,
-        result=result, t_start=t_start, logits=logits)
+        result=result, t_start=t_start, logits=logits, rope_delta=rope_delta)
 
 
 def _decode_request(params: QwenVLParams, state: PrefillState, input_ids,
                     temperature, top_p, seed, top_k, repetition_penalty,
-                    attn_impl=None) -> GenerationResult:
-    """One-shot decode of a prefilled request."""
+                    attn_impl=None, on_chunk=None) -> GenerationResult:
+    """One-shot decode of a prefilled request (streamed through
+    ``on_chunk`` when given, see ``_run_decode_loop``)."""
     presence, first = None, state.next_token
     if repetition_penalty != 1.0:
         presence, first = rep_penalty_setup(
@@ -663,7 +803,7 @@ def _decode_request(params: QwenVLParams, state: PrefillState, input_ids,
     res.tokens = _run_decode_loop(
         params, state.cache, first, state.start_pos, state.eos_token_ids,
         state.max_new_tokens, temperature, top_p, seed, top_k,
-        repetition_penalty, presence, attn_impl)
+        repetition_penalty, presence, attn_impl, on_chunk)
     res.total_seconds = time.perf_counter() - state.t_start
     return res
 
@@ -675,9 +815,11 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
                        seed: int = 0, text_buckets=TEXT_BUCKETS,
                        _defer_decode: bool = False, top_k: int = 0,
                        repetition_penalty: float = 1.0, *, device,
-                       attn_impl=None, attn_variant=None):
+                       attn_impl=None, attn_variant=None,
+                       on_token_chunk=None):
     """Text-only generation: plain causal prefill (1-D rope on all three
-    M-RoPE axes) + decode, no vision branch."""
+    M-RoPE axes) + decode, no vision branch (streamed through
+    ``on_token_chunk`` when given)."""
     input_ids = np.asarray(input_ids).reshape(-1)
     t_orig = len(input_ids)
     t_start = time.perf_counter()
@@ -696,7 +838,8 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
     if _defer_decode:
         return state
     return _decode_request(params, state, input_ids, temperature, top_p,
-                           seed, top_k, repetition_penalty, attn_impl)
+                           seed, top_k, repetition_penalty, attn_impl,
+                           on_token_chunk)
 
 
 class QwenVLEngine:
@@ -953,17 +1096,15 @@ class QwenVLEngine:
         ``repetition_penalty``.
 
         input_ids: [T_orig] with the ``<|image_pad|>`` run already
-        expanded. ``_defer_decode=True`` returns the ``PrefillState``
-        instead of decoding (how a slot pool admits the request). Streaming,
-        video and several images are not ported yet and raise
-        NotImplementedError.
+        expanded. ``on_token_chunk`` streams the tokens: the first alone,
+        then chunks of up to 8 (``_run_decode_loop``).
+        ``_defer_decode=True`` returns the ``PrefillState`` instead of
+        decoding (how a slot pool admits the request). Video and several
+        images are not ported yet and raise NotImplementedError.
         """
         if pixel_values_videos is not None or video_grid_thw is not None:
             raise NotImplementedError(
                 "video input is not ported yet (ROADMAP §1 item 6)")
-        if on_token_chunk is not None:
-            raise NotImplementedError(
-                "streaming is not ported yet (ROADMAP §1 item 7)")
         cfg = self.cfg
         dev = self.device
         if eos_token_ids is None:
@@ -975,7 +1116,8 @@ class QwenVLEngine:
                 self.params, cfg, input_ids, max_new_tokens, eos_token_ids,
                 temperature, top_p, seed, self.text_buckets, _defer_decode,
                 top_k, repetition_penalty, device=dev,
-                attn_impl=self.attn_impl, attn_variant=self.attn_variant)
+                attn_impl=self.attn_impl, attn_variant=self.attn_variant,
+                on_token_chunk=on_token_chunk)
         if grid_thw is None or len(np.asarray(grid_thw)) != 1:
             raise NotImplementedError(
                 "one image per request (several images: ROADMAP §1 item 6)")
@@ -991,7 +1133,8 @@ class QwenVLEngine:
         if _defer_decode:
             return state
         return _decode_request(self.params, state, input_ids, *sampling,
-                               attn_impl=self.attn_impl)
+                               attn_impl=self.attn_impl,
+                               on_chunk=on_token_chunk)
 
     def _select_vit_side(self, p):
         """ViT with the last block's statistics, then the host strategy:
@@ -1055,7 +1198,7 @@ class QwenVLEngine:
         return _prefill_state(
             self.cfg, [(k_l, v_l, valid_len)], first,
             valid_len + int(p.rope_delta), eos_token_ids, max_new_tokens,
-            result, t_start, logits)
+            result, t_start, logits, int(p.rope_delta))
 
     def _prefill_llm_side(self, p, input_ids, eos_token_ids,
                           max_new_tokens: int, t_start: float):
@@ -1103,7 +1246,81 @@ class QwenVLEngine:
         return _prefill_state(
             self.cfg, [(k_a, v_a, t_orig), (k_b, v_b, keep_valid)], first,
             t_orig + int(p.rope_delta), eos_token_ids, max_new_tokens,
-            result, t_start, logits)
+            result, t_start, logits, int(p.rope_delta))
+
+
+    def start_chunked_prefill(self, input_ids, pixel_values=None,
+                              grid_thw=None, pixel_values_videos=None,
+                              video_grid_thw=None, second_per_grid_ts=None,
+                              max_new_tokens: int = 64, eos_token_ids=None,
+                              prefill_chunk: int = 256,
+                              vit_segments: int = 0
+                              ) -> Optional["ChunkedPrefill"]:
+        """Begin a segmented admission prefill (``ChunkedPrefill``).
+
+        ``vit_segments`` <= 1: the tower, selection and compaction run here
+        in one step, and ``step()`` feeds ``prefill_chunk`` compacted rows
+        through the decoder per call. ``vit_segments`` > 1: nothing runs
+        here; ``step()`` first advances ceil(depth / vit_segments) tower
+        blocks at a time, then the merger + selection + compaction
+        epilogue (the one host read of the admission), then the decoder
+        segments. Returns None for a request the fused path should take: a
+        strategy engine (its capture stages are one program) and a
+        text-only request (its prefill is already short). Video and
+        several images raise NotImplementedError (ROADMAP §1 item 6)."""
+        if self.strategy is not None:
+            return None
+        if pixel_values_videos is not None or video_grid_thw is not None:
+            raise NotImplementedError(
+                "video input is not ported yet (ROADMAP §1 item 6)")
+        if pixel_values is None:
+            return None
+        if grid_thw is None or len(np.asarray(grid_thw)) != 1:
+            raise NotImplementedError(
+                "one image per request (several images: ROADMAP §1 item 6)")
+        if eos_token_ids is None:
+            eos_token_ids = (self.cfg.eos_token_id,)
+        input_ids = np.asarray(input_ids).reshape(-1)
+        t_start = time.perf_counter()
+        p = self._prep_vision(input_ids, pixel_values, grid_thw)
+        seg = max(1, int(prefill_chunk))
+        t_comp = p.k_max + p.t_text_bucket
+        t_cap = -(-t_comp // seg) * seg  # whole segments
+        vt = self._vision_tensors(p.vb)
+        seq = self._sequence_tensors(p, input_ids)
+        job = ChunkedPrefill(
+            engine=self, seg=seg, eos_token_ids=tuple(eos_token_ids),
+            max_new_tokens=max_new_tokens, rope_delta=int(p.rope_delta),
+            result=GenerationResult(tokens=[], selected_indices=None,
+                                    num_vision_tokens=p.n, prefill_len=0),
+            t_start=t_start)
+        if vit_segments > 1:
+            depth = self.cfg.vision.depth
+            job._vit = dict(x=vt["pixel_values"], vt=vt, seq=seq, lo=0,
+                            group=max(1, -(-depth // int(vit_segments))),
+                            k_max=p.k_max, n=p.n, k=p.k, t_cap=t_cap)
+            return job
+        with torch.no_grad():
+            comp, selection = _compact_stage(
+                self.params, p.k_max, self.use_selector, vt, p.n, p.k, *seq,
+                attn_impl=self.attn_impl, attn_variant=self.attn_variant)
+        job._arm(_pad_comp(comp, t_cap), selection, t_cap)
+        return job
+
+    def generate_batch(self, requests: List[dict], max_new_tokens: int = 64,
+                       eos_token_ids=None, temperature: float = 0.0,
+                       top_p: float = 1.0, seed: int = 0, top_k: int = 0,
+                       repetition_penalty: float = 1.0
+                       ) -> List[GenerationResult]:
+        """Decode-batched generation (``run_generate_batch``): each request
+        (a dict of ``generate`` keywords) prefills on its own, then one
+        batched decode serves them all; each row's tokens equal its own
+        ``generate``'s."""
+        return run_generate_batch(
+            self, requests, max_new_tokens=max_new_tokens,
+            eos_token_ids=eos_token_ids, temperature=temperature,
+            top_p=top_p, seed=seed, top_k=top_k,
+            repetition_penalty=repetition_penalty)
 
 
 @torch.no_grad()
@@ -1171,3 +1388,583 @@ def run_loglikelihood_choices(engine: QwenVLEngine, input_ids,
             state.start_pos, state.logits, c_max, engine.attn_impl)
         out.append((float(ll), bool(greedy)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving paths: decode-batched generation, chunked admission prefill, chat
+# sessions and the cross-request prefix cache. The port writes every cache
+# in place (``lm.lm_decode_chunk``), so every path that appends to a cache
+# it must keep (a prefix snapshot, an older chat session) first copies it
+# (``_ensure_capacity``).
+# ---------------------------------------------------------------------------
+
+
+def run_generate_batch(engine: "QwenVLEngine", requests: List[dict],
+                       max_new_tokens: int = 64, eos_token_ids=None,
+                       temperature: float = 0.0, top_p: float = 1.0,
+                       seed: int = 0, top_k: int = 0,
+                       repetition_penalty: float = 1.0
+                       ) -> List[GenerationResult]:
+    """Decode-batched generation: each request prefills on its own
+    (``generate(..., _defer_decode=True)``), then one batched decode
+    (``_decode_batch``) serves them all. The batch is exactly the requests
+    (the reference pads it to a power of two to bound its compiled
+    programs; the port has none)."""
+    if not requests:
+        return []
+    states = [engine.generate(**req, max_new_tokens=max_new_tokens,
+                              eos_token_ids=eos_token_ids,
+                              _defer_decode=True) for req in requests]
+    presence = None
+    if repetition_penalty != 1.0:
+        # per-row presence from each prompt; the first token re-picked from
+        # each prefill's penalized last-row logits (HF semantics)
+        rows = []
+        for req, s in zip(requests, states):
+            pres, s.next_token = rep_penalty_setup(
+                engine.cfg.text.vocab_size, req["input_ids"], s.logits,
+                s.next_token, repetition_penalty, temperature, top_p, top_k,
+                seed)
+            rows.append(pres)
+        presence = torch.stack(rows)
+    eos = states[0].eos_token_ids
+    if any(s.eos_token_ids != eos for s in states):
+        raise ValueError("generate_batch: the requests' EOS ids differ")
+    cache = _assemble_batch_cache([s.cache for s in states])
+    t_dec0 = time.perf_counter()
+    if max_new_tokens > 1:
+        toks, counts, _ = _decode_batch(
+            engine.params, cache, [s.next_token for s in states],
+            [s.start_pos for s in states], eos, max_new_tokens - 1,
+            temperature, top_p, seed, top_k, repetition_penalty, presence,
+            engine.attn_impl)
+    else:
+        toks = np.zeros((0, len(states)), np.int64)
+        counts = np.zeros(len(states), np.int64)
+    t_decode = time.perf_counter() - t_dec0
+    results = []
+    for i, s in enumerate(states):
+        res = s.result
+        res.tokens = ([] if s.next_token in eos else
+                      [s.next_token] + toks[:int(counts[i]), i].tolist())
+        # a request's own prefill plus the shared decode (its wall since
+        # its own t_start would charge it every later request's prefill)
+        res.total_seconds = res.prefill_seconds + t_decode
+        results.append(res)
+    return results
+
+
+def _assemble_batch_cache(caches) -> lm_mod.KVCache:
+    """One [L, B, T, H_kv, Dh] cache from B one-row caches (T the largest;
+    the shorter ones zero-padded), with their per-layer lengths."""
+    k0 = caches[0].k
+    t_all = max(c.k.shape[2] for c in caches)
+    shape = (k0.shape[0], len(caches), t_all) + tuple(k0.shape[3:])
+    k = k0.new_zeros(shape)
+    v = k0.new_zeros(shape)
+    for i, c in enumerate(caches):
+        k[:, i, :c.k.shape[2]] = c.k[:, 0]
+        v[:, i, :c.v.shape[2]] = c.v[:, 0]
+    return lm_mod.KVCache(k=k, v=v, length=torch.cat(
+        [c.length for c in caches], dim=1))
+
+
+# -- chunked admission prefill ----------------------------------------------
+
+
+def _vit_segment(params: QwenVLParams, x, vt: dict, lo: int, hi: int,
+                 first: bool, attn_impl=None, attn_variant=None):
+    """Vision-tower blocks [lo, hi) as one chunked-admission step
+    (``first`` also runs the patch embed on the raw pixel rows); ``vt``:
+    the ``vit_forward`` inputs (``QwenVLEngine._vision_tensors``)."""
+    if first:
+        x = vit_mod.vit_embed(params.visual, x)
+    return vit_mod.vit_forward_segment(
+        params.visual, x, vt["rot_pos_ids"], vt["window_seg_ids"],
+        vt["full_seg_ids"], lo, hi, vt["window_kv_bounds"],
+        vt["full_kv_bounds"], vt["window_diag"], vt["window_kv_iters"],
+        vt["full_kv_iters"], attn_impl, attn_variant)
+
+
+def _pad_comp(comp, pad_to: int):
+    """The compacted sequence's embeds and positions zero-padded to
+    ``pad_to`` rows (the segments' static capacity)."""
+    t = comp.embeds.shape[0]
+    if pad_to <= t:
+        return comp
+    return comp._replace(
+        embeds=F.pad(comp.embeds, (0, 0, 0, pad_to - t)),
+        position_ids=F.pad(comp.position_ids, (0, pad_to - t)))
+
+
+def _compact_from_hidden(params: QwenVLParams, k_max: int,
+                         use_selector: bool, x, reverse_index,
+                         num_merged: int, k: int, input_ids, image_positions,
+                         text_positions, num_text: int, position_ids_orig,
+                         pad_to: int = 0):
+    """Chunked-admission epilogue of the vision phase: merger + selection +
+    compaction on the tower's final hidden states."""
+    vision_embeds = vit_mod.vit_merge(params.visual, x, reverse_index,
+                                      params.visual.cfg)
+    comp, selection = _select_and_compact(
+        params, k_max, use_selector, vision_embeds, num_merged, k,
+        input_ids, image_positions, text_positions, num_text,
+        position_ids_orig)
+    return _pad_comp(comp, pad_to), selection
+
+
+def _prefill_chunk_seg(params: QwenVLParams, cache, embeds, pos, base: int,
+                       p: int, attn_impl=None):
+    """One chunked-prefill segment: compacted rows [base, base + p) through
+    every decoder layer against the growing cache (``lm_decode_chunk``:
+    each row's k/v lands at the layer's length + i, and row i attends the
+    committed rows and the segment's rows up to itself; the decode kernel
+    at t_c = p). Returns (hidden [1, p, D], cache)."""
+    return lm_mod.lm_decode_chunk(
+        params.lm, cache, embeds[base:base + p][None],
+        pos[:, base:base + p][:, None, :], attn_impl=attn_impl)
+
+
+def _prefill_chunk_logits(params: QwenVLParams, hidden, idx: int):
+    logits = lm_mod.lm_head(params.lm, hidden[0, idx])
+    return torch.argmax(logits, dim=-1), logits
+
+
+@dataclasses.dataclass
+class ChunkedPrefill:
+    """An admission prefill run in steps (continuous batching), so that
+    the batcher can run decode chunks between them: the tower in
+    ``vit_segments`` block groups (or in one step), then the merger +
+    selection + compaction epilogue, then the compacted sequence in
+    ``seg``-row decoder segments.
+
+    The compacted layout puts the real rows first, so every segment but
+    the last is all real, and the last one's padding rows sit after the
+    real ones: causal attention keeps the real rows from reading them, and
+    their k/v lands above the final cache length, where nothing reads it.
+    The cache holds the segments' capacity plus ``max_new_tokens`` rows,
+    as ``generate``'s does."""
+
+    engine: "QwenVLEngine"
+    seg: int
+    eos_token_ids: Tuple[int, ...]
+    max_new_tokens: int
+    rope_delta: int
+    result: GenerationResult
+    t_start: float
+    embeds: Optional[torch.Tensor] = None  # [t_cap, D] compacted, padded
+    position_ids: Optional[torch.Tensor] = None  # [3, t_cap]
+    cache: Optional[object] = None  # KVCache [L, 1, t_cap + max_new]
+    valid_len: int = 0
+    n_seg: int = 0
+    selection: Optional[Selection] = None
+    i: int = 0
+    _hidden_last: Optional[torch.Tensor] = None
+    # the segmented tower's cursor and inputs; None once compacted
+    _vit: Optional[dict] = None
+
+    @property
+    def done(self) -> bool:
+        return (self._vit is None and self.cache is not None
+                and self.i >= self.n_seg)
+
+    def step(self) -> bool:
+        """Run one step (a tower block group, the compact epilogue or a
+        decoder segment); True when the prefill is complete."""
+        if self.done:
+            raise RuntimeError("ChunkedPrefill.step after its last segment")
+        with torch.no_grad():
+            if self._vit is not None:
+                self._vit_step()
+                return False
+            hidden, self.cache = _prefill_chunk_seg(
+                self.engine.params, self.cache, self.embeds,
+                self.position_ids, self.i * self.seg, self.seg,
+                self.engine.attn_impl)
+        self.i += 1
+        if self.done:
+            self._hidden_last = hidden
+        return self.done
+
+    def _vit_step(self):
+        eng, v = self.engine, self._vit
+        depth = eng.cfg.vision.depth
+        if v["lo"] < depth:
+            hi = min(v["lo"] + v["group"], depth)
+            v["x"] = _vit_segment(
+                eng.params, v["x"], v["vt"], v["lo"], hi, v["lo"] == 0,
+                eng.attn_impl,
+                "fused" if eng.attn_variant == "fused" else None)
+            v["lo"] = hi
+            return
+        comp, selection = _compact_from_hidden(
+            eng.params, v["k_max"], eng.use_selector, v["x"],
+            v["vt"]["reverse_index"], v["n"], v["k"], *v["seq"],
+            pad_to=v["t_cap"])
+        self._vit = None
+        self._arm(comp, selection, v["t_cap"])
+
+    def _arm(self, comp, selection, t_cap: int):
+        """Allocate the cache and enter the decoder phase."""
+        cfg = self.engine.cfg
+        self.cache = lm_mod.init_kv_cache(
+            cfg.text, 1, t_cap + self.max_new_tokens, comp.embeds.device,
+            comp.embeds.dtype)
+        self.valid_len = int(comp.valid_len)
+        self.n_seg = -(-self.valid_len // self.seg)
+        self.embeds, self.position_ids = comp.embeds, comp.position_ids
+        self.selection = selection if self.engine.use_selector else None
+        self.result.prefill_len = self.valid_len
+
+    @torch.no_grad()
+    def finish(self) -> PrefillState:
+        """After the last segment: the first token and the prefill state
+        (the cache's lengths set to the valid length)."""
+        if not self.done:
+            raise RuntimeError("ChunkedPrefill.finish before its last "
+                               "segment")
+        idx = (self.valid_len - 1) - (self.n_seg - 1) * self.seg
+        next_tok, logits = _prefill_chunk_logits(
+            self.engine.params, self._hidden_last, idx)
+        cache = dataclasses.replace(
+            self.cache, length=torch.full_like(self.cache.length,
+                                               self.valid_len))
+        res = self.result
+        if self.selection is not None:
+            sel = self.selection
+            res.selected_indices = (
+                sel.indices.cpu().numpy()[sel.valid.cpu().numpy()])
+            res.scores = sel.scores.cpu().numpy()[:res.num_vision_tokens]
+        first = int(next_tok)  # waits for the last segment
+        res.prefill_len = self.valid_len
+        res.prefill_seconds = time.perf_counter() - self.t_start
+        res.first_token_seconds = res.prefill_seconds
+        res.logits = logits
+        return PrefillState(
+            cache=cache, next_token=first,
+            start_pos=self.valid_len + self.rope_delta,
+            eos_token_ids=self.eos_token_ids,
+            max_new_tokens=self.max_new_tokens, result=res,
+            t_start=self.t_start, logits=logits, rope_delta=self.rope_delta)
+
+
+# -- chat sessions -------------------------------------------------------------
+
+
+def _ensure_capacity(cache, need: int) -> lm_mod.KVCache:
+    """A fresh copy of ``cache`` with at least ``need`` rows: the rows
+    below its longest layer length copied, the others zero. Always a new
+    buffer, never ``cache`` itself: the port writes caches in place, and a
+    stored prefix snapshot or a kept chat session must not see another
+    request's rows."""
+    l, b, t, h, d = cache.k.shape
+    rows = int(cache.length.max())
+    k = cache.k.new_zeros((l, b, max(t, need), h, d))
+    v = cache.v.new_zeros((l, b, max(t, need), h, d))
+    k[:, :, :rows] = cache.k[:, :, :rows]
+    v[:, :, :rows] = cache.v[:, :, :rows]
+    return lm_mod.KVCache(k=k, v=v, length=cache.length.clone())
+
+
+@torch.no_grad()
+def _append_chunk(params: QwenVLParams, cache, ids, pos_start: int,
+                  attn_impl=None):
+    """Consume n new text tokens (host ids) against the cache in one
+    chunked forward of c = max(32, 32 * ceil(n / 32)) rows (one launch
+    shape per 32 rows), written IN PLACE at each layer's length, at rope
+    positions pos_start + i. Returns (next_token, the cache with lengths +
+    n, the last real row's logits [V]). The padding rows write k/v above
+    the returned length, which the next append or decode step overwrites;
+    within the chunk they follow the real rows, so no real row attends
+    one. Raises ValueError when the c rows do not fit."""
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    n = len(ids)
+    c = max(32, -(-n // 32) * 32)
+    if int(cache.length.max()) + c > cache.k.shape[2]:
+        raise ValueError(f"_append_chunk: {c} rows past length "
+                         f"{int(cache.length.max())} do not fit the "
+                         f"{cache.k.shape[2]}-row cache")
+    padded = np.zeros(c, np.int64)
+    padded[:n] = ids
+    dev = cache.k.device
+    embeds = lm_mod.embed_tokens(params.lm,
+                                 torch.as_tensor(padded, device=dev))[None]
+    pos = pos_start + torch.arange(c, device=dev)
+    hidden, cache = lm_mod.lm_decode_chunk(
+        params.lm, cache, embeds, pos.expand(3, 1, c), attn_impl=attn_impl)
+    logits = lm_mod.lm_head(params.lm, hidden[0, n - 1])
+    cache = dataclasses.replace(cache, length=cache.length - (c - n))
+    return torch.argmax(logits, dim=-1), cache, logits
+
+
+@dataclasses.dataclass
+class ChatSession:
+    """Multi-turn decoding state: the KV cache survives across turns, so a
+    follow-up question costs one chunked append and its decode instead of
+    a prefill of the whole (vision-heavy) conversation. A turn never writes
+    into an earlier session's cache, so an older session stays usable
+    (retries, branches)."""
+
+    cache: lm_mod.KVCache
+    pos: int  # next rope position
+    pending: int  # last emitted, not yet consumed token (the turn's EOS)
+    eos_token_ids: Tuple[int, ...]
+
+
+def _session_turn(engine: "QwenVLEngine", cache, first: int, pos: int,
+                  eos, max_new_tokens: int, temperature, top_p, seed,
+                  top_k):
+    """Decode a turn from its first token: (tokens, the next session)."""
+    if first in eos:
+        return [], ChatSession(cache, pos, first, eos)
+    toks, cache, last = _decode_steps(
+        engine.params, cache, first, pos, eos, max_new_tokens - 1,
+        temperature, top_p, seed, top_k, attn_impl=engine.attn_impl)
+    consumed = len(toks) + (1 if last in eos else 0)
+    return [first] + toks, ChatSession(cache, pos + consumed, last, eos)
+
+
+def start_chat_session(engine: "QwenVLEngine", input_ids,
+                       pixel_values=None, grid_thw=None,
+                       max_new_tokens: int = 64, eos_token_ids=None,
+                       temperature: float = 0.0, top_p: float = 1.0,
+                       seed: int = 0, top_k: int = 0, **gen_kwargs):
+    """First turn: the engine's prefill and decode, with the cache kept as
+    a ``ChatSession``. A sampled first turn draws what ``engine.generate``
+    with the same seed draws (the same rollout)."""
+    state = engine.generate(
+        input_ids, pixel_values, grid_thw, max_new_tokens=max_new_tokens,
+        eos_token_ids=eos_token_ids, _defer_decode=True, **gen_kwargs)
+    tokens, sess = _session_turn(
+        engine, state.cache, state.next_token, state.start_pos,
+        tuple(state.eos_token_ids), max_new_tokens, temperature, top_p,
+        seed, top_k)
+    return dataclasses.replace(
+        state.result, tokens=tokens,
+        total_seconds=time.perf_counter() - state.t_start), sess
+
+
+def continue_chat_session(engine: "QwenVLEngine", sess: ChatSession,
+                          new_ids, max_new_tokens: int = 64,
+                          temperature: float = 0.0, top_p: float = 1.0,
+                          seed: int = 0, top_k: int = 0):
+    """Follow-up turn: [pending EOS + the new turn's ids] through one
+    chunked append on a copy of the session's cache (a multiple of 32 rows;
+    K5 at that t_c), then its decode. No vision encode and no prompt
+    prefill. Sampling is per turn (a fresh generator from ``seed``)."""
+    t_start = time.perf_counter()
+    chunk = np.concatenate([[sess.pending],
+                            np.asarray(new_ids).reshape(-1)]).astype(np.int64)
+    n = len(chunk)
+    c = max(32, -(-n // 32) * 32)
+    cache = _ensure_capacity(
+        sess.cache, int(sess.cache.length.max()) + c + max_new_tokens + 1)
+    next_token, cache, logits = _append_chunk(engine.params, cache, chunk,
+                                              sess.pos, engine.attn_impl)
+    first = int(next_token)
+    t_prefill = time.perf_counter() - t_start
+    tokens, new_sess = _session_turn(
+        engine, cache, first, sess.pos + n, sess.eos_token_ids,
+        max_new_tokens, temperature, top_p, seed, top_k)
+    return GenerationResult(
+        tokens=tokens, selected_indices=None, num_vision_tokens=0,
+        prefill_len=n, prefill_seconds=t_prefill,
+        total_seconds=time.perf_counter() - t_start, logits=logits,
+        first_token_seconds=t_prefill), new_sess
+
+
+# -- cross-request prefix cache ------------------------------------------------
+
+
+@dataclasses.dataclass
+class PrefixEntry:
+    """One stored post-prefill snapshot for cross-request KV reuse."""
+
+    sig: Optional[str]  # image signature (None = text-only prompt)
+    ids: np.ndarray  # the stored prompt's ids
+    vis_end: int  # ids index after the last vision span (0 = none)
+    cache: Optional[lm_mod.KVCache]  # per-layer lengths at the prompt's end
+    pos: int  # next rope position after the prompt
+    result: Optional[GenerationResult]  # prefill metadata
+    # the original prompt's rope delta: trailing text at ids index i has
+    # rope position i + delta (under compression ``pos`` is based on the
+    # compacted length, while kept rows keep their original positions)
+    delta: int = 0
+
+
+class PrefixCacheStore:
+    """Cross-request KV prefix cache (LRU).
+
+    Requests that share an (image, prompt prefix) pair skip the prefill of
+    the shared prefix: the stored cache rolls back to the common prefix and
+    only the suffix runs, through the chunked append chat sessions use.
+
+    Under token compression ids map one to one onto cache rows only after
+    the last vision span (``vis_end``), so a hit needs the common prefix to
+    cover every vision token; the rolled-back tokens are all text, so every
+    layer's length shifts by the rollback count (FastV's per-layer lengths
+    too: a text row lands in every layer). Re-appended suffix tokens take
+    original-index rope positions (consumed + delta), decode continues at
+    the compacted length + delta, both as a fresh prefill gives them.
+    A hit appends into a copy (``_ensure_capacity``), so the stored
+    snapshot survives any number of hits with different suffixes.
+
+    Distinct from ``ChatSession``, which extends one conversation's cache:
+    this store serves independent requests that share a prefix. Not
+    thread-safe: call it under the server's engine lock."""
+
+    def __init__(self, max_entries: int = 4, min_prefix: int = 32):
+        self.entries: "collections.OrderedDict[int, PrefixEntry]" = (
+            collections.OrderedDict())
+        self.max_entries = max_entries
+        self.min_prefix = min_prefix
+        self.hits = 0
+        self.misses = 0
+        self._next_id = 0
+
+    @staticmethod
+    def signature(pixel_values, grid_thw) -> Optional[str]:
+        if pixel_values is None:
+            return None
+        h = hashlib.sha1()
+        h.update(np.ascontiguousarray(pixel_values).tobytes())
+        if grid_thw is not None:
+            h.update(np.ascontiguousarray(grid_thw).tobytes())
+        return h.hexdigest()
+
+    def lookup(self, sig, ids: np.ndarray, exact_only: bool = False):
+        """The longest usable (entry, consumed) for a new prompt, or None.
+
+        ``consumed`` is capped at len(ids) - 1, so at least one token goes
+        through the append, which gives the next-token logits (an exact
+        repeat needs no stored logits). ``exact_only``: whole-prompt repeats
+        only (the text-dependent strategies, FastV / DART, whose selection
+        depends on the question; the LIS selector and ``orig`` score vision
+        tokens only, so a different suffix reuses the prefix exactly)."""
+        best, best_consumed = None, 0
+        for key, e in self.entries.items():
+            if e.sig != sig:
+                continue
+            if exact_only and (len(e.ids) != len(ids)
+                               or not (e.ids == ids).all()):
+                continue
+            n = min(len(e.ids), len(ids))
+            neq = np.nonzero(e.ids[:n] != ids[:n])[0]
+            j = int(neq[0]) if len(neq) else n
+            consumed = min(j, len(ids) - 1)
+            if consumed < max(e.vis_end, 1, self.min_prefix):
+                continue
+            if consumed > best_consumed:
+                best, best_consumed = (key, e), consumed
+        if best is None:
+            return None
+        key, e = best
+        self.entries.move_to_end(key)
+        return e, best_consumed
+
+    def insert(self, entry: PrefixEntry):
+        for e in self.entries.values():  # a repeat of a stored prompt
+            if (e.sig == entry.sig and len(e.ids) == len(entry.ids)
+                    and (e.ids == entry.ids).all()):
+                return
+        self.entries[self._next_id] = entry
+        self._next_id += 1
+        while len(self.entries) > self.max_entries:
+            self.entries.popitem(last=False)
+
+
+def _vision_span_end(ids: np.ndarray, cfg: VLConfig) -> int:
+    ends = np.nonzero(ids == cfg.vision_end_token_id)[0]
+    return int(ends[-1]) + 1 if len(ends) else 0
+
+
+def prefix_cached_prefill(engine: "QwenVLEngine", store: PrefixCacheStore,
+                          input_ids, pixel_values=None, grid_thw=None,
+                          max_new_tokens: int = 64, eos_token_ids=None,
+                          **gen_kwargs) -> PrefillState:
+    """Prefill through the prefix cache; the returned state's cache is the
+    caller's to write (the stored snapshot is never aliased into it).
+
+    Miss: the engine's prefill; its cache is stored and a copy handed out.
+    Hit: a copy of the stored cache, rolled back to the common prefix,
+    takes the suffix in one chunked append; the vision encode and the
+    shared text's prefill are skipped."""
+    input_ids = np.asarray(input_ids).reshape(-1)
+    sig = PrefixCacheStore.signature(pixel_values, grid_thw)
+    hit = store.lookup(sig, input_ids,
+                       exact_only=getattr(engine, "strategy", None)
+                       is not None)
+    if hit is None:
+        store.misses += 1
+        state = engine.generate(
+            input_ids, pixel_values, grid_thw,
+            max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
+            _defer_decode=True, **gen_kwargs)
+        store.insert(PrefixEntry(
+            sig=sig, ids=input_ids.copy(),
+            vis_end=_vision_span_end(input_ids, engine.cfg),
+            cache=state.cache, pos=state.start_pos,
+            result=dataclasses.replace(state.result),
+            delta=state.rope_delta))
+        return dataclasses.replace(state,
+                                   cache=_ensure_capacity(state.cache, 0))
+    store.hits += 1
+    t_start = time.perf_counter()
+    entry, consumed = hit
+    d = len(entry.ids) - consumed  # trailing text rows rolled back
+    suffix = input_ids[consumed:]
+    n = len(suffix)
+    c = max(32, -(-n // 32) * 32)
+    rolled = dataclasses.replace(entry.cache,
+                                 length=entry.cache.length - d)
+    cache = _ensure_capacity(
+        rolled, int(rolled.length.max()) + c + max_new_tokens + 1)
+    # the suffix is trailing text of the original prompt: positions
+    # consumed + delta onward, as a fresh prefill gives them
+    next_token, cache, logits = _append_chunk(
+        engine.params, cache, suffix, consumed + entry.delta,
+        engine.attn_impl)
+    first = int(next_token)
+    t_prefill = time.perf_counter() - t_start
+    eos = (tuple(eos_token_ids) if eos_token_ids is not None
+           else (engine.cfg.eos_token_id,))
+    base = dataclasses.replace(
+        entry.result, tokens=[], logits=logits,
+        prefill_len=entry.result.prefill_len - d + n,
+        prefill_seconds=t_prefill, first_token_seconds=t_prefill)
+    # decode continues at the new prompt's compacted length + delta
+    return PrefillState(
+        cache=cache, next_token=first, start_pos=entry.pos - d + n,
+        eos_token_ids=eos, max_new_tokens=max_new_tokens, result=base,
+        t_start=t_start, logits=logits, rope_delta=entry.delta)
+
+
+def generate_prefix_cached(engine: "QwenVLEngine", store: PrefixCacheStore,
+                           input_ids, pixel_values=None, grid_thw=None,
+                           max_new_tokens: int = 64, eos_token_ids=None,
+                           temperature: float = 0.0, top_p: float = 1.0,
+                           seed: int = 0, top_k: int = 0,
+                           repetition_penalty: float = 1.0,
+                           **gen_kwargs) -> GenerationResult:
+    """Generation through the prefix cache: greedy tokens equal a fresh
+    prefill's, and a sampled hit draws what ``engine.generate`` with the
+    same seed draws. ``repetition_penalty != 1`` bypasses the store (the
+    reference's rule: its penalized first token reads the prefill's
+    logits), so its tokens are ``engine.generate``'s."""
+    if repetition_penalty != 1.0:
+        return engine.generate(
+            input_ids, pixel_values, grid_thw,
+            max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
+            temperature=temperature, top_p=top_p, seed=seed, top_k=top_k,
+            repetition_penalty=repetition_penalty, **gen_kwargs)
+    state = prefix_cached_prefill(
+        engine, store, input_ids, pixel_values, grid_thw,
+        max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
+        **gen_kwargs)
+    tokens = _run_decode_loop(
+        engine.params, state.cache, state.next_token, state.start_pos,
+        tuple(state.eos_token_ids), max_new_tokens, temperature, top_p,
+        seed, top_k, attn_impl=engine.attn_impl)
+    return dataclasses.replace(
+        state.result, tokens=tokens,
+        total_seconds=time.perf_counter() - state.t_start)

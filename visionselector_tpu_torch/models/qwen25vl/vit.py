@@ -219,14 +219,46 @@ def vit_forward(
     Returns:
         merged hidden states [L, out_hidden] in ORIGINAL (unpermuted) order.
     """
+    x = vit_embed(tower, pixel_values)
+    x = vit_forward_segment(
+        tower, x, rot_pos_ids, window_seg_ids, full_seg_ids, 0,
+        tower.cfg.depth, window_kv_bounds, full_kv_bounds, window_diag,
+        window_kv_iters, full_kv_iters, attn_impl, attn_variant)
+    return vit_merge(tower, x, reverse_index, tower.cfg)
+
+
+def vit_forward_segment(
+    tower: VisionTower,
+    x: torch.Tensor,
+    rot_pos_ids: torch.Tensor,
+    window_seg_ids: torch.Tensor,
+    full_seg_ids: torch.Tensor,
+    lo: int,
+    hi: int,
+    window_kv_bounds: torch.Tensor | None = None,
+    full_kv_bounds: torch.Tensor | None = None,
+    window_diag: bool = False,
+    window_kv_iters: int = 0,
+    full_kv_iters: int = 0,
+    attn_impl: str | None = None,
+    attn_variant: str | None = None,
+) -> torch.Tensor:
+    """Tower blocks [lo, hi) on embedded hidden states x [S, hidden]: the
+    block loop of ``vit_forward`` (which runs it over [0, depth)), so a
+    tower run in consecutive segments makes the same launches per block and
+    gives the same result. Chunked admission prefills run the tower in
+    segments between serving decode chunks. Other arguments as
+    ``vit_forward``'s."""
     if attn_variant not in (None, "fused"):
         raise ValueError(f"vit_forward: attn_variant must be None or "
                          f"'fused', got {attn_variant!r}")
     cfg = tower.cfg
+    if not 0 <= lo <= hi <= cfg.depth:
+        raise ValueError(f"vit_forward_segment: blocks [{lo}, {hi}) outside "
+                         f"the {cfg.depth}-block tower")
     d, dp, heads = cfg.head_dim, head_width(tower), cfg.num_heads
-    x = vit_embed(tower, pixel_values)
     cos, sin = vision_rotary_cos_sin(rot_pos_ids, d)
-    fns = _default_attn(tower, pixel_values.shape[0], window_seg_ids,
+    fns = _default_attn(tower, x.shape[0], window_seg_ids,
                         full_seg_ids, window_kv_bounds, full_kv_bounds,
                         window_diag, window_kv_iters, full_kv_iters,
                         attn_impl)
@@ -244,10 +276,10 @@ def vit_forward(
 
         fns = {False: fused(window_seg_ids, window_kv_bounds),
                True: fused(full_seg_ids, full_kv_bounds)}
-    for i, blk in enumerate(tower.blocks):
-        x = _block(x, blk, cos, sin, cfg,
+    for i in range(lo, hi):
+        x = _block(x, tower.blocks[i], cos, sin, cfg,
                    **fns[i in cfg.fullatt_block_indexes])
-    return vit_merge(tower, x, reverse_index, cfg)
+    return x
 
 
 def _default_attn(tower: VisionTower, s_pad: int, window_seg_ids,
