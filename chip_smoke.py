@@ -195,9 +195,35 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    Last, ``python -m visionselector_tpu_torch.api.serve --device cuda
    --model-path`` on phase 6's HF directory in a process of its own:
    ``/health`` and one ``/generate``, then it is terminated.
+10. Video (``video``), on phase 3's weights: a seeded 16-frame 360x640
+   clip written under ``.smoke_tmp/`` as an ``.npy`` file and as PNG
+   frames; ``process_video`` on both gives equal pixels, grid (8, 26, 46),
+   the 16,384 bucket with ``full_kv_iters`` 32 and 2,392 merged tokens;
+   its host preparation on the native (C) and numpy paths, which must
+   agree (the native library must build on the card's host). Then seven
+   requests, 32 greedy tokens each, the counters zeroed just before and
+   read just after each: the clip at selector 0.1 and 0.2 and ``orig``;
+   two images (the phase-3 image and a 448x448 one, bucket 8,192) and the
+   448x448 image + the clip (bucket 16,384) at 0.2 and ``orig``: 28 K4 and
+   4 + 36 K1 per prefill, the ViT's 4 K1 capped (K2) in the 16,384 bucket
+   and none in the 8,192 one, 36 K5 per decode step, each against
+   ``attn_impl="plain"`` with phase 3's tolerance; prefill ms, decode
+   tok/s, ViT device ms and peak memory printed. K2 on q, k and v captured
+   from the clip's first ViT full layer at its own segments, bounds and
+   cap: ULP_LIMIT against the plain version, a planted fault (each q
+   tile's last kv tile dropped) that must fail, prologue and main loop
+   apart, its bound and one SDPA call with the segment mask. Then the clip
+   through ``ContinuousBatcher`` with a chunked admission (256-row
+   segments, 4 tower groups) and a one-shot one (first token equal to
+   one-shot ``generate``, 4 capped launches each), its 4 choices against
+   per-choice ``loglikelihood`` within LL_TOL_CHUNK, ``evaluate`` on a
+   ``videomme`` doc of the ``.npy`` clip, ``api.run_eval --http-endpoint``
+   against phase 9's server on text-only and image docs, and two clips of
+   one grid through a prefix store (no hit).
 
-The line before the last is a JSON object describing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing the kernels (K2's
+entry, ``flash_varlen_fwd_capped``, from phase 10); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -267,6 +293,11 @@ KERNELS = {
                          "visionselector_tpu/kernels/attention.py:521"),
     "fullattn_ablate_fwd": ("flash_varlen_fwd.cu",
                             "tools/bench_fullattn_ablate.py:83"),
+    # K2: the flash calls with a kv_iters cap, the ViT's full layers in the
+    # 16,384 bucket (phase 10's clip and image + clip requests)
+    "flash_varlen_fwd_capped": ("flash_varlen_fwd.cu",
+                                "visionselector_tpu/kernels/attention.py:"
+                                "389"),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -467,7 +498,7 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
                                           device=seg.device).tril()
 
 
-    p = engine._prep_vision(input_ids, pixels, grid)
+    p = engine._prep_vision(input_ids, pixels, grid, grid, None, None)
     vb = p.vb
     h, d = cfg.vision.num_heads, cfg.vision.head_dim
     for dd in (d, 128):  # the ViT's head dim, and K3's padded one
@@ -551,7 +582,8 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     valid_sel = p.num_text + p.k
     lengths = [(p.k_max + p.t_text_bucket, valid_sel)]
     orig = engine.__class__(cfg, engine.params, use_selector=False,
-                            device=dev)._prep_vision(input_ids, pixels, grid)
+                            device=dev)._prep_vision(input_ids, pixels, grid,
+                                                     grid, None, None)
     lengths.append((orig.k_max + orig.t_text_bucket, orig.num_text + orig.k))
     hq = tc.num_attention_heads
     for t, valid in lengths:
@@ -642,7 +674,7 @@ def check_kernels(cfg, engine, input_ids, pixels, grid):
     check_packed(cfg, vb, (q, k, v), lengths, kit)
     check_ablate(kit)
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
-            for name, rs in results.items()}
+            for name, rs in results.items() if rs}
 
 
 def check_diag(qkv, wseg, window_pairs, kit):
@@ -1310,6 +1342,7 @@ def launch_counts() -> dict:
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
 
     return {"flash_varlen_fwd": A.FLASH_LAUNCHES,
+            "flash_varlen_fwd_capped": A.FLASH_CAPPED_LAUNCHES,
             "diag_attn_fwd": A.DIAG_LAUNCHES,
             "decode_blocked_fwd": A.DECODE_LAUNCHES,
             "fused_vit_attn_fwd": F_.FUSED_LAUNCHES,
@@ -1322,6 +1355,7 @@ def zero_counts():
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
 
     A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
+    A.FLASH_CAPPED_LAUNCHES = 0
     A.PACKED_LAUNCHES = A.ABLATE_LAUNCHES = F_.FUSED_LAUNCHES = 0
     for route in A.FLASH_ROUTE_LAUNCHES:
         A.FLASH_ROUTE_LAUNCHES[route] = 0
@@ -1657,7 +1691,7 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
         prep = []
         for _ in range(5):
             t0 = time.perf_counter()
-            eng._prep_vision(input_ids, pixels, grid)
+            eng._prep_vision(input_ids, pixels, grid, grid, None, None)
             prep.append((time.perf_counter() - t0) * 1e3)
         runs = [eng.generate(input_ids, pixels, grid, max_new_tokens=n_new)
                 for _ in range(3)]
@@ -1710,8 +1744,8 @@ def profile_variants(cfg, params, input_ids, pixels, grid, out_dir):
     for variant in (None, "fused", "packed"):
         eng = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
                            device="cuda", attn_variant=variant)
-        vt = eng._vision_tensors(eng._prep_vision(input_ids, pixels,
-                                                  grid).vb)
+        vt = eng._vision_tensors(eng._prep_vision(
+            input_ids, pixels, grid, grid, None, None).vb)
         vit_variant = "fused" if variant == "fused" else None
 
         def vit():
@@ -3118,7 +3152,8 @@ def strategies_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir,
 
     # The same requests with every attention plain: the first token and,
     # to phase 3's tolerance, the kept set.
-    p = runs["fastv"][0]._prep_vision(input_ids, pixels, grid)
+    p = runs["fastv"][0]._prep_vision(input_ids, pixels, grid, grid, None,
+                                      None)
     vb = runs["fastv"][0]._vision_tensors(p.vb)
     for name in STRATEGY_PLAIN:
         eng, res = runs[name]
@@ -3735,6 +3770,472 @@ def serve_cli(hf_dir) -> bool:
             proc.wait(timeout=30)
 
 
+# Phase 10 (video): a clip, two images and an image + the clip on phase 3's
+# weights. The clip: 16 seeded frames of 360x640, resized to 364x644, grid
+# (8, 26, 46), 9,568 patches, 12,288 window-aligned rows, so the 16,384
+# bucket with a kv_iters cap of 32 tiles (K2's case), 2,392 merged tokens.
+CLIP_FRAMES, CLIP_HW = 16, (360, 640)
+CLIP_GRID, CLIP_BUCKET, CLIP_KV_ITERS, CLIP_MERGED = (8, 26, 46), 16384, 32, \
+    2392
+SMALL_HW = (448, 448)  # the second image: 256 merged tokens
+# (merged tokens, bucket): the phase-3 image + the 448x448 one; the 448x448
+# image + the clip
+TWO_IMAGES = (1516, 8192)
+MIXED = (2648, 16384)
+VIDEO_REQUESTS = (("selector 0.1", "clip"), ("selector 0.2", "clip"),
+                  ("orig", "clip"), ("selector 0.2", "two images"),
+                  ("orig", "two images"), ("selector 0.2", "mixed"),
+                  ("orig", "mixed"))
+VIDEO_BATCH_TOKENS = 8
+
+
+def clip_frames(seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.rand(CLIP_FRAMES, *CLIP_HW, 3) * 255).astype(np.uint8)
+
+
+def write_clip(tmp, frames, name):
+    """The clip under ``tmp`` as ``<name>.npy`` and as a directory of PNG
+    frames (``encode_png``; the card's host has no Pillow)."""
+    import numpy as np
+
+    from visionselector_tpu_torch.preprocess.png import encode_png
+
+    npy = os.path.join(tmp, f"{name}.npy")
+    np.save(npy, frames)
+    d = os.path.join(tmp, f"{name}_frames")
+    os.makedirs(d)
+    for i, fr in enumerate(frames):
+        with open(os.path.join(d, f"frame_{i:03d}.png"), "wb") as f:
+            f.write(encode_png(fr))
+    return npy, d
+
+
+def clip_inputs(cfg, engine, tmp, checks):
+    """10.1: the clip from its .npy file and from its PNG frames (equal
+    pixels), its layout, and host preparation on the native and numpy
+    paths. Returns (generate keywords of the clip without ids, the .npy
+    path)."""
+    import numpy as np
+
+    from visionselector_tpu_torch import native
+    from visionselector_tpu_torch.preprocess.video import process_video
+
+    npy, png_dir = write_clip(tmp, clip_frames(SEED + 10), "clip")
+    t0 = time.perf_counter()
+    have_native = native.native_available()
+    print(f"[video] native preprocessing available: {have_native} (build "
+          f"and load {time.perf_counter() - t0!r} s; {native._so_path()})"
+          f"{'' if have_native else ' log: ' + native.BUILD_LOG[-2000:]}",
+          flush=True)
+    checks["native preprocessing builds on the card's host"] = have_native
+
+    host_ms = {}
+    for path in ("native", "numpy"):
+        with contextlib.ExitStack() as stack:
+            if path == "numpy":
+                stack.enter_context(patched(native, "_LIB", None))
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = process_video(npy)
+                times.append((time.perf_counter() - t0) * 1e3)
+            host_ms[path] = (sorted(times)[1], out)
+    px, grid, spg = host_ms["native"][1]
+    px_png, grid_png, spg_png = process_video(png_dir)
+    same_paths = np.array_equal(px, host_ms["numpy"][1][0])
+    same_sources = (np.array_equal(px, px_png)
+                    and np.array_equal(grid, grid_png) and spg == spg_png)
+    print(f"[video] clip {CLIP_FRAMES}x{CLIP_HW[0]}x{CLIP_HW[1]} uint8: "
+          f"process_video grid {grid.tolist()} pixels {px.shape} "
+          f"second_per_grid_t {spg!r}; host prep ms native "
+          f"{host_ms['native'][0]!r} numpy {host_ms['numpy'][0]!r} (median "
+          f"of 3, .npy source); native == numpy rows: {same_paths}; .npy "
+          f"== PNG frames: {same_sources}", flush=True)
+    checks["clip: native rows == numpy rows"] = same_paths
+    checks["clip: .npy == PNG frame directory"] = same_sources
+    video = dict(pixel_values_videos=px, video_grid_thw=grid,
+                 second_per_grid_ts=np.array([spg]))
+    p = engine._prep_vision(clip_ids(cfg, grid), px, grid, None, grid,
+                            video["second_per_grid_ts"])
+    layout = (tuple(grid[0]), p.s_bucket, p.vb.full_kv_iters, p.n)
+    print(f"[video] clip layout: grid {layout[0]} patches "
+          f"{p.vb.num_patches} bucket {p.s_bucket} full_kv_iters "
+          f"{p.vb.full_kv_iters} merged {p.n}", flush=True)
+    checks["clip layout (grid, bucket, kv_iters, merged)"] = layout == (
+        CLIP_GRID, CLIP_BUCKET, CLIP_KV_ITERS, CLIP_MERGED)
+    return video, npy
+
+
+def vision_block(cfg, grid, token):
+    ids = []
+    for t, h, w in grid:
+        ids += ([cfg.vision_start_token_id]
+                + [token] * (int(t * h * w) // cfg.vision.spatial_merge_unit)
+                + [cfg.vision_end_token_id])
+    return ids
+
+
+def clip_ids(cfg, grid):
+    import numpy as np
+
+    return np.asarray(PROMPT_BEFORE + vision_block(cfg, grid,
+                                                   cfg.video_token_id)
+                      + PROMPT_AFTER, np.int64)
+
+
+def video_request_set(cfg, video, pixels, grid):
+    """The phase's three requests as ``generate`` keywords: the clip, the
+    phase-3 image + a 448x448 one, the 448x448 image + the clip."""
+    import numpy as np
+
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+
+    small = (np.random.RandomState(SEED + 12).rand(*SMALL_HW, 3)
+             * 255).astype(np.uint8)
+    spx, sgrid = preprocess_image(small)
+    vgrid = video["video_grid_thw"]
+    img = cfg.image_token_id
+    two = np.concatenate([grid, sgrid])
+    return {
+        "clip": dict(input_ids=clip_ids(cfg, vgrid), **video),
+        "two images": dict(
+            input_ids=np.asarray(PROMPT_BEFORE + vision_block(cfg, two, img)
+                                 + PROMPT_AFTER, np.int64),
+            pixel_values=np.concatenate([pixels, spx]), grid_thw=two),
+        "mixed": dict(
+            input_ids=np.asarray(
+                PROMPT_BEFORE + vision_block(cfg, sgrid, img)
+                + vision_block(cfg, vgrid, cfg.video_token_id)
+                + PROMPT_AFTER, np.int64),
+            pixel_values=spx, grid_thw=sgrid, **video),
+    }
+
+
+def video_generate(cfg, params, reqs, checks):
+    """10.2: each request of VIDEO_REQUESTS, 32 greedy tokens, the counters
+    zeroed just before and read just after: 28 K4 and 4 + 36 K1 per
+    prefill, 4 of the K1 capped in the 16,384 bucket and none in the 8,192
+    one, 36 K5 per decode step; against ``attn_impl="plain"`` with phase
+    3's tolerance. Returns (capped launches over these runs, results by
+    request, the engines by name)."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import vit as V
+    from visionselector_tpu_torch.models.qwen25vl.model import (
+        QwenVLEngine,
+        _vision_inputs,
+    )
+
+    vc, n_layers = cfg.vision, cfg.text.num_hidden_layers
+    n_full = len(vc.fullatt_block_indexes)
+
+    def engine(name, **kw):
+        if name == "orig":
+            return QwenVLEngine(cfg, params, use_selector=False,
+                                device="cuda", **kw)
+        return QwenVLEngine(cfg, params, use_selector=True,
+                            budget=float(name.split()[1]), device="cuda",
+                            **kw)
+
+    engines = {name: engine(name) for name, _ in VIDEO_REQUESTS}
+    # warm-up at the 16,384 bucket (allocator), outside the counted runs
+    engines["orig"].generate(**reqs["clip"], max_new_tokens=2)
+    torch.cuda.synchronize()
+    capped_total, results = 0, {}
+    for name, kind in VIDEO_REQUESTS:
+        eng, req = engines[name], reqs[kind]
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = eng.generate(**req, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = launch_counts()
+        steps = (len(res.tokens) - 1 if len(res.tokens) == MAX_NEW_TOKENS
+                 else len(res.tokens))
+        pv, g, ig, vg = _vision_inputs(
+            req.get("pixel_values"), req.get("grid_thw"),
+            req.get("pixel_values_videos"), req.get("video_grid_thw"))
+        p = eng._prep_vision(req["input_ids"], pv, g, ig, vg,
+                             req.get("second_per_grid_ts"))
+        want = {"diag_attn_fwd": vc.depth - n_full,
+                "flash_varlen_fwd": n_full + n_layers,
+                "flash_varlen_fwd_capped": (n_full if p.vb.full_kv_iters
+                                            else 0),
+                "decode_blocked_fwd": n_layers * steps}
+        got = {k: counts[k] for k in want}
+        capped_total += got["flash_varlen_fwd_capped"]
+        with torch.no_grad():
+            vt = eng._vision_tensors(p.vb)
+            vit_ms = cuda_ms(lambda: V.vit_forward(params.visual, **vt),
+                             n=3)
+        n_decode = len(res.tokens) - 1
+        decode_s = res.total_seconds - res.prefill_seconds
+        kept = (len(res.selected_indices) if res.selected_indices is not None
+                else res.num_vision_tokens)
+        print(f"[video] {name} {kind}: bucket {p.s_bucket} full_kv_iters "
+              f"{p.vb.full_kv_iters} vision_tokens {res.num_vision_tokens} "
+              f"kept {kept} prefill_len {res.prefill_len} prefill_ms="
+              f"{res.prefill_seconds * 1e3!r} decode_tok_s="
+              f"{n_decode / decode_s if n_decode else float('nan')!r} "
+              f"vit_device_ms={vit_ms!r} (CUDA events, median of 3) "
+              f"peak_mem_bytes={peak} launches {got} (expected {want})",
+              flush=True)
+        ok = (got == want and res.tokens and all(
+            0 <= t < cfg.text.vocab_size for t in res.tokens)
+            and bool(torch.isfinite(res.logits).all()))
+        want_n = {"two images": TWO_IMAGES, "mixed": MIXED}.get(
+            kind, (CLIP_MERGED, CLIP_BUCKET))
+        ok &= (res.num_vision_tokens, p.s_bucket) == want_n
+        checks[f"{name} {kind}: launches, tokens, layout"] = ok
+        plain = engine(name, attn_impl="plain")
+        res_p = plain.generate(**req, max_new_tokens=1)
+        diff = (res_p.logits - res.logits).abs().max().item()
+        scale = res.logits.abs().max().item()
+        line = (f"[plain] video {name} {kind}: first-token logits "
+                f"max_abs_diff={diff!r} (max |logit| {scale!r}) first token "
+                f"kernel={res.tokens[0]} plain={res_p.tokens[0]}")
+        overlap = 1.0
+        if res.selected_indices is not None:
+            a = set(res.selected_indices.tolist())
+            b = set(res_p.selected_indices.tolist())
+            overlap = len(a & b) / len(a)
+            line += f" selected overlap {len(a & b)}/{len(a)}"
+        print(line, flush=True)
+        # phase 3's tolerance
+        checks[f"{name} {kind}: kernel vs plain"] = (
+            overlap >= 0.9 if res.selected_indices is not None
+            else diff <= 0.1 * scale)
+        results[(name, kind)] = res
+        del plain
+    return capped_total, results, engines
+
+
+def k2_at_clip_layout(cfg, engine, req):
+    """10.3: K2 on q, k and v of the clip's first ViT full layer (captured
+    from a prefill), at its real segments, bounds and cap, against the
+    plain version within ULP_LIMIT, with a planted fault (each q tile's
+    last kv tile dropped from the bounds) that must fail; its prologue and
+    main loop apart; its time beside its bound and one SDPA call with the
+    same segment mask. Returns the kernels line's entry."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    seen = {}
+    flash = A.flash_varlen_fwd
+
+    def capture(q, k, v, q_seg, kv_seg, causal=False, scale=None,
+                kv_bounds=None, kv_iters=None):
+        if kv_iters and not seen:
+            seen.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                        seg=q_seg.clone(), bounds=kv_bounds.clone(),
+                        iters=int(kv_iters), scale=scale)
+        return flash(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
+                     kv_iters)
+
+    with patched(A, "flash_varlen_fwd", capture):
+        engine.generate(**req, max_new_tokens=1)
+    q, k, v, seg, bounds = (seen[x] for x in ("q", "k", "v", "seg",
+                                              "bounds"))
+    iters, scale = seen["iters"], seen["scale"]
+    _, s, h, d = q.shape
+
+    def kernel(b=bounds):
+        return A.flash_varlen_fwd(q, k, v, seg, seg, scale=scale,
+                                  kv_bounds=b, kv_iters=iters)
+
+    def plain():
+        return A.flash_plain(q, k, v, seg, seg, scale=scale,
+                             kv_bounds=bounds, kv_iters=iters)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = bf16_ulp_err(got, want)
+    pad = seg[0] == 0
+    pad_zero = bool((got[:, pad] == 0).all())
+    live = (bounds[:, 1] > bounds[:, 0]).int()
+    fault = bf16_ulp_err(kernel(bounds + live[:, None] * torch.tensor(
+        [0, -1], device=bounds.device)), want)
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, n=3)
+    seg_np, bounds_np = seg[0].cpu().numpy(), bounds.cpu().numpy()
+    visited = T.flash_steps_plain(seg[0], seg[0], False, bounds_np,
+                                  iters)[0].cpu().numpy()
+    pairs = valid_pairs(seg_np, visited, False)
+    nbytes = 4 * s * h * d * 2 + 2 * s * 4
+    bound, by = bound_ms(nbytes, 4 * d * h * pairs)
+    mask = ((seg[0, :, None] == seg[0, None, :])
+            & (seg[0, None, :] > 0))[None, None]
+    library = sdpa_ms(q, k, v, mask, scale=scale)
+    del mask
+    print(f"[kernel] flash_varlen_fwd capped (K2) clip S={s} H={h} D={d} "
+          f"frames={int(seg_np.max())} kv_iters={iters}: max_abs_err="
+          f"{err!r} ulp_err={ulps!r} (limit {ULP_LIMIT}) pad_rows_zero="
+          f"{pad_zero} ms={ms!r} plain_ms={plain_ms!r} "
+          f"valid_pair_tflops={tflops(4 * d * h * pairs, ms)!r}", flush=True)
+    print(f"[bound] flash_varlen_fwd capped clip: bytes={nbytes} flop="
+          f"{4 * d * h * pairs} bound_ms={bound!r} ({by}) share_of_bound="
+          f"{bound / ms!r} library_ms={library!r} (one "
+          f"scaled_dot_product_attention call, same segment mask)",
+          flush=True)
+    print(f"[control] flash_varlen_fwd capped clip, each q tile's last kv "
+          f"tile dropped: ulp_err={fault!r} (limit {ULP_LIMIT}) rejected="
+          f"{fault > ULP_LIMIT}", flush=True)
+    if not (ulps <= ULP_LIMIT and pad_zero and fault > ULP_LIMIT
+            and torch.isfinite(got).all()):
+        raise AssertionError(
+            f"K2 at the clip's layout: {ulps} ulps (pad rows zero "
+            f"{pad_zero}); planted fault {fault} ulps")
+    flash_phases("flash_varlen_fwd", f"capped clip S={s} kv_iters={iters}",
+                 q, k, v, seg, bounds_np, iters)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library)
+
+
+def video_other_paths(cfg, engines, reqs, results, npy, tmp, engine3,
+                      checks):
+    """10.4: the clip through the batcher (chunked and one-shot admission),
+    the choices against per-choice loglikelihood, ``evaluate`` on a
+    ``videomme`` doc, ``api.run_eval --http-endpoint`` against the port's
+    server, and a prefix store given two clips."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.api import run_eval
+    from visionselector_tpu_torch.api.run_eval import _IdTokenizer
+    from visionselector_tpu_torch.eval.evaluator import EngineAdapter, evaluate
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+    from visionselector_tpu_torch.preprocess.png import encode_png
+    from visionselector_tpu_torch.preprocess.video import process_video
+
+    clip = reqs["clip"]
+    sel = engines["selector 0.1"]
+    want_first = results[("selector 0.1", "clip")].tokens[0]
+    for label, chunk in (("chunked", ADMIT_SEG), ("one-shot", 0)):
+        bat = ContinuousBatcher(sel, n_slots=2, t_max=POOL_ROWS, chunk=8,
+                                prefill_chunk=chunk,
+                                prefill_vit_segments=ADMIT_VIT_SEGMENTS)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            res = bat.submit(clip, VIDEO_BATCH_TOKENS)
+        finally:
+            bat.shutdown()
+        torch.cuda.synchronize()
+        capped = A.FLASH_CAPPED_LAUNCHES
+        secs = time.perf_counter() - t0
+        print(f"[video] batcher, {label} admission (prefill_chunk {chunk}, "
+              f"vit_segments {ADMIT_VIT_SEGMENTS}): {secs!r} s, ttft_ms="
+              f"{res.first_token_seconds * 1e3!r} tokens {res.tokens}; "
+              f"stats {bat.stats}; capped K1 {capped}; first token "
+              f"{res.tokens[0]} (one-shot {want_first})", flush=True)
+        checks[f"batcher {label}: first token == one-shot"] = (
+            res.tokens[0] == want_first and capped == 4
+            and bat.stats["chunked_admissions"] == (1 if chunk else 0))
+
+    orig = engines["orig"]
+    rng = np.random.RandomState(SEED + 13)
+    choices = [rng.randint(1000, 100000, n) for n in CHOICE_LENS]
+    kw = {k: v for k, v in clip.items() if k != "input_ids"}
+    t0 = time.perf_counter()
+    lls = M.run_loglikelihood_choices(orig, clip["input_ids"], choices, **kw)
+    ms = (time.perf_counter() - t0) * 1e3
+    per = [orig.loglikelihood(clip["input_ids"], c, **kw) for c in choices]
+    errs = [ll_per_token(a[0], b[0], len(c))
+            for a, b, c in zip(lls, per, choices)]
+    print(f"[video] orig clip choices ({list(CHOICE_LENS)} ids; one prefill,"
+          f" {ms!r} ms): {[x for x, _ in lls]} against each choice's "
+          f"loglikelihood {[x for x, _ in per]}: |diff| per token {errs} "
+          f"(limit {LL_TOL_CHUNK})", flush=True)
+    checks["clip choices vs per-choice loglikelihood"] = (
+        max(errs) <= LL_TOL_CHUNK
+        and all(np.isfinite(x) for x, _ in lls + per))
+
+    task_dir = os.path.join(tmp, "video_tasks")
+    os.makedirs(task_dir)
+    shutil.copy(npy, os.path.join(task_dir, "clip.npy"))
+    with open(os.path.join(task_dir, "videomme.jsonl"), "w") as f:
+        f.write(json.dumps({"question": "What happens in the clip?",
+                            "answers": ["A"], "video": "clip.npy",
+                            "choices": ["noise", "a cat", "a dog"]}) + "\n")
+    t0 = time.perf_counter()
+    res = evaluate(EngineAdapter(sel, _IdTokenizer()), ["videomme"],
+                   task_dir)
+    print(f"[video] evaluate videomme (one .npy clip doc, selector 0.1): "
+          f"{res} in {time.perf_counter() - t0!r} s", flush=True)
+    checks["evaluate videomme"] = res.get("videomme/n") == 1.0 and \
+        "videomme/multiple_choice" in res
+
+    http_dir = os.path.join(tmp, "http_tasks")
+    os.makedirs(http_dir)
+    with open(os.path.join(http_dir, "image.png"), "wb") as f:
+        f.write(encode_png(request_image()))
+    with open(os.path.join(http_dir, "chartqa.jsonl"), "w") as f:
+        for doc in ({"question": "What is two?", "answers": ["2"]},
+                    {"question": "Name a color.", "answers": ["red"]},
+                    {"question": "Read the chart.", "answers": ["x"],
+                     "image": "image.png"}):
+            f.write(json.dumps(doc) + "\n")
+    out_dir = os.path.join(tmp, "http_eval_out")
+    http = _Http(engine3, "selector", 0.2)
+    t0 = time.perf_counter()
+    try:
+        rc = run_eval.main(["--data-dir", http_dir, "--tasks", "chartqa",
+                            "--http-endpoint", http.url,
+                            "--http-concurrency", "2", "--output-dir",
+                            out_dir])
+    finally:
+        http.close()
+    with open(os.path.join(out_dir, "http_endpoint.json")) as f:
+        got = json.load(f)["results"]
+    print(f"[video] api.run_eval --http-endpoint (the port's server, 2 "
+          f"text-only docs and one image doc): rc={rc} {got} in "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    checks["run_eval --http-endpoint"] = rc == 0 and got.get(
+        "chartqa/n") == 3.0
+
+    store = M.PrefixCacheStore(min_prefix=1)
+    other = dict(clip)
+    px2, grid2, spg2 = process_video(clip_frames(SEED + 11))
+    other.update(pixel_values_videos=px2, video_grid_thw=grid2,
+                 second_per_grid_ts=np.array([spg2]))
+    for req in (clip, other):
+        M.prefix_cached_prefill(orig, store, **req, max_new_tokens=4)
+    print(f"[video] prefix store, two clips of one grid and the same ids: "
+          f"hits {store.hits} misses {store.misses}", flush=True)
+    checks["prefix store: two clips never share an entry"] = (
+        store.hits, store.misses) == (0, 2)
+
+
+def video_phase(cfg, params, engine3, pixels, grid, tmp):
+    """Phase 10. Raises if any check failed; returns (the capped K1
+    launches of 10.2's runs, the kernels line's K2 entry)."""
+    t_phase = time.perf_counter()
+    print(f"[video] card: {nvidia_smi()}", flush=True)
+    checks = {}
+    video, npy = clip_inputs(cfg, engine3, tmp, checks)
+    reqs = video_request_set(cfg, video, pixels, grid)
+    capped, results, engines = video_generate(cfg, params, reqs, checks)
+    k2 = k2_at_clip_layout(cfg, engines["orig"], reqs["clip"])
+    video_other_paths(cfg, engines, reqs, results, npy, tmp, engine3,
+                      checks)
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[video] checks: {checks}", flush=True)
+    print(f"[video] phase seconds {time.perf_counter() - t_phase!r}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"video phase failed: {bad}")
+    return capped, k2
+
+
 def main() -> int:
     import torch
 
@@ -3813,6 +4314,11 @@ def main() -> int:
         # phase 9's chunked run (zeroed just before, read just after).
         launches["decode_blocked_fwd_t_c256"] = http_phase(
             cfg, params, engine, input_ids, pixels, grid, hf_dir)
+        # The video path: the capped K1 launches (K2) of phase 10's counted
+        # requests, and K2 held at the clip's own layout.
+        (launches["flash_varlen_fwd_capped"],
+         kernels["flash_varlen_fwd_capped"]) = video_phase(
+            cfg, params, engine, pixels, grid, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

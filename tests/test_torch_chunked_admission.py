@@ -45,7 +45,8 @@ def test_vit_segments_equal_whole_tower(w, variant):
     whole tower's hidden states bit for bit, under each attention
     configuration (packed: heads padded in the weights)."""
     eng = w["tsel"]
-    p = eng._prep_vision(w["ids_for"]([8]), w["px"], w["grid"])
+    p = eng._prep_vision(w["ids_for"]([8]), w["px"], w["grid"], w["grid"],
+                         None, None)
     vt = eng._vision_tensors(p.vb)
     visual = eng.params.visual
     if variant == "packed":

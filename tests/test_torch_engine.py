@@ -120,11 +120,6 @@ def test_unported_options_raise(weights):
     _, _, tparams = weights
     ids, px, grid = _request(IMAGES[0])
     eng = tmodel.QwenVLEngine(qwen25vl_tiny(), tparams, device="cpu")
-    video = {"pixel_values_videos": px, "video_grid_thw": grid}
-    with pytest.raises(NotImplementedError):
-        eng.generate(ids, px, grid, max_new_tokens=2, **video)
-    with pytest.raises(NotImplementedError):
-        eng.start_chunked_prefill(ids, px, grid, max_new_tokens=2, **video)
     from visionselector_tpu_torch.selector.baselines import get_baseline
 
     strat = tmodel.QwenVLEngine(qwen25vl_tiny(), tparams, device="cpu",

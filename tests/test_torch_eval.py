@@ -12,6 +12,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -227,9 +228,20 @@ def test_second_run_served_from_cache(engines, data_dir, tmp_path,
 
 
 def test_unported_requests_raise(engines, data_dir):
-    _, teng = engines
-    adapter = tev.EngineAdapter(teng, Tok())
-    req = ttasks.load_task_docs(ttasks.TASKS[GEN], data_dir)[0]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        adapter._prepare_request(dataclasses.replace(req,
-                                                     video_path="clip.npy"))
+    """A video doc (once refused) is prepared as the JAX adapter prepares
+    it: ``process_video`` of its ``.npy`` clip, ``<|video_pad|>`` tokens
+    and ``second_per_grid_ts``; no visualization grid."""
+    jeng, teng = engines
+    clip = (np.random.RandomState(3).rand(5, 56, 84, 3) * 255).astype(
+        np.uint8)
+    path = os.path.join(data_dir, "clip.npy")
+    np.save(path, clip)
+    req = dataclasses.replace(
+        ttasks.load_task_docs(ttasks.TASKS[GEN], data_dir)[0],
+        video_path=path)
+    got, grid = tev.EngineAdapter(teng, Tok())._prepare_request(req)
+    want, _ = jev.EngineAdapter(jeng, Tok())._prepare_request(req)
+    assert grid is None and sorted(got) == sorted(want)
+    assert "pixel_values_videos" in got and "pixel_values" not in got
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)

@@ -160,12 +160,6 @@ def test_unported_and_invalid_requests_raise(engines, image_request):
     _, teng = engines[True]
     ids, vision = image_request
     px, grid = vision["pixel_values"], vision["grid_thw"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        teng.loglikelihood(ids, [5], pixel_values_videos=px,
-                           video_grid_thw=grid)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        teng.loglikelihood(ids, [5], pixel_values=np.concatenate([px, px]),
-                           grid_thw=np.concatenate([grid, grid]))
     with pytest.raises(ValueError):
         teng.loglikelihood(ids, [])
     with pytest.raises(ValueError):

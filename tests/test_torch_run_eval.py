@@ -153,7 +153,6 @@ def test_merge_and_from_log_match_reference(tmp_path, mode, capsys):
     (["--quantize", "int8"], 9),
     (["--decode-batch", "2", "--speculative", "3"], 7),
     (["--speculative", "3"], 7),
-    (["--http-endpoint", "http://localhost:1"], 3),
 ])
 def test_unported_flags_raise_with_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
@@ -200,8 +199,7 @@ def test_run_selector_argv_matches_reference(monkeypatch, argv):
 ])
 def test_lmms_eval_cli_maps_like_reference(monkeypatch, argv):
     """The port passes ``run_eval`` what the reference passes, plus its
-    ``--device`` and less ``--http-model`` (http_adapter is not ported);
-    the same model_args parsing."""
+    ``--device``; the same model_args parsing."""
     seen = []
     monkeypatch.setattr(jrun_eval, "main", lambda a: seen.append(a) or 0)
     assert jlmms.main(argv) == 0
@@ -210,11 +208,7 @@ def test_lmms_eval_cli_maps_like_reference(monkeypatch, argv):
         i = got.index("--device")
         assert got[i + 1] == "cuda"
         got = got[:i] + got[i + 2:]
-    want = seen[0]
-    if "--http-model" in want:
-        i = want.index("--http-model")
-        want = want[:i] + want[i + 2:]
-    assert got == want
+    assert got == seen[0]
     ma = argv[argv.index("--model_args") + 1]
     assert tlmms.parse_model_args(ma) == jlmms.parse_model_args(ma)
 
@@ -232,11 +226,18 @@ def test_lmms_eval_cli_batch_size_maps_to_decode_batch():
 
 def test_lmms_eval_cli_openai_compatible_is_refused(tmp_path):
     """The ``openai_compatible`` model maps to ``--http-endpoint``, which
-    ``run_eval`` refuses with its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 3\\b"):
-        tlmms.main(["--model", "openai_compatible", "--model_args",
-                    "base_url=http://localhost:1,model=m", "--tasks", "pope",
-                    "--data_dir", str(tmp_path)])
+    refuses a loglikelihood-scored task before any request, as the
+    reference's does (chat completions give no token log-probs)."""
+    (tmp_path / "scienceqa_img.jsonl").write_text(json.dumps(
+        {"question": "Pick one.", "answers": ["A"],
+         "choices": ["a", "b"]}) + "\n")
+    argv = ["--model", "openai_compatible", "--model_args",
+            "base_url=http://localhost:1,model=m", "--tasks",
+            "scienceqa_img_ll", "--data_dir", str(tmp_path),
+            "--output_path", str(tmp_path / "out")]
+    for cli in (tlmms, jlmms):
+        with pytest.raises(SystemExit, match="log-probs"):
+            cli.main(argv)
 
 
 class _Tok:

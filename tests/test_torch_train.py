@@ -537,9 +537,6 @@ def test_dataset_fallback_and_registry(tmp_path):
     specs = tdataset.parse_dataset_names("coco%10, chartqa", reg)
     assert [(s.name, s.sampling_rate, s.data_path) for s in specs] == [
         ("coco", pytest.approx(0.1), "imgs"), ("chartqa", 1.0, "")]
-    with pytest.raises(NotImplementedError):
-        tdataset.build_sample_from_record(
-            qwen25vl_tiny(), dict(rec, video="clip.mp4"), BUDGET, 256, 128)
 
 
 # ------------------------------------------------------------------- CLI

@@ -29,7 +29,7 @@ LM_SCALE = 8.0
 EOS = (-1,)  # run every request to its budget unless a test sets an EOS
 
 
-def serving_tree(cfg, seed: int) -> dict:
+def serving_tree(cfg, seed: int, scorer_std: float = 1e-4) -> dict:
     def scale(path, x):
         name = jax.tree_util.keystr(path)
         if name.startswith("['lm']") and not name.endswith(
@@ -37,7 +37,8 @@ def serving_tree(cfg, seed: int) -> dict:
             return x * LM_SCALE
         return x
 
-    return jax.tree_util.tree_map_with_path(scale, jax_param_tree(cfg, seed))
+    return jax.tree_util.tree_map_with_path(
+        scale, jax_param_tree(cfg, seed, scorer_std))
 
 
 def four_layers(cfg):

@@ -10,8 +10,9 @@ a thin wrapper over ``api.run_eval``:
         --limit 8 --output_path results/ --log_samples --data_dir /data
 
 ``--batch_size`` > 1 maps to ``run_eval --decode-batch`` (decode
-micro-batching). The LLaVA-OV-1.5 adapters and ``openai_compatible`` map
-to ``run_eval`` flags that raise NotImplementedError there.
+micro-batching); ``openai_compatible`` (model_args ``base_url=``,
+``model=``) to ``run_eval --http-endpoint``. The LLaVA-OV-1.5 adapters map
+to a ``run_eval`` flag that raises NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -93,8 +94,8 @@ def run_eval_argv(args) -> list:
                 "openai_compatible needs model_args base_url=<url> and "
                 "--data_dir (reference: openai_compatible.py)")
         return ["--http-endpoint", base_url, "--data-dir", data_dir,
-                "--tasks", args.tasks, "--output-dir", args.output_path
-                ] + limit
+                "--tasks", args.tasks, "--output-dir", args.output_path,
+                "--http-model", ma.get("model", "default")] + limit
     if data_dir is None:
         raise SystemExit("--data_dir (or model_args data_dir=) is required: "
                          "datasets are local jsonl files")

@@ -15,8 +15,11 @@ writes ``<output-dir>/<method>_<budget>_rank<r>
 .json`` and the per-rank sample log beside it, and prints the EVAL_TIME
 probes when ``EVAL_TIME=true`` (scraped by ``eval.extract_time``).
 ``--rank`` / ``--world-size`` shard the requests across processes;
-``--merge`` then scores the ranks' sample logs as one run, and
-``--from-log`` rescores earlier sample logs without a model.
+``--merge`` then scores the ranks' sample logs as one run,
+``--from-log`` rescores earlier sample logs without a model, and
+``--http-endpoint URL`` evaluates an OpenAI-compatible chat-completions
+server (``eval.http_adapter``; the port's ``api.serve`` is one) instead of
+local weights.
 
 ``--model-path`` loads a Hugging Face checkpoint directory and its
 tokenizer (``transformers``, imported only by ``api.predict.
@@ -32,8 +35,7 @@ asks for the CPU.
 ``generate``'s).
 
 Not ported yet, each raising NotImplementedError with its ROADMAP §1 item:
-``--family llava_ov15`` (8), ``--quantize`` (9), ``--speculative`` (7),
-``--http-endpoint`` (3).
+``--family llava_ov15`` (8), ``--quantize`` (9), ``--speculative`` (7).
 """
 
 from __future__ import annotations
@@ -88,7 +90,13 @@ def build_parser():
     p.add_argument("--speculative", type=int, default=None,
                    help="prompt-lookup speculative decoding (not ported)")
     p.add_argument("--http-endpoint", default=None,
-                   help="evaluate an OpenAI-compatible server (not ported)")
+                   help="evaluate an OpenAI-compatible chat-completions "
+                        "server instead of local weights (lmms-eval "
+                        "openai_compatible parity): server root URL, e.g. "
+                        "http://host:8000; works against api.serve")
+    p.add_argument("--http-model", default="default",
+                   help="payload model field for --http-endpoint")
+    p.add_argument("--http-concurrency", type=int, default=8)
     p.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                    help="cuda (default) or cpu; cuda without a GPU fails")
     return p
@@ -99,8 +107,6 @@ def _refuse_unported(args) -> None:
         (args.family == "llava_ov15", "--family llava_ov15", 8),
         (args.quantize is not None, "--quantize", 9),
         (bool(args.speculative), "--speculative", 7),
-        (args.http_endpoint is not None, "--http-endpoint (eval."
-                                         "http_adapter)", 3),
     ]
     for hit, what, item in refused:
         if hit:
@@ -156,6 +162,26 @@ def _from_log(args) -> int:
     return 0
 
 
+def _http_endpoint(args) -> int:
+    from visionselector_tpu_torch.eval.evaluator import evaluate
+    from visionselector_tpu_torch.eval.http_adapter import (
+        OpenAICompatAdapter,
+    )
+
+    adapter = OpenAICompatAdapter(args.http_endpoint, model=args.http_model,
+                                  concurrency=args.http_concurrency)
+    os.makedirs(args.output_dir, exist_ok=True)
+    results = evaluate(adapter, args.tasks.split(","), args.data_dir,
+                       limit=args.limit, rank=args.rank,
+                       world_size=args.world_size)
+    with open(os.path.join(args.output_dir, "http_endpoint.json"), "w") as f:
+        json.dump({"method": "http_endpoint",
+                   "endpoint": args.http_endpoint, "results": results}, f,
+                  indent=2)
+    print(json.dumps(results))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -169,6 +195,8 @@ def main(argv=None) -> int:
         return _merge(args)
     if args.from_log:
         return _from_log(args)
+    if args.http_endpoint:
+        return _http_endpoint(args)
 
     import torch
 

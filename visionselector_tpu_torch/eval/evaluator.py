@@ -13,7 +13,8 @@ reference's default ``VST_EVAL_PREFETCH``), decoding is one request at a
 time (batched and speculative decoding are not ported; ``api.run_eval``
 refuses their flags), and the window layout is always the aligned one.
 ``EVAL_TIME=true`` is the reference harness's own contract and is kept.
-Video docs raise NotImplementedError.
+A doc's images (one or several) or its video (``preprocess.video``) reach
+the engine in one request.
 """
 
 from __future__ import annotations
@@ -153,7 +154,7 @@ class EngineAdapter:
 
     def _prepare_request(self, req: Request):
         """The engine ``generate`` kwargs for one request, and its grid
-        (for the visualization hook; None for text-only)."""
+        (for the visualization hook; None for text-only and video)."""
         from visionselector_tpu_torch.preprocess.image import (
             preprocess_image,
         )
@@ -162,11 +163,25 @@ class EngineAdapter:
         )
 
         cfg = self.engine.cfg
-        if req.video_path is not None:
-            raise NotImplementedError(
-                "video docs are not ported yet (preprocess.video; ROADMAP "
-                "§1 item 6)")
         before, after = self._encode_prompt(req.question)
+        if req.video_path is not None:
+            from visionselector_tpu_torch.preprocess.video import (
+                process_video,
+            )
+
+            pixels, grid, spg = process_video(
+                req.video_path, patch_size=cfg.vision.patch_size,
+                temporal_patch_size=cfg.vision.temporal_patch_size,
+                merge_size=cfg.vision.spatial_merge_size)
+            input_ids = expand_vision_tokens(
+                before, after, grid,
+                spatial_merge_size=cfg.vision.spatial_merge_size,
+                image_token_id=cfg.video_token_id,
+                vision_start_token_id=cfg.vision_start_token_id,
+                vision_end_token_id=cfg.vision_end_token_id)
+            return dict(input_ids=input_ids, pixel_values_videos=pixels,
+                        video_grid_thw=grid,
+                        second_per_grid_ts=np.array([spg])), None
         if req.image_path is None:
             # text-only request: the engine prefills the plain token
             # sequence, no vision branch
@@ -174,10 +189,10 @@ class EngineAdapter:
             return dict(input_ids=input_ids), None
         from PIL import Image
 
-        # One or several images, each preprocessed on its own, pixel rows
-        # concatenated, one grid row per image (the HF processor's batched
-        # call, ``qwen25vl/processing_qwen2_5_vl.py:48-219``); the engine
-        # takes one.
+        # One or several images (MMMU docs hold several), each preprocessed
+        # on its own, pixel rows concatenated, one grid row per image (the
+        # HF processor's batched call,
+        # ``qwen25vl/processing_qwen2_5_vl.py:48-219``).
         pixel_list, grid_list = [], []
         for path in req.image_paths:
             px, g = preprocess_image(
@@ -202,7 +217,8 @@ class EngineAdapter:
         """Decoded text cut at the first stop string; the visualization
         and the EVAL_TIME probes."""
         cfg = self.engine.cfg
-        if (self.visualize_dir and len(req.image_paths) == 1
+        if (self.visualize_dir and req.video_path is None
+                and len(req.image_paths) == 1
                 and res.selected_indices is not None):
             from PIL import Image
 

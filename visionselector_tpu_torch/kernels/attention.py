@@ -52,7 +52,8 @@ backward (the reference has no Pallas backward kernel). ``attention`` and
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
 / ``DECODE_LAUNCHES`` / ``PACKED_LAUNCHES`` / ``ABLATE_LAUNCHES`` count
-wrapper calls that launched kernels, each wrapper its own, so a run can
+wrapper calls that launched kernels, each wrapper its own
+(``FLASH_CAPPED_LAUNCHES`` the flash calls with a kv_iters cap), so a run can
 show that it went through the kernels. ``impl="plain"`` asks for the plain
 path on any device (used to compare the whole model against the kernels on
 the card); for decode that is the dense path over the whole cache, the
@@ -86,6 +87,10 @@ DIAG_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 ABLATE_LAUNCHES = 0
+# ``flash_varlen_fwd`` launches with a kv_iters cap (the reference's
+# streamed kernel, K2: the ViT's full layers in the 16,384 bucket); each
+# also counts in FLASH_LAUNCHES.
+FLASH_CAPPED_LAUNCHES = 0
 # Calls of the flash kernel source (flash, packed and ablation wrappers) by
 # route; there is one, "wgmma": the image prologue, then the wgmma main loop.
 FLASH_ROUTE_LAUNCHES = {"wgmma": 0}
@@ -384,13 +389,15 @@ def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
     D in KERNEL_HEAD_DIMS, kv_bounds (if given) has one row per 64-row q
     tile.
     """
-    global FLASH_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_CAPPED_LAUNCHES
     if _on_cpu(q, k, v, q_seg, kv_seg):
         return flash_plain(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
                            kv_iters)
     out, _ = _launch_flash("flash_varlen_fwd", q, k, v, q_seg, kv_seg,
                            causal, scale, kv_bounds, kv_iters)
     FLASH_LAUNCHES += 1
+    if kv_iters:
+        FLASH_CAPPED_LAUNCHES += 1
     return out
 
 

@@ -26,12 +26,12 @@ mid-decode starts after at most one chunk.
   applied and grown every step (a slot with penalty 1 is untouched).
 - Prefix cache (``prefix_store``): admissions prefill through
   ``model.prefix_cached_prefill``; penalized requests bypass it.
-- Chunked admission (``prefill_chunk`` > 0): an image request on an engine
-  without a strategy is admitted as a ``model.ChunkedPrefill``, one step
-  (a tower block group, the compaction or a ``prefill_chunk``-row decoder
-  segment) per loop iteration with a decode chunk in between, so a live
-  slot waits at most one step, not a whole prefill, between its chunks
-  (``stats["max_decode_gap_ms"]``).
+- Chunked admission (``prefill_chunk`` > 0): an image or video request on
+  an engine without a strategy is admitted as a ``model.ChunkedPrefill``,
+  one step (a tower block group, the compaction or a ``prefill_chunk``-row
+  decoder segment) per loop iteration with a decode chunk in between, so a
+  live slot waits at most one step, not a whole prefill, between its
+  chunks (``stats["max_decode_gap_ms"]``).
 - ``lock``: the engine lock, shared with the server, held around every
   engine call.
 
@@ -208,7 +208,8 @@ class ContinuousBatcher:
                temperature: float = 0.0, top_p: float = 1.0,
                seed: int = 0, top_k: int = 0,
                repetition_penalty: float = 1.0):
-        """request: generate() kwargs (input_ids, pixel_values, grid_thw);
+        """request: generate() kwargs (input_ids, pixel_values, grid_thw,
+        pixel_values_videos, video_grid_thw, second_per_grid_ts);
         sampling knobs may ride in the dict or as explicit kwargs. Blocks
         until decode finishes; returns the GenerationResult."""
         request = dict(request)
@@ -282,13 +283,15 @@ class ContinuousBatcher:
         self._install(state, item, slot_idx)
 
     def _chunk_eligible(self, item) -> bool:
-        """Chunked admission takes image requests on an engine without a
-        strategy (strategy captures are one program and text-only prefills
-        are short), and only without a prefix store (its reuse path wins
-        over segmenting)."""
+        """Chunked admission takes image and video requests on an engine
+        without a strategy (strategy captures are one program and text-only
+        prefills are short), and only without a prefix store (its reuse path
+        wins over segmenting)."""
+        req = item["request"]
         return (self.prefill_chunk > 0 and self.prefix_store is None
                 and getattr(self.engine, "strategy", None) is None
-                and item["request"].get("pixel_values") is not None)
+                and (req.get("pixel_values") is not None
+                     or req.get("pixel_values_videos") is not None))
 
     def _install(self, state, item, slot_idx):
         """Move a finished admission prefill into slot ``slot_idx``."""

@@ -1,9 +1,11 @@
 """Qwen2.5-VL end-to-end model: vision encode -> (select) -> prefill -> decode.
 
 Counterpart of ``visionselector_tpu.models.qwen25vl.model`` for requests
-with one image or none. The host computes the data-dependent index arrays
-(vision batch, image / text positions, M-RoPE ids, bucket choices) exactly
-as the reference engine does, and the device runs
+with images (one or several), a video, images and a video, or text only.
+Image pixel rows come first, then video rows, through one ViT call. The
+host computes the data-dependent index arrays (vision batch, image / text
+positions, M-RoPE ids, bucket choices) exactly as the reference engine
+does, and the device runs
 
   _prefill:      ViT -> LIS scorer -> hard top-k -> sequence compaction ->
                  causal prefill over the valid-prefix compacted sequence ->
@@ -842,9 +844,29 @@ def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
                            on_token_chunk)
 
 
+def _vision_inputs(pixel_values, grid_thw, pixel_values_videos,
+                   video_grid_thw):
+    """One ViT call's inputs, as the reference engine concatenates them:
+    (pixel rows, grids, the image grids or None, the video grids or None),
+    image rows first, then video rows. Pixel rows None for a text-only
+    request."""
+    if pixel_values is not None and grid_thw is None:
+        raise ValueError("pixel_values without grid_thw")
+    if pixel_values_videos is not None and video_grid_thw is None:
+        raise ValueError("pixel_values_videos without video_grid_thw")
+    img_grid = grid_thw if pixel_values is not None else None
+    vid_grid = video_grid_thw if pixel_values_videos is not None else None
+    if pixel_values is not None and pixel_values_videos is not None:
+        pixel_values = np.concatenate([pixel_values, pixel_values_videos])
+        grid_thw = np.concatenate([grid_thw, video_grid_thw])
+    elif pixel_values_videos is not None:
+        pixel_values, grid_thw = pixel_values_videos, video_grid_thw
+    return pixel_values, grid_thw, img_grid, vid_grid
+
+
 class QwenVLEngine:
-    """Batch-1 generation engine (one image or text only); many requests
-    share one decode through ``continuous.ContinuousBatcher``.
+    """Batch-1 generation engine (images, a video, both, or text only);
+    many requests share one decode through ``continuous.ContinuousBatcher``.
 
     ``attn_impl="plain"`` runs every attention (prefill and decode) through
     the plain PyTorch paths (to compare the whole model against the
@@ -912,10 +934,13 @@ class QwenVLEngine:
         if getattr(strategy, "device", False) is None:
             strategy.device = self.device  # Dynamic-Qwen's predictor
 
-    def _prep_vision(self, input_ids, pixel_values, grid_thw):
+    def _prep_vision(self, input_ids, pixel_values, grid_thw, img_grid,
+                     vid_grid, second_per_grid_ts):
         """Host-side prep, as the reference engine's: bucket choice,
         vision-batch index arrays, k/k_max, padded position maps and M-RoPE
-        ids."""
+        ids. ``pixel_values`` / ``grid_thw``: the image + video rows and
+        grids as ``_vision_inputs`` concatenates them; ``img_grid`` /
+        ``vid_grid``: each modality's own grids (None where absent)."""
         cfg = self.cfg
         input_ids = np.asarray(input_ids).reshape(-1)
         t_orig = len(input_ids)
@@ -957,10 +982,23 @@ class QwenVLEngine:
             k = n
             k_max = l_pad
 
+        # Merged tokens come in pixel order (image grids, then video
+        # grids), so the merged -> sequence map lists image-token positions
+        # first; compaction sorts by sequence position, so a prompt with the
+        # video before the image stays right.
         is_img = input_ids == cfg.image_token_id
-        image_pos = np.where(is_img)[0].astype(np.int64)
-        assert len(image_pos) == n, (len(image_pos), n)
-        text_pos = np.where(~is_img)[0]
+        is_vid = input_ids == cfg.video_token_id
+        is_vision = ((is_img if img_grid is not None else False)
+                     | (is_vid if vid_grid is not None else False))
+        image_pos = np.concatenate([
+            np.where(is_img)[0] if img_grid is not None else [],
+            np.where(is_vid)[0] if vid_grid is not None else [],
+        ]).astype(np.int64)
+        if len(image_pos) != n:
+            raise ValueError(
+                f"{len(image_pos)} image / video tokens in the prompt for "
+                f"{n} merged vision tokens of the grids")
+        text_pos = np.where(~is_vision)[0]
         num_text = len(text_pos)
 
         image_pos_padded = np.full(l_pad, t_orig, np.int64)
@@ -974,7 +1012,9 @@ class QwenVLEngine:
 
         position_ids, rope_delta = get_rope_index(
             input_ids,
-            image_grid_thw=grid_thw,
+            image_grid_thw=img_grid,
+            video_grid_thw=vid_grid,
+            second_per_grid_ts=second_per_grid_ts,
             spatial_merge_size=cfg.vision.spatial_merge_size,
             tokens_per_second=cfg.vision.tokens_per_second,
             image_token_id=cfg.image_token_id,
@@ -1028,24 +1068,20 @@ class QwenVLEngine:
         video_grid_thw: Optional[np.ndarray] = None,
         second_per_grid_ts: Optional[np.ndarray] = None,
     ) -> Tuple[float, bool]:
-        """Score a continuation given a context with one image or none:
-        (sum log P(continuation | context), is_greedy), the lmms model
-        ABC's ``loglikelihood``.
+        """Score a continuation given a context (images, a video, both, or
+        text only): (sum log P(continuation | context), is_greedy), the lmms
+        model ABC's ``loglikelihood``.
 
         The whole prompt, context + continuation, is prefilled once; the
         selector (or no compression, for ``orig``) applies to the vision
         tokens as in generation, and the continuation, a text suffix that
         compaction always keeps, is scored from the prefill's hidden
-        states. Video and several images are not ported yet (ROADMAP §1
-        item 6) and raise NotImplementedError, as does an engine with a
-        training-free strategy (the reference's compression adapters give
-        only ``generate_until``)."""
+        states. An engine with a training-free strategy raises
+        NotImplementedError (the reference's compression adapters give only
+        ``generate_until``)."""
         if self.strategy is not None:
             raise NotImplementedError(
                 "loglikelihood supports the selector and orig paths only")
-        if pixel_values_videos is not None or video_grid_thw is not None:
-            raise NotImplementedError(
-                "video input is not ported yet (ROADMAP §1 item 6)")
         input_ids = np.asarray(input_ids).reshape(-1)
         if len(input_ids) == 0:
             raise ValueError(
@@ -1054,15 +1090,15 @@ class QwenVLEngine:
         cont_padded, c, c_max = ll_continuation_arrays(continuation_ids)
         full_ids = np.concatenate([input_ids, cont_padded[:c]])
         dev = self.device
-        if pixel_values is None:
+        pixels, grid, img_grid, vid_grid = _vision_inputs(
+            pixel_values, grid_thw, pixel_values_videos, video_grid_thw)
+        if pixels is None:
             return text_only_loglikelihood(
                 self.params, full_ids, cont_padded, c, c_max,
                 self.text_buckets, device=dev, attn_impl=self.attn_impl,
                 attn_variant=self.attn_variant)
-        if grid_thw is None or len(np.asarray(grid_thw)) != 1:
-            raise NotImplementedError(
-                "one image per request (several images: ROADMAP §1 item 6)")
-        p = self._prep_vision(full_ids, pixel_values, grid_thw)
+        p = self._prep_vision(full_ids, pixels, grid, img_grid, vid_grid,
+                              second_per_grid_ts)
         ll, greedy = _prefill_ll(
             self.params, p.k_max, self.use_selector, c_max,
             self._vision_tensors(p.vb), p.n, p.k,
@@ -1090,40 +1126,40 @@ class QwenVLEngine:
         top_k: int = 0,
         repetition_penalty: float = 1.0,
     ):
-        """Generation for one image or a text-only request (no
-        ``pixel_values``): greedy, or sampled with ``temperature`` /
-        ``top_k`` / ``top_p`` from ``seed``, with an optional
-        ``repetition_penalty``.
+        """Generation for a request with images (``pixel_values``, one
+        ``grid_thw`` row each), a video (``pixel_values_videos``,
+        ``video_grid_thw``, ``second_per_grid_ts``), both, or neither
+        (text only): greedy, or sampled with ``temperature`` / ``top_k`` /
+        ``top_p`` from ``seed``, with an optional ``repetition_penalty``.
 
-        input_ids: [T_orig] with the ``<|image_pad|>`` run already
-        expanded. ``on_token_chunk`` streams the tokens: the first alone,
-        then chunks of up to 8 (``_run_decode_loop``).
-        ``_defer_decode=True`` returns the ``PrefillState`` instead of
-        decoding (how a slot pool admits the request). Video and several
-        images are not ported yet and raise NotImplementedError.
+        input_ids: [T_orig] with the ``<|image_pad|>`` / ``<|video_pad|>``
+        runs already expanded. Image and video rows go through one ViT call
+        (images first); kept video tokens keep the M-RoPE ids of the
+        original sequence, as kept image tokens do. ``on_token_chunk``
+        streams the tokens: the first alone, then chunks of up to 8
+        (``_run_decode_loop``). ``_defer_decode=True`` returns the
+        ``PrefillState`` instead of decoding (how a slot pool admits the
+        request).
         """
-        if pixel_values_videos is not None or video_grid_thw is not None:
-            raise NotImplementedError(
-                "video input is not ported yet (ROADMAP §1 item 6)")
         cfg = self.cfg
         dev = self.device
         if eos_token_ids is None:
             eos_token_ids = (cfg.eos_token_id,)
         input_ids = np.asarray(input_ids).reshape(-1)
         sampling = (temperature, top_p, seed, top_k, repetition_penalty)
-        if pixel_values is None:
+        pixels, grid, img_grid, vid_grid = _vision_inputs(
+            pixel_values, grid_thw, pixel_values_videos, video_grid_thw)
+        if pixels is None:
             return generate_text_only(
                 self.params, cfg, input_ids, max_new_tokens, eos_token_ids,
                 temperature, top_p, seed, self.text_buckets, _defer_decode,
                 top_k, repetition_penalty, device=dev,
                 attn_impl=self.attn_impl, attn_variant=self.attn_variant,
                 on_token_chunk=on_token_chunk)
-        if grid_thw is None or len(np.asarray(grid_thw)) != 1:
-            raise NotImplementedError(
-                "one image per request (several images: ROADMAP §1 item 6)")
         t_start = time.perf_counter()
 
-        p = self._prep_vision(input_ids, pixel_values, grid_thw)
+        p = self._prep_vision(input_ids, pixels, grid, img_grid, vid_grid,
+                              second_per_grid_ts)
         if getattr(self.strategy, "llm_side", False):
             state = self._prefill_llm_side(p, input_ids, eos_token_ids,
                                            max_new_tokens, t_start)
@@ -1264,25 +1300,22 @@ class QwenVLEngine:
         here; ``step()`` first advances ceil(depth / vit_segments) tower
         blocks at a time, then the merger + selection + compaction
         epilogue (the one host read of the admission), then the decoder
-        segments. Returns None for a request the fused path should take: a
-        strategy engine (its capture stages are one program) and a
-        text-only request (its prefill is already short). Video and
-        several images raise NotImplementedError (ROADMAP §1 item 6)."""
+        segments. Images, a video or both take one ViT call, as in
+        ``generate``. Returns None for a request the fused path should
+        take: a strategy engine (its capture stages are one program) and a
+        text-only request (its prefill is already short)."""
         if self.strategy is not None:
             return None
-        if pixel_values_videos is not None or video_grid_thw is not None:
-            raise NotImplementedError(
-                "video input is not ported yet (ROADMAP §1 item 6)")
-        if pixel_values is None:
+        pixels, grid, img_grid, vid_grid = _vision_inputs(
+            pixel_values, grid_thw, pixel_values_videos, video_grid_thw)
+        if pixels is None:
             return None
-        if grid_thw is None or len(np.asarray(grid_thw)) != 1:
-            raise NotImplementedError(
-                "one image per request (several images: ROADMAP §1 item 6)")
         if eos_token_ids is None:
             eos_token_ids = (self.cfg.eos_token_id,)
         input_ids = np.asarray(input_ids).reshape(-1)
         t_start = time.perf_counter()
-        p = self._prep_vision(input_ids, pixel_values, grid_thw)
+        p = self._prep_vision(input_ids, pixels, grid, img_grid, vid_grid,
+                              second_per_grid_ts)
         seg = max(1, int(prefill_chunk))
         t_comp = p.k_max + p.t_text_bucket
         t_cap = -(-t_comp // seg) * seg  # whole segments
@@ -1823,13 +1856,23 @@ class PrefixCacheStore:
         self._next_id = 0
 
     @staticmethod
-    def signature(pixel_values, grid_thw) -> Optional[str]:
-        if pixel_values is None:
+    def signature(pixel_values, grid_thw, pixel_values_videos=None,
+                  video_grid_thw=None,
+                  second_per_grid_ts=None) -> Optional[str]:
+        """A hash of the request's vision inputs, images and video (None
+        for a text-only prompt). The reference hashes the image arrays
+        only, so two clips with the same grid (whose ``<|video_pad|>`` ids
+        are equal) share an entry there and the second reads the first's
+        vision k/v; here they do not."""
+        parts = (pixel_values, grid_thw, pixel_values_videos,
+                 video_grid_thw, second_per_grid_ts)
+        if pixel_values is None and pixel_values_videos is None:
             return None
         h = hashlib.sha1()
-        h.update(np.ascontiguousarray(pixel_values).tobytes())
-        if grid_thw is not None:
-            h.update(np.ascontiguousarray(grid_thw).tobytes())
+        for i, x in enumerate(parts):
+            if x is not None:
+                h.update(f"{i}:".encode())
+                h.update(np.ascontiguousarray(x).tobytes())
         return h.hexdigest()
 
     def lookup(self, sig, ids: np.ndarray, exact_only: bool = False):
@@ -1890,7 +1933,10 @@ def prefix_cached_prefill(engine: "QwenVLEngine", store: PrefixCacheStore,
     takes the suffix in one chunked append; the vision encode and the
     shared text's prefill are skipped."""
     input_ids = np.asarray(input_ids).reshape(-1)
-    sig = PrefixCacheStore.signature(pixel_values, grid_thw)
+    sig = PrefixCacheStore.signature(
+        pixel_values, grid_thw, gen_kwargs.get("pixel_values_videos"),
+        gen_kwargs.get("video_grid_thw"),
+        gen_kwargs.get("second_per_grid_ts"))
     hit = store.lookup(sig, input_ids,
                        exact_only=getattr(engine, "strategy", None)
                        is not None)

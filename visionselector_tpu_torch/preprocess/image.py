@@ -1,10 +1,13 @@
-"""Host-side image preprocessing: smart_resize, normalize, patchify (numpy).
+"""Host-side image and video-frame preprocessing: smart_resize, normalize,
+patchify.
 
-The port's copy of ``visionselector_tpu.preprocess.image`` for still images
-(the reference's native C fast path is not carried over; the numpy path
-gives the same arrays). Copied rather than imported so that a run of the
-port (``chip_smoke.py`` included) loads no module of the JAX package;
-``tests/test_torch_preprocess.py`` holds the copy equal to the reference.
+The port's copy of ``visionselector_tpu.preprocess.image``. Copied rather
+than imported so that a run of the port (``chip_smoke.py`` included) loads
+no module of the JAX package; ``tests/test_torch_preprocess.py`` and
+``tests/test_torch_native.py`` hold the copy equal to the reference.
+Normalize + patchify run in one pass of the port's C library
+(``visionselector_tpu_torch.native``) where it builds, else in numpy; the
+two give the same arrays.
 
 Semantics match the reference preprocessing pipeline:
 - ``smart_resize``: factor-28 rounding within a pixel budget
@@ -215,9 +218,74 @@ def preprocess_image(
                      else frame[0])
     else:
         frame = resize_image(image, out_h, out_w)
+    flat = _native_patchify(np.asarray(frame)[None], patch_size,
+                            temporal_patch_size, merge_size)
+    if flat is not None:
+        return flat, np.asarray([(1, out_h // patch_size,
+                                  out_w // patch_size)], dtype=np.int64)
     normed = normalize_image(np.asarray(frame, np.float64)).transpose(2, 0, 1)
     flat, grid = patchify(
         normed[None],
+        patch_size=patch_size,
+        temporal_patch_size=temporal_patch_size,
+        merge_size=merge_size,
+    )
+    return flat, np.asarray([grid], dtype=np.int64)
+
+
+def _native_patchify(frames, patch_size, temporal_patch_size, merge_size):
+    """The C library's normalize + patchify of (T, H, W, 3) uint8 or
+    float64 frames, or None (no library, or input it does not take)."""
+    from visionselector_tpu_torch.native import fused_normalize_patchify
+
+    return fused_normalize_patchify(
+        frames, patch_size, temporal_patch_size, merge_size,
+        OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)
+
+
+def preprocess_video_frames(
+    frames: np.ndarray,
+    min_pixels: int = 128 * 28 * 28,
+    max_pixels: int = 768 * 28 * 28,
+    patch_size: int = 14,
+    temporal_patch_size: int = 2,
+    merge_size: int = 2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(T, H, W, C) uint8 / float frames -> (pixel_values_videos [t * h *
+    w, patch_dim], video_grid_thw [1, 3]) with t = ceil(T / tp) (an odd
+    frame count repeats its last frame). Frames are resized as the
+    reference resizes them: uint8 frames per frame with PIL bicubic where
+    PIL imports, otherwise (and for float frames) bilinear in float64."""
+    frames = np.asarray(frames)
+    t, height, width = frames.shape[:3]
+    out_h, out_w = smart_resize(
+        height,
+        width,
+        factor=patch_size * merge_size,
+        min_pixels=min_pixels,
+        max_pixels=max_pixels,
+    )
+    rgb_u8 = (frames.ndim == 4 and frames.shape[3] == 3
+              and frames.dtype == np.uint8)
+    if rgb_u8 and (out_h, out_w) == (height, width):
+        resized = frames
+    elif rgb_u8 and (r := _resize_uint8_frames(frames, out_h, out_w)) \
+            is not None:
+        resized = r
+    else:
+        frames = frames.astype(np.float64)
+        resized = np.stack([_bilinear_resize(f, out_h, out_w)
+                            for f in frames])
+    flat = _native_patchify(resized, patch_size, temporal_patch_size,
+                            merge_size)
+    if flat is not None:
+        grid = (-(-t // temporal_patch_size), out_h // patch_size,
+                out_w // patch_size)
+        return flat, np.asarray([grid], dtype=np.int64)
+    normed = normalize_image(
+        np.asarray(resized, np.float64)).transpose(0, 3, 1, 2)  # T, C, H, W
+    flat, grid = patchify(
+        normed,
         patch_size=patch_size,
         temporal_patch_size=temporal_patch_size,
         merge_size=merge_size,

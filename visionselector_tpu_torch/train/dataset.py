@@ -9,7 +9,7 @@ dataset`` (the reference data layer, ``qwen-vl-finetune/qwenvl/data/``):
   returned as a slot for its vision tokens,
 - 3-retry + neighbour-fallback ``__getitem__``,
 - ``build_sample_from_record``: a record -> ``TrainBatchSample`` (one or
-  several images; video records wait for the video port, ROADMAP item 6).
+  several images, or a video at its ``<video>`` placeholder).
 
 The tokenizer is passed in (``encode(text) -> ids``); nothing here
 imports ``transformers``. Packing (``--data-flatten``) is not ported.
@@ -29,6 +29,7 @@ import numpy as np
 from visionselector_tpu_torch.preprocess.image import preprocess_image
 from visionselector_tpu_torch.preprocess.indices import build_vision_batch
 from visionselector_tpu_torch.preprocess.rope import get_rope_index
+from visionselector_tpu_torch.preprocess.video import process_video
 from visionselector_tpu_torch.train.data import vision_fields
 from visionselector_tpu_torch.train.loss import IGNORE_INDEX, TrainBatchSample
 
@@ -187,33 +188,44 @@ def build_sample_from_record(
     max_pixels: int = 28 * 28 * 1280,
     align_windows: bool = True,
 ) -> TrainBatchSample:
-    """Dataset record -> TrainBatchSample, each image's vision tokens
-    spliced at its slot."""
-    if record.get("video") is not None:
-        raise NotImplementedError(
-            "video training records wait for the video port (ROADMAP "
-            "section 1, item 6)")
+    """Dataset record -> TrainBatchSample: each image's vision tokens
+    spliced at its slot, or a video record's (``record["video"]``, read by
+    ``preprocess.video.process_video`` with the pixel bounds) at its
+    ``<video>`` slot, as ``<|video_pad|>`` tokens with the clip's
+    ``second_per_grid_t`` in the M-RoPE ids."""
     ids = list(record["ids"])
     labels = list(record["labels"])
     slot = record["image_slot"]
-    if record["image"] is None or slot < 0:
+    is_video = record.get("video") is not None
+    if (record["image"] is None and not is_video) or slot < 0:
         raise ValueError("text-only records are not built into samples")
-    images = record.get("images") or [record["image"]]
-    slots = record.get("image_slots") or [slot]
-    if len(images) != len(slots):
-        raise ValueError(f"{len(images)} images for {len(slots)} slots")
-    px_list, g_list = [], []
-    for im in images:
-        px_i, g_i = preprocess_image(
-            im, min_pixels=min_pixels, max_pixels=max_pixels,
+    spg = None
+    if is_video:
+        pixels, grid, spg = process_video(
+            record["video"],
+            ele={"min_pixels": min_pixels, "max_pixels": max_pixels},
             patch_size=cfg.vision.patch_size,
             temporal_patch_size=cfg.vision.temporal_patch_size,
             merge_size=cfg.vision.spatial_merge_size,
         )
-        px_list.append(px_i)
-        g_list.append(g_i)
-    pixels = np.concatenate(px_list, axis=0)
-    grid = np.concatenate(g_list, axis=0)
+        px_list, slots = [pixels], [slot]
+    else:
+        images = record.get("images") or [record["image"]]
+        slots = record.get("image_slots") or [slot]
+        if len(images) != len(slots):
+            raise ValueError(f"{len(images)} images for {len(slots)} slots")
+        px_list, g_list = [], []
+        for im in images:
+            px_i, g_i = preprocess_image(
+                im, min_pixels=min_pixels, max_pixels=max_pixels,
+                patch_size=cfg.vision.patch_size,
+                temporal_patch_size=cfg.vision.temporal_patch_size,
+                merge_size=cfg.vision.spatial_merge_size,
+            )
+            px_list.append(px_i)
+            g_list.append(g_i)
+        pixels = np.concatenate(px_list, axis=0)
+        grid = np.concatenate(g_list, axis=0)
     vb = build_vision_batch(
         pixels, grid,
         window_size=cfg.vision.window_size,
@@ -225,6 +237,7 @@ def build_sample_from_record(
     n = vb.num_merged
     l_pad = s_bucket // cfg.vision.spatial_merge_unit
 
+    vision_token = cfg.video_token_id if is_video else cfg.image_token_id
     mu = cfg.vision.spatial_merge_unit
     run_lens = [px.shape[0] // mu for px in px_list]
     if list(slots) != sorted(slots):
@@ -232,7 +245,7 @@ def build_sample_from_record(
     id_parts, label_parts = [], []
     prev = 0
     for sl, n_i in zip(slots, run_lens):
-        run = ([cfg.vision_start_token_id] + [cfg.image_token_id] * n_i
+        run = ([cfg.vision_start_token_id] + [vision_token] * n_i
                + [cfg.vision_end_token_id])
         id_parts += ids[prev:sl] + run
         label_parts += labels[prev:sl] + [IGNORE_INDEX] * len(run)
@@ -246,7 +259,9 @@ def build_sample_from_record(
 
     position_ids, _ = get_rope_index(
         full_ids,
-        image_grid_thw=grid,
+        image_grid_thw=None if is_video else grid,
+        video_grid_thw=grid if is_video else None,
+        second_per_grid_ts=np.array([spg]) if is_video else None,
         spatial_merge_size=cfg.vision.spatial_merge_size,
         tokens_per_second=cfg.vision.tokens_per_second,
         image_token_id=cfg.image_token_id,
@@ -262,7 +277,7 @@ def build_sample_from_record(
     pos_p[:, :t_real] = position_ids
     seg = np.zeros(t_bucket, np.int32)
     seg[:t_real] = 1
-    image_pos = np.where(ids_p == cfg.image_token_id)[0][:n]
+    image_pos = np.where(ids_p == vision_token)[0][:n]
     image_pos_p = np.full(l_pad, t_bucket, np.int64)
     image_pos_p[:n] = image_pos
 
