@@ -221,8 +221,41 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    against phase 9's server on text-only and image docs, and two clips of
    one grid through a prefix store (no hit).
 
+11. LLaVA-OneVision-1.5-8B (``ov``): ``llava_ov15_8b()`` at full width
+   from a seeded generator on the card (bf16, the scorer fp32), 8.5 B
+   parameters beside phase 3's. The phase-3 image at its own 1036x1456
+   (grid 1x74x104, 7,696 patches, the 8,192 bucket: S' = 8,192 + 8 CLS
+   slots, padded to 8,256 rows, 1,924 merged tokens) and its 40 text ids.
+   K1 at RICE block 0's captured q / k / v (16 heads, D = 64, a 7,697-row
+   segment, bounds at the 64-row tile; fault: each q tile's last kv tile
+   dropped), K1 causal at the decoder's layer 0 (GQA 32/8, D = 128) under
+   the selector and ``orig`` (fault: the diagonal kv tile cut), K5 at 8 kv
+   heads (n_rep 4) over the ``orig`` cache's layer 0 and a 4-slot pool,
+   bf16 and int8 (fault: the last live tile skipped): ULP_LIMIT against
+   their plain versions, times, bounds, SDPA. Then the selector 0.2 (k =
+   384, k_max = 409) and ``orig`` requests, 32 greedy tokens, the counts
+   zeroed just before and read just after: 24 RICE K1 + 36 causal K1 per
+   prefill, no K4, K6, capped or packed launch, 36 K5 per decode step;
+   against ``attn_impl="plain"`` with phase 3's tolerance (and the first
+   token where the plain top-2 gap exceeds twice the drift). Prefill wall
+   and device ms, RICE device ms, decode wall and device ms per token, peak
+   memory. The choices (1, 5, 12, 20 ids) against per-choice
+   ``loglikelihood`` within LL_TOL_CHUNK; ``generate_batch`` and a
+   ``ContinuousBatcher(n_slots=4)`` of 6 requests (image, text, two images,
+   one sampled) against one-shot first tokens; VisionZip and FastV at 0.2
+   (launches; phase 8's rule against the plain path); two images (the
+   phase-3 image and a 224x224 one, the same bucket) at 0.2 and ``orig``;
+   an OV HF directory at reduced depth (RICE blocks 0 and 23, decoder
+   layers 0 and 35, full widths) written, read back bit for bit, and
+   served by ``api.predict --family llava_ov15 --model-path`` in a process
+   of its own (first token equal to the in-process engine's), and
+   ``api.predict --family llava_ov15`` on the tiny config (head dims 16
+   and 32) on the card.
+
 The line before the last is a JSON object describing the kernels (K2's
-entry, ``flash_varlen_fwd_capped``, from phase 10); the last line is
+entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
+``flash_varlen_fwd_rice``, ``flash_varlen_fwd_ov_lm`` and
+``decode_blocked_fwd_ov``, from phase 11); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -298,6 +331,16 @@ KERNELS = {
     "flash_varlen_fwd_capped": ("flash_varlen_fwd.cu",
                                 "visionselector_tpu/kernels/attention.py:"
                                 "389"),
+    # LLaVA-OV-1.5-8B (phase 11): K1 in RICE's blocks (head dim 64, CLS
+    # rows), K1 causal in the Qwen3 decoder (GQA 32/8), K5 at n_rep 4
+    "flash_varlen_fwd_rice": ("flash_varlen_fwd.cu",
+                              "visionselector_tpu/kernels/attention.py:203"),
+    "flash_varlen_fwd_ov_lm": ("flash_varlen_fwd.cu",
+                               "visionselector_tpu/kernels/attention.py:"
+                               "203"),
+    "decode_blocked_fwd_ov": ("decode_blocked_fwd.cu",
+                              "visionselector_tpu/kernels/attention.py:"
+                              "1085"),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -1355,7 +1398,7 @@ def zero_counts():
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
 
     A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
-    A.FLASH_CAPPED_LAUNCHES = 0
+    A.FLASH_CAPPED_LAUNCHES = A.FLASH_CAUSAL_LAUNCHES = 0
     A.PACKED_LAUNCHES = A.ABLATE_LAUNCHES = F_.FUSED_LAUNCHES = 0
     for route in A.FLASH_ROUTE_LAUNCHES:
         A.FLASH_ROUTE_LAUNCHES[route] = 0
@@ -3263,11 +3306,14 @@ def strategies_phase(cfg, params, input_ids, pixels, grid, tmp, hf_dir,
         strat(*host, STRATEGY_BUDGET, np.asarray(grid))
         times[name] = (time.perf_counter() - t0) * 1e3
     t_orig = p.t_orig
+    with torch.no_grad():
+        vision = M.vit_mod.vit_forward(params.visual, **vb)
     for name in ("fastv", "dart", "dynamic"):
         eng = runs[name][0]
         strat = eng.strategy
-        out = M._stage_a(params, strat.target_layer, strat.capture, vb, n,
-                         *eng._sequence_tensors(p, input_ids))
+        out = M._stage_a_from_vision(
+            params, strat.target_layer, strat.capture, vision, n,
+            *M.sequence_tensors(p, input_ids, eng.device))
         hidden_t, fv, key_l1 = out[0], out[2], out[3]
         args = (fv[:t_orig].cpu().numpy() if fv is not None else None,
                 key_l1[:t_orig].cpu().numpy(),
@@ -4236,6 +4282,691 @@ def video_phase(cfg, params, engine3, pixels, grid, tmp):
     return capped, k2
 
 
+# -- Phase 11: LLaVA-OneVision-1.5-8B ----------------------------------------
+
+# The OV request: the phase-3 image at its own 1036x1456 (grid 1x74x104,
+# 7,696 patches, the 8,192 bucket: S' = 8,192 + 8 CLS slots, padded to
+# 8,256 rows; 1,924 merged tokens) and phase 3's 40 text ids; the second
+# image of the two-image request (224x224: 256 patches, the same bucket).
+OV_GRID = (1, 74, 104)
+OV_BUCKET, OV_MERGED = 8192, 1924
+OV_SECOND_HW = (224, 224)
+OV_STRATEGY_TOKENS = 8
+# A reduced-depth OV HF directory: RICE blocks and decoder layers kept.
+OV_HF_BLOCKS, OV_HF_LAYERS = (0, 23), (0, 35)
+
+
+def ov_request(cfg, second=False):
+    """The phase-11 request: (generate keywords). ``second``: the two-image
+    request (the phase-3 image and a seeded 224x224 one)."""
+    import numpy as np
+
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    img = request_image()
+    # max_pixels at the image's own size: every 14x14 patch kept
+    px, grid = preprocess_image(img, max_pixels=img.shape[0] * img.shape[1],
+                                temporal_patch_size=1)
+    if second:
+        rng = np.random.RandomState(SEED + 11)
+        p2, g2 = preprocess_image(
+            (rng.rand(*OV_SECOND_HW, 3) * 255).astype(np.uint8),
+            temporal_patch_size=1)
+        px, grid = np.concatenate([px, p2]), np.concatenate([grid, g2])
+    ids = expand_vision_tokens(
+        PROMPT_BEFORE, PROMPT_AFTER, grid,
+        spatial_merge_size=cfg.vision.spatial_merge_size,
+        image_token_id=cfg.image_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        vision_end_token_id=cfg.vision_end_token_id)
+    return dict(input_ids=ids, pixel_values=px, grid_thw=grid)
+
+
+def ov_counts() -> dict:
+    """The launch counts phase 11 reads: RICE's K1 (the flash calls
+    without the causal mask), the decoder's causal K1, K5 and the kernels
+    the OV path must not launch."""
+    from visionselector_tpu_torch.kernels import attention as A
+
+    c = launch_counts()
+    return {"rice": c["flash_varlen_fwd"] - A.FLASH_CAUSAL_LAUNCHES,
+            "lm": A.FLASH_CAUSAL_LAUNCHES,
+            "decode": c["decode_blocked_fwd"],
+            "diag": c["diag_attn_fwd"], "fused": c["fused_vit_attn_fwd"],
+            "capped": c["flash_varlen_fwd_capped"],
+            "packed": c["flash_packed_fwd"]}
+
+
+def ov_steps(res, max_new=MAX_NEW_TOKENS) -> int:
+    """Decode steps a ``generate`` of ``max_new`` tokens ran: one per token
+    after the first, plus the step whose EOS ended the loop early."""
+    return (len(res.tokens) - 1 if len(res.tokens) == max_new
+            else len(res.tokens))
+
+
+def ov_capture(engine, req, want_causal: bool) -> dict:
+    """q, k, v, seg, bounds and scale of the first flash call of one
+    prefill with (or without) the causal mask: RICE's block 0 or the
+    decoder's layer 0."""
+    from visionselector_tpu_torch.kernels import attention as A
+
+    seen = {}
+    flash = A.flash_varlen_fwd
+
+    def capture(q, k, v, q_seg, kv_seg, causal=False, scale=None,
+                kv_bounds=None, kv_iters=None):
+        if bool(causal) == want_causal and not seen:
+            seen.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                        seg=q_seg.clone(), scale=scale,
+                        bounds=None if kv_bounds is None
+                        else kv_bounds.clone())
+        return flash(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
+                     kv_iters)
+
+    with patched(A, "flash_varlen_fwd", capture):
+        engine.generate(**req, max_new_tokens=1)
+    return seen
+
+
+def ov_kernel_entry(kname, name, kernel, plain, fault, nbytes, flop,
+                    library, pad_rows_zero):
+    """Time, bound and check one OV kernel case; raises if it disagrees
+    with its plain version or its planted fault passes."""
+    import torch
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = bf16_ulp_err(got, want)
+    # fault: a call, judged against ``want``, or (a call, its own want)
+    bad_got, bad_want = fault if isinstance(fault, tuple) else (fault, plain)
+    bad = bf16_ulp_err(bad_got(), want if bad_want is plain else bad_want())
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, n=3)
+    bound, by = bound_ms(nbytes, flop)
+    lib = library() if library is not None else None
+    pad_zero = pad_rows_zero(got)
+    print(f"[ov-kernel] {kname} {name}: max_abs_err={err!r} ulp_err={ulps!r}"
+          f" (limit {ULP_LIMIT}) pad_rows_zero={pad_zero} ms={ms!r} "
+          f"plain_ms={plain_ms!r} bytes={nbytes} flop={flop} bound_ms="
+          f"{bound!r} ({by}) share_of_bound={bound / ms!r} library_ms="
+          f"{lib!r} (one scaled_dot_product_attention call, same mask)",
+          flush=True)
+    print(f"[control] {kname} {name}, planted fault: ulp_err={bad!r} (limit "
+          f"{ULP_LIMIT}) rejected={bad > ULP_LIMIT}", flush=True)
+    if not (ulps <= ULP_LIMIT and pad_zero and bad > ULP_LIMIT
+            and torch.isfinite(got).all()):
+        raise AssertionError(f"{kname} {name}: {ulps} ulps (pad rows zero "
+                             f"{pad_zero}); planted fault {bad} ulps")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib)
+
+
+def ov_kernels(cfg, engines, req) -> dict:
+    """11.2: each kernel of the OV path at its own shapes against its
+    plain version: K1 at RICE block 0's captured q / k / v (S' = 8,256,
+    16 heads, D = 64, one 7,697-row segment, its bounds; fault: each q
+    tile's last kv tile dropped), K1 causal at the decoder's layer 0 under
+    the selector and ``orig`` (GQA 32/8, D = 128; fault: each q tile's
+    diagonal kv tile cut), K5 at 8 kv heads (n_rep 4) over the ``orig``
+    one-shot cache's layer 0 and a 4-slot pool, bf16 and int8 (fault: the
+    last live tile of every slot skipped). Returns the kernels line's
+    entries."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
+    from visionselector_tpu_torch.models.qwen25vl.lm import quantize_kv
+
+    out = {}
+    # K1, RICE block 0
+    c = ov_capture(engines["orig"], req, False)
+    q, k, v, seg, bounds = c["q"], c["k"], c["v"], c["seg"], c["bounds"]
+    _, s, h, d = q.shape
+    seg_np, bounds_np = seg[0].cpu().numpy(), bounds.cpu().numpy()
+    visited = T.flash_steps_plain(seg[0], seg[0], False, bounds_np,
+                                  None)[0].cpu().numpy()
+    pairs = valid_pairs(seg_np, visited, False)
+    live = (bounds[:, 1] > bounds[:, 0]).int()
+    drop = torch.stack([0 * live, live], 1).int()
+    smask = ((seg[0, :, None] == seg[0, None, :])
+             & (seg[0, None, :] > 0))[None, None]
+    # The planted fault on seeded normal q / k / v at the same layout: the
+    # captured block-0 logits are nearly flat over the 7,697 keys, so one
+    # tile of 64 keys moves each row by about 1/120 of its spread, under
+    # the tolerance (its ulps at the captured inputs are printed too).
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    qr, kr, vr = (torch.randn(q.shape, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(3))
+    flat = bf16_ulp_err(A.flash_varlen_fwd(q, k, v, seg, seg, kv_bounds=(
+        bounds - drop), scale=c["scale"]), A.flash_plain(
+            q, k, v, seg, seg, scale=c["scale"], kv_bounds=bounds))
+    print(f"[control] flash_varlen_fwd_rice, each q tile's last kv tile "
+          f"dropped, at the captured q / k / v: ulp_err={flat!r}",
+          flush=True)
+    out["flash_varlen_fwd_rice"] = ov_kernel_entry(
+        "flash_varlen_fwd_rice",
+        f"RICE block 0 S'={s} H={h} D={d} segments={int(seg_np.max())} "
+        f"rows_in_segments={int((seg_np > 0).sum())}",
+        lambda: A.flash_varlen_fwd(q, k, v, seg, seg, scale=c["scale"],
+                                   kv_bounds=bounds),
+        lambda: A.flash_plain(q, k, v, seg, seg, scale=c["scale"],
+                              kv_bounds=bounds),
+        (lambda: A.flash_varlen_fwd(qr, kr, vr, seg, seg,
+                                    kv_bounds=bounds - drop),
+         lambda: A.flash_plain(qr, kr, vr, seg, seg, kv_bounds=bounds)),
+        4 * s * h * d * 2 + s * 4 + bounds.numel() * 4, 4 * d * h * pairs,
+        lambda: sdpa_ms(q, k, v, smask, scale=c["scale"]),
+        lambda got: bool((got[:, seg[0] == 0] == 0).all()))
+    del smask
+    flash_phases("flash_varlen_fwd", f"RICE block 0 S'={s} D={d}", q, k, v,
+                 seg, bounds_np, None)
+
+    # K1 causal, the decoder's layer 0 under the selector and orig
+    entries = []
+    for name in ("selector", "orig"):
+        c = ov_capture(engines[name], req, True)
+        q, k, v, seg = c["q"], c["k"], c["v"], c["seg"]
+        _, t, hq, d = q.shape
+        hkv = k.shape[2]
+        valid = int(seg.sum())
+        nq = -(-t // TILE)
+        iq = torch.arange(nq, device="cuda")
+        cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
+        pos = torch.arange(t, device="cuda")
+        mask = ((seg[0, :, None] > 0) & (seg[0, None, :] > 0)
+                & (pos[:, None] >= pos[None]))[None, None]
+        entries.append(ov_kernel_entry(
+            "flash_varlen_fwd_ov_lm",
+            f"{name} decoder layer 0 T={t} valid={valid} Hq={hq} Hkv={hkv} "
+            f"D={d}",
+            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
+            lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
+            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
+                                       kv_bounds=cut),
+            (2 * hq + 2 * hkv) * t * d * 2 + t * 8,
+            4 * d * hq * (valid * (valid + 1) // 2),
+            lambda: sdpa_ms(q, k, v, mask),
+            lambda got: bool((got[:, seg[0] == 0] == 0).all())))
+        flash_phases("flash_varlen_fwd", f"OV {name} T={t} valid={valid}",
+                     q, k, v, seg, None, None, causal=True)
+    # the kernels line keeps the selector's (the main case) with the larger
+    # error of the two
+    out["flash_varlen_fwd_ov_lm"] = dict(
+        entries[0], max_abs_err=max(e["max_abs_err"] for e in entries))
+
+    # K5 at n_rep 4: the orig cache's layer 0, and a 4-slot pool
+    tc = cfg.text
+    hq, hkv, dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    state = engines["orig"].generate(**req, max_new_tokens=MAX_NEW_TOKENS,
+                                     _defer_decode=True)
+    k1, v1 = state.cache.k[0], state.cache.v[0]  # [1, T, 8, 128]
+    rows = k1.shape[1]
+    n = int(state.cache.length[0, 0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    pool = (torch.randn(2, 4, rows, hkv, dh, generator=gen, device="cuda")
+            .bfloat16())
+    cases = [("orig cache", k1, v1, torch.tensor([n], device="cuda")),
+             ("4-slot pool", pool[0], pool[1],
+              torch.tensor([1, 63, 65, n], device="cuda"))]
+    entries = []
+    for where, kb, vb, lens in cases:
+        (k8, ks), (v8, vs) = quantize_kv(kb), quantize_kv(vb)
+        for quant in (False, True):
+            kc, vc = (k8, v8) if quant else (kb, vb)
+            sc = dict(k_scale=ks, v_scale=vs) if quant else {}
+            b = lens.shape[0]
+            qd = torch.randn(b, 1, hq, dh, generator=gen,
+                             device="cuda").bfloat16()
+            live = int(lens.sum()) + b
+            per_key = hkv * dh * (1 if quant else 2) * 2 + (
+                hkv * 8 if quant else 0)
+            tile_cut = ((lens + TILE) // TILE - 1) * TILE - 1
+            lim = lens[:, None] + 1
+            dmask = (torch.arange(rows, device="cuda")[None, None]
+                     < lim[:, :, None])[:, None]
+            entries.append(ov_kernel_entry(
+                "decode_blocked_fwd_ov",
+                f"{'int8' if quant else 'bf16'} {where} t_c=1 B={b} T={rows}"
+                f" Hq={hq} Hkv={hkv} (n_rep {hq // hkv}) D={dh} lens="
+                f"{lens.tolist()} cluster="
+                f"{A.decode_cluster_size('cuda', b, 1, hq, hkv, dh, quant)}",
+                lambda: A.decode_blocked_fwd(qd, kc, vc, lens, **sc),
+                lambda: A.decode_blocked_plain(qd, kc, vc, lens, **sc),
+                lambda: A.decode_blocked_fwd(qd, kc, vc,
+                                             tile_cut.clamp(min=0), **sc),
+                live * per_key + 2 * b * hq * dh * 2,
+                4 * hq * dh * live,
+                None if quant else (lambda: sdpa_ms(qd, kb, vb, dmask)),
+                lambda got: True))
+    # the kernels line keeps the orig cache's bf16 case (the one-shot
+    # decode step's shape) with the largest error of the four
+    out["decode_blocked_fwd_ov"] = dict(
+        entries[0], max_abs_err=max(e["max_abs_err"] for e in entries))
+    del state, pool
+    return out
+
+
+def ov_main_path(cfg, engines, plains, req, checks) -> dict:
+    """11.3: the selector and ``orig`` requests, 32 greedy tokens each,
+    the counts zeroed just before and read just after: per prefill 24 RICE
+    K1 and 36 causal K1, no K4 / K6 / capped / packed launch, 36 K5 per
+    decode step; against ``attn_impl="plain"`` with phase 3's tolerance.
+    Returns the launches of the run."""
+    import torch
+
+    n_blocks, n_layers = cfg.vision.depth, cfg.text.num_hidden_layers
+    for eng in engines.values():  # warm-up, outside the counted run
+        eng.generate(**req, max_new_tokens=2)
+    torch.cuda.synchronize()
+    zero_counts()
+    results, steps = {}, 0
+    for name in ("selector", "orig"):
+        before = ov_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = engines[name].generate(**req, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = {key: n - before[key] for key, n in ov_counts().items()}
+        want = {"rice": n_blocks, "lm": n_layers,
+                "decode": n_layers * ov_steps(res), "diag": 0, "fused": 0,
+                "capped": 0, "packed": 0}
+        steps += ov_steps(res)
+        kept = (len(res.selected_indices) if res.selected_indices is not None
+                else res.num_vision_tokens)
+        n_dec = len(res.tokens) - 1
+        print(f"[ov-main] {name}: vision_tokens={res.num_vision_tokens} "
+              f"kept={kept} prefill_len={res.prefill_len} prefill_ms="
+              f"{res.prefill_seconds * 1e3!r} decode_tok_s="
+              f"{n_dec / (res.total_seconds - res.prefill_seconds)!r} "
+              f"peak_mem_bytes={peak} launches {got} (expected {want})",
+              flush=True)
+        print(f"[ov-main] {name} tokens: {res.tokens}", flush=True)
+        checks[f"main {name}: launches"] = got == want
+        checks[f"main {name}: tokens and logits"] = bool(
+            res.tokens and all(0 <= t < cfg.text.vocab_size
+                               for t in res.tokens)
+            and torch.isfinite(res.logits).all()
+            and res.logits.shape == (cfg.text.vocab_size,))
+        checks[f"main {name}: layout"] = (res.num_vision_tokens == OV_MERGED
+                                          and kept == (384 if name ==
+                                                       "selector" else
+                                                       OV_MERGED))
+        results[name] = res
+    launches = ov_counts()
+    for name, res in results.items():
+        res_p = plains[name].generate(**req, max_new_tokens=1)
+        diff = (res_p.logits - res.logits).abs().max().item()
+        scale = res.logits.abs().max().item()
+        top2 = res_p.logits.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        line = (f"[ov-plain] {name}: first-token logits max_abs_diff="
+                f"{diff!r} (max |logit| {scale!r}) first token kernel="
+                f"{res.tokens[0]} plain={res_p.tokens[0]} (plain top-2 gap "
+                f"{gap!r})")
+        ok = diff <= 0.1 * scale
+        if res.selected_indices is not None:
+            a = set(res.selected_indices.tolist())
+            b = set(res_p.selected_indices.tolist())
+            line += f" selected overlap {len(a & b)}/{len(a)}"
+            # phase 3's rule: near-ties of the random scorer may swap a few
+            # kept tokens (and with them the logits)
+            ok = len(a & b) / len(a) >= 0.9
+        elif gap > 2 * diff:  # a first token the drift cannot flip
+            ok = ok and res.tokens[0] == res_p.tokens[0]
+        print(line, flush=True)
+        checks[f"main {name}: kernel vs plain"] = ok
+    return {"flash_varlen_fwd_rice": launches["rice"],
+            "flash_varlen_fwd_ov_lm": launches["lm"],
+            "decode_blocked_fwd_ov": launches["decode"]}
+
+
+def ov_profile(cfg, params, engines, req, out_dir):
+    """11.4: prefill wall (median of 3) and device busy ms (one traced
+    prefill), RICE device ms (CUDA events), decode wall and device ms per
+    token (a traced 17-token run against the prefill), peak memory."""
+    import statistics
+
+    import torch
+
+    from visionselector_tpu_torch.models.llava_ov15 import rice as R
+
+    n_new = 1 + PROFILE_DECODE_STEPS
+    for name in ("selector", "orig"):
+        eng = engines[name]
+        torch.cuda.reset_peak_memory_stats()
+        runs = [eng.generate(**req, max_new_tokens=n_new) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        prefill_ms = statistics.median(r.prefill_seconds * 1e3 for r in runs)
+        step_ms = statistics.median(
+            (r.total_seconds - r.prefill_seconds) * 1e3
+            / max(len(r.tokens) - 1, 1) for r in runs)
+        busy, kernels, _ = traced(
+            lambda: eng.generate(**req, max_new_tokens=1),
+            os.path.join(out_dir, f"profile_ov_{name}_prefill.json"))
+        busy_d, _, res = traced(
+            lambda: eng.generate(**req, max_new_tokens=n_new),
+            os.path.join(out_dir, f"profile_ov_{name}_decode.json"))
+        step_busy = (busy_d - busy) / max(len(res.tokens) - 1, 1)
+        p = eng._prep_vision(req["input_ids"], req["pixel_values"],
+                             req["grid_thw"], True, False)
+        with torch.no_grad():
+            rt = eng._rice_tensors(p.rb)
+            rice_ms = cuda_ms(lambda: R.rice_forward(params.visual, **rt),
+                              n=3)
+        if busy == 0.0:
+            print(f"[ov-profile] {name}: device time not measured (the "
+                  f"trace holds no device events)", flush=True)
+        print(f"[ov-profile] {name}: prefill_wall_ms={prefill_ms!r} "
+              f"prefill_device_busy_ms={busy!r} rice_device_ms={rice_ms!r} "
+              f"(CUDA events, median of 3) decode_wall_ms_per_token="
+              f"{step_ms!r} decode_device_ms_per_token={step_busy!r} "
+              f"peak_mem_bytes={peak}", flush=True)
+        print(f"[ov-profile] {name} prefill device ms by group: "
+              + " ".join(f"{g}={ms!r}"
+                         for g, ms in kernel_groups(kernels).items()),
+              flush=True)
+
+
+def ov_other_paths(cfg, params, engines, plains, req, checks):
+    """11.5: loglikelihood and four choices; ``generate_batch`` and the
+    batcher against one-shot; VisionZip and FastV at 0.2 (launches, and
+    against the plain path); the two-image request."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+    from visionselector_tpu_torch.selector.baselines import get_baseline
+
+    n_blocks, n_layers = cfg.vision.depth, cfg.text.num_hidden_layers
+    rng = np.random.RandomState(SEED + 12)
+    ids = req["input_ids"]
+    vision = dict(pixel_values=req["pixel_values"], grid_thw=req["grid_thw"])
+    choices = [rng.randint(1000, 100000, n) for n in CHOICE_LENS]
+    eng = engines["orig"]
+    zero_counts()
+    got = M.run_loglikelihood_choices(eng, ids, choices, **vision)
+    counts = ov_counts()
+    want = [eng.loglikelihood(ids, c, **vision) for c in choices]
+    errs = [ll_per_token(g[0], w[0], len(c))
+            for g, w, c in zip(got, want, choices)]
+    print(f"[ov-eval] orig choices {CHOICE_LENS}: one prefill + chunks "
+          f"{[round(g[0], 4) for g in got]} vs per-choice loglikelihood "
+          f"{[round(w[0], 4) for w in want]}: |diff| per token {errs} "
+          f"(limit {LL_TOL_CHUNK}); launches of the choices run {counts}",
+          flush=True)
+    checks["choices vs loglikelihood"] = (
+        max(errs) <= LL_TOL_CHUNK and all(np.isfinite(g[0]) for g in got))
+    checks["choices launches"] = counts["decode"] == n_layers * len(choices)
+
+    text = dict(input_ids=rng.randint(1000, 100000, 200))
+    reqs = [req, text, ov_request(cfg, second=True)]
+    one = [engines["selector"].generate(**r, max_new_tokens=8) for r in reqs]
+    batch = engines["selector"].generate_batch(reqs, max_new_tokens=8)
+    same = [sum(a == b for a, b in zip(x.tokens, y.tokens))
+            for x, y in zip(batch, one)]
+    firsts = [x.tokens[:1] == y.tokens[:1] for x, y in zip(batch, one)]
+    print(f"[ov-serve] generate_batch of {len(reqs)} (image, text, two "
+          f"images) vs one-shot: tokens equal per row {same} of 8 (first "
+          f"tokens equal: {firsts})", flush=True)
+    checks["generate_batch first tokens"] = all(firsts)
+
+    items = [(req, 8, {}), (text, 8, {}), (reqs[2], 6, {}),
+             (req, 6, dict(temperature=0.8, top_p=0.9, top_k=50, seed=3)),
+             (dict(input_ids=rng.randint(1000, 100000, 90)), 5, {}),
+             (req, 4, {})]
+    bat = ContinuousBatcher(engines["selector"], n_slots=4, t_max=4096,
+                            chunk=8)
+    t0 = time.perf_counter()
+    try:
+        outs = [None] * len(items)
+
+        def submit(i):
+            r, m, s = items[i]
+            outs[i] = bat.submit(r, m, (-1,), **s)
+
+        threads = [threading.Thread(target=submit, args=(i,))
+                   for i in range(len(items))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+    finally:
+        bat.shutdown()
+    wall = time.perf_counter() - t0
+    firsts = [o.tokens[:1] == engines["selector"].generate(
+        **r, max_new_tokens=1, eos_token_ids=(-1,)).tokens[:1]
+        for o, (r, _, s) in zip(outs, items) if not s]
+    print(f"[ov-serve] ContinuousBatcher(n_slots=4) 6 requests (image, "
+          f"text, two images, one sampled): wall_s={wall!r} stats "
+          f"{bat.stats} greedy first tokens equal one-shot {firsts}",
+          flush=True)
+    checks["batcher"] = (all(o is not None and len(o.tokens) == m
+                             and all(0 <= t < cfg.text.vocab_size
+                                     for t in o.tokens)
+                             for o, (_, m, _) in zip(outs, items))
+                         and all(firsts) and bat.stats["admitted"] == 6)
+
+    from visionselector_tpu_torch.models.llava_ov15 import rice as R
+
+    for method in ("visionzip", "fastv"):
+        kw = dict(budget=0.2, strategy=get_baseline(method), device="cuda")
+        strat = OVEngine(cfg, params, **kw)
+        strat.generate(**req, max_new_tokens=2)  # warm-up
+        zero_counts()
+        res = strat.generate(**req, max_new_tokens=OV_STRATEGY_TOKENS)
+        torch.cuda.synchronize()
+        c = ov_counts()
+        want = {"rice": n_blocks - (method == "visionzip"), "lm": n_layers,
+                "decode": n_layers * ov_steps(res, OV_STRATEGY_TOKENS),
+                "diag": 0, "fused": 0, "capped": 0, "packed": 0}
+        res_p = OVEngine(cfg, params, attn_impl="plain", **kw).generate(
+            **req, max_new_tokens=1)
+        a, b = set(res.selected_indices.tolist()), set(
+            res_p.selected_indices.tolist())
+        overlap = len(a & b) / max(len(a), len(b))
+        line = (f"[ov-strategy] {method} 0.2: kept {len(a)} prefill_len "
+                f"{res.prefill_len} prefill_ms "
+                f"{res.prefill_seconds * 1e3!r} launches {c} (expected "
+                f"{want}); vs plain: first token {res.tokens[0]} / "
+                f"{res_p.tokens[0]}, kept overlap {len(a & b)}/"
+                f"{max(len(a), len(b))}")
+        if method == "visionzip":
+            # phase 8's rule: the dominant tokens (the top by received
+            # attention) are held to the overlap; the stride-picked
+            # contextual ones shift with any dominant one
+            p = strat._prep_vision(ids, vision["pixel_values"],
+                                   vision["grid_thw"], True, False)
+            rt = strat._rice_tensors(p.rb)
+            dom = int(p.n * (0.2 - strat.strategy.contextual_ratio))
+
+            def top(impl):
+                with torch.no_grad():
+                    recv = R.rice_forward_stats(params.visual, **rt,
+                                                attn_impl=impl)[1][:p.n]
+                return set(torch.argsort(-recv, stable=True)[:dom].tolist())
+
+            both = len(top(None) & top("plain"))
+            overlap = both / dom
+            line += f"; dominant (top {dom}) {both}/{dom}"
+        print(line, flush=True)
+        checks[f"{method} launches"] = c == want
+        checks[f"{method} vs plain"] = (overlap >= 0.9
+                                        and res.tokens[0] == res_p.tokens[0])
+
+    two = reqs[2]
+    for name in ("selector", "orig"):
+        zero_counts()
+        res = engines[name].generate(**two, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        c = ov_counts()
+        want = {"rice": n_blocks, "lm": n_layers,
+                "decode": n_layers * ov_steps(res)}
+        res_p = plains[name].generate(**two, max_new_tokens=1)
+        diff = (res_p.logits - res.logits).abs().max().item()
+        scale = res.logits.abs().max().item()
+        ok = diff <= 0.1 * scale
+        if res.selected_indices is not None:
+            a, b = set(res.selected_indices.tolist()), set(
+                res_p.selected_indices.tolist())
+            ok = len(a & b) / len(a) >= 0.9
+        print(f"[ov-two-images] {name}: vision_tokens "
+              f"{res.num_vision_tokens} prefill_len {res.prefill_len} "
+              f"launches {c} (expected {want}); vs plain logits "
+              f"{diff!r} of {scale!r}", flush=True)
+        checks[f"two images {name}"] = ok and all(
+            c[k] == v for k, v in want.items()) and (
+            res.num_vision_tokens == OV_MERGED + 64)
+
+
+def ov_hf_dir(cfg, params, tmp, procs):
+    """11.6: an OV HF directory of the 8B weights at reduced depth (RICE
+    blocks and decoder layers OV_HF_BLOCKS / OV_HF_LAYERS, full widths,
+    bf16, the scorer fp32), written, read back bit for bit, and served by
+    ``api.predict --family llava_ov15 --model-path`` in a process of its
+    own; ``api.predict --family llava_ov15`` on the tiny random config
+    (head dims 16 and 32) beside it. Returns the directory and the
+    in-process result to compare with."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.models.llava_ov15.model import (
+        OVEngine,
+        OVParams,
+    )
+    from visionselector_tpu_torch.models.llava_ov15.weights import (
+        load_ov_checkpoint,
+        ov_config_from_hf,
+        save_ov_checkpoint,
+    )
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    small_cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, depth=len(OV_HF_BLOCKS)),
+        text=dataclasses.replace(cfg.text,
+                                 num_hidden_layers=len(OV_HF_LAYERS)))
+    vis, lm = params.visual, params.lm
+    saved_blocks, saved_layers = vis.blocks, lm.layers
+    vis.blocks = torch.nn.ModuleList(saved_blocks[i] for i in OV_HF_BLOCKS)
+    lm.layers = torch.nn.ModuleList(saved_layers[i] for i in OV_HF_LAYERS)
+    d = os.path.join(tmp, "ov_hf")
+    t0 = time.perf_counter()
+    try:
+        vis.cfg, lm.cfg = small_cfg.vision, small_cfg.text
+        save_ov_checkpoint(params, small_cfg, d, shards=2)
+        src = params.state_dict()  # the reduced model's tensors
+    finally:
+        vis.blocks, lm.layers = saved_blocks, saved_layers
+        vis.cfg, lm.cfg = cfg.vision, cfg.text
+    write_s = time.perf_counter() - t0
+    start_cli(procs, tmp, "predict", "--family", "llava_ov15",
+              "--model-path", d, "--prompt-ids", "300,301,302",
+              "--max-new-tokens", "4")
+    t0 = time.perf_counter()
+    loaded = load_ov_checkpoint(d, ov_config_from_hf(d), "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    back = loaded.state_dict()
+    same = back.keys() == src.keys() and all(
+        torch.equal(back[n], src[n]) for n in src)
+    print(f"[ov-hf] reduced-depth HF dir (RICE blocks {OV_HF_BLOCKS}, "
+          f"decoder layers {OV_HF_LAYERS}, 2 shards): write_s={write_s!r} "
+          f"load_to_card_s={load_s!r} bit_equal={same}", flush=True)
+    del src, back
+    img = (np.random.RandomState(0).rand(112, 112, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9,
+                                temporal_patch_size=1)
+    res = OVEngine(loaded.cfg, loaded, device="cuda").generate(
+        expand_vision_tokens([], [300, 301, 302], grid), px, grid,
+        max_new_tokens=4)
+    del loaded
+    return same, res.tokens
+
+
+def ov_phase(tmp, out_dir):
+    """Phase 11. Raises if any check failed; returns (the main path's
+    launches, the kernels line's entries)."""
+    import torch
+
+    from visionselector_tpu_torch.core.config import llava_ov15_8b
+    from visionselector_tpu_torch.models.llava_ov15.model import (
+        OVEngine,
+        init_ov_params,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"[ov] card: {nvidia_smi()}", flush=True)
+    cfg = llava_ov15_8b()
+    t0 = time.perf_counter()
+    params = init_ov_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"[ov] llava_ov15_8b random bf16 (scorer fp32): {n} parameters in "
+          f"{time.perf_counter() - t0!r} s; memory allocated "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    procs, checks = {}, {}
+    tiny_tmp = os.path.join(tmp, "ov_tiny")
+    os.makedirs(tiny_tmp)
+    start_cli(procs, tiny_tmp, "predict", "--family", "llava_ov15",
+              "--max-new-tokens", "3")
+    procs["predict_tiny"] = procs.pop("predict")
+    req = ov_request(cfg)
+    engines = {name: OVEngine(cfg, params, use_selector=name == "selector",
+                              budget=0.2, device="cuda")
+               for name in ("selector", "orig")}
+    plains = {name: OVEngine(cfg, params, use_selector=name == "selector",
+                             budget=0.2, device="cuda", attn_impl="plain")
+              for name in ("selector", "orig")}
+    p = engines["selector"]._prep_vision(req["input_ids"],
+                                         req["pixel_values"],
+                                         req["grid_thw"], True, False)
+    print(f"[ov] request: grid {req['grid_thw'].tolist()} patches "
+          f"{len(req['pixel_values'])} bucket {p.s_bucket} S'="
+          f"{len(p.rb.seg_ids)} merged {p.n} k={p.k} k_max={p.k_max} ids "
+          f"{len(req['input_ids'])}", flush=True)
+    checks["layout"] = (tuple(req["grid_thw"][0]) == OV_GRID
+                        and p.s_bucket == OV_BUCKET and p.n == OV_MERGED
+                        and (p.k, p.k_max) == (384, 409))
+    kernels = ov_kernels(cfg, engines, req)
+    launches = ov_main_path(cfg, engines, plains, req, checks)
+    ov_profile(cfg, params, engines, req, out_dir)
+    ov_other_paths(cfg, params, engines, plains, req, checks)
+    same, want_tokens = ov_hf_dir(cfg, params, tmp, procs)
+    checks["HF dir bit-equal"] = same
+    rc, stdout, stderr, secs = finish_cli(procs, "predict")
+    out = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 else {}
+    print(f"[ov-hf] api.predict --family llava_ov15 --model-path (cuda): "
+          f"rc={rc} in {secs!r} s {out or stderr[-2000:]}; in process "
+          f"{want_tokens}", flush=True)
+    checks["api.predict --model-path"] = bool(
+        out.get("tokens") and out["tokens"][:1] == want_tokens[:1]
+        and out.get("selector") and out["device"] == "cuda")
+    rc, stdout, stderr, secs = finish_cli(procs, "predict_tiny")
+    out = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 else {}
+    print(f"[ov-hf] api.predict --family llava_ov15 (tiny config, cuda): "
+          f"rc={rc} in {secs!r} s {out or stderr[-2000:]}", flush=True)
+    checks["api.predict tiny on cuda"] = bool(
+        out.get("tokens") and out["num_vision_tokens"] == 16)
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[ov] checks: {checks}", flush=True)
+    print(f"[ov] phase seconds {time.perf_counter() - t_phase!r}",
+          flush=True)
+    del engines, plains, params
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"OV phase failed: {bad}")
+    return launches, kernels
+
+
 def main() -> int:
     import torch
 
@@ -4319,6 +5050,12 @@ def main() -> int:
         (launches["flash_varlen_fwd_capped"],
          kernels["flash_varlen_fwd_capped"]) = video_phase(
             cfg, params, engine, pixels, grid, tmp)
+        # LLaVA-OV-1.5-8B: RICE's K1, the decoder's causal K1 and K5 at
+        # n_rep 4, counted in phase 11's main path (zeroed just before,
+        # read just after) and held at its own shapes.
+        ov_launches, ov_kernels_line = ov_phase(tmp, out_dir)
+        launches.update(ov_launches)
+        kernels.update(ov_kernels_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -994,3 +994,117 @@ def test_tiny_train_step_launches_and_freezes(dev):
     for n, p in params.named_parameters():
         if n in frozen:
             assert torch.equal(p, frozen[n]) and p.grad is None, n
+
+
+# LLaVA-OneVision-1.5: K1 at RICE's layout (head dim 64, a CLS row at the
+# start of each image segment, S' padded to the 64-row tile), K1 causal and
+# K5 at the 8B decoder's GQA 32/8 (n_rep 4), and both at llava_ov_tiny's
+# decoder head dim 32.
+
+
+def _rice_layout(pad_to, grids):
+    """seg [1, S'] and bounds of a RICE batch: ``grids`` images' patches in
+    a ``pad_to`` bucket, 8 CLS slots, padded to the kernel's tile."""
+    from visionselector_tpu_torch.models.llava_ov15.rice import (
+        build_rice_batch,
+    )
+
+    g = np.asarray(grids)
+    px = np.zeros((int((g[:, 0] * g[:, 1] * g[:, 2]).sum()), 588),
+                  np.float32)
+    rb = build_rice_batch(px, g, pad_to=pad_to, cls_slots=8,
+                          tile=A.FLASH_BLOCK)
+    return (torch.as_tensor(rb.seg_ids, device="cuda")[None],
+            torch.as_tensor(rb.kv_bounds, device="cuda"))
+
+
+@pytest.mark.parametrize("grids", [[(1, 30, 40)], [(1, 16, 16), (1, 20, 24)],
+                                   [(4, 8, 8)]],
+                         ids=["one image", "two images", "four frames"])
+def test_flash_rice_cls_layout_d64(dev, grids):
+    """K1 non-causal at head dim 64 on RICE's CLS'd segments with bounds:
+    within ULP_LIMIT of the plain version, padding rows exactly 0; each q
+    tile's last kv tile dropped from the bounds fails."""
+    seg, bounds = _rice_layout(2048, grids)
+    s = seg.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (_rnd(gen, 1, s, 16, 64) for _ in range(3))
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, kv_bounds=bounds)
+    want = A.flash_plain(q, k, v, seg, seg, kv_bounds=bounds)
+    assert s % 64 == 0 and _err(got, want) <= ULP_LIMIT
+    assert (got[:, seg[0] == 0] == 0).all()
+    live = (bounds[:, 1] > bounds[:, 0]).int()
+    cut = bounds - torch.stack([0 * live, live], 1).int()
+    assert _err(A.flash_varlen_fwd(q, k, v, seg, seg, kv_bounds=cut),
+                want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("d, h, h_kv", [(128, 32, 8), (32, 4, 2)])
+@pytest.mark.parametrize("t", [512, 1664])
+def test_flash_causal_ov_decoder(dev, d, h, h_kv, t):
+    """K1 causal at the OV decoders: GQA 32/8 at head dim 128 (the 8B) and
+    4/2 at 32 (the tiny config), ragged valid prefixes."""
+    gen = torch.Generator(device=dev).manual_seed(400 + d + t)
+    q, k, v, seg = _prefix_inputs(gen, 2, t, h, h_kv, d, [t - 45, t // 3])
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, causal=True)
+    want = A.flash_plain(q, k, v, seg, seg, causal=True)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+
+
+@pytest.mark.parametrize("d, hq, h_kv", [(128, 32, 8), (32, 4, 2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t_c", [1, 4])
+def test_decode_ov_decoder(dev, d, hq, h_kv, quant, t_c):
+    """K5 at n_rep 4 (the 8B's 32/8) and at the tiny decoder's head dim
+    32, bf16 and int8 pools, lengths at tile edges; the last live tile
+    dropped fails."""
+    t = 1024
+    gen = torch.Generator(device=dev).manual_seed(500 + d + quant + t_c)
+    q, k, v, ks, vs = _decode_inputs(gen, 6, t_c, hq, h_kv, t, d, quant)
+    base = torch.tensor([0, 63, 64, 65, 437, t - t_c], device=dev)
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    tile_cut = torch.div(base, 64, rounding_mode="floor") * 64 - 1
+    tile_cut[0] = 0
+    assert _err(A.decode_blocked_fwd(q, k, v, tile_cut.clamp(min=0), None,
+                                     ks, vs), want) > ULP_LIMIT
+
+
+def test_tiny_ov_engine_kernels_match_plain_path(dev):
+    """llava_ov_tiny on the card (bf16): per prefill one K1 per RICE block
+    and one causal K1 per decoder layer, one K5 per layer and decode step;
+    the first-token logits within 10% of max |logit| of the plain path."""
+    from visionselector_tpu_torch.core.config import llava_ov_tiny
+    from visionselector_tpu_torch.models.llava_ov15.model import (
+        OVEngine,
+        init_ov_params,
+    )
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    cfg = llava_ov_tiny()
+    params = init_ov_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, torch.bfloat16)
+    rng = np.random.RandomState(0)
+    img = (rng.rand(224, 280, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9,
+                                temporal_patch_size=1)
+    ids = expand_vision_tokens([100, 200], [300, 400], grid)
+    for sel in (True, False):
+        kern = OVEngine(cfg, params, use_selector=sel, device=dev)
+        plain = OVEngine(cfg, params, use_selector=sel, device=dev,
+                         attn_impl="plain")
+        f0, d0 = A.FLASH_LAUNCHES, A.DECODE_LAUNCHES
+        a = kern.generate(ids, px, grid, max_new_tokens=4,
+                          eos_token_ids=(-1,))
+        assert (A.FLASH_LAUNCHES - f0
+                == cfg.vision.depth + cfg.text.num_hidden_layers)
+        assert A.DECODE_LAUNCHES - d0 == 3 * cfg.text.num_hidden_layers
+        b = plain.generate(ids, px, grid, max_new_tokens=4,
+                           eos_token_ids=(-1,))
+        assert a.prefill_len == b.prefill_len
+        assert torch.isfinite(a.logits).all()
+        scale = b.logits.abs().max().item()
+        assert (a.logits - b.logits).abs().max().item() <= 0.1 * scale

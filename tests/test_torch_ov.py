@@ -1,0 +1,255 @@
+"""The port's LLaVA-OneVision-1.5 modules (``visionselector_tpu_torch.
+models.llava_ov15``) against the JAX package's on llava_ov_tiny, with the
+same weights (``ov_from_jax_params``) and inputs made with numpy from a
+seed:
+
+- ``build_rice_batch``'s CLS insert / strip maps and segments bit-equal,
+  and the kernel-tile padding only appends zero rows of segment 0;
+- ``rice_forward`` and ``rice_forward_stats`` within 1e-4 (fp32, two
+  blocks), on the port's tile-padded layout against the reference's;
+- the Qwen3 decoder (q/k norm, no biases, 1-D rope, head_dim_override)
+  and the same widths without q/k norm (biases, an untied head): prefill
+  k and logits and a decode step within 1e-4.
+
+The engine is ``tests/test_torch_ov_engine.py``'s.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_ov_params import (  # noqa: F401 (one_thread: autouse fixture)
+    configs,
+    image,
+    one_thread,
+    ov_tree,
+    port_params,
+    video,
+)
+
+from visionselector_tpu.models.llava_ov15 import rice as jrice
+from visionselector_tpu.models.qwen25vl import lm as jlm
+from visionselector_tpu_torch.core.config import TextConfig
+from visionselector_tpu_torch.kernels.attention import FLASH_BLOCK
+from visionselector_tpu_torch.models.llava_ov15 import rice as trice
+from visionselector_tpu_torch.models.qwen25vl import lm as tlm
+from visionselector_tpu_torch.models.qwen25vl.weights import lm_from_jax
+
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def weights():
+    tree = ov_tree()
+    return tree, jax.tree.map(jnp.asarray, tree), port_params(tree)
+
+
+# -- RICE batch ----------------------------------------------------------
+
+
+def _batches():
+    px, grid = image(112, 140, 0)
+    p1, g1 = image(56, 56, 21)
+    p2, g2 = image(56, 84, 22)
+    vpx, vgrid = video()
+    return {
+        "image, exact length": (px, grid, None, None),
+        "image, bucket and slots": (px, grid, 256, 8),
+        "two images": (np.concatenate([p1, p2]), np.concatenate([g1, g2]),
+                       128, 8),
+        "video frames": (vpx, vgrid, 256, 8),
+    }
+
+
+@pytest.mark.parametrize("case", list(_batches()))
+def test_rice_batch_maps_bit_equal(case):
+    px, grid, pad_to, slots = _batches()[case]
+    want = jrice.build_rice_batch(px, grid, pad_to=pad_to, cls_slots=slots)
+    got = trice.build_rice_batch(px, grid, pad_to=pad_to, cls_slots=slots)
+    for name in ("pixel_values", "rot_pos_ids", "insert_map", "strip_map",
+                 "seg_ids", "grid_thw"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)
+    assert (got.num_patches, got.num_merged) == (want.num_patches,
+                                                 want.num_merged)
+
+
+def test_rice_batch_tile_padding_appends_dead_rows():
+    """``tile``: S' rounded up to the kernel's tile with zero-row sentinels
+    of segment 0; the maps before them are the reference's, and the bounds
+    cover every 64-row tile."""
+    px, grid = image(112, 140, 0)
+    ref = trice.build_rice_batch(px, grid, pad_to=256, cls_slots=8)
+    got = trice.build_rice_batch(px, grid, pad_to=256, cls_slots=8,
+                                 tile=FLASH_BLOCK)
+    sp = len(ref.seg_ids)  # 264
+    assert sp % FLASH_BLOCK and len(got.seg_ids) % FLASH_BLOCK == 0
+    np.testing.assert_array_equal(got.insert_map[:sp], ref.insert_map)
+    np.testing.assert_array_equal(got.seg_ids[:sp], ref.seg_ids)
+    assert (got.insert_map[sp:] == 256 + 1).all()
+    assert (got.seg_ids[sp:] == 0).all()
+    np.testing.assert_array_equal(got.strip_map, ref.strip_map)
+    assert ref.kv_bounds is None
+    assert got.kv_bounds.shape == (len(got.seg_ids) // FLASH_BLOCK, 2)
+
+
+def _rice_inputs(case, tile):
+    px, grid, pad_to, slots = _batches()[case]
+    rb = trice.build_rice_batch(px, grid, pad_to=pad_to, cls_slots=slots,
+                                tile=tile)
+    return rb, dict(
+        pixel_values=torch.from_numpy(rb.pixel_values),
+        rot_pos_ids=torch.from_numpy(rb.rot_pos_ids),
+        insert_map=torch.from_numpy(rb.insert_map),
+        strip_map=torch.from_numpy(rb.strip_map),
+        seg_ids=torch.from_numpy(rb.seg_ids),
+        kv_bounds=(None if rb.kv_bounds is None
+                   else torch.from_numpy(rb.kv_bounds)))
+
+
+def _jax_rice(jp, case, stats=False):
+    px, grid, pad_to, slots = _batches()[case]
+    rb = jrice.build_rice_batch(px, grid, pad_to=pad_to, cls_slots=slots)
+    fn = jrice.rice_forward_stats if stats else jrice.rice_forward
+    out = fn(jp["visual"], jnp.asarray(rb.pixel_values),
+             jnp.asarray(rb.rot_pos_ids), jnp.asarray(rb.insert_map),
+             jnp.asarray(rb.strip_map), jnp.asarray(rb.seg_ids),
+             configs()[0].vision)
+    return [np.asarray(o) for o in out] if stats else np.asarray(out)
+
+
+@pytest.mark.parametrize("case", ["image, bucket and slots", "two images",
+                                  "video frames"])
+def test_rice_forward_matches_jax(weights, case):
+    """Merged tokens of the real patches within 1e-4, on the port's
+    tile-padded layout (bounds at the kernel's tile) against the
+    reference's unpadded one."""
+    _, jp, tp = weights
+    want = _jax_rice(jp, case)
+    rb, inputs = _rice_inputs(case, FLASH_BLOCK)
+    got = trice.rice_forward(tp.visual, **inputs).numpy()
+    n = rb.num_merged
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[:n], want[:n], atol=ATOL, rtol=0)
+
+
+def test_rice_forward_stats_matches_jax(weights):
+    """Merged tokens, each merged token's received attention mass and its
+    pooled last-block keys within 1e-4."""
+    _, jp, tp = weights
+    case = "two images"
+    want = _jax_rice(jp, case, stats=True)
+    rb, inputs = _rice_inputs(case, FLASH_BLOCK)
+    got = [x.numpy() for x in trice.rice_forward_stats(tp.visual, **inputs)]
+    n = rb.num_merged
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[:n], w[:n], atol=ATOL, rtol=0)
+    # the stats path's merged tokens are rice_forward's
+    np.testing.assert_allclose(
+        got[0][:n], trice.rice_forward(tp.visual, **inputs).numpy()[:n],
+        atol=1e-6, rtol=0)
+
+
+# -- Qwen3 text model ----------------------------------------------------
+
+
+def _text_cfgs(qk_norm: bool):
+    """(JAX, port) text configs: the OV Qwen3 decoder, or the same widths
+    with q/k norm off (biases on, 1-D rope kept)."""
+    jcfg, tcfg = configs()
+    if qk_norm:
+        return jcfg.text, tcfg.text
+    kw = dict(qk_norm=False, attention_bias=True, tie_word_embeddings=False)
+    return (dataclasses.replace(jcfg.text, **kw),
+            dataclasses.replace(tcfg.text, **kw))
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["qk_norm",
+                                                          "no_qk_norm"])
+def decoder(request):
+    from visionselector_tpu.models.qwen25vl.lm import init_lm_params
+
+    jtext, ttext = _text_cfgs(request.param)
+    shapes = jax.eval_shape(lambda k: init_lm_params(k, jtext),
+                            jax.random.PRNGKey(0))
+    rng = np.random.RandomState(3)
+
+    def fill(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("_scale']"):  # non-trivial norm scales
+            return (1 + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        return (rng.randn(*leaf.shape) * 0.1).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    t, valid = 24, 19
+    embeds = rng.randn(1, t, jtext.hidden_size).astype(np.float32)
+    pos = np.tile(np.arange(t), (3, 1))[:, None]
+    seg = (np.arange(t) < valid).astype(np.int32)[None]
+    return dict(jtext=jtext, ttext=ttext, jp=jax.tree.map(jnp.asarray, tree),
+                lm=lm_from_jax(tree, ttext, "cpu", torch.float32),
+                embeds=embeds, pos=pos, seg=seg, valid=valid)
+
+
+def test_qwen3_flags_build_the_layer(decoder):
+    layer = decoder["lm"].layers[0]
+    names = {n for n, _ in layer.named_parameters()}
+    qk = decoder["ttext"].qk_norm
+    assert ("q_norm_scale" in names) == qk and ("q_bias" in names) != qk
+    assert tlm.mrope_axis_selector(decoder["ttext"]).eq(0).all()
+
+
+def test_qwen3_prefill_logits_match_jax(decoder):
+    d = decoder
+    jh, (jk, _) = jlm.lm_prefill(d["jp"], jnp.asarray(d["embeds"]),
+                                 jnp.asarray(d["pos"]), jnp.asarray(d["seg"]),
+                                 d["jtext"])
+    th, (tk, _) = tlm.lm_prefill(d["lm"], torch.from_numpy(d["embeds"]),
+                                 torch.from_numpy(d["pos"]),
+                                 torch.from_numpy(d["seg"]))
+    v = d["valid"]
+    np.testing.assert_allclose(tk.numpy()[:, :, :v], np.asarray(jk)[:, :, :v],
+                               atol=ATOL, rtol=0)
+    want = jlm.lm_head(d["jp"], jh[0, :v], d["jtext"])
+    got = tlm.lm_head(d["lm"], th[0, :v])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_qwen3_decode_step_matches_jax(decoder):
+    """One decode step at position ``valid`` after the prefill's cache
+    (the port writes the row in place)."""
+    d = decoder
+    v, t_max = d["valid"], 32
+    _, (jk, jv) = jlm.lm_prefill(d["jp"], jnp.asarray(d["embeds"]),
+                                 jnp.asarray(d["pos"]), jnp.asarray(d["seg"]),
+                                 d["jtext"])
+    pad = ((0, 0), (0, 0), (0, t_max - jk.shape[2]), (0, 0), (0, 0))
+    nl = d["jtext"].num_hidden_layers
+    jcache = jlm.KVCache(k=jnp.pad(jk, pad), v=jnp.pad(jv, pad),
+                         length=jnp.full((nl, 1), v, jnp.int32))
+    x = np.random.RandomState(9).randn(1, 1, d["jtext"].hidden_size
+                                       ).astype(np.float32)
+    pos3 = np.full((3, 1, 1), v, np.int64)
+    jh, _ = jlm.lm_decode_step(d["jp"], jcache, jnp.asarray(x),
+                               jnp.asarray(pos3), d["jtext"])
+    tcache = tlm.KVCache(k=torch.from_numpy(np.asarray(jcache.k)).clone(),
+                         v=torch.from_numpy(np.asarray(jcache.v)).clone(),
+                         length=torch.full((nl, 1), v, dtype=torch.int64))
+    th, tcache = tlm.lm_decode_step(d["lm"], tcache, torch.from_numpy(x),
+                                    torch.from_numpy(pos3))
+    np.testing.assert_allclose(
+        tlm.lm_head(d["lm"], th[0, 0]).numpy(),
+        np.asarray(jlm.lm_head(d["jp"], jh[0, 0], d["jtext"])), atol=ATOL,
+        rtol=0)
+    assert int(tcache.length[0, 0]) == v + 1
+
+
+def test_moe_text_model_is_refused():
+    cfg = TextConfig(num_experts=4, num_hidden_layers=1, hidden_size=32,
+                     intermediate_size=64, num_attention_heads=2,
+                     num_key_value_heads=1, vocab_size=64)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tlm.LanguageModel(cfg, "cpu", torch.float32)

@@ -148,8 +148,9 @@ def test_merge_and_from_log_match_reference(tmp_path, mode, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--family", "llava_ov15"], 8),
-    (["--family", "llava_ov15", "--method", "visionzip"], 8),
+    (["--family", "llava_ov15", "--quantize", "int8"], 9),
+    (["--family", "llava_ov15", "--method", "visionzip", "--speculative",
+      "3"], 7),
     (["--quantize", "int8"], 9),
     (["--decode-batch", "2", "--speculative", "3"], 7),
     (["--speculative", "3"], 7),

@@ -380,7 +380,8 @@ def test_build_server_main_flags(w):
 
 
 @pytest.mark.parametrize("flags, exc, match", [
-    (["--family", "llava_ov15"], NotImplementedError, "item 8\\b"),
+    (["--family", "llava_ov15", "--tp", "2"], NotImplementedError,
+     "item 11\\b"),
     (["--quantize", "int8"], NotImplementedError, "item 9\\b"),
     (["--tp", "2"], NotImplementedError, "item 11\\b"),
     (["--speculative", "3"], NotImplementedError, "item 7\\b"),

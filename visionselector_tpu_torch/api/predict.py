@@ -4,10 +4,12 @@ Usage:
     python -m visionselector_tpu_torch.api.predict \\
         --method selector --budget 0.2 [--image photo.jpg] [--prompt-ids 1,2,3]
 
-Without --model-path it runs the tiny random-weight config (smoke mode),
-as ``visionselector_tpu.api.predict`` does. ``--model-path`` loads a
-Qwen2.5-VL Hugging Face checkpoint directory (``config.json`` and one or
-more ``*.safetensors``, a trained ``importance_scorer`` among them or not:
+``--family qwen25vl`` (the default) or ``llava_ov15`` (LLaVA-OneVision-1.5:
+the RICE tower, temporal patch 1, and the Qwen3 text model; ``OVEngine``).
+Without --model-path it runs the family's tiny random-weight config (smoke
+mode), as ``visionselector_tpu.api.predict`` does. ``--model-path`` loads
+a Hugging Face checkpoint directory of the family (``config.json`` and one
+or more ``*.safetensors``, a trained ``importance_scorer`` among them or not:
 ``api.train`` writes ``importance_scorer.safetensors``, which can be
 copied into the directory); without a scorer ``--method selector`` runs
 as ``orig``; any other ``--method`` is a training-free baseline
@@ -40,9 +42,65 @@ METHOD_ALIASES = {"visionzip_official": "visionzip",
                   "prumerge+": "prumerge_plus"}
 
 
+FAMILIES = ("qwen25vl", "llava_ov15")
+
+
+def load_model(family: str, model_path, device: str, seed: int = 0):
+    """(config, parameters) of ``family``: the HF directory at
+    ``model_path`` on ``device`` (the config's dtype), or without one the
+    family's tiny random-weight config from ``seed``, bf16 on the card (the
+    kernels' dtype; the tiny configs are fp32) and fp32 on the CPU."""
+    import torch
+
+    if family == "llava_ov15":
+        from visionselector_tpu_torch.core.config import llava_ov_tiny as tiny
+        from visionselector_tpu_torch.models.llava_ov15.model import (
+            init_ov_params as init,
+        )
+        from visionselector_tpu_torch.models.llava_ov15.weights import (
+            load_ov_checkpoint as load,
+            ov_config_from_hf as config_from,
+        )
+    else:
+        from visionselector_tpu_torch.core.config import qwen25vl_tiny as tiny
+        from visionselector_tpu_torch.models.qwen25vl.weights import (
+            config_from_hf as config_from,
+            init_params as init,
+            load_hf_checkpoint as load,
+        )
+    if model_path:
+        cfg = config_from(model_path)
+        return cfg, load(model_path, cfg, device)
+    cfg = tiny()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, init(cfg, gen, device,
+                     torch.bfloat16 if device == "cuda" else None)
+
+
+def make_engine(family: str, cfg, params, method: str, budget: float,
+                device: str):
+    """The family's engine for ``--method``: the LIS selector, ``orig``,
+    or a training-free baseline (``selector.baselines``)."""
+    from visionselector_tpu_torch.selector.baselines import get_baseline
+
+    if family == "llava_ov15":
+        from visionselector_tpu_torch.models.llava_ov15.model import (
+            OVEngine as Engine,
+        )
+    else:
+        from visionselector_tpu_torch.models.qwen25vl.model import (
+            QwenVLEngine as Engine,
+        )
+    strategy = (None if method in ("orig", "selector")
+                else get_baseline(method))
+    return Engine(cfg, params, use_selector=method == "selector",
+                  budget=budget, strategy=strategy, device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model-path", default=None, help="HF checkpoint dir")
+    p.add_argument("--family", default="qwen25vl", choices=FAMILIES)
     p.add_argument("--image", default=None, help="image file path")
     p.add_argument("--prompt", default="Describe this image.",
                    help="the question, through the checkpoint's tokenizer "
@@ -92,33 +150,17 @@ def main(argv=None) -> int:
         args.eval_time = True
     import torch
 
-    from visionselector_tpu_torch.core.config import qwen25vl_tiny
-    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
-    from visionselector_tpu_torch.models.qwen25vl.weights import (
-        config_from_hf,
-        init_params,
-        load_hf_checkpoint,
-    )
     from visionselector_tpu_torch.preprocess.image import preprocess_image
     from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
-    from visionselector_tpu_torch.selector.baselines import get_baseline
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
+    cfg, params = load_model(args.family, args.model_path, args.device,
+                             args.seed)
     tokenizer = None
-    if args.model_path:
-        cfg = config_from_hf(args.model_path)
-        params = load_hf_checkpoint(args.model_path, cfg, args.device)
-        if not args.prompt_ids:
-            tokenizer = load_tokenizer(args.model_path)
-    else:
-        cfg = qwen25vl_tiny()
-        gen = torch.Generator(device=args.device).manual_seed(args.seed)
-        # bf16 on the card: the kernels' dtype (the tiny config is fp32)
-        params = init_params(cfg, gen, args.device,
-                             torch.bfloat16 if args.device == "cuda"
-                             else None)
+    if args.model_path and not args.prompt_ids:
+        tokenizer = load_tokenizer(args.model_path)
 
     tp = cfg.vision.temporal_patch_size
     if args.image:
@@ -145,14 +187,12 @@ def main(argv=None) -> int:
         vision_end_token_id=cfg.vision_end_token_id,
     )
 
-    strategy = (None if args.method in ("orig", "selector")
-                else get_baseline(args.method))
-    engine = QwenVLEngine(cfg, params, use_selector=args.method == "selector",
-                          budget=args.budget, strategy=strategy,
-                          device=args.device)
+    engine = make_engine(args.family, cfg, params, args.method, args.budget,
+                         args.device)
     res = engine.generate(input_ids, pixels, grid,
                           max_new_tokens=args.max_new_tokens)
     out = {
+        "family": args.family,
         "method": args.method,
         "budget": args.budget,
         "device": args.device,

@@ -7,7 +7,8 @@ Usage:
         --tasks chartqa,textvqa_val --method selector --budgets 0.1,0.2,0.3 \\
         --limit 8 --output-dir results/
 
-Runs each (task x budget) cell on the Qwen2.5-VL engine (``--method``
+Runs each (task x budget) cell on the engine of ``--family``
+(``qwen25vl``, the default, or ``llava_ov15``: ``OVEngine``) (``--method``
 ``selector``, ``orig`` or a training-free baseline of
 ``selector.baselines``: visionzip, prumerge_plus, divprune, holov, random,
 fastv, dart, dynamic; ``api.run_token_compression`` sweeps several),
@@ -35,7 +36,7 @@ asks for the CPU.
 ``generate``'s).
 
 Not ported yet, each raising NotImplementedError with its ROADMAP §1 item:
-``--family llava_ov15`` (8), ``--quantize`` (9), ``--speculative`` (7).
+``--quantize`` (9), ``--speculative`` (7).
 """
 
 from __future__ import annotations
@@ -104,7 +105,6 @@ def build_parser():
 
 def _refuse_unported(args) -> None:
     refused = [
-        (args.family == "llava_ov15", "--family llava_ov15", 8),
         (args.quantize is not None, "--quantize", 9),
         (bool(args.speculative), "--speculative", 7),
     ]
@@ -200,45 +200,27 @@ def main(argv=None) -> int:
 
     import torch
 
-    from visionselector_tpu_torch.api.predict import load_tokenizer
-    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.api.predict import (
+        load_model,
+        load_tokenizer,
+        make_engine,
+    )
     from visionselector_tpu_torch.eval.evaluator import EngineAdapter, evaluate
     from visionselector_tpu_torch.eval.tracker import EvaluationTracker
-    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
-    from visionselector_tpu_torch.models.qwen25vl.weights import (
-        config_from_hf,
-        init_params,
-        load_hf_checkpoint,
-    )
-    from visionselector_tpu_torch.selector.baselines import get_baseline
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
-    tokenizer = None
-    if args.model_path:
-        cfg = config_from_hf(args.model_path)
-        params = load_hf_checkpoint(args.model_path, cfg, args.device)
-        tokenizer = load_tokenizer(args.model_path)
-    else:
-        cfg = qwen25vl_tiny()
-        gen = torch.Generator(device=args.device).manual_seed(0)
-        # bf16 on the card: the kernels' dtype (the tiny config is fp32)
-        params = init_params(cfg, gen, args.device,
-                             torch.bfloat16 if args.device == "cuda"
-                             else None)
+    cfg, params = load_model(args.family, args.model_path, args.device)
+    tokenizer = load_tokenizer(args.model_path) if args.model_path else None
     if tokenizer is None:
         tokenizer = _IdTokenizer()
 
     os.makedirs(args.output_dir, exist_ok=True)
     tasks = args.tasks.split(",")
     for budget in [float(b) for b in args.budgets.split(",")]:
-        strategy = (None if args.method in ("orig", "selector")
-                    else get_baseline(args.method))
-        engine = QwenVLEngine(cfg, params,
-                              use_selector=args.method == "selector",
-                              budget=budget, strategy=strategy,
-                              device=args.device)
+        engine = make_engine(args.family, cfg, params, args.method, budget,
+                             args.device)
         adapter = EngineAdapter(
             engine, tokenizer, visualize_dir=args.visualize_dir,
             model_tag=f"{args.family}:{args.model_path or 'smoke'}",

@@ -19,7 +19,9 @@ Usage:
         [--budget 0.2] [--continuous 8 --continuous-prefill-chunk 256]
 
 It serves on the GPU (``--device cuda``, the default; no CPU fallback:
-``--device cpu`` asks for the CPU). Without ``--model-path`` it serves the
+``--device cpu`` asks for the CPU) the engine of ``--family``: ``qwen25vl``
+(the default) or ``llava_ov15`` (``OVEngine``: continuous batching admits
+its requests one-shot). Without ``--model-path`` it serves the family's
 tiny random-weight config; without a tokenizer (no ``--model-path``, or no
 ``transformers``) prompts become stub ids and answers are token ids, as
 the reference's server does. ``image_b64`` takes an 8-bit RGB / RGBA PNG
@@ -27,7 +29,7 @@ without Pillow (``preprocess.png``); other formats need Pillow (a 400
 that names it otherwise).
 
 Not ported yet, raising NotImplementedError with their ROADMAP §1 item:
-``--family llava_ov15`` (8), ``--quantize`` (9), ``--tp`` (11),
+``--quantize`` (9), ``--tp`` (11),
 ``--speculative`` and ``--continuous-kv-quant int4`` (7).
 ``--continuous-auto-window`` raises ValueError: the decode kernel already
 reads only each slot's live prefix (ROADMAP "Do not port").
@@ -689,8 +691,6 @@ def _refuse_unported(args) -> None:
     )
 
     refused = [
-        (getattr(args, "family", "qwen25vl") == "llava_ov15",
-         "--family llava_ov15", 8),
         (bool(getattr(args, "quantize", None)), "--quantize", 9),
         (int(getattr(args, "tp", 0) or 0) > 1, "--tp", 11),
         (bool(getattr(args, "speculative", 0)), "--speculative", 7),
@@ -712,42 +712,24 @@ def build_server(args) -> ThreadingHTTPServer:
     ``httpd.server_obj.close()`` to stop its batcher."""
     import torch
 
-    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
-    from visionselector_tpu_torch.selector.baselines import get_baseline
+    from visionselector_tpu_torch.api.predict import (
+        load_model,
+        load_tokenizer,
+        make_engine,
+    )
 
     _refuse_unported(args)
     device = getattr(args, "device", "cuda")
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (pass "
                          "--device cpu to serve on the CPU)")
-    tokenizer = None
-    if getattr(args, "model_path", None):
-        from visionselector_tpu_torch.api.predict import load_tokenizer
-        from visionselector_tpu_torch.models.qwen25vl.weights import (
-            config_from_hf,
-            load_hf_checkpoint,
-        )
-
-        cfg = config_from_hf(args.model_path)
-        params = load_hf_checkpoint(args.model_path, cfg, device)
-        tokenizer = load_tokenizer(args.model_path)
-    else:
-        from visionselector_tpu_torch.core.config import qwen25vl_tiny
-        from visionselector_tpu_torch.models.qwen25vl.weights import (
-            init_params,
-        )
-
-        cfg = qwen25vl_tiny()
-        # bf16 on the card (the kernels' dtype; the tiny config is fp32)
-        params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                             device,
-                             torch.bfloat16 if device == "cuda" else None)
+    family = getattr(args, "family", "qwen25vl")
+    model_path = getattr(args, "model_path", None)
+    cfg, params = load_model(family, model_path, device)
+    tokenizer = load_tokenizer(model_path) if model_path else None
     method = getattr(args, "method", "selector")
     budget = getattr(args, "budget", 0.2)
-    strategy = (None if method in ("orig", "selector")
-                else get_baseline(method))
-    engine = QwenVLEngine(cfg, params, use_selector=method == "selector",
-                          budget=budget, strategy=strategy, device=device)
+    engine = make_engine(family, cfg, params, method, budget, device)
     # the reference's "blocked" decode attention is the port's decode
     # kernel (the default); its dense "xla" one is the plain path
     decode_attn = ("plain" if getattr(args, "decode_attn", None) == "xla"

@@ -96,8 +96,8 @@ def _refuse_unported(args) -> None:
             f"not ported yet")
     if args.family != "qwen25vl":
         raise NotImplementedError(
-            "--family llava_ov15 is not ported yet (ROADMAP section 1, "
-            "item 8)")
+            "--family llava_ov15: OV training (train/ov_loss.py) is not "
+            "ported yet (ROADMAP section 1, item 8; OV inference is)")
     if args.data_flatten:
         raise NotImplementedError(
             "--data-flatten (packed rows) is not ported yet (ROADMAP "

@@ -1,7 +1,8 @@
 """Model/selector configuration dataclasses and presets.
 
 The same dataclasses and presets as ``visionselector_tpu.core.config``
-(Qwen2.5-VL family), with ``torch_dtype`` in place of ``jax_dtype``.
+(the Qwen2.5-VL family, and LLaVA-OneVision-1.5 without its MoE variant),
+with ``torch_dtype`` in place of ``jax_dtype``.
 """
 
 from __future__ import annotations
@@ -47,9 +48,11 @@ class VisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TextConfig:
-    """Decoder configuration. The port runs the Qwen2.5 decoder (GQA,
-    M-RoPE, qkv bias); the Qwen3 / MoE knobs exist so configs read the same
-    as the reference package's, and the decoder refuses them."""
+    """Decoder configuration: the Qwen2.5 decoder (GQA, M-RoPE, qkv bias),
+    or with the Qwen3 flags (``head_dim_override``, ``qk_norm``, no
+    ``attention_bias``, 1-D rope with ``mrope`` off) the LLaVA-OV-1.5 text
+    model. The MoE knobs exist so configs read the same as the reference
+    package's; the decoder refuses ``num_experts``."""
 
     vocab_size: int = 151936
     hidden_size: int = 2048
@@ -119,6 +122,114 @@ class VLConfig:
             budget=budget,
         )
         return dataclasses.replace(self, selector=sel)
+
+
+@dataclasses.dataclass(frozen=True)
+class RiceVisionConfig:
+    """RICE ViT (LLaVA-OneVision-1.5): no windowing, a learned CLS token per
+    image, LayerNorm blocks, conv2d patch embed (temporal patch 1)."""
+
+    depth: int = 24
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_heads: int = 16
+    in_channels: int = 3
+    patch_size: int = 14
+    spatial_merge_size: int = 2
+    temporal_patch_size: int = 1
+    layer_norm_eps: float = 1e-5
+    text_hidden_size: int = 4096  # merger output dim
+    hidden_act: str = "gelu"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def spatial_merge_unit(self) -> int:
+        return self.spatial_merge_size * self.spatial_merge_size
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.temporal_patch_size * self.patch_size**2
+
+
+@dataclasses.dataclass(frozen=True)
+class OVConfig:
+    """LLaVA-OneVision-1.5: RICE vision tower + Qwen3 text model."""
+
+    vision: RiceVisionConfig = dataclasses.field(
+        default_factory=RiceVisionConfig)
+    text: TextConfig = dataclasses.field(default_factory=TextConfig)
+    selector: Optional[SelectorConfig] = None
+
+    image_token_id: int = 151655
+    video_token_id: int = 151656
+    vision_start_token_id: int = 151652
+    vision_end_token_id: int = 151653
+    eos_token_id: int = 151645
+    pad_token_id: int = 151643
+
+    dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def with_selector(self, budget: float = 0.2) -> "OVConfig":
+        sel = SelectorConfig(
+            in_features=self.vision.text_hidden_size,
+            hidden_dim=self.vision.text_hidden_size // 2,
+            budget=budget,
+        )
+        return dataclasses.replace(self, selector=sel)
+
+
+def llava_ov15_8b() -> OVConfig:
+    """LLaVA-OneVision-1.5-8B shapes (RICE ViT + Qwen3-8B text)."""
+    return OVConfig(
+        vision=RiceVisionConfig(text_hidden_size=4096),
+        text=TextConfig(
+            vocab_size=151936,
+            hidden_size=4096,
+            intermediate_size=12288,
+            num_hidden_layers=36,
+            num_attention_heads=32,
+            num_key_value_heads=8,
+            head_dim_override=128,
+            qk_norm=True,
+            attention_bias=False,
+            mrope=False,
+            tie_word_embeddings=False,
+        ),
+    )
+
+
+def llava_ov_tiny() -> OVConfig:
+    """CPU-testable RICE + Qwen3 config (every structural feature kept)."""
+    return OVConfig(
+        vision=RiceVisionConfig(
+            depth=2,
+            hidden_size=64,
+            intermediate_size=128,
+            num_heads=4,
+            text_hidden_size=96,
+        ),
+        text=TextConfig(
+            vocab_size=151936,
+            hidden_size=96,
+            intermediate_size=192,
+            num_hidden_layers=2,
+            num_attention_heads=4,
+            num_key_value_heads=2,
+            head_dim_override=32,
+            qk_norm=True,
+            attention_bias=False,
+            mrope=False,
+            tie_word_embeddings=True,
+        ),
+        dtype="float32",
+    )
 
 
 def qwen25vl_3b() -> VLConfig:

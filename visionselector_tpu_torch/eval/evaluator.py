@@ -115,7 +115,8 @@ class EngineAdapter:
 
     def _bucket_key(self, req: Request) -> int:
         """The vision bucket the engine will pick for ``req`` (image sizes
-        read without decoding; the aligned window layout), so requests run
+        read without decoding; the aligned window layout of a windowed
+        tower, the raw patch count of RICE), so requests run
         sorted by it (lmms-eval's sort-by-length Collator,
         ``utils.py:863-927``); 0 for text-only."""
         if req.image_path is None:
@@ -142,11 +143,15 @@ class EngineAdapter:
                                       min_pixels=self.min_pixels,
                                       max_pixels=self.max_pixels)
                 grids.append((1, hb // vis.patch_size, wb // vis.patch_size))
-            total = aligned_window_len(
-                np.asarray(grids), window_size=vis.window_size,
-                spatial_merge_size=vis.spatial_merge_size,
-                patch_size=vis.patch_size)
-            return pick_bucket(total, list(VISION_BUCKETS))
+            if hasattr(vis, "window_size"):
+                total = aligned_window_len(
+                    np.asarray(grids), window_size=vis.window_size,
+                    spatial_merge_size=vis.spatial_merge_size,
+                    patch_size=vis.patch_size)
+            else:  # RICE: no windows, the raw patch count
+                total = sum(t * gh * gw for t, gh, gw in grids)
+            return pick_bucket(total, list(getattr(
+                self.engine, "vision_buckets", VISION_BUCKETS)))
         except (ImportError, OSError, ValueError):
             # no PIL, an unreadable image, or an aspect ratio smart_resize
             # refuses: the request sorts last and fails in its own turn

@@ -53,7 +53,8 @@ A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
 / ``DECODE_LAUNCHES`` / ``PACKED_LAUNCHES`` / ``ABLATE_LAUNCHES`` count
 wrapper calls that launched kernels, each wrapper its own
-(``FLASH_CAPPED_LAUNCHES`` the flash calls with a kv_iters cap), so a run can
+(``FLASH_CAPPED_LAUNCHES`` the flash calls with a kv_iters cap,
+``FLASH_CAUSAL_LAUNCHES`` those with the causal mask), so a run can
 show that it went through the kernels. ``impl="plain"`` asks for the plain
 path on any device (used to compare the whole model against the kernels on
 the card); for decode that is the dense path over the whole cache, the
@@ -78,6 +79,10 @@ DIAG_BLOCK = 64
 # qwen25vl_tiny's ViT (16) and decoder (24), which ``api.predict`` runs on
 # ``--device cuda`` by default.
 KERNEL_HEAD_DIMS = (16, 24, 64, 80, 128)
+# The flash (causal prefill) and decode kernels also take llava_ov_tiny's
+# decoder head dim (32), which ``api.predict --family llava_ov15`` runs on
+# ``--device cuda`` by default.
+FLASH_HEAD_DIMS = (16, 24, 32, 64, 80, 128)
 # Rows of queries per step of the plain versions: bounds their fp32 logits
 # to [H, chunk, Sk] at any sequence length.
 _PLAIN_Q_CHUNK = 1024
@@ -91,6 +96,9 @@ ABLATE_LAUNCHES = 0
 # streamed kernel, K2: the ViT's full layers in the 16,384 bucket); each
 # also counts in FLASH_LAUNCHES.
 FLASH_CAPPED_LAUNCHES = 0
+# ``flash_varlen_fwd`` launches with the causal mask (decoder prefills);
+# each also counts in FLASH_LAUNCHES, so the rest are the vision towers'.
+FLASH_CAUSAL_LAUNCHES = 0
 # Calls of the flash kernel source (flash, packed and ablation wrappers) by
 # route; there is one, "wgmma": the image prologue, then the wgmma main loop.
 FLASH_ROUTE_LAUNCHES = {"wgmma": 0}
@@ -266,7 +274,7 @@ def _strides(x: torch.Tensor, name: str):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
-def _check_cuda(name, q, *tensors):
+def _check_cuda(name, q, *tensors, dims=KERNEL_HEAD_DIMS):
     dev = q.device
     for t in (q, *tensors):
         if t.device != dev:
@@ -274,9 +282,8 @@ def _check_cuda(name, q, *tensors):
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the kernel takes bfloat16, got {q.dtype}")
     d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if d not in dims:
+        raise ValueError(f"{name}: head dim {d} not in {dims}")
 
 
 def _seg_i32(seg: torch.Tensor, shape, name: str) -> torch.Tensor:
@@ -323,7 +330,8 @@ def _launch_flash(name, q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
     D], scratch: (q_img, k_img, vt_img, q tile_seg, kv tile_seg))."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
-    _check_cuda(name, q, k, v, q_seg, kv_seg)
+    _check_cuda(name, q, k, v, q_seg, kv_seg,
+                dims=KERNEL_HEAD_DIMS if ablate else FLASH_HEAD_DIMS)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k, v dtypes differ")
     if (k.shape[0] != b or tuple(v.shape) != tuple(k.shape)
@@ -386,10 +394,10 @@ def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
                      kv_bounds=None, kv_iters=None):
     """Flash attention: the CUDA kernel for CUDA tensors, ``flash_plain``
     for CPU tensors. Shapes as ``flash_plain``; on CUDA q/k/v are bf16 with
-    D in KERNEL_HEAD_DIMS, kv_bounds (if given) has one row per 64-row q
+    D in FLASH_HEAD_DIMS, kv_bounds (if given) has one row per 64-row q
     tile.
     """
-    global FLASH_LAUNCHES, FLASH_CAPPED_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_CAPPED_LAUNCHES, FLASH_CAUSAL_LAUNCHES
     if _on_cpu(q, k, v, q_seg, kv_seg):
         return flash_plain(q, k, v, q_seg, kv_seg, causal, scale, kv_bounds,
                            kv_iters)
@@ -398,6 +406,8 @@ def flash_varlen_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
     FLASH_LAUNCHES += 1
     if kv_iters:
         FLASH_CAPPED_LAUNCHES += 1
+    if causal:
+        FLASH_CAUSAL_LAUNCHES += 1
     return out
 
 
@@ -944,7 +954,7 @@ def decode_blocked_fwd(q, k_cache, v_cache, base_len, scale=None,
     """Length-aware decode attention: the CUDA kernel for CUDA tensors,
     ``decode_blocked_plain`` for CPU tensors (shapes as there).
 
-    On CUDA: q bf16 with D in KERNEL_HEAD_DIMS; caches bf16, or int8 with
+    On CUDA: q bf16 with D in FLASH_HEAD_DIMS; caches bf16, or int8 with
     both f32 scales; any T (the kernel masks the ragged last tile). The
     caches are read through strides, so a layer view of a slot pool needs
     no copy, and only each slot's live tiles are read. The launch reads
@@ -965,7 +975,8 @@ def _decode_launch(q, k_cache, v_cache, base_len, scale=None, k_scale=None,
     global DECODE_LAUNCHES
     b, t_c, hq, d = q.shape
     t, h_kv = k_cache.shape[1], k_cache.shape[2]
-    _check_cuda("decode_blocked_fwd", q, k_cache, v_cache, base_len)
+    _check_cuda("decode_blocked_fwd", q, k_cache, v_cache, base_len,
+                dims=FLASH_HEAD_DIMS)
     if (tuple(k_cache.shape) != (b, t, h_kv, d)
             or tuple(v_cache.shape) != tuple(k_cache.shape) or hq % h_kv):
         raise ValueError(

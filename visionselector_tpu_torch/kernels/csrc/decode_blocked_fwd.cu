@@ -674,9 +674,10 @@ int decode_dispatch(const DecodeParams& p, int quant, int cluster, int what,
 
 int decode_entry(const DecodeParams& p, int D, int quant, int cluster,
                  int what, cudaStream_t stream) {
-  switch (D) {  // keep in step with KERNEL_HEAD_DIMS in attention.py
+  switch (D) {  // keep in step with FLASH_HEAD_DIMS in attention.py
     case 16: return decode_dispatch<16>(p, quant, cluster, what, stream);
     case 24: return decode_dispatch<24>(p, quant, cluster, what, stream);
+    case 32: return decode_dispatch<32>(p, quant, cluster, what, stream);
     case 64: return decode_dispatch<64>(p, quant, cluster, what, stream);
     case 80: return decode_dispatch<80>(p, quant, cluster, what, stream);
     case 128: return decode_dispatch<128>(p, quant, cluster, what, stream);

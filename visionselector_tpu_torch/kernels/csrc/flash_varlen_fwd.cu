@@ -234,9 +234,10 @@ extern "C" int vst_flash_varlen_fwd(
       v_sb, v_ss, v_sh, B, Sq, Sk, H, Hkv, kv_iters, scale, q_img, k_img,
       vt_img, q_tseg, kv_tseg);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {  // keep in step with KERNEL_HEAD_DIMS in attention.py
+  switch (D) {  // keep in step with FLASH_HEAD_DIMS in attention.py
     case 16: return vst::launch<16>(p, causal, phases, st);
     case 24: return vst::launch<24>(p, causal, phases, st);
+    case 32: return vst::launch<32>(p, causal, phases, st);
     case 64: return vst::launch<64>(p, causal, phases, st);
     case 80: return vst::launch<80>(p, causal, phases, st);
     case 128: return vst::launch<128>(p, causal, phases, st);

@@ -284,12 +284,15 @@ class ContinuousBatcher:
 
     def _chunk_eligible(self, item) -> bool:
         """Chunked admission takes image and video requests on an engine
-        without a strategy (strategy captures are one program and text-only
-        prefills are short), and only without a prefix store (its reuse path
-        wins over segmenting)."""
+        that has ``start_chunked_prefill`` (an ``OVEngine`` admits one-shot,
+        as the reference's batcher admits an engine without it) and no
+        strategy (strategy captures are one program and text-only prefills
+        are short), and only without a prefix store (its reuse path wins
+        over segmenting)."""
         req = item["request"]
         return (self.prefill_chunk > 0 and self.prefix_store is None
                 and getattr(self.engine, "strategy", None) is None
+                and hasattr(self.engine, "start_chunked_prefill")
                 and (req.get("pixel_values") is not None
                      or req.get("pixel_values_videos") is not None))
 

@@ -1,8 +1,15 @@
-"""Qwen2.5 decoder (GQA + M-RoPE).
+"""Qwen2.5 decoder (GQA + M-RoPE), and the Qwen3 text model of
+LLaVA-OneVision-1.5 through its config flags.
 
 Counterpart of ``visionselector_tpu.models.qwen25vl.lm`` (bf16 / fp32
-weights; weight quantization, LoRA, Qwen3 and MoE variants are not ported
+weights; weight quantization, LoRA and the MoE variant are not ported
 yet):
+
+- Qwen3 flags: ``head_dim_override``; ``qk_norm`` (a per-head RMSNorm of
+  q and k after the head reshape and before the rotary, with ``q_norm_scale``
+  / ``k_norm_scale`` [head_dim]); no q/k/v biases without
+  ``attention_bias``; ``mrope`` off gives plain 1-D rope (every rotary
+  channel reads axis 0 of the position ids),
 
 - M-RoPE: cos/sin from 3-axis position ids, each rotary channel taking the
   axis its ``mrope_section`` chunk names, applied in fp32,
@@ -80,14 +87,19 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d, i, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        add_params(self, {
+        shapes = {
             "input_ln_scale": (d,), "post_ln_scale": (d,),
             "q_kernel": (d, hq * dh), "k_kernel": (d, hkv * dh),
             "v_kernel": (d, hkv * dh), "o_kernel": (hq * dh, d),
             "gate_kernel": (d, i), "up_kernel": (d, i),
             "down_kernel": (i, d),
-            "q_bias": (hq * dh,), "k_bias": (hkv * dh,), "v_bias": (hkv * dh,),
-        }, device, dtype)
+        }
+        if cfg.attention_bias:
+            shapes.update(q_bias=(hq * dh,), k_bias=(hkv * dh,),
+                          v_bias=(hkv * dh,))
+        if cfg.qk_norm:
+            shapes.update(q_norm_scale=(dh,), k_norm_scale=(dh,))
+        add_params(self, shapes, device, dtype)
 
 
 class LanguageModel(nn.Module):
@@ -95,11 +107,10 @@ class LanguageModel(nn.Module):
 
     def __init__(self, cfg: TextConfig, device, dtype):
         super().__init__()
-        if (cfg.qk_norm or cfg.num_experts or not cfg.mrope
-                or not cfg.attention_bias):
+        if cfg.num_experts:
             raise NotImplementedError(
-                "the port runs the Qwen2.5 decoder only (Qwen3 / MoE text "
-                "models are a later slice)")
+                "the MoE text model (num_experts > 0) is not ported yet "
+                "(ROADMAP §1 item 8, its MoE part)")
         self.cfg = cfg
         add_params(self, {"embed_tokens": (cfg.vocab_size, cfg.hidden_size)},
                    device, dtype)
@@ -115,7 +126,10 @@ class LanguageModel(nn.Module):
 
 def mrope_axis_selector(cfg: TextConfig, device=None) -> torch.Tensor:
     """[Dh] int64: which of (t, h, w) feeds each rotary channel (channel d
-    of the doubled ``mrope_section`` chunks reads axis ``chunk % 3``)."""
+    of the doubled ``mrope_section`` chunks reads axis ``chunk % 3``). With
+    ``mrope`` off (Qwen3) every channel reads axis 0: plain 1-D rope."""
+    if not cfg.mrope:
+        return torch.zeros(cfg.head_dim, dtype=torch.int64, device=device)
     sec = list(cfg.mrope_section) * 2
     axis = [i % 3 for i, m in enumerate(sec) for _ in range(m)]
     return torch.tensor(axis, dtype=torch.int64, device=device)
@@ -153,14 +167,23 @@ def _dense(x, p: nn.Module, name: str):
 
 
 def _qkv(x, p: DecoderLayer, cfg: TextConfig):
+    """q [B, T, H, Dh], k and v [B, T, H_kv, Dh] before the rotary: biases
+    under ``attention_bias``, the per-head RMSNorm of q and k under
+    ``qk_norm``. Every decoder function computes its q, k, v here."""
     b, t, _ = x.shape
     dh = cfg.head_dim
-    q = _dense(x, p, "q_kernel") + p.q_bias
-    k = _dense(x, p, "k_kernel") + p.k_bias
-    v = _dense(x, p, "v_kernel") + p.v_bias
-    return (q.view(b, t, cfg.num_attention_heads, dh),
-            k.view(b, t, cfg.num_key_value_heads, dh),
-            v.view(b, t, cfg.num_key_value_heads, dh))
+    q = _dense(x, p, "q_kernel")
+    k = _dense(x, p, "k_kernel")
+    v = _dense(x, p, "v_kernel")
+    if cfg.attention_bias:
+        q, k, v = q + p.q_bias, k + p.k_bias, v + p.v_bias
+    q = q.view(b, t, cfg.num_attention_heads, dh)
+    k = k.view(b, t, cfg.num_key_value_heads, dh)
+    v = v.view(b, t, cfg.num_key_value_heads, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm_scale, cfg.rms_norm_eps)
+        k = rms_norm(k, p.k_norm_scale, cfg.rms_norm_eps)
+    return q, k, v
 
 
 def _mlp(x, p: DecoderLayer):

@@ -18,7 +18,8 @@ and, for the training-free strategies (``selector.baselines``),
   _vision_stats -> host strategy -> _prefill_from_vision: the ViT-side
                  baselines (the ViT's last block also returns each key's
                  received attention and its keys),
-  _stage_a -> host strategy -> _stage_b: FastV / DART / Dynamic-Qwen,
+  _stage_a_from_vision -> host strategy -> _stage_b: FastV / DART /
+                 Dynamic-Qwen,
                  decoder layers [0, target) over the whole sequence, then
                  [target, n) over the kept one (per-layer cache lengths),
 
@@ -48,14 +49,14 @@ import dataclasses
 import hashlib
 import time
 from types import SimpleNamespace
-from typing import List, Optional, Tuple
+from typing import List, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from visionselector_tpu_torch.core.config import VLConfig
+from visionselector_tpu_torch.core.config import OVConfig, VLConfig
 from visionselector_tpu_torch.core.params import init_random_
 from visionselector_tpu_torch.models.qwen25vl import lm as lm_mod
 from visionselector_tpu_torch.models.qwen25vl import vit as vit_mod
@@ -76,6 +77,31 @@ from visionselector_tpu_torch.selector.select import (
 # measurement of what they cost here).
 VISION_BUCKETS = (512, 1024, 2048, 4096, 6144, 8192, 16384)
 TEXT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+class VLMParams(Protocol):
+    """What the shared decoder-side helpers read of a family's weights
+    (``QwenVLParams``, ``llava_ov15.model.OVParams``): the decoder and the
+    optional scorer, never the vision tower."""
+
+    lm: lm_mod.LanguageModel
+    scorer: Optional[Scorer]
+
+
+class VLMEngine(Protocol):
+    """What the shared serving helpers (batched decode, scoring, sessions,
+    the prefix cache, ``continuous.ContinuousBatcher``) read of an engine
+    (``QwenVLEngine``, ``llava_ov15.model.OVEngine``): ``cfg.text`` and the
+    token ids, ``params.lm`` / ``params.scorer``, the device, the attention
+    path, the strategy, and ``generate(..., _defer_decode=True)``."""
+
+    cfg: object
+    params: VLMParams
+    device: torch.device
+    attn_impl: Optional[str]
+    strategy: object
+
+    def generate(self, input_ids, *args, **kwargs): ...
 
 
 class QwenVLParams(nn.Module):
@@ -123,7 +149,7 @@ def _compact_stage(params: QwenVLParams, k_max: int,
         position_ids_orig)
 
 
-def _select_and_compact(params: QwenVLParams, k_max: int,
+def _select_and_compact(params: VLMParams, k_max: int,
                         use_selector: bool, vision_embeds, num_merged: int,
                         k: int, input_ids, image_positions, text_positions,
                         num_text: int, position_ids_orig):
@@ -182,7 +208,7 @@ def _prefill(params: QwenVLParams, k_max: int,
             comp.valid_len, kv, logits)
 
 
-def _score_continuation(params: QwenVLParams, hidden, valid_len: int,
+def _score_continuation(params: VLMParams, hidden, valid_len: int,
                         cont_ids, cont_len: int, c_max: int):
     """Sum of the log-probs of the last ``cont_len`` tokens of the
     (compacted) sequence, whose ids are ``cont_ids[:cont_len]``, and whether
@@ -232,7 +258,7 @@ def _vision_stats(params: QwenVLParams, vb: dict, attn_impl=None):
                                      **vb)
 
 
-def _from_vision_core(params: QwenVLParams, vision_embeds, indices, valid,
+def _from_vision_core(params: VLMParams, vision_embeds, indices, valid,
                       k: int, input_ids, image_positions, text_positions,
                       num_text: int, position_ids_orig, attn_impl=None):
     """Compaction of externally selected vision tokens + causal prefill:
@@ -253,7 +279,7 @@ def _from_vision_core(params: QwenVLParams, vision_embeds, indices, valid,
 
 
 @torch.no_grad()
-def _prefill_from_vision(params: QwenVLParams, vision_embeds, indices,
+def _prefill_from_vision(params: VLMParams, vision_embeds, indices,
                          valid, k: int, input_ids, image_positions,
                          text_positions, num_text: int, position_ids_orig,
                          attn_impl=None):
@@ -267,6 +293,21 @@ def _prefill_from_vision(params: QwenVLParams, vision_embeds, indices,
         text_positions, num_text, position_ids_orig, attn_impl)
     logits = lm_mod.lm_head(params.lm, hidden[0, comp.valid_len - 1])
     return torch.argmax(logits, dim=-1), comp.valid_len, kv, logits
+
+
+@torch.no_grad()
+def _prefill_from_vision_ll(params: VLMParams, c_max: int, vision_embeds,
+                            indices, valid, k: int, input_ids,
+                            image_positions, text_positions, num_text: int,
+                            position_ids_orig, cont_ids, cont_len: int,
+                            attn_impl=None):
+    """Loglikelihood over the from-vision prefill (the OV family, whose
+    tower runs on its own): (sum log-prob of the continuation, greedy)."""
+    hidden, comp, _ = _from_vision_core(
+        params, vision_embeds, indices, valid, k, input_ids, image_positions,
+        text_positions, num_text, position_ids_orig, attn_impl)
+    return _score_continuation(params, hidden, comp.valid_len, cont_ids,
+                               cont_len, c_max)
 
 
 def capture_layer(target: int, capture: str, n_layers: int) -> int:
@@ -286,24 +327,13 @@ def capture_layer(target: int, capture: str, n_layers: int) -> int:
 
 
 @torch.no_grad()
-def _stage_a(params: QwenVLParams, target: int, capture: str, vb: dict,
-             num_merged: int, input_ids, image_positions, text_positions,
-             num_text: int, position_ids_orig, attn_impl=None):
-    """LLM-side compression, stage A: the ViT, then decoder layers [0,
-    target) over the whole (uncompressed) sequence with the capture
-    layer's statistics (``_stage_a_core``)."""
-    vision_embeds = vit_mod.vit_forward(params.visual, attn_impl=attn_impl,
-                                        **vb)
-    return _stage_a_core(params, target, capture, vision_embeds, num_merged,
-                         input_ids, image_positions, text_positions,
-                         num_text, position_ids_orig, attn_impl)
-
-
-def _stage_a_core(params: QwenVLParams, target: int, capture: str,
-                  vision_embeds, num_merged: int, input_ids, image_positions,
-                  text_positions, num_text: int, position_ids_orig,
-                  attn_impl=None):
-    """Stage A given merged vision embeddings (family-agnostic).
+def _stage_a_from_vision(params: VLMParams, target: int, capture: str,
+                         vision_embeds, num_merged: int, input_ids,
+                         image_positions, text_positions, num_text: int,
+                         position_ids_orig, attn_impl=None):
+    """LLM-side compression, stage A, given merged vision embeddings from
+    any tower: decoder layers [0, target) over the whole (uncompressed)
+    sequence with the capture layer's statistics.
 
     FastV ranks image positions by the attention they receive in layer
     target - 1 (``capture="fastv"``); DART picks pivots by key L1 norm at
@@ -373,7 +403,7 @@ def _fastv_attention_colsum(q, k, seg_ids, scale, block: int = 128,
 
 
 @torch.no_grad()
-def _stage_b(params: QwenVLParams, target: int, hidden, position_ids_full,
+def _stage_b(params: VLMParams, target: int, hidden, position_ids_full,
              keep_indices, keep_valid_len: int, attn_impl=None):
     """LLM-side compression, stage B: gather the sequence at layer
     ``target`` (``keep_indices`` [T_keep] ascending positions into the
@@ -425,7 +455,7 @@ def _text_inputs(input_ids, text_buckets, device):
                  for x in (ids_padded, pos, seg))
 
 
-def _text_prefill(params: QwenVLParams, input_ids, position_ids, seg_ids,
+def _text_prefill(params: VLMParams, input_ids, position_ids, seg_ids,
                   attn_impl=None, attn_variant=None):
     """Causal prefill with no vision branch: (hidden [1, T, D], (k_layers,
     v_layers))."""
@@ -435,7 +465,7 @@ def _text_prefill(params: QwenVLParams, input_ids, position_ids, seg_ids,
                              attn_impl=attn_impl, attn_variant=attn_variant)
 
 
-def text_only_loglikelihood(params: QwenVLParams, full_ids, cont_padded,
+def text_only_loglikelihood(params: VLMParams, full_ids, cont_padded,
                             c: int, c_max: int, text_buckets=TEXT_BUCKETS, *,
                             device, attn_impl=None, attn_variant=None):
     """Text-only (ll, greedy) over the padded causal prefill of
@@ -451,7 +481,7 @@ def text_only_loglikelihood(params: QwenVLParams, full_ids, cont_padded,
 
 
 @torch.no_grad()
-def _prefill_text(params: QwenVLParams, input_ids, position_ids, seg_ids,
+def _prefill_text(params: VLMParams, input_ids, position_ids, seg_ids,
                   valid_len: int, attn_impl=None, attn_variant=None):
     """Causal prefill with no vision branch (text-only requests). Returns
     (next_token, (k_layers, v_layers), logits row)."""
@@ -462,7 +492,7 @@ def _prefill_text(params: QwenVLParams, input_ids, position_ids, seg_ids,
 
 
 @torch.no_grad()
-def _decode(params: QwenVLParams, cache, token, pos: int, attn_impl=None):
+def _decode(params: VLMParams, cache, token, pos: int, attn_impl=None):
     """token: [] int64; pos: the M-RoPE position, shared by all 3 axes."""
     embed = lm_mod.embed_tokens(params.lm, token.reshape(1, 1))  # [1, 1, D]
     pos3 = torch.full((3, 1, 1), pos, dtype=torch.int64, device=embed.device)
@@ -560,7 +590,7 @@ def rep_penalty_setup(vocab_size: int, input_ids, last_logits, next_token,
     return pres, first
 
 
-def _decode_rows(params: QwenVLParams, cache, tok, pos, live=None,
+def _decode_rows(params: VLMParams, cache, tok, pos, live=None,
                  gens=None, temperature=0.0, top_p=1.0, top_k=0,
                  presence=None, penalty=1.0, attn_impl=None):
     """One decode step of B rows, the body every decode loop shares.
@@ -595,7 +625,7 @@ def _decode_rows(params: QwenVLParams, cache, tok, pos, live=None,
 
 
 @torch.no_grad()
-def _decode_batch(params: QwenVLParams, cache, firsts, starts,
+def _decode_batch(params: VLMParams, cache, firsts, starts,
                   eos_token_ids, max_steps: int, temperature: float = 0.0,
                   top_p: float = 1.0, seed: int = 0, top_k: int = 0,
                   repetition_penalty: float = 1.0, presence=None,
@@ -656,7 +686,7 @@ def _decode_batch(params: QwenVLParams, cache, firsts, starts,
     return toks, counts, cache
 
 
-def _decode_steps(params: QwenVLParams, cache, first_token: int,
+def _decode_steps(params: VLMParams, cache, first_token: int,
                   start_pos: int, eos_token_ids, max_steps: int,
                   temperature: float = 0.0, top_p: float = 1.0,
                   seed: int = 0, top_k: int = 0,
@@ -678,7 +708,7 @@ def _decode_steps(params: QwenVLParams, cache, first_token: int,
 STREAM_CHUNK = 8  # tokens per streamed chunk after the first token
 
 
-def _run_decode_loop(params: QwenVLParams, cache, first_token: int,
+def _run_decode_loop(params: VLMParams, cache, first_token: int,
                      start_pos: int, eos_token_ids, max_new_tokens: int,
                      temperature: float = 0.0, top_p: float = 1.0,
                      seed: int = 0, top_k: int = 0,
@@ -762,8 +792,8 @@ class PrefillState:
     rope_delta: int = 0
 
 
-def _prefill_state(cfg: VLConfig, parts, next_token: int, start_pos: int,
-                   eos_token_ids, max_new_tokens: int,
+def _prefill_state(cfg: "VLConfig | OVConfig", parts, next_token: int,
+                   start_pos: int, eos_token_ids, max_new_tokens: int,
                    result: GenerationResult, t_start: float, logits,
                    rope_delta: int = 0):
     """The prefill's k/v in a cache with room for ``max_new_tokens`` more
@@ -791,7 +821,7 @@ def _prefill_state(cfg: VLConfig, parts, next_token: int, start_pos: int,
         result=result, t_start=t_start, logits=logits, rope_delta=rope_delta)
 
 
-def _decode_request(params: QwenVLParams, state: PrefillState, input_ids,
+def _decode_request(params: VLMParams, state: PrefillState, input_ids,
                     temperature, top_p, seed, top_k, repetition_penalty,
                     attn_impl=None, on_chunk=None) -> GenerationResult:
     """One-shot decode of a prefilled request (streamed through
@@ -811,7 +841,8 @@ def _decode_request(params: QwenVLParams, state: PrefillState, input_ids,
 
 
 @torch.no_grad()
-def generate_text_only(params: QwenVLParams, cfg: VLConfig, input_ids,
+def generate_text_only(params: VLMParams, cfg: "VLConfig | OVConfig",
+                       input_ids,
                        max_new_tokens: int, eos_token_ids,
                        temperature: float = 0.0, top_p: float = 1.0,
                        seed: int = 0, text_buckets=TEXT_BUCKETS,
@@ -862,6 +893,131 @@ def _vision_inputs(pixel_values, grid_thw, pixel_values_videos,
     elif pixel_values_videos is not None:
         pixel_values, grid_thw = pixel_values_videos, video_grid_thw
     return pixel_values, grid_thw, img_grid, vid_grid
+
+
+def sequence_tensors(p, input_ids, device):
+    """The prefill's sequence inputs on the device (from an engine's
+    ``_prep_vision`` namespace ``p``): ids, padded image and text
+    positions, the text count, the original rope ids."""
+    return (torch.as_tensor(input_ids, device=device),
+            torch.as_tensor(p.image_pos_padded, device=device),
+            torch.as_tensor(p.text_pos_padded, device=device), p.num_text,
+            torch.as_tensor(p.position_ids, device=device))
+
+
+def _one_stage_state(engine: VLMEngine, p, next_token, valid_len, k_l, v_l,
+                     logits, selected, scores, eos_token_ids,
+                     max_new_tokens: int, t_start: float) -> PrefillState:
+    """A one-stage prefill's outputs as a ``PrefillState`` (decode starts
+    at the compacted length + rope delta)."""
+    first = int(next_token)  # waits for the prefill
+    t_prefill = time.perf_counter() - t_start
+    valid_len = int(valid_len)
+    result = GenerationResult(
+        tokens=[], selected_indices=selected, num_vision_tokens=p.n,
+        prefill_len=valid_len, prefill_seconds=t_prefill, scores=scores,
+        logits=logits, first_token_seconds=t_prefill)
+    return _prefill_state(
+        engine.cfg, [(k_l, v_l, valid_len)], first,
+        valid_len + int(p.rope_delta), eos_token_ids, max_new_tokens,
+        result, t_start, logits, int(p.rope_delta))
+
+
+def from_vision_state(engine: VLMEngine, p, input_ids, vision_embeds,
+                      indices, valid, k: int, selected, scores,
+                      eos_token_ids, max_new_tokens: int,
+                      t_start: float) -> PrefillState:
+    """Compaction of the chosen vision tokens (``indices`` [k_max] on the
+    device, sentinel L_pad where ``valid`` is False) + causal prefill
+    (``_prefill_from_vision``), as a ``PrefillState``."""
+    next_token, valid_len, (k_l, v_l), logits = _prefill_from_vision(
+        engine.params, vision_embeds, indices, valid, k,
+        *sequence_tensors(p, input_ids, engine.device),
+        attn_impl=engine.attn_impl)
+    return _one_stage_state(engine, p, next_token, valid_len, k_l, v_l,
+                            logits, selected, scores, eos_token_ids,
+                            max_new_tokens, t_start)
+
+
+def vit_side_state(engine: VLMEngine, p, input_ids, merged, recv, keys,
+                   eos_token_ids, max_new_tokens: int,
+                   t_start: float) -> PrefillState:
+    """A ViT-side strategy (VisionZip, PruMerge+, DivPrune, HoloV, Random)
+    on a tower's merged tokens and last-block statistics (``merged`` [L_pad,
+    D], ``recv`` [L_pad], ``keys`` [L_pad, H * d]): the host strategy, the
+    replacement embeddings written back, then ``from_vision_state``."""
+    n, stats = p.n, engine.strategy.needs_stats
+    # bf16 has no numpy dtype: the host strategies get fp32 copies, and
+    # replacement embeddings are rounded to the model's dtype when they
+    # are written back into the vision rows, before compaction
+    idx, new_embeds = engine.strategy(
+        merged[:n].float().cpu().numpy(),
+        recv[:n].cpu().numpy() if stats else None,
+        keys[:n].cpu().numpy() if stats else None,
+        engine.budget, p.grid_thw)
+    idx = np.asarray(idx, np.int64)[:p.k_max]
+    dev = engine.device
+    if new_embeds is not None:
+        merged = merged.clone()
+        merged[torch.as_tensor(idx, device=dev)] = torch.as_tensor(
+            np.asarray(new_embeds)[:len(idx)], device=dev).to(merged.dtype)
+    k = len(idx)
+    idx_padded = np.full(p.k_max, p.l_pad, np.int64)
+    idx_padded[:k] = idx
+    return from_vision_state(
+        engine, p, input_ids, merged, torch.as_tensor(idx_padded, device=dev),
+        torch.arange(p.k_max, device=dev) < k, k, idx, None, eos_token_ids,
+        max_new_tokens, t_start)
+
+
+def llm_side_state(engine: VLMEngine, p, input_ids, vision_embeds,
+                   eos_token_ids, max_new_tokens: int,
+                   t_start: float) -> PrefillState:
+    """FastV / DART / Dynamic-Qwen on a tower's merged tokens: the
+    two-stage prefill. Stage A runs decoder layers [0, target) over the
+    whole sequence; the strategy picks image positions on the host from
+    stage A's statistics; stage B gathers the kept positions at layer
+    target and runs the rest. The cache's layers [0, target) hold t_orig
+    rows, the others the kept ones, and decode continues at t_orig +
+    rope_delta, the original sequence's next position (the reference's
+    convention)."""
+    dev, strategy = engine.device, engine.strategy
+    target = strategy.target_layer
+    t_orig = p.t_orig
+    (hidden_t, (k_a, v_a), fv, key_l1, _, pos_full,
+     _) = _stage_a_from_vision(
+        engine.params, target, strategy.capture, vision_embeds, p.n,
+        *sequence_tensors(p, input_ids, dev), attn_impl=engine.attn_impl)
+    t_pad_full = hidden_t.shape[1]
+    retained = np.asarray(strategy.select(
+        fv[:t_orig].cpu().numpy() if fv is not None else None,
+        key_l1[:t_orig].cpu().numpy(),
+        hidden_t[0, :t_orig].float().cpu().numpy(),
+        p.image_pos, engine.budget), np.int64)
+    keep = np.sort(np.concatenate([retained, p.text_pos]))
+    k_img_max = p.k_max + 8  # DART's pivots can exceed the budget
+    t_keep_pad = k_img_max + p.t_text_bucket
+    keep_padded = np.full(t_keep_pad, t_pad_full, np.int64)
+    keep_padded[:len(keep)] = keep
+    keep_valid = len(keep)
+    next_token, (k_b, v_b), logits = _stage_b(
+        engine.params, target, hidden_t, pos_full,
+        torch.as_tensor(keep_padded, device=dev), keep_valid,
+        attn_impl=engine.attn_impl)
+    first = int(next_token)  # waits for the prefill
+    t_prefill = time.perf_counter() - t_start
+    # retained sequence positions -> vision-token indices
+    pos_to_vis = {int(q): j for j, q in enumerate(p.image_pos)}
+    selected = np.asarray(sorted(pos_to_vis[int(q)] for q in retained),
+                          np.int64)
+    result = GenerationResult(
+        tokens=[], selected_indices=selected, num_vision_tokens=p.n,
+        prefill_len=keep_valid, prefill_seconds=t_prefill, logits=logits,
+        first_token_seconds=t_prefill)
+    return _prefill_state(
+        engine.cfg, [(k_a, v_a, t_orig), (k_b, v_b, keep_valid)], first,
+        t_orig + int(p.rope_delta), eos_token_ids, max_new_tokens, result,
+        t_start, logits, int(p.rope_delta))
 
 
 class QwenVLEngine:
@@ -1049,15 +1205,6 @@ class QwenVLEngine:
             full_kv_iters=vb.full_kv_iters,
         )
 
-    def _sequence_tensors(self, p, input_ids):
-        """The prefill's sequence inputs on the device: ids, padded image
-        and text positions, the text count, the original M-RoPE ids."""
-        dev = self.device
-        return (torch.as_tensor(input_ids, device=dev),
-                torch.as_tensor(p.image_pos_padded, device=dev),
-                torch.as_tensor(p.text_pos_padded, device=dev), p.num_text,
-                torch.as_tensor(p.position_ids, device=dev))
-
     def loglikelihood(
         self,
         input_ids: np.ndarray,
@@ -1102,7 +1249,7 @@ class QwenVLEngine:
         ll, greedy = _prefill_ll(
             self.params, p.k_max, self.use_selector, c_max,
             self._vision_tensors(p.vb), p.n, p.k,
-            *self._sequence_tensors(p, full_ids),
+            *sequence_tensors(p, full_ids, dev),
             torch.as_tensor(cont_padded, device=dev), c,
             attn_impl=self.attn_impl, attn_variant=self.attn_variant)
         return float(ll), bool(greedy)
@@ -1172,118 +1319,38 @@ class QwenVLEngine:
                                attn_impl=self.attn_impl,
                                on_chunk=on_token_chunk)
 
-    def _select_vit_side(self, p):
-        """ViT with the last block's statistics, then the host strategy:
-        (vision embeddings [L_pad, D] with the replacement embeddings
-        written in, kept indices [k] ascending)."""
-        vb = self._vision_tensors(p.vb)
-        merged, recv, keys = _vision_stats(self.params, vb, self.attn_impl)
-        n, stats = p.n, self.strategy.needs_stats
-        # bf16 has no numpy dtype: the host strategies get fp32 copies, and
-        # replacement embeddings are rounded to the model's dtype when they
-        # are written back into the vision rows, before compaction
-        idx, new_embeds = self.strategy(
-            merged[:n].float().cpu().numpy(),
-            recv[:n].cpu().numpy() if stats else None,
-            keys[:n].cpu().numpy() if stats else None,
-            self.budget, p.grid_thw)
-        idx = np.asarray(idx, np.int64)[:p.k_max]
-        if new_embeds is not None:
-            merged = merged.clone()
-            rows = torch.as_tensor(idx, device=self.device)
-            merged[rows] = torch.as_tensor(
-                np.asarray(new_embeds)[:len(idx)],
-                device=self.device).to(merged.dtype)
-        return merged, idx
-
     def _prefill_one_stage(self, p, input_ids, eos_token_ids,
                            max_new_tokens: int, t_start: float):
         """Selector, ``orig`` or a ViT-side strategy: one prefill over the
         compacted sequence."""
-        dev = self.device
-        args = self._sequence_tensors(p, input_ids)
-        scores = None
         if self.strategy is not None:
-            vision_embeds, idx = self._select_vit_side(p)
-            k = len(idx)
-            idx_padded = np.full(p.k_max, p.l_pad, np.int64)
-            idx_padded[:k] = idx
-            next_token, valid_len, (k_l, v_l), logits = _prefill_from_vision(
-                self.params, vision_embeds,
-                torch.as_tensor(idx_padded, device=dev),
-                torch.arange(p.k_max, device=dev) < k, k, *args,
-                attn_impl=self.attn_impl)
-            selected = idx
-        else:
-            (next_token, sel_idx, sel_valid, sel_scores, valid_len,
-             (k_l, v_l), logits) = _prefill(
-                self.params, p.k_max, self.use_selector,
-                self._vision_tensors(p.vb), p.n, p.k, *args,
-                attn_impl=self.attn_impl, attn_variant=self.attn_variant)
-            selected = None
-            if self.use_selector:
-                selected = sel_idx.cpu().numpy()[sel_valid.cpu().numpy()]
-                scores = sel_scores.cpu().numpy()[:p.n]
-        first = int(next_token)  # waits for the prefill
-        t_prefill = time.perf_counter() - t_start
-        valid_len = int(valid_len)
-        result = GenerationResult(
-            tokens=[], selected_indices=selected, num_vision_tokens=p.n,
-            prefill_len=valid_len, prefill_seconds=t_prefill, scores=scores,
-            logits=logits, first_token_seconds=t_prefill)
-        return _prefill_state(
-            self.cfg, [(k_l, v_l, valid_len)], first,
-            valid_len + int(p.rope_delta), eos_token_ids, max_new_tokens,
-            result, t_start, logits, int(p.rope_delta))
+            merged, recv, keys = _vision_stats(
+                self.params, self._vision_tensors(p.vb), self.attn_impl)
+            return vit_side_state(self, p, input_ids, merged, recv, keys,
+                                  eos_token_ids, max_new_tokens, t_start)
+        (next_token, sel_idx, sel_valid, sel_scores, valid_len,
+         (k_l, v_l), logits) = _prefill(
+            self.params, p.k_max, self.use_selector,
+            self._vision_tensors(p.vb), p.n, p.k,
+            *sequence_tensors(p, input_ids, self.device),
+            attn_impl=self.attn_impl, attn_variant=self.attn_variant)
+        selected = scores = None
+        if self.use_selector:
+            selected = sel_idx.cpu().numpy()[sel_valid.cpu().numpy()]
+            scores = sel_scores.cpu().numpy()[:p.n]
+        return _one_stage_state(self, p, next_token, valid_len, k_l, v_l,
+                                logits, selected, scores, eos_token_ids,
+                                max_new_tokens, t_start)
 
     def _prefill_llm_side(self, p, input_ids, eos_token_ids,
                           max_new_tokens: int, t_start: float):
-        """FastV / DART / Dynamic-Qwen: the two-stage prefill. Stage A runs
-        the ViT and decoder layers [0, target) over the whole sequence; the
-        strategy picks image positions on the host from stage A's
-        statistics; stage B gathers the kept positions at layer target and
-        runs the rest. The cache's layers [0, target) hold t_orig rows,
-        the others the kept ones, and decode continues at t_orig +
-        rope_delta, the original sequence's next position (the reference's
-        convention)."""
-        dev = self.device
-        target = self.strategy.target_layer
-        t_orig = p.t_orig
-        (hidden_t, (k_a, v_a), fv, key_l1, _, pos_full, _) = _stage_a(
-            self.params, target, self.strategy.capture,
-            self._vision_tensors(p.vb), p.n,
-            *self._sequence_tensors(p, input_ids), attn_impl=self.attn_impl)
-        t_pad_full = hidden_t.shape[1]
-        retained = np.asarray(self.strategy.select(
-            fv[:t_orig].cpu().numpy() if fv is not None else None,
-            key_l1[:t_orig].cpu().numpy(),
-            hidden_t[0, :t_orig].float().cpu().numpy(),
-            p.image_pos, self.budget), np.int64)
-        keep = np.sort(np.concatenate([retained, p.text_pos]))
-        k_img_max = p.k_max + 8  # DART's pivots can exceed the budget
-        t_keep_pad = k_img_max + p.t_text_bucket
-        keep_padded = np.full(t_keep_pad, t_pad_full, np.int64)
-        keep_padded[:len(keep)] = keep
-        keep_valid = len(keep)
-        next_token, (k_b, v_b), logits = _stage_b(
-            self.params, target, hidden_t, pos_full,
-            torch.as_tensor(keep_padded, device=dev), keep_valid,
-            attn_impl=self.attn_impl)
-        first = int(next_token)  # waits for the prefill
-        t_prefill = time.perf_counter() - t_start
-        # retained sequence positions -> vision-token indices
-        pos_to_vis = {int(q): j for j, q in enumerate(p.image_pos)}
-        selected = np.asarray(sorted(pos_to_vis[int(q)] for q in retained),
-                              np.int64)
-        result = GenerationResult(
-            tokens=[], selected_indices=selected, num_vision_tokens=p.n,
-            prefill_len=keep_valid, prefill_seconds=t_prefill, logits=logits,
-            first_token_seconds=t_prefill)
-        return _prefill_state(
-            self.cfg, [(k_a, v_a, t_orig), (k_b, v_b, keep_valid)], first,
-            t_orig + int(p.rope_delta), eos_token_ids, max_new_tokens,
-            result, t_start, logits, int(p.rope_delta))
-
+        """FastV / DART / Dynamic-Qwen: the ViT, then the two-stage prefill
+        (``llm_side_state``)."""
+        vision_embeds = vit_mod.vit_forward(
+            self.params.visual, attn_impl=self.attn_impl,
+            **self._vision_tensors(p.vb))
+        return llm_side_state(self, p, input_ids, vision_embeds,
+                              eos_token_ids, max_new_tokens, t_start)
 
     def start_chunked_prefill(self, input_ids, pixel_values=None,
                               grid_thw=None, pixel_values_videos=None,
@@ -1320,7 +1387,7 @@ class QwenVLEngine:
         t_comp = p.k_max + p.t_text_bucket
         t_cap = -(-t_comp // seg) * seg  # whole segments
         vt = self._vision_tensors(p.vb)
-        seq = self._sequence_tensors(p, input_ids)
+        seq = sequence_tensors(p, input_ids, self.device)
         job = ChunkedPrefill(
             engine=self, seg=seg, eos_token_ids=tuple(eos_token_ids),
             max_new_tokens=max_new_tokens, rope_delta=int(p.rope_delta),
@@ -1357,7 +1424,7 @@ class QwenVLEngine:
 
 
 @torch.no_grad()
-def _score_chunk(params: QwenVLParams, cache, cont_padded, cont_len: int,
+def _score_chunk(params: VLMParams, cache, cont_padded, cont_len: int,
                  pos_start: int, ctx_logits, c_max: int, attn_impl=None):
     """(ll, greedy) of one continuation given a prefilled cache and the
     context's last-row logits: one chunked decode forward of the c_max
@@ -1388,7 +1455,7 @@ def _score_chunk(params: QwenVLParams, cache, cont_padded, cont_len: int,
     return ll, greedy
 
 
-def run_loglikelihood_choices(engine: QwenVLEngine, input_ids,
+def run_loglikelihood_choices(engine: "VLMEngine", input_ids,
                               choices_ids: List[np.ndarray],
                               **gen_kwargs) -> List[Tuple[float, bool]]:
     """Score several continuations of one context with a single prefill:
@@ -1432,7 +1499,7 @@ def run_loglikelihood_choices(engine: QwenVLEngine, input_ids,
 # ---------------------------------------------------------------------------
 
 
-def run_generate_batch(engine: "QwenVLEngine", requests: List[dict],
+def run_generate_batch(engine: "VLMEngine", requests: List[dict],
                        max_new_tokens: int = 64, eos_token_ids=None,
                        temperature: float = 0.0, top_p: float = 1.0,
                        seed: int = 0, top_k: int = 0,
@@ -1546,7 +1613,7 @@ def _compact_from_hidden(params: QwenVLParams, k_max: int,
     return _pad_comp(comp, pad_to), selection
 
 
-def _prefill_chunk_seg(params: QwenVLParams, cache, embeds, pos, base: int,
+def _prefill_chunk_seg(params: VLMParams, cache, embeds, pos, base: int,
                        p: int, attn_impl=None):
     """One chunked-prefill segment: compacted rows [base, base + p) through
     every decoder layer against the growing cache (``lm_decode_chunk``:
@@ -1558,7 +1625,7 @@ def _prefill_chunk_seg(params: QwenVLParams, cache, embeds, pos, base: int,
         pos[:, base:base + p][:, None, :], attn_impl=attn_impl)
 
 
-def _prefill_chunk_logits(params: QwenVLParams, hidden, idx: int):
+def _prefill_chunk_logits(params: VLMParams, hidden, idx: int):
     logits = lm_mod.lm_head(params.lm, hidden[0, idx])
     return torch.argmax(logits, dim=-1), logits
 
@@ -1700,7 +1767,7 @@ def _ensure_capacity(cache, need: int) -> lm_mod.KVCache:
 
 
 @torch.no_grad()
-def _append_chunk(params: QwenVLParams, cache, ids, pos_start: int,
+def _append_chunk(params: VLMParams, cache, ids, pos_start: int,
                   attn_impl=None):
     """Consume n new text tokens (host ids) against the cache in one
     chunked forward of c = max(32, 32 * ceil(n / 32)) rows (one launch
@@ -1744,7 +1811,7 @@ class ChatSession:
     eos_token_ids: Tuple[int, ...]
 
 
-def _session_turn(engine: "QwenVLEngine", cache, first: int, pos: int,
+def _session_turn(engine: "VLMEngine", cache, first: int, pos: int,
                   eos, max_new_tokens: int, temperature, top_p, seed,
                   top_k):
     """Decode a turn from its first token: (tokens, the next session)."""
@@ -1757,7 +1824,7 @@ def _session_turn(engine: "QwenVLEngine", cache, first: int, pos: int,
     return [first] + toks, ChatSession(cache, pos + consumed, last, eos)
 
 
-def start_chat_session(engine: "QwenVLEngine", input_ids,
+def start_chat_session(engine: "VLMEngine", input_ids,
                        pixel_values=None, grid_thw=None,
                        max_new_tokens: int = 64, eos_token_ids=None,
                        temperature: float = 0.0, top_p: float = 1.0,
@@ -1777,7 +1844,7 @@ def start_chat_session(engine: "QwenVLEngine", input_ids,
         total_seconds=time.perf_counter() - state.t_start), sess
 
 
-def continue_chat_session(engine: "QwenVLEngine", sess: ChatSession,
+def continue_chat_session(engine: "VLMEngine", sess: ChatSession,
                           new_ids, max_new_tokens: int = 64,
                           temperature: float = 0.0, top_p: float = 1.0,
                           seed: int = 0, top_k: int = 0):
@@ -1916,12 +1983,12 @@ class PrefixCacheStore:
             self.entries.popitem(last=False)
 
 
-def _vision_span_end(ids: np.ndarray, cfg: VLConfig) -> int:
+def _vision_span_end(ids: np.ndarray, cfg: "VLConfig | OVConfig") -> int:
     ends = np.nonzero(ids == cfg.vision_end_token_id)[0]
     return int(ends[-1]) + 1 if len(ends) else 0
 
 
-def prefix_cached_prefill(engine: "QwenVLEngine", store: PrefixCacheStore,
+def prefix_cached_prefill(engine: "VLMEngine", store: PrefixCacheStore,
                           input_ids, pixel_values=None, grid_thw=None,
                           max_new_tokens: int = 64, eos_token_ids=None,
                           **gen_kwargs) -> PrefillState:
@@ -1985,7 +2052,7 @@ def prefix_cached_prefill(engine: "QwenVLEngine", store: PrefixCacheStore,
         t_start=t_start, logits=logits, rope_delta=entry.delta)
 
 
-def generate_prefix_cached(engine: "QwenVLEngine", store: PrefixCacheStore,
+def generate_prefix_cached(engine: "VLMEngine", store: PrefixCacheStore,
                            input_ids, pixel_values=None, grid_thw=None,
                            max_new_tokens: int = 64, eos_token_ids=None,
                            temperature: float = 0.0, top_p: float = 1.0,

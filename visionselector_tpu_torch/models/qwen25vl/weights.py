@@ -80,15 +80,31 @@ def from_jax_params(tree: dict, cfg: VLConfig, device,
     _load(visual, tree["visual"], device, dtype)
     for i, blk in enumerate(visual.blocks):
         _load(blk, tree["visual"]["blocks"], device, dtype, layer=i)
-    lm = LanguageModel(cfg.text, device, dtype)
-    _load(lm, tree["lm"], device, dtype)
+    return QwenVLParams(visual, lm_from_jax(tree["lm"], cfg.text, device,
+                                            dtype),
+                        scorer_from_jax(tree, cfg, device))
+
+
+def lm_from_jax(tree: dict, cfg: TextConfig, device,
+                dtype: torch.dtype) -> LanguageModel:
+    """The reference's decoder tree (``init_lm_params`` layout) as the
+    port's ``LanguageModel``: the Qwen2.5 tree, or the Qwen3 one (no
+    biases, ``q_norm_scale`` / ``k_norm_scale``, an untied
+    ``lm_head_kernel``), whichever ``cfg`` describes."""
+    lm = LanguageModel(cfg, device, dtype)
+    _load(lm, tree, device, dtype)
     for i, layer in enumerate(lm.layers):
-        _load(layer, tree["lm"]["layers"], device, dtype, layer=i)
-    scorer = None
-    if "scorer" in tree:
-        scorer = Scorer(cfg.selector or cfg.with_selector().selector, device)
-        _load(scorer, tree["scorer"], device, torch.float32)
-    return QwenVLParams(visual, lm, scorer)
+        _load(layer, tree["layers"], device, dtype, layer=i)
+    return lm
+
+
+def scorer_from_jax(tree: dict, cfg, device):
+    """The fp32 scorer of a reference tree, or None when it has none."""
+    if "scorer" not in tree:
+        return None
+    scorer = Scorer(cfg.selector or cfg.with_selector().selector, device)
+    _load(scorer, tree["scorer"], device, torch.float32)
+    return scorer
 
 
 def predictor_from_jax(tree: dict, device, num_heads: int = 8) -> Predictor:
@@ -168,16 +184,30 @@ _LM_LAYER = (
     ("input_layernorm.weight", "input_ln_scale", False),
     ("post_attention_layernorm.weight", "post_ln_scale", False),
     ("self_attn.q_proj.weight", "q_kernel", True),
-    ("self_attn.q_proj.bias", "q_bias", False),
     ("self_attn.k_proj.weight", "k_kernel", True),
-    ("self_attn.k_proj.bias", "k_bias", False),
     ("self_attn.v_proj.weight", "v_kernel", True),
-    ("self_attn.v_proj.bias", "v_bias", False),
     ("self_attn.o_proj.weight", "o_kernel", True),
     ("mlp.gate_proj.weight", "gate_kernel", True),
     ("mlp.up_proj.weight", "up_kernel", True),
     ("mlp.down_proj.weight", "down_kernel", True),
 )
+_LM_BIAS = (
+    ("self_attn.q_proj.bias", "q_bias", False),
+    ("self_attn.k_proj.bias", "k_bias", False),
+    ("self_attn.v_proj.bias", "v_bias", False),
+)
+_LM_QK_NORM = (  # Qwen3
+    ("self_attn.q_norm.weight", "q_norm_scale", False),
+    ("self_attn.k_norm.weight", "k_norm_scale", False),
+)
+
+
+def lm_layer_table(cfg: TextConfig) -> tuple:
+    """A decoder layer's HF names: the q/k/v biases under
+    ``attention_bias`` (Qwen2.5), the q/k norms under ``qk_norm``
+    (Qwen3)."""
+    return (_LM_LAYER + (_LM_BIAS if cfg.attention_bias else ())
+            + (_LM_QK_NORM if cfg.qk_norm else ()))
 _LM_TOP = (
     ("embed_tokens.weight", "embed_tokens", False),
     ("norm.weight", "final_ln_scale", False),
@@ -230,10 +260,12 @@ def load_vit_params(get, cfg: VisionConfig, device, dtype,
 def load_lm_params(get, cfg: TextConfig, device, dtype,
                    prefix: str = "model.") -> LanguageModel:
     """The decoder from HF names under ``prefix`` (an untied lm head is the
-    top-level ``lm_head.weight``)."""
+    top-level ``lm_head.weight``): Qwen2.5 or Qwen3 layers, as ``cfg``
+    says."""
     lm = LanguageModel(cfg, device, dtype)
+    table = lm_layer_table(cfg)
     for i, layer in enumerate(lm.layers):
-        _load_table(layer, get, f"{prefix}layers.{i}.", _LM_LAYER)
+        _load_table(layer, get, f"{prefix}layers.{i}.", table)
     _load_table(lm, get, prefix, _LM_TOP)
     if not cfg.tie_word_embeddings:
         _put(lm.lm_head_kernel, get("lm_head.weight"), True,
@@ -300,15 +332,23 @@ def to_hf_tensors(params: QwenVLParams, vis_prefix: str = "visual.",
         out.update(_table_tensors(blk, f"{vis_prefix}blocks.{i}.",
                                   _VIT_BLOCK))
     out.update(_table_tensors(params.visual, vis_prefix, _VIT_TOP))
-    for i, layer in enumerate(params.lm.layers):
-        out.update(_table_tensors(layer, f"{lm_prefix}layers.{i}.",
-                                  _LM_LAYER))
-    out.update(_table_tensors(params.lm, lm_prefix, _LM_TOP))
-    if not params.lm.cfg.tie_word_embeddings:
-        out["lm_head.weight"] = params.lm.lm_head_kernel.detach().T
+    out.update(lm_hf_tensors(params.lm, lm_prefix))
     if params.scorer is not None:
         out.update(_table_tensors(params.scorer,
                                   f"{vis_prefix}importance_scorer.", _SCORER))
+    return out
+
+
+def lm_hf_tensors(lm: LanguageModel, prefix: str = "model.") -> dict:
+    """The decoder's HF names -> tensors in the HF layout (the inverse of
+    ``load_lm_params``; an untied head as ``lm_head.weight``)."""
+    out = {}
+    table = lm_layer_table(lm.cfg)
+    for i, layer in enumerate(lm.layers):
+        out.update(_table_tensors(layer, f"{prefix}layers.{i}.", table))
+    out.update(_table_tensors(lm, prefix, _LM_TOP))
+    if not lm.cfg.tie_word_embeddings:
+        out["lm_head.weight"] = lm.lm_head_kernel.detach().T
     return out
 
 

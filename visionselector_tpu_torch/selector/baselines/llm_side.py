@@ -6,7 +6,7 @@ in the reference too).
 These prune image tokens *inside* the decoder at a target layer (default 2),
 using the running sequence's own attention / key statistics — unlike the
 ViT-side methods which select before the LLM. The engine runs a two-stage
-prefill (``_stage_a`` / ``_stage_b`` in models.qwen25vl.model); these classes
+prefill (``_stage_a_from_vision`` / ``_stage_b`` in models.qwen25vl.model); these classes
 implement only the index selection between stages.
 
 Selection interface::
