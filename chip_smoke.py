@@ -252,10 +252,38 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``api.predict --family llava_ov15`` on the tiny config (head dims 16
    and 32) on the card.
 
+12. LLaVA-OV-1.5-8B training and acceptance (``ov-train``), on phase
+   11's weights: 2 samples of the phase-3 image at OV's layout (S' 8,256,
+   1,924 merged, k 384, k_max 409), its 40 prompt ids and a 32-id answer
+   each (1,998 of 2,048 text rows). K1 causal at the step's shape (B = 2,
+   GQA 32/8, D = 128; q / k / v captured from decoder layer 0) against its
+   plain version (fault: the diagonal kv tile cut), and its gradient
+   (``check_flash_grad`` at T = 2,048). The CE's scorer gradients at the
+   initial parameters against plain attention by autograd (the LM's, and
+   RICE's too) within TRAIN_GRAD_TOL, planted mirror faults above it,
+   remat equal (no fp32 reference: an fp32 copy of the 8B does not fit
+   beside both models). 4 AdamW steps without remat and 4 with it (reg
+   weight 0.1 -> 3.0, the OV recipe), the last of each under the
+   profiler: 48 RICE + 36 causal K1 per step (+ 36 with remat), the
+   schedule, finite losses, frozen weights bit-equal. Printed: step wall,
+   device busy and idle share, forward / backward / mirror device ms,
+   tokens/s, peak memory with and without remat. Then, as processes on
+   the card: ``api.train --family llava_ov15 --smoke`` and ``--model-path``
+   phase 11's directory (3 steps, B = 2), the trained scorer copied into a
+   copy of that directory and served by ``api.predict`` (first token equal
+   to the in-process engine's), ``api.acceptance`` on phase 6's 3B and
+   phase 11's OV directories (``--prompt-ids``, ``regression8`` on phase
+   7's generate docs as a ``chartqa`` file): PASS; in process,
+   ``verify_checkpoint --verify`` against the 3B transcript with one token
+   changed must exit 1. Phases 4 and 11 also hold the LM head (one bf16
+   GEMM with fp32 output) to its upcast path (``head_check``).
+
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
 ``flash_varlen_fwd_rice``, ``flash_varlen_fwd_ov_lm`` and
-``decode_blocked_fwd_ov``, from phase 11); the last line is
+``decode_blocked_fwd_ov``, from phase 11; K1 at the OV training step's
+shape, ``flash_varlen_fwd_ov_train``, from phase 12, its launches the
+causal ones of the last step); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -272,6 +300,7 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 
 ULP_LIMIT = 4
 N_TIMED = 10
@@ -341,6 +370,10 @@ KERNELS = {
     "decode_blocked_fwd_ov": ("decode_blocked_fwd.cu",
                               "visionselector_tpu/kernels/attention.py:"
                               "1085"),
+    # OV-8B training (phase 12): K1 causal at the step's B = 2, T = 2,048
+    "flash_varlen_fwd_ov_train": ("flash_varlen_fwd.cu",
+                                  "visionselector_tpu/kernels/attention.py:"
+                                  "203"),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -1717,9 +1750,12 @@ def kernel_groups(kernels) -> dict:
 
 
 def profile_phase(cfg, params, input_ids, pixels, grid):
-    """Phase 4: wall and device time of prefill and decode. Returns the
-    directory the per-kernel summaries went to."""
+    """Phase 4: wall and device time of prefill and decode, peak memory,
+    the LM head against its upcast path. Returns the directory the
+    per-kernel summaries went to."""
     import statistics
+
+    import torch
 
     from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
 
@@ -1736,8 +1772,10 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
             t0 = time.perf_counter()
             eng._prep_vision(input_ids, pixels, grid, grid, None, None)
             prep.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
         runs = [eng.generate(input_ids, pixels, grid, max_new_tokens=n_new)
                 for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
         prefill_ms = statistics.median(r.prefill_seconds * 1e3 for r in runs)
         step_ms = statistics.median(
             (r.total_seconds - r.prefill_seconds) * 1e3
@@ -1760,7 +1798,8 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
               f"prefill_idle_share={1 - busy / prefill_ms!r} "
               f"decode_wall_ms_per_token={step_ms!r} "
               f"decode_device_ms_per_token={step_busy!r} "
-              f"decode_idle_share={1 - step_busy / step_ms!r}", flush=True)
+              f"decode_idle_share={1 - step_busy / step_ms!r} "
+              f"peak_mem_bytes={peak}", flush=True)
         print(f"[profile] {name} prefill device ms by group: "
               + " ".join(f"{g}={ms!r}"
                          for g, ms in kernel_groups(kernels).items()),
@@ -1769,7 +1808,55 @@ def profile_phase(cfg, params, input_ids, pixels, grid):
         for kname, (ms, count) in top:
             print(f"[profile] {name} prefill kernel {ms:.3f} ms x{count}: "
                   f"{kname[:100]}", flush=True)
+    head_check(params.lm, "[profile]")
     return out_dir
+
+
+def head_check(lm, tag):
+    """The LM head on CUDA tensors (one bf16 GEMM with an fp32 output, no
+    fp32 copy of the weight) against the upcast path (both operands fp32,
+    what the training head and the CPU run) on 16 seeded bf16 rows:
+    within ULP_LIMIT bf16 ulps of each row's largest |value| (both sum
+    exact bf16 products in fp32, in another order); the bytes one call
+    allocates beside the weight's fp32 copy; both paths' ms at 1 row (a
+    decode step's call) and 16. Raises if they disagree or the call
+    allocates half the copy's bytes."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl.lm import lm_head
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    h = torch.randn(16, lm.cfg.hidden_size, generator=gen,
+                    device="cuda").bfloat16()
+    w = lm.embed_tokens.t() if lm.cfg.tie_word_embeddings \
+        else lm.lm_head_kernel
+
+    def upcast(x):
+        return x.float() @ w.float()
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = lm_head(lm, h)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        want = upcast(h)
+        ulps = bf16_ulp_err(got, want)
+        err = (got - want).abs().max().item()
+        ms = {n: (cuda_ms(lambda: lm_head(lm, h[:n])),
+                  cuda_ms(lambda: upcast(h[:n]))) for n in (1, 16)}
+    copy = w.numel() * 4
+    print(f"{tag} LM head ({'tied' if lm.cfg.tie_word_embeddings else 'untied'}"
+          f" {tuple(w.shape)} {w.dtype}): bf16 GEMM with fp32 output vs the "
+          f"upcast path: ulp_err={ulps!r} (limit {ULP_LIMIT}) max_abs_err="
+          f"{err!r}; one 16-row call allocates {extra} bytes (the upcast "
+          f"path's fp32 weight copy: {copy}); ms at 1 / 16 rows: head "
+          f"{ms[1][0]!r} / {ms[16][0]!r}, upcast {ms[1][1]!r} / "
+          f"{ms[16][1]!r}", flush=True)
+    if not (ulps <= ULP_LIMIT and extra < copy // 2
+            and got.dtype == torch.float32):
+        raise AssertionError(f"{tag} LM head: {ulps} ulps, {extra} bytes")
 
 
 def profile_variants(cfg, params, input_ids, pixels, grid, out_dir):
@@ -2133,15 +2220,18 @@ def rel_err(got, want) -> float:
             / want.float().abs().max().clamp(min=1e-30)).item()
 
 
-def check_flash_grad(cfg):
-    """Phase 6.1: the gradient of K1 at the LM's training shape (B = 2,
-    T = 1,536 with padding tails, GQA 16/2, D = 128, causal), and the
-    kernel forward's and the mirror backward's ms (CUDA events)."""
+def check_flash_grad(cfg, t=TRAIN_T_BUCKET, valid=(TRAIN_T_BUCKET - 202,
+                                                  TRAIN_T_BUCKET - 335),
+                     tag="[train]"):
+    """Phase 6.1 (and 12.1 at OV's shape): the gradient of K1 at the LM's
+    training shape (B = 2, T = 1,536 with padding tails of 202 and 335
+    rows, GQA 16/2, D = 128, causal), and the kernel forward's and the
+    mirror backward's ms (CUDA events)."""
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
 
-    b, t = TRAIN_BATCH, TRAIN_T_BUCKET
+    b = TRAIN_BATCH
     hq, hkv, d = (cfg.text.num_attention_heads, cfg.text.num_key_value_heads,
                   cfg.text.head_dim)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -2151,7 +2241,7 @@ def check_flash_grad(cfg):
 
     q, k, v, g = rnd(b, t, hq, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d), \
         rnd(b, t, hq, d)
-    valid = torch.tensor([t - 202, t - 335], device="cuda")  # 1334, 1201
+    valid = torch.tensor(valid, device="cuda")
     seg = (torch.arange(t, device="cuda")[None] < valid[:, None]).int()
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     out = A.attention(*leaves, seg, seg, causal=True)
@@ -2171,7 +2261,7 @@ def check_flash_grad(cfg):
                                                 causal=True))
     mirror_ms = cuda_ms(lambda: A.flash_backward_plain(
         q, k, v, seg, seg, True, None, plain, g), n=5)
-    print(f"[train] K1 gradient B={b} T={t} Hq={hq} Hkv={hkv} D={d} causal "
+    print(f"{tag} K1 gradient B={b} T={t} Hq={hq} Hkv={hkv} D={d} causal "
           f"valid={valid.tolist()}: out ulp_err={ulp!r} (limit {ULP_LIMIT}) "
           f"dq/dk/dv rel_err={errs!r} (limit {GRAD_TOL}) pad_rows_zero="
           f"{pad_zero} planted faults {faults!r} (must exceed {GRAD_TOL}); "
@@ -2181,6 +2271,7 @@ def check_flash_grad(cfg):
           and min(faults.values()) > GRAD_TOL)
     if not ok:
         raise AssertionError("K1 gradient check failed")
+    return fwd_ms, mirror_ms
 
 
 def train_batch(cfg):
@@ -2299,15 +2390,19 @@ def grad_err(got, want) -> float:
     return max(rel_err(got[n], w) for n, w in want.items() if n != "q_bias")
 
 
-def gradient_checks(cfg, params, state, batch, k_max) -> dict:
-    """Phase 6.2's gradient checks at the initial parameters (no update):
-    the scorer gradients of the CE alone (reg_weight 0: the part that
-    crosses the LM, its attention gradient and the soft top-k's VJP; the
-    BCE's part reaches the scorer directly and would hide it) on the
-    default path, with remat, and against two references: the LM's
-    attention plain and differentiated by autograd (the frozen ViT keeps
-    its kernels), and every attention plain. Each planted mirror fault
-    must exceed the tolerance against the first."""
+def gradient_checks(cfg, params, state, batch, k_max, tag="[train]",
+                    fp32_reference=True) -> dict:
+    """Phase 6.2's (and 12.1's) gradient checks at the initial parameters
+    (no update): the scorer gradients of the CE alone (reg_weight 0: the
+    part that crosses the LM, its attention gradient and the soft top-k's
+    VJP; the BCE's part reaches the scorer directly and would hide it) on
+    the default path, with remat, and against two references: the LM's
+    attention plain and differentiated by autograd (the frozen vision
+    tower keeps its kernels), and every attention plain; both references
+    run under remat (one layer's plain attention probabilities live at a
+    time). Each planted mirror fault must exceed the tolerance against the
+    first. ``fp32_reference``: also print both bf16 paths' distances from
+    an fp32 copy of the model."""
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
@@ -2330,33 +2425,38 @@ def gradient_checks(cfg, params, state, batch, k_max) -> dict:
     remat_err = grad_err(g_remat, g_kernel)
     equal = all(torch.equal(g_remat[n], g) for n, g in g_kernel.items())
     checks["remat gradients"] = remat_err <= REMAT_TOL
-    print(f"[train] remat: CE scorer grad rel_err={remat_err!r} (limit "
+    print(f"{tag} remat: CE scorer grad rel_err={remat_err!r} (limit "
           f"{REMAT_TOL}; q_bias's gradient is zero analytically) bit_equal="
           f"{equal} peak_mem_bytes remat={peak_remat} no_remat={peak_plain}",
           flush=True)
-    # The fp32 reference: the bf16 plain path's distance from it is the
-    # noise floor of bf16 rounding, the kernel path's is held beside it.
-    g_fp32 = fp32_ce_scorer_grads(cfg, params, batch, k_max)
-    floor, kern = grad_err(g_all, g_fp32), grad_err(g_kernel, g_fp32)
-    print(f"[train] CE scorer gradients at the initial parameters against "
-          f"the fp32 reference (fp32 weights, every attention plain, "
-          f"autograd): the bf16 plain path rel_err={floor!r} (the noise "
-          f"floor), the bf16 kernel path rel_err={kern!r}; per leaf plain "
-          f"{ {n: rel_err(g, g_fp32[n]) for n, g in g_all.items()}!r} kernel "
-          f"{ {n: rel_err(g, g_fp32[n]) for n, g in g_kernel.items()}!r}; "
-          f"the kernel path {'is' if kern <= floor else 'is not'} within "
-          f"the plain path's distance (ratio {kern / floor!r})", flush=True)
+    if fp32_reference:
+        # The fp32 reference: the bf16 plain path's distance from it is the
+        # noise floor of bf16 rounding, the kernel path's is held beside it.
+        g_fp32 = fp32_ce_scorer_grads(cfg, params, batch, k_max)
+        floor, kern = grad_err(g_all, g_fp32), grad_err(g_kernel, g_fp32)
+        print(f"{tag} CE scorer gradients at the initial parameters "
+              f"against the fp32 reference (fp32 weights, every attention "
+              f"plain, autograd): the bf16 plain path rel_err={floor!r} (the "
+              f"noise floor), the bf16 kernel path rel_err={kern!r}; per "
+              f"leaf plain "
+              f"{ {n: rel_err(g, g_fp32[n]) for n, g in g_all.items()}!r} "
+              f"kernel "
+              f"{ {n: rel_err(g, g_fp32[n]) for n, g in g_kernel.items()}!r};"
+              f" the kernel path {'is' if kern <= floor else 'is not'} "
+              f"within the plain path's distance (ratio {kern / floor!r})",
+              flush=True)
     lm_err, all_err = grad_err(g_kernel, g_lm), grad_err(g_kernel, g_all)
     checks["CE scorer gradients vs plain attention by autograd"] = (
         bool(all(torch.isfinite(g).all() for g in g_lm.values()))
         and max(lm_err, all_err) <= TRAIN_GRAD_TOL
         and min(faults.values()) > TRAIN_GRAD_TOL)
-    print(f"[train] CE scorer gradients at the initial parameters, kernel "
+    print(f"{tag} CE scorer gradients at the initial parameters, kernel "
           f"forwards + mirror backward against plain attention "
           f"differentiated by autograd (remat, peak_mem_bytes={peak_ref}): "
           f"the LM's rel_err={lm_err!r} per leaf "
           f"{ {n: rel_err(g, g_lm[n]) for n, g in g_kernel.items()}!r}, "
-          f"the ViT's too rel_err={all_err!r} (limit {TRAIN_GRAD_TOL}); "
+          f"the vision tower's too rel_err={all_err!r} (limit "
+          f"{TRAIN_GRAD_TOL}); "
           f"planted mirror faults against the first {faults!r} (must "
           f"exceed it)", flush=True)
     return checks
@@ -2472,18 +2572,20 @@ def train_phase(cfg, params, out_dir):
     return checks
 
 
-def start_cli(procs, tmp, name, *args):
+def start_cli(procs, tmp, name, *args, key=None):
     """Start ``python -m visionselector_tpu_torch.api.<name> args`` with
-    its output in files under ``tmp``."""
-    out = open(os.path.join(tmp, f"{name}.out"), "w")
-    err = open(os.path.join(tmp, f"{name}.err"), "w")
+    its output in files under ``tmp`` named by ``key`` (default ``name``),
+    under which ``procs`` holds it."""
+    key = key or name
+    out = open(os.path.join(tmp, f"{key}.out"), "w")
+    err = open(os.path.join(tmp, f"{key}.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", f"visionselector_tpu_torch.api.{name}",
          *args], stdout=out, stderr=err, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     out.close()
     err.close()
-    procs[name] = (proc, os.path.join(tmp, name), time.perf_counter())
+    procs[key] = (proc, os.path.join(tmp, key), time.perf_counter())
 
 
 def finish_cli(procs, name):
@@ -4349,6 +4451,13 @@ def ov_capture(engine, req, want_causal: bool) -> dict:
     """q, k, v, seg, bounds and scale of the first flash call of one
     prefill with (or without) the causal mask: RICE's block 0 or the
     decoder's layer 0."""
+    return flash_capture(lambda: engine.generate(**req, max_new_tokens=1),
+                         want_causal)
+
+
+def flash_capture(run, want_causal: bool) -> dict:
+    """q, k, v, seg, bounds and scale of the first flash call with (or
+    without) the causal mask that ``run()`` makes."""
     from visionselector_tpu_torch.kernels import attention as A
 
     seen = {}
@@ -4365,7 +4474,7 @@ def ov_capture(engine, req, want_causal: bool) -> dict:
                      kv_iters)
 
     with patched(A, "flash_varlen_fwd", capture):
-        engine.generate(**req, max_new_tokens=1)
+        run()
     return seen
 
 
@@ -4667,6 +4776,7 @@ def ov_profile(cfg, params, engines, req, out_dir):
               + " ".join(f"{g}={ms!r}"
                          for g, ms in kernel_groups(kernels).items()),
               flush=True)
+    head_check(params.lm, "[ov-profile]")
 
 
 def ov_other_paths(cfg, params, engines, plains, req, checks):
@@ -4827,7 +4937,8 @@ def ov_other_paths(cfg, params, engines, plains, req, checks):
 def ov_hf_dir(cfg, params, tmp, procs):
     """11.6: an OV HF directory of the 8B weights at reduced depth (RICE
     blocks and decoder layers OV_HF_BLOCKS / OV_HF_LAYERS, full widths,
-    bf16, the scorer fp32), written, read back bit for bit, and served by
+    bf16; the scorer fp32 in ``importance_scorer.safetensors``, as a
+    trained one is copied in), written, read back bit for bit, and served by
     ``api.predict --family llava_ov15 --model-path`` in a process of its
     own; ``api.predict --family llava_ov15`` on the tiny random config
     (head dims 16 and 32) beside it. Returns the directory and the
@@ -4846,6 +4957,9 @@ def ov_hf_dir(cfg, params, tmp, procs):
         ov_config_from_hf,
         save_ov_checkpoint,
     )
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        export_scorer_to_safetensors,
+    )
     from visionselector_tpu_torch.preprocess.image import preprocess_image
     from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
 
@@ -4859,11 +4973,18 @@ def ov_hf_dir(cfg, params, tmp, procs):
     lm.layers = torch.nn.ModuleList(saved_layers[i] for i in OV_HF_LAYERS)
     d = os.path.join(tmp, "ov_hf")
     t0 = time.perf_counter()
+    scorer = params.scorer
     try:
         vis.cfg, lm.cfg = small_cfg.vision, small_cfg.text
+        params.scorer = None  # the scorer goes in a file of its own
         save_ov_checkpoint(params, small_cfg, d, shards=2)
+        params.scorer = scorer
+        export_scorer_to_safetensors(
+            scorer, os.path.join(d, "importance_scorer.safetensors"),
+            prefix="model.visual.importance_scorer.")
         src = params.state_dict()  # the reduced model's tensors
     finally:
+        params.scorer = scorer
         vis.blocks, lm.layers = saved_blocks, saved_layers
         vis.cfg, lm.cfg = cfg.vision, cfg.text
     write_s = time.perf_counter() - t0
@@ -4893,7 +5014,8 @@ def ov_hf_dir(cfg, params, tmp, procs):
 
 def ov_phase(tmp, out_dir):
     """Phase 11. Raises if any check failed; returns (the main path's
-    launches, the kernels line's entries)."""
+    launches, the kernels line's entries, the config, the weights, the
+    reduced-depth HF directory), the last three for phase 12."""
     import torch
 
     from visionselector_tpu_torch.core.config import llava_ov15_8b
@@ -4941,6 +5063,7 @@ def ov_phase(tmp, out_dir):
     ov_profile(cfg, params, engines, req, out_dir)
     ov_other_paths(cfg, params, engines, plains, req, checks)
     same, want_tokens = ov_hf_dir(cfg, params, tmp, procs)
+    hf_dir = os.path.join(tmp, "ov_hf")
     checks["HF dir bit-equal"] = same
     rc, stdout, stderr, secs = finish_cli(procs, "predict")
     out = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 else {}
@@ -4960,11 +5083,407 @@ def ov_phase(tmp, out_dir):
     print(f"[ov] checks: {checks}", flush=True)
     print(f"[ov] phase seconds {time.perf_counter() - t_phase!r}",
           flush=True)
-    del engines, plains, params
+    del engines, plains
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"OV phase failed: {bad}")
-    return launches, kernels
+    return launches, kernels, cfg, params, hf_dir
+
+
+# Phase 12 (ov-train): OV-8B selector training at full width, the OV
+# recipe through the CLIs, and checkpoint acceptance of both families.
+OV_TRAIN_T_BUCKET = 2048
+OV_TRAIN_STEPS = 4  # AdamW steps without remat, then as many with it
+OV_REG = (0.1, 3.0)  # the OV recipe's reg-weight curriculum
+OV_TRAIN_LEN = OV_MERGED + 2 + len(PROMPT_BEFORE) + len(PROMPT_AFTER) \
+    + ANSWER_LEN  # 1,998 rows of the 2,048 bucket
+ACCEPT_IDS = "300,301,302"
+
+
+def ov_train_batch(cfg):
+    """Phase 12's fixed batch, stacked on the host: 2 samples of the
+    phase-3 image at its own 1036x1456 (OV's layout: grid 1x74x104, the
+    8,192 bucket, 4 CLS slots, S' tile-padded to 8,256), its 40 prompt ids
+    and a 32-id answer each, text bucket 2,048."""
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.ov_loss import build_ov_train_sample
+
+    img = request_image()
+    answers = [list(range(500 + 40 * i, 500 + 40 * i + ANSWER_LEN))
+               for i in range(TRAIN_BATCH)]
+    return stack_samples([build_ov_train_sample(
+        cfg, img, PROMPT_BEFORE, PROMPT_AFTER, a, budget=0.2,
+        s_bucket=OV_BUCKET, t_bucket=OV_TRAIN_T_BUCKET) for a in answers])
+
+
+def ov_train_kernel(cfg, params, batch, k_max) -> dict:
+    """12.1: K1 causal at the training step's shape (B = 2, T = 2,048, GQA
+    32/8, D = 128), on q / k / v captured from the first decoder layer of
+    one forward of the batch: ULP_LIMIT against its plain version, each q
+    tile's diagonal kv tile cut as the planted fault, its time, bound and
+    one SDPA call; then its gradient at that shape (``check_flash_grad``:
+    the mirror backward against the plain forward's, planted mirror
+    faults). Returns the kernels line's entry."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train.train_step import batch_loss
+
+    with torch.no_grad():
+        seen = flash_capture(
+            lambda: batch_loss(params, batch, cfg, 0.0, k_max), True)
+    q, k, v, seg = seen["q"], seen["k"], seen["v"], seen["seg"]
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    valid = seg.sum(1)
+    nq = -(-t // TILE)
+    iq = torch.arange(nq, device="cuda")
+    cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
+    pos = torch.arange(t, device="cuda")
+    mask = ((seg[:, None, :, None] > 0) & (seg[:, None, None, :] > 0)
+            & (pos[:, None] >= pos[None]))
+    pairs = sum(int(n) * (int(n) + 1) // 2 for n in valid)
+    entry = ov_kernel_entry(
+        "flash_varlen_fwd_ov_train",
+        f"training step decoder layer 0 B={b} T={t} valid={valid.tolist()} "
+        f"Hq={hq} Hkv={hkv} D={d}",
+        lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
+        lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
+        lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
+                                   kv_bounds=cut),
+        (2 * hq + 2 * hkv) * b * t * d * 2 + b * t * 8,
+        4 * d * hq * pairs, lambda: sdpa_ms(q, k, v, mask),
+        lambda got: bool((got[seg == 0] == 0).all()))
+    del mask
+    fwd_ms, mirror_ms = check_flash_grad(cfg, t=t, valid=tuple(
+        valid.tolist()), tag="[ov-train]")
+    n = cfg.text.num_hidden_layers
+    print(f"[ov-train] K1 at the step's shape: forward {fwd_ms!r} ms, mirror "
+          f"backward {mirror_ms!r} ms per decoder layer (x {n} layers: "
+          f"{fwd_ms * n!r} / {mirror_ms * n!r} ms a step)", flush=True)
+    return entry
+
+
+def ov_train_phase(cfg, params, out_dir):
+    """12.1: the gradient checks at the initial parameters, then
+    OV_TRAIN_STEPS AdamW steps without remat and as many with it (reg
+    weight 0.1 -> 3.0 over the 8; the last step of each under the
+    profiler). Returns (checks, the last step's causal K1 launches, the
+    kernels line's entry)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train.loss import (
+        IGNORE_INDEX,
+        reg_weight_schedule,
+        to_device,
+    )
+    from visionselector_tpu_torch.train.train_step import (
+        ScheduleConfig,
+        init_train_state,
+        train_step,
+    )
+
+    host = ov_train_batch(cfg)
+    batch = to_device(host, "cuda")
+    k_max = max(1, int(OV_BUCKET // cfg.vision.spatial_merge_unit * 0.2))
+    sup = int((np.asarray(host.labels)[:, 1:] != IGNORE_INDEX).sum())
+    valid = int(np.asarray(host.seg_ids).sum())
+    layout = dict(merged=np.asarray(host.num_merged).tolist(),
+                  k=np.asarray(host.k).tolist(), k_max=k_max,
+                  s_prime=host.vit_seg_ids.shape[1],
+                  rows=np.asarray(host.seg_ids).sum(1).tolist())
+    print(f"[ov-train] batch: {TRAIN_BATCH} samples {layout} s_bucket "
+          f"{OV_BUCKET} t_bucket {OV_TRAIN_T_BUCKET} valid_tokens={valid} "
+          f"supervised_tokens={sup}", flush=True)
+    checks = {"layout": layout == dict(
+        merged=[OV_MERGED] * 2, k=[384] * 2, k_max=409, s_prime=8256,
+        rows=[OV_TRAIN_LEN] * 2) and OV_TRAIN_LEN <= OV_TRAIN_T_BUCKET}
+    entry = ov_train_kernel(cfg, params, batch, k_max)
+    total = 2 * OV_TRAIN_STEPS
+    sched = ScheduleConfig(total_steps=total, lr=TRAIN_LR,
+                           reg_weight_start=OV_REG[0],
+                           reg_weight_end=OV_REG[1])
+    frozen = frozen_checksums(params)
+    state = init_train_state(params, sched)
+    checks.update(gradient_checks(cfg, params, state, batch, k_max,
+                                  tag="[ov-train]", fp32_reference=False))
+    n_rice, n_lm = TRAIN_BATCH * cfg.vision.depth, cfg.text.num_hidden_layers
+    metrics, counts, steps = [], [], {}
+    for remat in (False, True):
+        sch = sched._replace(remat=remat)
+        walls = []
+
+        def step():
+            t0 = time.perf_counter()
+            out = train_step(state, params, batch, cfg, k_max, sch)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(OV_TRAIN_STEPS):
+            zero_counts()
+            if i == OV_TRAIN_STEPS - 1:  # the last step under the profiler
+                busy, kernels, ((_, m), prof_wall), split = traced(
+                    step, os.path.join(out_dir, f"profile_ov_train_"
+                                       f"{'remat' if remat else 'plain'}"
+                                       f".json"), parse=step_split)
+            else:
+                (_, m), wall = step()
+                walls.append(wall)
+            c = launch_counts()
+            counts.append({"flash": c["flash_varlen_fwd"],
+                           "causal": A.FLASH_CAUSAL_LAUNCHES,
+                           "other": sum(n for name, n in c.items()
+                                        if name != "flash_varlen_fwd")})
+            metrics.append({k: float(v) for k, v in m.items()})
+            print(f"[ov-train] step {len(metrics)} (remat={remat}): " + " ".join(
+                f"{k}={v!r}" for k, v in metrics[-1].items())
+                + f" launches {counts[-1]}", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash": n_rice + n_lm * (1 + remat),
+                "causal": n_lm * (1 + remat), "other": 0}
+        checks[f"launches per step (remat={remat})"] = all(
+            c == want for c in counts[-OV_TRAIN_STEPS:])
+        step_ms = statistics.median(walls)
+        steps[remat] = (step_ms, peak)
+        idle = (f"device_busy_ms={busy!r} wall_ms={prof_wall!r} idle_share="
+                f"{1 - busy / prof_wall!r}" if busy else "device busy and "
+                "idle share not measured (the trace holds no device events)")
+        print(f"[ov-train] remat={remat}: step_wall_ms median={step_ms!r} "
+              f"({walls!r}, unprofiled); expected launches per step {want}; "
+              f"profiled step: {idle}; supervised_tok_s="
+              f"{sup / step_ms * 1e3!r} valid_tok_s={valid / step_ms * 1e3!r}"
+              f" max_memory_allocated={peak}", flush=True)
+        print(f"[ov-train] remat={remat} step device ms by group: " + " ".join(
+            f"{g}={ms!r}" for g, ms in kernel_groups(kernels).items()),
+            flush=True)
+        if split:
+            print(f"[ov-train] remat={remat} profiled step device ms by the "
+                  f"host code that launched it: forward={split['forward']!r} "
+                  f"backward={split['backward']!r} update="
+                  f"{split['update']!r} unmatched={split['unmatched']!r}; the "
+                  f"mirror backward {split['mirror']!r} ms, "
+                  f"{split['mirror'] / split['backward']!r} of the backward",
+                  flush=True)
+        else:
+            print("[ov-train] forward / backward device time not measured "
+                  "(the trace holds no autograd node or device event)",
+                  flush=True)
+    grads = {n: p.grad for n, p in params.scorer.named_parameters()}
+    checks["losses finite"] = all(np.isfinite(m["loss"]) for m in metrics)
+    checks["reg_weight schedule"] = [m["reg_weight"] for m in metrics] == [
+        reg_weight_schedule(i, total, *OV_REG) for i in range(total)]
+    checks["first step lr 0"] = metrics[0]["lr"] == 0.0
+    checks["scorer grads finite, non-zero"] = bool(
+        all(torch.isfinite(g).all() for g in grads.values())
+        and all(grads[n].abs().max() > 0
+                for n in ("q_kernel", "k_kernel", "k_bias")))
+    after = frozen_checksums(params)
+    checks["frozen bit-equal, no grad"] = all(
+        torch.equal(after[n], frozen[n]) and p.grad is None
+        for n, p in params.named_parameters() if n in frozen)
+    print(f"[ov-train] {total} steps: bce {[m['bce'] for m in metrics]} "
+          f"reg_weight {[m['reg_weight'] for m in metrics]}; step wall ms "
+          f"no remat {steps[False][0]!r} remat {steps[True][0]!r}; "
+          f"max_memory_allocated no remat {steps[False][1]} remat "
+          f"{steps[True][1]}", flush=True)
+    state.optimizer.zero_grad(set_to_none=True)
+    return checks, counts[-1]["causal"], entry
+
+
+def accept_task_dir(tmp) -> str:
+    """Phase 7's four generate docs as the built-in ``chartqa`` task's
+    file (``api.acceptance`` registers no task configs), text-only: the
+    card's host has no Pillow."""
+    d = os.path.join(tmp, "accept_tasks")
+    os.makedirs(d)
+    docs = [{"question": q, "answers": [a]} for q, a in (
+        ("What is two plus two?", "4"), ("Name a primary color.", "red"),
+        ("Spell the word cat.", "cat"), ("Is water wet?", "yes"))]
+    with open(os.path.join(d, "chartqa.jsonl"), "w") as f:
+        f.writelines(json.dumps(doc) + "\n" for doc in docs)
+    return d
+
+
+def accepted(stdout) -> tuple:
+    """(the acceptance verdict, its steps) from an ``api.acceptance``
+    run's output lines."""
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+    return (lines[-1].get("acceptance") if lines else None,
+            [ln for ln in lines if "step" in ln])
+
+
+def ov_cli_phase(tmp, qwen_hf, ov_hf, procs) -> dict:
+    """12.2-12.3: the OV recipe through the CLIs and acceptance, each CLI
+    a process of its own on the card, run beside each other: ``api.train
+    --family llava_ov15 --smoke``; ``api.train --family llava_ov15
+    --model-path`` phase 11's reduced-depth directory (3 steps, B = 2),
+    its exported scorer copied into a copy of that directory (hard links)
+    and served by ``api.predict --model-path`` (the trained scorer, first
+    token equal to the in-process engine on the same weights);
+    ``api.acceptance`` on phase 6's 3B directory and on phase 11's OV
+    directory, each with ``regression8`` on one synthetic task; in
+    process, ``verify_checkpoint --verify`` against the 3B transcript with
+    one token changed, which must exit 1. The processes go in ``procs``.
+    Returns the checks."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.api import verify_checkpoint
+    from visionselector_tpu_torch.core.safetensors import open_checkpoint
+    from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
+    from visionselector_tpu_torch.models.llava_ov15.weights import (
+        load_ov_checkpoint,
+        ov_config_from_hf,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        load_scorer_params,
+    )
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    checks = {}
+    tasks = accept_task_dir(tmp)
+    smoke_out, train_out = (os.path.join(tmp, n) for n in (
+        "ov_smoke_train", "ov_train"))
+    reg = ["--reg-weight-start", str(OV_REG[0]), "--reg-weight-end",
+           str(OV_REG[1])]
+    start_cli(procs, tmp, "train", "--family", "llava_ov15", "--smoke",
+              "--total-steps", "3", "--log-steps", "1", "--output-dir",
+              smoke_out, *reg, key="train_smoke")
+    start_cli(procs, tmp, "train", "--family", "llava_ov15", "--model-path",
+              ov_hf, "--total-steps", "3", "--batch-size", "2",
+              "--log-steps", "1", "--vision-bucket", "256", "--text-bucket",
+              "64", "--output-dir", train_out, *reg)
+    accept = ["--prompt-ids", ACCEPT_IDS, "--max-new-tokens", "8",
+              "--data-dir", tasks, "--tasks", "chartqa", "--limit", "4"]
+    start_cli(procs, tmp, "acceptance", "--model-path", qwen_hf, *accept,
+              key="accept_qwen")
+    start_cli(procs, tmp, "acceptance", "--family", "llava_ov15",
+              "--model-path", ov_hf, *accept, key="accept_ov")
+
+    # the planted fault: a transcript with one token changed
+    rec = os.path.join(tmp, "transcript.json")
+    args = ["--model-path", qwen_hf, "--prompt-ids", ACCEPT_IDS,
+            "--max-new-tokens", "8", "--device", "cuda"]
+    zero_counts()
+    rcs = [verify_checkpoint.main(args + ["--record", rec]),
+           verify_checkpoint.main(args + ["--verify", rec])]
+    with open(rec) as f:
+        transcript = json.load(f)
+    transcript["tokens"][0] += 1
+    with open(rec, "w") as f:
+        json.dump(transcript, f)
+    rcs.append(verify_checkpoint.main(args + ["--verify", rec]))
+    c = launch_counts()
+    # per run of the 2-block / 2-layer directory: K4 at the window block,
+    # K1 at the full block and the 2 causal layers, K5 per layer and step
+    steps = ov_steps(SimpleNamespace(tokens=transcript["tokens"]), 8)
+    want = {"diag_attn_fwd": 3, "flash_varlen_fwd": 3 * 3,
+            "decode_blocked_fwd": 3 * 2 * steps}
+    got = {k: c[k] for k in want}
+    print(f"[ov-cli] verify_checkpoint on the 3B directory: record rc="
+          f"{rcs[0]}, verify rc={rcs[1]}; the transcript's first token "
+          f"changed: verify rc={rcs[2]} (must be 1); launches of the three "
+          f"runs {got} (expected {want})", flush=True)
+    checks["verify_checkpoint: planted token fails"] = rcs == [0, 0, 1]
+    checks["verify_checkpoint: launches"] = got == want
+
+    for name in ("accept_qwen", "accept_ov"):
+        rc, stdout, stderr, secs = finish_cli(procs, name)
+        verdict, steps = accepted(stdout)
+        print(f"[ov-cli] api.acceptance ({name}): rc={rc} in {secs!r} s "
+              f"verdict={verdict} steps {steps or stderr[-2000:]}",
+              flush=True)
+        checks[f"{name}: PASS"] = rc == 0 and verdict == "PASS" and [
+            s["step"] for s in steps] == ["transcript", "golden_indices",
+                                          "regression8"]
+    for name, out, want_lines in (("train_smoke", smoke_out, 3),
+                                  ("train", train_out, 3)):
+        rc, _, stderr, secs = finish_cli(procs, name)
+        log = os.path.join(out, "train_log.jsonl")
+        ok = rc == 0 and os.path.isfile(log) and os.path.isfile(
+            os.path.join(out, "importance_scorer.safetensors"))
+        lines = open(log).read().splitlines() if ok else []
+        checks[f"api.train --family llava_ov15 ({name})"] = (
+            ok and len(lines) == want_lines
+            and all(np.isfinite(json.loads(ln)["loss"]) for ln in lines))
+        print(f"[ov-cli] api.train --family llava_ov15 ({name}): rc={rc} in "
+              f"{secs!r} s; last log line "
+              f"{lines[-1] if lines else stderr[-2000:]}", flush=True)
+
+    # the trained scorer copied into a copy of the directory
+    served = os.path.join(tmp, "ov_hf_trained")
+    os.makedirs(served)
+    for f in os.listdir(ov_hf):
+        if f != "importance_scorer.safetensors":
+            os.link(os.path.join(ov_hf, f), os.path.join(served, f))
+    trained = os.path.join(train_out, "importance_scorer.safetensors")
+    shutil.copy(trained, served)
+    start_cli(procs, tmp, "predict", "--family", "llava_ov15",
+              "--model-path", served, "--prompt-ids", ACCEPT_IDS,
+              "--max-new-tokens", "4")
+    loaded = load_ov_checkpoint(served, ov_config_from_hf(served), "cuda")
+    want = load_scorer_params(open_checkpoint(trained), loaded.cfg, "cuda",
+                              prefix="model.visual.importance_scorer.")
+    same = all(torch.equal(a, b) for a, b in zip(
+        loaded.scorer.parameters(), want.parameters()))
+    base = load_scorer_params(open_checkpoint(os.path.join(
+        ov_hf, "importance_scorer.safetensors")), loaded.cfg, "cuda",
+        prefix="model.visual.importance_scorer.")
+    moved = any(not torch.equal(a, b) for a, b in zip(
+        loaded.scorer.parameters(), base.parameters()))
+    img = (np.random.RandomState(0).rand(112, 112, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9,
+                                temporal_patch_size=1)
+    ids = [int(x) for x in ACCEPT_IDS.split(",")]
+    res = OVEngine(loaded.cfg, loaded, device="cuda").generate(
+        expand_vision_tokens([], ids, grid), px, grid, max_new_tokens=4)
+    del loaded
+    rc, stdout, stderr, secs = finish_cli(procs, "predict")
+    out = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 else {}
+    print(f"[ov-cli] the trained scorer in a copy of the directory: loaded "
+          f"bit-equal to its export {same}, moved from phase 11's {moved}; "
+          f"api.predict --family llava_ov15 --model-path: rc={rc} in "
+          f"{secs!r} s {out or stderr[-2000:]}; in process {res.tokens}",
+          flush=True)
+    checks["api.predict serves the trained OV scorer"] = bool(
+        same and moved and out.get("selector")
+        and out.get("tokens", [])[:1] == res.tokens[:1]
+        and out["device"] == "cuda")
+    return checks
+
+
+def ov_train_cli_phase(cfg, params, tmp, out_dir, qwen_hf, ov_hf):
+    """Phase 12. Raises if any check failed; returns (the last training
+    step's causal K1 launches, the kernels line's entry)."""
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"[ov-train] card: {nvidia_smi()}", flush=True)
+    checks, launches, entry = ov_train_phase(cfg, params, out_dir)
+    torch.cuda.empty_cache()
+    procs = {}
+    try:
+        checks.update(ov_cli_phase(tmp, qwen_hf, ov_hf, procs))
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[ov-train] checks: {checks}", flush=True)
+    print(f"[ov-train] phase seconds {time.perf_counter() - t0!r}",
+          flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"OV training phase failed: {bad}")
+    return launches, entry
 
 
 def main() -> int:
@@ -5053,9 +5572,17 @@ def main() -> int:
         # LLaVA-OV-1.5-8B: RICE's K1, the decoder's causal K1 and K5 at
         # n_rep 4, counted in phase 11's main path (zeroed just before,
         # read just after) and held at its own shapes.
-        ov_launches, ov_kernels_line = ov_phase(tmp, out_dir)
+        ov_launches, ov_kernels_line, ov_cfg, ov_params, ov_hf = ov_phase(
+            tmp, out_dir)
         launches.update(ov_launches)
         kernels.update(ov_kernels_line)
+        # OV-8B training: the causal K1 launches of phase 12's last step
+        # (zeroed just before, read just after), and K1 at its shape;
+        # then the OV recipe's CLIs and both families' acceptance.
+        (launches["flash_varlen_fwd_ov_train"],
+         kernels["flash_varlen_fwd_ov_train"]) = ov_train_cli_phase(
+            ov_cfg, ov_params, tmp, out_dir, hf_dir, ov_hf)
+        del ov_params
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1108,3 +1108,44 @@ def test_tiny_ov_engine_kernels_match_plain_path(dev):
         assert torch.isfinite(a.logits).all()
         scale = b.logits.abs().max().item()
         assert (a.logits - b.logits).abs().max().item() <= 0.1 * scale
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_head_makes_no_fp32_weight_copy(dev, tied):
+    """The head on CUDA tensors without a gradient: within ULP_LIMIT bf16
+    ulps of the upcast path (fp32 operands), fp32 logits, and one call
+    allocates less than half the weight's fp32 copy (only its output); a
+    1-D row (a decode step) too. With a gradient to carry it keeps the
+    upcast and differentiates."""
+    import dataclasses
+
+    from visionselector_tpu_torch.core.config import llava_ov_tiny
+    from visionselector_tpu_torch.models.qwen25vl import lm as tlm
+
+    cfg = dataclasses.replace(
+        llava_ov_tiny().text, hidden_size=1024, vocab_size=151936,
+        num_hidden_layers=1, tie_word_embeddings=tied)
+    lm = tlm.LanguageModel(cfg, dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for p in lm.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    w = lm.embed_tokens.t() if tied else lm.lm_head_kernel
+    h = _rnd(gen, 16, 1024)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = tlm.lm_head(lm, h)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        want = h.float() @ w.float()
+        row = tlm.lm_head(lm, h[3])
+    assert got.dtype == torch.float32 and got.shape == (16, 151936)
+    assert _err(got, want) <= ULP_LIMIT
+    assert _err(row[None], want[3:4]) <= ULP_LIMIT
+    assert extra < w.numel() * 4 // 2, extra
+    hg = h.clone().requires_grad_(True)
+    tlm.lm_head(lm, hg).sum().backward()
+    torch.testing.assert_close(hg.grad.float(), w.float().sum(1).expand(
+        16, -1), rtol=1e-2, atol=1e-2)

@@ -5,8 +5,8 @@ multiple-choice docs, text-only, image and video frames), and the HTTP
 server (``build_server`` / ``Server`` over an ``OVEngine``): /generate
 against the JAX package's ``Server`` over the same weights, streaming, a
 session, the micro-batcher, the continuous batcher (one-shot admissions)
-and the prefix cache. ``api.train --family llava_ov15`` still refuses (OV
-training is not ported)."""
+and the prefix cache. ``api.train --family llava_ov15 --data-flatten``
+still refuses (packed rows are not ported)."""
 
 import base64
 import contextlib
@@ -136,9 +136,11 @@ def test_run_eval_family_llava_ov15(tmp_path, capsys, extra):
 
 
 def test_train_family_llava_ov15_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="OV training"):
+    """OV training runs (``tests/test_torch_ov_train.py``); packed rows
+    with it are still refused, as for the Qwen family."""
+    with pytest.raises(NotImplementedError, match="data-flatten"):
         ttrain.main(["--family", "llava_ov15", "--smoke", "--device", "cpu",
-                     "--output-dir", str(tmp_path)])
+                     "--data-flatten", "--output-dir", str(tmp_path)])
 
 
 # -- serve -------------------------------------------------------------------

@@ -572,7 +572,8 @@ def test_train_cli_smoke_writes_log_checkpoint_and_scorer(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--method", "sft"], ["--method", "dpo"], ["--method", "grpo"],
-    ["--method", "dynamic"], ["--family", "llava_ov15"], ["--data-flatten"],
+    ["--method", "dynamic"], ["--family", "llava_ov15", "--data-flatten"],
+    ["--data-flatten"],
     ["--lora-rank", "8"], ["--async-save"]])
 def test_train_cli_unported_options_raise(tmp_path, extra):
     from visionselector_tpu_torch.api import train as tapi

@@ -1,6 +1,6 @@
 """Selector training CLI for the PyTorch port (the reference's
-``train_qwen_selector.py`` + ``scripts/sft_3b.sh``; counterpart of
-``visionselector_tpu.api.train --method selector``).
+``train_qwen_selector.py`` + ``scripts/sft_3b.sh``, and the OV trainer;
+counterpart of ``visionselector_tpu.api.train --method selector``).
 
 Usage:
     python -m visionselector_tpu_torch.api.train \\
@@ -9,19 +9,28 @@ Usage:
         --reg-weight-start 0.1 --reg-weight-end 2.0 \\
         --lr 5e-5 --total-steps 1000 --batch-size 8
 
+    python -m visionselector_tpu_torch.api.train --family llava_ov15 \\
+        --model-path /ov-ckpt --annotation data.jsonl --image-root imgs/ \\
+        --output-dir runs/ov --budget 0.2 \\
+        --reg-weight-start 0.1 --reg-weight-end 3.0
+
     python -m visionselector_tpu_torch.api.train --smoke --total-steps 3 \\
-        --output-dir runs/smoke
+        --output-dir runs/smoke [--family llava_ov15]
 
 Only the LIS scorer trains (frozen backbone); AdamW with optax's
 warmup-cosine schedule and global-norm clipping; linear reg-weight
 curriculum; ``checkpoint-<step>`` auto-resume; ``train_log.jsonl``; the
 final scorer exported to the reference's safetensors layout
-(``importance_scorer.safetensors``), which ``api.predict --model-path``
-serves once merged into an HF directory. ``--smoke`` (or no
-``--model-path``) trains the tiny random-weight config on synthetic data.
-It runs on the GPU (``--device cuda``, the default) and fails without
-one; ``--device cpu`` asks for the CPU. ``transformers`` is imported only
-for ``--annotation`` (the tokenizer).
+(``importance_scorer.safetensors``, under the vision prefix of the
+``--model-path`` checkpoint, else the family's: ``visual.`` for
+Qwen2.5-VL, ``model.visual.`` for LLaVA-OneVision-1.5), which
+``api.predict --model-path`` serves once copied into an HF directory of
+that layout. ``--family llava_ov15`` trains the OV scorer (RICE tower,
+Qwen3 decoder, 1-D rope; ``train.ov_loss``). ``--smoke`` (or no
+``--model-path``) trains the family's tiny random-weight config on
+synthetic data. It runs on the GPU (``--device cuda``, the default) and
+fails without one; ``--device cpu`` asks for the CPU. ``transformers`` is
+imported only for ``--annotation`` (the tokenizer).
 """
 
 from __future__ import annotations
@@ -94,10 +103,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--method {args.method}: {UNPORTED_METHODS[args.method]} is "
             f"not ported yet")
-    if args.family != "qwen25vl":
-        raise NotImplementedError(
-            "--family llava_ov15: OV training (train/ov_loss.py) is not "
-            "ported yet (ROADMAP section 1, item 8; OV inference is)")
     if args.data_flatten:
         raise NotImplementedError(
             "--data-flatten (packed rows) is not ported yet (ROADMAP "
@@ -120,13 +125,10 @@ def main(argv=None) -> int:
         maybe_resume,
         save_train_state,
     )
-    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.api.predict import load_model
     from visionselector_tpu_torch.core.params import init_random_
     from visionselector_tpu_torch.models.qwen25vl.weights import (
-        config_from_hf,
         export_scorer_to_safetensors,
-        init_params,
-        load_hf_checkpoint,
     )
     from visionselector_tpu_torch.selector.scorer import Scorer
     from visionselector_tpu_torch.train.data import stack_samples
@@ -141,21 +143,20 @@ def main(argv=None) -> int:
     if dev == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    is_ov = args.family == "llava_ov15"
+    cfg, params = load_model(args.family,
+                             None if args.smoke else args.model_path, dev,
+                             args.seed)
+    scorer_prefix = _scorer_prefix(
+        is_ov, None if args.smoke else args.model_path)
     if args.smoke or not args.model_path:
-        cfg = qwen25vl_tiny()
-        # bf16 on the card: the kernels' dtype (the tiny config is fp32)
-        params = init_params(cfg, gen, dev,
-                             torch.bfloat16 if dev == "cuda" else None)
         args.vision_bucket = min(args.vision_bucket, 128)
         args.text_bucket = min(args.text_bucket, 128)
-    else:
-        cfg = config_from_hf(args.model_path)
-        params = load_hf_checkpoint(args.model_path, cfg, dev)
-        if params.scorer is None:
-            sel = cfg.with_selector(args.budget).selector
-            params.scorer = Scorer(sel, dev)
-            init_random_(params.scorer, gen, std=sel.init_scale)
+    elif params.scorer is None:
+        sel = cfg.with_selector(args.budget).selector
+        params.scorer = Scorer(sel, dev)
+        init_random_(params.scorer, torch.Generator(device=dev).manual_seed(
+            args.seed), std=sel.init_scale)
 
     def sample_stream():
         rng = np.random.RandomState(args.seed)
@@ -166,7 +167,12 @@ def main(argv=None) -> int:
                 ConversationDataset,
                 build_sample_from_record,
             )
+            from visionselector_tpu_torch.train.ov_loss import (
+                build_ov_sample_from_record,
+            )
 
+            builder = (build_ov_sample_from_record if is_ov
+                       else build_sample_from_record)
             tokenizer = AutoTokenizer.from_pretrained(
                 args.model_path, local_files_only=True)
             ds = ConversationDataset(args.annotation, args.image_root,
@@ -175,9 +181,20 @@ def main(argv=None) -> int:
             while True:
                 rec = ds[i % len(ds)]
                 i += 1
-                yield build_sample_from_record(
-                    cfg, rec, args.budget, args.vision_bucket,
-                    args.text_bucket)
+                yield builder(cfg, rec, args.budget, args.vision_bucket,
+                              args.text_bucket)
+        elif is_ov:  # synthetic smoke data (OV family)
+            from visionselector_tpu_torch.train.ov_loss import (
+                build_ov_train_sample,
+            )
+
+            while True:
+                img = (rng.rand(56, 56, 3) * 255).astype(np.uint8)
+                yield build_ov_train_sample(
+                    cfg, img, [101, 102], [201, 202, 203],
+                    answer_ids=[301, 302], budget=args.budget,
+                    s_bucket=args.vision_bucket,
+                    t_bucket=args.text_bucket)
         else:  # synthetic smoke data
             from visionselector_tpu_torch.train.data import (
                 build_train_sample,
@@ -249,10 +266,27 @@ def main(argv=None) -> int:
 
     export_scorer_to_safetensors(
         state.scorer,
-        os.path.join(args.output_dir, "importance_scorer.safetensors"))
+        os.path.join(args.output_dir, "importance_scorer.safetensors"),
+        prefix=scorer_prefix)
     print(f"[train] exported scorer to {args.output_dir}")
     _copy_loader_configs(args.model_path, args.output_dir)
     return 0
+
+
+def _scorer_prefix(is_ov: bool, model_path) -> str:
+    """The exported scorer's key prefix: ``<vision prefix>
+    importance_scorer.`` of the base checkpoint (what its loader probes
+    once the file is copied in), else the family's own layout."""
+    from visionselector_tpu_torch.core.safetensors import open_checkpoint
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        resolve_qwen_prefixes,
+    )
+
+    if model_path:
+        vis = resolve_qwen_prefixes(open_checkpoint(model_path).names)[0]
+    else:
+        vis = "model.visual." if is_ov else "visual."
+    return f"{vis}importance_scorer."
 
 
 def _copy_loader_configs(model_path, output_dir) -> None:

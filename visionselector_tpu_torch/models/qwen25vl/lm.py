@@ -375,10 +375,24 @@ def embed_tokens(lm: LanguageModel, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def lm_head(lm: LanguageModel, hidden: torch.Tensor) -> torch.Tensor:
-    """[.., D] -> [.., V] fp32 logits. bf16 products are exact in fp32, so
-    upcasting both operands gives the reference's bf16-in / fp32-accumulate
-    result."""
-    if lm.cfg.tie_word_embeddings:
+    """[.., D] -> [.., V] fp32 logits: the reference's bf16-in /
+    fp32-accumulate product (its einsum with ``preferred_element_type``).
+
+    On a CUDA tensor with no gradient to carry, one GEMM over the weight
+    as it is stored with an fp32 output (``aten::mm.dtype``): no fp32 copy
+    of the [D, V] weight. Elsewhere both operands are upcast (bf16
+    products are exact in fp32, so the result is the same function):
+    ``aten::mm.dtype`` has no CPU kernel, and on CUDA it has no derivative
+    (torch 2.11), so the training head keeps the upcast."""
+    tied = lm.cfg.tie_word_embeddings
+    w = lm.embed_tokens.t() if tied else lm.lm_head_kernel  # [D, V]
+    carries_grad = torch.is_grad_enabled() and hidden.requires_grad
+    if (hidden.device.type == "cuda" and not carries_grad
+            and w.dtype != torch.float32):
+        flat = hidden.reshape(-1, hidden.shape[-1]).to(w.dtype)
+        out = torch.mm(flat, w, out_dtype=torch.float32)
+        return out.reshape(*hidden.shape[:-1], out.shape[-1])
+    if tied:
         return F.linear(hidden.float(), lm.embed_tokens.float())
     return hidden.float() @ lm.lm_head_kernel.float()
 

@@ -403,8 +403,10 @@ def config_from_hf(path: str) -> VLConfig:
     )
 
 
-def export_scorer_to_safetensors(scorer: Scorer, path: str) -> None:
+def export_scorer_to_safetensors(scorer: Scorer, path: str,
+                                 prefix: str = SCORER_PREFIX) -> None:
     """Save a trained scorer in the reference checkpoint layout
-    (``visual.importance_scorer.{k,q}_proj.{weight,bias}``, weights [out,
-    in]) so that it can be merged into an HF directory; fp32 as trained."""
-    save_file(_table_tensors(scorer, SCORER_PREFIX, _SCORER), path)
+    (``<prefix>{k,q}_proj.{weight,bias}``, weights [out, in]; by default
+    ``visual.importance_scorer.``) so that it can be merged into an HF
+    directory whose vision prefix it carries; fp32 as trained."""
+    save_file(_table_tensors(scorer, prefix, _SCORER), path)

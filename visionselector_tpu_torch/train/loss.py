@@ -34,6 +34,10 @@ from visionselector_tpu_torch.selector.select import select_soft
 
 IGNORE_INDEX = -100
 
+# Per-sample scalars the host reads: they stay numpy in ``to_device``.
+HOST_FIELDS = ("num_merged", "k", "window_diag", "window_kv_iters",
+               "full_kv_iters")
+
 
 class TrainBatchSample(NamedTuple):
     """One statically shaped training sample (numpy on the host), or a
@@ -61,18 +65,25 @@ class TrainBatchSample(NamedTuple):
     window_kv_iters: np.ndarray  # scalar: kv-tile cap (0 = none)
     full_kv_iters: np.ndarray  # scalar
 
-
-# Per-sample scalars the host reads: they stay numpy in ``to_device``.
-HOST_FIELDS = ("num_merged", "k", "window_diag", "window_kv_iters",
-               "full_kv_iters")
+    host_fields = HOST_FIELDS  # a class attribute, not a field
 
 
-def to_device(batch: TrainBatchSample, device) -> TrainBatchSample:
-    """A stacked batch with its arrays on ``device`` (host scalars kept)."""
-    return TrainBatchSample(**{
-        f: (np.asarray(x) if f in HOST_FIELDS
+def to_device(batch, device):
+    """A stacked batch (``TrainBatchSample`` or ``ov_loss.OVTrainSample``)
+    with its arrays on ``device``; the sample type's ``host_fields`` stay
+    numpy."""
+    cls = type(batch)
+    return cls(**{
+        f: (np.asarray(x) if f in cls.host_fields
             else torch.as_tensor(np.asarray(x), device=device))
         for f, x in batch._asdict().items()})
+
+
+def batch_of_one(sample):
+    """A sample (on the device) as a batch of one: a leading dim of 1."""
+    cls = type(sample)
+    return cls(**{f: np.asarray(x)[None] if f in cls.host_fields
+                  else x[None] for f, x in sample._asdict().items()})
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -108,23 +119,32 @@ def _vision(params, batch: TrainBatchSample, b: int, attn_impl):
             attn_impl=attn_impl)
 
 
-def selector_batch_forward(params, batch: TrainBatchSample, cfg: VLConfig,
-                           reg_weight, k_max: int, remat: bool = False,
-                           attn_impl=None):
-    """Per-sample composite losses of a stacked batch (``to_device``).
-    Returns (losses [B], {"ce", "bce", "soft_mass": [B]})."""
+def scatter_vision(lm, input_ids, image_positions, tokens):
+    """Text embeddings [T_pad, D] with ``tokens`` written at
+    ``image_positions`` (sentinel positions T_pad land in a dropped row)."""
+    text = lm_mod.embed_tokens(lm, input_ids)
+    t_pad, d = text.shape
+    full = torch.zeros(t_pad + 1, d, dtype=text.dtype, device=text.device)
+    full[:t_pad] = text
+    full[image_positions] = tokens.to(text.dtype)
+    return full[:t_pad]
+
+
+def composite_batch_forward(params, batch, vision, reg_weight, k_max: int,
+                            remat: bool = False, attn_impl=None):
+    """The composite loss of either family's stacked batch: ``vision(b)``
+    gives sample b's merged tokens [L_pad, D] (frozen, no graph); then the
+    soft selection, the scatter, one [B, T] decoder call and per-sample CE
+    + reg_weight * BCE. Returns (losses [B], {"ce", "bce", "soft_mass":
+    [B]})."""
     nb = batch.input_ids.shape[0]
     embeds, softs = [], []
     for b in range(nb):
-        merged = _vision(params, batch, b, attn_impl)
-        soft = select_soft(params.scorer, merged, int(batch.num_merged[b]),
+        soft = select_soft(params.scorer, vision(b), int(batch.num_merged[b]),
                            int(batch.k[b]), k_max)
-        text = lm_mod.embed_tokens(params.lm, batch.input_ids[b])
-        t_pad, d = text.shape
-        full = torch.zeros(t_pad + 1, d, dtype=text.dtype, device=text.device)
-        full[:t_pad] = text
-        full[batch.image_positions[b]] = soft.masked_tokens.to(text.dtype)
-        embeds.append(full[:t_pad])
+        embeds.append(scatter_vision(params.lm, batch.input_ids[b],
+                                     batch.image_positions[b],
+                                     soft.masked_tokens))
         softs.append(soft)
     hidden, _ = lm_mod.lm_prefill(
         params.lm, torch.stack(embeds), batch.position_ids.transpose(0, 1),
@@ -148,16 +168,24 @@ def selector_batch_forward(params, batch: TrainBatchSample, cfg: VLConfig,
                                  "soft_mass": torch.stack(mass_l)}
 
 
+def selector_batch_forward(params, batch: TrainBatchSample, cfg: VLConfig,
+                           reg_weight, k_max: int, remat: bool = False,
+                           attn_impl=None):
+    """Per-sample composite losses of a stacked batch (``to_device``).
+    Returns (losses [B], {"ce", "bce", "soft_mass": [B]})."""
+    return composite_batch_forward(
+        params, batch, lambda b: _vision(params, batch, b, attn_impl),
+        reg_weight, k_max, remat, attn_impl)
+
+
 def selector_train_forward(params, sample: TrainBatchSample, cfg: VLConfig,
                            reg_weight, k_max: int, remat: bool = False,
                            attn_impl=None):
     """One sample's composite loss (a batch of one). Returns (loss,
     {"ce", "bce", "soft_mass"})."""
-    one = TrainBatchSample(**{
-        f: np.asarray(x)[None] if f in HOST_FIELDS else x[None]
-        for f, x in sample._asdict().items()})
-    losses, metrics = selector_batch_forward(params, one, cfg, reg_weight,
-                                             k_max, remat, attn_impl)
+    losses, metrics = selector_batch_forward(params, batch_of_one(sample),
+                                             cfg, reg_weight, k_max, remat,
+                                             attn_impl)
     return losses[0], {k: v[0] for k, v in metrics.items()}
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``visionselector_tpu.train.train_step`` (the reference's
 ``train_qwen_selector.py``: only ``importance_scorer`` trains, AdamW,
-warmup-cosine learning rate, reg_weight annealed 0.1 -> 2.0). Every other
+warmup-cosine learning rate, reg_weight annealed 0.1 -> 2.0; the OV
+recipe anneals it 0.1 -> 3.0). Either family: ``batch_loss`` runs the
+forward of the config's family. Every other
 parameter has ``requires_grad`` off: only the 12.85M-parameter scorer has
 a gradient or optimizer state.
 
@@ -29,12 +31,12 @@ from typing import Callable, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from visionselector_tpu_torch.core.config import VLConfig
+from visionselector_tpu_torch.core.config import OVConfig
 from visionselector_tpu_torch.train.loss import (
-    TrainBatchSample,
     reg_weight_schedule,
     selector_batch_forward,
 )
+from visionselector_tpu_torch.train.ov_loss import ov_selector_batch_forward
 
 
 class ScheduleConfig(NamedTuple):
@@ -91,11 +93,15 @@ def init_train_state(params, sched: ScheduleConfig) -> TrainState:
     return TrainState(params.scorer, make_optimizer(params.scorer, sched))
 
 
-def batch_loss(params, batch: TrainBatchSample, cfg: VLConfig, reg_weight,
-               k_max: int, remat: bool = False, attn_impl=None):
-    """Mean of the batch's per-sample losses, and the metrics' means."""
-    losses, metrics = selector_batch_forward(params, batch, cfg, reg_weight,
-                                             k_max, remat, attn_impl)
+def batch_loss(params, batch, cfg, reg_weight, k_max: int,
+               remat: bool = False, attn_impl=None):
+    """Mean of the batch's per-sample losses, and the metrics' means: the
+    Qwen2.5-VL forward for a ``VLConfig`` (a ``TrainBatchSample``), the
+    LLaVA-OneVision-1.5 one for an ``OVConfig`` (an ``OVTrainSample``)."""
+    forward = (ov_selector_batch_forward if isinstance(cfg, OVConfig)
+               else selector_batch_forward)
+    losses, metrics = forward(params, batch, cfg, reg_weight, k_max, remat,
+                              attn_impl)
     return losses.mean(), {k: v.mean() for k, v in metrics.items()}
 
 
@@ -124,8 +130,8 @@ def _update(state: TrainState, sched: ScheduleConfig) -> dict:
     return {"grad_norm": norm, "lr": lr}
 
 
-def train_step(state: TrainState, params, batch: TrainBatchSample,
-               cfg: VLConfig, k_max: int, sched: ScheduleConfig,
+def train_step(state: TrainState, params, batch, cfg, k_max: int,
+               sched: ScheduleConfig,
                attn_impl=None) -> Tuple[TrainState, dict]:
     """One update on ``batch`` (``loss.to_device``). Returns (state, metrics:
     loss, ce, bce, soft_mass, reg_weight, grad_norm (before clipping),
@@ -134,8 +140,7 @@ def train_step(state: TrainState, params, batch: TrainBatchSample,
                             attn_impl)
 
 
-def train_step_accum(state: TrainState, params,
-                     batches: List[TrainBatchSample], cfg: VLConfig,
+def train_step_accum(state: TrainState, params, batches: List, cfg,
                      k_max: int, sched: ScheduleConfig,
                      attn_impl=None) -> Tuple[TrainState, dict]:
     """One update from equal-sized micro-batches: the gradients of their
