@@ -278,12 +278,49 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    changed must exit 1. Phases 4 and 11 also hold the LM head (one bf16
    GEMM with fp32 output) to its upcast path (``head_check``).
 
+13. Speculative decoding and the int4 pool (``spec``), on phase 3's and
+   phase 11's weights. K5 at t_c 8 (a verify chunk of m = 7 proposals):
+   the 8-slot, 2,048-row pool at bases ``DECODE_LENS`` - 8 and one slot at
+   the ``orig`` cache, and OV-8B's n_rep 4 (one slot at base 1,966 and a
+   4-slot pool), bf16 and int8, each within ULP_LIMIT of its plain
+   version, with ms, bound and one SDPA call (causal within the chunk +
+   length mask); a planted off-by-one in the in-chunk causal limit (the
+   kernel given base + 1) must fail. ``generate_speculative`` on the
+   phase-3 selector request at m = 3 and m = 7 (32 tokens): the first
+   token equal to ``generate``'s, every emitted token the accepted prefix
+   of its verify step's argmaxes (each step recorded), dispatches,
+   accepted proposals, wall and device ms per emitted token and per verify
+   step beside the plain decode's; the m = 7 run's K5 launches (zeroed
+   just before, read just after) are 36 per verify step, all at t_c 8. On
+   copies of one prefill cache: the t_c 8 verify rows against 8 t_c 1
+   steps and against ``attn_impl="plain"`` within TEACHER_TOL, and the
+   plain decode's own next 7 tokens proposed: a = 7, or the first
+   rejected row's top-2 margin within twice its measured drift. The
+   speculative batcher (m = 3, 8 slots, chunk 8) on 6 of phase 5's
+   requests (4 greedy, one sampled, one penalized), bf16 and int8 pools:
+   budgets, first tokens equal to one-shot, ``spec_steps`` /
+   ``spec_tokens``; one dispatch of 8 rounds over 8 admitted slots, wall
+   against device busy. The int4 pool: its bytes beside bf16's and int8's,
+   a teacher-forced decode step over 8 admitted slots (5 image and 3
+   text-only requests): the int4 route against K5 over the same values
+   and scales held as int8 (the step's own row quantized to 4 bits
+   there too), within TEACHER_TOL, and the int8 and int4
+   pools' drift against the bf16 pool, under INT4_DRIFT_TOL (the
+   reference's 0.25, set on an image request) on the image slots, the
+   text-only slots' printed beside them; decode device ms per step of
+   each pool (no K5 launch on int4, 36 plain-route calls a step), 4
+   requests through an int4 batcher. OV-8B: one speculative
+   request (m = 7), its first token equal to ``generate``'s, 36 K5
+   launches at t_c 8 per verify step.
+
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
 ``flash_varlen_fwd_rice``, ``flash_varlen_fwd_ov_lm`` and
 ``decode_blocked_fwd_ov``, from phase 11; K1 at the OV training step's
 shape, ``flash_varlen_fwd_ov_train``, from phase 12, its launches the
-causal ones of the last step); the last line is
+causal ones of the last step; K5 at t_c 8, ``decode_blocked_fwd_t_c8`` and
+``decode_blocked_fwd_ov_t_c8``, from phase 13, its launches those of the
+3B's m = 7 run and of OV-8B's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -374,6 +411,14 @@ KERNELS = {
     "flash_varlen_fwd_ov_train": ("flash_varlen_fwd.cu",
                                   "visionselector_tpu/kernels/attention.py:"
                                   "203"),
+    # Speculative decoding (phase 13): K5 at t_c = m + 1 = 8, the verify
+    # chunk, on the 3B and on OV-8B (n_rep 4)
+    "decode_blocked_fwd_t_c8": ("decode_blocked_fwd.cu",
+                                "visionselector_tpu/kernels/attention.py:"
+                                "1085"),
+    "decode_blocked_fwd_ov_t_c8": ("decode_blocked_fwd.cu",
+                                   "visionselector_tpu/kernels/"
+                                   "attention.py:1085"),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -4479,9 +4524,10 @@ def flash_capture(run, want_causal: bool) -> dict:
 
 
 def ov_kernel_entry(kname, name, kernel, plain, fault, nbytes, flop,
-                    library, pad_rows_zero):
-    """Time, bound and check one OV kernel case; raises if it disagrees
-    with its plain version or its planted fault passes."""
+                    library, pad_rows_zero, tag="[ov-kernel]"):
+    """Time, bound and check one kernel case (OV's, and phase 13's under
+    its own ``tag``); raises if it disagrees with its plain version or its
+    planted fault passes."""
     import torch
 
     got, want = kernel(), plain()
@@ -4495,7 +4541,7 @@ def ov_kernel_entry(kname, name, kernel, plain, fault, nbytes, flop,
     bound, by = bound_ms(nbytes, flop)
     lib = library() if library is not None else None
     pad_zero = pad_rows_zero(got)
-    print(f"[ov-kernel] {kname} {name}: max_abs_err={err!r} ulp_err={ulps!r}"
+    print(f"{tag} {kname} {name}: max_abs_err={err!r} ulp_err={ulps!r}"
           f" (limit {ULP_LIMIT}) pad_rows_zero={pad_zero} ms={ms!r} "
           f"plain_ms={plain_ms!r} bytes={nbytes} flop={flop} bound_ms="
           f"{bound!r} ({by}) share_of_bound={bound / ms!r} library_ms="
@@ -5486,6 +5532,538 @@ def ov_train_cli_phase(cfg, params, tmp, out_dir, qwen_hf, ov_hf):
     return launches, entry
 
 
+# Phase 13 (spec): prompt-lookup speculative decoding and the int4 slot
+# pool at full width, on phase 3's and phase 11's weights. A verify chunk
+# is m + 1 rows per slot: K5 at t_c = SPEC_M + 1 = 8.
+SPEC_M = 7
+SPEC_T_C = SPEC_M + 1
+SPEC_BATCHER_M = 3
+# The reference's bound on an int4 pool's teacher-forced logit drift
+# (max |diff| / max |logit| of a decode step against the bf16 pool's).
+INT4_DRIFT_TOL = 0.25
+
+
+def decode_work(base, t_c, quant, t, hq, hkv, dh):
+    """(bytes of the live prefix + q + out, flop) of one decode-kernel
+    call at these base lengths: chunk row i sees base + i + 1 keys."""
+    import torch
+
+    keys = torch.minimum(base[:, None] + torch.arange(
+        1, t_c + 1, device=base.device), torch.tensor(t, device=base.device))
+    live = int(keys[:, -1].sum())
+    per_key = hkv * dh * (1 if quant else 2) * 2 + (hkv * 8 if quant else 0)
+    qo = 2 * base.shape[0] * t_c * hq * dh * 2
+    return live * per_key + qo, 4 * hq * dh * int(keys.sum())
+
+
+def chunk_mask(base, t_c, t):
+    """[B, 1, t_c, T] bool: chunk row i sees positions < base + i + 1."""
+    import torch
+
+    lim = base[:, None] + torch.arange(1, t_c + 1, device=base.device)
+    return (torch.arange(t, device=base.device) < lim[..., None])[:, None]
+
+
+def spec_k5_cases(tc, cases, kname, gen):
+    """13.1: K5 at t_c = SPEC_T_C over each (where, bf16 k, v, base
+    lengths) case, bf16 and int8, against its plain version with the
+    in-chunk causal limit off by one planted (the kernel called with
+    base + 1: row i sees one key more). Returns the kernels line's entry
+    (the first case, the largest error of all)."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl.lm import quantize_kv
+
+    hq, hkv, dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    entries = []
+    for where, kb, vb, base in cases:
+        (k8, ks), (v8, vs) = quantize_kv(kb), quantize_kv(vb)
+        b, rows = base.shape[0], kb.shape[1]
+        for quant in (False, True):
+            kc, vc = (k8, v8) if quant else (kb, vb)
+            sc = dict(k_scale=ks, v_scale=vs) if quant else {}
+            q = torch.randn(b, SPEC_T_C, hq, dh, generator=gen,
+                            device="cuda").bfloat16()
+            nbytes, flop = decode_work(base, SPEC_T_C, quant, rows, hq, hkv,
+                                       dh)
+            cluster = A.decode_cluster_size("cuda", b, SPEC_T_C, hq, hkv,
+                                            dh, quant)
+            entries.append(ov_kernel_entry(
+                kname,
+                f"{'int8' if quant else 'bf16'} {where} t_c={SPEC_T_C} B={b}"
+                f" T={rows} Hq={hq} Hkv={hkv} D={dh} base={base.tolist()} "
+                f"cluster={cluster}",
+                lambda: A.decode_blocked_fwd(q, kc, vc, base, **sc),
+                lambda: A.decode_blocked_plain(q, kc, vc, base, **sc),
+                lambda: A.decode_blocked_fwd(q, kc, vc, base + 1, **sc),
+                nbytes, flop,
+                None if quant else (lambda: sdpa_ms(
+                    q, kb, vb, chunk_mask(base, SPEC_T_C, rows))),
+                lambda got: True, tag="[spec-kernel]"))
+    return dict(entries[0], max_abs_err=max(e["max_abs_err"]
+                                            for e in entries))
+
+
+def spec_oneshot(cfg, params, engine, input_ids, pixels, grid, out_dir,
+                 checks):
+    """13.2: speculative decoding of the phase-3 selector request at m = 3
+    and m = 7 (every verify step's greedy rows recorded: the emitted
+    tokens must be their accepted prefixes), the first token equal to
+    ``generate``'s, dispatches, accepted proposals, wall and device ms per
+    emitted token beside the plain decode's; the K5 launches of the m = 7
+    run (zeroed just before, read just after). Returns them."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    n_layers = cfg.text.num_hidden_layers
+    req = dict(input_ids=input_ids, pixel_values=pixels, grid_thw=grid)
+    kw = dict(max_new_tokens=MAX_NEW_TOKENS, eos_token_ids=(-1,))
+    plain = engine.generate(**req, **kw)
+    busy_pre, _, _ = traced(
+        lambda: engine.generate(**req, **kw, _defer_decode=True),
+        os.path.join(out_dir, "profile_spec_prefill.json"))
+    busy_plain, _, _ = traced(lambda: engine.generate(**req, **kw),
+                              os.path.join(out_dir, "profile_spec_plain.json"))
+    n_dec = len(plain.tokens) - 1
+    wall = (plain.total_seconds - plain.prefill_seconds) * 1e3
+    print(f"[spec] plain decode: {n_dec} tokens after the first, wall ms "
+          f"per token {wall / n_dec!r}, device ms per token "
+          f"{(busy_plain - busy_pre) / n_dec!r}", flush=True)
+    launches = None
+    for m in (3, SPEC_M):
+        steps = []
+        verify = M._spec_verify
+
+        def recording(*a, **k):
+            out = verify(*a, **k)
+            steps.append((out[0].tolist(), int(out[1])))
+            return out
+
+        spec_kw = dict(kw, propose_len=m)
+        M.generate_speculative(engine, **req, **spec_kw)  # warm-up
+        torch.cuda.synchronize()
+        if m == SPEC_M:
+            zero_counts()
+        with patched(M, "_spec_verify", recording):
+            res = M.generate_speculative(engine, **req, **spec_kw)
+        torch.cuda.synchronize()
+        if m == SPEC_M:
+            launches = dict(A.DECODE_LAUNCHES_BY_ROWS)
+            total_k5 = A.DECODE_LAUNCHES
+        busy, _, _ = traced(
+            lambda: M.generate_speculative(engine, **req, **spec_kw),
+            os.path.join(out_dir, f"profile_spec_m{m}.json"))
+        emitted = [res.tokens[0]]
+        for greedy, a in steps:
+            emitted += greedy[:a + 1]
+        n = len(res.tokens) - 1
+        wall = (res.total_seconds - res.prefill_seconds) * 1e3
+        agree = next((i for i, (x, y) in enumerate(zip(res.tokens,
+                                                        plain.tokens))
+                      if x != y), len(plain.tokens))
+        print(f"[spec] one-shot m={m}: {res.decode_dispatches} dispatches, "
+              f"accepted {res.spec_accepted} of {res.spec_proposed}, tokens "
+              f"per dispatch {n / res.decode_dispatches!r}, wall ms per "
+              f"emitted token {wall / n!r}, device ms per emitted token "
+              f"{(busy - busy_pre) / n!r}, "
+              f"device ms per verify step "
+              f"{(busy - busy_pre) / res.decode_dispatches!r}; first token "
+              f"{res.tokens[0]} (generate {plain.tokens[0]}); {agree} of "
+              f"{len(plain.tokens)} tokens equal generate's", flush=True)
+        checks[f"one-shot m={m}: first token"] = (
+            res.tokens[0] == plain.tokens[0])
+        checks[f"one-shot m={m}: emitted = accepted verify argmaxes"] = (
+            emitted[:len(res.tokens)] == res.tokens
+            and len(steps) == res.decode_dispatches
+            and len(res.tokens) == MAX_NEW_TOKENS)
+    print(f"[spec] K5 launches of the m={SPEC_M} run by t_c: {launches}",
+          flush=True)
+    checks["one-shot K5 launches: layers x verify steps at t_c 8"] = (
+        launches == {SPEC_T_C: n_layers * res.decode_dispatches}
+        and total_k5 == n_layers * res.decode_dispatches)
+    return launches.get(SPEC_T_C, 0)
+
+
+def spec_verify_rows(cfg, params, engine, input_ids, pixels, grid, checks):
+    """13.3 and 13.4, on copies of one prefill cache: the t_c = 8 verify
+    rows against 8 t_c = 1 steps of the same tokens (the plain decode's),
+    and the kernel against ``attn_impl="plain"``, each within TEACHER_TOL
+    of max |logit| per row (phase 3's tolerance); then the true
+    continuation: proposals that are the plain decode's own next m tokens
+    are all accepted, or the first rejected row is one whose top-2 margin
+    in the steps' logits is within twice that row's measured chunk-vs-step
+    drift (a bf16 flip, ROADMAP §3)."""
+    import dataclasses
+
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    req = dict(input_ids=input_ids, pixel_values=pixels, grid_thw=grid)
+    want = engine.generate(**req, max_new_tokens=SPEC_T_C + 1,
+                           eos_token_ids=(-1,)).tokens
+    state = engine.generate(**req, max_new_tokens=2 * SPEC_T_C,
+                            eos_token_ids=(-1,), _defer_decode=True)
+
+    def fresh():
+        c = state.cache
+        return dataclasses.replace(c, k=c.k.clone(), v=c.v.clone(),
+                                   length=c.length.clone())
+
+    dev = "cuda"
+    cur = torch.tensor([want[0]], device=dev)
+    pos = torch.tensor([state.start_pos], device=dev)
+    props = torch.tensor([want[1:SPEC_T_C]], device=dev)
+    logits = M._verify_logits(params, fresh(), cur, props, pos)[0][0]
+    ids = torch.tensor([want[:SPEC_T_C]], device=dev)
+    steps_logits, c = [], fresh()
+    for i in range(SPEC_T_C):
+        hidden, c = L.lm_decode_step(
+            params.lm, c, L.embed_tokens(params.lm, ids[:, i:i + 1]),
+            (pos + i).view(1, 1, 1).expand(3, 1, 1))
+        steps_logits.append(L.lm_head(params.lm, hidden[0, 0]))
+    steps_logits = torch.stack(steps_logits)
+    plain_logits = M._verify_logits(params, fresh(), cur, props, pos,
+                                    attn_impl="plain")[0][0]
+    rels = {}
+    for name, other in (("8 t_c=1 steps", steps_logits),
+                        ('attn_impl="plain"', plain_logits)):
+        rel = ((logits - other).abs().amax(-1)
+               / other.abs().amax(-1)).tolist()
+        same = int((logits.argmax(-1) == other.argmax(-1)).sum())
+        print(f"[spec] teacher-forced verify chunk (t_c={SPEC_T_C}) against "
+              f"{name}: per-row max|diff| / max|logit| {rel!r} (limit "
+              f"{TEACHER_TOL}); argmax equal in {same} of {SPEC_T_C}",
+              flush=True)
+        checks[f"teacher-forced verify vs {name}"] = max(rel) <= TEACHER_TOL
+        rels[name] = rel
+    top2 = steps_logits.topk(2, dim=-1).values
+    margin = ((top2[:, 0] - top2[:, 1])
+              / steps_logits.abs().amax(-1)).tolist()
+    a = int(M._greedy_accept(logits.argmax(-1), props[0]))
+    print(f"[spec] true continuation (the plain decode's next {SPEC_M} "
+          f"tokens proposed): a={a} of {SPEC_M}; steps' argmaxes equal the "
+          f"plain decode's: {steps_logits.argmax(-1).tolist() == want[1:]}"
+          f"; per-row top-2 margin / max|logit| {margin!r}", flush=True)
+    checks["true continuation: a = m but where bf16 noise flips a row"] = (
+        a == SPEC_M or margin[a] <= 2 * rels["8 t_c=1 steps"][a])
+
+
+def spec_batcher(cfg, params, engine, input_ids, pixels, grid, out_dir,
+                 checks):
+    """13.5: ``ContinuousBatcher(speculative=3)`` on a subset of phase 5's
+    mix (greedy, sampled and penalized), bf16 and int8 pools: first tokens
+    equal to one-shot, ``spec_steps`` / ``spec_tokens``; one dispatch of
+    8 rounds over 8 admitted slots, wall against device busy."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+        _insert_slot,
+        _spec_rounds,
+    )
+
+    traffic = [x for x in serve_traffic(cfg, input_ids, pixels, grid)
+               if x[0] == "selector"]
+    part = traffic[:6]  # 4 greedy, 1 sampled, 1 penalized
+    assert sum(1 for x in part if x[3].get("temperature")) == 1
+    assert sum(1 for x in part if x[3].get("repetition_penalty")) == 1
+    eos = (-1,)
+    part = [(e, r, m, dict(kw, eos_token_ids=eos), d)
+            for e, r, m, kw, d in part]
+    for quant in (None, "int8"):
+        bat = ContinuousBatcher(engine, n_slots=POOL_SLOTS, t_max=POOL_ROWS,
+                                chunk=8, kv_quant=quant,
+                                speculative=SPEC_BATCHER_M)
+        res, wall = run_batcher(bat, part)
+        ok = True
+        for x, r in zip(part, res):
+            _, req, max_new, kw, _ = x
+            want = engine.generate(**req, max_new_tokens=1, **kw).tokens
+            ok &= len(r.tokens) == max_new and (
+                kw.get("temperature", 0.0) > 0 or r.tokens[0] == want[0])
+        n_tok = sum(len(r.tokens) - 1 for r in res)
+        print(f"[spec] batcher m={SPEC_BATCHER_M} {quant or 'bf16'} pool: "
+              f"{len(part)} requests in {wall!r} s, decode tokens {n_tok}, "
+              f"tok/s {n_tok / wall!r}, spec_steps {bat.stats['spec_steps']}"
+              f" spec_tokens {bat.stats['spec_tokens']} accepted "
+              f"{bat.stats['spec_accepted']} of {bat.stats['spec_proposed']}"
+              f", chunks {bat.stats['chunks']}", flush=True)
+        checks[f"batcher {quant or 'bf16'}: first tokens, budgets"] = ok
+        checks[f"batcher {quant or 'bf16'}: spec rounds ran"] = (
+            bat.stats["spec_steps"] == 8 * bat.stats["chunks"] > 0
+            and bat.stats["spec_tokens"] == n_tok)
+        del bat
+    # One dispatch of 8 rounds over 8 admitted slots: wall vs device busy.
+    admit = traffic[:POOL_SLOTS]
+    states = [engine.generate(**r, max_new_tokens=m, eos_token_ids=eos,
+                              _defer_decode=True) for _, r, m, _, _ in admit]
+    pool = L.init_kv_cache(cfg.text, POOL_SLOTS, POOL_ROWS, "cuda",
+                           torch.bfloat16)
+    for i, st in enumerate(states):
+        _insert_slot(pool, st.cache.k, st.cache.v, st.cache.length, i)
+    cur = torch.tensor([st.next_token for st in states], device="cuda")
+    pos = torch.tensor([st.start_pos for st in states], device="cuda")
+    live = torch.ones(POOL_SLOTS, dtype=torch.bool, device="cuda")
+    c = 128
+    buf = np.full((POOL_SLOTS, c), -1, np.int64)
+    for i, (_, r, _, _, _) in enumerate(admit):
+        ctx = list(np.asarray(r["input_ids"])[-(c - 1):]) + [
+            states[i].next_token]
+        buf[i, c - len(ctx):] = ctx
+    buf = torch.as_tensor(buf, device="cuda")
+    len0 = pool.length.clone()
+
+    def dispatch():
+        pool.length.copy_(len0)
+        return _spec_rounds(params, pool, cur, pos, live, buf,
+                            SPEC_BATCHER_M, 8, 3)
+
+    dispatch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        em, acc, _ = dispatch()
+        acc.cpu()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    busy, kernels, _ = traced(lambda: [dispatch() for _ in range(2)],
+                              os.path.join(out_dir,
+                                           "profile_spec_dispatch.json"))
+    k5 = sum(ms for k, (ms, _) in kernels.items() if "decode_blocked" in k)
+    print(f"[spec] dispatch of 8 rounds x {POOL_SLOTS} slots (m="
+          f"{SPEC_BATCHER_M}, t_c {SPEC_BATCHER_M + 1}): wall_ms={wall_ms!r}"
+          f" device_busy_ms={busy / 2!r} idle_share="
+          f"{1 - busy / 2 / wall_ms!r} decode_kernel_ms={k5 / 2!r}; "
+          f"emitted per slot {(acc + 1).sum(0).tolist()}", flush=True)
+    del pool, states
+
+
+def spec_int4(cfg, params, engine, input_ids, pixels, grid, out_dir, checks):
+    """13.6: the int4 pool: bytes beside bf16 and int8; a teacher-forced
+    decode step over 8 admitted slots against the bf16 pool (drift under
+    INT4_DRIFT_TOL); decode device ms per step and per token of bf16, int8
+    and int4 (8 steps under the profiler); K5 launches 0 and the plain
+    int4 route's calls counted; 4 requests through an int4 batcher."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+        _decode_chunk_slots,
+        _insert_slot,
+    )
+
+    n_layers = cfg.text.num_hidden_layers
+    eos = (-1,)
+    traffic = [x for x in serve_traffic(cfg, input_ids, pixels, grid)
+               if x[0] == "selector" and not x[3]]  # 10 greedy requests
+    admit = traffic[:POOL_SLOTS]
+    states = [engine.generate(**r, max_new_tokens=m, eos_token_ids=eos,
+                              _defer_decode=True) for _, r, m, _, _ in admit]
+    cur = torch.tensor([st.next_token for st in states], device="cuda")
+    pos = torch.tensor([st.start_pos for st in states], device="cuda")
+    live = torch.ones(POOL_SLOTS, dtype=torch.bool, device="cuda")
+    pools, logits, step_ms = {}, {}, {}
+
+    def step_logits(pool):
+        """A teacher-forced decode step's logits [S, V] over ``pool`` (its
+        row written in place above the lengths, which stay)."""
+        hidden, _ = L.lm_decode_step(
+            params.lm, pool, L.embed_tokens(params.lm, cur)[:, None],
+            pos[None, :, None].expand(3, POOL_SLOTS, 1))
+        return L.lm_head(params.lm, hidden[:, 0])
+
+    for quant in (False, "int8", "int4"):
+        kind = quant or "bf16"
+        pool = L.init_kv_cache(cfg.text, POOL_SLOTS, POOL_ROWS, "cuda",
+                               torch.bfloat16, quant=quant)
+        for i, st in enumerate(states):
+            _insert_slot(pool, st.cache.k, st.cache.v, st.cache.length, i)
+        fields = [f for f in ("k", "v", "k_scale", "v_scale")
+                  if hasattr(pool, f)]
+        nbytes = {f: getattr(pool, f).nbytes for f in fields}
+        len0 = pool.length.clone()
+        logits[kind] = step_logits(pool)
+        if quant == "int4":
+            # the same values and scales held as int8, which K5 reads, the
+            # step's own row quantized to 4 bits too: the arithmetic of the
+            # int4 route, through the kernel
+            as8 = L.QuantKVCache(
+                k=L.unpack_int4(pool.k), v=L.unpack_int4(pool.v),
+                k_scale=pool.k_scale.clone(), v_scale=pool.v_scale.clone(),
+                length=len0.clone())
+            to8 = L.quantize_kv
+            with patched(L, "quantize_kv", lambda x, bits=8: to8(x, 4)):
+                logits["int4 values through K5"] = step_logits(as8)
+            del as8
+
+        def chunk(pool=pool, len0=len0):
+            pool.length.copy_(len0)
+            return _decode_chunk_slots(params, pool, cur, pos, live, 8)
+
+        chunk()
+        torch.cuda.synchronize()
+        k0, i0 = A.DECODE_LAUNCHES, A.INT4_DECODE_CALLS
+        busy, kernels, _ = traced(
+            chunk, os.path.join(out_dir, f"profile_spec_pool_{kind}.json"))
+        k5 = A.DECODE_LAUNCHES - k0
+        i4 = A.INT4_DECODE_CALLS - i0
+        step_ms[kind] = busy / 8
+        print(f"[spec] {kind} pool ({POOL_SLOTS} x {POOL_ROWS}): bytes "
+              f"{nbytes} = {sum(nbytes.values())}; decode device ms per "
+              f"step {busy / 8!r} per token {busy / 8 / POOL_SLOTS!r}; K5 "
+              f"launches {k5}, plain int4 route calls {i4} (8 steps)",
+              flush=True)
+        if quant == "int4":
+            checks["int4: K5 launches 0, plain route layers x steps"] = (
+                k5 == 0 and i4 == n_layers * 8)
+            checks["int4: pool value bytes a quarter of bf16's"] = (
+                nbytes["k"] + nbytes["v"]) * 4 == pools["bf16"]
+        else:
+            checks[f"{kind}: K5 launches layers x steps"] = (
+                k5 == n_layers * 8 and i4 == 0)
+        pools[kind] = nbytes["k"] + nbytes["v"]
+        del pool
+    image = torch.tensor(["pixel_values" in r for _, r, _, _, _ in admit])
+    keys = [int(st.cache.length.max()) for st in states]
+
+    def drift(a, b):
+        rel = ((logits[a] - logits[b]).abs().amax(-1)
+               / logits[b].abs().amax(-1)).cpu()
+        same = int((logits[a].argmax(-1) == logits[b].argmax(-1)).sum())
+        print(f"[spec] teacher-forced step, {a} against {b}: per-slot "
+              f"max|diff| / max|logit| {rel.tolist()!r} (slots' keys "
+              f"{keys}, image requests {image.tolist()}); argmax equal in "
+              f"{same} of {POOL_SLOTS}", flush=True)
+        return rel
+
+    # The int4 route against K5 on the same values (phase 5's kernel vs
+    # plain check, on these values).
+    rel = drift("int4", "int4 values through K5")
+    checks["int4 route = K5 on its dequantized values"] = bool(
+        (rel <= TEACHER_TOL).all())
+    # The reference's drift bound is set on an image request
+    # (tests/test_continuous.py:669-699); text-only slots, with tens of
+    # keys to average the 4-bit errors over, are reported beside it.
+    for kind in ("int8", "int4"):
+        rel = drift(kind, "bf16")
+        checks[f"{kind} drift under {INT4_DRIFT_TOL} (image requests)"] = \
+            bool((rel[image] < INT4_DRIFT_TOL).all()
+                 and torch.isfinite(rel).all())
+    print(f"[spec] decode device ms per step, int4 - bf16: "
+          f"{step_ms['int4'] - step_ms['bf16']!r} (int8 - bf16 "
+          f"{step_ms['int8'] - step_ms['bf16']!r})", flush=True)
+    del states
+    part = [(e, r, m, dict(kw, eos_token_ids=eos), 0.0)
+            for e, r, m, kw, _ in traffic[:4]]
+    bat = ContinuousBatcher(engine, n_slots=POOL_SLOTS, t_max=POOL_ROWS,
+                            chunk=8, kv_quant="int4")
+    res, wall = run_batcher(bat, part)
+    vocab = cfg.text.vocab_size
+    print(f"[spec] int4 batcher: 4 requests in {wall!r} s, stats "
+          f"{bat.stats}", flush=True)
+    checks["int4 batcher: budgets, tokens in range"] = all(
+        len(r.tokens) == x[2] and all(0 <= t < vocab for t in r.tokens)
+        for x, r in zip(part, res))
+
+
+def spec_ov(ov_cfg, ov_params, checks) -> int:
+    """13.7: one speculative request (m = 7) on OV-8B's selector engine
+    and phase 11's request, the first token equal to ``generate``'s, the
+    K5 launches at t_c 8 (zeroed just before, read just after). Returns
+    them."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    eng = OVEngine(ov_cfg, ov_params, use_selector=True, budget=0.2,
+                   device="cuda")
+    req = ov_request(ov_cfg)
+    kw = dict(max_new_tokens=MAX_NEW_TOKENS, eos_token_ids=(-1,))
+    plain = eng.generate(**req, **kw)
+    torch.cuda.synchronize()
+    zero_counts()
+    res = M.generate_speculative(eng, **req, **kw, propose_len=SPEC_M)
+    torch.cuda.synchronize()
+    by_rows = dict(A.DECODE_LAUNCHES_BY_ROWS)
+    n = len(res.tokens) - 1
+    print(f"[spec] OV-8B one-shot m={SPEC_M}: {res.decode_dispatches} "
+          f"dispatches, accepted {res.spec_accepted} of {res.spec_proposed}"
+          f", wall ms per emitted token "
+          f"{(res.total_seconds - res.prefill_seconds) * 1e3 / n!r}; first "
+          f"token {res.tokens[0]} (generate {plain.tokens[0]}); K5 launches "
+          f"by t_c {by_rows}", flush=True)
+    layers = ov_cfg.text.num_hidden_layers
+    checks["OV: first token, K5 at t_c 8 per verify step"] = (
+        res.tokens[0] == plain.tokens[0]
+        and len(res.tokens) == MAX_NEW_TOKENS
+        and by_rows == {SPEC_T_C: layers * res.decode_dispatches})
+    return by_rows.get(SPEC_T_C, 0)
+
+
+def spec_phase(cfg, params, engine, input_ids, pixels, grid, ov_cfg,
+               ov_params, out_dir):
+    """Phase 13. Raises if any check failed; returns (launches, kernels
+    line entries) of K5 at t_c 8: ``decode_blocked_fwd_t_c8`` (the 3B) and
+    ``decode_blocked_fwd_ov_t_c8`` (OV-8B, n_rep 4)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    print(f"[spec] card: {nvidia_smi()}", flush=True)
+    checks, kernels, launches = {}, {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tc = cfg.text
+    hkv, dh = tc.num_key_value_heads, tc.head_dim
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    lens = torch.tensor(DECODE_LENS, device="cuda")
+    kernels["decode_blocked_fwd_t_c8"] = spec_k5_cases(tc, [
+        ("8-slot pool", rnd(POOL_SLOTS, POOL_ROWS, hkv, dh),
+         rnd(POOL_SLOTS, POOL_ROWS, hkv, dh),
+         (lens - SPEC_T_C).clamp(min=0)),
+        ("one slot, orig cache", rnd(1, ORIG_CACHE_ROWS, hkv, dh),
+         rnd(1, ORIG_CACHE_ROWS, hkv, dh),
+         torch.tensor([ORIG_BASE_LEN], device="cuda"))],
+        "decode_blocked_fwd_t_c8", gen)
+    otc = ov_cfg.text
+    ohkv, odh = otc.num_key_value_heads, otc.head_dim
+    # OV's orig cache: 1,966 valid rows (phase 11) of 2,048 + headroom
+    ov_rows = 2048 + MAX_NEW_TOKENS + SPEC_T_C
+    kernels["decode_blocked_fwd_ov_t_c8"] = spec_k5_cases(otc, [
+        ("one slot, OV orig cache", rnd(1, ov_rows, ohkv, odh),
+         rnd(1, ov_rows, ohkv, odh), torch.tensor([1966], device="cuda")),
+        ("4-slot pool", rnd(4, ov_rows, ohkv, odh), rnd(4, ov_rows, ohkv, odh),
+         torch.tensor([1, 63, 65, 1966], device="cuda"))],
+        "decode_blocked_fwd_ov_t_c8", gen)
+    launches["decode_blocked_fwd_t_c8"] = spec_oneshot(
+        cfg, params, engine, input_ids, pixels, grid, out_dir, checks)
+    spec_verify_rows(cfg, params, engine, input_ids, pixels, grid, checks)
+    spec_batcher(cfg, params, engine, input_ids, pixels, grid, out_dir,
+                 checks)
+    spec_int4(cfg, params, engine, input_ids, pixels, grid, out_dir, checks)
+    launches["decode_blocked_fwd_ov_t_c8"] = spec_ov(ov_cfg, ov_params,
+                                                     checks)
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[spec] checks: {checks}", flush=True)
+    print(f"[spec] phase seconds {time.perf_counter() - t_phase!r}",
+          flush=True)
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"speculative phase failed: {bad}")
+    return launches, kernels
+
+
 def main() -> int:
     import torch
 
@@ -5582,6 +6160,13 @@ def main() -> int:
         (launches["flash_varlen_fwd_ov_train"],
          kernels["flash_varlen_fwd_ov_train"]) = ov_train_cli_phase(
             ov_cfg, ov_params, tmp, out_dir, hf_dir, ov_hf)
+        # Speculative decoding and the int4 pool: K5 at t_c 8 in phase
+        # 13's one-shot runs (zeroed just before, read just after each).
+        spec_launches, spec_kernels = spec_phase(
+            cfg, params, engine, input_ids, pixels, grid, ov_cfg, ov_params,
+            out_dir)
+        launches.update(spec_launches)
+        kernels.update(spec_kernels)
         del ov_params
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -189,9 +189,12 @@ def test_batcher_prefix_store_counts_hits(w):
 
 
 def test_batcher_refusals(w):
+    """Auto windows stay refused; the int4 pool and speculative slots
+    (ported since) construct, and a bad ``kv_quant`` raises."""
     for kw in ({"kv_quant": "int4"}, {"speculative": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ContinuousBatcher(w["tsel"], n_slots=2, t_max=64, **kw)
+        ContinuousBatcher(w["tsel"], n_slots=2, t_max=64, **kw).shutdown()
+    with pytest.raises(ValueError, match="kv_quant"):
+        ContinuousBatcher(w["tsel"], n_slots=2, t_max=64, kv_quant="int2")
     with pytest.raises(ValueError, match="live prefix"):
         ContinuousBatcher(w["tsel"], n_slots=2, t_max=64, auto_window=True)
 

@@ -1149,3 +1149,84 @@ def test_lm_head_makes_no_fp32_weight_copy(dev, tied):
     tlm.lm_head(lm, hg).sum().backward()
     torch.testing.assert_close(hg.grad.float(), w.float().sum(1).expand(
         16, -1), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b, hq, h_kv", [(8, 16, 2), (1, 16, 2), (4, 32, 8)])
+def test_decode_verify_chunk_t_c8(dev, quant, b, hq, h_kv):
+    """K5 at t_c = 8, a speculative verify chunk of m = 7 proposals: 8
+    slots and one of the 3B's widths and 4 at OV-8B's (n_rep 4), bf16 and
+    int8, bases at tile edges; the in-chunk causal limit off by one (the
+    kernel given base + 1) fails."""
+    t, t_c = 2048, 8
+    gen = torch.Generator(device=dev).manual_seed(800 + b + hq + quant)
+    q, k, v, ks, vs = _decode_inputs(gen, b, t_c, hq, h_kv, t, 128, quant)
+    base = _decode_bases(b, t - 1, t_c, dev)
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    assert _err(A.decode_blocked_fwd(q, k, v, base + 1, None, ks, vs),
+                want) > ULP_LIMIT
+
+
+def test_int4_route_on_the_card(dev):
+    """A packed int4 cache on the card takes the plain int4 route (no K5
+    launch, counted), equal to the plain decode of its unpacked values;
+    the decode kernel raises on it."""
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        pack_int4,
+        quantize_kv,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q = _rnd(gen, 8, 4, 16, 128)
+    kv = _rnd(gen, 2, 8, 2048, 2, 128)
+    (k4, ks), (v4, vs) = quantize_kv(kv[0], 4), quantize_kv(kv[1], 4)
+    base = torch.tensor([0, 63, 64, 65, 300, 1302, 1900, 2040], device=dev)
+    n0, i0 = A.DECODE_LAUNCHES, A.INT4_DECODE_CALLS
+    got = A.chunk_decode_attention(q, pack_int4(k4), pack_int4(v4), base,
+                                   k_scale=ks, v_scale=vs)
+    assert (A.DECODE_LAUNCHES - n0, A.INT4_DECODE_CALLS - i0) == (0, 1)
+    want = A.decode_blocked_plain(q, k4, v4, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    with pytest.raises(ValueError, match="int4"):
+        A.decode_blocked_fwd(q, pack_int4(k4), pack_int4(v4), base, None,
+                             ks, vs)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int4"])
+def test_tiny_speculative_batcher_on_the_card(dev, kv_quant):
+    """Speculative slots (m = 3) on the card: each round launches K5 once
+    per layer at t_c 4 on a bf16 pool and never on an int4 one (the plain
+    route, counted per layer and round); budgets kept, one-shot's first
+    tokens."""
+    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+
+    cfg = qwen25vl_tiny()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    eng = QwenVLEngine(cfg, params, device=dev)
+    n0 = A.DECODE_LAUNCHES_BY_ROWS.get(4, 0)
+    bat = ContinuousBatcher(eng, n_slots=2, t_max=256, chunk=4,
+                            kv_quant=kv_quant, speculative=3)
+    reqs = [dict(input_ids=np.arange(5, 5 + n)) for n in (7, 20)]
+    try:
+        res = [bat.submit(r, 9, (-1,)) for r in reqs]
+    finally:
+        bat.shutdown()
+    rounds = bat.stats["spec_steps"]
+    layers = cfg.text.num_hidden_layers
+    k5 = A.DECODE_LAUNCHES_BY_ROWS.get(4, 0) - n0
+    if kv_quant is None:
+        assert k5 == layers * rounds
+    else:
+        assert k5 == 0
+        assert bat.stats["int4_plain_decode_calls"] == layers * rounds
+    for r, req in zip(res, reqs):
+        assert len(r.tokens) == 9
+        assert r.tokens[0] == eng.generate(**req, max_new_tokens=1).tokens[0]

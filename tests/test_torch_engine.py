@@ -126,9 +126,12 @@ def test_unported_options_raise(weights):
                                 strategy=get_baseline("fastv"))
     with pytest.raises(NotImplementedError):
         strat.loglikelihood(ids, [5], px, grid)
+    # the int4 pool and speculative slots are ported: they construct
     for kw in ({"kv_quant": "int4"}, {"speculative": 2}):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatcher(eng, n_slots=2, t_max=256, **kw)
+        bat = ContinuousBatcher(eng, n_slots=2, t_max=256, **kw)
+        assert (bat.kv_quant, bat.speculative) == (
+            kw.get("kv_quant"), kw.get("speculative", 0))
+        bat.shutdown()
 
 
 def test_init_params_shapes_and_scales():

@@ -5,7 +5,8 @@ against the reference CLI's output on the same sample logs; each flag the
 port does not take raising NotImplementedError with its ROADMAP item;
 ``api.run_selector`` and ``api.lmms_eval_cli``'s mapping onto ``run_eval``
 arguments against the reference's; ``api.predict``'s ``load_tokenizer``
-and ``chat_prompt_ids``."""
+and ``chat_prompt_ids``; ``run_eval --speculative`` equal to the plain run
+and ``predict --speculative`` exiting 0."""
 
 import json
 import os
@@ -149,16 +150,76 @@ def test_merge_and_from_log_match_reference(tmp_path, mode, capsys):
 
 @pytest.mark.parametrize("flags, item", [
     (["--family", "llava_ov15", "--quantize", "int8"], 9),
-    (["--family", "llava_ov15", "--method", "visionzip", "--speculative",
-      "3"], 7),
     (["--quantize", "int8"], 9),
-    (["--decode-batch", "2", "--speculative", "3"], 7),
-    (["--speculative", "3"], 7),
 ])
 def test_unported_flags_raise_with_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         trun_eval.main(["--data-dir", str(tmp_path), "--tasks", "chartqa",
                         "--device", "cpu"] + flags)
+
+
+def _gen_task(tmp_path):
+    """A config dir with one 8-token generate task and its docs: a text
+    doc and an image doc."""
+    from PIL import Image
+    import numpy as np
+
+    cfg, data = tmp_path / "configs", tmp_path / "data"
+    cfg.mkdir()
+    data.mkdir()
+    with open(cfg / "tasks.json", "w") as f:
+        json.dump([{"name": "spec_gen", "metric": "exact_match",
+                    "max_new_tokens": 8}], f)
+    Image.fromarray((np.random.RandomState(1).rand(56, 56, 3) * 255).astype(
+        np.uint8)).save(data / "img.png")
+    with open(data / "spec_gen.jsonl", "w") as f:
+        for d in ({"question": "Say hi twice.", "answers": ["hi"]},
+                  {"question": "What is it?", "answers": ["A"],
+                   "image": "img.png"},
+                  {"question": "Name it.", "answers": ["B"],
+                   "image": "img.png"}):
+            f.write(json.dumps(d) + "\n")
+    return str(cfg), str(data)
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--decode-batch", "2"],
+    ["--family", "llava_ov15", "--method", "visionzip"],
+], ids=["one-by-one", "decode-batch-2", "ov-visionzip"])
+def test_run_eval_speculative_equals_plain(tmp_path, flags):
+    """``--speculative 3`` (refused until ROADMAP item 7 was ported) gives
+    the plain run's predictions: one-request groups decode speculatively,
+    ``--decode-batch 2`` groups still batch; the OV family and a
+    strategy too."""
+    cfg, data = _gen_task(tmp_path)
+    preds = []
+    for spec in ([], ["--speculative", "3"]):
+        out = str(tmp_path / f"out{len(spec)}")
+        assert trun_eval.main(
+            ["--data-dir", data, "--tasks", "spec_gen", "--task-config-dir",
+             cfg, "--budgets", "0.5", "--device", "cpu", "--output-dir",
+             out] + flags + spec) == 0
+        method = flags[-1] if "--method" in flags else "selector"
+        with open(os.path.join(out, f"samples_{method}_0.5_rank0.jsonl")) \
+                as f:
+            preds.append([json.loads(line)["prediction"] for line in f])
+    assert preds[1] == preds[0] and len(preds[0]) == 3
+
+
+@pytest.mark.parametrize("family", ["qwen25vl", "llava_ov15"])
+def test_predict_speculative_exits_zero(family, capsys):
+    """``api.predict --speculative 3`` exits 0 and prints the plain run's
+    tokens with its verify steps and proposal counts."""
+    args = ["--device", "cpu", "--family", family, "--max-new-tokens", "6",
+            "--prompt-ids", "5,6,7,5,6"]
+    assert tpredict.main(args) == 0
+    plain = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert tpredict.main(args + ["--speculative", "3"]) == 0
+    spec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert spec["tokens"] == plain["tokens"] and len(spec["tokens"]) == 6
+    assert spec["spec_proposed"] == 3 * spec["decode_dispatches"]
+    assert 1 <= spec["decode_dispatches"] <= 5
 
 
 def test_run_eval_refuses_a_missing_card(tmp_path, monkeypatch):

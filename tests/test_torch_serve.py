@@ -384,9 +384,6 @@ def test_build_server_main_flags(w):
      "item 11\\b"),
     (["--quantize", "int8"], NotImplementedError, "item 9\\b"),
     (["--tp", "2"], NotImplementedError, "item 11\\b"),
-    (["--speculative", "3"], NotImplementedError, "item 7\\b"),
-    (["--continuous", "2", "--continuous-kv-quant", "int4"],
-     NotImplementedError, "item 7\\b"),
     (["--continuous", "2", "--continuous-auto-window"], ValueError,
      "live prefix"),
 ])
@@ -394,6 +391,61 @@ def test_refused_flags(flags, exc, match):
     args = tserve.build_parser().parse_args(["--device", "cpu"] + flags)
     with pytest.raises(exc, match=match):
         tserve.build_server(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--speculative", "3"],
+    ["--continuous", "2", "--speculative", "3"],
+    ["--continuous", "2", "--continuous-kv-quant", "int4"],
+], ids=["speculative", "continuous-speculative", "continuous-int4"])
+def test_formerly_refused_flags_serve(flags):
+    """The flags of ROADMAP item 7 (refused until it was ported) build a
+    server whose /generate gives the engine's plain greedy tokens (the
+    int4 pool: its first token and the budget) and report what ran."""
+    args = tserve.build_parser().parse_args(
+        ["--device", "cpu", "--port", "0", "--budget", "0.5",
+         "--continuous-t-max", "256"] + flags)
+    httpd = tserve.build_server(args)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    srv = httpd.server_obj
+    try:
+        img = _image(3)
+        out = post(url, "/generate", {"prompt": "hi", "max_new_tokens": 6,
+                                      "image_b64": _b64(img)})
+        _, grid = preprocess_image(img)
+        want = srv.engine.generate(_ids(grid), *preprocess_image(img),
+                                   max_new_tokens=6).tokens
+        if "int4" in flags:
+            assert out["tokens"][0] == want[0] and len(out["tokens"]) == 6
+            assert srv.batcher.pool.k.dtype.itemsize == 1
+            assert srv.batcher.stats["int4_plain_decode_calls"] > 0
+        else:
+            assert out["tokens"] == want
+            assert out["spec_proposed"] >= out["spec_accepted"] >= 0
+        health = json.loads(get(url, "/health")[0])
+        if "--continuous" in flags:
+            assert (health["continuous"]["spec_steps"] > 0) == (
+                "--speculative" in flags)
+    finally:
+        httpd.shutdown()
+        srv.close()
+        httpd.server_close()
+
+
+def test_speculative_server_matches_jax_plain_tokens(w):
+    """``--speculative 3`` one-shot and in continuous slots: greedy tokens
+    of an image and a text request equal the JAX server's plain ones."""
+    for kw in (dict(speculative=3),
+               dict(speculative=3, continuous=2, continuous_t_max=256,
+                    continuous_chunk=4)):
+        with serving(w["teng"](), **kw) as (url, _):
+            for b64 in (_b64(w["img"]), None):
+                got = post(url, "/generate", {
+                    "prompt": "hi", "max_new_tokens": 10, "image_b64": b64})
+                want = w["jsrv"].generate("hi", b64, 10)
+                assert got["tokens"] == [int(t) for t in want["tokens"]]
+                assert got["spec_proposed"] % 3 == 0
 
 
 def test_cuda_device_without_a_card_fails(monkeypatch):

@@ -21,7 +21,10 @@ Qwen chat template, when the directory holds a tokenizer that
 ``transformers`` takes these). It runs on the GPU
 (``--device cuda``, the default; the attention runs the CUDA kernels,
 compiled on first use) and fails without one; ``--device cpu`` asks for
-the CPU.
+the CPU. ``--speculative N`` decodes with prompt-lookup speculative
+decoding (``model.generate_speculative``, N proposals per verify step;
+greedy tokens equal the plain decode's) and adds its dispatch and
+acceptance counts to the printed line.
 """
 
 from __future__ import annotations
@@ -112,6 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--budget", type=float, default=0.2)
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--speculative", type=int, default=0,
+                   help="prompt-lookup speculative decoding: propose N "
+                        "tokens per verify step (greedy-identical outputs)")
     p.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                    help="cuda (default) or cpu; cuda without a GPU fails")
     p.add_argument("--eval-time", action="store_true",
@@ -189,8 +195,17 @@ def main(argv=None) -> int:
 
     engine = make_engine(args.family, cfg, params, args.method, args.budget,
                          args.device)
-    res = engine.generate(input_ids, pixels, grid,
-                          max_new_tokens=args.max_new_tokens)
+    if args.speculative > 0:
+        from visionselector_tpu_torch.models.qwen25vl.model import (
+            generate_speculative,
+        )
+
+        res = generate_speculative(engine, input_ids, pixels, grid,
+                                   max_new_tokens=args.max_new_tokens,
+                                   propose_len=args.speculative)
+    else:
+        res = engine.generate(input_ids, pixels, grid,
+                              max_new_tokens=args.max_new_tokens)
     out = {
         "family": args.family,
         "method": args.method,
@@ -206,6 +221,10 @@ def main(argv=None) -> int:
             else res.num_vision_tokens),
         "prefill_len": res.prefill_len,
     }
+    if args.speculative > 0:
+        out.update(decode_dispatches=res.decode_dispatches,
+                   spec_proposed=res.spec_proposed,
+                   spec_accepted=res.spec_accepted)
     if args.eval_time:
         print(f"Input visual token number is: {out['kept_vision_tokens']}")
         print(f"Generation prefill time is: {res.prefill_seconds * 1e3}")

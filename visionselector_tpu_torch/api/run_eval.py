@@ -33,10 +33,13 @@ asks for the CPU.
 
 ``--decode-batch N`` decodes up to N requests of a task together
 (``QwenVLEngine.generate_batch``; each request's tokens are its own
-``generate``'s).
+``generate``'s). ``--speculative N`` decodes every request that runs alone
+with prompt-lookup speculative decoding (N proposals per verify step, the
+same greedy tokens; the adapter's ``speculative`` argument); groups of
+``--decode-batch`` > 1 still decode through ``generate_batch``.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP §1 item:
-``--quantize`` (9), ``--speculative`` (7).
+Not ported yet, raising NotImplementedError with its ROADMAP §1 item:
+``--quantize`` (9).
 """
 
 from __future__ import annotations
@@ -89,7 +92,9 @@ def build_parser():
                         "directories (newest log wins per doc; lmms-eval "
                         "from_log parity)")
     p.add_argument("--speculative", type=int, default=None,
-                   help="prompt-lookup speculative decoding (not ported)")
+                   help="prompt-lookup speculative decoding: propose N "
+                        "tokens per decode dispatch (greedy-identical "
+                        "outputs); applies to unbatched decode")
     p.add_argument("--http-endpoint", default=None,
                    help="evaluate an OpenAI-compatible chat-completions "
                         "server instead of local weights (lmms-eval "
@@ -106,7 +111,6 @@ def build_parser():
 def _refuse_unported(args) -> None:
     refused = [
         (args.quantize is not None, "--quantize", 9),
-        (bool(args.speculative), "--speculative", 7),
     ]
     for hit, what, item in refused:
         if hit:
@@ -225,7 +229,8 @@ def main(argv=None) -> int:
             engine, tokenizer, visualize_dir=args.visualize_dir,
             model_tag=f"{args.family}:{args.model_path or 'smoke'}",
             min_pixels=args.min_pixels, max_pixels=args.max_pixels,
-            decode_batch=args.decode_batch or 1)
+            decode_batch=args.decode_batch or 1,
+            speculative=args.speculative or 0)
         results = evaluate(
             adapter, tasks, args.data_dir, limit=args.limit, rank=args.rank,
             world_size=args.world_size,

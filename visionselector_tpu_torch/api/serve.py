@@ -28,9 +28,16 @@ the reference's server does. ``image_b64`` takes an 8-bit RGB / RGBA PNG
 without Pillow (``preprocess.png``); other formats need Pillow (a 400
 that names it otherwise).
 
+``--speculative N``: a request that asks for no stream (and finds no
+batcher) decodes with prompt-lookup speculative decoding
+(``model.generate_speculative``; its result carries ``spec_proposed`` /
+``spec_accepted``); with ``--continuous S`` the batcher's slots run
+speculative rounds (``/health`` shows ``spec_steps``).
+``--continuous-kv-quant int4`` packs the slot pool's values two a byte
+(the plain int4 decode route).
+
 Not ported yet, raising NotImplementedError with their ROADMAP §1 item:
-``--quantize`` (9), ``--tp`` (11),
-``--speculative`` and ``--continuous-kv-quant int4`` (7).
+``--quantize`` (9), ``--tp`` (11).
 ``--continuous-auto-window`` raises ValueError: the decode kernel already
 reads only each slot's live prefix (ROADMAP "Do not port").
 """
@@ -186,7 +193,7 @@ class Server:
                  continuous_kv_quant: str | None = None,
                  continuous_prefill_chunk: int = 0,
                  continuous_prefill_vit_segments: int = 0,
-                 decode_attn: str | None = None):
+                 decode_attn: str | None = None, speculative: int = 0):
         from visionselector_tpu_torch.models.qwen25vl.model import (
             PrefixCacheStore,
         )
@@ -195,6 +202,8 @@ class Server:
         self.tokenizer = tokenizer
         self.method = method
         self.budget = budget
+        # prompt-lookup speculative decoding: N proposals per verify step
+        self.speculative = speculative
         # cross-request KV prefix cache (exact for selector / orig;
         # whole-prompt repeats only for the text-dependent strategies)
         self.prefix_store = (PrefixCacheStore(max_entries=prefix_cache,
@@ -215,7 +224,8 @@ class Server:
             self.batcher = ContinuousBatcher(
                 engine, n_slots=continuous, t_max=continuous_t_max,
                 chunk=continuous_chunk, lock=self.lock,
-                prefix_store=self.prefix_store, kv_int8=continuous_kv_int8,
+                prefix_store=self.prefix_store, speculative=speculative,
+                kv_int8=continuous_kv_int8,
                 kv_quant=continuous_kv_quant,
                 prefill_chunk=continuous_prefill_chunk,
                 prefill_vit_segments=continuous_prefill_vit_segments,
@@ -321,6 +331,12 @@ class Server:
             res = self.batcher.submit(
                 dict(input_ids=input_ids, pixel_values=pixels,
                      grid_thw=grid), max_new_tokens, **sampling)
+        elif self.speculative > 0 and on_token_chunk is None:
+            with self.lock:
+                res = M.generate_speculative(
+                    self.engine, input_ids, pixels, grid,
+                    max_new_tokens=max_new_tokens,
+                    propose_len=self.speculative, **sampling)
         elif self.prefix_store is not None and on_token_chunk is None:
             with self.lock:
                 res = M.generate_prefix_cached(
@@ -380,6 +396,9 @@ class Server:
             "prefill_ms": res.prefill_seconds * 1e3,
             "latency_ms": res.total_seconds * 1e3,
         }
+        if res.spec_proposed is not None:
+            out["spec_proposed"] = res.spec_proposed
+            out["spec_accepted"] = res.spec_accepted
         if session is not None:
             out["session"] = session
         return out
@@ -693,9 +712,6 @@ def _refuse_unported(args) -> None:
     refused = [
         (bool(getattr(args, "quantize", None)), "--quantize", 9),
         (int(getattr(args, "tp", 0) or 0) > 1, "--tp", 11),
-        (bool(getattr(args, "speculative", 0)), "--speculative", 7),
-        (getattr(args, "continuous_kv_quant", None) == "int4",
-         "--continuous-kv-quant int4", 7),
     ]
     for hit, what, item in refused:
         if hit:
@@ -749,7 +765,7 @@ def build_server(args) -> ThreadingHTTPServer:
                                          0),
         continuous_prefill_vit_segments=getattr(
             args, "continuous_prefill_vit_segments", 0),
-        decode_attn=decode_attn)
+        decode_attn=decode_attn, speculative=getattr(args, "speculative", 0))
     httpd = ThreadingHTTPServer((getattr(args, "host", "127.0.0.1"),
                                  getattr(args, "port", 8000)),
                                 make_handler(srv))
@@ -777,7 +793,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", default=None,
                    help="weight-only LM quantization (not ported)")
     p.add_argument("--speculative", type=int, default=0,
-                   help="prompt-lookup speculative decoding (not ported)")
+                   help="prompt-lookup speculative decoding: propose N "
+                        "tokens per decode dispatch (greedy-identical "
+                        "outputs); with --continuous, speculative slots")
     p.add_argument("--prefix-cache", type=int, default=0,
                    help="cross-request KV prefix cache: keep N post-prefill "
                         "snapshots; requests sharing (image, prompt prefix) "
@@ -793,7 +811,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode steps per continuous-batching dispatch")
     p.add_argument("--continuous-kv-quant", default=None,
                    choices=["int8", "int4"],
-                   help="quantize the slot pool (int8; int4 is not ported)")
+                   help="quantize the slot pool: int8, or int4 packed "
+                        "two values a byte (the plain int4 decode route; "
+                        "measure drift before serving int4)")
     p.add_argument("--continuous-kv-int8", action="store_true",
                    help="int8 slot pool (the same as --continuous-kv-quant "
                         "int8)")

@@ -67,12 +67,17 @@ class EngineAdapter:
     ``generate_until`` prepares the next group's host inputs (image
     decode, patchify, tokenize) on a worker thread while the engine runs
     the current one. ``decode_batch`` > 1 decodes up to that many requests
-    of the same ``max_new_tokens`` together (``engine.generate_batch``)."""
+    of the same ``max_new_tokens`` together (``engine.generate_batch``).
+    ``speculative`` = N > 0 decodes each request that runs alone with
+    prompt-lookup speculative decoding (``model.generate_speculative``, N
+    proposals per step; the same greedy tokens); batched groups still go
+    through ``generate_batch``, as in the reference."""
 
     def __init__(self, engine, tokenizer, eval_time: bool = False,
                  visualize_dir: Optional[str] = None,
                  model_tag: str = "", min_pixels: Optional[int] = None,
-                 max_pixels: Optional[int] = None, decode_batch: int = 1):
+                 max_pixels: Optional[int] = None, decode_batch: int = 1,
+                 speculative: int = 0):
         from visionselector_tpu_torch.preprocess.image import (
             PROCESSOR_MAX_PIXELS,
             PROCESSOR_MIN_PIXELS,
@@ -100,6 +105,7 @@ class EngineAdapter:
         self.visualize_dir = visualize_dir
         self.stats = EvalTimeStats()
         self.decode_batch = max(1, int(decode_batch))
+        self.speculative = int(speculative or 0)
 
     def _encode_prompt(self, question: str):
         """(before, after) ids of the Qwen chat template around the
@@ -290,7 +296,15 @@ class EngineAdapter:
                 fut = (ex.submit(prep, groups[n + 1])
                        if n + 1 < len(groups) else None)
                 mnt = requests[group[0]].task.max_new_tokens
-                if len(group) == 1:
+                if len(group) == 1 and self.speculative > 0:
+                    from visionselector_tpu_torch.models.qwen25vl import (
+                        model as qmodel,
+                    )
+
+                    results = [qmodel.generate_speculative(
+                        self.engine, **prepared[0][0], max_new_tokens=mnt,
+                        propose_len=self.speculative)]
+                elif len(group) == 1:
                     results = [self.engine.generate(**prepared[0][0],
                                                     max_new_tokens=mnt)]
                 else:

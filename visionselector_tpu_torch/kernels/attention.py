@@ -37,7 +37,10 @@ of the same function beside it:
   ``_decode_blocked_kernel``; every decode step of the port runs it.
   ``decode_split_plain`` / ``decode_split_ranges_plain`` mirror its
   schedule (the live tiles split over a thread-block cluster's ranks,
-  then merged).
+  then merged). A packed int4 cache (an int4 slot pool) takes the plain
+  route ``decode_int4_plain`` instead, as the reference keeps packed S4
+  off its Pallas kernel: chosen by the cache's uint8 dtype, counted in
+  ``INT4_DECODE_CALLS``; the decode kernel raises on such a cache.
 
 ``attention_with_received`` (the training-free baselines' last ViT block:
 attention and each key's received mass) is plain blocked PyTorch, as the
@@ -106,6 +109,9 @@ FLASH_ROUTE_LAUNCHES = {"wgmma": 0}
 # a chunk's rows for scoring, chat appends and admission segments. Every
 # launch also counts in DECODE_LAUNCHES.
 DECODE_LAUNCHES_BY_ROWS: dict = {}
+# Calls of the plain int4 decode route (``decode_int4_plain``: packed int4
+# pools, which the decode kernel does not take), on any device.
+INT4_DECODE_CALLS = 0
 
 
 def segment_block_bounds(seg_ids, block_q: int, block_k: int) -> np.ndarray:
@@ -960,6 +966,10 @@ def decode_blocked_fwd(q, k_cache, v_cache, base_len, scale=None,
     no copy, and only each slot's live tiles are read. The launch reads
     ``base_len`` on the device only and allocates only the output.
     """
+    if k_cache.dtype == torch.uint8 or v_cache.dtype == torch.uint8:
+        raise ValueError(
+            "decode_blocked_fwd: a packed int4 (uint8) cache is not a "
+            "bf16 or int8 one; int4 pools take decode_int4_plain")
     if _on_cpu(q, k_cache, v_cache, base_len, k_scale, v_scale):
         return decode_blocked_plain(q, k_cache, v_cache, base_len, scale,
                                     k_scale, v_scale)
@@ -1061,6 +1071,28 @@ def _decode_dense(q, k_cache, v_cache, limit, scale, k_scale, v_scale):
     return out.reshape(b, t_c, hq, d).to(q.dtype)
 
 
+def decode_int4_plain(q, k_cache, v_cache, base_len, scale=None,
+                      k_scale=None, v_scale=None):
+    """The int4 decode route: unpack the packed caches (uint8 [B, T, H_kv,
+    D / 2], ``lm.QuantKVCache``'s layout) to int8, then the dense chunk
+    attention over the whole cache with the scales folded into the logits
+    and p, as the reference's XLA path reads its S4 pools. A plain PyTorch
+    route on every device, by the reference's design (no kernel of the
+    reference reads int4); ``INT4_DECODE_CALLS`` counts its calls."""
+    global INT4_DECODE_CALLS
+    from visionselector_tpu_torch.models.qwen25vl.lm import unpack_int4
+
+    if k_scale is None or v_scale is None:
+        raise ValueError("decode_int4_plain: an int4 cache needs both scales")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    limit = (base_len[:, None] + 1
+             + torch.arange(q.shape[1], device=base_len.device))
+    INT4_DECODE_CALLS += 1
+    return _decode_dense(q, unpack_int4(k_cache), unpack_int4(v_cache),
+                         limit, scale, k_scale, v_scale)
+
+
 def chunk_decode_attention(q, k_cache, v_cache, base_len, scale=None,
                            k_scale=None, v_scale=None, impl=None):
     """Multi-token decode attention: chunk row i (its kv just written at
@@ -1069,17 +1101,22 @@ def chunk_decode_attention(q, k_cache, v_cache, base_len, scale=None,
     q: [B, t_c, Hq, D]; caches [B, T, H_kv, D], unexpanded (GQA groups the
     queries); int8 caches with ``k_scale``/``v_scale`` [B, T, H_kv] f32.
     The default is ``decode_blocked_fwd`` (the kernel on CUDA tensors);
-    ``impl="plain"`` runs the dense plain path on any device.
+    ``impl="plain"`` runs the dense plain path on any device. Packed int4
+    caches (uint8 [B, T, H_kv, D / 2]) take ``decode_int4_plain`` under
+    either impl.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if impl not in (None, "plain"):
+        raise ValueError(f"unknown decode attention impl {impl!r}")
+    if k_cache.dtype == torch.uint8:
+        return decode_int4_plain(q, k_cache, v_cache, base_len, scale,
+                                 k_scale, v_scale)
     if impl == "plain":
         limit = (base_len[:, None] + 1
                  + torch.arange(q.shape[1], device=base_len.device))
         return _decode_dense(q, k_cache, v_cache, limit, scale, k_scale,
                              v_scale)
-    if impl is not None:
-        raise ValueError(f"unknown decode attention impl {impl!r}")
     return decode_blocked_fwd(q, k_cache, v_cache, base_len, scale, k_scale,
                               v_scale)
 

@@ -6,8 +6,10 @@ tower (``rice.py``) and the LIS selection run first
 (``_rice_encode_select``); everything after the merged vision tokens is
 the Qwen engine's family-agnostic code (``qwen25vl.model``: the
 from-vision prefill, the two-stage LLM-side prefill, the decode loop,
-scoring, batched decode, sessions, the prefix cache and
-``continuous.ContinuousBatcher``), here over the Qwen3 text model. That
+scoring, batched decode, sessions, the prefix cache,
+``continuous.ContinuousBatcher`` and speculative decoding:
+``generate_speculative`` and speculative slots need only ``generate``'s
+deferred prefill and ``params.lm``), here over the Qwen3 text model. That
 text model uses plain 1-D rope: the position ids are ``arange(T)`` on all
 three axes, the rope delta is 0, and decode continues at the compacted
 length (kept tokens keep their original positions, so decode positions

@@ -35,9 +35,24 @@ mid-decode starts after at most one chunk.
 - ``lock``: the engine lock, shared with the server, held around every
   engine call.
 
-Speculative slots and the int4 pool are not ported yet (the constructor
-raises NotImplementedError); auto windows are not ported at all (ValueError:
-the decode kernel already reads only each slot's live prefix).
+- Speculative slots (``speculative`` = m > 0): every dispatch runs
+  ``chunk`` rounds of on-device prompt lookup over each slot's window of
+  its last SPEC_WINDOW tokens (``_lookup_props``), one verify chunk of
+  m + 1 rows per slot (the decode kernel at t_c = m + 1), acceptance
+  (greedy prefixes; the speculative-sampling rule for sampled slots;
+  penalized slots at a = 0 with their penalized row-0 pick), the
+  per-slot length roll-back and the window shift, all queued as device
+  work from a host loop (``_spec_rounds``): the host reads the rounds'
+  tokens once per dispatch. Admission keeps ``chunk`` x (m + 1) rows of
+  headroom.
+- ``kv_quant="int4"``: the pool holds int4 values packed two a byte with
+  per-row scales (a quarter of the bf16 pool's value bytes); its decode
+  attention is the plain int4 route (``attention.decode_int4_plain``), as
+  the reference keeps int4 pools off its Pallas kernel, counted in
+  ``stats["int4_plain_decode_calls"]``.
+
+Auto windows are not ported (ValueError: the decode kernel already reads
+only each slot's live prefix).
 """
 
 from __future__ import annotations
@@ -51,9 +66,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from visionselector_tpu_torch.kernels import attention as A
 from visionselector_tpu_torch.models.qwen25vl import lm as lm_mod
 from visionselector_tpu_torch.models.qwen25vl import model as model_mod
 
+# Tokens of a speculative slot's lookup window (the reference's default
+# ctx_window): the prompt-lookup proposals come from its last 128 tokens.
+SPEC_WINDOW = 128
 AUTO_WINDOW_REFUSAL = (
     "auto_window is not ported: the decode kernel already reads only each "
     "slot's live prefix of the pool, which is what the reference's static "
@@ -88,14 +107,110 @@ def _decode_chunk_slots(params, cache, cur, pos, live, k: int,
     return torch.stack(toks), cache
 
 
+def _lookup_props(buf, n: int, m: int):
+    """On-device prompt lookup over per-slot token windows.
+
+    buf [S, C] int64: each slot's last C tokens, oldest first (-1 pads).
+    Returns [S, m]: the m tokens that followed the most recent EARLIER
+    occurrence of the window's final n-gram, zero where the window ends
+    first or there is no match (the host ``_prompt_lookup`` within the
+    window)."""
+    s, c = buf.shape
+    tail = buf[:, c - n:]  # [S, n]
+    num_w = c - n  # candidate starts, the tail's own excluded
+    windows = buf.unfold(1, n, 1)[:, :num_w]  # [S, num_w, n]
+    match = (windows == tail[:, None, :]).all(-1)
+    starts = torch.arange(num_w, device=buf.device)
+    best = torch.where(match, starts, -1).amax(-1)  # [S]
+    gidx = best[:, None] + n + torch.arange(m, device=buf.device)
+    cont = buf.gather(1, gidx.clamp(0, c - 1))
+    return torch.where((gidx < c) & (best >= 0)[:, None], cont, 0)
+
+
+@torch.no_grad()
+def _spec_rounds(params, cache, cur, pos, live, buf, m: int, rounds: int,
+                 ngram: int, temps=None, tps=None, tks=None, gens=None,
+                 pres=None, rps=None, attn_impl=None):
+    """``rounds`` speculative rounds over every slot, queued as device work
+    with no host read: per round the lookup (``_lookup_props``), one
+    verify chunk of m + 1 rows per slot (``model._verify_logits``),
+    acceptance, each live slot's length set to its old length + a + 1
+    (dead slots keep theirs), the a + 1 emitted tokens appended to the
+    window, and the slot's current token and rope position advanced.
+
+    cur / pos / live [S]; buf [S, C] (``_lookup_props``). Greedy slots
+    accept their exact greedy prefix. ``temps`` given (a live slot
+    samples): temps / tps [S] f32, tks [S] int64 and ``gens`` the
+    per-slot generators (None for greedy or dead slots); a live sampled
+    slot draws ``model.spec_draws`` once per round and accepts by the
+    speculative-sampling rule. ``pres`` [S, V] / ``rps`` [S] given (a
+    penalized slot is live): a slot with rps != 1 emits only the penalized
+    pick of row 0 (argmax, or ``sample_token`` with the round's Gumbel
+    noise), a = 0, and marks it in ``pres``. Returns (emitted [rounds, S,
+    m + 1], a [rounds, S] with -1 for dead slots, the cache)."""
+    dev = cur.device
+    s = cur.shape[0]
+    rows = torch.arange(s, device=dev)
+    c = buf.shape[1]
+    vocab = params.lm.cfg.vocab_size
+    sampled = temps is not None
+    is_samp = temps > 0.0 if sampled else None
+    pen = None if rps is None else rps != 1.0
+    ems, accs = [], []
+    for _ in range(rounds):
+        len0 = cache.length
+        # a window of padding (a dead slot, a context shorter than the
+        # n-gram) can propose its -1 pads: propose 0 there, as the host
+        # lookup pads (acceptance only keeps tokens the target emits)
+        props = _lookup_props(buf, ngram, m).clamp(min=0)
+        logits, cache = model_mod._verify_logits(params, cache, cur, props,
+                                                 pos, attn_impl)
+        emitted = logits.argmax(-1)  # [S, m + 1]
+        a = model_mod._greedy_accept(emitted, props)
+        noise = None
+        if sampled:
+            draws = [model_mod.spec_draws(g, m, vocab) if g is not None
+                     else (logits.new_zeros(m), logits.new_zeros(vocab))
+                     for g in gens]
+            u = torch.stack([d[0] for d in draws])
+            noise = torch.stack([d[1] for d in draws])
+            probs = model_mod._nucleus_probs(logits, temps[:, None],
+                                             tps[:, None], tks[:, None])
+            em_s, a_s = model_mod._spec_accept(probs, props, u, noise)
+            emitted = torch.where(is_samp[:, None], em_s, emitted)
+            a = torch.where(is_samp, a_s, a)
+        if pen is not None:
+            l0 = model_mod.penalize_logits(logits[:, 0], pres, rps[:, None])
+            e0 = l0.argmax(-1)
+            if sampled:
+                e0 = model_mod.sample_token(l0, noise, temps, tps, tks)
+            emitted[:, 0] = torch.where(pen, e0, emitted[:, 0])
+            a = torch.where(pen, 0, a)
+            pres[rows, emitted[:, 0]] |= pen & live
+        a = torch.where(live, a, -1)  # dead slots consume nothing
+        cache.length = torch.where(live[None, :], len0 + a[None, :] + 1,
+                                   len0)
+        ext = torch.cat([buf, emitted], dim=1)  # [S, C + m + 1]
+        buf = ext.gather(1, (a + 1)[:, None] + torch.arange(c, device=dev))
+        cur = torch.where(live, emitted[rows, a.clamp(min=0)], cur)
+        pos = pos + torch.where(live, a + 1, 0)
+        ems.append(emitted)
+        accs.append(a)
+    return torch.stack(ems), torch.stack(accs), cache
+
+
 def _insert_slot(pool, new_k, new_v, new_len, slot: int):
     """Copy one request's prefill KV ([L, 1, T, H, D]) into pool slot
-    ``slot`` in place, quantized when the pool is int8; rows past it are
-    zeroed, as the reference pads them."""
+    ``slot`` in place, quantized when the pool is int8 and quantized and
+    packed when it is int4; rows past it are zeroed, as the reference pads
+    them."""
     t = min(new_k.shape[2], pool.k.shape[2])
     if isinstance(pool, lm_mod.QuantKVCache):
-        k8, ks = lm_mod.quantize_kv(new_k[:, 0, :t])
-        v8, vs = lm_mod.quantize_kv(new_v[:, 0, :t])
+        bits = 4 if pool.packed else 8
+        k8, ks = lm_mod.quantize_kv(new_k[:, 0, :t], bits)
+        v8, vs = lm_mod.quantize_kv(new_v[:, 0, :t], bits)
+        if pool.packed:
+            k8, v8 = lm_mod.pack_int4(k8), lm_mod.pack_int4(v8)
         pairs = ((pool.k, k8), (pool.v, v8), (pool.k_scale, ks),
                  (pool.v_scale, vs))
     else:
@@ -117,6 +232,11 @@ class _Slot:
     t_submit: float
     item: dict = None
     chunks: int = 0
+    # prompt ids + emitted tokens, the lookup window's source (speculative
+    # slots only; None otherwise)
+    ctx: list = None
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 class ContinuousBatcher:
@@ -129,8 +249,15 @@ class ContinuousBatcher:
     ``rejected_too_long``, ...) expose the continuous behaviour.
 
     ``kv_quant="int8"`` (or ``kv_int8=True``) keeps the pool in int8 with
-    per-row scales: half the bytes of a bf16 pool. ``decode_attn``: None
-    (the decode kernel on the card) or "plain" (the dense plain path).
+    per-row scales: half the bytes of a bf16 pool; ``kv_quant="int4"``
+    packs int4 values two a byte, a quarter, on the plain int4 decode
+    route. ``decode_attn``: None (the decode kernel on the card) or
+    "plain" (the dense plain path). ``speculative`` = m > 0 runs each
+    dispatch as ``chunk`` speculative rounds of m proposals per slot from
+    an ``ngram`` lookup over the slot's last SPEC_WINDOW tokens
+    (``spec_steps``, ``spec_proposed``, ``spec_accepted``, ``spec_tokens``
+    in the stats; a result's ``spec_proposed`` / ``spec_accepted`` are its
+    own, penalized slots' rounds not counted).
     ``prefill_chunk`` > 0 admits image requests in steps
     (``ChunkedPrefill``; ``prefill_vit_segments`` > 1 also splits the
     tower): ``prefill_chunks`` counts the steps, ``chunked_admissions``
@@ -140,21 +267,19 @@ class ContinuousBatcher:
 
     def __init__(self, engine, n_slots: int = 8, t_max: int = 2048,
                  chunk: int = 8, lock: Optional[threading.Lock] = None,
-                 prefix_store=None, speculative: int = 0,
+                 prefix_store=None, speculative: int = 0, ngram: int = 3,
                  kv_int8: bool = False,
                  prefill_chunk: int = 0, prefill_vit_segments: int = 0,
                  decode_attn: str | None = None,
                  auto_window: bool = False,
                  kv_quant: Optional[str] = None):
-        if speculative:
-            raise NotImplementedError(
-                "speculative slots are not ported yet (ROADMAP §1 item 7)")
-        if kv_quant == "int4":
-            raise NotImplementedError(
-                "the int4 pool is not ported yet (ROADMAP §1 item 7)")
         if auto_window:
             raise ValueError(AUTO_WINDOW_REFUSAL)
-        if kv_quant not in (None, "", "int8"):
+        if speculative < 0 or not 0 < ngram < SPEC_WINDOW:
+            raise ValueError(f"speculative must be >= 0 and ngram in "
+                             f"(0, {SPEC_WINDOW}), got {speculative}, "
+                             f"{ngram}")
+        if kv_quant not in (None, "", "int8", "int4"):
             raise ValueError(f"kv_quant must be int8 or int4, got "
                              f"{kv_quant!r}")
         if decode_attn not in (None, "plain"):
@@ -164,6 +289,8 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.t_max = t_max
         self.chunk = chunk
+        self.speculative = speculative
+        self.ngram = ngram
         self.kv_quant = kv_quant or ("int8" if kv_int8 else None)
         self.decode_attn = decode_attn
         self.device = engine.device
@@ -195,7 +322,7 @@ class ContinuousBatcher:
                           prefill_chunks=0, chunked_admissions=0,
                           max_decode_gap_ms=0.0,
                           spec_steps=0, spec_proposed=0, spec_accepted=0,
-                          spec_tokens=0)
+                          spec_tokens=0, int4_plain_decode_calls=0)
         self._last_decode_t = None
         self._running = True
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -263,7 +390,7 @@ class ContinuousBatcher:
                                 dtype=torch.bool, device=self.device)
         self.pool = lm_mod.init_kv_cache(
             cfg, self.n_slots, self.t_max, self.device, proto_cache.k.dtype,
-            quant=self.kv_quant == "int8")
+            quant=self.kv_quant or False)
 
     def _admit(self, item, slot_idx):
         """One-shot admission prefill, then slot install. Through the
@@ -322,7 +449,11 @@ class ContinuousBatcher:
             item["done"].set()
             return
         t_valid = int(state.cache.length.max())
-        if t_valid + item["max_new"] + self.chunk > self.t_max:
+        # a speculative dispatch may run a finishing slot up to chunk
+        # rounds of m + 1 rows past its budget
+        headroom = max(self.chunk, self.chunk * (self.speculative + 1)
+                       if self.speculative > 0 else 0)
+        if t_valid + item["max_new"] + headroom > self.t_max:
             # request too long for the slot pool: serve it one-shot
             self.stats["rejected_too_long"] += 1
             item["result"] = eng.generate(
@@ -349,10 +480,14 @@ class ContinuousBatcher:
         self.gens[slot_idx] = (
             model_mod.sampling_generator(item["seed"], self.device)
             if item["temperature"] > 0.0 else None)
+        ctx = None
+        if self.speculative > 0:
+            ids = np.asarray(item["request"]["input_ids"]).reshape(-1)
+            ctx = list(map(int, ids)) + [state.next_token]
         self.slots[slot_idx] = _Slot(
             tokens=[state.next_token], max_new=item["max_new"], eos=eos,
             result=state.result, done_event=item["done"],
-            t_submit=item["t_submit"], item=item)
+            t_submit=item["t_submit"], item=item, ctx=ctx)
         self.stats["admitted"] += 1
         if sum(s is not None for i, s in enumerate(self.slots)
                if i != slot_idx):
@@ -386,6 +521,9 @@ class ContinuousBatcher:
         slot.result.tokens = slot.tokens[: slot.max_new]
         slot.result.total_seconds = time.perf_counter() - slot.t_submit
         slot.result.decode_dispatches = slot.chunks
+        if self.speculative > 0:
+            slot.result.spec_proposed = slot.spec_proposed
+            slot.result.spec_accepted = slot.spec_accepted
         slot.item["result"] = slot.result
         slot.done_event.set()
         self.slots[idx] = None
@@ -393,29 +531,113 @@ class ContinuousBatcher:
         self.gens[idx] = None
         self.pool.length[:, idx] = 0  # a dead slot writes at rows [0, chunk)
 
-    def _dispatch(self):
-        """One decode chunk over the pool; returns the tokens [k, S]."""
+    def _slot_state(self) -> dict:
+        """The live slots' sampling and penalty state for a dispatch (the
+        keywords of ``_decode_chunk_slots`` / ``_spec_rounds``)."""
         dev = self.device
         live = self.live
-        sampled = bool(np.any(self.temps[live] > 0.0))
-        penalized = bool(np.any(self.rps[live] != 1.0))
         samp = {}
-        if sampled:
+        if np.any(self.temps[live] > 0.0):
             samp = dict(
                 temps=torch.as_tensor(self.temps, device=dev),
                 tps=torch.as_tensor(self.tps, device=dev),
                 tks=torch.as_tensor(self.tks, device=dev),
                 gens=[g if ok else None for g, ok in zip(self.gens, live)])
-        if penalized:
+        if np.any(self.rps[live] != 1.0):
             samp.update(pres=self.pres,
                         rps=torch.as_tensor(self.rps, device=dev))
+        return samp
+
+    def _dispatch(self):
+        """One decode chunk over the pool; returns the tokens [k, S]."""
+        dev = self.device
         toks, self.pool = _decode_chunk_slots(
             self.engine.params, self.pool,
             torch.as_tensor(self.cur, device=dev),
             torch.as_tensor(self.pos, device=dev),
-            torch.as_tensor(live, device=dev), self.chunk,
-            attn_impl=self.decode_attn, **samp)
+            torch.as_tensor(self.live, device=dev), self.chunk,
+            attn_impl=self.decode_attn, **self._slot_state())
         return toks.cpu().numpy()  # waits for the chunk
+
+    def _spec_dispatch(self):
+        """``chunk`` speculative rounds over the pool (``_spec_rounds``);
+        the lookup windows go up with the dispatch. Returns (emitted
+        [rounds, S, m + 1], a [rounds, S]) as numpy: the one host read."""
+        dev, c = self.device, SPEC_WINDOW
+        buf = np.full((self.n_slots, c), -1, np.int64)
+        for i, slot in enumerate(self.slots):
+            if slot is not None:
+                tail = slot.ctx[-c:]
+                buf[i, c - len(tail):] = tail
+        emitted, acc, self.pool = _spec_rounds(
+            self.engine.params, self.pool,
+            torch.as_tensor(self.cur, device=dev),
+            torch.as_tensor(self.pos, device=dev),
+            torch.as_tensor(self.live, device=dev),
+            torch.as_tensor(buf, device=dev), self.speculative, self.chunk,
+            self.ngram, attn_impl=self.decode_attn, **self._slot_state())
+        host = torch.cat([emitted.flatten(), acc.flatten()]).cpu().numpy()
+        n = emitted.numel()
+        return (host[:n].reshape(emitted.shape),
+                host[n:].reshape(acc.shape))
+
+    def _harvest(self, toks):
+        """Hand out a plain chunk's tokens [k, S]: each slot takes them up
+        to its EOS or budget."""
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            slot.chunks += 1
+            finished = False
+            for t in toks[:, i].tolist():
+                if t in slot.eos:
+                    finished = True
+                    break
+                slot.tokens.append(t)
+                if len(slot.tokens) >= slot.max_new:
+                    finished = True
+                    break
+            if finished:
+                self._finalize(i, slot)
+            else:
+                self.cur[i] = slot.tokens[-1]
+                self.pos[i] += self.chunk
+
+    def _spec_harvest(self, emitted, acc):
+        """Hand out the speculative rounds' tokens: per round a live slot
+        takes its a + 1 emitted tokens, up to its EOS or budget."""
+        m = self.speculative
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            slot.chunks += 1
+            consumed, finished = 0, False
+            counted = self.rps[i] == 1.0  # penalized slots reject by design
+            for r in range(acc.shape[0]):
+                a_i = int(acc[r, i])
+                if counted:
+                    self.stats["spec_proposed"] += m
+                    self.stats["spec_accepted"] += a_i
+                    slot.spec_proposed += m
+                    slot.spec_accepted += a_i
+                for t in emitted[r, i, :a_i + 1].tolist():
+                    if t in slot.eos:
+                        finished = True
+                        break
+                    slot.tokens.append(t)
+                    slot.ctx.append(t)
+                    consumed += 1
+                    if len(slot.tokens) >= slot.max_new:
+                        finished = True
+                        break
+                if finished:
+                    break
+            self.stats["spec_tokens"] += consumed
+            if finished:
+                self._finalize(i, slot)
+            else:
+                self.cur[i] = slot.tokens[-1]
+                self.pos[i] += consumed
 
     def _run(self):
         with torch.no_grad():
@@ -491,7 +713,13 @@ class ContinuousBatcher:
                 continue
             try:
                 with self.engine_lock:
-                    toks = self._dispatch()
+                    int4_0 = A.INT4_DECODE_CALLS
+                    if self.speculative > 0:
+                        out = self._spec_dispatch()
+                    else:
+                        toks = self._dispatch()
+                    self.stats["int4_plain_decode_calls"] += (
+                        A.INT4_DECODE_CALLS - int4_0)
             except Exception as e:  # noqa: BLE001 — fail fast, not hang
                 # a failed dispatch poisons the shared pool: wake every
                 # waiter with the error rather than leave them hanging
@@ -499,21 +727,8 @@ class ContinuousBatcher:
                 return
             self.stats["chunks"] += 1
             self._mark_decode()
-            for i, slot in enumerate(self.slots):
-                if slot is None:
-                    continue
-                slot.chunks += 1
-                finished = False
-                for t in toks[:, i].tolist():
-                    if t in slot.eos:
-                        finished = True
-                        break
-                    slot.tokens.append(t)
-                    if len(slot.tokens) >= slot.max_new:
-                        finished = True
-                        break
-                if finished:
-                    self._finalize(i, slot)
-                else:
-                    self.cur[i] = slot.tokens[-1]
-                    self.pos[i] += self.chunk
+            if self.speculative > 0:
+                self.stats["spec_steps"] += self.chunk
+                self._spec_harvest(*out)
+            else:
+                self._harvest(toks)

@@ -19,10 +19,13 @@ yet):
   ``attn_variant="packed"`` a head dim that is a multiple of 128 takes the
   packed entry point on the q/k/v slabs (the same kernel),
 - decode: length-aware attention against the KV cache (the decode kernel
-  on the card), which is written in place; the cache may be bf16 / fp32 or
-  int8 with per-row scales (``QuantKVCache``, serving slot pools). One
-  step takes one row per slot (``lm_decode_step``), a chunk t_c rows,
-  causal within the chunk (``lm_decode_chunk``: multiple-choice scoring).
+  on the card), which is written in place; the cache may be bf16 / fp32,
+  int8 with per-row scales, or int4 packed two values a byte with per-row
+  scales (``QuantKVCache``, serving slot pools; an int4 cache takes the
+  plain int4 route of ``chunk_decode_attention``, as the reference keeps
+  its int4 pools off its Pallas kernel). One step takes one row per slot
+  (``lm_decode_step``), a chunk t_c rows, causal within the chunk
+  (``lm_decode_chunk``: multiple-choice scoring, speculative verify).
 """
 
 from __future__ import annotations
@@ -56,27 +59,67 @@ class KVCache:
 
 @dataclasses.dataclass
 class QuantKVCache:
-    """int8 KV cache (serving slot pools): entry [l, b, t, h] stores
-    ``round(x / s)`` with its scale ``s = absmax / 127`` over the head dim
-    kept beside it. Half the bytes of a bf16 pool, read by the decode kernel
-    as int8 with the scales folded into the logits and p."""
+    """Quantized KV cache (serving slot pools): entry [l, b, t, h] stores
+    ``round(x / s)`` with its scale ``s = absmax / qmax`` over the head dim
+    kept beside it, qmax 127 (int8) or 7 (int4).
 
-    k: torch.Tensor  # int8 [n_layers, B, T_max, H_kv, Dh]
-    v: torch.Tensor  # int8 [n_layers, B, T_max, H_kv, Dh]
+    int8: ``k`` / ``v`` int8 [L, B, T, H_kv, Dh], half the bytes of a bf16
+    pool, read by the decode kernel as int8 with the scales folded into the
+    logits and p.
+
+    int4: torch has no int4 dtype, so ``k`` / ``v`` are uint8 [L, B, T,
+    H_kv, Dh / 2], two values a byte along the head dim (``pack_int4``):
+    byte j holds element 2j in its low nibble and element 2j + 1 in its
+    high nibble, each a 4-bit two's complement number in [-7, 7]. A
+    quarter of the bf16 pool's value bytes; read by the plain int4 route
+    (``attention.decode_int4_plain``), never by the decode kernel."""
+
+    k: torch.Tensor  # int8 [.., Dh] or packed int4 uint8 [.., Dh / 2]
+    v: torch.Tensor
     k_scale: torch.Tensor  # f32 [n_layers, B, T_max, H_kv]
     v_scale: torch.Tensor  # f32 [n_layers, B, T_max, H_kv]
     length: torch.Tensor  # [n_layers, B] int64 valid lengths
 
+    @property
+    def packed(self) -> bool:
+        """True for an int4 cache (two values a byte)."""
+        return self.k.dtype == torch.uint8
 
-def quantize_kv(x: torch.Tensor):
-    """[..., Dh] -> (int8 values, f32 scales over the last dim); the
-    reference's per-row absmax rule (round half to even)."""
+
+def quantize_kv(x: torch.Tensor, bits: int = 8):
+    """[..., Dh] -> (values, f32 scales over the last dim); the reference's
+    per-row absmax rule, ``s = absmax / qmax + 1e-12`` and round half to
+    even, with qmax 127 for ``bits`` 8 and 7 for ``bits`` 4. The values
+    come back as int8 either way (in [-7, 7] for 4 bits: ``pack_int4``
+    packs them for an int4 cache)."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantize_kv: bits must be 4 or 8, got {bits}")
     xf = x.float()
-    s = xf.abs().amax(dim=-1) / 127.0 + 1e-12
+    s = xf.abs().amax(dim=-1) / (7.0 if bits == 4 else 127.0) + 1e-12
     return torch.round(xf / s[..., None]).to(torch.int8), s
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], [..., D] (D even) -> uint8 [..., D / 2]: byte
+    j = (element 2j & 15) | (element 2j + 1 & 15) << 4 (the layout of
+    ``QuantKVCache``)."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"pack_int4: odd last dim {q.shape[-1]}")
+    n = q.to(torch.int16) & 15
+    return (n[..., 0::2] | (n[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., D / 2] -> int8 [..., D]: ``pack_int4``'s inverse (each
+    nibble sign-extended from 4 bits)."""
+    b = p.to(torch.int16)
+    lo, hi = b & 15, b >> 4
+    out = torch.stack(((lo ^ 8) - 8, (hi ^ 8) - 8), dim=-1)
+    return out.reshape(*p.shape[:-1], 2 * p.shape[-1]).to(torch.int8)
+
+
 def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 values (an int4 cache's unpacked) times their row scales."""
     return (q.float() * s[..., None].float()).to(dtype)
 
 
@@ -327,7 +370,8 @@ def lm_decode_chunk(lm: LanguageModel, cache, inputs_embeds, position_ids,
 
     inputs_embeds: [B, t_c, D]; position_ids: [3, B, t_c]. Row i's k/v is
     written in place at ``cache.length[li] + i`` of every layer (quantized
-    with its scales into a ``QuantKVCache``), and row i attends to the
+    with its scales into a ``QuantKVCache``, packed when it is int4), and
+    row i attends to the
     cache positions < length + i + 1: causal within the chunk plus the
     committed prefix (``chunk_decode_attention``, the decode kernel on the
     card). The rows must fit: length + t_c <= T_max. Returns (hidden [B,
@@ -349,8 +393,10 @@ def lm_decode_chunk(lm: LanguageModel, cache, inputs_embeds, position_ids,
         base = cache.length[li]  # [B]
         at = base[:, None] + chunk  # [B, t_c]
         if quant:
-            k8, ks = quantize_kv(k)
-            v8, vs = quantize_kv(v)
+            bits = 4 if cache.packed else 8
+            (k8, ks), (v8, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
+            if cache.packed:
+                k8, v8 = pack_int4(k8), pack_int4(v8)
             cache.k[li, rows, at] = k8  # in place
             cache.v[li, rows, at] = v8
             cache.k_scale[li, rows, at] = ks
@@ -406,17 +452,24 @@ def init_lm_params(cfg: TextConfig, generator: torch.Generator, device,
 
 
 def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, device,
-                  dtype, quant: bool = False):
-    """A zeroed ``KVCache`` of ``dtype``, or a ``QuantKVCache`` (int8 with
-    f32 scales) when ``quant``."""
+                  dtype, quant=False):
+    """A zeroed ``KVCache`` of ``dtype``, or a ``QuantKVCache`` with f32
+    scales: int8 when ``quant`` is True or "int8", packed int4 when it is
+    "int4"."""
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
              cfg.head_dim)
     length = torch.zeros((cfg.num_hidden_layers, batch), dtype=torch.int64,
                          device=device)
+    if quant not in (False, None, True, "int8", "int4"):
+        raise ValueError(f"init_kv_cache: quant must be False, True, 'int8' "
+                         f"or 'int4', got {quant!r}")
     if quant:
+        vals, vdt = shape, torch.int8
+        if quant == "int4":  # two values a byte along the head dim
+            vals, vdt = shape[:4] + (cfg.head_dim // 2,), torch.uint8
         return QuantKVCache(
-            k=torch.zeros(shape, device=device, dtype=torch.int8),
-            v=torch.zeros(shape, device=device, dtype=torch.int8),
+            k=torch.zeros(vals, device=device, dtype=vdt),
+            v=torch.zeros(vals, device=device, dtype=vdt),
             k_scale=torch.zeros(shape[:4], device=device),
             v_scale=torch.zeros(shape[:4], device=device), length=length)
     return KVCache(k=torch.zeros(shape, device=device, dtype=dtype),

@@ -35,11 +35,18 @@ reads the continuation's log-probs from the prefill's hidden states;
 ``run_loglikelihood_choices`` prefills a context once and scores each
 choice with one chunked decode forward (``lm.lm_decode_chunk``).
 
-Serving (the last section): streaming (``generate(on_token_chunk=)``),
-decode-batched generation (``generate_batch``), segmented admission
-prefills for the continuous batcher (``start_chunked_prefill`` ->
-``ChunkedPrefill``), multi-turn chat sessions and the cross-request prefix
-cache, the last two through chunked appends (``lm_decode_chunk``).
+Serving: streaming (``generate(on_token_chunk=)``), decode-batched
+generation (``generate_batch``), segmented admission prefills for the
+continuous batcher (``start_chunked_prefill`` -> ``ChunkedPrefill``),
+multi-turn chat sessions and the cross-request prefix cache, the last two
+through chunked appends (``lm_decode_chunk``).
+
+Speculative decoding (the last section): ``generate_speculative`` proposes
+m tokens by prompt lookup and verifies them in one ``lm_decode_chunk`` of
+m + 1 rows (the decode kernel at t_c = m + 1), greedy or by the
+speculative-sampling rule; the batcher's speculative slots share its
+pieces (``_verify_logits``, ``_greedy_accept``, ``_nucleus_probs``,
+``_spec_accept``).
 """
 
 from __future__ import annotations
@@ -765,8 +772,14 @@ class GenerationResult:
     # seconds from the request's arrival to its first token (the prefill,
     # plus the queue wait under continuous batching)
     first_token_seconds: Optional[float] = None
-    # decode chunks a continuous-batching request took (None one-shot)
+    # decode dispatches the request took: chunks under continuous
+    # batching, verify steps under speculative decoding (None for the
+    # one-shot per-token loop)
     decode_dispatches: Optional[int] = None
+    # speculative decoding: prompt-lookup proposals made / accepted for
+    # this request (None when speculative decoding was off)
+    spec_proposed: Optional[int] = None
+    spec_accepted: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -2081,3 +2094,258 @@ def generate_prefix_cached(engine: "VLMEngine", store: PrefixCacheStore,
     return dataclasses.replace(
         state.result, tokens=tokens,
         total_seconds=time.perf_counter() - state.t_start)
+
+
+# -- speculative decoding -----------------------------------------------------
+
+
+def _prompt_lookup(ctx: list, n: int, m: int) -> list:
+    """Prompt-lookup proposal: the m tokens that followed the most recent
+    EARLIER occurrence of the context's final n-gram, zero-padded to m;
+    [0] * m when there is none (the step then emits one token)."""
+    pad = [0] * m
+    if len(ctx) <= n:
+        return pad
+    tail = ctx[-n:]
+    for i in range(len(ctx) - n - 1, -1, -1):
+        if ctx[i:i + n] == tail:
+            cont = ctx[i + n:i + n + m]
+            if cont:
+                return cont + [0] * (m - len(cont))
+    return pad
+
+
+def _verify_logits(params: VLMParams, cache, cur, props, pos_start,
+                   attn_impl=None):
+    """One verify forward: each row's [cur, props...] (cur [B], props [B,
+    m]) through ``lm_decode_chunk`` at rope positions pos_start [B] + i,
+    written in place at each layer's length. Returns (logits [B, m + 1, V]
+    fp32, the cache with length + m + 1)."""
+    b, m = props.shape
+    ids = torch.cat([cur[:, None], props], dim=1)
+    embeds = lm_mod.embed_tokens(params.lm, ids)  # [B, m + 1, D]
+    pos = pos_start[:, None] + torch.arange(m + 1, device=ids.device)
+    hidden, cache = lm_mod.lm_decode_chunk(
+        params.lm, cache, embeds, pos[None].expand(3, b, m + 1),
+        attn_impl=attn_impl)
+    return lm_mod.lm_head(params.lm, hidden), cache
+
+
+def _greedy_accept(greedy, props):
+    """Accepted proposals a [...]: the length of props' [..., m] longest
+    prefix equal to the greedy rows' argmaxes (greedy [..., m + 1])."""
+    m = props.shape[-1]
+    eq = props == greedy[..., :m]
+    return torch.where(eq.all(-1), m, (~eq).to(torch.int64).argmax(-1))
+
+
+def _roll_back(cache, rejected):
+    """The cache with every layer's length lowered by ``rejected`` (a
+    tensor [] or [B]): the rejected rows stay in place above the length,
+    and the next chunk's rows overwrite them before any row reads them."""
+    return dataclasses.replace(cache, length=cache.length - rejected)
+
+
+@torch.no_grad()
+def _spec_verify(params: VLMParams, cache, cur, props, pos_start: int,
+                 attn_impl=None):
+    """One greedy speculative step: [cur, props...] (cur [], props [m]) in
+    one chunked forward. Returns (greedy [m + 1], accepted count a [], the
+    cache rolled back over the m - a rejected rows): the step emits
+    greedy[:a + 1]."""
+    m = props.shape[0]
+    logits, cache = _verify_logits(
+        params, cache, cur.reshape(1), props[None],
+        torch.full((1,), pos_start, device=props.device), attn_impl)
+    greedy = logits[0].argmax(-1)
+    a = _greedy_accept(greedy, props)
+    return greedy, a, _roll_back(cache, m - a)
+
+
+def _nucleus_probs(logits, temperature, top_p, top_k=0):
+    """The top-k / nucleus-truncated sampling distribution over the vocab,
+    ``sample_token``'s sampling branch written out as probabilities:
+    temperature, the top-k cut, the smallest sorted prefix of the cut
+    mass reaching top_p (the top token always kept), renormalised.
+
+    logits [..., V]; temperature / top_p / top_k: scalars or tensors that
+    broadcast to logits' leading dims (top_k <= 0 is off). Returns [..., V]
+    fp32 rows summing to 1. The sort is stable, as ``jnp.argsort``."""
+    lg = logits.float()
+    dev, lead, v = lg.device, lg.shape[:-1], lg.shape[-1]
+
+    def per_row(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev).expand(lead)
+
+    temp = per_row(temperature, torch.float32).clamp(min=1e-6)
+    probs = torch.softmax(lg / temp[..., None], dim=-1)
+    sort_idx = torch.argsort(-probs, dim=-1, stable=True)
+    sp = probs.gather(-1, sort_idx)
+    tk = per_row(top_k, torch.int64)
+    kmask = (torch.arange(v, device=dev)
+             < torch.where(tk <= 0, v, tk)[..., None])
+    sp = torch.where(kmask, sp, 0.0)
+    z = sp.sum(-1, keepdim=True)
+    keep = ((sp.cumsum(-1) - sp)
+            < per_row(top_p, torch.float32)[..., None] * z) & kmask
+    kept = torch.where(keep, sp, 0.0)
+    kept = kept / kept.sum(-1, keepdim=True)
+    return torch.zeros_like(kept).scatter_(-1, sort_idx, kept)
+
+
+def _spec_accept(probs, props, uniforms, gumbel):
+    """Speculative-sampling acceptance for a point-mass draft (Leviathan et
+    al. 2023 with q = delta at props[i]), batched over leading dims.
+
+    probs [..., m + 1, V]: the target distributions (row i given the first
+    i proposals); props [..., m]; uniforms [..., m] in [0, 1): proposal i
+    is accepted while u_i < p_i(props[i]); gumbel [..., V]: the noise of
+    the one categorical draw at the first rejection a, from p_a with the
+    rejected proposal's entry zeroed (the residual of a point mass), or
+    from p_m when all m were accepted (``jax.random.categorical``'s
+    argmax(log p + g), g indexed by token id). Returns (emitted [...,
+    m + 1] int64, of which [..., :a + 1] is meaningful, a [...]). Every
+    emitted token's law is the target's."""
+    m = props.shape[-1]
+    v = probs.shape[-1]
+    p_draft = probs[..., :m, :].gather(-1, props[..., None])[..., 0]
+    rej = uniforms >= p_draft
+    a = torch.where(rej.any(-1), rej.to(torch.int64).argmax(-1), m)
+    at_a = a[..., None, None].expand(*a.shape, 1, v)
+    row = probs.gather(-2, at_a)[..., 0, :]
+    drop = props.gather(-1, a.clamp(max=m - 1)[..., None])
+    zeroed = row.scatter(-1, drop, 0.0)
+    row = torch.where((a < m)[..., None], zeroed, row)
+    t_a = torch.argmax(torch.log(row + 1e-20) + gumbel, dim=-1)
+    emitted = torch.cat([props, torch.zeros_like(props[..., :1])], dim=-1)
+    emitted = emitted.scatter(-1, a[..., None], t_a[..., None])
+    return emitted, a
+
+
+def spec_draws(gen: torch.Generator, m: int, vocab_size: int):
+    """One sampled verify step's noise from a request's generator: m
+    uniforms for the acceptance tests, then one [V] Gumbel vector for the
+    categorical draw (``_spec_accept``)."""
+    u = torch.rand(m, generator=gen, device=gen.device)
+    return u, gumbel_noise(gen, vocab_size)
+
+
+@torch.no_grad()
+def _spec_verify_sampled(params: VLMParams, cache, cur, props,
+                         pos_start: int, gen, temperature, top_p, top_k=0,
+                         attn_impl=None):
+    """A sampled speculative step: ``_spec_verify``'s forward, acceptance
+    by the speculative-sampling rule on the nucleus distributions, its
+    noise drawn from ``gen`` (``spec_draws``). Returns (emitted [m + 1],
+    a [], the rolled-back cache)."""
+    m = props.shape[0]
+    logits, cache = _verify_logits(
+        params, cache, cur.reshape(1), props[None],
+        torch.full((1,), pos_start, device=props.device), attn_impl)
+    probs = _nucleus_probs(logits[0], temperature, top_p, top_k)
+    u, g = spec_draws(gen, m, probs.shape[-1])
+    emitted, a = _spec_accept(probs, props, u, g)
+    return emitted, a, _roll_back(cache, m - a)
+
+
+def generate_speculative(engine: "VLMEngine", input_ids, pixel_values=None,
+                         grid_thw=None, max_new_tokens: int = 64,
+                         eos_token_ids=None, propose_len: int = 7,
+                         ngram: int = 3, temperature: float = 0.0,
+                         top_p: float = 1.0, seed: int = 0, top_k: int = 0,
+                         repetition_penalty: float = 1.0,
+                         **gen_kwargs) -> GenerationResult:
+    """Generation with prompt-lookup speculative decoding, on any engine
+    whose ``generate`` takes ``_defer_decode`` (``QwenVLEngine``,
+    ``OVEngine``; the selector, ``orig`` and every strategy).
+
+    The prefill runs as ``engine.generate``'s, with ``propose_len`` + 1
+    rows of headroom in its cache: a verify step may write that far past
+    the per-token budget. Each step then proposes ``propose_len`` tokens
+    (``_prompt_lookup`` over the prompt ids and the tokens so far) and
+    verifies them in one chunked forward, emitting 1..propose_len + 1
+    tokens; one host read per step. temperature 0: the tokens equal
+    ``engine.generate``'s by construction (only exact greedy continuations
+    are accepted). temperature > 0: speculative-sampling acceptance, so
+    every emitted token has the nucleus sampler's law, with the first
+    token sampled from the prefill's logits and every draw from the
+    request's ``sampling_generator(seed)`` (same distribution as
+    ``engine.generate``, other draws).
+
+    Two cases run ``engine.generate`` instead, as the reference does:
+    ``repetition_penalty != 1`` (a parallel verify cannot see the presence
+    updates of earlier rows of its chunk), and a sampled request whose
+    prefill gives no logits to sample its first token from."""
+    if repetition_penalty != 1.0:
+        return engine.generate(
+            input_ids, pixel_values, grid_thw,
+            max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
+            temperature=temperature, top_p=top_p, seed=seed, top_k=top_k,
+            repetition_penalty=repetition_penalty, **gen_kwargs)
+    m = int(propose_len)
+    if m < 1:
+        raise ValueError(f"propose_len must be >= 1, got {propose_len}")
+    sampling = temperature is not None and temperature > 0.0
+    state = engine.generate(
+        input_ids, pixel_values, grid_thw,
+        max_new_tokens=max_new_tokens + m + 1, eos_token_ids=eos_token_ids,
+        _defer_decode=True, **gen_kwargs)
+    if sampling and state.logits is None:
+        return engine.generate(
+            input_ids, pixel_values, grid_thw,
+            max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
+            temperature=temperature, top_p=top_p, seed=seed, top_k=top_k,
+            **gen_kwargs)
+    cache = state.cache
+    dev = cache.k.device
+    gen = None
+    if sampling:
+        gen = sampling_generator(seed, dev)
+        first = int(sample_token(
+            state.logits, gumbel_noise(gen, state.logits.shape[-1]),
+            temperature, top_p, top_k))
+    else:
+        first = state.next_token
+    eos = set(state.eos_token_ids)
+    base = state.result
+    if first in eos:
+        return dataclasses.replace(
+            base, tokens=[], total_seconds=time.perf_counter()
+            - state.t_start)
+    out = [first]
+    ctx = list(map(int, np.asarray(input_ids).reshape(-1))) + [first]
+    pos, cur = state.start_pos, first
+    steps = proposed = accepted = 0
+    attn_impl = engine.attn_impl
+    while len(out) < max_new_tokens:
+        props = torch.as_tensor(_prompt_lookup(ctx, ngram, m),
+                                dtype=torch.int64, device=dev)
+        cur_t = torch.tensor(cur, dtype=torch.int64, device=dev)
+        if sampling:
+            emitted, a, cache = _spec_verify_sampled(
+                engine.params, cache, cur_t, props, pos, gen, temperature,
+                top_p, top_k, attn_impl)
+        else:
+            emitted, a, cache = _spec_verify(engine.params, cache, cur_t,
+                                             props, pos, attn_impl)
+        host = torch.cat([emitted, a.reshape(1)]).tolist()  # the host read
+        a_i = host[-1]
+        new = host[:a_i + 1]
+        steps += 1
+        proposed += m
+        accepted += a_i
+        stop = False
+        for t in new:
+            if t in eos or len(out) >= max_new_tokens:
+                stop = True
+                break
+            out.append(t)
+            ctx.append(t)
+        if stop:
+            break
+        cur = new[-1]
+        pos += a_i + 1
+    return dataclasses.replace(
+        base, tokens=out, total_seconds=time.perf_counter() - state.t_start,
+        decode_dispatches=steps, spec_proposed=proposed,
+        spec_accepted=accepted)
