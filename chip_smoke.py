@@ -312,6 +312,48 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    requests through an int4 batcher. OV-8B: one speculative
    request (m = 7), its first token equal to ``generate``'s, 36 K5
    launches at t_c 8 per verify step.
+14. The trainers of ``api.train`` (``train-methods``), on phase 3's and
+   phase 11's weights. While OV-8B is on the card: ``api.train --smoke``
+   with ``--method dynamic``, ``--method sft --lora-rank 8`` and
+   ``--async-save`` start in processes of their own (3 steps each; their
+   log, checkpoint and export are checked at the phase's end), and
+   OV-8B LoRA SFT (rank 64, alpha 16) takes 3 steps on phase 12's batch:
+   the base weights bit-equal, every adapter changed, step wall and peak
+   memory; then the merge (in place) against the adapter model, logits
+   within MERGE_TOL and the first greedy token equal. OV-8B's weights go.
+   (a) K1 causal on packed rows (B = 2, T = 2,048, 4 samples of 330 rows
+   a row, each its own segment, GQA 16/2, D = 128) within ULP_LIMIT of
+   its plain version, the row's segments merged into one for the kernel
+   as the planted fault, ms, bound, visited and valid pairs, one SDPA
+   call (causal + segment mask); its gradient through
+   ``FlashAttentionFn`` against autograd of the plain version (GRAD_TOL).
+   (b) K4 under autograd on the ViT's first window layer (q, k, v
+   captured from a phase-3 prefill): its gradients through
+   ``FlashAttentionFn`` against autograd of ``diag_plain`` (GRAD_TOL),
+   the mirror given one merged segment as the planted fault, one launch
+   under grad, the mirror's ms beside K4's. (c)
+   ``api.train._packed_stream`` over 8 seeded 448x448 records (rows of 4
+   records, 1,320 ids, vision bucket 4,096, text bucket 2,048): 4 selector
+   steps (28 K4 + 4 K1 per row and 36 causal K1 a step, the loss falls),
+   then 4 unpacked steps over the same records at the same buckets and 4
+   at the smallest that hold one record (1,024 / 512); step wall and
+   valid tokens/s of each. (d) ``--method dynamic`` at full width
+   (predictor 2,048 -> 512, 8 heads) on phase 6's batch: the CE's and the
+   weighted mask loss's gradients on the predictor apart (norms, cosine),
+   and a step along the mask loss's alone lowers it on the same Gumbel
+   draws; one ``dynamic_train_step`` on fixed draws moves the predictor
+   against the gradient and lowers the objective on them; 4 steps: CE,
+   mask loss and keep ratio, the predictor moved by every step with lr >
+   0, 2 causal K1 launches without grad and 34 with, every model weight
+   bit-equal; the exported predictor reloaded bit for bit gives
+   ``DynamicSelect`` the in-memory predictor's first token. (e)
+   3B full-LM SFT, 3 steps on phase 6's batch: the loss falls, the ViT
+   and scorer bit-equal, every LM tensor changed, peak memory; then with
+   ``--tune-mm-vision`` on one sample, window block 0's q-kernel gradient
+   against every attention plain by autograd (the ViT blocks and the LM
+   recomputed in the backward) within TRAIN_GRAD_TOL, with K4's output
+   detached as the planted fault; this trains the 3B's LM in place, so
+   it runs last.
 
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
@@ -320,7 +362,9 @@ entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
 shape, ``flash_varlen_fwd_ov_train``, from phase 12, its launches the
 causal ones of the last step; K5 at t_c 8, ``decode_blocked_fwd_t_c8`` and
 ``decode_blocked_fwd_ov_t_c8``, from phase 13, its launches those of the
-3B's m = 7 run and of OV-8B's); the last line is
+3B's m = 7 run and of OV-8B's; K1 on packed training rows,
+``flash_varlen_fwd_packed_train``, from phase 14, its launches the
+causal ones of the last packed step); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -411,6 +455,11 @@ KERNELS = {
     "flash_varlen_fwd_ov_train": ("flash_varlen_fwd.cu",
                                   "visionselector_tpu/kernels/attention.py:"
                                   "203"),
+    # Packed training rows (phase 14): K1 causal at B = 2, T = 2,048 with
+    # four samples per row, each its own segment
+    "flash_varlen_fwd_packed_train": ("flash_varlen_fwd.cu",
+                                      "visionselector_tpu/kernels/"
+                                      "attention.py:203"),
     # Speculative decoding (phase 13): K5 at t_c = m + 1 = 8, the verify
     # chunk, on the 3B and on OV-8B (n_rep 4)
     "decode_blocked_fwd_t_c8": ("decode_blocked_fwd.cu",
@@ -1477,6 +1526,7 @@ def zero_counts():
 
     A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
     A.FLASH_CAPPED_LAUNCHES = A.FLASH_CAUSAL_LAUNCHES = 0
+    A.FLASH_GRAD_LAUNCHES = A.DIAG_GRAD_LAUNCHES = 0
     A.PACKED_LAUNCHES = A.ABLATE_LAUNCHES = F_.FUSED_LAUNCHES = 0
     for route in A.FLASH_ROUTE_LAUNCHES:
         A.FLASH_ROUTE_LAUNCHES[route] = 0
@@ -2340,15 +2390,20 @@ def train_batch(cfg):
 
 
 def frozen_checksums(params) -> dict:
-    """Every non-scorer parameter's bits as integers, summed plainly and
-    weighted by position (mod 65,521): a change to any element moves one
-    of the two sums. Computed in chunks on the card (no copy of the
-    weights)."""
+    """Every non-scorer parameter's ``checksums``."""
+    return checksums(params, lambda n: not n.startswith("scorer."))
+
+
+def checksums(params, keep) -> dict:
+    """The bits of each parameter whose name ``keep`` accepts, as
+    integers summed plainly and weighted by position (mod 65,521): a
+    change to any element moves one of the two sums. Computed in chunks
+    on the card (no copy of the weights)."""
     import torch
 
     sums = {}
     for name, p in params.named_parameters():
-        if name.startswith("scorer."):
+        if not keep(name):
             continue
         bits = p.detach().reshape(-1).view(
             torch.int16 if p.element_size() == 2 else torch.int32)
@@ -6064,6 +6119,774 @@ def spec_phase(cfg, params, engine, input_ids, pixels, grid, ov_cfg,
     return launches, kernels
 
 
+# Phase 14 (train-methods): the standard-path trainers of ``api.train`` at
+# full width: packed rows, the dynamic predictor, SFT (3B) with the freeze
+# policy, LoRA SFT (OV-8B), and the CLIs on the card.
+PACK_RECORDS, PACK_HW = 8, (448, 448)  # 1,024 patches, 256 merged each
+PACK_S_BUCKET, PACK_T_BUCKET, PACK_STEPS = 4096, 2048, 4
+PACK_ROW = 4  # records per packed row: 4 x 1,024 aligned vision rows
+# the smallest buckets that hold one record (1,024 aligned vision rows, 330
+# ids): the unpacked steps packing is measured against
+PACK_SMALL = 1024, 512
+PACK_SEG = PACK_T_BUCKET, 330  # K1's packed-row check: 4 x 330 + a tail
+METHOD_STEPS = 3  # SFT and LoRA steps; dynamic takes 4
+DYN_STEPS = 4
+# The predictor's lr. At TRAIN_LR (5e-3) the keep ratio went 0.49 -> 0.40
+# -> 0.81 over three updates (measured on one H100): on these random weights
+# the CE's gradient on the predictor points against the mask loss's
+# (cosine -0.99) and is twice its norm, and a larger lr only swings
+# further.
+DYN_LR = 1e-3
+LORA_RANK, LORA_ALPHA = 64, 16  # the reference's OV recipe
+# the merged model's logits against the adapter model's: phase 11's rule
+# (max |difference| within 0.1 of the largest |logit|)
+MERGE_TOL = 0.1
+
+
+def detached_diag(q, k, v, seg, scale=None, block_q=None, impl=None):
+    """The planted fault of 14e, in the ViT's ``attention_diag``: the diag
+    kernel's output cut from the graph (what ``attention_diag`` returned
+    under grad before it went through ``FlashAttentionFn``)."""
+    from visionselector_tpu_torch.kernels import attention as A
+
+    return A.diag_attn_fwd(q, k, v, seg, scale, block_q).detach()
+
+
+def same_sums(a, b) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def timed_step(fn):
+    """(fn's result, its wall ms, ended by a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def methods_packed_k1(cfg) -> dict:
+    """14a: K1 causal on packed rows (B = 2, T = 2,048, GQA 16/2, D = 128;
+    each row 4 samples of 330 rows, each its own segment, then padding):
+    the forward against ``flash_plain`` (ULP_LIMIT; the kernel given the
+    row's segments merged into one as the planted fault), time, bound,
+    the visited and valid (query, key) pairs and one SDPA call with the
+    causal + segment mask; dq, dk, dv through ``FlashAttentionFn`` against
+    autograd of the plain version (GRAD_TOL). Returns the kernels line's
+    entry."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import tiles as T
+
+    b, (t, length) = TRAIN_BATCH, PACK_SEG
+    valid = PACK_ROW * length
+    hq, hkv, d = (cfg.text.num_attention_heads, cfg.text.num_key_value_heads,
+                  cfg.text.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v, g = rnd(b, t, hq, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d), \
+        rnd(b, t, hq, d)
+    row = torch.zeros(t, dtype=torch.int32, device="cuda")
+    for i in range(PACK_ROW):
+        row[i * length:(i + 1) * length] = i + 1
+    seg = row[None].repeat(b, 1)
+    merged = (seg > 0).int()
+    pos = torch.arange(t, device="cuda")
+    mask = ((seg[:, None, :, None] == seg[:, None, None, :])
+            & (seg[:, None, None, :] > 0) & (pos[:, None] >= pos[None]))
+    visited, _ = T.flash_steps_plain(row.cpu(), row.cpu(), True, None, None)
+    visited = visited.numpy()
+    pairs = valid_pairs(row.cpu().numpy(), visited, True)
+    entry = ov_kernel_entry(
+        "flash_varlen_fwd_packed_train",
+        f"packed rows B={b} T={t} segments {PACK_ROW}x{length} Hq={hq} "
+        f"Hkv={hkv} D={d}",
+        lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
+        lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
+        lambda: A.flash_varlen_fwd(q, k, v, merged, merged, causal=True),
+        # q, k, v of the valid rows (no padding row's is needed), out over
+        # every row (its padding written as zeros), the segment ids
+        (hq * valid + hq * t + 2 * hkv * valid) * b * d * 2 + b * t * 8,
+        4 * d * hq * pairs * b, lambda: sdpa_ms(q, k, v, mask),
+        lambda got: bool((got[seg == 0] == 0).all()),
+        tag="[methods-kernel]")
+    del mask
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = A.FLASH_GRAD_LAUNCHES
+    out = A.attention(*leaves, seg, seg, causal=True)
+    out.backward(g)
+    launched = A.FLASH_GRAD_LAUNCHES - n0
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    A.flash_plain(*refs, seg, seg, causal=True).backward(g)
+    errs = [rel_err(x.grad, r.grad) for x, r in zip(leaves, refs)]
+    mirror_ms = cuda_ms(lambda: A.flash_backward_plain(
+        q, k, v, seg, seg, True, None, out.detach(), g), n=3)
+    print(f"[methods-kernel] packed rows: visited (query, key) pairs per "
+          f"row {int(visited.sum()) * TILE * TILE} for {pairs} valid "
+          f"({int(visited.sum()) * TILE * TILE / pairs!r}x); gradient "
+          f"through FlashAttentionFn ({launched} launch under grad) against "
+          f"autograd of flash_plain: dq/dk/dv rel_err={errs!r} (limit "
+          f"{GRAD_TOL}); mirror backward ms={mirror_ms!r}", flush=True)
+    if not (max(errs) <= GRAD_TOL and launched == 1):
+        raise AssertionError("K1 packed-row gradient check failed")
+    return entry
+
+
+def diag_capture(run) -> dict:
+    """q, k, v, seg and scale of the first diag-kernel call ``run()``
+    makes."""
+    from visionselector_tpu_torch.kernels import attention as A
+
+    seen = {}
+    diag = A.diag_attn_fwd
+
+    def capture(q, k, v, seg, scale=None, block_q=A.DIAG_BLOCK):
+        if not seen:
+            seen.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                        seg=seg.clone(), scale=scale)
+        return diag(q, k, v, seg, scale, block_q)
+
+    with patched(A, "diag_attn_fwd", capture):
+        run()
+    return seen
+
+
+def methods_diag_grad(engine, input_ids, pixels, grid, checks):
+    """14b: K4 under autograd on the ViT's first window layer at S =
+    6,144 (q, k, v captured from a phase-3 prefill): ``FlashAttentionFn``'s
+    dq, dk, dv against autograd of ``diag_plain`` (GRAD_TOL), one launch
+    counted under grad, the mirror given one merged segment (planted)
+    above the tolerance; the mirror's ms beside K4's."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+
+    with torch.no_grad():
+        seen = diag_capture(lambda: engine.generate(
+            input_ids, pixels, grid, max_new_tokens=1))
+    q, k, v, seg, scale = (seen[n] for n in ("q", "k", "v", "seg", "scale"))
+    g = torch.randn(q.shape, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 15), device="cuda").bfloat16()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = A.DIAG_GRAD_LAUNCHES
+    out = A.attention_diag(*leaves, seg, scale=scale)
+    out.backward(g)
+    launched = A.DIAG_GRAD_LAUNCHES - n0
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = A.diag_plain(*refs, seg, scale)
+    want.backward(g)
+    ulps = bf16_ulp_err(out.detach(), want.detach())
+    errs = [rel_err(x.grad, r.grad) for x, r in zip(leaves, refs)]
+    merged = (seg > 0).int()
+    bad = A.flash_backward_plain(q, k, v, merged, merged, False, scale,
+                                 out.detach(), g)
+    fault = max(rel_err(x, r.grad) for x, r in zip(bad, refs))
+    k4_ms = cuda_ms(lambda: A.diag_attn_fwd(q, k, v, seg, scale))
+    mirror_ms = cuda_ms(lambda: A.flash_backward_plain(
+        q, k, v, seg, seg, False, scale, out.detach(), g), n=3)
+    print(f"[methods-diag] K4 under grad, ViT window layer S={q.shape[1]} "
+          f"H={q.shape[2]} D={q.shape[3]}: {launched} launch under grad, "
+          f"out ulp_err={ulps!r} (limit {ULP_LIMIT}); FlashAttentionFn dq/dk/"
+          f"dv against autograd of diag_plain rel_err={errs!r} (limit "
+          f"{GRAD_TOL}); planted fault (the mirror given one merged "
+          f"segment) {fault!r} (must exceed it); K4 forward ms={k4_ms!r} "
+          f"mirror backward ms={mirror_ms!r} ({mirror_ms / k4_ms!r}x; x 28 "
+          f"window layers: {mirror_ms * 28!r} ms a sample)", flush=True)
+    checks["K4 gradient"] = (launched == 1 and ulps <= ULP_LIMIT
+                             and max(errs) <= GRAD_TOL and fault > GRAD_TOL)
+    return k4_ms, mirror_ms
+
+
+def pack_records():
+    """PACK_RECORDS seeded 448x448 records: the 20 + 20 prompt ids around
+    the image slot and a 32-id answer (the supervised labels)."""
+    import numpy as np
+
+    from visionselector_tpu_torch.train.loss import IGNORE_INDEX
+
+    rng = np.random.RandomState(SEED + 14)
+    recs = []
+    for i in range(PACK_RECORDS):
+        img = (rng.rand(*PACK_HW, 3) * 255).astype(np.uint8)
+        answer = list(range(600 + 40 * i, 600 + 40 * i + ANSWER_LEN))
+        prompt = PROMPT_BEFORE + PROMPT_AFTER
+        recs.append({"ids": prompt + answer, "image_slot":
+                     len(PROMPT_BEFORE), "image": img, "images": [img],
+                     "labels": [IGNORE_INDEX] * len(prompt) + answer})
+    return recs
+
+
+def methods_packed_train(cfg, params, checks) -> int:
+    """14c: ``api.train._packed_stream`` over PACK_RECORDS records (rows of
+    4 records, B = 2) and PACK_STEPS selector steps (lr 5e-3, reg_weight
+    1.0) with launch counts; then as many unpacked steps over the same
+    records at the same buckets (their valid tokens/s ratio is the padding
+    ratio, as the walls are equal) and at the smallest buckets that hold
+    one record (PACK_SMALL: what packing gains). Returns the causal K1
+    launches of the last packed step (the counts zeroed just before
+    it)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from visionselector_tpu_torch.api.train import _packed_stream
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.dataset import (
+        build_sample_from_record,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+    from visionselector_tpu_torch.train.train_step import (
+        ScheduleConfig,
+        init_train_state,
+        train_step,
+    )
+
+    recs = pack_records()
+    args = SimpleNamespace(text_bucket=PACK_T_BUCKET,
+                           vision_bucket=PACK_S_BUCKET, budget=0.2)
+    stream = _packed_stream(cfg, recs, args, build_sample_from_record)
+    rows = [next(stream) for _ in range(TRAIN_BATCH)]
+    packed = to_device(stack_samples(rows), "cuda")
+
+    def unpacked(s_bucket, t_bucket):
+        singles = [build_sample_from_record(cfg, r, 0.2, s_bucket, t_bucket)
+                   for r in recs]
+        return [to_device(stack_samples(singles[i:i + TRAIN_BATCH]), "cuda")
+                for i in range(0, len(singles), TRAIN_BATCH)]
+
+    segs = [int(np.asarray(r.seg_ids).max()) for r in rows]
+    lens = [int((np.asarray(r.seg_ids) > 0).sum()) for r in rows]
+    print(f"[methods-packed] {PACK_RECORDS} records of {PACK_HW}: rows of "
+          f"{segs} records, {lens} ids, merged "
+          f"{[int(r.num_merged) for r in rows]} k {[int(r.k) for r in rows]}"
+          f" window_diag {[bool(r.window_diag) for r in rows]} (vision "
+          f"bucket {PACK_S_BUCKET}, text bucket {PACK_T_BUCKET})",
+          flush=True)
+    checks["packed rows"] = segs == [PACK_ROW] * TRAIN_BATCH and all(
+        bool(r.window_diag) for r in rows)
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    want = {"diag": TRAIN_BATCH * (cfg.vision.depth - n_full),
+            "vit_k1": TRAIN_BATCH * n_full,
+            "causal": cfg.text.num_hidden_layers}
+    result = {}
+    for name, batches, s_bucket in (
+            ("packed", [packed] * PACK_STEPS, PACK_S_BUCKET),
+            ("unpacked", unpacked(PACK_S_BUCKET, PACK_T_BUCKET),
+             PACK_S_BUCKET),
+            ("unpacked_small", unpacked(*PACK_SMALL), PACK_SMALL[0])):
+        k_max = max(1, int(s_bucket // cfg.vision.spatial_merge_unit * 0.2))
+        sched = ScheduleConfig(total_steps=len(batches), lr=TRAIN_LR,
+                               reg_weight_start=1.0, reg_weight_end=1.0)
+        state = init_train_state(params, sched)
+        losses, walls, counts = [], [], []
+        for batch in batches:
+            zero_counts()
+            (state, m), wall = timed_step(lambda: train_step(
+                state, params, batch, cfg, k_max, sched))
+            counts.append({"diag": A.DIAG_LAUNCHES,
+                           "vit_k1": A.FLASH_LAUNCHES
+                           - A.FLASH_CAUSAL_LAUNCHES,
+                           "causal": A.FLASH_CAUSAL_LAUNCHES})
+            losses.append(float(m["loss"]))
+            walls.append(wall)
+        valid = sum(int((b.seg_ids > 0).sum()) for b in batches)
+        ms = sorted(walls[1:])[len(walls[1:]) // 2]
+        result[name] = (valid / len(batches)) / ms * 1e3
+        print(f"[methods-packed] {name} (vision bucket "
+              f"{batches[0].pixel_values.shape[1]}, text bucket "
+              f"{batches[0].input_ids.shape[1]}): {len(batches)} steps loss "
+              f"{losses!r} step_wall_ms {walls!r} (median after the first "
+              f"{ms!r}) valid_tok_s={result[name]!r} launches {counts}",
+              flush=True)
+        checks[f"{name} launches per step"] = all(c == want for c in counts)
+        if name == "packed":
+            checks["packed loss falls"] = losses[-1] < losses[0]
+            packed_causal = counts[-1]["causal"]
+    print(f"[methods-packed] packed / unpacked valid tokens per second: at "
+          f"the same buckets {result['packed'] / result['unpacked']!r}x, at "
+          f"the smallest buckets that hold one record "
+          f"{result['packed'] / result['unpacked_small']!r}x", flush=True)
+    for p in params.parameters():
+        p.requires_grad_(False)
+    return packed_causal
+
+
+def dynamic_terms(cfg, params, predictor, batch, sched):
+    """The predictor's gradients of the CE and of the weighted mask loss
+    apart, at its initial parameters on one set of Gumbel draws (tau 1):
+    their norms and cosine; then the mask loss on the same draws after a
+    step of -eta g / |g| along the mask term's gradient g alone, at three
+    step sizes. Returns (the mask loss before, {eta: after})."""
+    import copy
+
+    import torch
+
+    from visionselector_tpu_torch.train.dynamic_train import (
+        dynamic_batch_forward,
+    )
+    from visionselector_tpu_torch.train.train_step import global_norm
+
+    l_pad = batch.image_positions.shape[1]
+    u = torch.rand(TRAIN_BATCH, l_pad, 2, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(
+                       SEED + 16))
+
+    def forward(pred):
+        return dynamic_batch_forward(pred, params, batch, cfg, 1.0, sched,
+                                     uniforms=u)[1]
+
+    m = forward(predictor)
+    terms = {"ce": m["ce"].mean(),
+             "mask": sched.mask_loss_weight * m["mask_loss"].mean()}
+    grads = {n: torch.autograd.grad(t, list(predictor.parameters()),
+                                    retain_graph=True)
+             for n, t in terms.items()}
+    norms = {n: global_norm(g).item() for n, g in grads.items()}
+    cos = (sum((a.float() * b.float()).sum() for a, b in zip(
+        grads["ce"], grads["mask"])) / (norms["ce"] * norms["mask"])).item()
+    probe = {}
+    for eta in (1e-2, 1e-1, 1.0):
+        moved = copy.deepcopy(predictor)
+        with torch.no_grad():
+            for p, g in zip(moved.parameters(), grads["mask"]):
+                p -= eta * g / norms["mask"]
+            probe[eta] = forward(moved)["mask_loss"].mean().item()
+    print(f"[methods-dynamic] predictor gradients at step 0 (tau 1, one "
+          f"set of draws): CE norm {norms['ce']!r}, weighted mask loss norm "
+          f"{norms['mask']!r}, cosine {cos!r}; mask loss "
+          f"{m['mask_loss'].mean().item()!r} -> {probe!r} after a step of "
+          f"eta along the mask term's gradient alone (same draws)",
+          flush=True)
+    return m["mask_loss"].mean().item(), probe
+
+
+def dynamic_descent(cfg, params, predictor, batch, sched, checks):
+    """One ``dynamic_train_step`` on one fixed set of Gumbel draws, on a
+    copy of ``predictor``. The warmup gives the first update lr 0, so the
+    generator is rewound and the second step takes the same draws (and a
+    constant tau, so both steps see the same gradient g and Adam's first
+    moving update is -lr g / |g| elementwise). Checks: both steps report
+    the objective (CE + w * mask loss) evaluated on those draws, the lr 0
+    step moves nothing, the next moves every predictor tensor, the
+    objective's first-order change along that update, g . delta, is
+    negative (a step with the wrong sign or none fails), and the objective
+    on the same draws is lower after the step. The last is not implied by
+    the first: the forward runs the hard keep mask, so the objective moves
+    only where a row's decision flips, which the straight-through gradient
+    does not see."""
+    import copy
+
+    import torch
+
+    from visionselector_tpu_torch.train.dynamic_train import (
+        dynamic_batch_forward,
+        dynamic_train_step,
+        init_dynamic_train_state,
+    )
+
+    sched = sched._replace(tau_end=sched.tau_start)
+    state = init_dynamic_train_state(params, copy.deepcopy(predictor), sched,
+                                     seed=SEED + 17)
+    draws = state.generator.get_state()
+    gen = torch.Generator(device="cuda")
+    gen.set_state(draws)
+    # the draws gumbel_keep_mask takes from the state's generator
+    u = torch.rand(TRAIN_BATCH, batch.image_positions.shape[1], 2,
+                   generator=gen, device="cuda")
+
+    def objective(pred):
+        losses, m = dynamic_batch_forward(pred, params, batch, cfg,
+                                          sched.tau_start, sched, uniforms=u)
+        return losses.mean(), m["keep_ratio"].mean().item()
+
+    weights = list(state.predictor.parameters())
+    loss0, keep0 = objective(state.predictor)
+    grads = torch.autograd.grad(loss0, weights)
+    loss0 = loss0.item()
+    theta0 = [p.detach().clone() for p in weights]
+    state, m1 = dynamic_train_step(state, params, batch, cfg, sched)
+    still = all(torch.equal(p, t) for p, t in zip(weights, theta0))
+    state.generator.set_state(draws)
+    state, m2 = dynamic_train_step(state, params, batch, cfg, sched)
+    delta = [p.detach() - t for p, t in zip(weights, theta0)]
+    moved = sum(bool(d.any()) for d in delta)
+    first = sum((g.double() * d.double()).sum() for g, d in zip(
+        grads, delta)).item()
+    with torch.no_grad():
+        loss1, keep1 = objective(state.predictor)
+    same = [abs(float(m["loss"]) - loss0) <= 1e-4 * abs(loss0)
+            for m in (m1, m2)]
+    print(f"[methods-dynamic] one step on fixed draws (tau {sched.tau_start}"
+          f"): objective {loss0!r} (the steps report {float(m1['loss'])!r}, "
+          f"{float(m2['loss'])!r}); step 1 lr {float(m1['lr'])!r} moved "
+          f"nothing {still}; step 2 lr {float(m2['lr'])!r} moved {moved} of "
+          f"{len(delta)} tensors, first-order change g.delta {first!r} (must "
+          f"be < 0; |g|_1 {sum(g.abs().sum().item() for g in grads)!r}); "
+          f"objective after {loss1.item()!r} (must be lower; keep ratio "
+          f"{keep0!r} -> {keep1!r})", flush=True)
+    checks["dynamic: a step descends its objective"] = (
+        all(same) and still and float(m1["lr"]) == 0.0
+        and moved == len(delta) and first < 0 and loss1.item() < loss0)
+
+
+def methods_dynamic(cfg, params, input_ids, pixels, grid, tmp, checks):
+    """14d: the CE's and the mask loss's gradients on the predictor apart,
+    and a step along the mask loss's alone, which must lower it on the
+    same Gumbel draws (``dynamic_terms``); one ``dynamic_train_step`` on
+    fixed draws that must descend its objective (``dynamic_descent``);
+    then DYN_STEPS predictor steps (d_model 512, 8 heads) on phase 6's
+    batch at DYN_LR: CE, mask loss and keep ratio; the predictor moves at
+    every step whose lr is above 0 and at no other; only the predictor
+    changes; 2 causal K1 launches without grad and 34 with grad per step;
+    the export reloaded bit for bit drives ``DynamicSelect`` to the
+    in-memory predictor's first token."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.selector.baselines.dynamic import (
+        DynamicSelect,
+        init_predictor,
+    )
+    from visionselector_tpu_torch.train.dynamic_train import (
+        DynamicScheduleConfig,
+        dynamic_train_step,
+        export_predictor_to_safetensors,
+        init_dynamic_train_state,
+        load_predictor,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+
+    batch = to_device(train_batch(cfg), "cuda")
+    sched = DynamicScheduleConfig(total_steps=DYN_STEPS, lr=DYN_LR)
+    pred = init_predictor(cfg.text.hidden_size, torch.Generator(
+        device="cuda").manual_seed(SEED + 14), "cuda", d_model=512,
+        num_heads=8)
+    before = checksums(params, lambda n: True)
+    state = init_dynamic_train_state(params, pred, sched, seed=SEED)
+    m0, probe = dynamic_terms(cfg, params, state.predictor, batch, sched)
+    checks["dynamic: the mask loss's gradient lowers it"] = (
+        probe[0.1] < m0 and probe[1.0] < probe[0.1])
+    dynamic_descent(cfg, params, state.predictor, batch, sched, checks)
+    target, n_layers = sched.target_layer, cfg.text.num_hidden_layers
+    metrics, walls, counts, moved = [], [], [], []
+    for _ in range(DYN_STEPS):
+        last = [p.detach().clone() for p in state.predictor.parameters()]
+        zero_counts()
+        (state, m), wall = timed_step(lambda: dynamic_train_step(
+            state, params, batch, cfg, sched))
+        counts.append((A.FLASH_CAUSAL_LAUNCHES - A.FLASH_GRAD_LAUNCHES,
+                       A.FLASH_GRAD_LAUNCHES))
+        moved.append(not all(torch.equal(p, q) for p, q in zip(
+            state.predictor.parameters(), last)))
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append(wall)
+        print(f"[methods-dynamic] step {len(walls)}: " + " ".join(
+            f"{k}={v!r}" for k, v in metrics[-1].items())
+            + f" causal K1 without / with grad {counts[-1]} predictor moved "
+            f"{moved[-1]} wall_ms={wall!r}", flush=True)
+    print(f"[methods-dynamic] mask loss over the steps "
+          f"{[m['mask_loss'] for m in metrics]!r} (not checked: on these "
+          f"random weights the CE's gradient opposes the mask loss's)",
+          flush=True)
+    checks["dynamic K1 launches"] = all(
+        c == (target, n_layers - target) for c in counts)
+    checks["dynamic: the predictor moves at every step with lr > 0"] = all(
+        mv == (m["lr"] > 0) for mv, m in zip(moved, metrics))
+    checks["dynamic: only the predictor changes"] = same_sums(
+        before, checksums(params, lambda n: True))
+    path = os.path.join(tmp, "image_score_predictor.safetensors")
+    export_predictor_to_safetensors(state.predictor, path)
+    loaded = load_predictor(path, "cuda", 8)
+    same = all(torch.equal(a, b) for a, b in zip(
+        state.predictor.parameters(), loaded.parameters()))
+    tokens = []
+    for p in (state.predictor, loaded):
+        eng = QwenVLEngine(cfg, params, budget=0.2, device="cuda",
+                           strategy=DynamicSelect(predictor=p))
+        with torch.no_grad():
+            tokens.append(eng.generate(input_ids, pixels, grid,
+                                       max_new_tokens=1).tokens)
+    print(f"[methods-dynamic] export reloaded bit-equal={same}; "
+          f"DynamicSelect first token in memory {tokens[0]} reloaded "
+          f"{tokens[1]}; step_wall_ms {walls!r}", flush=True)
+    checks["dynamic export"] = same and tokens[0][:1] == tokens[1][:1]
+    for p in params.parameters():
+        p.requires_grad_(False)
+
+
+def vit_remat():
+    """``vit_mod._block`` under ``torch.utils.checkpoint`` (one block's
+    activations live at a time in the backward) for the plain reference
+    of 14e."""
+    import torch.utils.checkpoint
+
+    from visionselector_tpu_torch.models.qwen25vl import vit as vit_mod
+
+    block = vit_mod._block
+    return patched(vit_mod, "_block", lambda *a, **kw:
+                   torch.utils.checkpoint.checkpoint(
+                       block, *a, use_reentrant=False, **kw))
+
+
+def methods_sft(cfg, params, checks):
+    """14e: METHOD_STEPS full-LM SFT steps at B = 2 (phase 6's batch, lr
+    5e-3): the loss falls, the ViT and the scorer bit-equal, the LM
+    changed; peak memory. Then the ``--tune-mm-vision`` gradient of a
+    window layer's q kernel on one sample against the same with every
+    attention plain by autograd (TRAIN_GRAD_TOL), the kernel's output
+    detached as the planted fault."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import vit as vit_mod
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.loss import to_device
+    from visionselector_tpu_torch.train.sft import (
+        SFTScheduleConfig,
+        init_sft_state,
+        sft_batch_forward,
+        sft_train_step,
+    )
+
+    host = train_batch(cfg)
+    batch = to_device(host, "cuda")
+    frozen = checksums(params, lambda n: not n.startswith("lm."))
+    lm_before = checksums(params, lambda n: n.startswith("lm."))
+    sched = SFTScheduleConfig(total_steps=METHOD_STEPS, lr=TRAIN_LR)
+    state = init_sft_state(params, sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(METHOD_STEPS):
+        (state, m), wall = timed_step(lambda: sft_train_step(
+            state, params, batch, cfg, sched))
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+        print(f"[methods-sft] step {len(walls)}: " + " ".join(
+            f"{k}={float(v)!r}" for k, v in m.items())
+            + f" wall_ms={wall!r}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    lm_after = checksums(params, lambda n: n.startswith("lm."))
+    changed = sum(not torch.equal(lm_after[n], lm_before[n])
+                  for n in lm_before)
+    print(f"[methods-sft] 3B full-LM SFT B={TRAIN_BATCH} T={TRAIN_T_BUCKET}:"
+          f" loss {losses!r} step_wall_ms {walls!r} max_memory_allocated="
+          f"{peak}; LM tensors changed {changed} of {len(lm_before)}",
+          flush=True)
+    checks["sft loss falls"] = losses[-1] < losses[0]
+    checks["sft: ViT and scorer bit-equal"] = same_sums(
+        frozen, checksums(params, lambda n: not n.startswith("lm.")))
+    checks["sft: the LM changed"] = changed == len(lm_before)
+    del state
+    torch.cuda.empty_cache()
+
+    one = to_device(stack_samples([type(host)(*(
+        np.asarray(x)[0] for x in host))]), "cuda")
+    vis = SFTScheduleConfig(tune_mm_vision=True, tune_mm_llm=False)
+    init_sft_state(params, vis)
+    w = params.visual.blocks[0].qkv_kernel  # block 0: a window layer
+    hp = w.shape[1] // 3
+
+    def q_grad(attn_impl=None, remat=False):
+        loss = sft_batch_forward(params, one, cfg, remat, attn_impl)[0]
+        (g,) = torch.autograd.grad(loss.mean(), [w], allow_unused=True)
+        return torch.zeros_like(w[:, :hp]) if g is None else g[:, :hp]
+
+    n0 = A.DIAG_GRAD_LAUNCHES
+    got = q_grad()
+    launched = A.DIAG_GRAD_LAUNCHES - n0
+    with patched(A, "FlashAttentionFn", PlainAutogradAttention), vit_remat():
+        ref = q_grad("plain", remat=True)
+    with patched(vit_mod, "attention_diag", detached_diag):
+        bad = q_grad()
+    err, fault = rel_err(got, ref), rel_err(bad, ref)
+    n_window = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
+    print(f"[methods-sft] --tune-mm-vision, one sample: window block 0's "
+          f"q-kernel gradient (kernels, FlashAttentionFn, {launched} K4 "
+          f"launches under grad) against every attention plain by autograd:"
+          f" rel_err={err!r} (limit {TRAIN_GRAD_TOL}); planted fault (K4's "
+          f"output detached) {fault!r} (must exceed it)", flush=True)
+    checks["sft --tune-mm-vision gradient"] = (
+        err <= TRAIN_GRAD_TOL < fault and launched == n_window)
+    for p in params.parameters():
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+
+def methods_lora(ov_cfg, ov_params, checks):
+    """14f: LoRA SFT on OV-8B (rank 64, alpha 16, METHOD_STEPS steps on
+    phase 12's batch, lr 5e-3): the base weights bit-equal, every adapter
+    changed, step wall and peak memory; then the merged model's logits
+    against the adapter model's (MERGE_TOL) and the first greedy token
+    equal. The merge is in place: OV-8B is not used after this."""
+    import torch
+
+    from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
+    from visionselector_tpu_torch.train.loss import to_device
+    from visionselector_tpu_torch.train.lora import (
+        add_lora_params,
+        lora_leaf,
+        merge_lora_params,
+    )
+    from visionselector_tpu_torch.train.sft import (
+        SFTScheduleConfig,
+        forward_logits,
+        init_sft_state,
+        sft_train_step,
+    )
+
+    batch = to_device(ov_train_batch(ov_cfg), "cuda")
+    base = checksums(ov_params, lambda n: True)
+    add_lora_params(ov_params.lm, torch.Generator(device="cuda").manual_seed(
+        SEED + 14), rank=LORA_RANK, alpha=LORA_ALPHA)
+    sched = SFTScheduleConfig(total_steps=METHOD_STEPS, lr=TRAIN_LR,
+                              lora_rank=LORA_RANK)
+    state = init_sft_state(ov_params, sched)
+    start = {n: p.detach().clone() for n, p in state.trainables.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(METHOD_STEPS):
+        (state, m), wall = timed_step(lambda: sft_train_step(
+            state, ov_params, batch, ov_cfg, sched))
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(p, start[n])
+                for n, p in state.trainables.items())
+    n_adapters = sum(p.numel() for p in state.trainables.values())
+    print(f"[methods-lora] OV-8B LoRA rank {LORA_RANK} alpha {LORA_ALPHA} "
+          f"({len(start)} adapter tensors, {n_adapters} parameters) B="
+          f"{TRAIN_BATCH} T={OV_TRAIN_T_BUCKET}: loss {losses!r} "
+          f"step_wall_ms {walls!r} max_memory_allocated={peak}; adapters "
+          f"changed {moved} of {len(start)}", flush=True)
+    checks["lora: base bit-equal"] = same_sums(
+        base, checksums(ov_params, lambda n: not lora_leaf(n)))
+    checks["lora: only the adapters change"] = moved == len(start)
+    del state, start
+    for p in ov_params.parameters():
+        p.requires_grad_(False)
+    sample = type(batch)(*(x[0] for x in batch))
+    n = int(sample.seg_ids.sum())
+    req = ov_request(ov_cfg)
+    eng = OVEngine(ov_cfg, ov_params, use_selector=False, device="cuda")
+    with torch.no_grad():
+        adapted = forward_logits(ov_params, sample, ov_cfg)[:n]
+        tok_a = eng.generate(**req, max_new_tokens=1).tokens
+        merge_lora_params(ov_params.lm)
+        merged = forward_logits(ov_params, sample, ov_cfg)[:n]
+        tok_m = eng.generate(**req, max_new_tokens=1).tokens
+    diff = (merged - adapted).abs().max().item()
+    scale = adapted.abs().max().item()
+    left = sum(lora_leaf(n) for n, _ in ov_params.named_parameters())
+    print(f"[methods-lora] merged model against the adapter model: max "
+          f"|logit difference| {diff!r} of max |logit| {scale!r} (limit "
+          f"{MERGE_TOL} of it) over {n} rows; first greedy token adapters "
+          f"{tok_a} merged {tok_m}; adapters left {left}", flush=True)
+    checks["lora merge"] = (diff <= MERGE_TOL * scale and left == 0
+                            and tok_a[:1] == tok_m[:1])
+    del adapted, merged, eng
+    torch.cuda.empty_cache()
+
+
+def methods_clis(tmp, procs):
+    """14g: ``api.train --smoke`` on the card with ``--method dynamic``,
+    ``--method sft --lora-rank 8`` and ``--async-save`` (3 steps each, in
+    processes of their own beside the rest of the phase)."""
+    runs = {"train_dynamic": (["--method", "dynamic"],
+                              "image_score_predictor.safetensors"),
+            "train_lora": (["--method", "sft", "--lora-rank", "8"],
+                           "lora_merged/params.pt"),
+            "train_async": (["--async-save"],
+                            "importance_scorer.safetensors")}
+    for key, (extra, _) in runs.items():
+        start_cli(procs, tmp, "train", "--smoke", "--total-steps",
+                  str(METHOD_STEPS), "--batch-size", "2", "--log-steps", "1",
+                  "--output-dir", os.path.join(tmp, key), *extra, key=key)
+    return runs
+
+
+def methods_clis_done(tmp, procs, runs, checks):
+    for key, (extra, export) in runs.items():
+        rc, stdout, stderr, secs = finish_cli(procs, key)
+        out = os.path.join(tmp, key)
+        steps = []
+        with contextlib.suppress(OSError), open(
+                os.path.join(out, "train_log.jsonl")) as f:
+            steps = [json.loads(ln)["step"] for ln in f]
+        files = {name: os.path.isfile(os.path.join(out, name)) for name in (
+            "train_log.jsonl", f"checkpoint-{METHOD_STEPS}/train_state.pt",
+            export)}
+        tail = (stdout.strip().splitlines()[-3:] if rc == 0
+                else stderr[-2000:])
+        print(f"[methods-cli] api.train --smoke {' '.join(extra)} (cuda): "
+              f"rc={rc} in {secs!r} s files {files} {tail}", flush=True)
+        checks[f"api.train {' '.join(extra)}"] = (
+            rc == 0 and all(files.values())
+            and steps == list(range(1, METHOD_STEPS + 1)))
+
+
+def methods_phase_ov(ov_cfg, ov_params, tmp) -> dict:
+    """Phase 14, part 1, while OV-8B is on the card: the CLIs start (14g),
+    then 14f. Returns the state part 2 finishes."""
+    t0 = time.perf_counter()
+    print(f"[methods] card: {nvidia_smi()}", flush=True)
+    part = dict(checks={}, procs={}, tmp=os.path.join(tmp, "methods"))
+    os.makedirs(part["tmp"])
+    part["runs"] = methods_clis(part["tmp"], part["procs"])
+    try:
+        methods_lora(ov_cfg, ov_params, part["checks"])
+    except BaseException:
+        for proc, _, _ in part["procs"].values():
+            proc.kill()
+        raise
+    part["seconds"] = time.perf_counter() - t0
+    return part
+
+
+def methods_phase(cfg, params, engine, input_ids, pixels, grid, part):
+    """Phase 14, part 2 (OV-8B's weights dropped): 14a-14e, then the CLIs'
+    results. Raises if any check of the phase failed; returns (the causal
+    K1 launches of the last packed step, the kernels line's entry of K1
+    on packed rows). 14e trains the 3B's LM in place, so it runs last."""
+    import torch
+
+    t0 = time.perf_counter()
+    checks = part["checks"]
+    try:
+        entry = methods_packed_k1(cfg)
+        methods_diag_grad(engine, input_ids, pixels, grid, checks)
+        launches = methods_packed_train(cfg, params, checks)
+        methods_dynamic(cfg, params, input_ids, pixels, grid, part["tmp"],
+                        checks)
+        methods_sft(cfg, params, checks)
+        methods_clis_done(part["tmp"], part["procs"], part["runs"], checks)
+    finally:
+        for proc, _, _ in part["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[methods] checks: {checks}", flush=True)
+    seconds = part["seconds"] + time.perf_counter() - t0
+    print(f"[methods] phase seconds {seconds!r} (OV-8B part "
+          f"{part['seconds']!r})", flush=True)
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"train-methods phase failed: {bad}")
+    return launches, entry
+
+
 def main() -> int:
     import torch
 
@@ -6167,7 +6990,16 @@ def main() -> int:
             out_dir)
         launches.update(spec_launches)
         kernels.update(spec_kernels)
+        # The trainers of api.train: OV-8B's LoRA SFT while its weights are
+        # on the card, then the 3B's packed rows, dynamic predictor and
+        # SFT; the packed path's causal K1 launches are those of its last
+        # step (zeroed just before, read just after).
+        part = methods_phase_ov(ov_cfg, ov_params, tmp)
         del ov_params
+        torch.cuda.empty_cache()
+        (launches["flash_varlen_fwd_packed_train"],
+         kernels["flash_varlen_fwd_packed_train"]) = methods_phase(
+            cfg, params, engine, input_ids, pixels, grid, part)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

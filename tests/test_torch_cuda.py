@@ -1230,3 +1230,100 @@ def test_tiny_speculative_batcher_on_the_card(dev, kv_quant):
     for r, req in zip(res, reqs):
         assert len(r.tokens) == 9
         assert r.tokens[0] == eng.generate(**req, max_new_tokens=1).tokens[0]
+
+
+def _packed_row_seg(t, n_seg, length, dev):
+    """A packed LM row: ``n_seg`` samples of ``length`` rows, segment ids
+    1..n_seg, then a padding tail."""
+    seg = torch.zeros(t, dtype=torch.int32, device=dev)
+    for i in range(n_seg):
+        seg[i * length:(i + 1) * length] = i + 1
+    return seg
+
+
+@pytest.mark.parametrize("t, length", [(2048, 330), (333, 70)])
+def test_flash_causal_packed_row_matches_plain(dev, t, length):
+    """K1 causal on packed rows (several samples, each its own segment,
+    tiles straddling them; GQA 16/2, D = 128, B = 2): the forward within
+    ULP_LIMIT of ``flash_plain``, padding rows zero; the kernel given the
+    row's segments merged into one (a planted fault) exceeds it; dq, dk,
+    dv through ``FlashAttentionFn`` within GRAD_TOL of autograd of the
+    plain version, counted as one launch under grad."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    b = 2
+    q, g = _rnd(gen, b, t, 16, 128), _rnd(gen, b, t, 16, 128)
+    k, v = _rnd(gen, b, t, 2, 128), _rnd(gen, b, t, 2, 128)
+    n_seg = min(4, t // length)
+    seg = _packed_row_seg(t, n_seg, length, dev)[None].repeat(b, 1)
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, causal=True)
+    want = A.flash_plain(q, k, v, seg, seg, causal=True)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+    merged = (seg > 0).int()
+    assert _err(A.flash_varlen_fwd(q, k, v, merged, merged, causal=True),
+                want) > ULP_LIMIT
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = A.FLASH_GRAD_LAUNCHES
+    A.attention(*leaves, seg, seg, causal=True).backward(g)
+    assert A.FLASH_GRAD_LAUNCHES - n0 == 1
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    A.flash_plain(*refs, seg, seg, causal=True).backward(g)
+    for got_g, ref in zip(leaves, refs):
+        assert _rel(got_g.grad, ref.grad) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("s, h, d", [(256, 4, 80), (6144, 16, 80)])
+def test_diag_gradient_matches_plain_autograd(dev, s, h, d):
+    """``attention_diag`` with inputs that require grad goes through
+    ``FlashAttentionFn``: the diag kernel forward (one launch, counted in
+    DIAG_GRAD_LAUNCHES), the mirror backward; dq, dk, dv within GRAD_TOL
+    of autograd of ``diag_plain``; padding rows get zero gradients; the
+    mirror given one merged segment (a planted fault) exceeds it. Without
+    grad nothing goes through the Function."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k, v, g = (_rnd(gen, 1, s, h, d) for _ in range(4))
+    seg_np = np.zeros(s, np.int32)
+    for w in range(s // 64):  # windows of 48 rows, each in its own tile
+        seg_np[w * 64:w * 64 + 48] = w + 1
+    seg = torch.as_tensor(seg_np, device=dev)[None]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0, d0 = A.DIAG_GRAD_LAUNCHES, A.DIAG_LAUNCHES
+    out = A.attention_diag(*leaves, seg)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert A.DIAG_GRAD_LAUNCHES - n0 == 1 and A.DIAG_LAUNCHES - d0 == 1
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = A.diag_plain(*refs, seg)
+    want.backward(g)
+    assert _err(out.detach(), want.detach()) <= ULP_LIMIT
+    for got, ref in zip(leaves, refs):
+        assert _rel(got.grad, ref.grad) <= GRAD_TOL
+    assert (leaves[0].grad[seg == 0] == 0).all()
+    merged = (seg > 0).int()
+    bad = A.flash_backward_plain(q, k, v, merged, merged, False, None,
+                                 out.detach(), g)
+    assert max(_rel(x, r.grad) for x, r in zip(bad, refs)) > GRAD_TOL
+    with torch.no_grad():
+        assert A.attention_diag(*leaves, seg).grad_fn is None
+    assert A.DIAG_GRAD_LAUNCHES - n0 == 1
+
+
+def test_fused_vit_attention_raises_under_grad(dev):
+    """The fused kernel has no backward: with a qkv slab that requires
+    grad it raises instead of returning an output cut from the graph; the
+    plain route stays differentiable."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as FV
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s, h, d = 128, 4, 80
+    qkv = _rnd(gen, s, 3 * h * d).requires_grad_(True)
+    seg = torch.ones(s, dtype=torch.int32, device=dev)
+    cos = torch.ones(s, d, device=dev)
+    sin = torch.zeros(s, d, device=dev)
+    n0 = FV.FUSED_LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        FV.fused_vit_attention(qkv, seg, cos, sin, None, h, d)
+    assert FV.FUSED_LAUNCHES == n0
+    out = FV.fused_vit_attention(qkv, seg, cos, sin, None, h, d,
+                                 impl="plain")
+    assert out.grad_fn is not None

@@ -137,8 +137,9 @@ def test_run_eval_family_llava_ov15(tmp_path, capsys, extra):
 
 def test_train_family_llava_ov15_still_refused(tmp_path):
     """OV training runs (``tests/test_torch_ov_train.py``); packed rows
-    with it are still refused, as for the Qwen family."""
-    with pytest.raises(NotImplementedError, match="data-flatten"):
+    with it are refused with ValueError (the reference packs Qwen rows
+    only and ignores the flag for this family)."""
+    with pytest.raises(ValueError, match="data-flatten"):
         ttrain.main(["--family", "llava_ov15", "--smoke", "--device", "cpu",
                      "--data-flatten", "--output-dir", str(tmp_path)])
 

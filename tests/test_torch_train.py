@@ -222,6 +222,43 @@ def test_flash_backward_planted_faults_are_seen(fault):
     assert max(errs) > 1e-2, errs
 
 
+def test_diag_function_gradient_matches_plain_autograd():
+    """``attention_diag`` under grad goes through ``FlashAttentionFn``
+    (``diag_plain`` forward on CPU tensors, the mirror backward with the
+    window segments and no causal mask): dq, dk, dv within 1e-5 of each
+    tensor's max |value| of autograd through ``diag_plain``; padding rows
+    get zero gradients; without grad nothing goes through it. The fused
+    ViT entry has no backward and raises under grad instead of cutting
+    the graph."""
+    from visionselector_tpu_torch.kernels import fused_vit_attn as tfused
+
+    rng = np.random.RandomState(3)
+    s, h, d = 256, 4, 16
+    q, k, v, g = (_t(rng.randn(1, s, h, d).astype(np.float32))
+                  for _ in range(4))
+    seg_np = np.zeros(s, np.int32)
+    for w in range(s // 16):  # windows of 12 rows in 16-row slots
+        seg_np[w * 16:w * 16 + 12] = w + 1
+    seg = _t(seg_np[None])
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tattn.attention_diag(*leaves, seg)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.backward(g)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    tattn.diag_plain(*refs, seg).backward(g)
+    for got, ref in zip(leaves, refs):
+        assert _rel_err(got.grad.numpy(), ref.grad.numpy()) < 1e-5
+    assert (leaves[0].grad[0, seg_np == 0] == 0).all()
+    with torch.no_grad():
+        assert tattn.attention_diag(*leaves, seg).grad_fn is None
+    qkv = _t(rng.randn(s, 3 * h * d).astype(np.float32)).requires_grad_(True)
+    cos, sin = torch.ones(s, d), torch.zeros(s, d)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfused.fused_vit_attention(qkv, seg[0], cos, sin, None, h, d)
+    assert tfused.fused_vit_attention(qkv, seg[0], cos, sin, None, h, d,
+                                      impl="plain").grad_fn is not None
+
+
 # ------------------------------------------------------------ loss and steps
 
 @pytest.fixture(scope="module")
@@ -570,17 +607,80 @@ def test_train_cli_smoke_writes_log_checkpoint_and_scorer(tmp_path, capsys):
         assert len(f.readlines()) == 3
 
 
-@pytest.mark.parametrize("extra", [
-    ["--method", "sft"], ["--method", "dpo"], ["--method", "grpo"],
-    ["--method", "dynamic"], ["--family", "llava_ov15", "--data-flatten"],
-    ["--data-flatten"],
-    ["--lora-rank", "8"], ["--async-save"]])
-def test_train_cli_unported_options_raise(tmp_path, extra):
+@pytest.mark.parametrize("extra, error", [
+    (["--method", "dpo"], NotImplementedError),
+    (["--method", "grpo"], NotImplementedError),
+    (["--family", "llava_ov15", "--data-flatten"], ValueError),
+    (["--data-flatten"], ValueError),  # packing needs --annotation records
+    (["--family", "llava_ov15", "--method", "dynamic"], ValueError),
+    (["--lora-rank", "8"], ValueError),  # adapters train under sft
+])
+def test_train_cli_unported_options_raise(tmp_path, extra, error):
+    """DPO and GRPO are not ported (NotImplementedError); combinations the
+    reference ignores without a word raise ValueError."""
     from visionselector_tpu_torch.api import train as tapi
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         tapi.main(["--smoke", "--device", "cpu", "--output-dir",
                    str(tmp_path)] + extra)
+
+
+@pytest.mark.parametrize("extra, outputs", [
+    (["--method", "sft"], []),
+    (["--method", "dynamic"], ["image_score_predictor.safetensors"]),
+    (["--data-flatten"], ["importance_scorer.safetensors"]),
+    (["--method", "sft", "--lora-rank", "8"], ["lora_merged/params.pt"]),
+    (["--async-save"], ["importance_scorer.safetensors"]),
+])
+def test_train_cli_methods_write_outputs(tmp_path, monkeypatch, extra,
+                                         outputs):
+    """``api.train --device cpu --total-steps 3`` with each option that
+    replaced a refusal: three log lines of finite losses, checkpoint-3
+    (holding the method's trained tensors) and the method's export; a
+    second run resumes and takes no step. ``--data-flatten`` trains on
+    the annotation file of ``_write_dataset`` (its one-image records
+    packed, the two-image one unpacked) with ``StubTokenizer``; the others
+    on the tiny config's synthetic data. The exports load: the predictor
+    through ``load_predictor``, the merged model as a state dict without
+    adapters."""
+    from visionselector_tpu_torch.api import train as tapi
+    from visionselector_tpu_torch.core.checkpoint import STATE_FILE
+
+    out = str(tmp_path / "run")
+    argv = ["--device", "cpu", "--total-steps", "3", "--batch-size", "2",
+            "--log-steps", "1", "--output-dir", out] + extra
+    if "--data-flatten" in extra:
+        monkeypatch.setattr(tapi, "_tokenizer", lambda path: StubTokenizer())
+        argv += ["--annotation", _write_dataset(tmp_path), "--image-root",
+                 str(tmp_path), "--vision-bucket", "256", "--text-bucket",
+                 "512"]
+    else:
+        argv.append("--smoke")
+    assert tapi.main(argv) == 0
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        log = [json.loads(ln) for ln in f]
+    assert [m["step"] for m in log] == [1, 2, 3]
+    assert all(np.isfinite(m["loss"]) for m in log)
+    blob = torch.load(os.path.join(out, "checkpoint-3", STATE_FILE),
+                      weights_only=True)
+    assert blob["step"] == 3 and blob["params"]
+    for name in outputs:
+        assert os.path.isfile(os.path.join(out, name)), name
+    if "dynamic" in extra:
+        from visionselector_tpu_torch.train.dynamic_train import (
+            load_predictor,
+        )
+
+        pred = load_predictor(os.path.join(out, outputs[0]), "cpu", 4)
+        assert pred.down_kernel.shape == (96, 64) and "generator" in blob
+    if "--lora-rank" in extra:
+        merged = torch.load(os.path.join(out, outputs[0]), weights_only=True)
+        assert "lm.layers.0.q_kernel" in merged
+        assert not any("_lora_" in n for n in merged)
+        assert all("_lora_" in n for n in blob["params"])
+    assert tapi.main(argv) == 0
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        assert len(f.readlines()) == 3
 
 
 def test_reg_weight_schedule_matches_jax():

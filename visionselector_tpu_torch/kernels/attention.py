@@ -50,7 +50,11 @@ Training differentiates the flash kernel through ``FlashAttentionFn``:
 its forward is the kernel (the plain version on CPU tensors), its backward
 ``flash_backward_plain``, a blocked PyTorch mirror of the reference's XLA
 backward (the reference has no Pallas backward kernel). ``attention`` and
-``attention_packed`` take it only when q, k or v requires grad.
+``attention_packed`` take it only when q, k or v requires grad, and so
+does ``attention_diag`` (its forward the diag kernel, the same mirror with
+the window segments and no causal mask behind it).
+``FLASH_GRAD_LAUNCHES`` / ``DIAG_GRAD_LAUNCHES`` count the launches made
+under grad.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. ``FLASH_LAUNCHES`` / ``DIAG_LAUNCHES``
@@ -102,6 +106,11 @@ FLASH_CAPPED_LAUNCHES = 0
 # ``flash_varlen_fwd`` launches with the causal mask (decoder prefills);
 # each also counts in FLASH_LAUNCHES, so the rest are the vision towers'.
 FLASH_CAUSAL_LAUNCHES = 0
+# Launches made under grad, through ``FlashAttentionFn``: the flash and
+# packed wrappers' in FLASH_GRAD_LAUNCHES, the diag wrapper's in
+# DIAG_GRAD_LAUNCHES; each also counts in its wrapper's count.
+FLASH_GRAD_LAUNCHES = 0
+DIAG_GRAD_LAUNCHES = 0
 # Calls of the flash kernel source (flash, packed and ablation wrappers) by
 # route; there is one, "wgmma": the image prologue, then the wgmma main loop.
 FLASH_ROUTE_LAUNCHES = {"wgmma": 0}
@@ -743,13 +752,21 @@ def attention_with_received(q, k, v, seg, scale=None, block=RECV_BLOCK,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """The flash forward (``fwd(q, k, v)``: the kernel on CUDA tensors, its
-    plain version on CPU tensors) with ``flash_backward_plain`` as its
-    backward. No fallback: a forward that fails raises."""
+    """The flash or diag forward (``fwd(q, k, v)``: the kernel on CUDA
+    tensors, its plain version on CPU tensors) with ``flash_backward_plain``
+    as its backward. For the diag kernel that is the reference's
+    ``_with_reference_vjp(..., seg, seg, False, scale)``: the mirror streams
+    over every key under the segment mask, and on the window-aligned layout
+    each segment lies inside one block, so that is the block-diagonal
+    attention's gradient. No fallback: a forward that fails raises."""
 
     @staticmethod
     def forward(ctx, fwd, q, k, v, q_seg, kv_seg, causal, scale):
+        global FLASH_GRAD_LAUNCHES, DIAG_GRAD_LAUNCHES
+        flash, diag = FLASH_LAUNCHES + PACKED_LAUNCHES, DIAG_LAUNCHES
         out = fwd(q, k, v)
+        FLASH_GRAD_LAUNCHES += FLASH_LAUNCHES + PACKED_LAUNCHES - flash
+        DIAG_GRAD_LAUNCHES += DIAG_LAUNCHES - diag
         ctx.save_for_backward(q, k, v, q_seg, kv_seg, out)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -818,13 +835,24 @@ def attention_packed(q, k, v, q_seg, kv_seg, num_heads, num_kv_heads, dp,
 def attention_diag(q, k, v, seg, scale=None, block_q=None, impl=None):
     """Block-diagonal segment attention (window-aligned ViT layout); every
     segment lives inside one ``block_q``-aligned block. Equivalent to
-    ``attention(..., causal=False)`` on such layouts."""
+    ``attention(..., causal=False)`` on such layouts. ``impl="plain"`` runs
+    ``diag_plain`` on any device; the default the kernel on CUDA tensors
+    and ``diag_plain`` on CPU tensors. When q, k or v requires grad (and
+    grad mode is on) the call goes through ``FlashAttentionFn`` (the same
+    forward, ``flash_backward_plain`` with the window segments and no
+    causal mask behind it); otherwise nothing is saved."""
     block_q = DIAG_BLOCK if block_q is None else block_q
     if impl == "plain":
-        return diag_plain(q, k, v, seg, scale, block_q)
-    if impl is not None:
+        fwd = diag_plain
+    elif impl is None:
+        fwd = diag_attn_fwd
+    else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    return diag_attn_fwd(q, k, v, seg, scale, block_q)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(
+            lambda q, k, v: fwd(q, k, v, seg, scale, block_q), q, k, v, seg,
+            seg, False, scale)
+    return fwd(q, k, v, seg, scale, block_q)
 
 
 def decode_blocked_plain(q, k_cache, v_cache, base_len, scale=None,

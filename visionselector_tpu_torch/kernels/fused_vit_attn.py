@@ -172,10 +172,17 @@ def fused_vit_attention(qkv, seg, cos, sin, kv_bounds, num_heads: int,
     range. Returns [S, H*d]. The kernels for CUDA tensors (bf16, d in
     KERNEL_HEAD_DIMS), ``fused_plain`` for CPU tensors or ``impl="plain"``.
     Heads zero-padded in the weights do not fit: the slab must be exactly
-    3 * num_heads * head_dim wide.
+    3 * num_heads * head_dim wide. The kernel has no backward (nor has the
+    reference's, which defines no VJP): with a qkv that requires grad the
+    default route raises instead of returning an output cut from the
+    graph; ``impl="plain"`` is differentiable by autograd.
     """
     global FUSED_LAUNCHES
     _check_width(qkv, num_heads, head_dim)
+    if (impl is None and torch.is_grad_enabled() and qkv.requires_grad):
+        raise RuntimeError(
+            "fused_vit_attention has no backward: run the default ViT "
+            "route (attn_variant=None) to train through the tower")
     if scale is None:
         scale = head_dim**-0.5
     if impl == "plain" or (impl is None and _on_cpu(qkv, seg, cos, sin)):

@@ -2,8 +2,8 @@
 LLaVA-OneVision-1.5 through its config flags.
 
 Counterpart of ``visionselector_tpu.models.qwen25vl.lm`` (bf16 / fp32
-weights; weight quantization, LoRA and the MoE variant are not ported
-yet):
+weights, LoRA adapters from ``train.lora``; weight quantization and the
+MoE variant are not ported yet):
 
 - Qwen3 flags: ``head_dim_override``; ``qk_norm`` (a per-head RMSNorm of
   q and k after the head reshape and before the rotary, with ``q_norm_scale``
@@ -205,8 +205,17 @@ def _apply_mrope(q, k, cos, sin):
 
 
 def _dense(x, p: nn.Module, name: str):
-    """x @ kernel (bf16 / fp32 weights)."""
-    return x @ getattr(p, name)
+    """x @ kernel (bf16 / fp32 weights), plus ``(x @ A) @ B * scale`` when
+    the layer holds LoRA adapters for the kernel (``train.lora``; the
+    reference's ``_dense``). The adapter term is added in x's dtype: the
+    reference's fp32 scale leaf promotes its output to fp32, which the
+    bf16 kernels after it do not take (ROADMAP section 3)."""
+    y = x @ getattr(p, name)
+    a = p._parameters.get(name + "_lora_a")
+    if a is not None:
+        lora = (x @ a) @ p._parameters[name + "_lora_b"] * p.lora_scale
+        y = y + lora.to(y.dtype)
+    return y
 
 
 def _qkv(x, p: DecoderLayer, cfg: TextConfig):

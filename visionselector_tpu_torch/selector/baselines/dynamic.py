@@ -1,5 +1,4 @@
-"""Dynamic-Qwen: a trained token-selection predictor (Dynamic-LLaVA port),
-its inference part.
+"""Dynamic-Qwen: a trained token-selection predictor (Dynamic-LLaVA port).
 
 Counterpart of ``visionselector_tpu.selector.baselines.dynamic``: a small
 transformer scorer over the image hidden states at decoder layer
@@ -11,9 +10,10 @@ transformer scorer over the image hidden states at decoder layer
 
 fp32 weights in an ``nn.Module`` (matmul kernels ``[in, out]``, the
 reference's names). Inference keeps the top ``int(N * budget)`` image
-tokens ranked by ``log_softmax(logits)[..., 0]``. The training part
-(``tau_schedule``, ``gumbel_keep_mask``) belongs to ``--method dynamic``
-training, which is not ported yet.
+tokens ranked by ``log_softmax(logits)[..., 0]``. Training
+(``train.dynamic_train``) samples a straight-through Gumbel keep mask
+(``gumbel_keep_mask``) at an exponentially decayed temperature
+(``tau_schedule``).
 """
 
 from __future__ import annotations
@@ -121,6 +121,37 @@ def predictor_forward(pred: Predictor, x: torch.Tensor,
     h = F.gelu(h @ pred.out1_kernel + pred.out1_bias, approximate="none")
     h = F.gelu(h @ pred.out2_kernel + pred.out2_bias, approximate="none")
     return h @ pred.out3_kernel + pred.out3_bias
+
+
+def tau_schedule(step: int, total_steps: int, start: float = 1.0,
+                 end: float = 0.1) -> float:
+    """Exponential Gumbel temperature decay ``start * (end / start) ^
+    (step / total)``, the fraction clipped to [0, 1], in the reference's
+    fp32 arithmetic (``train_qwen_dynamic.py:72-76``; JAX
+    ``baselines/dynamic.py:130-133``)."""
+    f32 = np.float32
+    frac = np.clip(f32(step) / f32(max(total_steps, 1)), f32(0), f32(1))
+    return float(f32(start) * f32(end / start) ** frac)
+
+
+def gumbel_keep_mask(logits: torch.Tensor, tau, uniform=None,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
+    """Straight-through Gumbel-softmax keep decision (JAX
+    ``baselines/dynamic.py:136-145``): logits [..., 2] -> keep [...], the
+    hard one-hot's channel 0 (keep) in the forward, the soft sample's
+    gradient in the backward (``hard + soft - soft.detach()``).
+
+    ``uniform``: the U(0, 1) draws [..., 2] behind the Gumbel noise (the
+    tests hand in the ones ``jax.random.uniform`` draws); None draws them
+    from ``generator`` on the logits' device."""
+    if uniform is None:
+        uniform = torch.rand(logits.shape, generator=generator,
+                             device=logits.device)
+    g = -torch.log(-torch.log(uniform + 1e-10) + 1e-10)
+    soft = torch.softmax((logits + g) / tau, dim=-1)
+    hard = F.one_hot(soft.argmax(-1), 2).to(soft.dtype)
+    return (hard + soft - soft.detach())[..., 0]
 
 
 class DynamicSelect:

@@ -9,10 +9,14 @@ dataset`` (the reference data layer, ``qwen-vl-finetune/qwenvl/data/``):
   returned as a slot for its vision tokens,
 - 3-retry + neighbour-fallback ``__getitem__``,
 - ``build_sample_from_record``: a record -> ``TrainBatchSample`` (one or
-  several images, or a video at its ``<video>`` placeholder).
+  several images, or a video at its ``<video>`` placeholder),
+- sequence packing (``--data-flatten``): ``build_packed_train_sample``
+  puts several one-image records in one row with distinct segment ids,
+  the port's counterpart of the reference's flattened collator;
+  ``pack_text_samples`` plans first-fit groups by length.
 
 The tokenizer is passed in (``encode(text) -> ids``); nothing here
-imports ``transformers``. Packing (``--data-flatten``) is not ported.
+imports ``transformers``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import json
 import logging
 import os
 import random
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -291,3 +295,131 @@ def build_sample_from_record(
         image_positions=image_pos_p,
         **vision_fields(vb),
     )
+
+
+def build_packed_train_sample(
+    cfg,
+    records: List[dict],
+    budget: float,
+    s_bucket: int,
+    t_bucket: int,
+    min_pixels: int = 56 * 56,
+    max_pixels: int = 28 * 28 * 1280,
+    align_windows: bool = True,
+) -> TrainBatchSample:
+    """Pack several one-image records into ONE ``TrainBatchSample`` row
+    (``visionselector_tpu.train.dataset.build_packed_train_sample``):
+
+    - sample i (1-based) gets segment id i, so the decoder's causal
+      attention stays inside each sample, and its M-RoPE ids restart at 0;
+    - all the row's images go through one multi-image vision batch (the
+      window-aligned layout by default; ``align_windows=False`` gives the
+      reference's classic one), the selection runs jointly over the row's
+      merged tokens with ``k = max(1, int(budget * n_total))``;
+    - each sample's first label is IGNORE_INDEX (no loss across a sample
+      boundary).
+
+    Raises ValueError where the reference asserts: a record without an
+    image slot, a record of several images (route it through
+    ``build_sample_from_record``), or a row longer than ``t_bucket``.
+    """
+    all_pixels, all_grids = [], []
+    ids_parts, label_parts, pos_parts, seg_parts = [], [], [], []
+    for si, rec in enumerate(records):
+        if rec["image"] is None or rec["image_slot"] < 0:
+            raise ValueError("packed rows take image records only")
+        if len(rec.get("images") or [rec["image"]]) != 1:
+            raise ValueError(
+                "packed rows splice one image per record; route "
+                "multi-image records through build_sample_from_record")
+        pixels, grid = preprocess_image(
+            rec["image"], min_pixels=min_pixels, max_pixels=max_pixels,
+            patch_size=cfg.vision.patch_size,
+            temporal_patch_size=cfg.vision.temporal_patch_size,
+            merge_size=cfg.vision.spatial_merge_size,
+        )
+        all_pixels.append(pixels)
+        all_grids.append(grid)
+        n_i = pixels.shape[0] // cfg.vision.spatial_merge_unit
+        vision_ids = ([cfg.vision_start_token_id]
+                      + [cfg.image_token_id] * n_i
+                      + [cfg.vision_end_token_id])
+        slot = rec["image_slot"]
+        ids_i = np.asarray(rec["ids"][:slot] + vision_ids
+                           + rec["ids"][slot:], np.int64)
+        labels_i = np.asarray(rec["labels"][:slot]
+                              + [IGNORE_INDEX] * len(vision_ids)
+                              + rec["labels"][slot:], np.int64)
+        labels_i[0] = IGNORE_INDEX  # nothing predicted across the boundary
+        pos_i, _ = get_rope_index(
+            ids_i, image_grid_thw=grid,
+            spatial_merge_size=cfg.vision.spatial_merge_size,
+            tokens_per_second=cfg.vision.tokens_per_second,
+            image_token_id=cfg.image_token_id,
+            video_token_id=cfg.video_token_id,
+            vision_start_token_id=cfg.vision_start_token_id,
+        )
+        ids_parts.append(ids_i)
+        label_parts.append(labels_i)
+        pos_parts.append(pos_i)
+        seg_parts.append(np.full(len(ids_i), si + 1, np.int32))
+
+    vb = build_vision_batch(
+        np.concatenate(all_pixels), np.concatenate(all_grids),
+        window_size=cfg.vision.window_size,
+        spatial_merge_size=cfg.vision.spatial_merge_size,
+        patch_size=cfg.vision.patch_size,
+        pad_to=s_bucket,
+        align_windows=align_windows,
+    )
+    n = vb.num_merged
+    l_pad = s_bucket // cfg.vision.spatial_merge_unit
+    full_ids = np.concatenate(ids_parts)
+    t_real = len(full_ids)
+    if t_real > t_bucket:
+        raise ValueError(f"packed row of {t_real} tokens exceeds the text "
+                         f"bucket {t_bucket}")
+
+    ids_p = np.zeros(t_bucket, np.int64)
+    ids_p[:t_real] = full_ids
+    lab_p = np.full(t_bucket, IGNORE_INDEX, np.int64)
+    lab_p[:t_real] = np.concatenate(label_parts)
+    pos_p = np.zeros((3, t_bucket), np.int64)
+    pos_p[:, :t_real] = np.concatenate(pos_parts, axis=1)
+    seg = np.zeros(t_bucket, np.int32)
+    seg[:t_real] = np.concatenate(seg_parts)
+    image_pos = np.where(ids_p == cfg.image_token_id)[0][:n]
+    image_pos_p = np.full(l_pad, t_bucket, np.int64)
+    image_pos_p[:n] = image_pos
+
+    return TrainBatchSample(
+        num_merged=np.asarray(n, np.int32),
+        k=np.asarray(max(1, int(n * budget)), np.int32),
+        input_ids=ids_p,
+        labels=lab_p,
+        position_ids=pos_p,
+        seg_ids=seg,
+        image_positions=image_pos_p,
+        **vision_fields(vb),
+    )
+
+
+def pack_text_samples(samples: List[dict], t_bucket: int) -> Optional[dict]:
+    """First-fit packing plan over tokenized lengths
+    (``visionselector_tpu.train.dataset.pack_text_samples``): each sample
+    goes to the first group whose total ``len(sample["ids"])`` stays within
+    ``t_bucket``, else opens a new one. Returns {"groups": [[index, ...],
+    ...], "sizes": [total ids per group]}."""
+    groups: List[List[int]] = []
+    sizes: List[int] = []
+    for i, s in enumerate(samples):
+        n = len(s["ids"])
+        for g in range(len(groups)):
+            if sizes[g] + n <= t_bucket:
+                groups[g].append(i)
+                sizes[g] += n
+                break
+        else:
+            groups.append([i])
+            sizes.append(n)
+    return {"groups": groups, "sizes": sizes}

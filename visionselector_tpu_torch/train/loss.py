@@ -104,19 +104,25 @@ def bce(p: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
     return (per * valid).sum() / valid.sum().clamp(min=1)
 
 
+def vit_tokens(params, batch: TrainBatchSample, b: int, attn_impl):
+    """Sample b's merged vision tokens [L_pad, D]; a graph only when the
+    tower's weights require grad (SFT's ``--tune-mm-vision``)."""
+    return vit_mod.vit_forward(
+        params.visual, batch.pixel_values[b], batch.rot_pos_ids[b],
+        batch.window_seg_ids[b], batch.full_seg_ids[b],
+        batch.reverse_index[b],
+        window_kv_bounds=batch.window_kv_bounds[b],
+        full_kv_bounds=batch.full_kv_bounds[b],
+        window_diag=bool(batch.window_diag[b]),
+        window_kv_iters=int(batch.window_kv_iters[b]),
+        full_kv_iters=int(batch.full_kv_iters[b]),
+        attn_impl=attn_impl)
+
+
 def _vision(params, batch: TrainBatchSample, b: int, attn_impl):
     """Sample b's merged vision tokens [L_pad, D] (frozen: no graph)."""
     with torch.no_grad():
-        return vit_mod.vit_forward(
-            params.visual, batch.pixel_values[b], batch.rot_pos_ids[b],
-            batch.window_seg_ids[b], batch.full_seg_ids[b],
-            batch.reverse_index[b],
-            window_kv_bounds=batch.window_kv_bounds[b],
-            full_kv_bounds=batch.full_kv_bounds[b],
-            window_diag=bool(batch.window_diag[b]),
-            window_kv_iters=int(batch.window_kv_iters[b]),
-            full_kv_iters=int(batch.full_kv_iters[b]),
-            attn_impl=attn_impl)
+        return vit_tokens(params, batch, b, attn_impl)
 
 
 def scatter_vision(lm, input_ids, image_positions, tokens):
@@ -128,6 +134,17 @@ def scatter_vision(lm, input_ids, image_positions, tokens):
     full[:t_pad] = text
     full[image_positions] = tokens.to(text.dtype)
     return full[:t_pad]
+
+
+def supervised_ce(lm, hidden, labels):
+    """One sample's CE from its final hidden states [T, D] (post-norm) and
+    labels [T]: position t predicts label t + 1, and the fp32 head runs on
+    the supervised rows only (the others add exactly zero to the CE and
+    its gradient)."""
+    labels = labels[1:]
+    rows = (labels != IGNORE_INDEX).nonzero()[:, 0]
+    logits = lm_mod.lm_head(lm, hidden[:-1][rows])  # fp32
+    return cross_entropy(logits, labels[rows])
 
 
 def composite_batch_forward(params, batch, vision, reg_weight, k_max: int,
@@ -151,10 +168,7 @@ def composite_batch_forward(params, batch, vision, reg_weight, k_max: int,
         batch.seg_ids, attn_impl=attn_impl, remat=remat)
     losses, ce_l, bce_l, mass_l = [], [], [], []
     for b, soft in enumerate(softs):
-        labels = batch.labels[b, 1:]
-        rows = (labels != IGNORE_INDEX).nonzero()[:, 0]
-        logits = lm_mod.lm_head(params.lm, hidden[b, :-1][rows])  # fp32
-        ce = cross_entropy(logits, labels[rows])
+        ce = supervised_ce(params.lm, hidden[b], batch.labels[b])
         n = soft.soft_mask.shape[0]
         row_ok = (torch.arange(n, device=ce.device)
                   < int(batch.num_merged[b])).float()

@@ -60,13 +60,19 @@ class OVTrainSample(NamedTuple):
     host_fields = HOST_FIELDS  # a class attribute, not a field
 
 
+def rice_tokens(params, batch: OVTrainSample, b: int, attn_impl):
+    """Sample b's merged vision tokens [L_pad, D]; a graph only when the
+    tower's weights require grad (SFT's ``--tune-mm-vision``)."""
+    return rice_mod.rice_forward(
+        params.visual, batch.pixel_values[b], batch.rot_pos_ids[b],
+        batch.insert_map[b], batch.strip_map[b], batch.vit_seg_ids[b],
+        kv_bounds=batch.kv_bounds[b], attn_impl=attn_impl)
+
+
 def _rice(params, batch: OVTrainSample, b: int, attn_impl):
     """Sample b's merged vision tokens [L_pad, D] (frozen: no graph)."""
     with torch.no_grad():
-        return rice_mod.rice_forward(
-            params.visual, batch.pixel_values[b], batch.rot_pos_ids[b],
-            batch.insert_map[b], batch.strip_map[b], batch.vit_seg_ids[b],
-            kv_bounds=batch.kv_bounds[b], attn_impl=attn_impl)
+        return rice_tokens(params, batch, b, attn_impl)
 
 
 def ov_selector_batch_forward(params, batch: OVTrainSample, cfg: OVConfig,
@@ -92,14 +98,15 @@ def ov_selector_train_forward(params, sample: OVTrainSample, cfg: OVConfig,
 
 def ov_forward_logits(params, sample: OVTrainSample, cfg: OVConfig,
                       remat: bool = False, attn_impl=None) -> torch.Tensor:
-    """Uncompressed OV forward to fp32 logits [T_pad, V]: the RICE tower,
-    every merged token scattered (no selector mask), the decoder, the
-    head. The counterpart of the Qwen SFT forward's logits, for the
-    DPO / GRPO log-prob scorers of ``--family llava_ov15``."""
+    """Uncompressed OV forward to fp32 logits [T_pad, V]: the RICE tower
+    (with grad when its weights train), every merged token scattered (no
+    selector mask), the decoder, the head. The counterpart of
+    ``sft.sft_forward_logits`` for ``--family llava_ov15``
+    (``sft.forward_logits`` dispatches on the sample type)."""
     one = batch_of_one(sample)
     embeds = scatter_vision(params.lm, sample.input_ids,
                             sample.image_positions,
-                            _rice(params, one, 0, attn_impl))
+                            rice_tokens(params, one, 0, attn_impl))
     hidden, _ = lm_mod.lm_prefill(
         params.lm, embeds[None], sample.position_ids[:, None, :],
         sample.seg_ids[None], attn_impl=attn_impl, remat=remat)

@@ -21,6 +21,11 @@ optax steps:
   0.01), betas (0.9, 0.999), eps 1e-8 outside the square root, bias
   correction counted from 1, as optax's ``adamw``.
 ``reg_weight`` follows ``TrainState.step``, the count of updates taken.
+
+``accumulate`` and ``_update`` serve every method of ``api.train`` (the
+selector here, ``dynamic_train`` and ``sft``): a state's ``trainable()``
+names the parameters that train, and only they have gradients, optimizer
+state and a place in the clipping norm (optax's ``masked``).
 """
 
 from __future__ import annotations
@@ -59,6 +64,10 @@ class TrainState:
     optimizer: torch.optim.AdamW
     step: int = 0  # updates taken
 
+    def trainable(self) -> dict:
+        """{name: parameter} of what trains (and what a checkpoint holds)."""
+        return dict(self.scorer.named_parameters())
+
 
 def lr_schedule(sched: ScheduleConfig) -> Callable[[int], float]:
     """Learning rate of update n: optax's warmup-cosine schedule in fp32."""
@@ -77,10 +86,10 @@ def lr_schedule(sched: ScheduleConfig) -> Callable[[int], float]:
     return lr_at
 
 
-def make_optimizer(scorer: torch.nn.Module,
-                   sched: ScheduleConfig) -> torch.optim.AdamW:
-    return torch.optim.AdamW(scorer.parameters(), lr=0.0,
-                             betas=(0.9, 0.999), eps=1e-8,
+def make_optimizer(params, sched) -> torch.optim.AdamW:
+    """AdamW over the parameters ``params`` with optax's settings; the lr
+    is set per update by ``_update``."""
+    return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=sched.weight_decay)
 
 
@@ -90,7 +99,8 @@ def init_train_state(params, sched: ScheduleConfig) -> TrainState:
         p.requires_grad_(False)
     for p in params.scorer.parameters():
         p.requires_grad_(True)
-    return TrainState(params.scorer, make_optimizer(params.scorer, sched))
+    return TrainState(params.scorer,
+                      make_optimizer(params.scorer.parameters(), sched))
 
 
 def batch_loss(params, batch, cfg, reg_weight, k_max: int,
@@ -109,10 +119,10 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
-def _update(state: TrainState, sched: ScheduleConfig) -> dict:
-    """Clip the scorer's gradients (optax's rule) and take one AdamW step
-    at the schedule's lr; returns {"grad_norm", "lr"}."""
-    params = list(state.scorer.parameters())
+def _update(state, sched) -> dict:
+    """Clip the trainable parameters' gradients (optax's rule) and take
+    one AdamW step at the schedule's lr; returns {"grad_norm", "lr"}."""
+    params = list(state.trainable().values())
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -150,19 +160,34 @@ def train_step_accum(state: TrainState, params, batches: List, cfg,
     reg_weight = reg_weight_schedule(state.step, sched.total_steps,
                                      sched.reg_weight_start,
                                      sched.reg_weight_end)
+    state, metrics = accumulate(
+        state, sched, batches, lambda mb: batch_loss(
+            params, mb, cfg, reg_weight, k_max, sched.remat, attn_impl))
+    metrics["reg_weight"] = reg_weight
+    return state, metrics
+
+
+def accumulate(state, sched, batches: List,
+               loss_fn: Callable) -> Tuple[object, dict]:
+    """One update of ``state`` (any method's: see ``_update``) from
+    equal-sized micro-batches: ``loss_fn(mb) -> (mean loss, {metric:
+    scalar})``; the gradients of the micro-batches' losses summed in
+    ``.grad`` and divided by their count (the gradient of the mean over
+    the concatenated batch), one micro-batch's activations live at a time.
+    Returns (state, metrics averaged over micro-batches, with "loss",
+    "grad_norm" and "lr")."""
     state.optimizer.zero_grad(set_to_none=True)
     losses, metric_list = [], []
     for mb in batches:
-        loss, metrics = batch_loss(params, mb, cfg, reg_weight, k_max,
-                                   sched.remat, attn_impl)
+        loss, metrics = loss_fn(mb)
         loss.backward()  # .grad accumulates the sum
         losses.append(loss.detach())
         metric_list.append(metrics)
-    for p in state.scorer.parameters():
+    for p in state.trainable().values():
         if p.grad is not None:
             p.grad.div_(len(batches))
     metrics = {k: torch.stack([m[k].detach() for m in metric_list]).mean()
                for k in metric_list[0]}
-    metrics.update(loss=torch.stack(losses).mean(), reg_weight=reg_weight)
+    metrics["loss"] = torch.stack(losses).mean()
     metrics.update(_update(state, sched))
     return state, metrics
