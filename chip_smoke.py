@@ -353,7 +353,41 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    against every attention plain by autograd (the ViT blocks and the LM
    recomputed in the backward) within TRAIN_GRAD_TOL, with K4's output
    detached as the planted fault; this trains the 3B's LM in place, so
-   it runs last.
+   it runs after every other phase that reads it.
+15. Preference and RL training (``preference``). While OV-8B is on the
+   card: ``api.train --smoke`` with ``--method dpo``, ``--method dpo
+   --grad-accum-steps 2 --dpo-loss-type ipo``, ``--method grpo`` and
+   ``--family llava_ov15 --method grpo --lora-rank 8`` start in processes
+   of their own (3 steps each), and after 14f (c) OV-8B DPO of LoRA
+   adapters (rank 64; one pair of phase 12's image at T = 2,048, 2 steps):
+   step 0's loss ln 2, the base bit-equal, every adapter B changed, step
+   wall, peak memory. After phase 14, (b) then (a). (b) 3B GRPO of LoRA
+   adapters (rank 64, beta 0.04, the grpo reduction, 2 steps) on one
+   prompt (phase 3's image and ids with the assistant opener): 4 rollouts
+   of up to 32 tokens at temperature 1 through ``QwenVLEngine(
+   use_selector=False)`` with the adapters live, each equal to one-shot
+   ``generate`` with its seed, at least 2 distinct, 36 K5 launches per
+   decode step; a synthetic reward; the first completion row's
+   log-softmax from the training forward against the engine prefill's
+   (the heads' fp32 rounding, within 4 bf16 ulps; the vision run spliced
+   one slot late as the planted fault); step 0's KL exactly 0 and
+   clip_ratio 0; the base bit-equal, every B changed and every A
+   unchanged after the two steps; rollout and step walls, peak memory;
+   the adapters are then merged into the decoder. The CLIs' outputs (log,
+   checkpoint-3, ``lora_merged``) are checked and their resumed runs
+   start. (a) 3B DPO of the whole decoder (phase 6's image and prompt,
+   phase 6's answer against a seeded one, T = 1,536, sigmoid, beta 0.1, 3
+   steps): at the starting weights one decoder leaf's DPO gradient against
+   every attention plain by autograd (TRAIN_GRAD_TOL; chosen and rejected
+   swapped on the plain side as the planted fault); step 0's loss ln 2,
+   the margin > 0 after the steps, the reference copy bit-equal before
+   and after, the ViT and scorer bit-equal, every decoder tensor changed,
+   K1 (with and without grad) and K4 launches per step against the count
+   the code implies, step wall and peak memory. (d) The resumed CLIs
+   (resumed at step 3, no step taken); ``train.check_data`` (exit 0 on
+   clean records, 1 on three broken ones) and ``train.prep_data``
+   (filter; sample-merge byte-equal for one seed, not for another). Trains
+   the 3B's decoder in place, so it runs last.
 
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
@@ -2399,12 +2433,16 @@ def checksums(params, keep) -> dict:
     integers summed plainly and weighted by position (mod 65,521): a
     change to any element moves one of the two sums. Computed in chunks
     on the card (no copy of the weights)."""
+    return tensor_checksums({name: p for name, p in params.named_parameters()
+                             if keep(name)})
+
+
+def tensor_checksums(named: dict) -> dict:
+    """``checksums`` of a {name: tensor} dict."""
     import torch
 
     sums = {}
-    for name, p in params.named_parameters():
-        if not keep(name):
-            continue
+    for name, p in named.items():
         bits = p.detach().reshape(-1).view(
             torch.int16 if p.element_size() == 2 else torch.int32)
         acc = torch.zeros(2, dtype=torch.int64, device=p.device)
@@ -6845,13 +6883,18 @@ def methods_phase_ov(ov_cfg, ov_params, tmp) -> dict:
     part = dict(checks={}, procs={}, tmp=os.path.join(tmp, "methods"))
     os.makedirs(part["tmp"])
     part["runs"] = methods_clis(part["tmp"], part["procs"])
+    part["pref"] = pref = pref_start(tmp)
     try:
         methods_lora(ov_cfg, ov_params, part["checks"])
+        part["seconds"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pref_ov(ov_cfg, ov_params, pref["checks"])  # 15c
+        pref["ov_seconds"] += time.perf_counter() - t1
     except BaseException:
         for proc, _, _ in part["procs"].values():
             proc.kill()
+        pref_kill(pref)
         raise
-    part["seconds"] = time.perf_counter() - t0
     return part
 
 
@@ -6885,6 +6928,638 @@ def methods_phase(cfg, params, engine, input_ids, pixels, grid, part):
     if bad:
         raise AssertionError(f"train-methods phase failed: {bad}")
     return launches, entry
+
+
+PREF_STEPS = 3  # 3B DPO steps (15a)
+GRPO_STEPS, GRPO_G, GRPO_LEN = 2, 4, 32  # 15b: steps, group, tokens
+GRPO_BETA = 0.04
+OV_DPO_STEPS = 2  # 15c
+# "<|im_start|>assistant\n": the opener that starts a rollout on the chat
+# template's assistant turn (the reference applies add_generation_prompt)
+OPENER = [151644, 77091, 198]
+# 15b: the first completion row's log-softmax from the training forward
+# (uncompressed, T = 1,536) against the engine's prefill logits over the
+# temperature. Both forwards take the same rows through the same kernels
+# and bf16 GEMMs; the heads differ (the engine's GEMM on the bf16 weight
+# with an fp32 output, the training head's on an fp32 copy) in the order
+# of their fp32 sums of the same exact bf16 products. Rounding errors of
+# random sign leave two such sums ~sqrt(K) 2^-24 sum_k |h_k w_kj| apart
+# (K u sum |x| at worst), twice that after the log-softmax's normalizer;
+# the check allows PREF_LOGP_MARGIN times that, and at most
+# PREF_LOGP_ULPS bf16 ulps of the row's largest |log-prob|. Measured on
+# an H100 (80GB HBM3, 700 W): the rows 1.5e-5 apart on fresh weights,
+# 5.9e-5 on the trained ones; the vision run spliced one slot late moves
+# them by 0.094 and 0.0095, which 4 bf16 ulps of the largest |log-prob|
+# (0.5) and the worst-case fp32 bound (0.017) do not see.
+PREF_LOGP_ULPS, PREF_LOGP_MARGIN = 4, 4
+
+
+def pref_counts() -> dict:
+    from visionselector_tpu_torch.kernels import attention as A
+
+    return {"k1": A.FLASH_LAUNCHES, "k1_grad": A.FLASH_GRAD_LAUNCHES,
+            "k1_causal": A.FLASH_CAUSAL_LAUNCHES, "k4": A.DIAG_LAUNCHES,
+            "k4_grad": A.DIAG_GRAD_LAUNCHES, "k5": A.DECODE_LAUNCHES}
+
+
+def pref_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in pref_counts().items()}
+
+
+def pref_pair(cfg, build, s_bucket, t_bucket):
+    """15a / 15c's pair: phase 6's image and 40 prompt ids; chosen is
+    phase 6's first 32-id answer, rejected another seeded 32 ids."""
+    import numpy as np
+
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.loss import to_device
+
+    img = request_image()
+    chosen = list(range(500, 500 + ANSWER_LEN))
+    rejected = [int(t) for t in np.random.RandomState(SEED + 15).randint(
+        1000, 100000, ANSWER_LEN)]
+    return tuple(to_device(stack_samples([build(
+        cfg, img, PROMPT_BEFORE, PROMPT_AFTER, ans, budget=0.2,
+        s_bucket=s_bucket, t_bucket=t_bucket)]), "cuda")
+        for ans in (chosen, rejected))
+
+
+def pref_dpo(cfg, params, checks):
+    """15a: 3B DPO of the whole decoder (phase 6's pair, sigmoid, beta
+    0.1, PREF_STEPS steps at TRAIN_LR). First, at the starting weights, one
+    decoder leaf's DPO gradient against every attention plain by autograd
+    (TRAIN_GRAD_TOL; chosen and rejected swapped on the plain side as the
+    planted fault). Then the steps: step 0's loss ln 2, the margin after
+    the last step > 0, the reference copy bit-equal before and after, the
+    ViT and scorer bit-equal, every decoder tensor changed, K1 / K4
+    launches per step against the count the code implies, step wall and
+    peak memory."""
+    import math
+
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train.data import build_train_sample
+    from visionselector_tpu_torch.train.dpo import (
+        DPOScheduleConfig,
+        ReferencePolicy,
+        dpo_pair_loss,
+        dpo_train_step,
+        init_dpo_state,
+    )
+
+    chosen, rejected = pref_pair(cfg, build_train_sample, TRAIN_S_BUCKET,
+                                 TRAIN_T_BUCKET)
+    sched = DPOScheduleConfig(total_steps=PREF_STEPS, lr=TRAIN_LR)
+    frozen = checksums(params, lambda n: not n.startswith("lm."))
+    lm_before = checksums(params, lambda n: n.startswith("lm."))
+    state = init_dpo_state(params, sched)
+    ref = ReferencePolicy(params, state)
+    ref_before = tensor_checksums(ref.weights)
+    w = params.lm.layers[len(params.lm.layers) // 2].q_kernel
+
+    def leaf_grad(c, r, attn_impl=None):
+        loss, _ = dpo_pair_loss(params, ref, c, r, sched, attn_impl)
+        return torch.autograd.grad(loss, [w])[0]
+
+    got = leaf_grad(chosen, rejected)
+    with patched(A, "FlashAttentionFn", PlainAutogradAttention):
+        want = leaf_grad(chosen, rejected, "plain")
+        bad = leaf_grad(rejected, chosen, "plain")
+    err, fault = rel_err(got, want), rel_err(bad, want)
+    print(f"[pref-dpo] starting weights: the DPO gradient of a middle "
+          f"layer's q kernel (kernels, FlashAttentionFn) against every "
+          f"attention plain by autograd: rel_err={err!r} (limit "
+          f"{TRAIN_GRAD_TOL}); planted fault (chosen and rejected swapped "
+          f"on the plain side) {fault!r} (must exceed it)", flush=True)
+    checks["dpo gradient against plain autograd"] = (
+        err <= TRAIN_GRAD_TOL < fault)
+    del got, want, bad
+    torch.cuda.empty_cache()
+    n_vit = 2 * 2  # reference and policy, chosen and rejected: one sample
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    n_layers = cfg.text.num_hidden_layers
+    implied = {"k1": n_vit * (n_full + n_layers), "k1_grad": 2 * n_layers,
+               "k1_causal": n_vit * n_layers,
+               "k4": n_vit * (cfg.vision.depth - n_full), "k4_grad": 0,
+               "k5": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls, counts = [], [], []
+    for _ in range(PREF_STEPS):
+        c0 = pref_counts()
+        (state, m), wall = timed_step(lambda: dpo_train_step(
+            state, ref, params, chosen, rejected, cfg, sched))
+        counts.append(pref_delta(c0))
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append(wall)
+        print(f"[pref-dpo] step {len(walls)}: " + " ".join(
+            f"{k}={v!r}" for k, v in metrics[-1].items())
+            + f" wall_ms={wall!r} launches {counts[-1]}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, after = dpo_pair_loss(params, ref, chosen, rejected, sched)
+    margin = float(after["reward_margin"])
+    lm_after = checksums(params, lambda n: n.startswith("lm."))
+    changed = sum(not torch.equal(lm_after[n], lm_before[n])
+                  for n in lm_before)
+    n_ref = sum(t.numel() for t in ref.weights.values())
+    print(f"[pref-dpo] 3B full-decoder DPO T={TRAIN_T_BUCKET} (one pair, "
+          f"beta {sched.beta}, lr {sched.lr}): step-0 loss "
+          f"{metrics[0]['loss']!r} (ln 2 = {math.log(2)!r}), margin after "
+          f"{PREF_STEPS} steps {margin!r}; step_wall_ms {walls!r} "
+          f"max_memory_allocated={peak}; reference copy {len(ref.weights)} "
+          f"tensors, {n_ref} elements; decoder tensors changed {changed} of "
+          f"{len(lm_before)}; launches per step implied {implied}",
+          flush=True)
+    checks["dpo step-0 loss ln 2"] = abs(metrics[0]["loss"]
+                                         - math.log(2)) <= 1e-3
+    checks["dpo margin > 0 after the steps"] = margin > 0
+    checks["dpo reference copy bit-equal"] = same_sums(
+        ref_before, tensor_checksums(ref.weights))
+    checks["dpo: ViT and scorer bit-equal"] = same_sums(
+        frozen, checksums(params, lambda n: not n.startswith("lm.")))
+    checks["dpo: every decoder tensor changed"] = changed == len(lm_before)
+    checks["dpo launches per step"] = all(c == implied for c in counts)
+    del state, ref
+    for p in params.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+
+def grpo_reward(tokens) -> float:
+    """15b's synthetic reward: a position-weighted token checksum in [0,
+    1), deterministic and varying across distinct completions."""
+    return float(sum((i + 1) * int(t) for i, t in enumerate(tokens))
+                 % 1009) / 1009
+
+
+def first_row_logsoftmax(params, batch, row: int, temperature: float):
+    """The training forward's (uncompressed, ``sft.batch_hidden``)
+    log-softmax at ``row`` of sample 0, the logits over the temperature,
+    with the training head's route."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import lm as lm_mod
+    from visionselector_tpu_torch.train.sft import batch_hidden
+
+    with torch.no_grad():
+        hidden = batch_hidden(params, batch)
+        logits = lm_mod.lm_head(params.lm, hidden[0, row:row + 1],
+                                upcast=True)[0] / temperature
+        return torch.log_softmax(logits, dim=-1)
+
+
+def pref_grpo(cfg, params, checks):
+    """15b: 3B GRPO of LoRA adapters (rank 64, alpha 16, beta 0.04, the
+    grpo reduction, GRPO_STEPS steps at TRAIN_LR) on one prompt (the
+    phase-3 image, its 40 ids and the assistant opener): GRPO_G rollouts
+    of up to GRPO_LEN tokens at temperature 1 through
+    ``QwenVLEngine(use_selector=False)`` with the adapters live; each
+    equal to one-shot ``generate`` with its seed, at least 2 of them
+    distinct, K5 launches 36 per decode step; the first completion row's
+    log-softmax from the training forward against the engine's prefill
+    logits over the temperature (PREF_LOGP_ULPS; the vision run spliced
+    one slot late as the planted fault); step 0's KL exactly 0 and
+    clip_ratio 0; the base weights bit-equal, every adapter B changed and
+    every A unchanged after the two steps (A's gradient is zero while B
+    is); rollout wall, step wall, peak memory. The adapters are merged
+    into the decoder at the end."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import (
+        expand_vision_tokens,
+        expand_vision_tokens_at_slots,
+    )
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.dpo import ReferencePolicy
+    from visionselector_tpu_torch.train.grpo import (
+        GRPOScheduleConfig,
+        build_grpo_sample,
+        group_advantages,
+        grpo_train_step,
+        init_grpo_state,
+        rollout_group,
+    )
+    from visionselector_tpu_torch.train.lora import (
+        add_lora_params,
+        lora_leaf,
+        merge_lora_params,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+
+    base = checksums(params, lambda n: True)
+    add_lora_params(params.lm, torch.Generator(device="cuda").manual_seed(
+        SEED + 15), rank=LORA_RANK, alpha=LORA_ALPHA)
+    sched = GRPOScheduleConfig(
+        total_steps=GRPO_STEPS, lr=TRAIN_LR, beta=GRPO_BETA,
+        num_generations=GRPO_G, temperature=1.0,
+        max_completion_length=GRPO_LEN, lora_rank=LORA_RANK)
+    state = init_grpo_state(params, sched)
+    ref = ReferencePolicy(params, state)
+    start = {n: p.detach().clone() for n, p in state.trainables.items()}
+    img = request_image()
+    px, grid = preprocess_image(img)
+    vc = cfg.vision
+    raw = PROMPT_BEFORE + PROMPT_AFTER + OPENER
+    slot = len(PROMPT_BEFORE)
+    tok_kw = dict(spatial_merge_size=vc.spatial_merge_size,
+                  image_token_id=cfg.image_token_id,
+                  vision_start_token_id=cfg.vision_start_token_id,
+                  vision_end_token_id=cfg.vision_end_token_id)
+    ids = expand_vision_tokens_at_slots(raw, [slot], grid, **tok_kw)
+    checks["grpo prompt = phase 3's ids + opener"] = list(ids) == list(
+        expand_vision_tokens(PROMPT_BEFORE, PROMPT_AFTER, grid,
+                             **tok_kw)) + OPENER
+    engine = QwenVLEngine(cfg, params, use_selector=False, device="cuda")
+    n_layers = cfg.text.num_hidden_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rollout_walls, step_walls, k5_ok, metrics = [], [], [], []
+    for step in range(GRPO_STEPS):
+        c0 = pref_counts()
+        comps, wall = timed_step(lambda: rollout_group(
+            engine, ids, px, grid, sched, seed=step))
+        rolled = pref_delta(c0)
+        k5 = rolled["k5"]
+        steps = sum(max(0, len(c) - (len(c) == GRPO_LEN)) for c in comps)
+        k5_ok.append(k5 == n_layers * steps)
+        rollout_walls.append(wall)
+        rewards = [grpo_reward(c) for c in comps]
+        adv = group_advantages(np.asarray(rewards), GRPO_G)
+        batch = to_device(stack_samples([build_grpo_sample(
+            cfg, [img], raw, [slot], c, budget=0.2,
+            s_bucket=TRAIN_S_BUCKET, t_bucket=TRAIN_T_BUCKET)
+            for c in comps]), "cuda")
+        if step == 0:
+            replay = [engine.generate(
+                ids, px, grid, max_new_tokens=GRPO_LEN, temperature=1.0,
+                seed=g).tokens for g in range(GRPO_G)]
+            checks["grpo rollouts = one-shot generate"] = replay == [
+                c.tolist() for c in comps]
+            checks["grpo rollouts differ"] = len(
+                {tuple(c.tolist()) for c in comps}) >= 2
+            checks["grpo rewards vary"] = len(set(rewards)) >= 2
+            logp_check(cfg, params, engine, ids, px, grid, img, raw, slot,
+                       comps[0], batch, sched, checks)
+        c0 = pref_counts()
+        (state, m), wall = timed_step(lambda: grpo_train_step(
+            state, ref, params, batch, torch.as_tensor(adv, device="cuda"),
+            cfg, sched))
+        trained = pref_delta(c0)
+        step_walls.append(wall)
+        metrics.append({k: float(v) for k, v in m.items()})
+        print(f"[pref-grpo] step {step}: rollouts {[len(c) for c in comps]}"
+              f" tokens, rewards {rewards!r}, {steps} decode steps, "
+              f"launches {rolled}; " + " ".join(
+                  f"{k}={v!r}" for k, v in metrics[-1].items())
+              + f" rollout_wall_ms={rollout_walls[-1]!r} step_wall_ms="
+              f"{wall!r} step launches {trained}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    moved_b = sum(not torch.equal(p, start[n]) for n, p in
+                  state.trainables.items() if n.endswith("_lora_b"))
+    still_a = sum(torch.equal(p, start[n]) for n, p in
+                  state.trainables.items() if n.endswith("_lora_a"))
+    n_half = len(start) // 2
+    print(f"[pref-grpo] 3B LoRA GRPO rank {LORA_RANK}, G={GRPO_G}, "
+          f"{GRPO_LEN} tokens, T={TRAIN_T_BUCKET}: rollout_wall_ms "
+          f"{rollout_walls!r} step_wall_ms {step_walls!r} "
+          f"max_memory_allocated={peak}; adapter B changed {moved_b} of "
+          f"{n_half}, A unchanged {still_a} of {n_half}", flush=True)
+    checks["grpo K5 = 36 per decode step"] = all(k5_ok)
+    checks["grpo step-0 KL 0 and clip_ratio 0"] = (
+        metrics[0]["kl"] == 0.0 and metrics[0]["clip_ratio"] == 0.0)
+    checks["grpo: base bit-equal"] = same_sums(
+        base, checksums(params, lambda n: not lora_leaf(n)))
+    checks["grpo: every B changed, every A unchanged"] = (
+        moved_b == n_half and still_a == n_half)
+    del state, ref, engine, start
+    merge_lora_params(params.lm)  # 15a trains the merged decoder
+    for p in params.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+
+def logp_check(cfg, params, engine, ids, px, grid, img, raw, slot, comp,
+               batch, sched, checks):
+    """15b's "scored distribution = sampling distribution": the first
+    completion row's log-softmax of the training forward against the
+    engine prefill's, and ``per_token_logps`` at that row against both."""
+    import math
+
+    import torch
+
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.grpo import (
+        build_grpo_sample,
+        per_token_logps,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+
+    state = engine.generate(ids, px, grid, max_new_tokens=GRPO_LEN,
+                            temperature=sched.temperature, seed=0,
+                            _defer_decode=True)
+    want = torch.log_softmax(state.logits.float() / sched.temperature, -1)
+    row = len(ids) - 1  # predicts the first completion token
+    got = first_row_logsoftmax(params, batch, row, sched.temperature)
+    sample = type(batch)(*(x[0] for x in batch))
+    with torch.no_grad():
+        lp, mask = per_token_logps(params, sample, cfg,
+                                   temperature=sched.temperature)
+    late = to_device(stack_samples([build_grpo_sample(
+        cfg, [img], raw, [slot + 1], comp, budget=0.2,
+        s_bucket=TRAIN_S_BUCKET, t_bucket=TRAIN_T_BUCKET)]), "cuda")
+    bad = first_row_logsoftmax(params, late, row, sched.temperature)
+    amax = want.abs().max().item()
+    ulps = PREF_LOGP_ULPS * 2.0 ** (math.floor(math.log2(amax)) - 7)
+    tol = min(ulps, head_rounding_tol(params, batch, row,
+                                      sched.temperature))
+    err = (got - want).abs().max().item()
+    fault = (bad - want).abs().max().item()
+    tok = int(comp[0])
+    print(f"[pref-grpo] first completion token {tok}: log-prob "
+          f"per_token_logps {lp[row].item()!r} (mask {bool(mask[row])}), "
+          f"training forward {got[tok].item()!r}, engine prefill "
+          f"{want[tok].item()!r}; whole row max |diff| {err!r} (limit "
+          f"{tol!r}: the heads' fp32 rounding, within {ulps!r} = "
+          f"{PREF_LOGP_ULPS} bf16 ulps of max |log-prob| {amax!r}); "
+          f"planted fault (vision run one slot late) {fault!r} (must "
+          f"exceed it)", flush=True)
+    checks["grpo scored = sampled distribution"] = (
+        err <= tol < fault and bool(mask[row])
+        and abs(lp[row].item() - got[tok].item()) <= tol)
+
+
+def head_rounding_tol(params, batch, row: int, temperature: float):
+    """PREF_LOGP_MARGIN x 4 sqrt(K) 2^-24 max_j sum_k |h_k w_kj| /
+    temperature at ``row`` of sample 0 (the training forward's hidden row
+    h, the head's weight w, K its width): how far two fp32 sums of the
+    same exact bf16 products land apart when their rounding errors have
+    random signs (2 sqrt(K) u per logit), doubled for the log-softmax's
+    normalizer."""
+    import math
+
+    import torch
+
+    from visionselector_tpu_torch.train.sft import batch_hidden
+
+    lm = params.lm
+    w = lm.embed_tokens.t() if lm.cfg.tie_word_embeddings \
+        else lm.lm_head_kernel
+    with torch.no_grad():
+        h = batch_hidden(params, batch)[0, row].float().abs()
+        sums = (h[None] @ w.float().abs())[0]
+    k = h.numel()
+    return (PREF_LOGP_MARGIN * 4 * math.sqrt(k) * 2.0 ** -24
+            * sums.max().item() / temperature)
+
+
+def pref_ov(ov_cfg, ov_params, checks):
+    """15c: OV-8B DPO of LoRA adapters (rank 64, alpha 16; one pair of
+    phase 12's image at T = 2,048, OV_DPO_STEPS steps at TRAIN_LR): step
+    0's loss ln 2, the base bit-equal, every adapter B changed; step wall
+    and peak memory. Runs after 14f's merge, on the merged weights."""
+    import math
+
+    import torch
+
+    from visionselector_tpu_torch.train.dpo import (
+        DPOScheduleConfig,
+        ReferencePolicy,
+        dpo_train_step,
+        init_dpo_state,
+    )
+    from visionselector_tpu_torch.train.lora import add_lora_params, lora_leaf
+    from visionselector_tpu_torch.train.ov_loss import build_ov_train_sample
+
+    chosen, rejected = pref_pair(ov_cfg, build_ov_train_sample, OV_BUCKET,
+                                 OV_TRAIN_T_BUCKET)
+    base = checksums(ov_params, lambda n: True)
+    add_lora_params(ov_params.lm, torch.Generator(
+        device="cuda").manual_seed(SEED + 16), rank=LORA_RANK,
+        alpha=LORA_ALPHA)
+    sched = DPOScheduleConfig(total_steps=OV_DPO_STEPS, lr=TRAIN_LR,
+                              lora_rank=LORA_RANK)
+    state = init_dpo_state(ov_params, sched)
+    ref = ReferencePolicy(ov_params, state)
+    start = {n: p.detach().clone() for n, p in state.trainables.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(OV_DPO_STEPS):
+        (state, m), wall = timed_step(lambda: dpo_train_step(
+            state, ref, ov_params, chosen, rejected, ov_cfg, sched))
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    moved_b = sum(not torch.equal(p, start[n]) for n, p in
+                  state.trainables.items() if n.endswith("_lora_b"))
+    print(f"[pref-ov] OV-8B LoRA DPO rank {LORA_RANK} T="
+          f"{OV_TRAIN_T_BUCKET} (one pair): loss {losses!r} (ln 2 = "
+          f"{math.log(2)!r}) step_wall_ms {walls!r} max_memory_allocated="
+          f"{peak}; adapter B changed {moved_b} of {len(start) // 2}",
+          flush=True)
+    checks["ov dpo step-0 loss ln 2"] = abs(losses[0] - math.log(2)) <= 1e-3
+    checks["ov dpo: base bit-equal"] = same_sums(
+        base, checksums(ov_params, lambda n: not lora_leaf(n)))
+    checks["ov dpo: every B changed"] = moved_b == len(start) // 2
+    del state, ref, start
+    for p in ov_params.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+
+PREF_CLIS = {
+    "pref_dpo": ["--method", "dpo"],
+    "pref_dpo_ipo": ["--method", "dpo", "--grad-accum-steps", "2",
+                     "--dpo-loss-type", "ipo"],
+    "pref_grpo": ["--method", "grpo"],
+    "pref_grpo_ov": ["--family", "llava_ov15", "--method", "grpo",
+                     "--lora-rank", "8"],
+}
+
+
+def pref_cli_args(tmp, key):
+    return ["--smoke", "--total-steps", str(METHOD_STEPS), "--batch-size",
+            "2", "--log-steps", "1", "--output-dir", os.path.join(tmp, key),
+            *PREF_CLIS[key]]
+
+
+def pref_clis(tmp, procs):
+    """15d: the four ``api.train --smoke`` runs, started in processes of
+    their own beside the rest of the phase (3 steps each)."""
+    for key in PREF_CLIS:
+        start_cli(procs, tmp, "train", *pref_cli_args(tmp, key), key=key)
+
+
+def pref_clis_first(tmp, procs, checks):
+    """15d, after 15b: each run's log, checkpoint and (LoRA)
+    ``lora_merged``; then the four start again, in parallel, beside 15a;
+    each must resume at step 3 and take no step."""
+    for key, extra in PREF_CLIS.items():
+        rc, stdout, stderr, secs = finish_cli(procs, key)
+        out = os.path.join(tmp, key)
+        log = []
+        with contextlib.suppress(OSError), open(
+                os.path.join(out, "train_log.jsonl")) as f:
+            log = [json.loads(ln) for ln in f]
+        want = ["train_log.jsonl", f"checkpoint-{METHOD_STEPS}/train_state.pt"]
+        if "--lora-rank" in extra:
+            want.append("lora_merged/params.pt")
+        files = {n: os.path.isfile(os.path.join(out, n)) for n in want}
+        tail = (stdout.strip().splitlines()[-2:] if rc == 0
+                else stderr[-2000:])
+        keys = sorted(log[0]) if log else []
+        print(f"[pref-cli] api.train --smoke {' '.join(extra)} (cuda): "
+              f"rc={rc} in {secs!r} s files {files} log keys {keys} {tail}",
+              flush=True)
+        checks[f"api.train {' '.join(extra)}"] = (
+            rc == 0 and all(files.values())
+            and [m["step"] for m in log] == list(
+                range(1, METHOD_STEPS + 1))
+            and ("mean_reward" in log[0]) == ("grpo" in extra))
+    for key in PREF_CLIS:
+        start_cli(procs, tmp, "train", *pref_cli_args(tmp, key),
+                  key=key + "_resume")
+
+
+def pref_clis_done(tmp, procs, checks):
+    """15d, at the phase's end: the resumed runs, then the data tools."""
+    for key, extra in PREF_CLIS.items():
+        rc, stdout, stderr, secs = finish_cli(procs, key + "_resume")
+        with open(os.path.join(tmp, key, "train_log.jsonl")) as f:
+            lines = len(f.readlines())
+        ok = (rc == 0 and f"resumed at step {METHOD_STEPS}" in stdout
+              and lines == METHOD_STEPS)
+        print(f"[pref-cli] resume {' '.join(extra)}: rc={rc} in {secs!r} s "
+              f"log lines {lines} resumed {ok}", flush=True)
+        checks[f"resume {' '.join(extra)}"] = ok
+    data_tools(tmp, checks)
+
+
+def run_module(module, *args):
+    """(return code, stdout) of ``python -m <module> args`` from the
+    repo's root (120 s at most)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", module, *args], capture_output=True,
+        text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc.returncode, proc.stdout
+
+
+def data_tools(tmp, checks):
+    """15d's data tools on seeded files: ``train.check_data`` exits 0 on
+    clean records and 1 on three broken ones (a missing image, empty
+    conversations, a first turn from the assistant), printing each;
+    ``train.prep_data filter`` splits by source; ``sample-merge`` keeps
+    the sampled count and gives the same bytes for the same seed and
+    other bytes for another."""
+    import random
+
+    d = os.path.join(tmp, "data_tools")
+    os.makedirs(d)
+    clean = [{"conversations": [{"from": "human", "value": f"q{i}"},
+                                {"from": "gpt", "value": f"a{i}"}]}
+             for i in range(5)]
+    broken = clean + [
+        {"image": "missing.png", "conversations": [
+            {"from": "human", "value": "<image>x"}]},
+        {"conversations": []},
+        {"conversations": [{"from": "gpt", "value": "first"}]}]
+    paths = {}
+    for name, recs in (("clean", clean), ("broken", broken)):
+        paths[name] = os.path.join(d, f"{name}.jsonl")
+        with open(paths[name], "w") as f:
+            f.write("\n".join(json.dumps(r) for r in recs) + "\n")
+    rc0, out0 = run_module("visionselector_tpu_torch.train.check_data",
+                           "--annotation", paths["clean"], "--image-root", d)
+    rc1, out1 = run_module("visionselector_tpu_torch.train.check_data",
+                           "--annotation", paths["broken"], "--image-root", d)
+    rng = random.Random(SEED)
+    src = os.path.join(d, "all.jsonl")
+    with open(src, "w") as f:
+        for i in range(200):
+            source = rng.choice(["coco", "ocr_vqa", "misc"])
+            f.write(json.dumps({"id": i, "image": f"{source}/{i}.jpg"})
+                    + "\n")
+    rcf, outf = run_module("visionselector_tpu_torch.train.prep_data",
+                           "filter", "--input", src, "--output-dir",
+                           os.path.join(d, "split"), "--datasets",
+                           "coco,ocr_vqa")
+    merged = {}
+    for tag, seed in (("a", 42), ("b", 42), ("c", 7)):
+        out = os.path.join(d, f"merged_{tag}.jsonl")
+        rc, _ = run_module("visionselector_tpu_torch.train.prep_data",
+                           "sample-merge", "--inputs",
+                           f"{src}:0.3,{paths['clean']}:1.0", "--output",
+                           out, "--seed", str(seed))
+        with open(out, "rb") as f:
+            merged[tag] = (rc, f.read())
+    counts = json.loads(outf) if rcf == 0 else {}
+    n_merged = len(merged["a"][1].splitlines())
+    print(f"[pref-data] check_data clean rc={rc0} ({out0.strip()!r}), "
+          f"broken rc={rc1} ({out1.strip().splitlines()!r}); prep_data "
+          f"filter rc={rcf} {counts}; sample-merge {n_merged} lines, seed "
+          f"42 twice equal {merged['a'] == merged['b']}, seed 7 differs "
+          f"{merged['a'][1] != merged['c'][1]}", flush=True)
+    checks["check_data"] = (rc0 == 0 and rc1 == 1
+                            and len(out1.strip().splitlines()) == 4)
+    checks["prep_data"] = (
+        rcf == 0 and sum(counts.values()) > 0
+        and all(r == 0 for r, _ in merged.values())
+        and n_merged == 60 + len(clean) and merged["a"] == merged["b"]
+        and merged["a"][1] != merged["c"][1])
+
+
+def pref_start(tmp) -> dict:
+    """Phase 15, part 1 (while OV-8B is on the card, beside phase 14's
+    CLIs): the CLIs start (15d). Returns the phase's state."""
+    t0 = time.perf_counter()
+    pref = dict(checks={}, procs={}, tmp=os.path.join(tmp, "preference"))
+    os.makedirs(pref["tmp"])
+    pref_clis(pref["tmp"], pref["procs"])
+    pref["ov_seconds"] = time.perf_counter() - t0  # grows with 15c
+    return pref
+
+
+def pref_kill(pref):
+    for proc, _, _ in pref["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+
+
+def preference_phase(cfg, params, pref):
+    """Phase 15, part 2 (after phase 14, which needs the 3B's weights as
+    they were): 15b (adapters on phase 14e's decoder, merged into it at
+    the end), the CLIs' first runs, 15a (the decoder trained in place),
+    the resumed CLIs and the data tools. Raises if any check of the phase
+    failed."""
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"[pref] card: {nvidia_smi()}", flush=True)
+    checks = pref["checks"]
+    try:
+        pref_grpo(cfg, params, checks)
+        pref_clis_first(pref["tmp"], pref["procs"], checks)
+        pref_dpo(cfg, params, checks)
+        pref_clis_done(pref["tmp"], pref["procs"], checks)
+    finally:
+        pref_kill(pref)
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[pref] checks: {checks}", flush=True)
+    seconds = pref["ov_seconds"] + time.perf_counter() - t0
+    print(f"[pref] phase seconds {seconds!r} (OV-8B part "
+          f"{pref['ov_seconds']!r})", flush=True)
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"preference phase failed: {bad}")
 
 
 def main() -> int:
@@ -6997,9 +7672,15 @@ def main() -> int:
         part = methods_phase_ov(ov_cfg, ov_params, tmp)
         del ov_params
         torch.cuda.empty_cache()
-        (launches["flash_varlen_fwd_packed_train"],
-         kernels["flash_varlen_fwd_packed_train"]) = methods_phase(
-            cfg, params, engine, input_ids, pixels, grid, part)
+        try:
+            (launches["flash_varlen_fwd_packed_train"],
+             kernels["flash_varlen_fwd_packed_train"]) = methods_phase(
+                cfg, params, engine, input_ids, pixels, grid, part)
+            # DPO and GRPO: the 3B's decoder, then adapters on it, trained
+            # in place, so after every phase that reads its weights
+            preference_phase(cfg, params, part["pref"])
+        finally:
+            pref_kill(part["pref"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

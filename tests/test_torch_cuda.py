@@ -1327,3 +1327,132 @@ def test_fused_vit_attention_raises_under_grad(dev):
     out = FV.fused_vit_attention(qkv, seg, cos, sin, None, h, d,
                                  impl="plain")
     assert out.grad_fn is not None
+
+
+# DPO and GRPO on the tiny config: the kernel path against
+# attn_impl="plain", each gradient within TRAIN_GRAD_TOL of its largest
+# |value| (chip_smoke.py's rule for bf16 training gradients).
+TRAIN_GRAD_TOL = 0.15
+
+
+def _tiny_bf16(dev, seed=0):
+    from visionselector_tpu_torch.core.config import qwen25vl_tiny
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+
+    cfg = qwen25vl_tiny()
+    return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev, torch.bfloat16)
+
+
+def _leaf_grad(params, name, loss):
+    (g,) = torch.autograd.grad(loss, [dict(params.named_parameters())[name]])
+    return g
+
+
+def test_tiny_dpo_step_matches_plain(dev):
+    """One DPO pair on the card at the starting weights: the loss is ln 2
+    with a zero margin on the kernel path (policy and reference the same
+    computation); the gradient of a decoder kernel within TRAIN_GRAD_TOL
+    of the ``attn_impl="plain"`` run's; the decoder's K1 launches with
+    grad are one per layer per forward (chosen and rejected), and one
+    ``dpo_train_step`` moves the decoder and leaves the reference."""
+    from visionselector_tpu_torch.train.data import (
+        build_train_sample,
+        stack_samples,
+    )
+    from visionselector_tpu_torch.train.dpo import (
+        DPOScheduleConfig,
+        ReferencePolicy,
+        dpo_pair_loss,
+        dpo_train_step,
+        init_dpo_state,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+
+    cfg, params = _tiny_bf16(dev)
+    img = (np.random.RandomState(0).rand(112, 112, 3) * 255).astype(np.uint8)
+    kw = dict(budget=0.25, s_bucket=128, t_bucket=64, min_pixels=1,
+              max_pixels=10**9)
+    chosen, rejected = (to_device(stack_samples([build_train_sample(
+        cfg, img, [101], [102], ans, **kw)]), dev)
+        for ans in ([201, 202, 203], [301, 302]))
+    sched = DPOScheduleConfig(total_steps=3, lr=5e-3)
+    state = init_dpo_state(params, sched)
+    ref = ReferencePolicy(params, state)
+    name = "lm.layers.1.q_kernel"
+    n0 = A.FLASH_GRAD_LAUNCHES
+    loss, m = dpo_pair_loss(params, ref, chosen, rejected, sched)
+    assert A.FLASH_GRAD_LAUNCHES - n0 == 2 * cfg.text.num_hidden_layers
+    assert float(m["reward_margin"]) == 0.0
+    assert float(loss) == float(-torch.nn.functional.logsigmoid(
+        torch.zeros(())))
+    got = _leaf_grad(params, name, loss)
+    plain, _ = dpo_pair_loss(params, ref, chosen, rejected, sched,
+                             attn_impl="plain")
+    assert _rel(got, _leaf_grad(params, name, plain)) <= TRAIN_GRAD_TOL
+    start = {n: w.clone() for n, w in ref.weights.items()}
+    for _ in range(2):  # the first update has lr 0
+        state, m = dpo_train_step(state, ref, params, chosen, rejected, cfg,
+                                  sched)
+    assert torch.isfinite(m["loss"])
+    assert all(torch.equal(ref.weights[n], start[n]) for n in start)
+    assert not torch.equal(dict(params.named_parameters())[name],
+                           start[name])
+
+
+def test_tiny_grpo_rollout_and_step_matches_plain(dev):
+    """GRPO with fresh LoRA adapters on the card (B = 0: the policy is the
+    reference, the base with the adapters off): 2 rollouts of 6 tokens
+    through the engine with the adapters live (K5 per decode step and
+    layer), each reproduced by one-shot ``generate`` with its seed; at
+    step 0 the KL is exactly 0 and clip_ratio 0 on the kernel path; an
+    adapter B's gradient within TRAIN_GRAD_TOL of the
+    ``attn_impl="plain"`` run's."""
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import (
+        expand_vision_tokens_at_slots,
+    )
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.dpo import ReferencePolicy
+    from visionselector_tpu_torch.train.grpo import (
+        GRPOScheduleConfig,
+        build_grpo_sample,
+        grpo_loss,
+        init_grpo_state,
+        rollout_group,
+    )
+    from visionselector_tpu_torch.train.lora import add_lora_params
+    from visionselector_tpu_torch.train.loss import to_device
+
+    cfg, params = _tiny_bf16(dev, seed=1)
+    add_lora_params(params.lm, torch.Generator(device=dev).manual_seed(2),
+                    rank=4, alpha=8)
+    img = (np.random.RandomState(1).rand(84, 112, 3) * 255).astype(np.uint8)
+    mm = dict(min_pixels=1, max_pixels=10**9)
+    px, grid = preprocess_image(img, **mm)
+    raw, slots = [101, 102, 103], [2]
+    ids = expand_vision_tokens_at_slots(raw, slots, grid)
+    sched = GRPOScheduleConfig(num_generations=2, max_completion_length=6,
+                               lora_rank=4, total_steps=2)
+    engine = QwenVLEngine(cfg, params, use_selector=False, device=dev)
+    k0 = A.DECODE_LAUNCHES
+    comps = rollout_group(engine, ids, px, grid, sched, seed=5,
+                          eos_token_ids=(-1,))
+    assert A.DECODE_LAUNCHES - k0 == 2 * 5 * cfg.text.num_hidden_layers
+    for g, c in enumerate(comps):
+        assert engine.generate(ids, px, grid, max_new_tokens=6,
+                               temperature=1.0, seed=5 * 1000003 + g,
+                               eos_token_ids=(-1,)).tokens == c.tolist()
+    batch = to_device(stack_samples([build_grpo_sample(
+        cfg, [img], raw, slots, c, budget=0.25, s_bucket=128, t_bucket=64,
+        **mm) for c in comps]), dev)
+    state = init_grpo_state(params, sched)
+    ref = ReferencePolicy(params, state)
+    adv = torch.tensor([1.0, -1.0], device=dev)
+    loss, m = grpo_loss(params, ref, batch, adv, sched)
+    assert float(m["kl"]) == 0.0 and float(m["clip_ratio"]) == 0.0
+    name = "lm.layers.0.q_kernel_lora_b"
+    got = _leaf_grad(params, name, loss)
+    plain, _ = grpo_loss(params, ref, batch, adv, sched, attn_impl="plain")
+    assert _rel(got, _leaf_grad(params, name, plain)) <= TRAIN_GRAD_TOL

@@ -506,6 +506,9 @@ class StubTokenizer:
     def encode(self, text):
         return [ord(c) % 500 + 10 for c in text]
 
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids)
+
 
 def _write_dataset(tmp_path, bad_image_at=None):
     from PIL import Image
@@ -608,16 +611,20 @@ def test_train_cli_smoke_writes_log_checkpoint_and_scorer(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, error", [
-    (["--method", "dpo"], NotImplementedError),
-    (["--method", "grpo"], NotImplementedError),
     (["--family", "llava_ov15", "--data-flatten"], ValueError),
     (["--data-flatten"], ValueError),  # packing needs --annotation records
     (["--family", "llava_ov15", "--method", "dynamic"], ValueError),
-    (["--lora-rank", "8"], ValueError),  # adapters train under sft
+    (["--lora-rank", "8"], ValueError),  # adapters train under sft/dpo/grpo
+    (["--method", "grpo", "--num-generations", "1"], ValueError),
+    (["--method", "grpo", "--grad-accum-steps", "2", "--grpo-loss-type",
+      "bnpo"], ValueError),
+    (["--method", "grpo", "--grad-accum-steps", "2", "--grpo-loss-type",
+      "dr_grpo"], ValueError),
 ])
 def test_train_cli_unported_options_raise(tmp_path, extra, error):
-    """DPO and GRPO are not ported (NotImplementedError); combinations the
-    reference ignores without a word raise ValueError."""
+    """Combinations the reference ignores without a word, or asserts
+    against (one GRPO generation; GRPO accumulation under a reduction by
+    the whole batch's token counts), raise ValueError."""
     from visionselector_tpu_torch.api import train as tapi
 
     with pytest.raises(error):
@@ -631,6 +638,14 @@ def test_train_cli_unported_options_raise(tmp_path, extra, error):
     (["--data-flatten"], ["importance_scorer.safetensors"]),
     (["--method", "sft", "--lora-rank", "8"], ["lora_merged/params.pt"]),
     (["--async-save"], ["importance_scorer.safetensors"]),
+    (["--method", "dpo"], []),
+    (["--method", "dpo", "--grad-accum-steps", "2", "--dpo-loss-type",
+      "ipo", "--family", "llava_ov15", "--lora-rank", "8"],
+     ["lora_merged/params.pt"]),
+    (["--method", "grpo", "--max-completion-length", "6"], []),
+    (["--method", "grpo", "--max-completion-length", "6", "--family",
+      "llava_ov15", "--lora-rank", "8", "--grpo-beta", "0"],
+     ["lora_merged/params.pt"]),
 ])
 def test_train_cli_methods_write_outputs(tmp_path, monkeypatch, extra,
                                          outputs):
@@ -640,8 +655,12 @@ def test_train_cli_methods_write_outputs(tmp_path, monkeypatch, extra,
     second run resumes and takes no step. ``--data-flatten`` trains on
     the annotation file of ``_write_dataset`` (its one-image records
     packed, the two-image one unpacked) with ``StubTokenizer``; the others
-    on the tiny config's synthetic data. The exports load: the predictor
-    through ``load_predictor``, the merged model as a state dict without
+    on the tiny config's synthetic data (DPO's pairs, GRPO's prompts with
+    6-token rollouts; both families, full model and LoRA, IPO with
+    accumulation, GRPO without a reference at beta 0). DPO's first step
+    has a zero margin (the policy is the reference); GRPO logs a
+    mean_reward in [0, 1]. The exports load: the predictor through
+    ``load_predictor``, the merged model as a state dict without
     adapters."""
     from visionselector_tpu_torch.api import train as tapi
     from visionselector_tpu_torch.core.checkpoint import STATE_FILE
@@ -656,11 +675,28 @@ def test_train_cli_methods_write_outputs(tmp_path, monkeypatch, extra,
                  "512"]
     else:
         argv.append("--smoke")
-    assert tapi.main(argv) == 0
+    if "grpo" in extra:
+        # the rollouts' decode loop: one intra-op thread (its small ops
+        # stall on oversubscribed threads in the parallel Tier-1 run)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+        try:
+            assert tapi.main(argv) == 0
+        finally:
+            monkeypatch.undo()
+            torch.set_num_threads(threads)
+    else:
+        assert tapi.main(argv) == 0
     with open(os.path.join(out, "train_log.jsonl")) as f:
         log = [json.loads(ln) for ln in f]
     assert [m["step"] for m in log] == [1, 2, 3]
     assert all(np.isfinite(m["loss"]) for m in log)
+    if "dpo" in extra:  # the policy starts as the reference: ln 2 at step 0
+        assert log[0]["reward_margin"] == 0.0
+    if "grpo" in extra:
+        assert all(0.0 <= m["mean_reward"] <= 1.0 for m in log)
+        assert ("kl" in log[0]) == ("--grpo-beta" not in extra)
     blob = torch.load(os.path.join(out, "checkpoint-3", STATE_FILE),
                       weights_only=True)
     assert blob["step"] == 3 and blob["params"]
@@ -681,6 +717,64 @@ def test_train_cli_methods_write_outputs(tmp_path, monkeypatch, extra,
     assert tapi.main(argv) == 0
     with open(os.path.join(out, "train_log.jsonl")) as f:
         assert len(f.readlines()) == 3
+
+
+PREF_RECORDS = {
+    "dpo": [
+        {"image": "a.png", "prompt": "What is it?", "chosen": "A cat.",
+         "rejected": "A dog, surely."},
+        {"image": ["a.png", "b.png"], "prompt": "<image>vs<image>: which?",
+         "chosen": "Left.", "rejected": "Right."},
+        {"image": "b.png", "conversations": [
+            {"from": "human", "value": "<image>Describe."},
+            {"from": "gpt", "value": "A picture."},
+            {"from": "human", "value": "Color?"},
+            {"from": "gpt", "value": "old"}],
+         "chosen": "Red.", "rejected": "Blue."}],
+    "grpo": [
+        {"image": "a.png", "prompt": "Add 1 and 1.",
+         "solution": "<answer>2</answer>"},
+        {"image": ["a.png", "b.png"], "prompt": "<image> or <image>?",
+         "answer": "left"},
+        {"image": "b.png", "conversations": [
+            {"from": "human", "value": "<image>How many?"},
+            {"from": "gpt", "value": "old"}], "solution": "3"}],
+}
+
+
+@pytest.mark.parametrize("method", ["dpo", "grpo"])
+def test_train_cli_preference_annotation(tmp_path, monkeypatch, method):
+    """``--method dpo|grpo --annotation``: the reference's preference and
+    prompt records (a prompt with one image, two images, a conversation
+    whose last assistant turn is dropped) through ``StubTokenizer`` (GRPO's
+    rewards read its decoded text): three log lines of finite losses,
+    checkpoint-3; GRPO's mean_reward is the accuracy + format rewards' mean
+    over the rollouts, in [0, 2]."""
+    from visionselector_tpu_torch.api import train as tapi
+
+    _write_dataset(tmp_path)  # a.png, b.png
+    ann = tmp_path / f"{method}.json"
+    ann.write_text(json.dumps(PREF_RECORDS[method]))  # a json list
+    monkeypatch.setattr(tapi, "_tokenizer", lambda path: StubTokenizer())
+    out = str(tmp_path / "run")
+    argv = ["--device", "cpu", "--total-steps", "3", "--batch-size", "2",
+            "--log-steps", "1", "--output-dir", out, "--method", method,
+            "--annotation", str(ann), "--image-root", str(tmp_path),
+            "--vision-bucket", "256", "--text-bucket", "512",
+            "--num-generations", "2", "--max-completion-length", "4"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the rollouts' decode loop (see above)
+    try:
+        assert tapi.main(argv) == 0
+    finally:
+        torch.set_num_threads(threads)
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        log = [json.loads(ln) for ln in f]
+    assert [m["step"] for m in log] == [1, 2, 3]
+    assert all(np.isfinite(m["loss"]) for m in log)
+    assert os.path.isdir(os.path.join(out, "checkpoint-3"))
+    if method == "grpo":
+        assert all(0.0 <= m["mean_reward"] <= 2.0 for m in log)
 
 
 def test_reg_weight_schedule_matches_jax():

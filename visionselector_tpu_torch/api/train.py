@@ -1,7 +1,7 @@
 """Training CLI for the PyTorch port (the reference's
 ``train_qwen_selector.py`` + ``scripts/sft_3b.sh``, ``train_qwen_dynamic.py``,
-``train_qwen.py`` and the OV trainers; counterpart of
-``visionselector_tpu.api.train``).
+``train_qwen.py``, the OV trainers, ``train_dpo.py`` and
+``train_grpo.py``; counterpart of ``visionselector_tpu.api.train``).
 
 Usage:
     python -m visionselector_tpu_torch.api.train \\
@@ -17,7 +17,8 @@ Usage:
 
     python -m visionselector_tpu_torch.api.train --smoke --total-steps 3 \\
         --output-dir runs/smoke [--family llava_ov15] \\
-        [--method dynamic | --method sft [--lora-rank 8]] [--async-save]
+        [--method dynamic | --method sft|dpo|grpo [--lora-rank 8]] \\
+        [--async-save]
 
 Methods (``--method``):
 - ``selector`` (default): only the LIS scorer trains (frozen backbone),
@@ -35,7 +36,20 @@ Methods (``--method``):
   ``--tune-mm-mlp`` / ``--[no-]tune-mm-llm`` freeze policy, or of LoRA
   adapters (``--lora-rank`` > 0, ``--lora-alpha``), merged at the end into
   ``lora_merged/params.pt``.
-- ``dpo`` and ``grpo`` are not ported yet (NotImplementedError).
+- ``dpo``: preference optimization against the frozen starting policy
+  (``train.dpo``: ``--beta``, ``--dpo-loss-type sigmoid|ipo``,
+  ``--rpo-alpha``, ``--label-smoothing``); ``--annotation`` records carry
+  ``prompt`` (or ``conversations``) / ``chosen`` / ``rejected``.
+- ``grpo``: sampled-rollout RL with group-relative advantages
+  (``train.grpo``: ``--num-generations`` rollouts per prompt through the
+  serving engine on the current policy, ``--temperature``,
+  ``--max-completion-length``, ``--grpo-beta`` KL weight,
+  ``--grpo-loss-type grpo|bnpo|dr_grpo``, ``--rewards``); records carry
+  ``prompt`` (or ``conversations``) / ``solution``. ``mean_reward`` is
+  logged.
+``sft``, ``dpo`` and ``grpo`` train under the same freeze policy or, with
+``--lora-rank``, LoRA adapters merged at the end into
+``lora_merged/params.pt``.
 
 Every method: AdamW with optax's warmup-cosine schedule and global-norm
 clipping; ``checkpoint-<step>`` auto-resume (``--async-save`` writes them
@@ -53,15 +67,12 @@ default) and fails without one; ``--device cpu`` asks for the CPU.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
 
-# What the port does not run yet, and the ROADMAP item that ports it.
-UNPORTED_METHODS = {
-    "dpo": "DPO (ROADMAP section 1, item 10)",
-    "grpo": "GRPO (ROADMAP section 1, item 10)",
-}
+LORA_METHODS = ("sft", "dpo", "grpo")
 
 
 def build_parser():
@@ -101,6 +112,27 @@ def build_parser():
                    choices=("qwen25vl", "llava_ov15"))
     p.add_argument("--method", default="selector",
                    choices=("selector", "dynamic", "sft", "dpo", "grpo"))
+    # DPO (the reference's dpo_trainer.py / trl surface)
+    p.add_argument("--beta", type=float, default=0.1,
+                   help="--method dpo: the DPO temperature")
+    p.add_argument("--dpo-loss-type", default="sigmoid",
+                   choices=("sigmoid", "ipo"))
+    p.add_argument("--rpo-alpha", type=float, default=0.0,
+                   help="--method dpo: > 0 adds alpha * CE(chosen)")
+    p.add_argument("--label-smoothing", type=float, default=0.0)
+    # GRPO (the reference's grpo_trainer.py / trl surface)
+    p.add_argument("--grpo-beta", type=float, default=0.04,
+                   help="--method grpo: KL-to-reference weight (0 skips "
+                        "the reference forward)")
+    p.add_argument("--num-generations", type=int, default=4)
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="--method grpo: the rollouts' sampling temperature")
+    p.add_argument("--max-completion-length", type=int, default=64)
+    p.add_argument("--grpo-loss-type", default="grpo",
+                   choices=("grpo", "bnpo", "dr_grpo"))
+    p.add_argument("--rewards", default="accuracy,format",
+                   help="--method grpo: comma list of train.grpo."
+                        "REWARD_FUNCS")
     p.add_argument("--tau-start", type=float, default=1.0,
                    help="--method dynamic: Gumbel temperature at step 0")
     p.add_argument("--tau-end", type=float, default=0.1,
@@ -110,14 +142,15 @@ def build_parser():
     # SFT freeze policy (the reference's tune_mm_* knobs); --tune-mm-llm is
     # on by default (an all-frozen SFT trains nothing).
     p.add_argument("--tune-mm-vision", action="store_true",
-                   help="--method sft: train the vision tower")
+                   help="--method sft|dpo|grpo: train the vision tower")
     p.add_argument("--tune-mm-mlp", action="store_true",
-                   help="--method sft: train the patch merger")
+                   help="--method sft|dpo|grpo: train the patch merger")
     p.add_argument("--tune-mm-llm", action=argparse.BooleanOptionalAction,
-                   default=True, help="--method sft: train the decoder")
+                   default=True,
+                   help="--method sft|dpo|grpo: train the decoder")
     p.add_argument("--lora-rank", type=int, default=0,
-                   help="--method sft: > 0 trains LoRA adapters of this "
-                        "rank on the decoder's kernels instead")
+                   help="--method sft|dpo|grpo: > 0 trains LoRA adapters "
+                        "of this rank on the decoder's kernels instead")
     p.add_argument("--lora-alpha", type=int, default=16)
     p.add_argument("--data-flatten", action=argparse.BooleanOptionalAction,
                    default=False,
@@ -131,13 +164,9 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args) -> None:
-    """NotImplementedError for what is not ported, ValueError for a
-    combination the reference ignores without a word."""
-    if args.method in UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"--method {args.method}: {UNPORTED_METHODS[args.method]} is "
-            f"not ported yet")
+def _check_options(args) -> None:
+    """ValueError for a combination the reference ignores without a word
+    or asserts against."""
     is_ov = args.family == "llava_ov15"
     if args.data_flatten and is_ov:
         raise ValueError("--data-flatten packs Qwen2.5-VL rows only (the "
@@ -147,8 +176,18 @@ def _refuse_unported(args) -> None:
     if args.method == "dynamic" and is_ov:
         raise ValueError("--method dynamic trains the Qwen2.5-VL family's "
                          "predictor only")
-    if args.lora_rank > 0 and args.method != "sft":
-        raise ValueError("--lora-rank trains adapters under --method sft")
+    if args.lora_rank > 0 and args.method not in LORA_METHODS:
+        raise ValueError("--lora-rank trains adapters under --method sft, "
+                         "dpo or grpo")
+    if args.method == "grpo":
+        if args.num_generations < 2:
+            raise ValueError("--method grpo needs --num-generations >= 2 "
+                             "for a relative advantage")
+        if args.grad_accum_steps > 1 and args.grpo_loss_type != "grpo":
+            raise ValueError(
+                "--grad-accum-steps > 1 under --method grpo takes the "
+                "per-sequence-mean 'grpo' reduction (bnpo / dr_grpo weight "
+                "by the whole batch's token counts)")
 
 
 def _tokenizer(model_path):
@@ -225,7 +264,7 @@ def _packed_stream(cfg, ds, args, single_builder):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    _check_options(args)
     import numpy as np
     import torch
 
@@ -274,7 +313,7 @@ def main(argv=None) -> int:
                        else build_sample_from_record)
             ds = ConversationDataset(args.annotation, args.image_root,
                                      _tokenizer(args.model_path))
-            if args.data_flatten:  # the Qwen family (_refuse_unported)
+            if args.data_flatten:  # the Qwen family (_check_options)
                 yield from _packed_stream(cfg, ds, args, builder)
                 return
             i = 0
@@ -308,6 +347,98 @@ def main(argv=None) -> int:
                     t_bucket=args.text_bucket, min_pixels=1,
                     max_pixels=10**9)
 
+    def records():
+        """The --annotation records (a json list or jsonl), cycled."""
+        with open(args.annotation) as f:
+            head = f.read(1)
+            f.seek(0)
+            recs = (json.load(f) if head == "["
+                    else [json.loads(ln) for ln in f if ln.strip()])
+        i = 0
+        while True:
+            yield recs[i % len(recs)]
+            i += 1
+
+    def dpo_pair_stream():
+        """(chosen, rejected) samples: the --annotation preference
+        records, else synthetic pairs (one prompt, two completions)."""
+        if args.annotation:
+            from visionselector_tpu_torch.train.dpo import (
+                build_dpo_pair_from_record,
+            )
+
+            tok = _tokenizer(args.model_path)
+            for rec in records():
+                yield build_dpo_pair_from_record(
+                    cfg, rec, tok, args.budget, args.vision_bucket,
+                    args.text_bucket, image_root=args.image_root,
+                    family=args.family)
+            return
+        if is_ov:
+            from visionselector_tpu_torch.train.ov_loss import (
+                build_ov_train_sample as build,
+            )
+        else:
+            from visionselector_tpu_torch.train.data import (
+                build_train_sample as build,
+            )
+        rng = np.random.RandomState(args.seed)
+        kw = dict(budget=args.budget, s_bucket=args.vision_bucket,
+                  t_bucket=args.text_bucket, min_pixels=1, max_pixels=10**9)
+        while True:
+            img = (rng.rand(56, 56, 3) * 255).astype(np.uint8)
+            yield (build(cfg, img, [101, 102], [103], [201, 202, 203], **kw),
+                   build(cfg, img, [101, 102], [103], [301, 302], **kw))
+
+    def grpo_prompt_stream():
+        """(images, raw prompt ids, image slots in them, solution text or
+        None, tokenizer or None): the --annotation records' prompts with
+        the assistant turn opened, else a synthetic one-image prompt."""
+        if args.annotation:
+            from PIL import Image
+
+            from visionselector_tpu_torch.train.dataset import (
+                IM_START,
+                render_conversation,
+            )
+
+            tok = _tokenizer(args.model_path)
+            for rec in records():
+                if "conversations" in rec:
+                    convo = list(rec["conversations"])
+                    if convo and convo[-1].get(
+                            "from", convo[-1].get("role")) in (
+                            "gpt", "assistant"):
+                        convo = convo[:-1]
+                else:
+                    prompt = rec["prompt"]
+                    if "<image>" not in prompt and rec.get("image"):
+                        prompt = "<image>" + prompt
+                    convo = [{"from": "human", "value": prompt}]
+                ids, _, slots = render_conversation(convo, tok)
+                # generation starts on the template's assistant turn (the
+                # reference's add_generation_prompt=True)
+                ids = ids + tok.encode(f"{IM_START}assistant\n")
+                paths = rec.get("image") or []
+                paths = paths if isinstance(paths, list) else [paths]
+                if not slots or len(paths) != len(slots):
+                    raise ValueError(
+                        f"GRPO records need one image per <image> "
+                        f"placeholder, at least one: {len(paths)} images, "
+                        f"{len(slots)} placeholders")
+                images = []
+                for path in paths:
+                    with Image.open(os.path.join(args.image_root,
+                                                 path)) as im:
+                        images.append(im.convert("RGB").copy())
+                yield (images, ids, slots,
+                       rec.get("solution", rec.get("answer", "")), tok)
+            return
+        rng = np.random.RandomState(args.seed)
+        while True:
+            img = (rng.rand(56, 56, 3) * 255).astype(np.uint8)
+            yield [img], [101, 102, 103], [2], None, None
+
     l_pad = args.vision_bucket // cfg.vision.spatial_merge_unit
     k_max = max(1, int(l_pad * args.budget))
     common = dict(total_steps=args.total_steps, lr=args.lr,
@@ -315,6 +446,16 @@ def main(argv=None) -> int:
                   warmup_ratio=args.warmup_ratio,
                   max_grad_norm=args.max_grad_norm,
                   remat=args.gradient_checkpointing)
+    accum = max(1, args.grad_accum_steps)
+    stream = None
+    if args.lora_rank > 0:  # sft, dpo or grpo (_check_options)
+        from visionselector_tpu_torch.train.lora import add_lora_params
+
+        add_lora_params(params.lm, torch.Generator(device=dev).manual_seed(
+            args.seed + 1), rank=args.lora_rank, alpha=args.lora_alpha)
+    freeze = dict(tune_mm_vision=args.tune_mm_vision,
+                  tune_mm_mlp=args.tune_mm_mlp, tune_mm_llm=args.tune_mm_llm,
+                  lora_rank=args.lora_rank)
     if args.method == "sft":
         from visionselector_tpu_torch.train.sft import (
             SFTScheduleConfig,
@@ -322,20 +463,50 @@ def main(argv=None) -> int:
             sft_train_step_accum,
         )
 
-        if args.lora_rank > 0:
-            from visionselector_tpu_torch.train.lora import add_lora_params
-
-            add_lora_params(params.lm, torch.Generator(
-                device=dev).manual_seed(args.seed + 1), rank=args.lora_rank,
-                alpha=args.lora_alpha)
-        sched = SFTScheduleConfig(
-            tune_mm_vision=args.tune_mm_vision, tune_mm_mlp=args.tune_mm_mlp,
-            tune_mm_llm=args.tune_mm_llm, lora_rank=args.lora_rank,
-            **common)
+        sched = SFTScheduleConfig(**freeze, **common)
         state = init_sft_state(params, sched)
 
         def step_fn(state, micro):
             return sft_train_step_accum(state, params, micro, cfg, sched)
+    elif args.method == "dpo":
+        from visionselector_tpu_torch.train.dpo import (
+            DPOScheduleConfig,
+            ReferencePolicy,
+            dpo_train_step_accum,
+            init_dpo_state,
+        )
+
+        sched = DPOScheduleConfig(
+            beta=args.beta, loss_type=args.dpo_loss_type,
+            rpo_alpha=args.rpo_alpha, label_smoothing=args.label_smoothing,
+            **freeze, **common)
+        state = init_dpo_state(params, sched)
+        # the starting weights, also after a resume (taken before it)
+        ref = ReferencePolicy(params, state)
+        stream = dpo_pair_stream()
+
+        def step_fn(state, micro):
+            return dpo_train_step_accum(
+                state, ref, params, [c for c, _ in micro],
+                [r for _, r in micro], cfg, sched)
+    elif args.method == "grpo":
+        from visionselector_tpu_torch.train.dpo import ReferencePolicy
+        from visionselector_tpu_torch.train.grpo import (
+            GRPOScheduleConfig,
+            init_grpo_state,
+        )
+
+        sched = GRPOScheduleConfig(
+            beta=args.grpo_beta, loss_type=args.grpo_loss_type,
+            num_generations=args.num_generations,
+            temperature=args.temperature,
+            max_completion_length=args.max_completion_length,
+            **freeze, **common)
+        state = init_grpo_state(params, sched)
+        ref = ReferencePolicy(params, state) if sched.beta > 0 else None
+        stream = grpo_prompt_stream()
+        step_fn = _grpo_stepper(args, cfg, params, ref, sched, stream, dev,
+                                accum, tiny)
     elif args.method == "dynamic":
         from visionselector_tpu_torch.selector.baselines.dynamic import (
             init_predictor,
@@ -379,18 +550,26 @@ def main(argv=None) -> int:
     if resumed:
         print(f"[train] resumed at step {state.step}")
 
-    accum = max(1, args.grad_accum_steps)
-    stream = sample_stream()
+    if stream is None:
+        stream = sample_stream()
+
+    def micro_batch():
+        """``batch-size`` samples (pairs under dpo), on the device."""
+        items = [next(stream) for _ in range(args.batch_size)]
+        if args.method == "dpo":
+            return tuple(to_device(stack_samples([it[i] for it in items]),
+                                   dev) for i in range(2))
+        return to_device(stack_samples(items), dev)
 
     def next_batch():
-        """``accum`` micro-batches of ``batch-size`` samples, on the
-        device."""
-        return [to_device(stack_samples(
-            [next(stream) for _ in range(args.batch_size)]), dev)
-            for _ in range(accum)]
+        """``accum`` micro-batches, on the device."""
+        return [micro_batch() for _ in range(accum)]
 
     prefetcher = None
-    if args.prefetch > 0:
+    if args.method == "grpo":
+        # rollouts sample the CURRENT policy: nothing is built ahead
+        batch_iter = itertools.repeat(None)
+    elif args.prefetch > 0:
         from visionselector_tpu_torch.train.prefetch import BatchPrefetcher
 
         prefetcher = batch_iter = BatchPrefetcher(next_batch,
@@ -435,7 +614,7 @@ def main(argv=None) -> int:
             state.predictor,
             os.path.join(out, "image_score_predictor.safetensors"))
         print(f"[train] exported predictor to {out}")
-    elif args.method == "sft":
+    elif args.method in LORA_METHODS:
         if args.lora_rank > 0:
             # the adapters folded into the dense kernels (the reference's
             # merge_lora_weights.py flow), the whole model written
@@ -446,7 +625,7 @@ def main(argv=None) -> int:
             path = save_params(params, os.path.join(out, "lora_merged"))
             print(f"[train] LoRA merged into {path}")
         # the trained parameters live in the checkpoint-<step> dirs
-        print(f"[train] SFT checkpoints in {out}")
+        print(f"[train] {args.method.upper()} checkpoints in {out}")
     else:
         from visionselector_tpu_torch.models.qwen25vl.weights import (
             export_scorer_to_safetensors,
@@ -458,6 +637,107 @@ def main(argv=None) -> int:
         print(f"[train] exported scorer to {out}")
     _copy_loader_configs(args.model_path, out)
     return 0
+
+
+def _grpo_stepper(args, cfg, params, ref, sched, stream, dev, accum: int,
+                  tiny: bool):
+    """``step_fn(state, _)`` of ``--method grpo``: per prompt,
+    ``num_generations`` rollouts through the serving engine on the current
+    policy (the engine holds the very modules AdamW updates, adapters
+    included, and caches no weight: no prefix store, the default
+    attention), the rewards and group advantages, the samples that
+    supervise exactly the sampled tokens, then one update
+    (``grpo_train_step``, or ``grpo_train_step_accum`` over ``accum``
+    micro-batches). Prompt ``bi`` of micro-batch ``a`` at update n rolls
+    out with seed ``(n * batch_size * accum) + a * batch_size + bi``.
+    Rollouts and the scored samples share one pixel-bound policy, so the
+    completions are conditioned on exactly the grid the step scores."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import (
+        expand_vision_tokens_at_slots,
+    )
+    from visionselector_tpu_torch.train.data import stack_samples
+    from visionselector_tpu_torch.train.grpo import (
+        REWARD_FUNCS,
+        build_grpo_sample,
+        group_advantages,
+        grpo_train_step,
+        grpo_train_step_accum,
+        rollout_group,
+    )
+    from visionselector_tpu_torch.train.loss import to_device
+
+    if args.family == "llava_ov15":
+        from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
+
+        engine = OVEngine(cfg, params, use_selector=False, device=dev)
+    else:
+        from visionselector_tpu_torch.models.qwen25vl.model import (
+            QwenVLEngine,
+        )
+
+        engine = QwenVLEngine(cfg, params, use_selector=False, device=dev)
+    mm = (dict(min_pixels=1, max_pixels=10**9) if tiny
+          else dict(min_pixels=56 * 56, max_pixels=28 * 28 * 1280))
+    reward_fns = [REWARD_FUNCS[n] for n in args.rewards.split(",") if n]
+    vc = cfg.vision
+
+    def one_micro(seed_base):
+        samples, rewards = [], []
+        for bi in range(args.batch_size):
+            images, raw_ids, slots, solution, tok = next(stream)
+            prepped = [preprocess_image(
+                im, patch_size=vc.patch_size,
+                temporal_patch_size=vc.temporal_patch_size,
+                merge_size=vc.spatial_merge_size, **mm) for im in images]
+            pixels = np.concatenate([px for px, _ in prepped], axis=0)
+            grid = np.concatenate([g for _, g in prepped], axis=0)
+            ids = expand_vision_tokens_at_slots(
+                raw_ids, slots, grid, spatial_merge_size=vc.spatial_merge_size,
+                image_token_id=cfg.image_token_id,
+                vision_start_token_id=cfg.vision_start_token_id,
+                vision_end_token_id=cfg.vision_end_token_id)
+            comps = rollout_group(engine, ids, pixels, grid, sched,
+                                  seed=seed_base + bi)
+            if tok is not None:
+                texts = [tok.decode(c, skip_special_tokens=True)
+                         for c in comps]
+                per_fn = [fn(texts, solution=[solution] * len(texts))
+                          for fn in reward_fns]
+                rewards.extend(float(sum(col)) for col in zip(*per_fn))
+            else:
+                # synthetic reward: the parity of the completion's token
+                # sum, which varies across a group
+                rewards.extend(float(int(np.sum(c)) % 2 == 0)
+                               for c in comps)
+            samples.extend(build_grpo_sample(
+                cfg, images, raw_ids, slots, c, budget=args.budget,
+                s_bucket=args.vision_bucket, t_bucket=args.text_bucket,
+                family=args.family, **mm) for c in comps)
+        adv = group_advantages(np.asarray(rewards), sched.num_generations,
+                               sched.scale_rewards)
+        return (to_device(stack_samples(samples), dev),
+                torch.as_tensor(adv, device=dev), rewards)
+
+    def step_fn(state, _):
+        base = state.step * args.batch_size * accum
+        micros = [one_micro(base + a * args.batch_size)
+                  for a in range(accum)]
+        if accum == 1:
+            state, metrics = grpo_train_step(
+                state, ref, params, micros[0][0], micros[0][1], cfg, sched)
+        else:
+            state, metrics = grpo_train_step_accum(
+                state, ref, params, [b for b, _, _ in micros],
+                [a for _, a, _ in micros], cfg, sched)
+        metrics["mean_reward"] = float(np.mean(
+            [r for _, _, rs in micros for r in rs]))
+        return state, metrics
+
+    return step_fn
 
 
 def _scorer_prefix(is_ov: bool, model_path) -> str:

@@ -429,7 +429,8 @@ def embed_tokens(lm: LanguageModel, input_ids: torch.Tensor) -> torch.Tensor:
     return lm.embed_tokens[input_ids]
 
 
-def lm_head(lm: LanguageModel, hidden: torch.Tensor) -> torch.Tensor:
+def lm_head(lm: LanguageModel, hidden: torch.Tensor,
+            upcast: bool = False) -> torch.Tensor:
     """[.., D] -> [.., V] fp32 logits: the reference's bf16-in /
     fp32-accumulate product (its einsum with ``preferred_element_type``).
 
@@ -438,11 +439,14 @@ def lm_head(lm: LanguageModel, hidden: torch.Tensor) -> torch.Tensor:
     of the [D, V] weight. Elsewhere both operands are upcast (bf16
     products are exact in fp32, so the result is the same function):
     ``aten::mm.dtype`` has no CPU kernel, and on CUDA it has no derivative
-    (torch 2.11), so the training head keeps the upcast."""
+    (torch 2.11), so the training head keeps the upcast. ``upcast=True``
+    takes the upcast route in any case: the DPO / GRPO reference policy's
+    no-grad forward then computes bit for bit what the trained forward
+    does."""
     tied = lm.cfg.tie_word_embeddings
     w = lm.embed_tokens.t() if tied else lm.lm_head_kernel  # [D, V]
     carries_grad = torch.is_grad_enabled() and hidden.requires_grad
-    if (hidden.device.type == "cuda" and not carries_grad
+    if (hidden.device.type == "cuda" and not carries_grad and not upcast
             and w.dtype != torch.float32):
         flat = hidden.reshape(-1, hidden.shape[-1]).to(w.dtype)
         out = torch.mm(flat, w, out_dtype=torch.float32)

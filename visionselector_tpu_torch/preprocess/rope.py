@@ -140,3 +140,34 @@ def expand_vision_tokens(
         ids += [vision_start_token_id] + [image_token_id] * n + [vision_end_token_id]
     ids += list(prompt_ids_after)
     return np.asarray(ids, dtype=np.int64)
+
+
+def expand_vision_tokens_at_slots(
+    ids: list,
+    slots: list,
+    grid_thw: np.ndarray,
+    spatial_merge_size: int = 2,
+    image_token_id: int = 151655,
+    vision_start_token_id: int = 151652,
+    vision_end_token_id: int = 151653,
+) -> np.ndarray:
+    """Splice one ``<vision_start> image_pad*N <vision_end>`` run per grid
+    row into ``ids``, image ``i``'s at offset ``slots[i]`` (the
+    interleaved multi-image form of :func:`expand_vision_tokens`; the
+    processor expands each ``<|image_pad|>`` placeholder in place). Raises
+    ValueError when the slots do not match the grid rows one for one or do
+    not ascend (the reference asserts both)."""
+    grid_thw = np.asarray(grid_thw)
+    if len(slots) != len(grid_thw):
+        raise ValueError(f"{len(slots)} slots for {len(grid_thw)} grid rows")
+    if list(slots) != sorted(slots):
+        raise ValueError(f"vision slots must ascend, got {list(slots)}")
+    out, prev = [], 0
+    for sl, (t, h, w) in zip(slots, grid_thw):
+        n = int(t * h * w) // (spatial_merge_size**2)
+        out += list(ids[prev:sl])
+        out += ([vision_start_token_id] + [image_token_id] * n
+                + [vision_end_token_id])
+        prev = sl
+    out += list(ids[prev:])
+    return np.asarray(out, dtype=np.int64)

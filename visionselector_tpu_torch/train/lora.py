@@ -14,6 +14,7 @@ as a no-op (peft's convention).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
@@ -70,6 +71,24 @@ def merge_lora_params(lm):
         if names:
             del layer.lora_scale
     return lm
+
+
+@contextlib.contextmanager
+def adapters_off(lm):
+    """Inside the block ``lm`` runs without its adapters (``lm._dense``
+    finds none): the base model, the reference policy of LoRA DPO and
+    GRPO. The adapter parameters are the same objects afterwards, in
+    their places (the optimizer and the checkpoints hold them)."""
+    saved = [dict(layer._parameters) for layer in lm.layers]
+    try:
+        for layer in lm.layers:
+            for name in [n for n in layer._parameters if lora_leaf(n)]:
+                del layer._parameters[name]
+        yield lm
+    finally:
+        for layer, params in zip(lm.layers, saved):
+            layer._parameters.clear()
+            layer._parameters.update(params)
 
 
 def lora_leaf(name: str) -> bool:

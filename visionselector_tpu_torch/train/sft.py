@@ -141,12 +141,12 @@ def forward_logits(params, sample, cfg, remat: bool = False,
     return fwd(params, sample, cfg, remat=remat, attn_impl=attn_impl)
 
 
-def sft_batch_forward(params, batch, cfg, remat: bool = False,
-                      attn_impl=None):
-    """Per-sample CEs of a stacked batch of either family
-    (``loss.to_device``): each sample's vision tower, the scatter, one [B,
-    T] decoder call, the head on the supervised rows. Returns (losses [B],
-    {"ce": [B]})."""
+def batch_hidden(params, batch, remat: bool = False,
+                 attn_impl=None) -> torch.Tensor:
+    """The uncompressed forward of a stacked batch of either family
+    (``loss.to_device``) up to the decoder's final norm: each sample's
+    vision tower, every merged token scattered, one [B, T] decoder call.
+    Returns hidden [B, T, D]."""
     nb = batch.input_ids.shape[0]
     embeds = torch.stack([
         scatter_vision(params.lm, batch.input_ids[b],
@@ -156,8 +156,17 @@ def sft_batch_forward(params, batch, cfg, remat: bool = False,
     hidden, _ = lm_mod.lm_prefill(
         params.lm, embeds, batch.position_ids.transpose(0, 1),
         batch.seg_ids, attn_impl=attn_impl, remat=remat)
+    return hidden
+
+
+def sft_batch_forward(params, batch, cfg, remat: bool = False,
+                      attn_impl=None):
+    """Per-sample CEs of a stacked batch of either family: ``batch_hidden``,
+    then the head on the supervised rows. Returns (losses [B], {"ce":
+    [B]})."""
+    hidden = batch_hidden(params, batch, remat, attn_impl)
     ce = torch.stack([supervised_ce(params.lm, hidden[b], batch.labels[b])
-                      for b in range(nb)])
+                      for b in range(hidden.shape[0])])
     return ce, {"ce": ce}
 
 
