@@ -388,6 +388,40 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    clean records, 1 on three broken ones) and ``train.prep_data``
    (filter; sample-merge byte-equal for one seed, not for another). Trains
    the 3B's decoder in place, so it runs last.
+16. Weight-only quantization (``quantize``; ``--quantize int8 | int4 |
+   int4:g128``; the decoder's seven kernels a layer as int8 or packed
+   int4 buffers, fp32 scales). (d) While OV-8B is on the card (after
+   phase 14's OV part): phase 11's selector request under bf16, int8 and
+   int4:g128, each quantized in place from the bf16 kernels (put back from
+   host copies in between): 252 weight-only GEMM launches a decode step
+   and 252 dequantize-route calls a prefill, the first token and prefill
+   logits against the plain routes (``attn_impl="plain"``,
+   an empty ``WQ_MAX_ROWS``) by phase 3's rule, a teacher-forced decode step of
+   the kernel route against the dequantize route (TEACHER_TOL), decode
+   device ms per token, LM bytes and peak memory beside bf16's. After
+   phase 15: (a) the kernel against ``wq_matmul_plain`` at the seven
+   kernel shapes of the 3B and of OV-8B, 1 / 8 / 16 / 32 rows, each spec,
+   within ULP_LIMIT; three planted faults (the last k chunk skipped, int4
+   nibbles swapped, group g read with g + 1's scale) must fail it; per
+   shape at one row the kernel's ms, its bound (Wq + scales + x + y over
+   3.35 TB/s), the dequantize route's ms, the library call's
+   (``torch._weight_int8pack_mm`` / ``torch._weight_int4pack_mm``, held
+   to the plain version within ULP_LIMIT) and a bf16 ``torch.mm`` on an
+   unquantized weight of the shape; the 3B's shapes also at 16 and 32 rows
+   on both routes, which set ``WQ_MAX_ROWS`` per format
+   (``chiprun_out/quant_kernels.txt``; the 3B layer's seven products
+   summed printed). (b) The 3B under
+   bf16, then each spec, phase 3's request at selector 0.2, 32 greedy
+   tokens, with (d)'s checks and numbers, and the prefill logits'
+   distance from bf16's. (c) ``ContinuousBatcher(n_slots=8)`` over the
+   int4:g128 3B, six of phase 5's greedy requests on a bf16 and an int8
+   pool: each first token equals its one-shot ``generate``'s. (e) In
+   processes beside the phase (started after (a)): ``api.predict
+   --quantize int8``, ``api.run_eval --quantize int8`` and ``api.serve
+   --quantize int4:g128 --continuous 4`` (two requests at the phase's end)
+   on phase 6's reduced-depth directory, ``api.predict --family
+   llava_ov15 --quantize int4:g128`` on phase 11's. Prints the phase's
+   seconds and its parts'.
 
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
@@ -398,7 +432,10 @@ causal ones of the last step; K5 at t_c 8, ``decode_blocked_fwd_t_c8`` and
 ``decode_blocked_fwd_ov_t_c8``, from phase 13, its launches those of the
 3B's m = 7 run and of OV-8B's; K1 on packed training rows,
 ``flash_varlen_fwd_packed_train``, from phase 14, its launches the
-causal ones of the last packed step); the last line is
+causal ones of the last packed step; the weight-only GEMM per spec,
+``wq_matmul_fwd``, ``wq_matmul_fwd_int4`` and ``wq_matmul_fwd_int4_g128``,
+from phase 16, timed as the 3B layer's seven products at one row, its
+launches those of 16(b)'s counted request); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -447,6 +484,8 @@ TEACHER_TOL = 0.1
 # share flash_varlen_fwd; the packed entry (K3) and the ablation (K7) are
 # launches of the same source's kernels (non-causal: the image prologue and
 # the wgmma main loop of wgmma_attn.cuh, which the fused kernel shares).
+WQ_REPLACES = ("none (the XLA convert + dot of _dense, "
+               "visionselector_tpu/models/qwen25vl/lm.py:139)")
 KERNELS = {
     "flash_varlen_fwd": ("flash_varlen_fwd.cu",
                          "visionselector_tpu/kernels/attention.py:203"),
@@ -502,6 +541,13 @@ KERNELS = {
     "decode_blocked_fwd_ov_t_c8": ("decode_blocked_fwd.cu",
                                    "visionselector_tpu/kernels/"
                                    "attention.py:1085"),
+    # The weight-only quantized product (phase 16): it replaces no Pallas
+    # kernel but the XLA convert + dot of the reference's _dense; one entry
+    # per --quantize spec, timed as the 3B decoder layer's seven products
+    # at one row
+    "wq_matmul_fwd": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_matmul_fwd_int4": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_matmul_fwd_int4_g128": ("wq_matmul_fwd.cu", WQ_REPLACES),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -1557,6 +1603,7 @@ def launch_counts() -> dict:
 def zero_counts():
     from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.kernels import fused_vit_attn as F_
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
 
     A.FLASH_LAUNCHES = A.DIAG_LAUNCHES = A.DECODE_LAUNCHES = 0
     A.FLASH_CAPPED_LAUNCHES = A.FLASH_CAUSAL_LAUNCHES = 0
@@ -1565,6 +1612,7 @@ def zero_counts():
     for route in A.FLASH_ROUTE_LAUNCHES:
         A.FLASH_ROUTE_LAUNCHES[route] = 0
     A.DECODE_LAUNCHES_BY_ROWS.clear()
+    wq.WQ_LAUNCHES = wq.WQ_DEQUANT_CALLS = 0
 
 
 def run_main_path(cfg, params, input_ids, pixels, grid):
@@ -3992,10 +4040,32 @@ def http_phase(cfg, params, engine, input_ids, pixels, grid, hf_dir) -> int:
     return launches[f"decode_t_c{ADMIT_SEG}"]
 
 
-def serve_cli(hf_dir) -> bool:
-    """``python -m visionselector_tpu_torch.api.serve --device cuda
-    --model-path <hf_dir> --port 0`` in a process of its own: /health and
-    one /generate, then terminate it."""
+def serve_start(hf_dir, extra=()):
+    """Start ``python -m visionselector_tpu_torch.api.serve --device cuda
+    --model-path <hf_dir> --port 0`` (and ``extra`` flags) in a process of
+    its own. Returns (process, queue of (arrival time, output line), start
+    time)."""
+    import queue
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "visionselector_tpu_torch.api.serve",
+         "--device", "cuda", "--model-path", hf_dir, "--port", "0",
+         *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = queue.Queue()
+    threading.Thread(
+        target=lambda: [lines.put((time.perf_counter(), x))
+                        for x in proc.stdout],
+        daemon=True).start()
+    return proc, lines, t0
+
+
+def serve_cli(hf_dir, extra=(), n_requests=1, started=None) -> bool:
+    """The server of ``serve_start(hf_dir, extra)``, or ``started``, one
+    begun earlier: /health and ``n_requests`` /generate, then terminate
+    it."""
     import base64
     import queue
     import urllib.request
@@ -4004,20 +4074,12 @@ def serve_cli(hf_dir) -> bool:
 
     from visionselector_tpu_torch.preprocess.png import encode_png
 
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "visionselector_tpu_torch.api.serve",
-         "--device", "cuda", "--model-path", hf_dir, "--port", "0"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
-                     daemon=True).start()
+    proc, lines, t0 = started or serve_start(hf_dir, extra)
     log, url = [], None
     try:
         while url is None and time.perf_counter() - t0 < 300:
             try:
-                line = lines.get(timeout=5)
+                at, line = lines.get(timeout=5)
             except queue.Empty:
                 if proc.poll() is not None:
                     break
@@ -4029,24 +4091,28 @@ def serve_cli(hf_dir) -> bool:
         if url is None:
             print(f"[http] api.serve did not start: {log[-20:]}", flush=True)
             return False
-        up = time.perf_counter() - t0
+        up = at - t0
         with urllib.request.urlopen(url + "/health", timeout=60) as r:
             health = json.loads(r.read())
         img = (np.random.RandomState(SEED + 10).rand(448, 448, 3)
                * 255).astype(np.uint8)
         body = {"prompt": "hi", "max_new_tokens": 4, "image_b64":
                 base64.b64encode(encode_png(img)).decode()}
-        req = urllib.request.Request(
-            url + "/generate", data=json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
-            out = json.loads(r.read())
+        outs = []
+        for _ in range(n_requests):
+            req = urllib.request.Request(
+                url + "/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+                outs.append(json.loads(r.read()))
+        out = outs[-1]
         print(f"[http] api.serve --device cuda --model-path <phase-6 HF dir>"
-              f": up after {up!r} s ({log[-1]}); /health {health}; "
-              f"/generate {out['tokens']} kept {out['kept_vision_tokens']} "
-              f"of {out['num_vision_tokens']}, prefill_ms "
-              f"{out['prefill_ms']!r}", flush=True)
-        return health.get("ok") is True and len(out["tokens"]) == 4
+              f" {' '.join(extra)}: up after {up!r} s ({log[-1]}); /health "
+              f"{health}; /generate {[o['tokens'] for o in outs]} kept "
+              f"{out['kept_vision_tokens']} of {out['num_vision_tokens']}, "
+              f"prefill_ms {out['prefill_ms']!r}", flush=True)
+        return health.get("ok") is True and all(
+            len(o["tokens"]) == 4 for o in outs)
     finally:
         proc.terminate()
         try:
@@ -7562,6 +7628,570 @@ def preference_phase(cfg, params, pref):
         raise AssertionError(f"preference phase failed: {bad}")
 
 
+# Phase 16 (quantize): weight-only LM quantization (``--quantize``). The
+# decoder's seven matmul kernels as int8 or packed int4 with per-channel or
+# grouped fp32 scales (``lm.apply_weight_quantization``); decode rows (at
+# most ``WQ_MAX_ROWS[dtype]``) take the hand-written weight-only GEMM
+# (``csrc/wq_matmul_fwd.cu``), prefill rows a dequantized layer kernel and
+# ``torch.matmul``.
+QUANT_SPECS = ("int8", "int4", "int4:g128")
+# Rows checked at every shape; rows timed: one (the kernels line, every
+# shape) and 16 / 32 (the 3B's shapes, which set WQ_MAX_ROWS per format).
+WQ_ROWS = (1, 8, 16, 32)
+WQ_CAP_ROWS = (16, 32)
+WQ_ENTRY = {"int8": "wq_matmul_fwd", "int4": "wq_matmul_fwd_int4",
+            "int4:g128": "wq_matmul_fwd_int4_g128"}
+QUANT_NEW_TOKENS = 32
+QUANT_PROFILE_STEPS = 8
+QUANT_SERVE_REQUESTS = 6
+
+
+def lm_kernel_shapes(text_cfg) -> dict:
+    """(in, out) of each of a decoder layer's seven matmul kernels."""
+    d, i = text_cfg.hidden_size, text_cfg.intermediate_size
+    hq = text_cfg.num_attention_heads * text_cfg.head_dim
+    hkv = text_cfg.num_key_value_heads * text_cfg.head_dim
+    return {"q_kernel": (d, hq), "k_kernel": (d, hkv), "v_kernel": (d, hkv),
+            "o_kernel": (hq, d), "gate_kernel": (d, i), "up_kernel": (d, i),
+            "down_kernel": (i, d)}
+
+
+def wq_weight(spec, k, n, gen):
+    """Random stored weight and fp32 scales of ``spec`` at [k, n]."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        pack_int4,
+        parse_quantize_spec,
+    )
+
+    bits, group = parse_quantize_spec(spec)
+    qmax = 127 if bits == 8 else 7
+    q = torch.randint(-qmax, qmax + 1, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((k // group, n) if group else (n,), generator=gen,
+                   device="cuda") * 2e-3 + 1e-4
+    return (pack_int4(q) if bits == 4 else q), s
+
+
+def wq_library(w, s):
+    """One PyTorch call computing the same product, timed beside the
+    kernel and used nowhere in the port: ``torch._weight_int8pack_mm``
+    (x @ q^T [N, K] int8 times bf16 scales) for int8, and tinygemm's
+    ``torch._weight_int4pack_mm`` for int4 (the ints stored as q + 8 with
+    zero points 0, packed by ``_convert_weight_to_int4pack``: byte k / 2 of
+    a row holds k's nibble high and k + 1's low; per-channel scales
+    repeated over groups of 128, its largest group that divides both
+    models' widths). Returns x -> y."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    q = wq.weight_ints(w)
+    if w.dtype == torch.int8:
+        qt, sb = q.t().contiguous(), s.to(torch.bfloat16)
+        return lambda x: torch._weight_int8pack_mm(x, qt, sb)
+    k, n = q.shape
+    u = q.t().to(torch.int32) + 8
+    packed = torch._convert_weight_to_int4pack(
+        ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous(), 8)
+    group = k // s.shape[0] if s.dim() == 2 else 128
+    sg = s if s.dim() == 2 else s[None].expand(k // group, n)
+    sz = torch.stack([sg, torch.zeros_like(sg)], -1).to(
+        torch.bfloat16).contiguous()
+    return lambda x: torch._weight_int4pack_mm(x, packed, group, sz)
+
+
+def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
+    """16(a): the kernel against ``wq_matmul_plain`` at the seven kernel
+    shapes of the 3B and of OV-8B, rows 1 / 8 / 16 / 32, each spec; three
+    planted faults. Per shape at one row: the kernel's ms, its bound, the
+    dequantize route's ms, the library call's (``wq_library``, held to
+    the plain version as the kernel is) and a bf16 ``torch.mm`` on an
+    unquantized weight of the shape (the yardstick); at the 3B's shapes
+    the kernel and the dequantize route at 16 and 32 rows, which set
+    ``WQ_MAX_ROWS``. Returns the kernels line's entries: per spec, the 3B
+    decoder layer's seven products at one row (a decode step at batch 1),
+    summed."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import _build
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    for line in _build.PTXAS_LOG.splitlines():
+        if "wq_matmul" in line or (
+                "registers" in line and "wq_" in line):
+            print(f"[quant-kernel] ptxas {line.strip()}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    rows_out = []
+    entries = {}
+    worst = lib_worst = 0.0
+    models = (("3b", lm_kernel_shapes(cfg.text)),
+              ("ov8b", lm_kernel_shapes(ov_cfg.text)))
+    for spec in QUANT_SPECS:
+        layer = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                     mm_ms=0.0, err=0.0)
+        at = {m: dict(ms=0.0, plain_ms=0.0) for m in WQ_CAP_ROWS}
+        for model, shapes in models:
+            for (k, n), names in _group_shapes(shapes).items():
+                w, s = wq_weight(spec, k, n, gen)
+                dense = torch.randn(k, n, generator=gen, device="cuda",
+                                    dtype=torch.bfloat16)
+                library = wq_library(w, s)
+                for m in WQ_ROWS:
+                    x = torch.randn(m, k, generator=gen, device="cuda",
+                                    dtype=torch.bfloat16)
+                    got = wq.wq_matmul(x, w, s)
+                    want = wq.wq_matmul_plain(x, w, s)
+                    ulp = bf16_ulp_err(got, want)
+                    err = (got.float() - want.float()).abs().max().item()
+                    worst = max(worst, ulp)
+                    line = (f"{spec} {model} {'/'.join(names)} K={k} N={n} "
+                            f"M={m}: err {err!r} ({ulp!r} ulp)")
+                    if m == 1:
+                        lib_ulp = bf16_ulp_err(library(x), want)
+                        lib_worst = max(lib_worst, lib_ulp)
+                        ms = cuda_ms(lambda: wq.wq_matmul(x, w, s))
+                        plain_ms = cuda_ms(
+                            lambda: wq.wq_dequant_matmul(x, w, s))
+                        lib_ms = cuda_ms(lambda: library(x))
+                        mm_ms = cuda_ms(lambda: torch.mm(x, dense))
+                        bound, by = bound_ms(wq.bytes_moved(m, w, s),
+                                             2 * m * k * n)
+                        line += (f", kernel {ms!r} ms, bound {bound!r} ms "
+                                 f"({by}), dequant+matmul {plain_ms!r} ms, "
+                                 f"library {lib_ms!r} ms ({lib_ulp!r} ulp),"
+                                 f" bf16 torch.mm {mm_ms!r} ms")
+                        if model == "3b":
+                            c = len(names)
+                            layer["ms"] += ms * c
+                            layer["plain_ms"] += plain_ms * c
+                            layer["bound_ms"] += bound * c
+                            layer["library_ms"] += lib_ms * c
+                            layer["mm_ms"] += mm_ms * c
+                            layer["err"] = max(layer["err"], err)
+                    elif model == "3b" and m in at:
+                        ms = cuda_ms(lambda: wq.wq_matmul(x, w, s))
+                        plain_ms = cuda_ms(
+                            lambda: wq.wq_dequant_matmul(x, w, s))
+                        line += (f", kernel {ms!r} ms, dequant+matmul "
+                                 f"{plain_ms!r} ms")
+                        at[m]["ms"] += ms * len(names)
+                        at[m]["plain_ms"] += plain_ms * len(names)
+                    rows_out.append(line)
+                del w, s, dense, library
+        entries[WQ_ENTRY[spec]] = {
+            "max_abs_err": layer["err"], "ms": layer["ms"],
+            "plain_ms": layer["plain_ms"], "bound_ms": layer["bound_ms"],
+            "bound_by": "bytes", "library_ms": layer["library_ms"]}
+        cap = wq.WQ_MAX_ROWS[torch.uint8 if "4" in spec else torch.int8]
+        print(f"[quant-kernel] {spec}: the 3B layer's seven products at M=1"
+              f": kernel {layer['ms']!r} ms, bound {layer['bound_ms']!r} ms"
+              f", dequant+matmul {layer['plain_ms']!r} ms, library "
+              f"{layer['library_ms']!r} ms, bf16 torch.mm "
+              f"{layer['mm_ms']!r} ms, max_abs_err {layer['err']!r}; at "
+              f"M=16 kernel {at[16]['ms']!r} / dequant "
+              f"{at[16]['plain_ms']!r} ms, at M=32 kernel {at[32]['ms']!r} "
+              f"/ dequant {at[32]['plain_ms']!r} ms (WQ_MAX_ROWS {cap})",
+              flush=True)
+    with open(os.path.join(out_dir, "quant_kernels.txt"), "w") as f:
+        f.write("\n".join(rows_out) + "\n")
+    for line in rows_out:
+        if " M=1:" in line and "3b" in line:
+            print(f"[quant-kernel] {line}", flush=True)
+    print(f"[quant-kernel] {len(rows_out)} cases (chiprun_out/"
+          f"quant_kernels.txt), worst {worst!r} bf16 ulps; library calls "
+          f"worst {lib_worst!r}", flush=True)
+    checks[f"kernel within {ULP_LIMIT} ulps at every shape"] = (
+        worst <= ULP_LIMIT)
+    checks[f"library calls within {ULP_LIMIT} ulps (the same product)"] = (
+        lib_worst <= ULP_LIMIT)
+    # Planted faults at the 3B's gate shape, 8 rows: each must fail the
+    # same check.
+    k, n = lm_kernel_shapes(cfg.text)["gate_kernel"]
+    x = torch.randn(8, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+    for spec, fault, what in (("int8", 1, "last k chunk skipped"),
+                              ("int4", 2, "int4 nibbles swapped"),
+                              ("int4:g128", 3, "next group's scale")):
+        w, s = wq_weight(spec, k, n, gen)
+        err = bf16_ulp_err(wq._launch(x, w, s, fault=fault),
+                           wq.wq_matmul_plain(x, w, s))
+        print(f"[quant-kernel] planted fault ({what}, {spec}): {err!r} "
+              f"ulps", flush=True)
+        checks[f"fault caught: {what}"] = err > ULP_LIMIT
+    return entries
+
+
+def _group_shapes(shapes) -> dict:
+    """(in, out) -> the kernel names of that shape."""
+    out = {}
+    for name, shape in shapes.items():
+        out.setdefault(shape, []).append(name[:-len("_kernel")])
+    return out
+
+
+def lm_bytes(lm) -> int:
+    return sum(t.nbytes for t in list(lm.parameters()) + list(lm.buffers()))
+
+
+def save_lm_kernels(lm) -> dict:
+    """Host copies of the decoder's float matmul kernels."""
+    from visionselector_tpu_torch.models.qwen25vl.lm import QUANT_KERNELS
+
+    return {(i, name): getattr(layer, name).detach().to("cpu")
+            for i, layer in enumerate(lm.layers) for name in QUANT_KERNELS}
+
+
+def restore_lm_kernels(lm, saved) -> None:
+    """Put the float kernels of ``save_lm_kernels`` back in place of the
+    quantized buffers."""
+    import torch
+
+    for (i, name), w in saved.items():
+        layer = lm.layers[i]
+        layer._buffers.pop(name, None)
+        layer._buffers.pop(name + "_scale", None)
+        layer.register_parameter(name, torch.nn.Parameter(
+            w.to("cuda"), requires_grad=False))
+
+
+def quant_decode_ms(eng, req, out_dir, tag) -> float:
+    """Decode device ms per token: a traced QUANT_PROFILE_STEPS-step run
+    less a traced prefill, over the steps."""
+    n_new = 1 + QUANT_PROFILE_STEPS
+    pre, _, _ = traced(lambda: eng.generate(**req, max_new_tokens=1),
+                       os.path.join(out_dir, f"profile_quant_{tag}_pre.json"))
+    busy, _, res = traced(
+        lambda: eng.generate(**req, max_new_tokens=n_new,
+                             eos_token_ids=(-1,)),
+        os.path.join(out_dir, f"profile_quant_{tag}_decode.json"))
+    return (busy - pre) / max(len(res.tokens) - 1, 1)
+
+
+def quant_teacher_step(lm, state) -> tuple:
+    """A teacher-forced decode step from a deferred prefill on copies of
+    its cache: (logits on the kernel route, on the dequantize route)."""
+    import dataclasses
+
+    import torch
+
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+
+    cur = torch.tensor([state.next_token], device="cuda")
+    pos = torch.tensor([state.start_pos], device="cuda")
+    out = []
+    for caps in (wq.WQ_MAX_ROWS, {}):
+        cache = dataclasses.replace(
+            state.cache, k=state.cache.k.clone(), v=state.cache.v.clone(),
+            length=state.cache.length.clone())
+        with patched(wq, "WQ_MAX_ROWS", caps):
+            hidden, _ = L.lm_decode_step(
+                lm, cache, L.embed_tokens(lm, cur)[:, None],
+                pos[None, :, None].expand(3, 1, 1))
+        out.append(L.lm_head(lm, hidden[:, 0])[0])
+        del cache
+    return out
+
+
+def quant_request_checks(eng, plain, req, checks, tag, n_layers,
+                         new_tokens=QUANT_NEW_TOKENS):
+    """One quantized engine's request: launches (the kernel 7 x layers per
+    decode step, the dequantize route 7 x layers per prefill), peak memory,
+    first token and prefill logits against the plain routes (attention and
+    products), a teacher-forced decode step's kernel route against its
+    dequantize route. Returns (result, peak bytes, kernel launches)."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = eng.generate(**req, max_new_tokens=new_tokens, eos_token_ids=(-1,))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches, dequant = wq.WQ_LAUNCHES, wq.WQ_DEQUANT_CALLS
+    steps = A.DECODE_LAUNCHES // n_layers
+    per = 7 * n_layers
+    checks[f"{tag}: kernel launches {per} x decode steps"] = (
+        launches == per * steps and steps == len(res.tokens) - 1)
+    checks[f"{tag}: dequantize route {per} per prefill"] = dequant == per
+    with patched(wq, "WQ_MAX_ROWS", {}):
+        res_p = plain.generate(**req, max_new_tokens=1)
+    diff = (res_p.logits - res.logits).abs().max().item()
+    scale = res.logits.abs().max().item()
+    overlap = 1.0
+    if res.selected_indices is not None:
+        a = set(res.selected_indices.tolist())
+        overlap = len(a & set(res_p.selected_indices.tolist())) / len(a)
+    state = eng.generate(**req, max_new_tokens=4, eos_token_ids=(-1,),
+                         _defer_decode=True)
+    kern, deq = quant_teacher_step(eng.params.lm, state)
+    step_rel = ((kern - deq).abs().max() / deq.abs().max()).item()
+    print(f"[quant] {tag}: {len(res.tokens)} tokens, kernel launches "
+          f"{launches} ({steps} decode steps), dequantize-route calls "
+          f"{dequant}; first token {res.tokens[0]} plain routes "
+          f"{res_p.tokens[0]}; prefill logits max_abs_diff {diff!r} (max "
+          f"|logit| {scale!r}), selected overlap {overlap!r}; teacher-"
+          f"forced step kernel vs dequantize route max|diff|/max|logit| "
+          f"{step_rel!r} (argmax {int(kern.argmax())} / "
+          f"{int(deq.argmax())}); peak {peak} bytes", flush=True)
+    # phase 3's rule for the kernel and plain paths
+    checks[f"{tag}: kernel and plain routes agree"] = (
+        overlap >= 0.9 if res.selected_indices is not None
+        else diff <= 0.1 * scale)
+    checks[f"{tag}: decode step, kernel vs dequantize route"] = (
+        step_rel <= TEACHER_TOL)
+    checks[f"{tag}: finite logits"] = bool(torch.isfinite(res.logits).all())
+    return res, peak, launches
+
+
+def quant_3b(cfg, params, input_ids, pixels, grid, out_dir, checks) -> dict:
+    """16(b) and (c): the 3B at full width, phase 3's request at selector
+    0.2, under bf16, then int8, int4 and int4:g128 (each quantized in place
+    from the bf16 kernels, put back from host copies in between); then the
+    batcher over int4:g128. Returns the kernel's launches per spec."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    n_layers = cfg.text.num_hidden_layers
+    req = dict(input_ids=input_ids, pixel_values=pixels, grid_thw=grid)
+
+    def engines():
+        return (QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda"),
+                QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda", attn_impl="plain"))
+
+    eng, _ = engines()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = eng.generate(**req, max_new_tokens=QUANT_NEW_TOKENS,
+                        eos_token_ids=(-1,))
+    torch.cuda.synchronize()
+    base_peak = torch.cuda.max_memory_allocated()
+    base_ms = quant_decode_ms(eng, req, out_dir, "3b_bf16")
+    base_bytes = lm_bytes(params.lm)
+    print(f"[quant] 3B bf16: first token {base.tokens[0]}, LM bytes "
+          f"{base_bytes}, peak {base_peak} bytes, decode device ms per "
+          f"token {base_ms!r}", flush=True)
+    saved = save_lm_kernels(params.lm)
+    launches = {}
+    try:
+        for spec in QUANT_SPECS:
+            restore_lm_kernels(params.lm, saved)
+            torch.cuda.empty_cache()
+            L.apply_weight_quantization(params, spec)
+            torch.cuda.empty_cache()
+            eng, plain = engines()
+            res, peak, launches[WQ_ENTRY[spec]] = quant_request_checks(
+                eng, plain, req, checks, f"3B {spec}", n_layers)
+            ms = quant_decode_ms(eng, req, out_dir, f"3b_{spec}")
+            rel = ((res.logits - base.logits).abs().max()
+                   / base.logits.abs().max()).item()
+            print(f"[quant] 3B {spec}: LM bytes {lm_bytes(params.lm)} (bf16 "
+                  f"{base_bytes}); peak {peak} bytes (bf16 {base_peak}); "
+                  f"decode device ms per token {ms!r} (bf16 {base_ms!r}); "
+                  f"prefill logits against bf16: max|diff|/max|logit| "
+                  f"{rel!r}, first token {res.tokens[0]} (bf16 "
+                  f"{base.tokens[0]})", flush=True)
+            del eng, plain
+        quant_serving(cfg, params, input_ids, pixels, grid, checks)
+    finally:
+        restore_lm_kernels(params.lm, saved)
+        del saved
+        torch.cuda.empty_cache()
+    return launches
+
+
+def quant_serving(cfg, params, input_ids, pixels, grid, checks):
+    """16(c): ``ContinuousBatcher(n_slots=8)`` over the int4:g128 3B, six
+    of phase 5's greedy requests on a bf16 and an int8 pool: each first
+    token equals its one-shot ``generate``'s."""
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    eng = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                       device="cuda")
+    traffic = [(e, r, m, dict(eos_token_ids=(-1,)), d)
+               for e, r, m, kw, d in serve_traffic(cfg, input_ids, pixels,
+                                                   grid)
+               if e == "selector" and not kw][:QUANT_SERVE_REQUESTS]
+    want = [eng.generate(**r, max_new_tokens=1).tokens[0]
+            for _, r, _, _, _ in traffic]
+    for pool in (None, "int8"):
+        w0 = wq.WQ_LAUNCHES
+        bat = ContinuousBatcher(eng, n_slots=POOL_SLOTS, t_max=POOL_ROWS,
+                                chunk=8, kv_quant=pool)
+        res, wall = run_batcher(bat, traffic)
+        first = [r.tokens[0] for r in res]
+        print(f"[quant-serve] int4:g128 3B, {pool or 'bf16'} pool: "
+              f"{len(res)} requests in {wall!r} s, first tokens {first} "
+              f"(one-shot {want}), kernel launches {wq.WQ_LAUNCHES - w0}, "
+              f"stats {bat.stats}", flush=True)
+        checks[f"serve {pool or 'bf16'} pool: first tokens = one-shot"] = (
+            first == want and all(len(r.tokens) == m for r, (_, _, m, _, _)
+                                  in zip(res, traffic)))
+        checks[f"serve {pool or 'bf16'} pool: kernel launched"] = (
+            wq.WQ_LAUNCHES > w0)
+
+
+def quant_ov(ov_cfg, ov_params, ov_hf, out_dir, tmp) -> dict:
+    """16(d), while OV-8B is on the card (its weights are dropped after):
+    phase 11's selector request under bf16, int8 and int4:g128 (quantized
+    in place; the bf16 kernels back from host copies in between), first
+    token against the plain routes, decode device ms per token and peak
+    memory beside bf16's, on the base weights: phase 15c's LoRA adapters
+    are dropped first. Starts the phase's OV CLI (16e) in a process.
+    Returns the state ``quant_phase`` finishes: checks, processes, the
+    directory of their output, seconds."""
+    from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
+    from visionselector_tpu_torch.train.lora import lora_leaf
+
+    t0 = time.perf_counter()
+    print(f"[quant-ov] card: {nvidia_smi()}", flush=True)
+    quant = dict(checks={}, procs={}, tmp=os.path.join(tmp, "quant"))
+    os.makedirs(quant["tmp"])
+    checks = quant["checks"]
+    start_cli(quant["procs"], quant["tmp"], "predict", "--family",
+              "llava_ov15", "--model-path", ov_hf, "--quantize", "int4:g128",
+              "--prompt-ids", "300,301,302", "--max-new-tokens", "8",
+              key="predict_ov_int4")
+    for layer in ov_params.lm.layers:
+        for name in [n for n in layer._parameters if lora_leaf(n)]:
+            del layer._parameters[name]
+    req = ov_request(ov_cfg)
+
+    def engines():
+        return (OVEngine(ov_cfg, ov_params, use_selector=True, budget=0.2,
+                         device="cuda"),
+                OVEngine(ov_cfg, ov_params, use_selector=True, budget=0.2,
+                         device="cuda", attn_impl="plain"))
+
+    try:
+        quant_ov_specs(ov_cfg, ov_params, req, engines, out_dir, checks)
+    except BaseException:
+        for proc, _, _ in quant["procs"].values():
+            proc.kill()
+        raise
+    quant["seconds"] = time.perf_counter() - t0
+    return quant
+
+
+def quant_ov_specs(ov_cfg, ov_params, req, engines, out_dir, checks):
+    """``quant_ov``'s requests: bf16, then each spec quantized in place
+    from the bf16 kernels."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+
+    n_layers = ov_cfg.text.num_hidden_layers
+    eng, _ = engines()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = eng.generate(**req, max_new_tokens=QUANT_NEW_TOKENS,
+                        eos_token_ids=(-1,))
+    torch.cuda.synchronize()
+    base_peak = torch.cuda.max_memory_allocated()
+    base_ms = quant_decode_ms(eng, req, out_dir, "ov_bf16")
+    base_bytes = lm_bytes(ov_params.lm)
+    print(f"[quant-ov] OV-8B bf16: LM bytes {base_bytes}, peak {base_peak} "
+          f"bytes (the 3B's weights resident too), decode device ms per "
+          f"token {base_ms!r}", flush=True)
+    saved = save_lm_kernels(ov_params.lm)
+    for spec in ("int8", "int4:g128"):
+        restore_lm_kernels(ov_params.lm, saved)
+        torch.cuda.empty_cache()
+        L.apply_weight_quantization(ov_params, spec)
+        torch.cuda.empty_cache()
+        eng, plain = engines()
+        res, peak, _ = quant_request_checks(eng, plain, req, checks,
+                                            f"OV-8B {spec}", n_layers)
+        ms = quant_decode_ms(eng, req, out_dir, f"ov_{spec}")
+        print(f"[quant-ov] OV-8B {spec}: LM bytes {lm_bytes(ov_params.lm)} "
+              f"(bf16 {base_bytes}); peak {peak} bytes (bf16 {base_peak}); "
+              f"decode device ms per token {ms!r} (bf16 {base_ms!r})",
+              flush=True)
+        del eng, plain
+    del saved
+    torch.cuda.empty_cache()
+
+
+QUANT_SERVE_FLAGS = ("--quantize", "int4:g128", "--continuous", "4")
+
+
+def quant_clis_start(tmp, hf_dir, procs):
+    """16(e)'s 3B CLIs, in processes beside the phase: ``api.predict
+    --quantize int8``, ``api.run_eval --quantize int8`` and the server of
+    ``api.serve --quantize int4:g128 --continuous 4`` (asked at the
+    phase's end) on phase 6's reduced-depth HF directory."""
+    procs["serve_int4"] = serve_start(hf_dir, QUANT_SERVE_FLAGS)
+    start_cli(procs, tmp, "predict", "--model-path", hf_dir, "--quantize",
+              "int8", "--prompt-ids", "300,301,302", "--max-new-tokens", "8",
+              key="predict_int8")
+    task_dir = eval_task_dir(tmp, with_image=False)
+    start_cli(procs, tmp, "run_eval", "--model-path", hf_dir, "--quantize",
+              "int8", "--data-dir", task_dir, "--task-config-dir", task_dir,
+              "--tasks", "smoke_gen,smoke_mc", "--budgets", "0.2",
+              "--limit", "2", "--output-dir",
+              os.path.join(tmp, "run_eval_int8"), key="run_eval_int8")
+
+
+def quant_clis_done(procs, hf_dir, checks):
+    for key, what in (("predict_int8", "api.predict --quantize int8"),
+                      ("predict_ov_int4", "api.predict --family llava_ov15 "
+                                          "--quantize int4:g128"),
+                      ("run_eval_int8", "api.run_eval --quantize int8")):
+        rc, stdout, stderr, secs = finish_cli(procs, key)
+        lines = stdout.strip().splitlines()
+        print(f"[quant-cli] {what}: rc={rc} in {secs!r} s "
+              f"{lines[-1][:400] if lines and rc == 0 else stderr[-2000:]}",
+              flush=True)
+        checks[f"{what} exits 0"] = rc == 0
+    checks["api.serve --quantize int4:g128 --continuous 4"] = serve_cli(
+        hf_dir, QUANT_SERVE_FLAGS, 2, started=procs["serve_int4"])
+
+
+def quant_phase(cfg, params, input_ids, pixels, grid, ov_cfg, out_dir,
+                hf_dir, quant):
+    """Phase 16, its 3B part (the OV-8B part, ``quant_ov``, ran while OV-8B
+    was on the card; ``quant`` holds its checks, CLI processes and
+    seconds). Raises if any check failed; returns (launches, kernels line
+    entries)."""
+    t0 = time.perf_counter()
+    print(f"[quant] card: {nvidia_smi()}", flush=True)
+    checks, procs = quant["checks"], quant["procs"]
+    try:
+        entries = quant_kernels(cfg, ov_cfg, out_dir, checks)
+        t1 = time.perf_counter()
+        quant_clis_start(quant["tmp"], hf_dir, procs)
+        launches = quant_3b(cfg, params, input_ids, pixels, grid, out_dir,
+                            checks)
+        t2 = time.perf_counter()
+        quant_clis_done(procs, hf_dir, checks)
+        print(f"[quant] seconds: (a) {t1 - t0!r}, (b) and (c) {t2 - t1!r},"
+              f" (e) after them {time.perf_counter() - t2!r}", flush=True)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[quant] checks: {checks}", flush=True)
+    seconds = quant["seconds"] + time.perf_counter() - t0
+    print(f"[quant] phase seconds {seconds!r} (OV-8B part "
+          f"{quant['seconds']!r})", flush=True)
+    if bad:
+        raise AssertionError(f"quantize phase failed: {bad}")
+    return launches, entries
+
+
 def main() -> int:
     import torch
 
@@ -7670,6 +8300,14 @@ def main() -> int:
         # SFT; the packed path's causal K1 launches are those of its last
         # step (zeroed just before, read just after).
         part = methods_phase_ov(ov_cfg, ov_params, tmp)
+        # Weight-only quantization of OV-8B (16d), before its weights go
+        try:
+            quant = quant_ov(ov_cfg, ov_params, ov_hf, out_dir, tmp)
+        except BaseException:
+            pref_kill(part["pref"])
+            for proc, _, _ in part["procs"].values():
+                proc.kill()
+            raise
         del ov_params
         torch.cuda.empty_cache()
         try:
@@ -7679,8 +8317,19 @@ def main() -> int:
             # DPO and GRPO: the 3B's decoder, then adapters on it, trained
             # in place, so after every phase that reads its weights
             preference_phase(cfg, params, part["pref"])
+            # Weight-only quantization (phase 16): the kernel's launches in
+            # 16(b)'s counted request of each spec (zeroed just before,
+            # read just after)
+            quant_launches, quant_kernels_line = quant_phase(
+                cfg, params, input_ids, pixels, grid, ov_cfg, out_dir,
+                hf_dir, quant)
+            launches.update(quant_launches)
+            kernels.update(quant_kernels_line)
         finally:
             pref_kill(part["pref"])
+            for proc, _, _ in quant["procs"].values():
+                if proc.poll() is None:
+                    proc.kill()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1456,3 +1456,124 @@ def test_tiny_grpo_rollout_and_step_matches_plain(dev):
     got = _leaf_grad(params, name, loss)
     plain, _ = grpo_loss(params, ref, batch, adv, sched, attn_impl="plain")
     assert _rel(got, _leaf_grad(params, name, plain)) <= TRAIN_GRAD_TOL
+
+
+# The weight-only quantized product (kernels/wq_matmul.py): the kernel
+# against wq_matmul_plain on the same bf16 inputs, ULP_LIMIT bf16 ulps of
+# each row's largest |value| (fp32 sums in another order, rounded once).
+WQ_SPECS = {"int8": (8, 0), "int4": (4, 0), "int4:g128": (4, 128)}
+
+
+def _wq_weight(dev, spec, k, n, seed):
+    from visionselector_tpu_torch.models.qwen25vl.lm import pack_int4
+
+    bits, group = WQ_SPECS[spec]
+    qmax = 127 if bits == 8 else 7
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-qmax, qmax + 1, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((k // group, n) if group else (n,), generator=gen,
+                   device=dev) * 2e-3 + 1e-4
+    return (pack_int4(q) if bits == 4 else q), s
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16, 32])
+@pytest.mark.parametrize("spec", list(WQ_SPECS))
+def test_wq_matmul_matches_plain(dev, spec, rows):
+    """K = 1,152 (four and a half 256-row chunks); N = 560, a partial last
+    column tile (and, packed, 280-byte rows that take the byte loads)."""
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    w, s = _wq_weight(dev, spec, 1152, 560, rows)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _rnd(gen, rows, 1152)
+    n0 = wq.WQ_LAUNCHES
+    got = wq.wq_matmul(x, w, s)
+    assert wq.WQ_LAUNCHES == n0 + 1
+    assert _err(got, wq.wq_matmul_plain(x, w, s)) <= ULP_LIMIT
+    with pytest.raises(ValueError):
+        wq.wq_matmul(x.float(), w, s)
+
+
+def test_wq_launches_on_decode_and_dequantize_on_prefill(dev):
+    """A quantized tiny decoder on the card: every decode step's seven
+    products per layer launch the kernel, each prefill's take the
+    dequantize route; the first token equals the plain routes'."""
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        apply_weight_quantization,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    cfg, params = _tiny_bf16(dev, seed=3)
+    apply_weight_quantization(params, "int4:g32")
+    # 67 prefill rows: more than int4's row cap (WQ_MAX_ROWS)
+    img = (np.random.RandomState(2).rand(224, 224, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9)
+    ids = expand_vision_tokens([100], [200, 300], grid)
+    assert len(ids) > wq.WQ_MAX_ROWS[torch.uint8]
+    eng = QwenVLEngine(cfg, params, device=dev)
+    n_layers = cfg.text.num_hidden_layers
+    w0, d0, k0 = wq.WQ_LAUNCHES, wq.WQ_DEQUANT_CALLS, A.DECODE_LAUNCHES
+    got = eng.generate(ids, px, grid, max_new_tokens=5, eos_token_ids=(-1,))
+    steps = (A.DECODE_LAUNCHES - k0) // n_layers
+    assert steps == 4
+    assert wq.WQ_LAUNCHES - w0 == 7 * n_layers * steps
+    assert wq.WQ_DEQUANT_CALLS - d0 == 7 * n_layers
+    old = wq.WQ_MAX_ROWS
+    try:
+        wq.WQ_MAX_ROWS = {}
+        plain = QwenVLEngine(cfg, params, device=dev, attn_impl="plain")
+        want = plain.generate(ids, px, grid, max_new_tokens=1)
+    finally:
+        wq.WQ_MAX_ROWS = old
+    assert got.tokens[0] == want.tokens[0]
+
+
+def test_lora_gradient_through_a_quantized_layer(dev):
+    """LoRA adapters over an int8 decoder on the card: an adapter B's
+    gradient through eight rows of prefill (the kernel forward where a
+    product's input carries no gradient, the dequantize route where it
+    does) within TRAIN_GRAD_TOL of plain autograd through the dequantize
+    route alone (an empty ``WQ_MAX_ROWS``)."""
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.train.lora import add_lora_params
+
+    cfg, params = _tiny_bf16(dev, seed=4)
+    lm = L.apply_weight_quantization(params, "int8").lm
+    add_lora_params(lm, torch.Generator(device=dev).manual_seed(5), rank=4,
+                    alpha=8)
+    with torch.no_grad():
+        for layer in lm.layers:
+            for name in L.QUANT_KERNELS:
+                getattr(layer, name + "_lora_b").normal_(0.0, 0.05)
+    b = lm.layers[0].down_kernel_lora_b
+    b.requires_grad_(True)
+    t = 8
+    proj = torch.randn(1, t, cfg.text.hidden_size, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(6))
+
+    def grad():
+        ids = torch.arange(3, 3 + t, device=dev)
+        h, _ = L.lm_prefill(lm, L.embed_tokens(lm, ids)[None],
+                            torch.arange(t, device=dev).expand(3, 1, t),
+                            torch.ones(1, t, dtype=torch.int32, device=dev))
+        (g,) = torch.autograd.grad((h.float() * proj).sum(), [b])
+        return g
+
+    w0, d0 = wq.WQ_LAUNCHES, wq.WQ_DEQUANT_CALLS
+    got = grad()
+    assert wq.WQ_LAUNCHES > w0 and wq.WQ_DEQUANT_CALLS > d0
+    old = wq.WQ_MAX_ROWS
+    try:
+        wq.WQ_MAX_ROWS = {}
+        w0 = wq.WQ_LAUNCHES
+        want = grad()
+        assert wq.WQ_LAUNCHES == w0
+    finally:
+        wq.WQ_MAX_ROWS = old
+    assert float(want.abs().max()) > 0
+    assert _rel(got, want) <= TRAIN_GRAD_TOL

@@ -1,8 +1,8 @@
 """The port's eval CLIs on the CPU: ``api.run_eval`` end to end on the tiny
 random-weight config (``--device cpu``), in a process that cannot import
 jax, transformers or the JAX package; ``--merge`` and ``--from-log``
-against the reference CLI's output on the same sample logs; each flag the
-port does not take raising NotImplementedError with its ROADMAP item;
+against the reference CLI's output on the same sample logs; ``--quantize``
+for both families;
 ``api.run_selector`` and ``api.lmms_eval_cli``'s mapping onto ``run_eval``
 arguments against the reference's; ``api.predict``'s ``load_tokenizer``
 and ``chat_prompt_ids``; ``run_eval --speculative`` equal to the plain run
@@ -148,14 +148,29 @@ def test_merge_and_from_log_match_reference(tmp_path, mode, capsys):
     assert printed[1]["chartqa/n"] == 3.0
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--family", "llava_ov15", "--quantize", "int8"], 9),
-    (["--quantize", "int8"], 9),
+@pytest.mark.parametrize("family, spec", [
+    ("qwen25vl", "int8"), ("llava_ov15", "int4:g32"),
 ])
-def test_unported_flags_raise_with_their_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        trun_eval.main(["--data-dir", str(tmp_path), "--tasks", "chartqa",
-                        "--device", "cpu"] + flags)
+def test_run_eval_quantize(tmp_path, capsys, family, spec):
+    """``run_eval --quantize`` on the tiny config of each family: every doc
+    of both tasks (generate and loglikelihood) is scored through the
+    quantized decoder; a bad spec raises ValueError."""
+    import torch
+
+    cfg, data = _task_dir(tmp_path)
+    out = str(tmp_path / "out")
+    with torch.inference_mode():
+        rc = trun_eval.main([
+            "--data-dir", data, "--task-config-dir", cfg,
+            "--tasks", "cli_gen,cli_mc", "--method", "orig",
+            "--family", family, "--quantize", spec, "--budgets", "1.0",
+            "--output-dir", out, "--device", "cpu"])
+    assert rc == 0
+    res = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert res["cli_gen/n"] == res["cli_mc/n"] == 2.0
+    with pytest.raises(ValueError, match="bad --quantize spec"):
+        trun_eval.main(["--data-dir", data, "--tasks", "cli_gen",
+                        "--quantize", "int3", "--device", "cpu"])
 
 
 def _gen_task(tmp_path):
@@ -220,6 +235,45 @@ def test_predict_speculative_exits_zero(family, capsys):
     assert spec["tokens"] == plain["tokens"] and len(spec["tokens"]) == 6
     assert spec["spec_proposed"] == 3 * spec["decode_dispatches"]
     assert 1 <= spec["decode_dispatches"] <= 5
+
+
+@pytest.mark.parametrize("family, spec", [
+    ("qwen25vl", "int4:g32"), ("llava_ov15", "int8"),
+])
+def test_predict_quantize(family, spec, capsys):
+    """``api.predict --quantize`` on the tiny config of each family prints
+    the spec and the requested number of tokens, which are the tokens of
+    the same model quantized by ``apply_weight_quantization`` and run
+    through the engine directly."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        apply_weight_quantization,
+    )
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+    import numpy as np
+
+    assert tpredict.main(["--device", "cpu", "--family", family,
+                          "--quantize", spec, "--max-new-tokens", "4",
+                          "--prompt-ids", "5,6,7"]) == 0
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["quantize"] == spec and len(out["tokens"]) == 4
+    cfg, params = tpredict.load_model(family, None, "cpu")
+    apply_weight_quantization(params, spec)
+    img = (np.random.RandomState(0).rand(112, 112, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9,
+                                temporal_patch_size=cfg.vision
+                                .temporal_patch_size)
+    ids = expand_vision_tokens(
+        [], [5, 6, 7], grid, spatial_merge_size=cfg.vision.spatial_merge_size,
+        image_token_id=cfg.image_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        vision_end_token_id=cfg.vision_end_token_id)
+    eng = tpredict.make_engine(family, cfg, params, "selector", 0.2, "cpu")
+    with torch.inference_mode():
+        want = eng.generate(ids, px, grid, max_new_tokens=4).tokens
+    assert out["tokens"] == list(want)
 
 
 def test_run_eval_refuses_a_missing_card(tmp_path, monkeypatch):

@@ -382,7 +382,6 @@ def test_build_server_main_flags(w):
 @pytest.mark.parametrize("flags, exc, match", [
     (["--family", "llava_ov15", "--tp", "2"], NotImplementedError,
      "item 11\\b"),
-    (["--quantize", "int8"], NotImplementedError, "item 9\\b"),
     (["--tp", "2"], NotImplementedError, "item 11\\b"),
     (["--continuous", "2", "--continuous-auto-window"], ValueError,
      "live prefix"),
@@ -431,6 +430,37 @@ def test_formerly_refused_flags_serve(flags):
         httpd.shutdown()
         srv.close()
         httpd.server_close()
+
+
+@pytest.mark.parametrize("spec", ["int8", "int4:g32"])
+def test_quantize_serves(spec):
+    """``api.serve --quantize`` builds a server over the quantized tiny
+    decoder whose /generate gives that engine's one-shot greedy tokens;
+    a bad spec raises ValueError."""
+    from visionselector_tpu_torch.models.qwen25vl.lm import is_quantized
+
+    args = tserve.build_parser().parse_args(
+        ["--device", "cpu", "--port", "0", "--quantize", spec])
+    httpd = tserve.build_server(args)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    srv = httpd.server_obj
+    try:
+        assert is_quantized(srv.engine.params.lm)
+        img = _image(4)
+        out = post(url, "/generate", {"prompt": "hi", "max_new_tokens": 5,
+                                      "image_b64": _b64(img)})
+        _, grid = preprocess_image(img)
+        want = srv.engine.generate(_ids(grid), *preprocess_image(img),
+                                   max_new_tokens=5).tokens
+        assert out["tokens"] == list(want) and len(want) == 5
+    finally:
+        httpd.shutdown()
+        srv.close()
+        httpd.server_close()
+    with pytest.raises(ValueError, match="int4 feature"):
+        tserve.build_server(tserve.build_parser().parse_args(
+            ["--device", "cpu", "--quantize", "int8:g32"]))
 
 
 def test_speculative_server_matches_jax_plain_tokens(w):

@@ -12,7 +12,7 @@ a thin wrapper over ``api.run_eval``:
 ``--batch_size`` > 1 maps to ``run_eval --decode-batch`` (decode
 micro-batching); ``openai_compatible`` (model_args ``base_url=``,
 ``model=``) to ``run_eval --http-endpoint``. The LLaVA-OV-1.5 adapters map
-to a ``run_eval`` flag that raises NotImplementedError there.
+to ``run_eval --family llava_ov15``.
 """
 
 from __future__ import annotations

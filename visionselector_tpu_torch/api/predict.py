@@ -24,7 +24,11 @@ compiled on first use) and fails without one; ``--device cpu`` asks for
 the CPU. ``--speculative N`` decodes with prompt-lookup speculative
 decoding (``model.generate_speculative``, N proposals per verify step;
 greedy tokens equal the plain decode's) and adds its dispatch and
-acceptance counts to the printed line.
+acceptance counts to the printed line. ``--quantize int8 | int4 |
+int4:g<N>`` quantizes the decoder's matmul kernels right after the weights
+load (``lm.apply_weight_quantization``; decode rows then run the
+weight-only GEMM kernel on the card) and adds the spec to the printed
+line.
 """
 
 from __future__ import annotations
@@ -48,11 +52,28 @@ METHOD_ALIASES = {"visionzip_official": "visionzip",
 FAMILIES = ("qwen25vl", "llava_ov15")
 
 
-def load_model(family: str, model_path, device: str, seed: int = 0):
+def load_model(family: str, model_path, device: str, seed: int = 0,
+               quantize=None):
     """(config, parameters) of ``family``: the HF directory at
     ``model_path`` on ``device`` (the config's dtype), or without one the
     family's tiny random-weight config from ``seed``, bf16 on the card (the
-    kernels' dtype; the tiny configs are fp32) and fp32 on the CPU."""
+    kernels' dtype; the tiny configs are fp32) and fp32 on the CPU. A
+    ``--quantize`` spec (``lm.apply_weight_quantization``) quantizes the
+    decoder right after the weights load; a bad spec raises ValueError
+    before anything loads."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        apply_weight_quantization,
+        parse_quantize_spec,
+    )
+
+    parse_quantize_spec(quantize)
+    cfg, params = _load_weights(family, model_path, device, seed)
+    return cfg, apply_weight_quantization(params, quantize)
+
+
+def _load_weights(family: str, model_path, device: str, seed: int):
     import torch
 
     if family == "llava_ov15":
@@ -115,6 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--budget", type=float, default=0.2)
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--quantize", default=None,
+                   help="weight-only LM quantization: int8 (per-channel), "
+                        "int4, or int4:g<N> (grouped, e.g. int4:g128); "
+                        "int4 packs 2 weights/byte of HBM")
     p.add_argument("--speculative", type=int, default=0,
                    help="prompt-lookup speculative decoding: propose N "
                         "tokens per verify step (greedy-identical outputs)")
@@ -163,7 +188,7 @@ def main(argv=None) -> int:
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
     cfg, params = load_model(args.family, args.model_path, args.device,
-                             args.seed)
+                             args.seed, args.quantize)
     tokenizer = None
     if args.model_path and not args.prompt_ids:
         tokenizer = load_tokenizer(args.model_path)
@@ -211,6 +236,7 @@ def main(argv=None) -> int:
         "method": args.method,
         "budget": args.budget,
         "device": args.device,
+        "quantize": args.quantize,
         "tokens": res.tokens,
         "text": (tokenizer.decode(res.tokens, skip_special_tokens=True)
                  if tokenizer is not None else None),

@@ -37,9 +37,8 @@ asks for the CPU.
 with prompt-lookup speculative decoding (N proposals per verify step, the
 same greedy tokens; the adapter's ``speculative`` argument); groups of
 ``--decode-batch`` > 1 still decode through ``generate_batch``.
-
-Not ported yet, raising NotImplementedError with its ROADMAP §1 item:
-``--quantize`` (9).
+``--quantize int8 | int4 | int4:g<N>`` quantizes the decoder's matmul
+kernels right after the weights load (``lm.apply_weight_quantization``).
 """
 
 from __future__ import annotations
@@ -85,7 +84,8 @@ def build_parser():
     p.add_argument("--decode-batch", type=int, default=None,
                    help="requests per batched decode (default 1)")
     p.add_argument("--quantize", default=None,
-                   help="weight-only LM quantization (not ported)")
+                   help="weight-only LM quantization: int8, int4, or "
+                        "int4:g<N> (grouped)")
     p.add_argument("--from-log", default=None,
                    help="re-score from previous sample logs instead of "
                         "running a model: comma-separated jsonl files or "
@@ -106,16 +106,6 @@ def build_parser():
     p.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                    help="cuda (default) or cpu; cuda without a GPU fails")
     return p
-
-
-def _refuse_unported(args) -> None:
-    refused = [
-        (args.quantize is not None, "--quantize", 9),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP §1 item {item})")
 
 
 class _IdTokenizer:
@@ -188,7 +178,6 @@ def _http_endpoint(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
     if args.task_config_dir:
         from visionselector_tpu_torch.eval.tasks import load_task_configs
@@ -215,7 +204,8 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
-    cfg, params = load_model(args.family, args.model_path, args.device)
+    cfg, params = load_model(args.family, args.model_path, args.device,
+                             quantize=args.quantize)
     tokenizer = load_tokenizer(args.model_path) if args.model_path else None
     if tokenizer is None:
         tokenizer = _IdTokenizer()

@@ -36,8 +36,13 @@ speculative rounds (``/health`` shows ``spec_steps``).
 ``--continuous-kv-quant int4`` packs the slot pool's values two a byte
 (the plain int4 decode route).
 
-Not ported yet, raising NotImplementedError with their ROADMAP §1 item:
-``--quantize`` (9), ``--tp`` (11).
+``--quantize int8 | int4 | int4:g<N>`` quantizes the decoder's matmul
+kernels right after the weights load (``lm.apply_weight_quantization``):
+decode steps and the batcher's slots then run the weight-only GEMM kernel
+on the card.
+
+Not ported yet, raising NotImplementedError with its ROADMAP §1 item:
+``--tp`` (11).
 ``--continuous-auto-window`` raises ValueError: the decode kernel already
 reads only each slot's live prefix (ROADMAP "Do not port").
 """
@@ -710,7 +715,6 @@ def _refuse_unported(args) -> None:
     )
 
     refused = [
-        (bool(getattr(args, "quantize", None)), "--quantize", 9),
         (int(getattr(args, "tp", 0) or 0) > 1, "--tp", 11),
     ]
     for hit, what, item in refused:
@@ -741,7 +745,8 @@ def build_server(args) -> ThreadingHTTPServer:
                          "--device cpu to serve on the CPU)")
     family = getattr(args, "family", "qwen25vl")
     model_path = getattr(args, "model_path", None)
-    cfg, params = load_model(family, model_path, device)
+    cfg, params = load_model(family, model_path, device,
+                             quantize=getattr(args, "quantize", None))
     tokenizer = load_tokenizer(model_path) if model_path else None
     method = getattr(args, "method", "selector")
     budget = getattr(args, "budget", 0.2)
@@ -791,7 +796,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "one batched decode")
     p.add_argument("--batch-window-ms", type=float, default=4.0)
     p.add_argument("--quantize", default=None,
-                   help="weight-only LM quantization (not ported)")
+                   help="weight-only LM quantization: int8, int4, or "
+                        "int4:g<N> (grouped); int4 packs 2 weights/byte "
+                        "of HBM — more KV slots for --continuous")
     p.add_argument("--speculative", type=int, default=0,
                    help="prompt-lookup speculative decoding: propose N "
                         "tokens per decode dispatch (greedy-identical "

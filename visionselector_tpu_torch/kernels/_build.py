@@ -1,4 +1,5 @@
-"""Build and load the CUDA attention kernels.
+"""Build and load the CUDA kernels (attention, and the weight-only
+quantized product).
 
 ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
 source, all started together) and linked into one shared library with a
@@ -129,5 +130,7 @@ def load() -> ctypes.CDLL:
             lib.vst_decode_blocked_fwd.restype = _I
             lib.vst_decode_blocked_query.argtypes = [_I] * 7
             lib.vst_decode_blocked_query.restype = _I
+            lib.vst_wq_matmul_fwd.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+            lib.vst_wq_matmul_fwd.restype = _I
             _LIB = lib
         return _LIB

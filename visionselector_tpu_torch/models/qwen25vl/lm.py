@@ -2,9 +2,22 @@
 LLaVA-OneVision-1.5 through its config flags.
 
 Counterpart of ``visionselector_tpu.models.qwen25vl.lm`` (bf16 / fp32
-weights, LoRA adapters from ``train.lora``; weight quantization and the
-MoE variant are not ported yet):
+weights, LoRA adapters from ``train.lora``, weight-only quantization; the
+MoE variant is not ported yet):
 
+- weight-only quantization (``--quantize``: ``apply_weight_quantization``,
+  ``quantize_lm_params``, ``init_lm_params_int8``): each of a layer's seven
+  matmul kernels (``QUANT_KERNELS``) becomes int8 ``[in, out]`` or packed
+  int4 uint8 ``[in, out / 2]`` (``pack_int4`` along the output axis) with
+  an fp32 ``<name>_scale``, ``[out]`` per channel or ``[G, out]`` grouped.
+  They are registered as BUFFERS, not parameters: integer tensors take no
+  gradient, and every loop over ``named_parameters`` (``init_random_``,
+  the trainers' ``requires_grad_``, the reference-tree loader) passes them
+  by. Embeddings, norms, biases and the LM head stay in the model dtype.
+  ``_dense`` routes a quantized product (``kernels.wq_matmul``): decode
+  rows to the weight-only GEMM kernel on the card, prefill rows and
+  products under grad to a dequantized transient and ``torch.matmul``,
+  CPU tensors to its plain version,
 - Qwen3 flags: ``head_dim_override``; ``qk_norm`` (a per-head RMSNorm of
   q and k after the head reshape and before the rotary, with ``q_norm_scale``
   / ``k_norm_scale`` [head_dim]); no q/k/v biases without
@@ -31,8 +44,10 @@ MoE variant are not ported yet):
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -40,6 +55,7 @@ from torch import nn
 
 from visionselector_tpu_torch.core.config import TextConfig
 from visionselector_tpu_torch.core.params import add_params, init_random_
+from visionselector_tpu_torch.kernels import wq_matmul as wq
 from visionselector_tpu_torch.kernels.attention import (
     attention,
     attention_packed,
@@ -123,32 +139,79 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * s[..., None].float()).to(dtype)
 
 
-class DecoderLayer(nn.Module):
-    """One decoder layer's weights (kernels ``[in, out]``)."""
+QUANT_KERNELS = ("q_kernel", "k_kernel", "v_kernel", "o_kernel",
+                 "gate_kernel", "up_kernel", "down_kernel")
 
-    def __init__(self, cfg: TextConfig, device, dtype):
+
+def _layer_shapes(cfg: TextConfig) -> dict:
+    d, i, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    shapes = {
+        "input_ln_scale": (d,), "post_ln_scale": (d,),
+        "q_kernel": (d, hq * dh), "k_kernel": (d, hkv * dh),
+        "v_kernel": (d, hkv * dh), "o_kernel": (hq * dh, d),
+        "gate_kernel": (d, i), "up_kernel": (d, i),
+        "down_kernel": (i, d),
+    }
+    if cfg.attention_bias:
+        shapes.update(q_bias=(hq * dh,), k_bias=(hkv * dh,),
+                      v_bias=(hkv * dh,))
+    if cfg.qk_norm:
+        shapes.update(q_norm_scale=(dh,), k_norm_scale=(dh,))
+    return shapes
+
+
+class DecoderLayer(nn.Module):
+    """One decoder layer's weights (kernels ``[in, out]``). With ``quant``
+    = (bits, group_size) the seven matmul kernels are uninitialised
+    quantized buffers (``register_quantized``) instead of parameters."""
+
+    def __init__(self, cfg: TextConfig, device, dtype, quant=None):
         super().__init__()
-        d, i, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
-        hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        shapes = {
-            "input_ln_scale": (d,), "post_ln_scale": (d,),
-            "q_kernel": (d, hq * dh), "k_kernel": (d, hkv * dh),
-            "v_kernel": (d, hkv * dh), "o_kernel": (hq * dh, d),
-            "gate_kernel": (d, i), "up_kernel": (d, i),
-            "down_kernel": (i, d),
-        }
-        if cfg.attention_bias:
-            shapes.update(q_bias=(hq * dh,), k_bias=(hkv * dh,),
-                          v_bias=(hkv * dh,))
-        if cfg.qk_norm:
-            shapes.update(q_norm_scale=(dh,), k_norm_scale=(dh,))
+        shapes = _layer_shapes(cfg)
+        if quant:
+            for name in QUANT_KERNELS:
+                din, dout = shapes.pop(name)
+                bits, group = quant
+                register_quantized(
+                    self, name,
+                    torch.empty((din, dout // 2 if bits == 4 else dout),
+                                device=device,
+                                dtype=torch.uint8 if bits == 4
+                                else torch.int8),
+                    torch.empty((din // group, dout) if bits == 4 and group
+                                else (dout,), device=device))
         add_params(self, shapes, device, dtype)
+
+
+def register_quantized(layer: nn.Module, name: str, w: torch.Tensor,
+                       scale: torch.Tensor) -> None:
+    """Put a quantized kernel (int8, or packed int4 uint8) and its fp32
+    scales on ``layer`` as the buffers ``name`` and ``name + "_scale"``,
+    in place of the parameter ``name`` if it has one."""
+    layer._parameters.pop(name, None)
+    layer.register_buffer(name, w)
+    layer.register_buffer(name + "_scale", scale)
+
+
+def is_quantized(lm) -> bool:
+    """Whether the decoder's matmul kernels are quantized."""
+    return any(getattr(layer, name).dtype in wq.QUANT_DTYPES
+               for layer in lm.layers for name in QUANT_KERNELS)
+
+
+def kernel_shape(layer: nn.Module, name: str) -> Tuple[int, int]:
+    """(in, out) of a matmul kernel, quantized (packed or not) or not."""
+    w = getattr(layer, name)
+    if w.dtype in wq.QUANT_DTYPES:
+        return w.shape[0], getattr(layer, name + "_scale").shape[-1]
+    return tuple(w.shape)
 
 
 class LanguageModel(nn.Module):
     """Token embedding, decoder layers, final norm (tied lm head)."""
 
-    def __init__(self, cfg: TextConfig, device, dtype):
+    def __init__(self, cfg: TextConfig, device, dtype, quant=None):
         super().__init__()
         if cfg.num_experts:
             raise NotImplementedError(
@@ -158,13 +221,90 @@ class LanguageModel(nn.Module):
         add_params(self, {"embed_tokens": (cfg.vocab_size, cfg.hidden_size)},
                    device, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, dtype)
+            DecoderLayer(cfg, device, dtype, quant)
             for _ in range(cfg.num_hidden_layers))
         add_params(self, {"final_ln_scale": (cfg.hidden_size,)}, device, dtype)
         if not cfg.tie_word_embeddings:
             add_params(self, {"lm_head_kernel": (cfg.hidden_size,
                                                  cfg.vocab_size)},
                        device, dtype)
+
+
+def parse_quantize_spec(spec):
+    """A ``--quantize`` spec as (bits, group_size), or None for no
+    quantization (None, "" or "none"). Specs: ``int8`` (per output
+    channel), ``int4`` (per channel), ``int4:g<N>`` (one scale per N
+    inputs). Raises ValueError, with the reference's messages, for any
+    other spec."""
+    if not spec or spec == "none":
+        return None
+    m = re.fullmatch(r"int(8|4)(?::g(\d+))?", spec)
+    if m is None:
+        raise ValueError(
+            f"bad --quantize spec {spec!r}: expected int8, int4 or int4:g<N>")
+    bits, group = int(m.group(1)), int(m.group(2) or 0)
+    if bits == 8 and group:
+        raise ValueError("grouped scales are an int4 feature (int4:g<N>)")
+    return bits, group
+
+
+def apply_weight_quantization(params, spec):
+    """Apply a ``--quantize`` spec to an engine's parameters (Qwen2.5-VL's
+    or LLaVA-OneVision-1.5's: anything with ``.lm``): the decoder's matmul
+    kernels are quantized IN PLACE, layer by layer (``quantize_lm_params``:
+    the bf16 LM is not kept beside the quantized one); the vision tower,
+    the scorer and the merger stay in the compute dtype. Returns
+    ``params``. ``None`` or ``"none"`` leaves them as they are; a bad spec
+    raises ValueError before anything changes."""
+    parsed = parse_quantize_spec(spec)
+    if parsed is not None:
+        quantize_lm_params(params.lm, *parsed)
+    return params
+
+
+@torch.no_grad()
+def quantize_lm_params(lm: LanguageModel, bits: int = 8,
+                       group_size: int = 0) -> LanguageModel:
+    """Symmetric weight-only quantization of every decoder matmul kernel,
+    in place (the reference's ``quantize_lm_params``, which returns a new
+    tree): ``s = max(amax / qmax, 1e-12)`` by true division, values
+    ``clip(round(w / s), -qmax, qmax)`` rounded half to even, qmax 127
+    (``bits`` 8) or 7 (``bits`` 4, packed two a byte). Per output channel,
+    or with ``bits`` 4 and ``group_size`` > 0 one scale per
+    ``group_size`` inputs, scales [in / group_size, out]. Each kernel's
+    fp32 copy lives only while it is quantized. Raises ValueError for
+    other bits, a group size that does not divide a kernel's input width,
+    or an LM already quantized, before anything changes. Returns ``lm``."""
+    if bits not in (8, 4):
+        raise ValueError(f"quantize_lm_params: bits must be 8 or 4, got "
+                         f"{bits}")
+    if is_quantized(lm):
+        raise ValueError("quantize_lm_params: the LM is already quantized")
+    group = group_size if bits == 4 and group_size > 0 else 0
+    if group:
+        for name in QUANT_KERNELS:
+            din = kernel_shape(lm.layers[0], name)[0]
+            if din % group:
+                raise ValueError(f"quantize_lm_params: group size {group} "
+                                 f"does not divide {name}'s input width "
+                                 f"{din}")
+    qmax = 127.0 if bits == 8 else 7.0
+    for layer in lm.layers:
+        for name in QUANT_KERNELS:
+            wf = getattr(layer, name).float()
+            din, dout = wf.shape
+            if group:
+                wg = wf.view(din // group, group, dout)
+                scale = (wg.abs().amax(dim=1) / qmax).clamp_min(1e-12)
+                q = torch.round(wg / scale[:, None, :]).clamp(-qmax, qmax)
+            else:
+                scale = (wf.abs().amax(dim=0) / qmax).clamp_min(1e-12)
+                q = torch.round(wf / scale).clamp(-qmax, qmax)
+            q = q.view(din, dout).to(torch.int8)
+            del wf
+            register_quantized(layer, name,
+                               pack_int4(q) if bits == 4 else q, scale)
+    return lm
 
 
 def mrope_axis_selector(cfg: TextConfig, device=None) -> torch.Tensor:
@@ -205,12 +345,30 @@ def _apply_mrope(q, k, cos, sin):
 
 
 def _dense(x, p: nn.Module, name: str):
-    """x @ kernel (bf16 / fp32 weights), plus ``(x @ A) @ B * scale`` when
-    the layer holds LoRA adapters for the kernel (``train.lora``; the
-    reference's ``_dense``). The adapter term is added in x's dtype: the
-    reference's fp32 scale leaf promotes its output to fp32, which the
-    bf16 kernels after it do not take (ROADMAP section 3)."""
-    y = x @ getattr(p, name)
+    """x @ kernel, plus ``(x @ A) @ B * scale`` when the layer holds LoRA
+    adapters for the kernel (``train.lora``; the reference's ``_dense``).
+    The adapter term is added in x's dtype: the reference's fp32 scale
+    leaf promotes its output to fp32, which the bf16 kernels after it do
+    not take (ROADMAP section 3).
+
+    A quantized kernel takes one of ``kernels.wq_matmul``'s routes: on the
+    card, rows of a decode step (at most ``WQ_MAX_ROWS[w.dtype]``, bf16,
+    no gradient to carry) the weight-only GEMM kernel; other rows (prefill)
+    or a product under grad the dequantized layer kernel and
+    ``torch.matmul``; CPU tensors the plain version. Per channel ``(x @ q)
+    * s``, grouped ``x @ (q * s_g)``, in x's dtype, as the reference."""
+    w = getattr(p, name)
+    if w.dtype in wq.QUANT_DTYPES:
+        s = getattr(p, name + "_scale")
+        rows = x.numel() // x.shape[-1]
+        if (x.is_cuda and x.dtype == torch.bfloat16
+                and rows <= wq.WQ_MAX_ROWS.get(w.dtype, 0)
+                and not (torch.is_grad_enabled() and x.requires_grad)):
+            y = wq.wq_matmul(x, w, s)
+        else:
+            y = wq.wq_dequant_matmul(x, w, s)
+    else:
+        y = x @ w
     a = p._parameters.get(name + "_lora_a")
     if a is not None:
         lora = (x @ a) @ p._parameters[name + "_lora_b"] * p.lora_scale
@@ -461,6 +619,32 @@ def init_lm_params(cfg: TextConfig, generator: torch.Generator, device,
     """Random init with the reference's scales (std 0.02, norms ones)."""
     lm = LanguageModel(cfg, device, dtype)
     init_random_(lm, generator, std=0.02)
+    return lm
+
+
+@torch.no_grad()
+def init_lm_params_int8(cfg: TextConfig, generator: torch.Generator, device,
+                        dtype, bits: int = 8) -> LanguageModel:
+    """Random LM built directly with int8 (or packed int4) matmul kernels,
+    never holding bf16 ones (the reference's ``init_lm_params_int8``):
+    uniform ints in [-qmax, qmax] with one per-channel scale, 0.02 over
+    their std, so the dequantized weights have std 0.02; the other
+    tensors as ``init_lm_params``."""
+    if bits not in (8, 4):
+        raise ValueError(f"init_lm_params_int8: bits must be 8 or 4, got "
+                         f"{bits}")
+    qmax = 127 if bits == 8 else 7
+    scale = 0.02 / float(np.sqrt(((2 * qmax + 1) ** 2 - 1) / 12.0))
+    lm = LanguageModel(cfg, device, dtype, quant=(bits, 0))
+    init_random_(lm, generator, std=0.02)
+    for layer in lm.layers:
+        for name in QUANT_KERNELS:
+            din, dout = kernel_shape(layer, name)
+            q = torch.randint(-qmax, qmax + 1, (din, dout),
+                              generator=generator, device=device,
+                              dtype=torch.int8)
+            getattr(layer, name).copy_(pack_int4(q) if bits == 4 else q)
+            getattr(layer, name + "_scale").fill_(scale)
     return lm
 
 

@@ -33,7 +33,12 @@ from visionselector_tpu_torch.core.config import (
     VLConfig,
 )
 from visionselector_tpu_torch.core.safetensors import open_checkpoint, save_file
-from visionselector_tpu_torch.models.qwen25vl.lm import LanguageModel
+from visionselector_tpu_torch.models.qwen25vl.lm import (
+    QUANT_KERNELS,
+    LanguageModel,
+    is_quantized,
+    pack_int4,
+)
 from visionselector_tpu_torch.models.qwen25vl.model import (  # noqa: F401
     QwenVLParams,
     init_params,  # random full-width weights on the device
@@ -90,12 +95,55 @@ def lm_from_jax(tree: dict, cfg: TextConfig, device,
     """The reference's decoder tree (``init_lm_params`` layout) as the
     port's ``LanguageModel``: the Qwen2.5 tree, or the Qwen3 one (no
     biases, ``q_norm_scale`` / ``k_norm_scale``, an untied
-    ``lm_head_kernel``), whichever ``cfg`` describes."""
-    lm = LanguageModel(cfg, device, dtype)
+    ``lm_head_kernel``), whichever ``cfg`` describes. A quantized tree
+    (``apply_weight_quantization``'s: int8 or int4 kernels with fp32
+    ``<name>_scale`` leaves) gives a quantized LM with the same integers
+    and scales (``_load_quantized``)."""
+    layers = tree["layers"]
+    quant = _tree_quant(layers)
+    lm = LanguageModel(cfg, device, dtype, quant=quant)
     _load(lm, tree, device, dtype)
     for i, layer in enumerate(lm.layers):
-        _load(layer, tree["layers"], device, dtype, layer=i)
+        _load(layer, layers, device, dtype, layer=i)
+        if quant:
+            _load_quantized(layer, layers, i, quant[0])
     return lm
+
+
+def _tree_quant(layers: dict):
+    """(bits, group size) of a reference layer tree's quantized kernels,
+    or None when they are not quantized. int4 leaves are ``ml_dtypes``
+    int4 arrays."""
+    if "q_kernel_scale" not in layers:
+        return None
+    w = np.asarray(layers["q_kernel"])
+    bits = 8 if w.dtype == np.int8 else 4
+    if bits == 4 and w.dtype.name != "int4":
+        raise ValueError(f"quantized q_kernel of dtype {w.dtype}: expected "
+                         f"int8 or int4")
+    s = np.shape(layers["q_kernel_scale"])
+    return bits, (w.shape[1] // s[1] if len(s) == 3 else 0)
+
+
+@torch.no_grad()
+def _load_quantized(layer: nn.Module, layers: dict, i: int,
+                    bits: int) -> None:
+    """Copy layer ``i``'s quantized kernels (int4 read as int8 values,
+    then packed two a byte along the output axis) and fp32 scales into
+    the buffers of ``layer``."""
+    for name in QUANT_KERNELS:
+        q = torch.from_numpy(
+            np.asarray(layers[name])[i].astype(np.int8).copy())
+        if bits == 4:
+            q = pack_int4(q)
+        s = torch.from_numpy(
+            np.asarray(layers[name + "_scale"])[i].astype(np.float32).copy())
+        for dst, src in ((getattr(layer, name), q),
+                         (getattr(layer, name + "_scale"), s)):
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: quantized shape "
+                                 f"{tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
 
 
 def scorer_from_jax(tree: dict, cfg, device):
@@ -341,7 +389,11 @@ def to_hf_tensors(params: QwenVLParams, vis_prefix: str = "visual.",
 
 def lm_hf_tensors(lm: LanguageModel, prefix: str = "model.") -> dict:
     """The decoder's HF names -> tensors in the HF layout (the inverse of
-    ``load_lm_params``; an untied head as ``lm_head.weight``)."""
+    ``load_lm_params``; an untied head as ``lm_head.weight``). Raises
+    ValueError for a quantized LM: the HF layout holds float weights."""
+    if is_quantized(lm):
+        raise ValueError("lm_hf_tensors: the LM is quantized; HF "
+                         "checkpoints hold float weights")
     out = {}
     table = lm_layer_table(lm.cfg)
     for i, layer in enumerate(lm.layers):

@@ -9,7 +9,9 @@ LM's linear kernels as targets, the base frozen; the merge tool
 ``lora_scale`` of alpha / rank; ``lm._dense`` adds ``(x @ A) @ B * scale``
 wherever the layer runs (prefill, decode, the engines). A starts as
 normal / rank in the model's dtype and B at zeros, so the adapters start
-as a no-op (peft's convention).
+as a no-op (peft's convention). The base may be quantized (int8 or int4
+buffers, ``lm.quantize_lm_params``): the adapters then take the
+embedding's dtype, and the merge dequantizes an int8 base.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+
+from visionselector_tpu_torch.models.qwen25vl.lm import kernel_shape
 
 DEFAULT_TARGETS: Tuple[str, ...] = (
     "q_kernel", "k_kernel", "v_kernel", "o_kernel",
@@ -40,7 +44,7 @@ def add_lora_params(lm, generator: torch.Generator, rank: int = 64,
     dtype = dtype or lm.embed_tokens.dtype
     for name in targets:
         for layer in lm.layers:
-            din, dout = getattr(layer, name).shape
+            din, dout = kernel_shape(layer, name)
             dev = layer.input_ln_scale.device
             a = torch.randn(din, rank, generator=generator, device=dev)
             layer.register_parameter(name + "_lora_a", nn.Parameter(
@@ -53,21 +57,42 @@ def add_lora_params(lm, generator: torch.Generator, rank: int = 64,
     return lm
 
 
+def _adapted(layer) -> list:
+    return [n[:-len("_lora_a")] for n in list(layer._parameters)
+            if n.endswith("_lora_a")]
+
+
 @torch.no_grad()
 def merge_lora_params(lm):
     """Fold each adapter into its kernel, ``W + (A @ B) * scale`` computed
     in fp32 and rounded to W's dtype (``merge_lora_weights.py``), and drop
-    the adapters. In place (the merged model replaces the adapter model);
-    returns ``lm``."""
+    the adapters. An int8 base kernel is dequantized (``q * s``) and the
+    merged kernel takes the adapters' dtype, with no requantization (the
+    reference's rule). An int4 base raises ValueError before anything
+    changes: the reference's merge reads a packed int4 kernel as unscaled
+    integers (ROADMAP section 3). In place (the merged model replaces the
+    adapter model); returns ``lm``."""
     for layer in lm.layers:
-        names = [n[:-len("_lora_a")] for n in list(layer._parameters)
-                 if n.endswith("_lora_a")]
+        for name in _adapted(layer):
+            if getattr(layer, name).dtype == torch.uint8:
+                raise ValueError(f"merge_lora_params: {name} is int4; merging "
+                                 f"adapters into an int4 base is not "
+                                 f"supported")
+    for layer in lm.layers:
+        names = _adapted(layer)
         for name in names:
             a = layer._parameters.pop(name + "_lora_a")
             b = layer._parameters.pop(name + "_lora_b")
             w = getattr(layer, name)
             delta = (a.float() @ b.float()) * layer.lora_scale
-            w.copy_((w.float() + delta).to(w.dtype))
+            if w.dtype == torch.int8:
+                s = layer._buffers.pop(name + "_scale")
+                merged = w.float() * s[None, :] + delta
+                del layer._buffers[name]
+                layer.register_parameter(name, nn.Parameter(
+                    merged.to(a.dtype), requires_grad=False))
+            else:
+                w.copy_((w.float() + delta).to(w.dtype))
         if names:
             del layer.lora_scale
     return lm
