@@ -393,27 +393,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    int4 buffers, fp32 scales). (d) While OV-8B is on the card (after
    phase 14's OV part): phase 11's selector request under bf16, int8 and
    int4:g128, each quantized in place from the bf16 kernels (put back from
-   host copies in between): 252 weight-only GEMM launches a decode step
-   and 252 dequantize-route calls a prefill, the first token and prefill
-   logits against the plain routes (``attn_impl="plain"``,
-   an empty ``WQ_MAX_ROWS``) by phase 3's rule, a teacher-forced decode step of
-   the kernel route against the dequantize route (TEACHER_TOL), decode
-   device ms per token, LM bytes and peak memory beside bf16's. After
-   phase 15: (a) the kernel against ``wq_matmul_plain`` at the seven
-   kernel shapes of the 3B and of OV-8B, 1 / 8 / 16 / 32 rows, each spec,
-   within ULP_LIMIT; three planted faults (the last k chunk skipped, int4
-   nibbles swapped, group g read with g + 1's scale) must fail it; per
-   shape at one row the kernel's ms, its bound (Wq + scales + x + y over
-   3.35 TB/s), the dequantize route's ms, the library call's
-   (``torch._weight_int8pack_mm`` / ``torch._weight_int4pack_mm``, held
-   to the plain version within ULP_LIMIT) and a bf16 ``torch.mm`` on an
-   unquantized weight of the shape; the 3B's shapes also at 16 and 32 rows
-   on both routes, which set ``WQ_MAX_ROWS`` per format
-   (``chiprun_out/quant_kernels.txt``; the 3B layer's seven products
-   summed printed). (b) The 3B under
-   bf16, then each spec, phase 3's request at selector 0.2, 32 greedy
-   tokens, with (d)'s checks and numbers, and the prefill logits'
-   distance from bf16's. (c) ``ContinuousBatcher(n_slots=8)`` over the
+   host copies in between): 252 weight-only GEMM (kernel A) launches a
+   decode step, and 252 dequantize-route calls and dequantize-kernel
+   (kernel B) launches a prefill, the first token and prefill logits
+   against the plain routes (``attn_impl="plain"``, an empty
+   ``WQ_MAX_ROWS``) by phase 3's rule, a teacher-forced decode step of the
+   kernel route against the dequantize route (TEACHER_TOL), prefill device
+   ms and decode device ms per token, LM bytes and peak memory beside
+   bf16's. After phase 15: (a) kernel A's instantiations with their ptxas
+   lines and each shape's plan (blocks, splits, stages, shared memory);
+   kernel A against ``wq_matmul_plain`` at the seven kernel shapes of the
+   3B and of OV-8B, 1 / 8 / 16 / 32 / 48 / 64 rows, each spec, within
+   ULP_LIMIT; four planted faults (the last 16 k rows skipped, int4
+   nibbles swapped, group g read with g + 1's scale, a K split's partial
+   dropped) must fail it; kernel B bit-equal to ``wq.dequantize`` at
+   every shape and spec; per shape at one row kernel A's ms, its bound
+   (Wq + scales + x + y over 3.35 TB/s), the dequantize route's ms, the
+   library call's (``torch._weight_int8pack_mm`` /
+   ``torch._weight_int4pack_mm``, held to the plain version within
+   ULP_LIMIT) and a bf16 ``torch.mm`` on an unquantized weight of the
+   shape; the 3B's shapes also at 16, 32 and 64 rows on both routes,
+   which set ``WQ_MAX_ROWS`` per format; kernel B's ms at the 3B's shapes
+   beside its bound (Wq + scales + the bf16 transient) and the plain
+   dequantize's (``chiprun_out/quant_kernels.txt``; the 3B layer's seven
+   products summed printed). (b) The 3B under bf16, then each spec, phase
+   3's request at selector 0.2, 32 greedy tokens, with (d)'s checks and
+   numbers, and the prefill logits' distance from bf16's. (c) ``ContinuousBatcher(n_slots=8)`` over the
    int4:g128 3B, six of phase 5's greedy requests on a bf16 and an int8
    pool: each first token equals its one-shot ``generate``'s. (e) In
    processes beside the phase (started after (a)): ``api.predict
@@ -435,7 +440,9 @@ causal ones of the last step; K5 at t_c 8, ``decode_blocked_fwd_t_c8`` and
 causal ones of the last packed step; the weight-only GEMM per spec,
 ``wq_matmul_fwd``, ``wq_matmul_fwd_int4`` and ``wq_matmul_fwd_int4_g128``,
 from phase 16, timed as the 3B layer's seven products at one row, its
-launches those of 16(b)'s counted request); the last line is
+launches those of 16(b)'s counted request; the dequantize kernel,
+``wq_dequant_fwd``, timed as the 3B layer's seven int8 transients, its
+launches those of 16(b)'s int8 prefill); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -548,6 +555,9 @@ KERNELS = {
     "wq_matmul_fwd": ("wq_matmul_fwd.cu", WQ_REPLACES),
     "wq_matmul_fwd_int4": ("wq_matmul_fwd.cu", WQ_REPLACES),
     "wq_matmul_fwd_int4_g128": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    # The dequantize route's transient (kernel B of the same source), timed
+    # as the 3B decoder layer's seven int8 kernels
+    "wq_dequant_fwd": ("wq_matmul_fwd.cu", WQ_REPLACES),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -1612,7 +1622,7 @@ def zero_counts():
     for route in A.FLASH_ROUTE_LAUNCHES:
         A.FLASH_ROUTE_LAUNCHES[route] = 0
     A.DECODE_LAUNCHES_BY_ROWS.clear()
-    wq.WQ_LAUNCHES = wq.WQ_DEQUANT_CALLS = 0
+    wq.WQ_LAUNCHES = wq.WQ_DEQUANT_CALLS = wq.WQ_DEQUANT_LAUNCHES = 0
 
 
 def run_main_path(cfg, params, input_ids, pixels, grid):
@@ -7632,13 +7642,14 @@ def preference_phase(cfg, params, pref):
 # decoder's seven matmul kernels as int8 or packed int4 with per-channel or
 # grouped fp32 scales (``lm.apply_weight_quantization``); decode rows (at
 # most ``WQ_MAX_ROWS[dtype]``) take the hand-written weight-only GEMM
-# (``csrc/wq_matmul_fwd.cu``), prefill rows a dequantized layer kernel and
-# ``torch.matmul``.
+# (kernel A, ``csrc/wq_matmul_fwd.cu``), prefill rows the dequantize kernel
+# (kernel B, same source) and ``torch.matmul``.
 QUANT_SPECS = ("int8", "int4", "int4:g128")
 # Rows checked at every shape; rows timed: one (the kernels line, every
-# shape) and 16 / 32 (the 3B's shapes, which set WQ_MAX_ROWS per format).
-WQ_ROWS = (1, 8, 16, 32)
-WQ_CAP_ROWS = (16, 32)
+# shape) and 16 / 32 / 64 (the 3B's shapes, which set WQ_MAX_ROWS per
+# format).
+WQ_ROWS = (1, 8, 16, 32, 48, 64)
+WQ_CAP_ROWS = (16, 32, 64)
 WQ_ENTRY = {"int8": "wq_matmul_fwd", "int4": "wq_matmul_fwd_int4",
             "int4:g128": "wq_matmul_fwd_int4_g128"}
 QUANT_NEW_TOKENS = 32
@@ -7702,42 +7713,88 @@ def wq_library(w, s):
     return lambda x: torch._weight_int4pack_mm(x, packed, group, sz)
 
 
+def wq_build_report():
+    """Kernel A's and B's instantiations with their ptxas lines
+    (registers, stack, spills)."""
+    for kname, usage in ptxas_report("vst_wq").items():
+        m = re.search(r"(wq_\w+?_kernel)I(.*?)EEv", kname)
+        args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
+        print(f"[quant-kernel] ptxas {m.group(1) if m else kname}<{args}>: "
+              f"{usage}", flush=True)
+
+
 def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
-    """16(a): the kernel against ``wq_matmul_plain`` at the seven kernel
-    shapes of the 3B and of OV-8B, rows 1 / 8 / 16 / 32, each spec; three
-    planted faults. Per shape at one row: the kernel's ms, its bound, the
-    dequantize route's ms, the library call's (``wq_library``, held to
-    the plain version as the kernel is) and a bf16 ``torch.mm`` on an
-    unquantized weight of the shape (the yardstick); at the 3B's shapes
-    the kernel and the dequantize route at 16 and 32 rows, which set
+    """16(a). Kernel A against ``wq_matmul_plain`` at the seven kernel
+    shapes of the 3B and of OV-8B, rows 1 / 8 / 16 / 32 / 48 / 64, each
+    spec; its plan per shape; four planted faults. Kernel B bit-equal to
+    ``wq.dequantize`` at every shape and spec. Per shape at one row: kernel
+    A's ms, its bound, the dequantize route's ms, the library call's
+    (``wq_library``, held to the plain version as the kernel is), a bf16
+    ``torch.mm`` on an unquantized weight of the shape (the yardstick),
+    kernel B's ms beside its bound and the plain dequantize's; at the 3B's
+    shapes the same products at 16, 32 and 64 rows, which set
     ``WQ_MAX_ROWS``. Returns the kernels line's entries: per spec, the 3B
     decoder layer's seven products at one row (a decode step at batch 1),
-    summed."""
+    summed; kernel B as the layer's seven int8 transients."""
     import torch
 
-    from visionselector_tpu_torch.kernels import _build
     from visionselector_tpu_torch.kernels import wq_matmul as wq
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        parse_quantize_spec,
+    )
 
-    for line in _build.PTXAS_LOG.splitlines():
-        if "wq_matmul" in line or (
-                "registers" in line and "wq_" in line):
-            print(f"[quant-kernel] ptxas {line.strip()}", flush=True)
+    wq_build_report()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     rows_out = []
     entries = {}
     worst = lib_worst = 0.0
+    deq_equal = True
+    least_blocks = None
     models = (("3b", lm_kernel_shapes(cfg.text)),
               ("ov8b", lm_kernel_shapes(ov_cfg.text)))
     for spec in QUANT_SPECS:
-        layer = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                     mm_ms=0.0, err=0.0)
-        at = {m: dict(ms=0.0, plain_ms=0.0) for m in WQ_CAP_ROWS}
+        bits, group = parse_quantize_spec(spec)
+        # the 3B layer's seven products per timed row count, and kernel B
+        at = {m: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      mm_ms=0.0, err=0.0) for m in (1,) + WQ_CAP_ROWS}
+        deq = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
         for model, shapes in models:
             for (k, n), names in _group_shapes(shapes).items():
                 w, s = wq_weight(spec, k, n, gen)
+                c = len(names)
+                tag = f"{spec} {model} {'/'.join(names)} K={k} N={n}"
+                plan = wq.wq_plan(1, k, n, bits, group)
+                least_blocks = min(least_blocks or plan.blocks, plan.blocks)
+                print(f"[quant-kernel] plan {tag}: {plan.blocks} blocks = "
+                      f"{plan.tiles} column tiles of {plan.col_tile} x "
+                      f"{plan.splits} K splits of {plan.split_rows} rows, "
+                      f"{plan.stages} stages, {plan.smem} bytes of shared "
+                      f"memory at one row ({wq.wq_plan(64, k, n, bits, group).smem}"
+                      f" at 64)", flush=True)
                 dense = torch.randn(k, n, generator=gen, device="cuda",
                                     dtype=torch.bfloat16)
                 library = wq_library(w, s)
+                got = wq.wq_dequant(w, s, torch.bfloat16)
+                same = torch.equal(got, wq.dequantize(w, s, torch.bfloat16))
+                deq_equal &= same
+                line = f"{tag} kernel B: bit-equal {same}"
+                if model == "3b":
+                    ms = cuda_ms(lambda: wq.wq_dequant(w, s, torch.bfloat16))
+                    plain_ms = cuda_ms(
+                        lambda: wq.dequantize(w, s, torch.bfloat16), n=3)
+                    bound, _ = bound_ms(wq.dequant_bytes(w, s), 0)
+                    lib_ms = (cuda_ms(lambda: w.to(torch.bfloat16))
+                              if bits == 8 else None)
+                    line += (f", {ms!r} ms, bound {bound!r} ms, plain "
+                             f"dequantize {plain_ms!r} ms, library "
+                             f"{lib_ms!r} ms")
+                    deq["ms"] += ms * c
+                    deq["plain_ms"] += plain_ms * c
+                    deq["bound_ms"] += bound * c
+                    deq["library_ms"] = (None if lib_ms is None
+                                         else deq["library_ms"] + lib_ms * c)
+                rows_out.append(line)
+                del got
                 for m in WQ_ROWS:
                     x = torch.randn(m, k, generator=gen, device="cuda",
                                     dtype=torch.bfloat16)
@@ -7746,9 +7803,8 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                     ulp = bf16_ulp_err(got, want)
                     err = (got.float() - want.float()).abs().max().item()
                     worst = max(worst, ulp)
-                    line = (f"{spec} {model} {'/'.join(names)} K={k} N={n} "
-                            f"M={m}: err {err!r} ({ulp!r} ulp)")
-                    if m == 1:
+                    line = f"{tag} M={m}: err {err!r} ({ulp!r} ulp)"
+                    if m == 1 or (model == "3b" and m in at):
                         lib_ulp = bf16_ulp_err(library(x), want)
                         lib_worst = max(lib_worst, lib_ulp)
                         ms = cuda_ms(lambda: wq.wq_matmul(x, w, s))
@@ -7763,56 +7819,59 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                                  f"library {lib_ms!r} ms ({lib_ulp!r} ulp),"
                                  f" bf16 torch.mm {mm_ms!r} ms")
                         if model == "3b":
-                            c = len(names)
-                            layer["ms"] += ms * c
-                            layer["plain_ms"] += plain_ms * c
-                            layer["bound_ms"] += bound * c
-                            layer["library_ms"] += lib_ms * c
-                            layer["mm_ms"] += mm_ms * c
-                            layer["err"] = max(layer["err"], err)
-                    elif model == "3b" and m in at:
-                        ms = cuda_ms(lambda: wq.wq_matmul(x, w, s))
-                        plain_ms = cuda_ms(
-                            lambda: wq.wq_dequant_matmul(x, w, s))
-                        line += (f", kernel {ms!r} ms, dequant+matmul "
-                                 f"{plain_ms!r} ms")
-                        at[m]["ms"] += ms * len(names)
-                        at[m]["plain_ms"] += plain_ms * len(names)
+                            a = at[m]
+                            a["ms"] += ms * c
+                            a["plain_ms"] += plain_ms * c
+                            a["bound_ms"] += bound * c
+                            a["library_ms"] += lib_ms * c
+                            a["mm_ms"] += mm_ms * c
+                            a["err"] = max(a["err"], err)
                     rows_out.append(line)
                 del w, s, dense, library
+        one = at[1]
         entries[WQ_ENTRY[spec]] = {
-            "max_abs_err": layer["err"], "ms": layer["ms"],
-            "plain_ms": layer["plain_ms"], "bound_ms": layer["bound_ms"],
-            "bound_by": "bytes", "library_ms": layer["library_ms"]}
-        cap = wq.WQ_MAX_ROWS[torch.uint8 if "4" in spec else torch.int8]
-        print(f"[quant-kernel] {spec}: the 3B layer's seven products at M=1"
-              f": kernel {layer['ms']!r} ms, bound {layer['bound_ms']!r} ms"
-              f", dequant+matmul {layer['plain_ms']!r} ms, library "
-              f"{layer['library_ms']!r} ms, bf16 torch.mm "
-              f"{layer['mm_ms']!r} ms, max_abs_err {layer['err']!r}; at "
-              f"M=16 kernel {at[16]['ms']!r} / dequant "
-              f"{at[16]['plain_ms']!r} ms, at M=32 kernel {at[32]['ms']!r} "
-              f"/ dequant {at[32]['plain_ms']!r} ms (WQ_MAX_ROWS {cap})",
-              flush=True)
+            "max_abs_err": one["err"], "ms": one["ms"],
+            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+            "bound_by": "bytes", "library_ms": one["library_ms"]}
+        if bits == 8:
+            entries["wq_dequant_fwd"] = {
+                "max_abs_err": 0.0 if deq_equal else float("nan"),
+                "ms": deq["ms"], "plain_ms": deq["plain_ms"],
+                "bound_ms": deq["bound_ms"], "bound_by": "bytes",
+                "library_ms": deq["library_ms"]}
+        cap = wq.WQ_MAX_ROWS[torch.uint8 if bits == 4 else torch.int8]
+        for m, a in at.items():
+            print(f"[quant-kernel] {spec}: the 3B layer's seven products at "
+                  f"M={m}: kernel {a['ms']!r} ms, bound {a['bound_ms']!r} "
+                  f"ms, dequant+matmul {a['plain_ms']!r} ms, library "
+                  f"{a['library_ms']!r} ms, bf16 torch.mm {a['mm_ms']!r} "
+                  f"ms, max_abs_err {a['err']!r} (WQ_MAX_ROWS {cap})",
+                  flush=True)
+        print(f"[quant-kernel] {spec}: the 3B layer's seven kernel-B "
+              f"transients {deq['ms']!r} ms, bound {deq['bound_ms']!r} ms, "
+              f"plain dequantize {deq['plain_ms']!r} ms, library "
+              f"{deq['library_ms']!r} ms", flush=True)
     with open(os.path.join(out_dir, "quant_kernels.txt"), "w") as f:
         f.write("\n".join(rows_out) + "\n")
-    for line in rows_out:
-        if " M=1:" in line and "3b" in line:
-            print(f"[quant-kernel] {line}", flush=True)
     print(f"[quant-kernel] {len(rows_out)} cases (chiprun_out/"
           f"quant_kernels.txt), worst {worst!r} bf16 ulps; library calls "
-          f"worst {lib_worst!r}", flush=True)
+          f"worst {lib_worst!r}; kernel B bit-equal {deq_equal}; fewest "
+          f"blocks at one row {least_blocks}", flush=True)
     checks[f"kernel within {ULP_LIMIT} ulps at every shape"] = (
         worst <= ULP_LIMIT)
     checks[f"library calls within {ULP_LIMIT} ulps (the same product)"] = (
         lib_worst <= ULP_LIMIT)
-    # Planted faults at the 3B's gate shape, 8 rows: each must fail the
-    # same check.
+    checks["kernel B bit-equal to dequantize at every shape"] = deq_equal
+    checks[f"every plan launches at least {wq.WQ_SMS} blocks"] = (
+        least_blocks >= wq.WQ_SMS)
+    # Planted faults at the 3B's gate shape, 8 rows (two K splits): each
+    # must fail the same check.
     k, n = lm_kernel_shapes(cfg.text)["gate_kernel"]
     x = torch.randn(8, k, generator=gen, device="cuda", dtype=torch.bfloat16)
-    for spec, fault, what in (("int8", 1, "last k chunk skipped"),
+    for spec, fault, what in (("int8", 1, "last 16 k rows skipped"),
                               ("int4", 2, "int4 nibbles swapped"),
-                              ("int4:g128", 3, "next group's scale")):
+                              ("int4:g128", 3, "next group's scale"),
+                              ("int8", 4, "a K split's partial dropped")):
         w, s = wq_weight(spec, k, n, gen)
         err = bf16_ulp_err(wq._launch(x, w, s, fault=fault),
                            wq.wq_matmul_plain(x, w, s))
@@ -7855,9 +7914,10 @@ def restore_lm_kernels(lm, saved) -> None:
             w.to("cuda"), requires_grad=False))
 
 
-def quant_decode_ms(eng, req, out_dir, tag) -> float:
-    """Decode device ms per token: a traced QUANT_PROFILE_STEPS-step run
-    less a traced prefill, over the steps."""
+def quant_decode_ms(eng, req, out_dir, tag) -> tuple:
+    """(prefill device ms, decode device ms per token): a traced prefill
+    (one token), and a traced QUANT_PROFILE_STEPS-step run less it, over
+    the steps."""
     n_new = 1 + QUANT_PROFILE_STEPS
     pre, _, _ = traced(lambda: eng.generate(**req, max_new_tokens=1),
                        os.path.join(out_dir, f"profile_quant_{tag}_pre.json"))
@@ -7865,7 +7925,7 @@ def quant_decode_ms(eng, req, out_dir, tag) -> float:
         lambda: eng.generate(**req, max_new_tokens=n_new,
                              eos_token_ids=(-1,)),
         os.path.join(out_dir, f"profile_quant_{tag}_decode.json"))
-    return (busy - pre) / max(len(res.tokens) - 1, 1)
+    return pre, (busy - pre) / max(len(res.tokens) - 1, 1)
 
 
 def quant_teacher_step(lm, state) -> tuple:
@@ -7896,11 +7956,12 @@ def quant_teacher_step(lm, state) -> tuple:
 
 def quant_request_checks(eng, plain, req, checks, tag, n_layers,
                          new_tokens=QUANT_NEW_TOKENS):
-    """One quantized engine's request: launches (the kernel 7 x layers per
-    decode step, the dequantize route 7 x layers per prefill), peak memory,
-    first token and prefill logits against the plain routes (attention and
-    products), a teacher-forced decode step's kernel route against its
-    dequantize route. Returns (result, peak bytes, kernel launches)."""
+    """One quantized engine's request: launches (kernel A 7 x layers per
+    decode step, the dequantize route and kernel B 7 x layers per
+    prefill), peak memory, first token and prefill logits against the
+    plain routes (attention and products), a teacher-forced decode step's
+    kernel route against its dequantize route. Returns (result, peak
+    bytes, kernel A launches, kernel B launches)."""
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
@@ -7913,11 +7974,14 @@ def quant_request_checks(eng, plain, req, checks, tag, n_layers,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches, dequant = wq.WQ_LAUNCHES, wq.WQ_DEQUANT_CALLS
+    dequant_launches = wq.WQ_DEQUANT_LAUNCHES
     steps = A.DECODE_LAUNCHES // n_layers
     per = 7 * n_layers
     checks[f"{tag}: kernel launches {per} x decode steps"] = (
         launches == per * steps and steps == len(res.tokens) - 1)
     checks[f"{tag}: dequantize route {per} per prefill"] = dequant == per
+    checks[f"{tag}: dequantize kernel {per} launches per prefill"] = (
+        dequant_launches == per)
     with patched(wq, "WQ_MAX_ROWS", {}):
         res_p = plain.generate(**req, max_new_tokens=1)
     diff = (res_p.logits - res.logits).abs().max().item()
@@ -7932,7 +7996,8 @@ def quant_request_checks(eng, plain, req, checks, tag, n_layers,
     step_rel = ((kern - deq).abs().max() / deq.abs().max()).item()
     print(f"[quant] {tag}: {len(res.tokens)} tokens, kernel launches "
           f"{launches} ({steps} decode steps), dequantize-route calls "
-          f"{dequant}; first token {res.tokens[0]} plain routes "
+          f"{dequant} (kernel B launches {dequant_launches}); first token "
+          f"{res.tokens[0]} plain routes "
           f"{res_p.tokens[0]}; prefill logits max_abs_diff {diff!r} (max "
           f"|logit| {scale!r}), selected overlap {overlap!r}; teacher-"
           f"forced step kernel vs dequantize route max|diff|/max|logit| "
@@ -7945,14 +8010,15 @@ def quant_request_checks(eng, plain, req, checks, tag, n_layers,
     checks[f"{tag}: decode step, kernel vs dequantize route"] = (
         step_rel <= TEACHER_TOL)
     checks[f"{tag}: finite logits"] = bool(torch.isfinite(res.logits).all())
-    return res, peak, launches
+    return res, peak, launches, dequant_launches
 
 
 def quant_3b(cfg, params, input_ids, pixels, grid, out_dir, checks) -> dict:
     """16(b) and (c): the 3B at full width, phase 3's request at selector
     0.2, under bf16, then int8, int4 and int4:g128 (each quantized in place
     from the bf16 kernels, put back from host copies in between); then the
-    batcher over int4:g128. Returns the kernel's launches per spec."""
+    batcher over int4:g128. Returns kernel A's launches per spec and kernel
+    B's (``wq_dequant_fwd``) of the int8 request."""
     import torch
 
     from visionselector_tpu_torch.models.qwen25vl import lm as L
@@ -7974,11 +8040,12 @@ def quant_3b(cfg, params, input_ids, pixels, grid, out_dir, checks) -> dict:
                         eos_token_ids=(-1,))
     torch.cuda.synchronize()
     base_peak = torch.cuda.max_memory_allocated()
-    base_ms = quant_decode_ms(eng, req, out_dir, "3b_bf16")
+    base_pre, base_ms = quant_decode_ms(eng, req, out_dir, "3b_bf16")
     base_bytes = lm_bytes(params.lm)
     print(f"[quant] 3B bf16: first token {base.tokens[0]}, LM bytes "
-          f"{base_bytes}, peak {base_peak} bytes, decode device ms per "
-          f"token {base_ms!r}", flush=True)
+          f"{base_bytes}, peak {base_peak} bytes, prefill device ms "
+          f"{base_pre!r}, decode device ms per token {base_ms!r}",
+          flush=True)
     saved = save_lm_kernels(params.lm)
     launches = {}
     try:
@@ -7988,14 +8055,18 @@ def quant_3b(cfg, params, input_ids, pixels, grid, out_dir, checks) -> dict:
             L.apply_weight_quantization(params, spec)
             torch.cuda.empty_cache()
             eng, plain = engines()
-            res, peak, launches[WQ_ENTRY[spec]] = quant_request_checks(
-                eng, plain, req, checks, f"3B {spec}", n_layers)
-            ms = quant_decode_ms(eng, req, out_dir, f"3b_{spec}")
+            res, peak, launches[WQ_ENTRY[spec]], dequant = (
+                quant_request_checks(eng, plain, req, checks, f"3B {spec}",
+                                     n_layers))
+            if spec == "int8":
+                launches["wq_dequant_fwd"] = dequant
+            pre, ms = quant_decode_ms(eng, req, out_dir, f"3b_{spec}")
             rel = ((res.logits - base.logits).abs().max()
                    / base.logits.abs().max()).item()
             print(f"[quant] 3B {spec}: LM bytes {lm_bytes(params.lm)} (bf16 "
                   f"{base_bytes}); peak {peak} bytes (bf16 {base_peak}); "
-                  f"decode device ms per token {ms!r} (bf16 {base_ms!r}); "
+                  f"prefill device ms {pre!r} (bf16 {base_pre!r}); decode "
+                  f"device ms per token {ms!r} (bf16 {base_ms!r}); "
                   f"prefill logits against bf16: max|diff|/max|logit| "
                   f"{rel!r}, first token {res.tokens[0]} (bf16 "
                   f"{base.tokens[0]})", flush=True)
@@ -8100,11 +8171,12 @@ def quant_ov_specs(ov_cfg, ov_params, req, engines, out_dir, checks):
                         eos_token_ids=(-1,))
     torch.cuda.synchronize()
     base_peak = torch.cuda.max_memory_allocated()
-    base_ms = quant_decode_ms(eng, req, out_dir, "ov_bf16")
+    base_pre, base_ms = quant_decode_ms(eng, req, out_dir, "ov_bf16")
     base_bytes = lm_bytes(ov_params.lm)
     print(f"[quant-ov] OV-8B bf16: LM bytes {base_bytes}, peak {base_peak} "
-          f"bytes (the 3B's weights resident too), decode device ms per "
-          f"token {base_ms!r}", flush=True)
+          f"bytes (the 3B's weights resident too), prefill device ms "
+          f"{base_pre!r}, decode device ms per token {base_ms!r}",
+          flush=True)
     saved = save_lm_kernels(ov_params.lm)
     for spec in ("int8", "int4:g128"):
         restore_lm_kernels(ov_params.lm, saved)
@@ -8112,13 +8184,13 @@ def quant_ov_specs(ov_cfg, ov_params, req, engines, out_dir, checks):
         L.apply_weight_quantization(ov_params, spec)
         torch.cuda.empty_cache()
         eng, plain = engines()
-        res, peak, _ = quant_request_checks(eng, plain, req, checks,
-                                            f"OV-8B {spec}", n_layers)
-        ms = quant_decode_ms(eng, req, out_dir, f"ov_{spec}")
+        res, peak, _, _ = quant_request_checks(eng, plain, req, checks,
+                                               f"OV-8B {spec}", n_layers)
+        pre, ms = quant_decode_ms(eng, req, out_dir, f"ov_{spec}")
         print(f"[quant-ov] OV-8B {spec}: LM bytes {lm_bytes(ov_params.lm)} "
               f"(bf16 {base_bytes}); peak {peak} bytes (bf16 {base_peak}); "
-              f"decode device ms per token {ms!r} (bf16 {base_ms!r})",
-              flush=True)
+              f"prefill device ms {pre!r} (bf16 {base_pre!r}); decode "
+              f"device ms per token {ms!r} (bf16 {base_ms!r})", flush=True)
         del eng, plain
     del saved
     torch.cuda.empty_cache()

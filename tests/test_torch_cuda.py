@@ -1477,16 +1477,19 @@ def _wq_weight(dev, spec, k, n, seed):
     return (pack_int4(q) if bits == 4 else q), s
 
 
-@pytest.mark.parametrize("rows", [1, 8, 16, 32])
+@pytest.mark.parametrize("rows", [1, 8, 16, 32, 48, 64])
 @pytest.mark.parametrize("spec", list(WQ_SPECS))
 def test_wq_matmul_matches_plain(dev, spec, rows):
-    """K = 1,152 (four and a half 256-row chunks); N = 560, a partial last
-    column tile (and, packed, 280-byte rows that take the byte loads)."""
+    """Kernel A at every row tile. N = 560: a partial last column tile
+    (and, packed, 280-byte rows that take 8-byte copies); K = 1,160 per
+    channel (not a multiple of a split's 64-row units, nor of 16) and
+    1,152 under g128 (nine groups: a shorter last split)."""
     from visionselector_tpu_torch.kernels import wq_matmul as wq
 
-    w, s = _wq_weight(dev, spec, 1152, 560, rows)
+    k = 1152 if WQ_SPECS[spec][1] else 1160
+    w, s = _wq_weight(dev, spec, k, 560, rows)
     gen = torch.Generator(device=dev).manual_seed(7)
-    x = _rnd(gen, rows, 1152)
+    x = _rnd(gen, rows, k)
     n0 = wq.WQ_LAUNCHES
     got = wq.wq_matmul(x, w, s)
     assert wq.WQ_LAUNCHES == n0 + 1
@@ -1495,10 +1498,51 @@ def test_wq_matmul_matches_plain(dev, spec, rows):
         wq.wq_matmul(x.float(), w, s)
 
 
+@pytest.mark.parametrize("spec, fault", [("int8", 1), ("int4", 2),
+                                         ("int4:g128", 3), ("int8", 4),
+                                         ("int4", 4)])
+def test_wq_planted_faults_fail_the_check(dev, spec, fault):
+    """Each planted fault of kernel A (1: the last 16 k rows skipped, 2:
+    int4 nibbles swapped, 3: the next group's scale, 4: a K split's
+    partial dropped) moves the product past ULP_LIMIT, at the 3B's gate
+    shape and 8 rows (several K splits)."""
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    w, s = _wq_weight(dev, spec, 2048, 11008, 40 + fault)
+    bits, group = WQ_SPECS[spec]
+    assert wq.wq_plan(8, 2048, 11008, bits, group).splits > 1
+    x = _rnd(torch.Generator(device=dev).manual_seed(9), 8, 2048)
+    want = wq.wq_matmul_plain(x, w, s)
+    assert _err(wq._launch(x, w, s), want) <= ULP_LIMIT
+    assert _err(wq._launch(x, w, s, fault=fault), want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("spec", list(WQ_SPECS))
+def test_wq_dequant_matches_plain_bit_for_bit(dev, spec):
+    """Kernel B equals ``dequantize`` bit for bit, at N = 2,048 and N = 560
+    (packed rows of 280 bytes); it writes bf16 only (fp32 raises);
+    ``wq_dequant_matmul`` is ``wq_matmul_plain`` exactly."""
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    for n in (2048, 560):
+        w, s = _wq_weight(dev, spec, 1152, n, n)
+        n0 = wq.WQ_DEQUANT_LAUNCHES
+        got = wq.wq_dequant(w, s, torch.bfloat16)
+        assert wq.WQ_DEQUANT_LAUNCHES == n0 + 1
+        assert got.dtype == torch.bfloat16 and not got.requires_grad
+        assert torch.equal(got, wq.dequantize(w, s, torch.bfloat16))
+    with pytest.raises(ValueError):
+        wq.wq_dequant(w, s, torch.float32)
+    x = _rnd(torch.Generator(device=dev).manual_seed(11), 70, 1152)
+    assert torch.equal(wq.wq_dequant_matmul(x, w, s),
+                       wq.wq_matmul_plain(x, w, s))
+
+
 def test_wq_launches_on_decode_and_dequantize_on_prefill(dev):
     """A quantized tiny decoder on the card: every decode step's seven
-    products per layer launch the kernel, each prefill's take the
-    dequantize route; the first token equals the plain routes'."""
+    products per layer launch kernel A, each prefill's take the dequantize
+    route, one kernel-B launch each; the first token equals the plain
+    routes'."""
     from visionselector_tpu_torch.kernels import wq_matmul as wq
     from visionselector_tpu_torch.models.qwen25vl.lm import (
         apply_weight_quantization,
@@ -1517,11 +1561,13 @@ def test_wq_launches_on_decode_and_dequantize_on_prefill(dev):
     eng = QwenVLEngine(cfg, params, device=dev)
     n_layers = cfg.text.num_hidden_layers
     w0, d0, k0 = wq.WQ_LAUNCHES, wq.WQ_DEQUANT_CALLS, A.DECODE_LAUNCHES
+    b0 = wq.WQ_DEQUANT_LAUNCHES
     got = eng.generate(ids, px, grid, max_new_tokens=5, eos_token_ids=(-1,))
     steps = (A.DECODE_LAUNCHES - k0) // n_layers
     assert steps == 4
     assert wq.WQ_LAUNCHES - w0 == 7 * n_layers * steps
     assert wq.WQ_DEQUANT_CALLS - d0 == 7 * n_layers
+    assert wq.WQ_DEQUANT_LAUNCHES - b0 == 7 * n_layers
     old = wq.WQ_MAX_ROWS
     try:
         wq.WQ_MAX_ROWS = {}

@@ -4,7 +4,11 @@ same weights (``ov_from_jax_params``) and inputs made with numpy from a
 seed:
 
 - ``build_rice_batch``'s CLS insert / strip maps and segments bit-equal,
-  and the kernel-tile padding only appends zero rows of segment 0;
+  and the kernel-tile padding only appends zero rows of segment 0; a clip
+  of 10 temporal groups with 10 CLS slots (one per frame: the port
+  engine's count, past the reference engine's 8, at which its
+  ``build_rice_batch`` asserts), and the port's ``OVEngine`` runs it end
+  to end;
 - ``rice_forward`` and ``rice_forward_stats`` within 1e-4 (fp32, two
   blocks), on the port's tile-padded layout against the reference's;
 - the Qwen3 decoder (q/k norm, no biases, 1-D rope, head_dim_override)
@@ -22,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from torch_ov_params import (  # noqa: F401 (one_thread: autouse fixture)
+    EOS,
     configs,
     image,
     one_thread,
@@ -34,11 +39,14 @@ from visionselector_tpu.models.llava_ov15 import rice as jrice
 from visionselector_tpu.models.qwen25vl import lm as jlm
 from visionselector_tpu_torch.core.config import TextConfig
 from visionselector_tpu_torch.kernels.attention import FLASH_BLOCK
+from visionselector_tpu_torch.models.llava_ov15 import model as tmodel
 from visionselector_tpu_torch.models.llava_ov15 import rice as trice
 from visionselector_tpu_torch.models.qwen25vl import lm as tlm
 from visionselector_tpu_torch.models.qwen25vl.weights import lm_from_jax
+from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
 
 ATOL = 1e-4
+LONG_CLIP = 10  # temporal groups (RICE's temporal patch is 1): > 8 slots
 
 
 @pytest.fixture(scope="module")
@@ -55,12 +63,15 @@ def _batches():
     p1, g1 = image(56, 56, 21)
     p2, g2 = image(56, 84, 22)
     vpx, vgrid = video()
+    lpx, lgrid = video(frames=LONG_CLIP)
     return {
         "image, exact length": (px, grid, None, None),
         "image, bucket and slots": (px, grid, 256, 8),
         "two images": (np.concatenate([p1, p2]), np.concatenate([g1, g2]),
                        128, 8),
         "video frames": (vpx, vgrid, 256, 8),
+        # one CLS slot per frame, as the port's engine allots
+        "video of 10 groups": (lpx, lgrid, 256, LONG_CLIP),
     }
 
 
@@ -122,7 +133,7 @@ def _jax_rice(jp, case, stats=False):
 
 
 @pytest.mark.parametrize("case", ["image, bucket and slots", "two images",
-                                  "video frames"])
+                                  "video frames", "video of 10 groups"])
 def test_rice_forward_matches_jax(weights, case):
     """Merged tokens of the real patches within 1e-4, on the port's
     tile-padded layout (bounds at the kernel's tile) against the
@@ -151,6 +162,44 @@ def test_rice_forward_stats_matches_jax(weights):
     np.testing.assert_allclose(
         got[0][:n], trice.rice_forward(tp.visual, **inputs).numpy()[:n],
         atol=1e-6, rtol=0)
+
+
+def test_engine_runs_a_clip_of_more_than_8_groups(weights):
+    """The port's ``OVEngine`` on a clip of 10 temporal groups: its RICE
+    batch holds one CLS slot per frame (10; the reference engine allots
+    ``max(len(grid_thw), 8)`` = 8 and its ``build_rice_batch`` asserts),
+    with the maps of the reference's ``build_rice_batch`` at the same
+    explicit slots (before the kernel-tile padding); 4 greedy tokens and
+    finite logits from the selector request."""
+    _, _, tp = weights
+    cfg = configs()[1]
+    lpx, lgrid = video(frames=LONG_CLIP)
+    assert int(lgrid[:, 0].sum()) == LONG_CLIP > 8
+    with pytest.raises(AssertionError):  # the reference engine's slots
+        jrice.build_rice_batch(lpx, lgrid, pad_to=256,
+                               cls_slots=max(len(lgrid), 8))
+    ids = expand_vision_tokens([100, 200], [300, 420], lgrid,
+                               image_token_id=cfg.video_token_id)
+    eng = tmodel.OVEngine(cfg, tp, use_selector=True, budget=0.3,
+                          device="cpu")
+    _, prep = eng._prepared(ids, None, None, lpx, lgrid)
+    rb = prep.rb
+    cls = rb.insert_map == prep.s_bucket  # the CLS sentinel row
+    assert int(cls.sum()) == LONG_CLIP
+    want = jrice.build_rice_batch(lpx, lgrid, pad_to=prep.s_bucket,
+                                  cls_slots=LONG_CLIP)
+    sp = len(want.seg_ids)
+    for name in ("insert_map", "seg_ids"):
+        np.testing.assert_array_equal(getattr(rb, name)[:sp],
+                                      getattr(want, name), err_msg=name)
+    np.testing.assert_array_equal(rb.strip_map, want.strip_map)
+    res = eng.generate(input_ids=ids, pixel_values_videos=lpx,
+                       video_grid_thw=lgrid,
+                       second_per_grid_ts=np.array([1.0]),
+                       max_new_tokens=4, eos_token_ids=EOS)
+    assert len(res.tokens) == 4
+    assert res.num_vision_tokens == want.num_merged == prep.n
+    assert torch.isfinite(res.logits).all()
 
 
 # -- Qwen3 text model ----------------------------------------------------

@@ -130,7 +130,9 @@ def load() -> ctypes.CDLL:
             lib.vst_decode_blocked_fwd.restype = _I
             lib.vst_decode_blocked_query.argtypes = [_I] * 7
             lib.vst_decode_blocked_query.restype = _I
-            lib.vst_wq_matmul_fwd.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+            lib.vst_wq_matmul_fwd.argtypes = [_P] * 4 + [_I] * 11 + [_P]
             lib.vst_wq_matmul_fwd.restype = _I
+            lib.vst_wq_dequant_fwd.argtypes = [_P] * 3 + [_I] * 4 + [_P]
+            lib.vst_wq_dequant_fwd.restype = _I
             _LIB = lib
         return _LIB

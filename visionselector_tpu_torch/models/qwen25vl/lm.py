@@ -16,7 +16,8 @@ MoE variant is not ported yet):
   by. Embeddings, norms, biases and the LM head stay in the model dtype.
   ``_dense`` routes a quantized product (``kernels.wq_matmul``): decode
   rows to the weight-only GEMM kernel on the card, prefill rows and
-  products under grad to a dequantized transient and ``torch.matmul``,
+  products under grad to the dequantize kernel's transient and
+  ``torch.matmul``,
   CPU tensors to its plain version,
 - Qwen3 flags: ``head_dim_override``; ``qk_norm`` (a per-head RMSNorm of
   q and k after the head reshape and before the rotary, with ``q_norm_scale``
@@ -353,17 +354,15 @@ def _dense(x, p: nn.Module, name: str):
 
     A quantized kernel takes one of ``kernels.wq_matmul``'s routes: on the
     card, rows of a decode step (at most ``WQ_MAX_ROWS[w.dtype]``, bf16,
-    no gradient to carry) the weight-only GEMM kernel; other rows (prefill)
-    or a product under grad the dequantized layer kernel and
-    ``torch.matmul``; CPU tensors the plain version. Per channel ``(x @ q)
-    * s``, grouped ``x @ (q * s_g)``, in x's dtype, as the reference."""
+    no gradient to carry: ``wq.use_kernel``) the weight-only GEMM kernel;
+    other rows (prefill) or a product under grad the dequantize kernel's
+    transient and ``torch.matmul``; CPU tensors the plain version. Per
+    channel ``(x @ q) * s``, grouped ``x @ (q * s_g)``, in x's dtype, as
+    the reference."""
     w = getattr(p, name)
     if w.dtype in wq.QUANT_DTYPES:
         s = getattr(p, name + "_scale")
-        rows = x.numel() // x.shape[-1]
-        if (x.is_cuda and x.dtype == torch.bfloat16
-                and rows <= wq.WQ_MAX_ROWS.get(w.dtype, 0)
-                and not (torch.is_grad_enabled() and x.requires_grad)):
+        if wq.use_kernel(x, w, s):
             y = wq.wq_matmul(x, w, s)
         else:
             y = wq.wq_dequant_matmul(x, w, s)
