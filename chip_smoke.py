@@ -403,7 +403,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    bf16's. After phase 15: (a) kernel A's instantiations with their ptxas
    lines and each shape's plan (blocks, splits, stages, shared memory);
    kernel A against ``wq_matmul_plain`` at the seven kernel shapes of the
-   3B and of OV-8B, 1 / 8 / 16 / 32 / 48 / 64 rows, each spec, within
+   3B, of OV-8B and of the 7B, 1 / 8 / 16 / 32 / 48 / 64 rows, each spec,
+   within
    ULP_LIMIT; four planted faults (the last 16 k rows skipped, int4
    nibbles swapped, group g read with g + 1's scale, a K split's partial
    dropped) must fail it; kernel B bit-equal to ``wq.dequantize`` at
@@ -412,11 +413,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    library call's (``torch._weight_int8pack_mm`` /
    ``torch._weight_int4pack_mm``, held to the plain version within
    ULP_LIMIT) and a bf16 ``torch.mm`` on an unquantized weight of the
-   shape; the 3B's shapes also at 16, 32 and 64 rows on both routes,
-   which set ``WQ_MAX_ROWS`` per format; kernel B's ms at the 3B's shapes
-   beside its bound (Wq + scales + the bf16 transient) and the plain
-   dequantize's (``chiprun_out/quant_kernels.txt``; the 3B layer's seven
-   products summed printed). (b) The 3B under bf16, then each spec, phase
+   shape; the 3B's and the 7B's shapes also at 16, 32 and 64 rows on both
+   routes (the 3B's set ``WQ_MAX_ROWS`` per format); kernel B's ms at the
+   3B's and the 7B's shapes beside its bound (Wq + scales + the bf16
+   transient) and the plain dequantize's (``chiprun_out/quant_kernels.txt``;
+   each layer's seven products summed printed). (b) The 3B under bf16, then each spec, phase
    3's request at selector 0.2, 32 greedy tokens, with (d)'s checks and
    numbers, and the prefill logits' distance from bf16's. (c) ``ContinuousBatcher(n_slots=8)`` over the
    int4:g128 3B, six of phase 5's greedy requests on a bf16 and an int8
@@ -427,6 +428,41 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    on phase 6's reduced-depth directory, ``api.predict --family
    llava_ov15 --quantize int4:g128`` on phase 11's. Prints the phase's
    seconds and its parts'.
+17. Qwen2.5-VL-7B and the MoE decoder (``7b-moe``), after phase 16, with
+   the 3B's weights freed: ``qwen25vl_7b()`` at full width and depth from
+   a seeded generator (bf16, the scorer fp32 at in features 3,584; ViT 32
+   x 1280, LM 28 x 3,584, GQA 28 / 4: n_rep 7, an untied 152,064-row
+   head). (a) Its kernels against their plain versions: K1 causal at
+   decoder layer 0 under the selector and ``orig`` (fault: the diagonal kv
+   tile cut); K5 at n_rep 7, bf16 and int8, at t_c 1 over an 8-slot,
+   2,048-row pool at ``DECODE_LENS``, t_c 4 / 8 / 32 over one slot of the
+   ``orig`` cache's size at its base 1,302 and t_c 256 at base 1,280
+   (fault: the in-chunk causal limit off by one), each with ms, bound and
+   one SDPA call. The ViT's K1 / K4 have the 3B's shapes (phase 2);
+   kernels A and B at the 7B layer's seven products are checked and timed
+   in 16(a). (b)
+   Phase 3's request at selector 0.2 and ``orig``, 32 greedy tokens, the
+   counts zeroed just before and read just after: 28 K4 + 4 + 28 K1 per
+   prefill, 28 K5 per decode step; each first token equal to
+   ``attn_impl="plain"``'s; prefill device ms of both and their ratio,
+   decode device ms per token, peak memory. ``generate_speculative`` at m
+   = 3 and 7 (K5 at t_c 4 and 8) and the choices (K5 at t_c 32), each
+   counted; then the selector request under int8, int4 and int4:g128
+   (quantized in place, 8 tokens; 196 kernel-A launches a decode step,
+   196 kernel-B launches a prefill; phase 16's checks). (c)
+   ``ContinuousBatcher(n_slots=8)`` over six of phase 5's greedy requests,
+   bf16 pool: first tokens equal one-shot ``generate``'s; then the phase-3
+   request as one chunked admission (256-row decoder segments: K5 at t_c
+   256) against its one-shot prefill. (d) A
+   reduced-depth 7B HF directory (ViT blocks 0 and 7, decoder layers 0 and
+   1, full widths, ``lm_head.weight``, the scorer) written under
+   ``.smoke_tmp/`` and served by ``api.predict --model-path`` in a process
+   of its own: exit 0 and the tokens of the same entry points in process.
+   (e) ``OVEngine.generate`` on ``llava_ov_moe_tiny`` on the card equal to
+   the CPU port's (tokens and selected indices), and one MoE layer at 128
+   experts, top 8, expert width 768, hidden 2,048: the routed path against
+   the dense plain scan within MOE_ULPS bf16 ulps, both timed. Prints the
+   phase's seconds and its parts'.
 
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
@@ -440,10 +476,16 @@ causal ones of the last step; K5 at t_c 8, ``decode_blocked_fwd_t_c8`` and
 causal ones of the last packed step; the weight-only GEMM per spec,
 ``wq_matmul_fwd``, ``wq_matmul_fwd_int4`` and ``wq_matmul_fwd_int4_g128``,
 from phase 16, timed as the 3B layer's seven products at one row, its
-launches those of 16(b)'s counted request; the dequantize kernel,
+launches those of 16(b)'s counted request (the ``_7b`` entries: 16(a)'s
+times at the 7B layer, phase 17's launches); the dequantize kernel,
 ``wq_dequant_fwd``, timed as the 3B layer's seven int8 transients, its
-launches those of 16(b)'s int8 prefill); the last line is
-``{"ok": true, "device": {...}}``.
+launches those of 16(b)'s int8 prefill; the 7B's shapes from phase 17:
+``flash_varlen_fwd_7b`` and ``decode_blocked_fwd_7b`` counted in 17(b)'s
+requests, ``decode_blocked_fwd_7b_t_c4`` / ``_t_c8`` in its speculative
+runs, ``_t_c32`` in its choices, ``_t_c256`` in 17(c)'s chunked
+admission, ``wq_matmul_fwd_7b``, ``wq_matmul_fwd_int4_7b``,
+``wq_matmul_fwd_int4_g128_7b`` and ``wq_dequant_fwd_7b`` in its quantized
+requests); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -558,6 +600,17 @@ KERNELS = {
     # The dequantize route's transient (kernel B of the same source), timed
     # as the 3B decoder layer's seven int8 kernels
     "wq_dequant_fwd": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    # Qwen2.5-VL-7B (phase 17): K1 causal at GQA 28/4, K5 at n_rep 7 per
+    # t_c, and kernels A (per spec) and B at the 7B layer's widths
+    "flash_varlen_fwd_7b": ("flash_varlen_fwd.cu",
+                            "visionselector_tpu/kernels/attention.py:203"),
+    **{f"decode_blocked_fwd_7b{sfx}": (
+        "decode_blocked_fwd.cu", "visionselector_tpu/kernels/attention.py:"
+        "1085") for sfx in ("", "_t_c4", "_t_c8", "_t_c32", "_t_c256")},
+    "wq_matmul_fwd_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_matmul_fwd_int4_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_matmul_fwd_int4_g128_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_dequant_fwd_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -2793,6 +2846,22 @@ def finish_cli(procs, name):
         return rc, f.read(), g.read(), time.perf_counter() - t0
 
 
+def reduced_tensors(src: dict, keep: dict) -> dict:
+    """A reduced-depth HF tensor dict: the tensors of ``src`` under each
+    kept block or layer prefix (``keep``: old prefix -> new), renamed, and
+    every tensor outside the ``.blocks.`` / ``.layers.`` stacks."""
+    small = {}
+    for name, t in src.items():
+        for old, new in keep.items():
+            if name.startswith(old):
+                small[new + name[len(old):]] = t
+                break
+        else:
+            if ".blocks." not in name and ".layers." not in name:
+                small[name] = t
+    return small
+
+
 def hf_phase(cfg, params, input_ids, pixels, grid, tmp, procs):
     """Phase 6.3: an HF-layout directory of the 3B weights at reduced depth
     (ViT block 0 and the first full-attention block, 7; LM layers 0 and 1;
@@ -2826,21 +2895,12 @@ def hf_phase(cfg, params, input_ids, pixels, grid, tmp, procs):
     smoke_out = os.path.join(tmp, "smoke_train")
     start_cli(procs, tmp, "train", "--smoke", "--total-steps", "3",
               "--log-steps", "1", "--output-dir", smoke_out)
-    src = to_hf_tensors(params)  # views, no copies
     full = cfg.vision.fullatt_block_indexes[0]
-    keep = {"visual.blocks.0.": "visual.blocks.0.",
-            f"visual.blocks.{full}.": "visual.blocks.1.",
-            "model.layers.0.": "model.layers.0.",
-            "model.layers.1.": "model.layers.1."}
-    small = {}
-    for name, t in src.items():
-        for old, new in keep.items():
-            if name.startswith(old):
-                small[new + name[len(old):]] = t
-                break
-        else:
-            if ".blocks." not in name and ".layers." not in name:
-                small[name] = t
+    small = reduced_tensors(to_hf_tensors(params), {
+        "visual.blocks.0.": "visual.blocks.0.",
+        f"visual.blocks.{full}.": "visual.blocks.1.",
+        "model.layers.0.": "model.layers.0.",
+        "model.layers.1.": "model.layers.1."})
     vis = dataclasses.asdict(cfg.vision)
     vis.update(depth=2, fullatt_block_indexes=[1])
     text = dict(dataclasses.asdict(cfg.text), num_hidden_layers=2,
@@ -4726,6 +4786,53 @@ def ov_kernel_entry(kname, name, kernel, plain, fault, nbytes, flop,
                 bound_by=by, library_ms=lib)
 
 
+def causal_k1_cases(kname, model, engines, req, tag="[ov-kernel]",
+                    phases=True) -> dict:
+    """K1 causal at the decoder's layer 0 of the selector and ``orig``
+    requests (q / k / v captured from one prefill of each engine) against
+    its plain version, with ms, bound and one SDPA call (causal + padding
+    mask, GQA); fault: each q tile's diagonal kv tile cut from the
+    bounds. With ``phases`` the prologue and main loop are also timed
+    apart. Returns the kernels line's entry: the selector's (the main
+    case), with the larger error of the two."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+
+    entries = []
+    for name in ("selector", "orig"):
+        c = ov_capture(engines[name], req, True)
+        q, k, v, seg = c["q"], c["k"], c["v"], c["seg"]
+        _, t, hq, d = q.shape
+        hkv = k.shape[2]
+        valid = int(seg.sum())
+        nq = -(-t // TILE)
+        iq = torch.arange(nq, device="cuda")
+        cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
+        pos = torch.arange(t, device="cuda")
+        mask = ((seg[0, :, None] > 0) & (seg[0, None, :] > 0)
+                & (pos[:, None] >= pos[None]))[None, None]
+        entries.append(ov_kernel_entry(
+            kname,
+            f"{name} decoder layer 0 T={t} valid={valid} Hq={hq} Hkv={hkv} "
+            f"(n_rep {hq // hkv}) D={d}",
+            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
+            lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
+            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
+                                       kv_bounds=cut),
+            (2 * hq + 2 * hkv) * t * d * 2 + t * 8,
+            4 * d * hq * (valid * (valid + 1) // 2),
+            lambda: sdpa_ms(q, k, v, mask),
+            lambda got: bool((got[:, seg[0] == 0] == 0).all()), tag=tag))
+        if phases:
+            flash_phases("flash_varlen_fwd", f"{model} {name} T={t} "
+                         f"valid={valid}", q, k, v, seg, None, None,
+                         causal=True)
+        del q, k, v, c
+    return dict(entries[0], max_abs_err=max(e["max_abs_err"]
+                                            for e in entries))
+
+
 def ov_kernels(cfg, engines, req) -> dict:
     """11.2: each kernel of the OV path at its own shapes against its
     plain version: K1 at RICE block 0's captured q / k / v (S' = 8,256,
@@ -4787,38 +4894,8 @@ def ov_kernels(cfg, engines, req) -> dict:
     flash_phases("flash_varlen_fwd", f"RICE block 0 S'={s} D={d}", q, k, v,
                  seg, bounds_np, None)
 
-    # K1 causal, the decoder's layer 0 under the selector and orig
-    entries = []
-    for name in ("selector", "orig"):
-        c = ov_capture(engines[name], req, True)
-        q, k, v, seg = c["q"], c["k"], c["v"], c["seg"]
-        _, t, hq, d = q.shape
-        hkv = k.shape[2]
-        valid = int(seg.sum())
-        nq = -(-t // TILE)
-        iq = torch.arange(nq, device="cuda")
-        cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
-        pos = torch.arange(t, device="cuda")
-        mask = ((seg[0, :, None] > 0) & (seg[0, None, :] > 0)
-                & (pos[:, None] >= pos[None]))[None, None]
-        entries.append(ov_kernel_entry(
-            "flash_varlen_fwd_ov_lm",
-            f"{name} decoder layer 0 T={t} valid={valid} Hq={hq} Hkv={hkv} "
-            f"D={d}",
-            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
-            lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
-            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
-                                       kv_bounds=cut),
-            (2 * hq + 2 * hkv) * t * d * 2 + t * 8,
-            4 * d * hq * (valid * (valid + 1) // 2),
-            lambda: sdpa_ms(q, k, v, mask),
-            lambda got: bool((got[:, seg[0] == 0] == 0).all())))
-        flash_phases("flash_varlen_fwd", f"OV {name} T={t} valid={valid}",
-                     q, k, v, seg, None, None, causal=True)
-    # the kernels line keeps the selector's (the main case) with the larger
-    # error of the two
-    out["flash_varlen_fwd_ov_lm"] = dict(
-        entries[0], max_abs_err=max(e["max_abs_err"] for e in entries))
+    out["flash_varlen_fwd_ov_lm"] = causal_k1_cases(
+        "flash_varlen_fwd_ov_lm", "OV", engines, req)
 
     # K5 at n_rep 4: the orig cache's layer 0, and a 4-slot pool
     tc = cfg.text
@@ -5733,12 +5810,14 @@ def chunk_mask(base, t_c, t):
     return (torch.arange(t, device=base.device) < lim[..., None])[:, None]
 
 
-def spec_k5_cases(tc, cases, kname, gen):
-    """13.1: K5 at t_c = SPEC_T_C over each (where, bf16 k, v, base
-    lengths) case, bf16 and int8, against its plain version with the
-    in-chunk causal limit off by one planted (the kernel called with
-    base + 1: row i sees one key more). Returns the kernels line's entry
-    (the first case, the largest error of all)."""
+def spec_k5_cases(tc, cases, kname, gen, t_c=SPEC_T_C,
+                  tag="[spec-kernel]"):
+    """13.1: K5 at ``t_c`` rows a slot (SPEC_T_C: a verify chunk) over
+    each (where, bf16 k, v, base lengths) case, bf16 and int8, against its
+    plain version with the in-chunk causal limit off by one planted (the
+    kernel called with base + 1: row i sees one key more), ms, bound and
+    one SDPA call (causal within the chunk + length mask). Returns the
+    kernels line's entry (the first case, the largest error of all)."""
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
@@ -5752,24 +5831,23 @@ def spec_k5_cases(tc, cases, kname, gen):
         for quant in (False, True):
             kc, vc = (k8, v8) if quant else (kb, vb)
             sc = dict(k_scale=ks, v_scale=vs) if quant else {}
-            q = torch.randn(b, SPEC_T_C, hq, dh, generator=gen,
+            q = torch.randn(b, t_c, hq, dh, generator=gen,
                             device="cuda").bfloat16()
-            nbytes, flop = decode_work(base, SPEC_T_C, quant, rows, hq, hkv,
-                                       dh)
-            cluster = A.decode_cluster_size("cuda", b, SPEC_T_C, hq, hkv,
-                                            dh, quant)
+            nbytes, flop = decode_work(base, t_c, quant, rows, hq, hkv, dh)
+            cluster = A.decode_cluster_size("cuda", b, t_c, hq, hkv, dh,
+                                            quant)
             entries.append(ov_kernel_entry(
                 kname,
-                f"{'int8' if quant else 'bf16'} {where} t_c={SPEC_T_C} B={b}"
-                f" T={rows} Hq={hq} Hkv={hkv} D={dh} base={base.tolist()} "
-                f"cluster={cluster}",
+                f"{'int8' if quant else 'bf16'} {where} t_c={t_c} B={b}"
+                f" T={rows} Hq={hq} Hkv={hkv} (n_rep {hq // hkv}) D={dh} "
+                f"base={base.tolist()} cluster={cluster}",
                 lambda: A.decode_blocked_fwd(q, kc, vc, base, **sc),
                 lambda: A.decode_blocked_plain(q, kc, vc, base, **sc),
                 lambda: A.decode_blocked_fwd(q, kc, vc, base + 1, **sc),
                 nbytes, flop,
                 None if quant else (lambda: sdpa_ms(
-                    q, kb, vb, chunk_mask(base, SPEC_T_C, rows))),
-                lambda got: True, tag="[spec-kernel]"))
+                    q, kb, vb, chunk_mask(base, t_c, rows))),
+                lambda got: True, tag=tag))
     return dict(entries[0], max_abs_err=max(e["max_abs_err"]
                                             for e in entries))
 
@@ -7725,19 +7803,22 @@ def wq_build_report():
 
 def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
     """16(a). Kernel A against ``wq_matmul_plain`` at the seven kernel
-    shapes of the 3B and of OV-8B, rows 1 / 8 / 16 / 32 / 48 / 64, each
-    spec; its plan per shape; four planted faults. Kernel B bit-equal to
-    ``wq.dequantize`` at every shape and spec. Per shape at one row: kernel
-    A's ms, its bound, the dequantize route's ms, the library call's
-    (``wq_library``, held to the plain version as the kernel is), a bf16
-    ``torch.mm`` on an unquantized weight of the shape (the yardstick),
-    kernel B's ms beside its bound and the plain dequantize's; at the 3B's
-    shapes the same products at 16, 32 and 64 rows, which set
-    ``WQ_MAX_ROWS``. Returns the kernels line's entries: per spec, the 3B
-    decoder layer's seven products at one row (a decode step at batch 1),
-    summed; kernel B as the layer's seven int8 transients."""
+    shapes of the 3B, of OV-8B and of the 7B (phase 17's model: K / N up
+    to 18,944; int4:g128 on K = 18,944 is 148 groups), rows 1 / 8 / 16 /
+    32 / 48 / 64, each spec; its plan per shape; four planted faults.
+    Kernel B bit-equal to ``wq.dequantize`` at every shape and spec. Per
+    shape at one row: kernel A's ms, its bound, the dequantize route's ms,
+    the library call's (``wq_library``, held to the plain version as the
+    kernel is), a bf16 ``torch.mm`` on an unquantized weight of the shape
+    (the yardstick); at the 3B's and the 7B's shapes the same products at
+    16, 32 and 64 rows (the 3B's set ``WQ_MAX_ROWS``), and kernel B's ms
+    beside its bound and the plain dequantize's. Returns the kernels line's
+    entries: per spec, the 3B decoder layer's seven products at one row (a
+    decode step at batch 1), summed, and the 7B's (``_7b``); kernel B as
+    each layer's seven int8 transients."""
     import torch
 
+    from visionselector_tpu_torch.core.config import qwen25vl_7b
     from visionselector_tpu_torch.kernels import wq_matmul as wq
     from visionselector_tpu_torch.models.qwen25vl.lm import (
         parse_quantize_spec,
@@ -7751,14 +7832,19 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
     deq_equal = True
     least_blocks = None
     models = (("3b", lm_kernel_shapes(cfg.text)),
-              ("ov8b", lm_kernel_shapes(ov_cfg.text)))
+              ("ov8b", lm_kernel_shapes(ov_cfg.text)),
+              ("7b", lm_kernel_shapes(qwen25vl_7b().text)))
+    summed = {"3b": "", "7b": "_7b"}  # model -> its entries' suffix
     for spec in QUANT_SPECS:
         bits, group = parse_quantize_spec(spec)
-        # the 3B layer's seven products per timed row count, and kernel B
-        at = {m: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                      mm_ms=0.0, err=0.0) for m in (1,) + WQ_CAP_ROWS}
-        deq = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        # each summed layer's seven products per timed row count, kernel B
+        ats = {model: {m: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                               library_ms=0.0, mm_ms=0.0, err=0.0)
+                       for m in (1,) + WQ_CAP_ROWS} for model in summed}
+        deqs = {model: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                            library_ms=0.0) for model in summed}
         for model, shapes in models:
+            at, deq = ats.get(model), deqs.get(model)
             for (k, n), names in _group_shapes(shapes).items():
                 w, s = wq_weight(spec, k, n, gen)
                 c = len(names)
@@ -7778,7 +7864,7 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                 same = torch.equal(got, wq.dequantize(w, s, torch.bfloat16))
                 deq_equal &= same
                 line = f"{tag} kernel B: bit-equal {same}"
-                if model == "3b":
+                if model in summed:
                     ms = cuda_ms(lambda: wq.wq_dequant(w, s, torch.bfloat16))
                     plain_ms = cuda_ms(
                         lambda: wq.dequantize(w, s, torch.bfloat16), n=3)
@@ -7804,7 +7890,7 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                     err = (got.float() - want.float()).abs().max().item()
                     worst = max(worst, ulp)
                     line = f"{tag} M={m}: err {err!r} ({ulp!r} ulp)"
-                    if m == 1 or (model == "3b" and m in at):
+                    if m == 1 or (model in summed and m in at):
                         lib_ulp = bf16_ulp_err(library(x), want)
                         lib_worst = max(lib_worst, lib_ulp)
                         ms = cuda_ms(lambda: wq.wq_matmul(x, w, s))
@@ -7818,7 +7904,7 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                                  f"({by}), dequant+matmul {plain_ms!r} ms, "
                                  f"library {lib_ms!r} ms ({lib_ulp!r} ulp),"
                                  f" bf16 torch.mm {mm_ms!r} ms")
-                        if model == "3b":
+                        if model in summed:
                             a = at[m]
                             a["ms"] += ms * c
                             a["plain_ms"] += plain_ms * c
@@ -7828,29 +7914,31 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                             a["err"] = max(a["err"], err)
                     rows_out.append(line)
                 del w, s, dense, library
-        one = at[1]
-        entries[WQ_ENTRY[spec]] = {
-            "max_abs_err": one["err"], "ms": one["ms"],
-            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
-            "bound_by": "bytes", "library_ms": one["library_ms"]}
-        if bits == 8:
-            entries["wq_dequant_fwd"] = {
-                "max_abs_err": 0.0 if deq_equal else float("nan"),
-                "ms": deq["ms"], "plain_ms": deq["plain_ms"],
-                "bound_ms": deq["bound_ms"], "bound_by": "bytes",
-                "library_ms": deq["library_ms"]}
         cap = wq.WQ_MAX_ROWS[torch.uint8 if bits == 4 else torch.int8]
-        for m, a in at.items():
-            print(f"[quant-kernel] {spec}: the 3B layer's seven products at "
-                  f"M={m}: kernel {a['ms']!r} ms, bound {a['bound_ms']!r} "
-                  f"ms, dequant+matmul {a['plain_ms']!r} ms, library "
-                  f"{a['library_ms']!r} ms, bf16 torch.mm {a['mm_ms']!r} "
-                  f"ms, max_abs_err {a['err']!r} (WQ_MAX_ROWS {cap})",
-                  flush=True)
-        print(f"[quant-kernel] {spec}: the 3B layer's seven kernel-B "
-              f"transients {deq['ms']!r} ms, bound {deq['bound_ms']!r} ms, "
-              f"plain dequantize {deq['plain_ms']!r} ms, library "
-              f"{deq['library_ms']!r} ms", flush=True)
+        for model, sfx in summed.items():
+            at, deq, one = ats[model], deqs[model], ats[model][1]
+            entries[WQ_ENTRY[spec] + sfx] = {
+                "max_abs_err": one["err"], "ms": one["ms"],
+                "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+                "bound_by": "bytes", "library_ms": one["library_ms"]}
+            if bits == 8:
+                entries["wq_dequant_fwd" + sfx] = {
+                    "max_abs_err": 0.0 if deq_equal else float("nan"),
+                    "ms": deq["ms"], "plain_ms": deq["plain_ms"],
+                    "bound_ms": deq["bound_ms"], "bound_by": "bytes",
+                    "library_ms": deq["library_ms"]}
+            name = model.upper()
+            for m, a in at.items():
+                print(f"[quant-kernel] {spec}: the {name} layer's seven "
+                      f"products at M={m}: kernel {a['ms']!r} ms, bound "
+                      f"{a['bound_ms']!r} ms, dequant+matmul "
+                      f"{a['plain_ms']!r} ms, library {a['library_ms']!r} "
+                      f"ms, bf16 torch.mm {a['mm_ms']!r} ms, max_abs_err "
+                      f"{a['err']!r} (WQ_MAX_ROWS {cap})", flush=True)
+            print(f"[quant-kernel] {spec}: the {name} layer's seven kernel-B"
+                  f" transients {deq['ms']!r} ms, bound {deq['bound_ms']!r} "
+                  f"ms, plain dequantize {deq['plain_ms']!r} ms, library "
+                  f"{deq['library_ms']!r} ms", flush=True)
     with open(os.path.join(out_dir, "quant_kernels.txt"), "w") as f:
         f.write("\n".join(rows_out) + "\n")
     print(f"[quant-kernel] {len(rows_out)} cases (chiprun_out/"
@@ -8264,6 +8352,617 @@ def quant_phase(cfg, params, input_ids, pixels, grid, ov_cfg, out_dir,
     return launches, entries
 
 
+# Phase 17 (7b-moe): Qwen2.5-VL-7B at full width and depth (GQA 28 / 4:
+# n_rep 7, the first ratio whose query rows do not divide a 16-row tile;
+# widths 3,584 / 18,944; an untied 152,064-row head), and the MoE decoder
+# of LLaVA-OneVision-1.5's MoE variant.
+SEVEN_TC = (4, 8, 32)  # K5 chunks at one slot of the 7B's orig cache
+SEVEN_ADMIT_BASE = 1280  # K5 at t_c 256: the orig admission's last segment
+SEVEN_SERVE_REQUESTS = 6
+SEVEN_SPEC_TOKENS = 16
+SEVEN_QUANT_TOKENS = 8
+# The reduced-depth 7B HF directory: ViT blocks 0 and 7 (a full-attention
+# block) and decoder layers 0 and 1, full widths, the untied head.
+SEVEN_HF_BLOCKS, SEVEN_HF_LAYERS = (0, 7), (0, 1)
+# One MoE decoder layer at the MoE knobs' defaults (core/config.py: 128
+# experts, top 8, expert width 768) on hidden 2,048, at a decode row and
+# the selector prefill's 294 rows: the routed path against the dense plain
+# scan within MOE_ULPS bf16 ulps of each row's largest |value| (both add
+# the experts' bf16 products in the same order; only the per-expert GEMMs
+# see other row counts). The tiny MoE engine generates MOE_TOKENS tokens.
+MOE_HIDDEN, MOE_ROWS, MOE_ULPS, MOE_TOKENS = 2048, (1, 294), 2, 4
+
+
+def seven_b_kernels(cfg, engines, req) -> dict:
+    """17(a): the kernels at the 7B's shapes against their plain versions:
+    K1 causal at decoder layer 0 (GQA 28 / 4, D = 128) under the selector
+    and ``orig``; K5 at n_rep 7, bf16 and int8: t_c 1 over an 8-slot,
+    2,048-row pool at ``DECODE_LENS``, t_c 4 / 8 / 32 over one slot of the
+    ``orig`` request's cache size (seeded rows) at its base and t_c 256 at
+    SEVEN_ADMIT_BASE. The ViT's K1 / K4 have the 3B's shapes (phase 2);
+    kernels A and B at the 7B layer's seven products are phase 16(a)'s
+    (``quant_kernels``). Returns the kernels line's entries."""
+    import torch
+
+    out = {"flash_varlen_fwd_7b": causal_k1_cases(
+        "flash_varlen_fwd_7b", "7B", engines, req, tag="[7b-kernel]",
+        phases=False)}
+    tc = cfg.text
+    hkv, dh = tc.num_key_value_heads, tc.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    out["decode_blocked_fwd_7b"] = spec_k5_cases(tc, [
+        ("8-slot pool", rnd(POOL_SLOTS, POOL_ROWS, hkv, dh),
+         rnd(POOL_SLOTS, POOL_ROWS, hkv, dh),
+         torch.tensor(DECODE_LENS, device="cuda"))],
+        "decode_blocked_fwd_7b", gen, t_c=1, tag="[7b-kernel]")
+    # one slot of the orig request's cache: 1,664 prefill rows (1,302
+    # valid) + room for MAX_NEW_TOKENS, as phase 2's
+    k1, v1 = (rnd(1, ORIG_CACHE_ROWS, hkv, dh) for _ in range(2))
+    where = "one slot, orig cache"
+    for t_c in SEVEN_TC:
+        out[f"decode_blocked_fwd_7b_t_c{t_c}"] = spec_k5_cases(
+            tc, [(where, k1, v1, torch.tensor([ORIG_BASE_LEN],
+                                              device="cuda"))],
+            f"decode_blocked_fwd_7b_t_c{t_c}", gen, t_c=t_c,
+            tag="[7b-kernel]")
+    out[f"decode_blocked_fwd_7b_t_c{ADMIT_SEG}"] = spec_k5_cases(
+        tc, [(where, k1, v1, torch.tensor([SEVEN_ADMIT_BASE],
+                                          device="cuda"))],
+        f"decode_blocked_fwd_7b_t_c{ADMIT_SEG}", gen, t_c=ADMIT_SEG,
+        tag="[7b-kernel]")
+    del k1, v1
+    return out
+
+
+def seven_b_main(cfg, engines, plains, req, out_dir, checks) -> dict:
+    """17(b): the selector 0.2 and ``orig`` requests, 32 greedy tokens
+    each, the counts zeroed just before and read just after: per prefill
+    28 K4 and 4 + 28 K1 (the 28 causal), 28 K5 per decode step. Each first
+    token equal to ``attn_impl="plain"``'s, the logits within 0.1 of max
+    |logit| (phase 3's rule), the selector's on the kernel route's kept set
+    (its own kept set within phase 3's overlap); then prefill device ms of
+    both (one traced prefill each), their
+    ratio, decode device ms per token (a traced run of
+    QUANT_PROFILE_STEPS more steps, less the prefill), peak memory.
+    Returns the launches of the counted run."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    n_layers = cfg.text.num_hidden_layers
+    for eng in engines.values():  # warm-up, outside the counted run
+        eng.generate(**req, max_new_tokens=2)
+    torch.cuda.synchronize()
+    zero_counts()
+    results = {}
+    for name, eng in engines.items():
+        before = dict(launch_counts(), causal=A.FLASH_CAUSAL_LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        res = eng.generate(**req, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        now = dict(launch_counts(), causal=A.FLASH_CAUSAL_LAUNCHES)
+        got = {key: now[key] - before[key] for key in
+               ("flash_varlen_fwd", "causal", "diag_attn_fwd",
+                "decode_blocked_fwd")}
+        steps = ov_steps(res)
+        want = {"flash_varlen_fwd": n_full + n_layers, "causal": n_layers,
+                "diag_attn_fwd": cfg.vision.depth - n_full,
+                "decode_blocked_fwd": n_layers * steps}
+        kept = (len(res.selected_indices) if res.selected_indices is not None
+                else res.num_vision_tokens)
+        print(f"[7b-main] {name}: vision_tokens={res.num_vision_tokens} "
+              f"kept={kept} prefill_len={res.prefill_len} prefill_ms="
+              f"{res.prefill_seconds * 1e3!r} peak_mem_bytes={peak} "
+              f"launches {got} (expected {want})", flush=True)
+        print(f"[7b-main] {name} tokens: {res.tokens}", flush=True)
+        checks[f"main {name}: launches"] = got == want
+        checks[f"main {name}: tokens and logits"] = bool(
+            res.tokens and all(0 <= t < cfg.text.vocab_size
+                               for t in res.tokens)
+            and torch.isfinite(res.logits).all()
+            and res.logits.shape == (cfg.text.vocab_size,))
+        results[name] = (res, peak)
+    launches = {"flash_varlen_fwd_7b": A.FLASH_CAUSAL_LAUNCHES,
+                "decode_blocked_fwd_7b": A.DECODE_LAUNCHES_BY_ROWS.get(1, 0)}
+    select = M.select_hard
+    for name, (res, _) in results.items():
+        res_p = plains[name].generate(**req, max_new_tokens=1)
+        line = ""
+        if res.selected_indices is not None:
+            # phase 3's rule: the random scorer (std 1e-4) leaves near-ties
+            # that bf16 drift swaps, so the two routes' kept sets mostly
+            # agree; the first token is then held on the kernel route's set
+            a = set(res.selected_indices.tolist())
+            b = set(res_p.selected_indices.tolist())
+            line = (f" (own kept set: overlap {len(a & b)}/{len(a)}, first "
+                    f"token {res_p.tokens[0]})")
+            checks[f"main {name}: kept set vs plain"] = (
+                len(a & b) / len(a) >= 0.9)
+            seen = {}
+
+            def capture(*args, **kw):
+                seen["sel"] = select(*args, **kw)
+                return seen["sel"]
+
+            with patched(M, "select_hard", capture):
+                same = engines[name].generate(**req, max_new_tokens=1)
+            with patched(M, "select_hard", lambda *args, **kw: seen["sel"]):
+                res_p = plains[name].generate(**req, max_new_tokens=1)
+            checks[f"main {name}: kernel route repeats"] = (
+                same.tokens[0] == res.tokens[0])
+        diff = (res_p.logits - res.logits).abs().max().item()
+        scale = res.logits.abs().max().item()
+        top2 = res_p.logits.topk(2).values
+        print(f"[7b-plain] {name}: first-token logits max_abs_diff={diff!r}"
+              f" (max |logit| {scale!r}) first token kernel={res.tokens[0]}"
+              f" plain={res_p.tokens[0]} (plain top-2 gap "
+              f"{(top2[0] - top2[1]).item()!r}){line}", flush=True)
+        checks[f"main {name}: first token = plain routes'"] = (
+            res.tokens[0] == res_p.tokens[0])
+        checks[f"main {name}: logits vs plain"] = diff <= 0.1 * scale
+    ms = {}
+    for name, eng in engines.items():
+        ms[name] = quant_decode_ms(eng, req, out_dir, f"7b_{name}")
+    sel, orig = ms["selector"], ms["orig"]
+    print(f"[7b-main] prefill device ms: selector {sel[0]!r}, orig "
+          f"{orig[0]!r}, orig / selector {orig[0] / sel[0]!r}; decode "
+          f"device ms per token: selector {sel[1]!r}, orig {orig[1]!r}; "
+          f"peak bytes: selector {results['selector'][1]}, orig "
+          f"{results['orig'][1]} ({nvidia_smi()})", flush=True)
+    return launches
+
+
+def seven_b_paths(cfg, engine, req, checks) -> dict:
+    """17(b), the chunked decode paths at the 7B's widths, each counted on
+    its own (zeroed just before, read just after): ``generate_speculative``
+    at m = 3 and 7 (SEVEN_SPEC_TOKENS greedy tokens; K5 at t_c 4 and 8, 28
+    a verify step; the first token equal to ``generate``'s), and
+    ``run_loglikelihood_choices`` with choices of ``CHOICE_LENS`` ids (one
+    chunked forward of 32 rows a choice: K5 at t_c 32, 28 a choice; finite
+    log-likelihoods). Returns those launches."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+
+    n_layers = cfg.text.num_hidden_layers
+    launches = {}
+    first = engine.generate(**req, max_new_tokens=1).tokens[0]
+    for m in (3, 7):
+        zero_counts()
+        res = M.generate_speculative(engine, **req,
+                                     max_new_tokens=SEVEN_SPEC_TOKENS,
+                                     eos_token_ids=(-1,), propose_len=m)
+        torch.cuda.synchronize()
+        by_rows = dict(A.DECODE_LAUNCHES_BY_ROWS)
+        n = by_rows.get(m + 1, 0)
+        print(f"[7b-paths] speculative m={m}: {len(res.tokens)} tokens in "
+              f"{res.decode_dispatches} dispatches, accepted "
+              f"{res.spec_accepted} of {res.spec_proposed}; K5 launches by "
+              f"t_c {by_rows}; first token {res.tokens[0]} (generate "
+              f"{first})", flush=True)
+        checks[f"speculative m={m}: K5 at t_c {m + 1}, {n_layers} a verify "
+               f"step"] = (n > 0 and n % n_layers == 0
+                          and set(by_rows) == {m + 1})
+        checks[f"speculative m={m}: first token"] = res.tokens[0] == first
+        launches[f"decode_blocked_fwd_7b_t_c{m + 1}"] = n
+    rng = np.random.RandomState(SEED + 17)
+    choices = [rng.randint(1000, 100000, n) for n in CHOICE_LENS]
+    zero_counts()
+    lls = M.run_loglikelihood_choices(
+        engine, req["input_ids"], choices, pixel_values=req["pixel_values"],
+        grid_thw=req["grid_thw"])
+    torch.cuda.synchronize()
+    by_rows = dict(A.DECODE_LAUNCHES_BY_ROWS)
+    c_max = 32
+    print(f"[7b-paths] choices of {CHOICE_LENS} ids: ll {lls}; K5 launches "
+          f"by t_c {by_rows}", flush=True)
+    checks["choices: K5 at t_c 32, one chunk a choice"] = (
+        by_rows == {c_max: n_layers * len(choices)})
+    checks["choices: finite"] = all(np.isfinite(ll) for ll, _ in lls)
+    launches[f"decode_blocked_fwd_7b_t_c{c_max}"] = by_rows.get(c_max, 0)
+    return launches
+
+
+def seven_b_serving(cfg, engine, input_ids, pixels, grid, checks) -> dict:
+    """17(c): ``ContinuousBatcher(n_slots=8, t_max=2,048, chunk=8)`` at the
+    7B's widths, bf16 pool, one-shot admissions, over SEVEN_SERVE_REQUESTS
+    of phase 5's greedy selector requests arriving over time: K5 at n_rep
+    7 on the live batch, each first token equal to its one-shot
+    ``generate``'s, every budget run out. Then the phase-3 selector
+    request as one chunked admission (``start_chunked_prefill``:
+    ADMIT_VIT_SEGMENTS tower groups, ADMIT_SEG-row decoder segments, K5 at
+    t_c 256 into its cache), the counts zeroed just before and read just
+    after: its kept set equal to one-shot's, its first-token logits within
+    0.1 of max |logit| of the one-shot prefill's (phase 3's rule: the
+    decoder segments attend through K5, the one-shot prefill through K1),
+    its first token equal. Returns K5's launches at t_c 256."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+    )
+
+    traffic = [(e, r, m, dict(eos_token_ids=(-1,)), d)
+               for e, r, m, kw, d in serve_traffic(cfg, input_ids, pixels,
+                                                   grid)
+               if e == "selector" and not kw][:SEVEN_SERVE_REQUESTS]
+    want = [engine.generate(**r, max_new_tokens=1).tokens[0]
+            for _, r, _, _, _ in traffic]
+    zero_counts()
+    bat = ContinuousBatcher(engine, n_slots=POOL_SLOTS, t_max=POOL_ROWS,
+                            chunk=8)
+    res, wall = run_batcher(bat, traffic)
+    by_rows = dict(A.DECODE_LAUNCHES_BY_ROWS)
+    first = [r.tokens[0] for r in res]
+    tokens = sum(len(r.tokens) - 1 for r in res)
+    print(f"[7b-serve] {len(res)} requests: {wall!r} s wall, "
+          f"{tokens / wall!r} decode tok/s, first tokens {first} (one-shot "
+          f"{want}), K5 launches by t_c {by_rows}, stats {bat.stats}",
+          flush=True)
+    checks["serve: first tokens = one-shot"] = first == want
+    checks["serve: budgets run out"] = all(
+        len(r.tokens) == m for r, (_, _, m, _, _) in zip(res, traffic))
+    checks["serve: K5 on the live batch"] = set(by_rows) == {1}
+
+    one = engine.generate(input_ids, pixels, grid, max_new_tokens=1)
+    zero_counts()
+    cp = engine.start_chunked_prefill(
+        input_ids, pixels, grid, max_new_tokens=1, prefill_chunk=ADMIT_SEG,
+        vit_segments=ADMIT_VIT_SEGMENTS)
+    while not cp.step():
+        pass
+    state = cp.finish()
+    torch.cuda.synchronize()
+    by_rows = dict(A.DECODE_LAUNCHES_BY_ROWS)
+    got = state.result
+    diff = (got.logits - one.logits).abs().max().item()
+    scale = one.logits.abs().max().item()
+    top2 = one.logits.topk(2).values
+    same_sel = (got.selected_indices.tolist()
+                == one.selected_indices.tolist())
+    print(f"[7b-serve] chunked admission ({cp.n_seg} decoder segments of "
+          f"{ADMIT_SEG} rows, {got.prefill_len} valid): first token "
+          f"{state.next_token} (one-shot {one.tokens[0]}, its top-2 gap "
+          f"{(top2[0] - top2[1]).item()!r}), first-token logits max_abs_"
+          f"diff {diff!r} (max |logit| {scale!r}), kept set equal "
+          f"{same_sel}, K5 launches by t_c {by_rows}", flush=True)
+    n_layers = cfg.text.num_hidden_layers
+    checks["chunked admission: K5 at t_c 256, a layer a segment"] = (
+        by_rows == {ADMIT_SEG: n_layers * cp.n_seg})
+    checks["chunked admission: kept set = one-shot"] = same_sel
+    checks["chunked admission: logits vs one-shot"] = diff <= 0.1 * scale
+    checks["chunked admission: first token"] = (
+        state.next_token == one.tokens[0])
+    return {f"decode_blocked_fwd_7b_t_c{ADMIT_SEG}": by_rows.get(ADMIT_SEG,
+                                                                 0)}
+
+
+def seven_b_hf_start(cfg, params, tmp, procs) -> str:
+    """17(d): a reduced-depth 7B HF directory (ViT blocks SEVEN_HF_BLOCKS,
+    the second a full-attention one; decoder layers SEVEN_HF_LAYERS; full
+    widths, the untied ``lm_head.weight``, bf16; the scorer fp32 at in
+    features 3,584), written in the nested layout, 2 shards, and
+    ``api.predict --model-path`` on it started in a process of its own.
+    Returns the directory."""
+    import dataclasses
+
+    from visionselector_tpu_torch.core.safetensors import save_sharded
+    from visionselector_tpu_torch.models.qwen25vl.weights import (
+        to_hf_tensors,
+    )
+
+    keep = {f"model.visual.blocks.{j}.": f"model.visual.blocks.{i}."
+            for i, j in enumerate(SEVEN_HF_BLOCKS)}
+    keep.update({f"model.language_model.layers.{j}.":
+                 f"model.language_model.layers.{i}."
+                 for i, j in enumerate(SEVEN_HF_LAYERS)})
+    small = reduced_tensors(
+        to_hf_tensors(params, "model.visual.", "model.language_model."),
+        keep)
+    vis = dataclasses.asdict(cfg.vision)
+    vis.update(depth=len(SEVEN_HF_BLOCKS), fullatt_block_indexes=[1])
+    text = dict(dataclasses.asdict(cfg.text),
+                num_hidden_layers=len(SEVEN_HF_LAYERS),
+                rope_scaling={"type": "mrope",
+                              "mrope_section": list(cfg.text.mrope_section)})
+    d = os.path.join(tmp, "hf_7b")
+    t0 = time.perf_counter()
+    save_sharded(small, d, shards=2)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"vision_config": vis, "text_config": text,
+                   "image_token_id": cfg.image_token_id,
+                   "eos_token_id": cfg.eos_token_id}, f)
+    nbytes = sum(t.numel() * t.element_size() for t in small.values())
+    print(f"[7b-hf] reduced-depth HF dir (ViT blocks {SEVEN_HF_BLOCKS}, "
+          f"decoder layers {SEVEN_HF_LAYERS}, {len(small)} tensors, "
+          f"{nbytes} bytes, lm_head.weight {'lm_head.weight' in small}): "
+          f"write_s={time.perf_counter() - t0!r}", flush=True)
+    start_cli(procs, tmp, "predict", "--model-path", d, "--prompt-ids",
+              "300,301,302", "--max-new-tokens", "4", key="predict_7b")
+    return d
+
+
+def seven_b_hf_done(d, procs, checks):
+    """17(d), the end: the directory loaded onto the card in this process
+    (its config read by ``config_from_hf``: width 3,584, GQA 28 / 4, vocab
+    152,064, untied), and the CLI's request through the same entry
+    points (``api.predict.load_model`` / ``make_engine``, the predict
+    request's image and ids): the CLI exits 0 with these tokens."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.api.predict import load_model, make_engine
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    rc, stdout, stderr, secs = finish_cli(procs, "predict_7b")
+    out = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 else {}
+    cfg, params = load_model("qwen25vl", d, "cuda")
+    img = (np.random.RandomState(0).rand(112, 112, 3) * 255).astype(np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9)
+    ids = expand_vision_tokens(
+        [], [300, 301, 302], grid,
+        spatial_merge_size=cfg.vision.spatial_merge_size,
+        image_token_id=cfg.image_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        vision_end_token_id=cfg.vision_end_token_id)
+    eng = make_engine("qwen25vl", cfg, params, "selector", 0.2, "cuda")
+    res = eng.generate(ids, px, grid, max_new_tokens=4)
+    t = cfg.text
+    print(f"[7b-hf] api.predict --model-path (cuda): rc={rc} in {secs!r} s "
+          f"{out or stderr[-2000:]}; in process {res.tokens} (config: width "
+          f"{t.hidden_size}, heads {t.num_attention_heads} / "
+          f"{t.num_key_value_heads}, vocab {t.vocab_size}, tied "
+          f"{t.tie_word_embeddings}, scorer in features "
+          f"{params.scorer.k_kernel.shape[0]})", flush=True)
+    checks["api.predict --model-path: rc 0, tokens = in process"] = bool(
+        rc == 0 and out.get("tokens") == res.tokens and out.get("selector"))
+    checks["7B directory: config"] = (
+        (t.hidden_size, t.num_attention_heads, t.num_key_value_heads,
+         t.vocab_size, t.tie_word_embeddings) == (3584, 28, 4, 152064, False)
+        and params.scorer.k_kernel.shape[0] == 3584)
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def seven_b_quant(cfg, params, req, checks) -> dict:
+    """17(b) under ``--quantize``: the selector request, SEVEN_QUANT_TOKENS
+    greedy tokens, under int8, int4 and int4:g128, each quantized in place
+    from the bf16 kernels (put back from host copies in between; the last
+    spec stays): 196 kernel-A launches a decode step, 196 dequantize-route
+    calls and kernel-B launches a prefill, the plain routes and the
+    teacher-forced decode step by phase 16's rule (``quant_request_checks``).
+    Leaves the 7B quantized. Returns kernel A's launches per spec and
+    kernel B's of the int8 request."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+
+    n_layers = cfg.text.num_hidden_layers
+    saved = save_lm_kernels(params.lm)
+    launches = {}
+    for i, spec in enumerate(QUANT_SPECS):
+        if i:
+            restore_lm_kernels(params.lm, saved)
+        torch.cuda.empty_cache()
+        L.apply_weight_quantization(params, spec)
+        torch.cuda.empty_cache()
+        eng = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                           device="cuda")
+        plain = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda", attn_impl="plain")
+        _, peak, kernel_a, kernel_b = quant_request_checks(
+            eng, plain, req, checks, f"7B {spec}", n_layers,
+            new_tokens=SEVEN_QUANT_TOKENS)
+        launches[WQ_ENTRY[spec] + "_7b"] = kernel_a
+        if spec == "int8":
+            launches["wq_dequant_fwd_7b"] = kernel_b
+        print(f"[7b-quant] {spec}: LM bytes {lm_bytes(params.lm)}, peak "
+              f"{peak} bytes", flush=True)
+        del eng, plain
+    del saved
+    return launches
+
+
+def moe_checks(checks):
+    """17(e): the MoE decoder on the card. ``OVEngine.generate`` on
+    ``llava_ov_moe_tiny`` (weights from a seeded CPU generator, the
+    decoder's matrices x 8 and the scorer at std 1, as the CPU tests take
+    them, rounded to bf16: the card runs these bf16 values, the CPU port
+    the same values in fp32) with the selector at 0.5, MOE_TOKENS greedy
+    tokens: the tokens and selected indices equal the CPU port's. Then one MoE layer at 128 experts / top 8
+    / expert width 768 on hidden 2,048 (seeded bf16): the routed path
+    (``lm._moe_mlp``) against the dense plain scan (``lm.moe_mlp_plain``)
+    at MOE_ROWS rows within MOE_ULPS bf16 ulps of each row's largest
+    |value|, both timed (CUDA events; the routed path's one host read
+    included)."""
+    import dataclasses
+
+    import torch
+
+    from visionselector_tpu_torch.core.config import (
+        TextConfig,
+        llava_ov_moe_tiny,
+    )
+    from visionselector_tpu_torch.models.llava_ov15.model import (
+        OVEngine,
+        init_ov_params,
+    )
+    from visionselector_tpu_torch.models.qwen25vl import lm as L
+
+    cfg = llava_ov_moe_tiny()
+    host = init_ov_params(cfg, torch.Generator().manual_seed(SEED), "cpu",
+                          torch.float32)
+    card = init_ov_params(cfg, torch.Generator(device="cuda"), "cuda",
+                          torch.bfloat16)
+    with torch.no_grad():
+        for (name, h), (_, t) in zip(host.named_parameters(),
+                                     card.named_parameters()):
+            if name.startswith("scorer."):
+                h.mul_(1.0 / cfg.with_selector().selector.init_scale)
+            elif name.startswith("lm.") and not name.endswith(
+                    ("_scale", "_bias")):
+                h.mul_(8.0)
+            h.copy_(h.bfloat16().float())  # the card's values, in fp32
+            t.copy_(h)
+    req = dict(zip(("pixel_values", "grid_thw", "input_ids"),
+                   tiny_ov_request(cfg)))
+    runs = {}
+    for dev, p in (("cuda", card), ("cpu", host)):
+        runs[dev] = OVEngine(cfg, p, use_selector=True, budget=0.5,
+                             device=dev).generate(
+            **req, max_new_tokens=MOE_TOKENS, eos_token_ids=(-1,))
+    a, b = runs["cuda"], runs["cpu"]
+    same_sel = a.selected_indices.tolist() == b.selected_indices.tolist()
+    top2 = b.logits.topk(2).values
+    print(f"[moe] llava_ov_moe_tiny ({cfg.text.num_experts} experts, top "
+          f"{cfg.text.num_experts_per_tok}) OVEngine.generate: card tokens "
+          f"{a.tokens}, CPU tokens {b.tokens}; first-token logits max_abs_"
+          f"diff {(a.logits.cpu() - b.logits).abs().max().item()!r} (max "
+          f"|logit| {b.logits.abs().max().item()!r}, CPU top-2 gap "
+          f"{(top2[0] - top2[1]).item()!r}); selected indices equal "
+          f"{same_sel} ({len(a.selected_indices)} kept)", flush=True)
+    checks["MoE engine: tokens = CPU port's"] = a.tokens == b.tokens
+    checks["MoE engine: selected indices = CPU port's"] = same_sel
+    del card, host
+
+    tc = dataclasses.replace(TextConfig(), hidden_size=MOE_HIDDEN,
+                             num_experts=128)
+    layer = L.DecoderLayer(tc, "cuda", torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    with torch.no_grad():
+        for t in layer.parameters():
+            t.normal_(0.0, 0.02, generator=gen)
+    for rows in MOE_ROWS:
+        x = torch.randn(1, rows, MOE_HIDDEN, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            got = L._moe_mlp(x, layer, tc)
+            want = L.moe_mlp_plain(x, layer, tc)
+            ulps = bf16_ulp_err(got, want)
+            ms = cuda_ms(lambda: L._moe_mlp(x, layer, tc))
+            plain_ms = cuda_ms(lambda: L.moe_mlp_plain(x, layer, tc), n=3)
+        print(f"[moe] layer E={tc.num_experts} top-{tc.num_experts_per_tok}"
+              f" mi={tc.moe_intermediate_size} D={MOE_HIDDEN} rows={rows}: "
+              f"routed vs dense plain {ulps!r} bf16 ulps (limit {MOE_ULPS}),"
+              f" max_abs_err {(got.float() - want.float()).abs().max()!r}; "
+              f"routed {ms!r} ms, dense plain {plain_ms!r} ms", flush=True)
+        checks[f"MoE layer rows={rows}: routed = dense plain"] = bool(
+            ulps <= MOE_ULPS and torch.isfinite(got).all())
+
+
+def tiny_ov_request(cfg):
+    """(pixel rows, grid, ids) of a seeded 112x140 image (temporal patch
+    1) and 5 prompt ids for the tiny OV configs."""
+    import numpy as np
+
+    from visionselector_tpu_torch.preprocess.image import preprocess_image
+    from visionselector_tpu_torch.preprocess.rope import expand_vision_tokens
+
+    img = (np.random.RandomState(SEED).rand(112, 140, 3) * 255).astype(
+        np.uint8)
+    px, grid = preprocess_image(img, min_pixels=1, max_pixels=10**9,
+                                temporal_patch_size=1)
+    ids = expand_vision_tokens(
+        [100, 200], [300, 400, 500], grid,
+        spatial_merge_size=cfg.vision.spatial_merge_size,
+        image_token_id=cfg.image_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        vision_end_token_id=cfg.vision_end_token_id)
+    return px, grid, ids
+
+
+def seven_b_phase(out_dir, tmp):
+    """Phase 17. Raises if any check failed; returns (launches of the
+    7B-shaped kernels: K1 causal, K5 at t_c 1 / 4 / 8 / 32 / 256, kernels
+    A per spec and B, each counted on the 7B path that launches it; the
+    kernels line's entries of K1 and K5, A's and B's being phase
+    16(a)'s)."""
+    import gc
+
+    import torch
+
+    from visionselector_tpu_torch.core.config import qwen25vl_7b
+    from visionselector_tpu_torch.models.qwen25vl.model import QwenVLEngine
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[7b] card: {nvidia_smi()}; memory allocated before the 7B "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    cfg = qwen25vl_7b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"[7b] qwen25vl_7b random bf16 (scorer fp32, in features "
+          f"{params.scorer.k_kernel.shape[0]}): {n} parameters in "
+          f"{time.perf_counter() - t0!r} s; memory allocated "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    input_ids, pixels, grid = request(cfg)
+    req = dict(input_ids=input_ids, pixel_values=pixels, grid_thw=grid)
+    engines = {name: QwenVLEngine(cfg, params, use_selector=name ==
+                                  "selector", budget=0.2, device="cuda")
+               for name in ("selector", "orig")}
+    plains = {name: QwenVLEngine(cfg, params, use_selector=name ==
+                                 "selector", budget=0.2, device="cuda",
+                                 attn_impl="plain")
+              for name in ("selector", "orig")}
+    checks, launches, procs, secs = {}, {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        kernels = seven_b_kernels(cfg, engines, req)
+        secs["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches.update(seven_b_main(cfg, engines, plains, req, out_dir,
+                                     checks))
+        hf_dir = seven_b_hf_start(cfg, params, tmp, procs)
+        launches.update(seven_b_paths(cfg, engines["selector"], req,
+                                      checks))
+        secs["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches.update(seven_b_serving(cfg, engines["selector"], input_ids,
+                                        pixels, grid, checks))
+        secs["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches.update(seven_b_quant(cfg, params, req, checks))
+        secs["b, quantized"] = time.perf_counter() - t0
+        del engines, plains, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        seven_b_hf_done(hf_dir, procs, checks)
+        secs["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_checks(checks)
+        secs["e"] = time.perf_counter() - t0
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[7b] checks: {checks}", flush=True)
+    print(f"[7b] phase seconds {time.perf_counter() - t_phase!r}; parts "
+          f"{secs}", flush=True)
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"7B / MoE phase failed: {bad}")
+    return launches, kernels
+
+
 def main() -> int:
     import torch
 
@@ -8402,9 +9101,20 @@ def main() -> int:
             for proc, _, _ in quant["procs"].values():
                 if proc.poll() is None:
                     proc.kill()
+        # Qwen2.5-VL-7B and the MoE decoder (phase 17): the 3B's weights go
+        # first; the 7B-shaped kernels' launches are those of the 7B path
+        # that runs each (zeroed just before, read just after)
+        del engine, params
+        seven_launches, seven_kernels = seven_b_phase(out_dir, tmp)
+        launches.update(seven_launches)
+        kernels.update(seven_kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    missing = [name for name in kernels if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: "
+                             f"{missing}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = {"kernels": [

@@ -1623,3 +1623,44 @@ def test_lora_gradient_through_a_quantized_layer(dev):
         wq.WQ_MAX_ROWS = old
     assert float(want.abs().max()) > 0
     assert _rel(got, want) <= TRAIN_GRAD_TOL
+
+
+# Qwen2.5-VL-7B's GQA 28 / 4 (n_rep 7): seven query heads a kv head, so
+# one position's rows straddle a 16-row tile (t_c 4: 28 rows a kv head)
+# and a 32-row block (t_c 8: 56 rows; position 4 spans rows 28-34).
+
+
+@pytest.mark.parametrize("t", [384, 1664])
+def test_flash_causal_gqa_28_4(dev, t):
+    """K1 causal at the 7B decoder's GQA 28/4, D = 128, ragged valid
+    prefixes (the 7B prefill's lengths: 294 of 384 under the selector,
+    1,302 of 1,664 under orig); query head h reads kv head h // 7, and kv
+    heads rolled by one fail."""
+    gen = torch.Generator(device=dev).manual_seed(700 + t)
+    valid = {384: 294, 1664: 1302}[t]
+    q, k, v, seg = _prefix_inputs(gen, 2, t, 28, 4, 128, [valid, t // 3])
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, causal=True)
+    want = A.flash_plain(q, k, v, seg, seg, causal=True)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+    rolled = A.flash_varlen_fwd(q, k.roll(1, 2), v.roll(1, 2), seg, seg,
+                                causal=True)
+    assert _err(rolled, want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t_c", [1, 4, 8, 32])
+def test_decode_n_rep_7(dev, quant, t_c):
+    """K5 at n_rep 7 (28 query heads on 4 kv heads, D = 128), bf16 and
+    int8 pools, bases at tile edges and the 7B orig prefill's 1,302: within
+    ULP_LIMIT of the plain version; the in-chunk causal limit off by one
+    (base + 1) fails."""
+    t = 2048
+    gen = torch.Generator(device=dev).manual_seed(900 + 10 * t_c + quant)
+    q, k, v, ks, vs = _decode_inputs(gen, 6, t_c, 28, 4, t, 128, quant)
+    base = torch.tensor([0, 63, 64, 65, 1302, t - t_c - 1], device=dev)
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    assert _err(A.decode_blocked_fwd(q, k, v, base + 1, None, ks, vs),
+                want) > ULP_LIMIT

@@ -297,8 +297,25 @@ def test_qwen3_decode_step_matches_jax(decoder):
 
 
 def test_moe_text_model_is_refused():
+    """A text config with ``num_experts`` builds the MoE decoder: each
+    layer holds the router and the stacked experts in the reference's
+    layout and no dense MLP kernel, and a prefill runs (finite, the
+    input's shape)."""
     cfg = TextConfig(num_experts=4, num_hidden_layers=1, hidden_size=32,
                      intermediate_size=64, num_attention_heads=2,
-                     num_key_value_heads=1, vocab_size=64)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlm.LanguageModel(cfg, "cpu", torch.float32)
+                     num_key_value_heads=1, vocab_size=64,
+                     num_experts_per_tok=2, moe_intermediate_size=16,
+                     mrope=False)
+    lm = tlm.init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            torch.float32)
+    shapes = {n: tuple(p.shape) for n, p in lm.layers[0].named_parameters()}
+    assert shapes["router_kernel"] == (32, 4)
+    assert shapes["expert_gate_kernel"] == shapes["expert_up_kernel"] == (
+        4, 32, 16)
+    assert shapes["expert_down_kernel"] == (4, 16, 32)
+    assert not {"gate_kernel", "up_kernel", "down_kernel"} & set(shapes)
+    x = torch.randn(1, 5, 32, generator=torch.Generator().manual_seed(1))
+    h, (k, _) = tlm.lm_prefill(lm, x, torch.arange(5).expand(3, 1, 5),
+                               torch.ones(1, 5, dtype=torch.int32))
+    assert h.shape == x.shape and torch.isfinite(h).all()
+    assert k.shape == (1, 1, 5, 1, 16)

@@ -158,14 +158,24 @@ def test_qwen3_layer_table_names():
 
 
 def test_moe_checkpoint_config_loads_and_decoder_refuses(tmp_path):
+    """A config.json with the MoE fields loads (as the JAX reader reads
+    it), and the decoder it describes builds with the router and experts
+    and runs the engine."""
     raw = tweights.ov_hf_config(configs()[1])
     raw["text_config"]["num_experts"] = 4
     with open(tmp_path / "config.json", "w") as f:
         json.dump(raw, f)
     cfg = tweights.ov_config_from_hf(str(tmp_path))
     assert cfg.text.num_experts == 4
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tmodel.init_ov_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jweights.ov_config_from_hf(str(tmp_path)))
+    params = tmodel.init_ov_params(
+        dataclasses.replace(cfg, dtype="float32"),
+        torch.Generator().manual_seed(0), "cpu")
+    assert params.lm.layers[0].expert_gate_kernel.shape[0] == 4
+    res = tmodel.OVEngine(cfg, params, device="cpu").generate(
+        **requests()["image"], max_new_tokens=2, eos_token_ids=EOS)
+    assert len(res.tokens) == 2
 
 
 # -- merge_model -----------------------------------------------------------

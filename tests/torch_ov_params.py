@@ -36,10 +36,11 @@ def four_layers(cfg):
         cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=4))
 
 
-def ov_tree(layers: int = 2, seed: int = 0) -> dict:
+def ov_tree(layers: int = 2, seed: int = 0, cfg=None) -> dict:
     """The weight tree (numpy leaves) of llava_ov_tiny at ``layers``
-    decoder layers."""
-    cfg = jax_ov_tiny() if layers == 2 else four_layers(jax_ov_tiny())
+    decoder layers, or of the JAX config ``cfg``."""
+    if cfg is None:
+        cfg = jax_ov_tiny() if layers == 2 else four_layers(jax_ov_tiny())
 
     def scale(path, x):
         name = jax.tree_util.keystr(path)

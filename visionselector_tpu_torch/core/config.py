@@ -1,7 +1,7 @@
 """Model/selector configuration dataclasses and presets.
 
 The same dataclasses and presets as ``visionselector_tpu.core.config``
-(the Qwen2.5-VL family, and LLaVA-OneVision-1.5 without its MoE variant),
+(the Qwen2.5-VL family, and LLaVA-OneVision-1.5 with its MoE variant),
 with ``torch_dtype`` in place of ``jax_dtype``.
 """
 
@@ -51,8 +51,9 @@ class TextConfig:
     """Decoder configuration: the Qwen2.5 decoder (GQA, M-RoPE, qkv bias),
     or with the Qwen3 flags (``head_dim_override``, ``qk_norm``, no
     ``attention_bias``, 1-D rope with ``mrope`` off) the LLaVA-OV-1.5 text
-    model. The MoE knobs exist so configs read the same as the reference
-    package's; the decoder refuses ``num_experts``."""
+    model; ``num_experts > 0`` gives every layer the Qwen3-MoE MLP
+    (``num_experts_per_tok`` routed experts of width
+    ``moe_intermediate_size``, renormalised under ``norm_topk_prob``)."""
 
     vocab_size: int = 151936
     hidden_size: int = 2048
@@ -229,6 +230,21 @@ def llava_ov_tiny() -> OVConfig:
             tie_word_embeddings=True,
         ),
         dtype="float32",
+    )
+
+
+def llava_ov_moe_tiny() -> OVConfig:
+    """CPU-testable RICE + Qwen3-MoE config (the LLaVA-OV-1.5 MoE variant:
+    128 experts / top-8 at scale; 4 experts / top-2 here)."""
+    base = llava_ov_tiny()
+    return dataclasses.replace(
+        base,
+        text=dataclasses.replace(
+            base.text,
+            num_experts=4,
+            num_experts_per_tok=2,
+            moe_intermediate_size=64,
+        ),
     )
 
 

@@ -6,10 +6,12 @@ Counterpart of ``visionselector_tpu.kernels.topk``:
   by a fixed 64-step bisection (fp32), p = sigmoid(x + t); its backward is
   the analytic VJP of the implicit function, -(sum g v) v / s + g v with
   v = sigmoid'(x + t), s = sum v. No gradient for k.
-- ``hard_topk_indices`` / ``hard_topk_mask``: ``topk(k).indices`` then an
-  ascending sort, ties broken toward the lower index, padded to a static
-  ``k_max``. The order comes from a stable sort of the negated scores:
+- ``stable_topk``: the k largest values along the last dim and their
+  indices, ties broken toward the lower index (``jax.lax.top_k``'s
+  order). The order comes from a stable sort of the negated values:
   ``torch.topk`` does not promise an order among ties on CUDA.
+- ``hard_topk_indices`` / ``hard_topk_mask``: ``stable_topk``'s indices
+  then an ascending sort, padded to a static ``k_max``.
 """
 
 from __future__ import annotations
@@ -64,6 +66,15 @@ def soft_topk(xs: torch.Tensor, k, iters: int = 64) -> torch.Tensor:
     return SoftTopK.apply(xs, k, iters)
 
 
+def stable_topk(x: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last dim, largest
+    first, ties toward the lower index. The values are gathered from x, so
+    they carry its gradient; the indices are int64."""
+    idx = torch.sort(-x, dim=-1, stable=True).indices[..., :k]
+    return x.gather(-1, idx), idx
+
+
 def hard_topk_indices(scores: torch.Tensor, k: int, k_max: int,
                       valid_len: int | None = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,7 +89,7 @@ def hard_topk_indices(scores: torch.Tensor, k: int, k_max: int,
     if valid_len is not None:
         row_ok = torch.arange(n, device=s.device) < valid_len
         s = torch.where(row_ok, s, float("-inf"))
-    order = torch.sort(-s, stable=True).indices[:k_max]
+    order = stable_topk(s, k_max)[1]
     keep = torch.arange(k_max, device=s.device) < k
     idx = torch.sort(torch.where(keep, order, n)).values
     return idx.to(torch.int32), idx < n

@@ -12,7 +12,9 @@ kernels are [in, out]); the conv2d patch embed [E, C, P, P] flattens to a
 [C*P*P, E] kernel. The Qwen3 text model loads through
 ``qwen25vl.weights.load_lm_params`` (the reference's
 ``load_qwen3_lm_params``): its layer table follows ``TextConfig``'s flags
-(q/k norms, no biases), and ``num_experts > 0`` (the MoE variant) raises.
+(q/k norms, no biases; with ``num_experts > 0``, the MoE variant, the
+router ``mlp.gate`` and the experts ``mlp.experts.{j}.*`` stacked into
+[E, ...] kernels).
 """
 
 from __future__ import annotations
@@ -148,8 +150,22 @@ def ov_hf_tensors(params: OVParams, vis_prefix: str = "model.visual.",
 
 def ov_hf_config(cfg: OVConfig) -> dict:
     """An HF ``config.json`` dict for ``cfg`` (what ``ov_config_from_hf``
-    reads back)."""
+    reads back; the MoE fields when ``num_experts > 0``)."""
     v, t = cfg.vision, cfg.text
+    text = {
+        "vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+        "intermediate_size": t.intermediate_size,
+        "num_hidden_layers": t.num_hidden_layers,
+        "num_attention_heads": t.num_attention_heads,
+        "num_key_value_heads": t.num_key_value_heads,
+        "head_dim": t.head_dim, "rms_norm_eps": t.rms_norm_eps,
+        "rope_theta": t.rope_theta,
+        "attention_bias": t.attention_bias}
+    if t.num_experts:
+        text.update(num_experts=t.num_experts,
+                    num_experts_per_tok=t.num_experts_per_tok,
+                    moe_intermediate_size=t.moe_intermediate_size,
+                    norm_topk_prob=t.norm_topk_prob)
     return {
         "model_type": "llavaonevision1_5",
         "vision_config": {
@@ -160,15 +176,7 @@ def ov_hf_config(cfg: OVConfig) -> dict:
             "temporal_patch_size": v.temporal_patch_size,
             "layer_norm_eps": v.layer_norm_eps,
             "text_hidden_size": v.text_hidden_size},
-        "text_config": {
-            "vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
-            "intermediate_size": t.intermediate_size,
-            "num_hidden_layers": t.num_hidden_layers,
-            "num_attention_heads": t.num_attention_heads,
-            "num_key_value_heads": t.num_key_value_heads,
-            "head_dim": t.head_dim, "rms_norm_eps": t.rms_norm_eps,
-            "rope_theta": t.rope_theta,
-            "attention_bias": t.attention_bias},
+        "text_config": text,
         "tie_word_embeddings": t.tie_word_embeddings,
         "image_token_id": cfg.image_token_id,
         "video_token_id": cfg.video_token_id,
@@ -190,9 +198,8 @@ def save_ov_checkpoint(params: OVParams, cfg: OVConfig, directory: str,
 
 def ov_config_from_hf(path: str) -> OVConfig:
     """An OVConfig from an HF ``config.json`` (nested ``vision_config`` /
-    ``text_config``), with the reference loader's defaults. A config with
-    ``num_experts`` (the MoE variant) loads, and its decoder then
-    raises."""
+    ``text_config``), with the reference loader's defaults, the MoE
+    variant's fields included."""
     with open(os.path.join(path, "config.json")) as f:
         raw = json.load(f)
     v = raw.get("vision_config", {})

@@ -2,8 +2,8 @@
 LLaVA-OneVision-1.5 through its config flags.
 
 Counterpart of ``visionselector_tpu.models.qwen25vl.lm`` (bf16 / fp32
-weights, LoRA adapters from ``train.lora``, weight-only quantization; the
-MoE variant is not ported yet):
+weights, LoRA adapters from ``train.lora``, weight-only quantization, the
+Qwen3-MoE MLP of LLaVA-OneVision-1.5's MoE variant):
 
 - weight-only quantization (``--quantize``: ``apply_weight_quantization``,
   ``quantize_lm_params``, ``init_lm_params_int8``): each of a layer's seven
@@ -19,6 +19,14 @@ MoE variant is not ported yet):
   products under grad to the dequantize kernel's transient and
   ``torch.matmul``,
   CPU tensors to its plain version,
+- the MoE MLP (``num_experts > 0``: ``router_kernel`` [D, E] and the
+  stacked ``expert_{gate,up,down}_kernel`` [E, D, mi] / [E, mi, D] in
+  place of the dense SwiGLU's three kernels): a softmax router in fp32,
+  the top ``num_experts_per_tok`` experts per token (ties toward the lower
+  expert index), renormalised under ``norm_topk_prob``; ``_moe_mlp`` runs
+  each expert on the rows routed to it only, ``moe_mlp_plain`` is the
+  reference's dense scan over every expert. ``--quantize`` leaves the
+  router and expert kernels in the model dtype, as the reference does,
 - Qwen3 flags: ``head_dim_override``; ``qk_norm`` (a per-head RMSNorm of
   q and k after the head reshape and before the rotary, with ``q_norm_scale``
   / ``k_norm_scale`` [head_dim]); no q/k/v biases without
@@ -62,6 +70,7 @@ from visionselector_tpu_torch.kernels.attention import (
     attention_packed,
     chunk_decode_attention,
 )
+from visionselector_tpu_torch.kernels.topk import stable_topk
 from visionselector_tpu_torch.models.qwen25vl.vit import rms_norm, rotate_half
 
 
@@ -154,6 +163,13 @@ def _layer_shapes(cfg: TextConfig) -> dict:
         "gate_kernel": (d, i), "up_kernel": (d, i),
         "down_kernel": (i, d),
     }
+    if cfg.num_experts:  # the MoE MLP in place of the dense one
+        e, mi = cfg.num_experts, cfg.moe_intermediate_size
+        for name in ("gate_kernel", "up_kernel", "down_kernel"):
+            del shapes[name]
+        shapes.update(router_kernel=(d, e), expert_gate_kernel=(e, d, mi),
+                      expert_up_kernel=(e, d, mi),
+                      expert_down_kernel=(e, mi, d))
     if cfg.attention_bias:
         shapes.update(q_bias=(hq * dh,), k_bias=(hkv * dh,),
                       v_bias=(hkv * dh,))
@@ -162,16 +178,27 @@ def _layer_shapes(cfg: TextConfig) -> dict:
     return shapes
 
 
+def quant_kernel_names(layer: nn.Module) -> tuple:
+    """The matmul kernels of ``layer`` that ``--quantize`` takes: all seven
+    of a dense layer, the four attention kernels of an MoE layer (its
+    router and expert kernels stay in the model dtype, as the reference's
+    ``quantize_lm_params`` leaves them)."""
+    return tuple(n for n in QUANT_KERNELS if hasattr(layer, n))
+
+
 class DecoderLayer(nn.Module):
     """One decoder layer's weights (kernels ``[in, out]``). With ``quant``
-    = (bits, group_size) the seven matmul kernels are uninitialised
-    quantized buffers (``register_quantized``) instead of parameters."""
+    = (bits, group_size) its matmul kernels (``quant_kernel_names``) are
+    uninitialised quantized buffers (``register_quantized``) instead of
+    parameters."""
 
     def __init__(self, cfg: TextConfig, device, dtype, quant=None):
         super().__init__()
         shapes = _layer_shapes(cfg)
         if quant:
             for name in QUANT_KERNELS:
+                if name not in shapes:  # an MoE layer's MLP kernels
+                    continue
                 din, dout = shapes.pop(name)
                 bits, group = quant
                 register_quantized(
@@ -198,7 +225,7 @@ def register_quantized(layer: nn.Module, name: str, w: torch.Tensor,
 def is_quantized(lm) -> bool:
     """Whether the decoder's matmul kernels are quantized."""
     return any(getattr(layer, name).dtype in wq.QUANT_DTYPES
-               for layer in lm.layers for name in QUANT_KERNELS)
+               for layer in lm.layers for name in quant_kernel_names(layer))
 
 
 def kernel_shape(layer: nn.Module, name: str) -> Tuple[int, int]:
@@ -210,14 +237,12 @@ def kernel_shape(layer: nn.Module, name: str) -> Tuple[int, int]:
 
 
 class LanguageModel(nn.Module):
-    """Token embedding, decoder layers, final norm (tied lm head)."""
+    """Token embedding, decoder layers (dense or, with ``num_experts > 0``,
+    MoE MLPs), final norm, and an lm head (tied to the embedding or
+    not)."""
 
     def __init__(self, cfg: TextConfig, device, dtype, quant=None):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "the MoE text model (num_experts > 0) is not ported yet "
-                "(ROADMAP §1 item 8, its MoE part)")
         self.cfg = cfg
         add_params(self, {"embed_tokens": (cfg.vocab_size, cfg.hidden_size)},
                    device, dtype)
@@ -266,8 +291,9 @@ def apply_weight_quantization(params, spec):
 @torch.no_grad()
 def quantize_lm_params(lm: LanguageModel, bits: int = 8,
                        group_size: int = 0) -> LanguageModel:
-    """Symmetric weight-only quantization of every decoder matmul kernel,
-    in place (the reference's ``quantize_lm_params``, which returns a new
+    """Symmetric weight-only quantization of every decoder matmul kernel
+    (``quant_kernel_names``: an MoE layer's router and experts stay), in
+    place (the reference's ``quantize_lm_params``, which returns a new
     tree): ``s = max(amax / qmax, 1e-12)`` by true division, values
     ``clip(round(w / s), -qmax, qmax)`` rounded half to even, qmax 127
     (``bits`` 8) or 7 (``bits`` 4, packed two a byte). Per output channel,
@@ -283,7 +309,7 @@ def quantize_lm_params(lm: LanguageModel, bits: int = 8,
         raise ValueError("quantize_lm_params: the LM is already quantized")
     group = group_size if bits == 4 and group_size > 0 else 0
     if group:
-        for name in QUANT_KERNELS:
+        for name in quant_kernel_names(lm.layers[0]):
             din = kernel_shape(lm.layers[0], name)[0]
             if din % group:
                 raise ValueError(f"quantize_lm_params: group size {group} "
@@ -291,7 +317,7 @@ def quantize_lm_params(lm: LanguageModel, bits: int = 8,
                                  f"{din}")
     qmax = 127.0 if bits == 8 else 7.0
     for layer in lm.layers:
-        for name in QUANT_KERNELS:
+        for name in quant_kernel_names(layer):
             wf = getattr(layer, name).float()
             din, dout = wf.shape
             if group:
@@ -395,8 +421,69 @@ def _qkv(x, p: DecoderLayer, cfg: TextConfig):
     return q, k, v
 
 
-def _mlp(x, p: DecoderLayer):
-    """Dense SwiGLU."""
+def moe_route(x, p: DecoderLayer, cfg: TextConfig):
+    """The MoE router: (top-k weights [.., k] fp32, expert ids [.., k]
+    int64) of each token, the reference's ``_moe_mlp`` head: softmax of
+    ``x @ router_kernel`` in fp32, the ``num_experts_per_tok`` largest
+    probabilities with ties toward the lower expert index (as
+    ``jax.lax.top_k``; ``topk.stable_topk``), divided by their sum under
+    ``norm_topk_prob``. The weights carry the gradient of the softmax;
+    the ids none."""
+    probs = torch.softmax((x @ p.router_kernel).float(), dim=-1)
+    topv, topi = stable_topk(probs, cfg.num_experts_per_tok)
+    if cfg.norm_topk_prob:
+        topv = topv / topv.sum(-1, keepdim=True)
+    return topv, topi
+
+
+def _moe_mlp(x, p: DecoderLayer, cfg: TextConfig):
+    """The MoE MLP on the routed tokens only: for each expert in ascending
+    index order, the rows routed to it (gathered), ``silu(x @ g) * (x @ u)
+    @ d``, and ``y * w`` added into an output of x's dtype with
+    ``index_add_``. The same function as ``moe_mlp_plain``: an unrouted
+    expert's weight there is exactly 0 and its carry is also in x's dtype,
+    added to in the same expert order. One host read a call (the experts'
+    row counts). Carries autograd (``index_select`` / ``index_add_``)."""
+    topv, topi = moe_route(x, p, cfg)
+    k = cfg.num_experts_per_tok
+    xf = x.reshape(-1, x.shape[-1])
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)  # grouped by expert
+    rows = order // k
+    wts = topv.reshape(-1)[order].to(x.dtype)
+    counts = torch.bincount(flat, minlength=cfg.num_experts).tolist()
+    out = torch.zeros_like(xf)
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            r = rows[start:start + n]
+            xe = xf.index_select(0, r)
+            y = (F.silu(xe @ p.expert_gate_kernel[e])
+                 * (xe @ p.expert_up_kernel[e])) @ p.expert_down_kernel[e]
+            out.index_add_(0, r, y * wts[start:start + n, None])
+            start += n
+    return out.view(x.shape)
+
+
+def moe_mlp_plain(x, p: DecoderLayer, cfg: TextConfig):
+    """The reference's ``_moe_mlp`` as it computes it: every expert on
+    every token, scaled by the token's routing weight (0 where the expert
+    is not among its top k) and accumulated in x's dtype. The plain
+    version ``_moe_mlp`` is held to."""
+    topv, topi = moe_route(x, p, cfg)
+    out = torch.zeros_like(x)
+    for e in range(cfg.num_experts):
+        w = (topv * (topi == e)).sum(-1).to(x.dtype)
+        y = (F.silu(x @ p.expert_gate_kernel[e])
+             * (x @ p.expert_up_kernel[e])) @ p.expert_down_kernel[e]
+        out = out + y * w[..., None]
+    return out
+
+
+def _mlp(x, p: DecoderLayer, cfg: TextConfig):
+    """Dense SwiGLU, or the MoE MLP on a layer that holds a router."""
+    if "router_kernel" in p._parameters:
+        return _moe_mlp(x, p, cfg)
     h = F.silu(_dense(x, p, "gate_kernel")) * _dense(x, p, "up_kernel")
     return _dense(h, p, "down_kernel")
 
@@ -418,7 +505,7 @@ def _prefill_layer(x, p: DecoderLayer, cos, sin, seg_ids, cfg: TextConfig,
                          impl=attn_impl)
     x = x + _dense(attn.reshape(b, t, -1), p, "o_kernel")
     h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
-    return x + _mlp(h, p), k, v
+    return x + _mlp(h, p, cfg), k, v
 
 
 def lm_prefill_layers(lm: LanguageModel, layers, inputs_embeds,
@@ -577,7 +664,7 @@ def lm_decode_chunk(lm: LanguageModel, cache, inputs_embeds, position_ids,
                                       impl=attn_impl, **scales)
         x = x + _dense(attn.reshape(b, t_c, -1), p, "o_kernel")
         h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
-        x = x + _mlp(h, p)
+        x = x + _mlp(h, p, cfg)
     x = rms_norm(x, lm.final_ln_scale, cfg.rms_norm_eps)
     return x, dataclasses.replace(cache, length=cache.length + t_c)
 
@@ -637,7 +724,7 @@ def init_lm_params_int8(cfg: TextConfig, generator: torch.Generator, device,
     lm = LanguageModel(cfg, device, dtype, quant=(bits, 0))
     init_random_(lm, generator, std=0.02)
     for layer in lm.layers:
-        for name in QUANT_KERNELS:
+        for name in quant_kernel_names(layer):
             din, dout = kernel_shape(layer, name)
             q = torch.randint(-qmax, qmax + 1, (din, dout),
                               generator=generator, device=device,

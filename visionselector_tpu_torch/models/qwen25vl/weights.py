@@ -34,10 +34,10 @@ from visionselector_tpu_torch.core.config import (
 )
 from visionselector_tpu_torch.core.safetensors import open_checkpoint, save_file
 from visionselector_tpu_torch.models.qwen25vl.lm import (
-    QUANT_KERNELS,
     LanguageModel,
     is_quantized,
     pack_int4,
+    quant_kernel_names,
 )
 from visionselector_tpu_torch.models.qwen25vl.model import (  # noqa: F401
     QwenVLParams,
@@ -95,7 +95,8 @@ def lm_from_jax(tree: dict, cfg: TextConfig, device,
     """The reference's decoder tree (``init_lm_params`` layout) as the
     port's ``LanguageModel``: the Qwen2.5 tree, or the Qwen3 one (no
     biases, ``q_norm_scale`` / ``k_norm_scale``, an untied
-    ``lm_head_kernel``), whichever ``cfg`` describes. A quantized tree
+    ``lm_head_kernel``; with ``num_experts > 0`` the router and the
+    stacked expert kernels), whichever ``cfg`` describes. A quantized tree
     (``apply_weight_quantization``'s: int8 or int4 kernels with fp32
     ``<name>_scale`` leaves) gives a quantized LM with the same integers
     and scales (``_load_quantized``)."""
@@ -131,7 +132,7 @@ def _load_quantized(layer: nn.Module, layers: dict, i: int,
     """Copy layer ``i``'s quantized kernels (int4 read as int8 values,
     then packed two a byte along the output axis) and fp32 scales into
     the buffers of ``layer``."""
-    for name in QUANT_KERNELS:
+    for name in quant_kernel_names(layer):
         q = torch.from_numpy(
             np.asarray(layers[name])[i].astype(np.int8).copy())
         if bits == 4:
@@ -235,9 +236,19 @@ _LM_LAYER = (
     ("self_attn.k_proj.weight", "k_kernel", True),
     ("self_attn.v_proj.weight", "v_kernel", True),
     ("self_attn.o_proj.weight", "o_kernel", True),
+)
+_LM_MLP = (
     ("mlp.gate_proj.weight", "gate_kernel", True),
     ("mlp.up_proj.weight", "up_kernel", True),
     ("mlp.down_proj.weight", "down_kernel", True),
+)
+_LM_ROUTER = (("mlp.gate.weight", "router_kernel", True),)  # Qwen3-MoE
+# Expert j's nn.Linear weights (``mlp.experts.{j}.<suffix>``), stacked
+# along the first axis of the port's [E, in, out] kernels.
+_LM_EXPERTS = (
+    ("gate_proj.weight", "expert_gate_kernel"),
+    ("up_proj.weight", "expert_up_kernel"),
+    ("down_proj.weight", "expert_down_kernel"),
 )
 _LM_BIAS = (
     ("self_attn.q_proj.bias", "q_bias", False),
@@ -251,11 +262,20 @@ _LM_QK_NORM = (  # Qwen3
 
 
 def lm_layer_table(cfg: TextConfig) -> tuple:
-    """A decoder layer's HF names: the q/k/v biases under
-    ``attention_bias`` (Qwen2.5), the q/k norms under ``qk_norm``
-    (Qwen3)."""
-    return (_LM_LAYER + (_LM_BIAS if cfg.attention_bias else ())
+    """A decoder layer's HF names but its experts' (``_LM_EXPERTS``): the
+    q/k/v biases under ``attention_bias`` (Qwen2.5), the q/k norms under
+    ``qk_norm`` (Qwen3), the dense MLP or, with ``num_experts > 0``, the
+    MoE router."""
+    return (_LM_LAYER + (_LM_ROUTER if cfg.num_experts else _LM_MLP)
+            + (_LM_BIAS if cfg.attention_bias else ())
             + (_LM_QK_NORM if cfg.qk_norm else ()))
+
+
+def _expert_names(prefix: str, n_experts: int):
+    """(HF name, the port's kernel, expert index) of every expert weight
+    of the layer under ``prefix``."""
+    return [(f"{prefix}mlp.experts.{j}.{suffix}", attr, j)
+            for suffix, attr in _LM_EXPERTS for j in range(n_experts)]
 _LM_TOP = (
     ("embed_tokens.weight", "embed_tokens", False),
     ("norm.weight", "final_ln_scale", False),
@@ -309,11 +329,16 @@ def load_lm_params(get, cfg: TextConfig, device, dtype,
                    prefix: str = "model.") -> LanguageModel:
     """The decoder from HF names under ``prefix`` (an untied lm head is the
     top-level ``lm_head.weight``): Qwen2.5 or Qwen3 layers, as ``cfg``
-    says."""
+    says; a Qwen3-MoE layer's ``mlp.gate`` is its router and
+    ``mlp.experts.{j}.*_proj`` fill row j of its stacked expert kernels
+    (the reference's ``load_qwen3_lm_params``)."""
     lm = LanguageModel(cfg, device, dtype)
     table = lm_layer_table(cfg)
     for i, layer in enumerate(lm.layers):
         _load_table(layer, get, f"{prefix}layers.{i}.", table)
+        for name, attr, j in _expert_names(f"{prefix}layers.{i}.",
+                                           cfg.num_experts):
+            _put(getattr(layer, attr)[j], get(name), True, name)
     _load_table(lm, get, prefix, _LM_TOP)
     if not cfg.tie_word_embeddings:
         _put(lm.lm_head_kernel, get("lm_head.weight"), True,
@@ -398,6 +423,9 @@ def lm_hf_tensors(lm: LanguageModel, prefix: str = "model.") -> dict:
     table = lm_layer_table(lm.cfg)
     for i, layer in enumerate(lm.layers):
         out.update(_table_tensors(layer, f"{prefix}layers.{i}.", table))
+        for name, attr, j in _expert_names(f"{prefix}layers.{i}.",
+                                           lm.cfg.num_experts):
+            out[name] = getattr(layer, attr).detach()[j].T
     out.update(_table_tensors(lm, prefix, _LM_TOP))
     if not lm.cfg.tie_word_embeddings:
         out["lm_head.weight"] = lm.lm_head_kernel.detach().T
