@@ -463,6 +463,37 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    experts, top 8, expert width 768, hidden 2,048: the routed path against
    the dense plain scan within MOE_ULPS bf16 ulps, both timed. Prints the
    phase's seconds and its parts'.
+18. W8A8 and parallel paths (``parallel_phase``, last; the 3B rebuilt
+   from its seed). (a) The 3B ViT quantized W8A8 (a copy; the quantize
+   pass timed) on phase 3's image at the 6,144 bucket: each of the five
+   padded ``_int_mm`` products bit-equal to the plain int product (fp64 on
+   the card, exact), the epilogue within ULP_LIMIT bf16 ulps of its fp64
+   version, ms of ``_int_mm``, the bf16 GEMM, the quantize and the
+   epilogue; the merged tokens against the bf16 tower (cosine >
+   W8A8_COS, relative error < W8A8_REL) and the overlap of the selected
+   indices; ViT device ms of both (profiler); 160 ``_int_mm`` launches a
+   tower, and the W8A8 engine's request with its launches. (b) K1 causal
+   at the tensor-parallel ranks' heads (3B tp 2: 8 / 1; 7B tp 2: 14 / 2)
+   and K5 at one kv head (n_rep 8; t_c 1 over the 8-slot pool, 8 and 32
+   over one slot of the ``orig`` cache; 7B tp 2 at t_c 1), each with its
+   planted fault, ms, bound and SDPA; then a world of TP_WORLD spawned
+   ranks (``parallel_rank``) sharing the card over gloo: the decoder
+   sharded, phase 3's selector request (first token equal to the unsharded
+   engine's, logits within TEACHER_TOL of max |logit|, kept set, launches
+   at the local heads counted on rank 0, LM bytes a rank about half),
+   speculative decoding at m = 7 equal to plain decode, the choices, a
+   2-slot batcher on bf16 and int8 pools against one-shot, and the request
+   under each ``--quantize`` spec (quantized whole, then sharded; first
+   token and logits against the unsharded quantized engine's, kernel A 7
+   x 36 a decode step and kernel B 7 x 36 a prefill at a rank's slices,
+   which 16(a) checks and times). (c) K1 at ``vit_forward_sp``'s shapes
+   (each shard's 3,072 queries against the 6,144 gathered keys) and K4 at
+   its local S, each shard within ULP_LIMIT of the plain version, with
+   planted faults, ms, bound and SDPA; in the same world: ``moe_mlp_ep``
+   of 17(e)'s layer (64 experts a rank) within ULP_LIMIT bf16 ulps of
+   ``_moe_mlp``, and ``vit_forward_sp`` of the 3B tower within ULP_LIMIT
+   of ``vit_forward`` (28 K4 + 4 K1 a rank). Prints the phase's seconds
+   and its parts'.
 
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
@@ -485,7 +516,16 @@ requests, ``decode_blocked_fwd_7b_t_c4`` / ``_t_c8`` in its speculative
 runs, ``_t_c32`` in its choices, ``_t_c256`` in 17(c)'s chunked
 admission, ``wq_matmul_fwd_7b``, ``wq_matmul_fwd_int4_7b``,
 ``wq_matmul_fwd_int4_g128_7b`` and ``wq_dequant_fwd_7b`` in its quantized
-requests); the last line is ``{"ok": true, "device": {...}}``.
+requests; the tensor-parallel shapes from phase 18: ``flash_varlen_fwd_tp2``
+and ``decode_blocked_fwd_tp2`` counted in rank 0's request,
+``decode_blocked_fwd_tp2_t_c8`` in its speculative run,
+``decode_blocked_fwd_tp2_t_c32`` in its choices, ``wq_matmul_fwd_tp2``,
+``wq_matmul_fwd_int4_tp2``, ``wq_matmul_fwd_int4_g128_tp2`` and
+``wq_dequant_fwd_tp2`` (16(a)'s times at a rank's slices of the 3B
+layer) in its quantized requests; the sequence-parallel shapes,
+``flash_varlen_fwd_sp2`` and ``diag_attn_fwd_sp2``, in rank 0's
+``vit_forward_sp``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -512,6 +552,7 @@ SRC = "visionselector_tpu_torch/kernels/csrc/"
 TILE = 64  # the kernels' q/kv tile (FLASH_BLOCK)
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 # Decode kernel check: an 8-slot pool of 2,048 rows at the 3B decoder's
 # GQA widths; lengths at the tile edges and the 3B orig prefill length.
 POOL_SLOTS, POOL_ROWS = 8, 2048
@@ -611,6 +652,24 @@ KERNELS = {
     "wq_matmul_fwd_int4_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
     "wq_matmul_fwd_int4_g128_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
     "wq_dequant_fwd_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    # Tensor-parallel serving over 2 ranks (phase 18): K1 causal at the
+    # 3B's local 8 / 1 heads (n_rep 8), K5 at n_rep 8 per t_c
+    "flash_varlen_fwd_tp2": ("flash_varlen_fwd.cu",
+                             "visionselector_tpu/kernels/attention.py:203"),
+    **{f"decode_blocked_fwd_tp2{sfx}": (
+        "decode_blocked_fwd.cu", "visionselector_tpu/kernels/attention.py:"
+        "1085") for sfx in ("", "_t_c8", "_t_c32")},
+    # kernels A (per spec) and B at a tp-2 rank's slices of the 3B layer
+    "wq_matmul_fwd_tp2": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_matmul_fwd_int4_tp2": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_matmul_fwd_int4_g128_tp2": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    "wq_dequant_fwd_tp2": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    # The sequence-parallel ViT over 2 ranks (phase 18): K1 with a shard's
+    # queries against the gathered keys, K4 at the local S
+    "flash_varlen_fwd_sp2": ("flash_varlen_fwd.cu",
+                             "visionselector_tpu/kernels/attention.py:203"),
+    "diag_attn_fwd_sp2": ("diag_attn_fwd.cu",
+                          "visionselector_tpu/kernels/attention.py:681"),
 }
 ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # Chunked admission's decoder segment (the reference's default
@@ -7804,8 +7863,11 @@ def wq_build_report():
 def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
     """16(a). Kernel A against ``wq_matmul_plain`` at the seven kernel
     shapes of the 3B, of OV-8B and of the 7B (phase 17's model: K / N up
-    to 18,944; int4:g128 on K = 18,944 is 148 groups), rows 1 / 8 / 16 /
-    32 / 48 / 64, each spec; its plan per shape; four planted faults.
+    to 18,944; int4:g128 on K = 18,944 is 148 groups), and of one rank of
+    the 3B and of the 7B under phase 18's tensor parallelism (``_tp2``:
+    the 3B's k / v at N = 128, one kv head), rows 1 / 8 / 16 / 32 / 48 /
+    64, each spec; its plan per shape (every whole model's at least
+    ``WQ_SMS`` blocks); four planted faults.
     Kernel B bit-equal to ``wq.dequantize`` at every shape and spec. Per
     shape at one row: kernel A's ms, its bound, the dequantize route's ms,
     the library call's (``wq_library``, held to the plain version as the
@@ -7814,14 +7876,16 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
     16, 32 and 64 rows (the 3B's set ``WQ_MAX_ROWS``), and kernel B's ms
     beside its bound and the plain dequantize's. Returns the kernels line's
     entries: per spec, the 3B decoder layer's seven products at one row (a
-    decode step at batch 1), summed, and the 7B's (``_7b``); kernel B as
-    each layer's seven int8 transients."""
+    decode step at batch 1), summed, the 7B's (``_7b``) and a tp-2 rank's
+    of the 3B (``_tp2``); kernel B as each layer's seven int8
+    transients."""
     import torch
 
     from visionselector_tpu_torch.core.config import qwen25vl_7b
     from visionselector_tpu_torch.kernels import wq_matmul as wq
     from visionselector_tpu_torch.models.qwen25vl.lm import (
         parse_quantize_spec,
+        tp_text_config,
     )
 
     wq_build_report()
@@ -7833,8 +7897,14 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
     least_blocks = None
     models = (("3b", lm_kernel_shapes(cfg.text)),
               ("ov8b", lm_kernel_shapes(ov_cfg.text)),
-              ("7b", lm_kernel_shapes(qwen25vl_7b().text)))
-    summed = {"3b": "", "7b": "_7b"}  # model -> its entries' suffix
+              ("7b", lm_kernel_shapes(qwen25vl_7b().text)),
+              # a rank's slices under phase 18's tensor parallelism
+              ("3b_tp2", lm_kernel_shapes(tp_text_config(cfg.text,
+                                                         TP_WORLD))),
+              ("7b_tp2", lm_kernel_shapes(tp_text_config(
+                  qwen25vl_7b().text, TP_WORLD))))
+    # model -> its entries' suffix
+    summed = {"3b": "", "7b": "_7b", "3b_tp2": "_tp2"}
     for spec in QUANT_SPECS:
         bits, group = parse_quantize_spec(spec)
         # each summed layer's seven products per timed row count, kernel B
@@ -7850,7 +7920,9 @@ def quant_kernels(cfg, ov_cfg, out_dir, checks) -> dict:
                 c = len(names)
                 tag = f"{spec} {model} {'/'.join(names)} K={k} N={n}"
                 plan = wq.wq_plan(1, k, n, bits, group)
-                least_blocks = min(least_blocks or plan.blocks, plan.blocks)
+                if not model.endswith("_tp2"):  # the whole models' rule
+                    least_blocks = min(least_blocks or plan.blocks,
+                                       plan.blocks)
                 print(f"[quant-kernel] plan {tag}: {plan.blocks} blocks = "
                       f"{plan.tiles} column tiles of {plan.col_tile} x "
                       f"{plan.splits} K splits of {plan.split_rows} rows, "
@@ -8963,6 +9035,688 @@ def seven_b_phase(out_dir, tmp):
     return launches, kernels
 
 
+# Phase 18: the W8A8 ViT and the parallel paths. The tensor-parallel,
+# expert-parallel and sequence-parallel paths run in one world of TP_WORLD
+# ranks, spawned processes that share the one card over gloo (NCCL refuses
+# two ranks on one device), rendezvous under .smoke_tmp/.
+TP_WORLD = 2
+TP_NEW_TOKENS = 8
+TP_SPEC_M = 7  # K5 at t_c 8 under TP
+TP_TIMEOUT = 600  # seconds for the whole world
+# the W8A8 tower against the bf16 one: the reference's own bar
+# (tests/test_int8.py: cosine > 0.98, relative error < 0.2)
+W8A8_COS, W8A8_REL = 0.98, 0.2
+
+
+def int_mm_cases(vis, tower):
+    """18(a): ``torch._int_mm`` at the 3B ViT's five products (6,144 rows:
+    the 6,144 bucket), the MLP's padded to 3,424: bit-equal to the plain
+    int product of the unpadded operands (fp64 on the card: |acc| <= 127^2
+    x 3,420 < 2^53, so exact), ms beside the bf16 GEMM on the same widths,
+    the per-token quantize and the epilogue, which holds 4 bf16 ulps of
+    its plain fp64 version. Returns the parts' ms."""
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import vit as V
+
+    blk = tower.blocks[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rows, out = 6144, {}
+    for name in V.VIT_QUANT_KERNELS:
+        w = getattr(blk, name)
+        q = V.vit_quantized_kernel(blk, name)
+        din, dout = q.shape
+        x = torch.randn(rows, din, generator=gen, device="cuda").bfloat16()
+        xq, xs = V.quantize_rows(x)
+        got = V.int8_matmul(xq, w)
+        want = (xq.double() @ q.double()).long()
+        exact = bool(torch.equal(got[:, :dout].long(), want)
+                     and not got[:, dout:].any())
+        ws, b = getattr(blk, name + "_scale"), getattr(
+            blk, name.replace("_kernel", "_bias"))
+        y = V.w8a8_epilogue(got, xs, ws, b, x.dtype)
+        y64 = (want.double() * xs.double() * ws.double()
+               + b.double()).to(x.dtype)
+        epi_ulps = bf16_ulp_err(y, y64)
+        wb = torch.randn(din, dout, generator=gen, device="cuda").bfloat16()
+        mm, bf = cuda_ms(lambda: V.int8_matmul(xq, w)), cuda_ms(
+            lambda: x @ wb)
+        qms = cuda_ms(lambda: V.quantize_rows(x))
+        ems = cuda_ms(lambda: V.w8a8_epilogue(got, xs, ws, b, x.dtype))
+        nbytes = rows * din + din * dout + rows * dout * 4
+        bound, by = nbytes / HBM_BYTES_S * 1e3, "bytes"
+        t_ops = 2 * rows * din * dout / INT8_OPS_S * 1e3
+        if t_ops > bound:
+            bound, by = t_ops, "operations"
+        print(f"[w8a8] {name} {rows}x{din}x{dout} (stored {tuple(w.shape)}"
+              f"): _int_mm bit-equal to the plain int product {exact}; "
+              f"epilogue {epi_ulps!r} bf16 ulps of its fp64 version (limit "
+              f"{ULP_LIMIT}); _int_mm {mm!r} ms (bound {bound!r}, {by}), "
+              f"bf16 GEMM {bf!r} ms, quantize {qms!r} ms, epilogue "
+              f"{ems!r} ms", flush=True)
+        vis["checks"][f"W8A8 {name}: _int_mm exact"] = exact
+        vis["checks"][f"W8A8 {name}: epilogue ulps"] = epi_ulps <= ULP_LIMIT
+        out[name] = dict(int_mm=mm, bf16=bf, quantize=qms, epilogue=ems)
+    return out
+
+
+def w8a8_phase(cfg, params, engine, req, out_dir, checks):
+    """18(a): the full-width 3B ViT quantized W8A8 (a copy of the tower;
+    the quantize pass timed), phase 3's image at the 6,144 bucket: the
+    padded ``_int_mm`` and the epilogue (``int_mm_cases``); the merged
+    tokens' cosine and relative error against the bf16 tower and the
+    overlap of the selected indices; ViT device ms of both under the
+    default route (profiler); ``_int_mm`` launches per tower (160), then
+    the W8A8 engine's request with its launches."""
+    import copy
+
+    import torch
+
+    from visionselector_tpu_torch.models.qwen25vl import model as M
+    from visionselector_tpu_torch.models.qwen25vl import vit as V
+
+    p = engine._prep_vision(req["input_ids"], req["pixel_values"],
+                            req["grid_thw"], req["grid_thw"], None, None)
+    vb = engine._vision_tensors(p.vb)
+    tower = copy.deepcopy(params.visual)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    V.quantize_vit_params(tower)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    vis = {"checks": checks}
+    parts = int_mm_cases(vis, tower)
+    with torch.no_grad():
+        ref = V.vit_forward(params.visual, **vb)
+        n0 = V.INT_MM_LAUNCHES
+        got = V.vit_forward(tower, **vb)
+        launches = V.INT_MM_LAUNCHES - n0
+        a, b = ref[:p.n].float(), got[:p.n].float()
+        cos = (a * b).sum() / (a.norm() * b.norm())
+        rel = (a - b).norm() / a.norm()
+        sel = [set(M.select_hard(params.scorer, e, p.n, p.k, p.k_max)
+                   .indices[:p.k].tolist()) for e in (ref, got)]
+        overlap = len(sel[0] & sel[1]) / p.k
+        ms = {}
+        for name, t in (("bf16", params.visual), ("w8a8", tower)):
+            V.vit_forward(t, **vb)
+            ms[name] = traced(lambda: V.vit_forward(t, **vb), os.path.join(
+                out_dir, f"profile_vit_{name}.json"))[0]
+    print(f"[w8a8] 3B ViT at S={p.s_bucket}: quantize pass {quant_s!r} s; "
+          f"_int_mm launches per tower {launches}; merged tokens against "
+          f"the bf16 tower: cosine {cos.item()!r} (limit > {W8A8_COS}), "
+          f"relative error {rel.item()!r} (limit < {W8A8_REL}); selected "
+          f"indices overlap {overlap!r} ({p.k} kept); ViT device ms bf16 "
+          f"{ms['bf16']!r}, W8A8 {ms['w8a8']!r} (ratio "
+          f"{ms['w8a8'] / ms['bf16']!r}); per product ms {parts}",
+          flush=True)
+    depth, n_full = cfg.vision.depth, len(cfg.vision.fullatt_block_indexes)
+    checks["W8A8: 5 _int_mm launches a block"] = launches == 5 * depth
+    checks["W8A8: cosine / relative error"] = bool(
+        cos > W8A8_COS and rel < W8A8_REL and torch.isfinite(b).all())
+    eng8 = M.QwenVLEngine(cfg, M.QwenVLParams(tower, params.lm,
+                                              params.scorer),
+                          use_selector=True, budget=0.2, device="cuda")
+    eng8.generate(**req, max_new_tokens=2)
+    zero_counts()
+    n0 = V.INT_MM_LAUNCHES
+    res = eng8.generate(**req, max_new_tokens=TP_NEW_TOKENS,
+                        eos_token_ids=(-1,))
+    counts = dict(launch_counts(), int_mm=V.INT_MM_LAUNCHES - n0)
+    print(f"[w8a8] W8A8 engine, selector 0.2, {TP_NEW_TOKENS} tokens: "
+          f"{res.tokens}, prefill {res.prefill_seconds * 1e3!r} ms wall; "
+          f"launches {counts}", flush=True)
+    checks["W8A8 engine: 160 _int_mm + 28 K4 + 40 K1 a prefill"] = (
+        counts["int_mm"] == 5 * depth
+        and counts["diag_attn_fwd"] == depth - n_full
+        and counts["flash_varlen_fwd"] == n_full
+        + cfg.text.num_hidden_layers)
+    del tower, eng8
+    return dict(ms, quantize_s=quant_s, launches=launches)
+
+
+def tp_kernels(cfg) -> dict:
+    """18(b): the kernels at the tensor-parallel ranks' shapes against
+    their plain versions (seeded bf16): K1 causal at the 3B's tp 2 heads
+    (8 query on 1 kv head, n_rep 8) at the selector's and ``orig``'s
+    prefill lengths, and at the 7B's tp 2 heads (14 / 2, n_rep 7); K5 at
+    n_rep 8, t_c 1 over the 8-slot pool, t_c 8 and 32 over one slot of the
+    ``orig`` cache, bf16 and int8; each with its planted fault, ms, bound
+    and one SDPA call. Returns the kernels line's entries."""
+    import torch
+
+    from visionselector_tpu_torch.core.config import qwen25vl_7b
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.models.qwen25vl.lm import tp_text_config
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    out = {}
+
+    def causal(kname, tc, t, valid):
+        hq, hkv, d = (tc.num_attention_heads, tc.num_key_value_heads,
+                      tc.head_dim)
+        q = torch.randn(1, t, hq, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(1, t, hkv, d, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        seg = (torch.arange(t, device="cuda") < valid).int()[None]
+        nq = -(-t // TILE)
+        iq = torch.arange(nq, device="cuda")
+        cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
+        pos = torch.arange(t, device="cuda")
+        mask = ((seg[0, :, None] > 0) & (seg[0, None, :] > 0)
+                & (pos[:, None] >= pos[None]))[None, None]
+        return ov_kernel_entry(
+            kname, f"tp 2 T={t} valid={valid} Hq={hq} Hkv={hkv} (n_rep "
+            f"{hq // hkv}) D={d}",
+            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
+            lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
+            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
+                                       kv_bounds=cut),
+            (2 * hq + 2 * hkv) * t * d * 2 + t * 8,
+            4 * d * hq * (valid * (valid + 1) // 2),
+            lambda: sdpa_ms(q, k, v, mask),
+            lambda got: bool((got[:, seg[0] == 0] == 0).all()),
+            tag="[tp-kernel]")
+
+    tc = tp_text_config(cfg.text, TP_WORLD)
+    sel = causal("flash_varlen_fwd_tp2", tc, 384, 294)
+    orig = causal("flash_varlen_fwd_tp2", tc, 1664, 1302)
+    out["flash_varlen_fwd_tp2"] = dict(sel, max_abs_err=max(
+        sel["max_abs_err"], orig["max_abs_err"]))
+    causal("flash_varlen_fwd_7b_tp2", tp_text_config(qwen25vl_7b().text,
+                                                     TP_WORLD), 384, 294)
+    hkv, dh = tc.num_key_value_heads, tc.head_dim
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    out["decode_blocked_fwd_tp2"] = spec_k5_cases(tc, [
+        ("8-slot pool", rnd(POOL_SLOTS, POOL_ROWS, hkv, dh),
+         rnd(POOL_SLOTS, POOL_ROWS, hkv, dh),
+         torch.tensor(DECODE_LENS, device="cuda"))],
+        "decode_blocked_fwd_tp2", gen, t_c=1, tag="[tp-kernel]")
+    k1, v1 = (rnd(1, ORIG_CACHE_ROWS, hkv, dh) for _ in range(2))
+    for t_c in (TP_SPEC_M + 1, 32):
+        out[f"decode_blocked_fwd_tp2_t_c{t_c}"] = spec_k5_cases(
+            tc, [("one slot, orig cache", k1, v1,
+                  torch.tensor([ORIG_BASE_LEN], device="cuda"))],
+            f"decode_blocked_fwd_tp2_t_c{t_c}", gen, t_c=t_c,
+            tag="[tp-kernel]")
+    del k1, v1
+    seven = tp_text_config(qwen25vl_7b().text, TP_WORLD)
+    shape = (POOL_SLOTS, POOL_ROWS, seven.num_key_value_heads,
+             seven.head_dim)
+    spec_k5_cases(seven, [("8-slot pool", rnd(*shape), rnd(*shape),
+                           torch.tensor(DECODE_LENS, device="cuda"))],
+                  "decode_blocked_fwd_7b_tp2", gen, t_c=1,
+                  tag="[tp-kernel]")
+    return out
+
+
+def sp_kernels(cfg, engine, req) -> dict:
+    """18(c): the kernels at ``vit_forward_sp``'s shapes over TP_WORLD
+    shards of phase 3's window-aligned batch (S 6,144, local S 3,072;
+    seeded bf16 q / k / v at the 3B ViT's 16 heads of 80), each shard
+    against its plain version within ULP_LIMIT, with ms, bound and one
+    SDPA call: K1 with the shard's queries and segment ids against the
+    gathered keys and segment ids of all S rows (fault: the other shards'
+    kv tiles dropped from the bounds, as if k / v were not gathered); K4
+    at the local S on the shard's window segments (fault: the last key of
+    every window dropped, compared on the other rows). Returns the
+    kernels line's entries (shard 0's times, the larger error)."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.tools import diag_floor
+
+    vb = engine._prep_vision(req["input_ids"], req["pixel_values"],
+                             req["grid_thw"], req["grid_thw"], None,
+                             None).vb
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    h, d = cfg.vision.num_heads, cfg.vision.head_dim
+    s = vb.pixel_values.shape[0]
+    ls = s // TP_WORLD
+    k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    sg = torch.as_tensor(np.asarray(vb.full_seg_ids),
+                         device="cuda")[None].int()
+    wall = np.asarray(vb.window_seg_ids)
+    found = {"flash_varlen_fwd_sp2": [], "diag_attn_fwd_sp2": []}
+    for i in range(TP_WORLD):
+        rows = slice(i * ls, (i + 1) * ls)
+        q = torch.randn(1, ls, h, d, generator=gen, device="cuda").bfloat16()
+        fseg = sg[:, rows]
+        own = torch.tensor([[i * ls // TILE, (i + 1) * ls // TILE]],
+                           device="cuda").int().repeat(ls // TILE, 1)
+        pairs = int(sum((fseg == j).sum().item() * (sg == j).sum().item()
+                        for j in torch.unique(fseg).tolist() if j > 0))
+        mask = ((fseg[0, :, None] == sg[0, None, :])
+                & (sg[0, None, :] > 0))[None, None]
+        found["flash_varlen_fwd_sp2"].append(ov_kernel_entry(
+            "flash_varlen_fwd_sp2", f"shard {i} of {TP_WORLD}: Sq={ls} "
+            f"against gathered Sk={s} H={h} D={d}",
+            lambda: A.flash_varlen_fwd(q, k, v, fseg, sg),
+            lambda: A.flash_plain(q, k, v, fseg, sg),
+            lambda: A.flash_varlen_fwd(q, k, v, fseg, sg, kv_bounds=own),
+            (2 * ls + 2 * s) * h * d * 2 + (ls + s) * 4, 4 * d * h * pairs,
+            lambda: sdpa_ms(q, k, v, mask),
+            lambda got: bool((got[:, fseg[0] == 0] == 0).all()),
+            tag="[sp-kernel]"))
+        wnp = wall[rows]
+        wseg = torch.as_tensor(wnp, device="cuda")[None].int()
+        kl, vl = k[:, rows], v[:, rows]
+        ids, first_rev = np.unique(wnp[::-1], return_index=True)
+        last = (len(wnp) - 1 - first_rev)[ids > 0]
+        cut = wnp.copy()
+        cut[last] = 0
+        cut = torch.as_tensor(cut, device="cuda")[None].int()
+        keep = torch.as_tensor(np.setdiff1d(np.arange(ls), last),
+                               device="cuda")
+        wpairs = int(sum((wnp == j).sum() ** 2 for j in np.unique(wnp)
+                         if j > 0))
+        wmask = ((wseg[0, :, None] == wseg[0, None, :])
+                 & (wseg[0, None, :] > 0))[None, None]
+        found["diag_attn_fwd_sp2"].append(ov_kernel_entry(
+            "diag_attn_fwd_sp2", f"shard {i} of {TP_WORLD}: local S={ls} "
+            f"H={h} D={d}",
+            lambda: A.diag_attn_fwd(q, kl, vl, wseg),
+            lambda: A.diag_plain(q, kl, vl, wseg),
+            (lambda: A.diag_attn_fwd(q, kl, vl, cut)[:, keep],
+             lambda: A.diag_plain(q, kl, vl, wseg)[:, keep]),
+            diag_floor.needed_bytes(wseg, h, d), 4 * d * h * wpairs,
+            lambda: sdpa_ms(q, kl, vl, wmask),
+            lambda got: bool((got[:, wseg[0] == 0] == 0).all()),
+            tag="[sp-kernel]"))
+    return {name: dict(cases[0], max_abs_err=max(
+        c["max_abs_err"] for c in cases)) for name, cases in found.items()}
+
+
+def _counted(fn):
+    """(fn's result, the launch counts of its run): zeroed just before,
+    read just after."""
+    from visionselector_tpu_torch.kernels import attention as A
+
+    from visionselector_tpu_torch.kernels import wq_matmul as wq
+
+    zero_counts()
+    res = fn()
+    return res, dict(launch_counts(), causal=A.FLASH_CAUSAL_LAUNCHES,
+                     by_rows=dict(A.DECODE_LAUNCHES_BY_ROWS),
+                     wq=wq.WQ_LAUNCHES, wq_dequant=wq.WQ_DEQUANT_LAUNCHES)
+
+
+def _drive_batcher(engine, reqs, kv_quant):
+    """A 2-slot ``ContinuousBatcher`` without its worker thread, driven as
+    a tensor-parallel follower is (the same operations on every rank):
+    both requests admitted, then decode dispatches until both finish.
+    Returns each request's tokens."""
+    from visionselector_tpu_torch.models.qwen25vl.continuous import (
+        ContinuousBatcher,
+        unwire_item,
+    )
+
+    bat = ContinuousBatcher(engine, n_slots=2, t_max=2048, chunk=8,
+                            kv_quant=kv_quant, worker=False)
+    items = [unwire_item(dict(
+        request=r, max_new=TP_NEW_TOKENS, eos=(-1,), temperature=0.0,
+        top_p=1.0, seed=0, top_k=0, repetition_penalty=1.0,
+        t_submit=time.perf_counter())) for r in reqs]
+    for slot, item in enumerate(items):
+        bat._op("admit", item, slot)
+    while any(bat.live):
+        bat._op("dispatch")
+    return [item["result"].tokens for item in items], bat.pool
+
+
+def parallel_rank(rank, world, init_method, results):
+    """One rank of phase 18's world (b, c): joins it over gloo on cuda:0,
+    builds the seeded 3B (phase 3's weights), runs 18(c)'s sequence- and
+    expert-parallel forwards, then shards the decoder (``tensor_parallel``)
+    and runs the tensor-parallel request (counted), speculative decoding
+    at m = TP_SPEC_M and the choices (K5 at t_c 8 and 32, counted), the
+    2-slot batcher on bf16 and int8 pools, and the request under each
+    ``--quantize`` spec (the whole decoder quantized, as ``load_model``
+    does, then sharded; kernels A and B counted). Puts (rank, results)."""
+    import copy
+    import dataclasses
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        from visionselector_tpu_torch.core.config import (
+            TextConfig,
+            qwen25vl_3b,
+        )
+        from visionselector_tpu_torch.core.mesh import (
+            init_world,
+            make_mesh,
+            tensor_parallel,
+        )
+        from visionselector_tpu_torch.kernels import attention as A
+        from visionselector_tpu_torch.models.qwen25vl import lm as L
+        from visionselector_tpu_torch.models.qwen25vl import model as M
+        from visionselector_tpu_torch.models.qwen25vl import vit as V
+        from visionselector_tpu_torch.models.qwen25vl.weights import (
+            init_params,
+        )
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_world(rank, world, init_method, "gloo")
+        mesh = make_mesh(1, world, device="cuda", backend="gloo")
+        cfg = qwen25vl_3b()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda", torch.bfloat16)
+        input_ids, pixels, grid = request(cfg)
+        req = dict(input_ids=input_ids, pixel_values=pixels, grid_thw=grid)
+        eng = M.QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda")
+        p = eng._prep_vision(input_ids, pixels, grid, grid, None, None)
+        vb = eng._vision_tensors(p.vb)
+        with torch.no_grad():  # 18(c) sequence parallel
+            ref = V.vit_forward(params.visual, **vb)
+            args = [vb[k] for k in ("pixel_values", "rot_pos_ids",
+                                    "window_seg_ids", "full_seg_ids",
+                                    "reverse_index")]
+            V.vit_forward_sp(params.visual, *args, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp, counts = _counted(lambda: V.vit_forward_sp(
+                params.visual, *args, mesh))
+            torch.cuda.synchronize()
+            sp_s = time.perf_counter() - t0
+        n = p.n
+        diff = (sp[:n].float() - ref[:n].float()).abs().max().item()
+        out["sp"] = dict(rel=diff / ref[:n].float().abs().max().item(),
+                         ulps=bf16_ulp_err(sp[:n], ref[:n]), wall_s=sp_s,
+                         counts=counts, s_pad=int(vb["pixel_values"].shape[0]))
+        del ref, sp
+        tc = dataclasses.replace(TextConfig(), hidden_size=MOE_HIDDEN,
+                                 num_experts=128)  # 18(c) expert parallel
+        layer = L.DecoderLayer(tc, "cuda", torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        with torch.no_grad():
+            for t in layer.parameters():
+                t.normal_(0.0, 0.02, generator=gen)
+            x = torch.randn(1, MOE_ROWS[1], MOE_HIDDEN, generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+            ep = L.moe_mlp_ep(x, layer, tc, mesh)
+            dense = L._moe_mlp(x, layer, tc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            L.moe_mlp_ep(x, layer, tc, mesh)
+            torch.cuda.synchronize()
+            out["ep"] = dict(ulps=bf16_ulp_err(ep, dense),
+                             err=(ep.float() - dense.float()).abs().max()
+                             .item(), wall_s=time.perf_counter() - t0)
+        del layer, x, ep, dense
+        full_bytes = lm_bytes(params.lm)
+        quantized = {}  # 18(b) --quantize: quantized whole, then sharded
+        for spec in QUANT_SPECS:
+            lm_q = copy.deepcopy(params.lm)
+            L.quantize_lm_params(lm_q, *L.parse_quantize_spec(spec))
+            quantized[spec] = L.shard_lm(lm_q, mesh)
+        cfg, params = tensor_parallel(cfg, params, mesh)  # 18(b)
+        torch.cuda.empty_cache()
+        eng = M.QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                             device="cuda")
+        eng.generate(**req, max_new_tokens=2)  # warm-up
+        t0 = time.perf_counter()
+        res, counts = _counted(lambda: eng.generate(
+            **req, max_new_tokens=TP_NEW_TOKENS, eos_token_ids=(-1,)))
+        out["generate"] = dict(
+            tokens=res.tokens, logits=res.logits.cpu().numpy(), counts=counts,
+            wall_s=time.perf_counter() - t0,
+            prefill_s=res.prefill_seconds,
+            selected=res.selected_indices.tolist(),
+            heads=(cfg.text.num_attention_heads,
+                   cfg.text.num_key_value_heads),
+            lm_bytes=(full_bytes, lm_bytes(params.lm)),
+            rank_memory=torch.cuda.max_memory_allocated())
+        spec, counts = _counted(lambda: M.generate_speculative(
+            eng, input_ids, pixels, grid, max_new_tokens=2 * TP_NEW_TOKENS,
+            propose_len=TP_SPEC_M, eos_token_ids=(-1,)))
+        plain = eng.generate(**req, max_new_tokens=2 * TP_NEW_TOKENS,
+                             eos_token_ids=(-1,))
+        out["spec"] = dict(same=spec.tokens == plain.tokens, counts=counts)
+        choices = [np.arange(300, 300 + c) for c in CHOICE_LENS]
+        scores, counts = _counted(lambda: M.run_loglikelihood_choices(
+            eng, input_ids, choices, pixel_values=pixels, grid_thw=grid))
+        out["choices"] = dict(scores=[float(s[0]) for s in scores],
+                              counts=counts)
+        text = dict(input_ids=np.asarray(PROMPT_BEFORE + PROMPT_AFTER,
+                                         np.int64))
+        one_shot = [eng.generate(**r, max_new_tokens=TP_NEW_TOKENS,
+                                 eos_token_ids=(-1,)).tokens
+                    for r in (req, text)]
+        for quant in (None, "int8"):
+            toks, pool = _drive_batcher(eng, [req, text], quant)
+            out[f"batcher_{quant or 'bf16'}"] = dict(
+                tokens=toks, one_shot=one_shot,
+                pool_bytes=pool.k.nbytes + pool.v.nbytes)
+        del eng
+        for spec, lm_q in quantized.items():
+            eng = M.QwenVLEngine(cfg, M.QwenVLParams(
+                params.visual, lm_q, params.scorer), use_selector=True,
+                budget=0.2, device="cuda")
+            res, counts = _counted(lambda: eng.generate(
+                **req, max_new_tokens=TP_NEW_TOKENS, eos_token_ids=(-1,)))
+            out[f"quant_{spec}"] = dict(
+                tokens=res.tokens, logits=res.logits.cpu().numpy(),
+                counts=counts, lm_bytes=lm_bytes(lm_q))
+    except Exception:  # noqa: BLE001 — the parent raises it
+        out["error"] = traceback.format_exc()
+    results.put((rank, out))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def parallel_world(tmp) -> list:
+    """Spawn phase 18's TP_WORLD ranks (``parallel_rank``), wait for their
+    results and stop them."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"file://{os.path.join(tmp, 'tp_rendezvous')}"
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, TP_WORLD, init, results))
+             for r in range(TP_WORLD)]
+    for proc in procs:
+        proc.start()
+    try:
+        got = dict(results.get(timeout=TP_TIMEOUT) for _ in procs)
+    finally:
+        for proc in procs:
+            proc.join(60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    for rank in range(TP_WORLD):
+        if "error" in got[rank]:
+            raise AssertionError(f"phase 18 rank {rank}:\n"
+                                 f"{got[rank]['error']}")
+    return [got[r] for r in range(TP_WORLD)]
+
+
+def parallel_phase(out_dir, tmp):
+    """Phase 18: (a) the W8A8 3B ViT (``w8a8_phase``); (b) the kernels at
+    the tensor-parallel shapes (``tp_kernels``), then the world: the
+    tensor-parallel request's first token equal to the unsharded engine's
+    on the card and its logits within TEACHER_TOL of max |logit| (phase
+    3's rule), the launches of its counted run (per prefill 28 K4 + 4 + 36
+    K1, 36 K5 a decode step, at the local 8 / 1 heads), speculative tokens
+    equal to plain decode's, the choices, the 2-slot batcher's tokens equal
+    to one-shot's on bf16 and int8 pools, the per-rank LM bytes, the
+    request under each ``--quantize`` spec against the unsharded quantized
+    engine's with kernels A and B counted; (c) the kernels at the
+    sequence-parallel shapes (``sp_kernels``), ``moe_mlp_ep`` against
+    ``_moe_mlp`` and ``vit_forward_sp`` against ``vit_forward``, each
+    within ULP_LIMIT bf16 ulps. Raises if any check failed; returns
+    (launches, kernels line entries)."""
+    import copy
+    import gc
+
+    import torch
+
+    from visionselector_tpu_torch.core.config import qwen25vl_3b
+    from visionselector_tpu_torch.models.qwen25vl.lm import (
+        parse_quantize_spec,
+        quantize_lm_params,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.model import (
+        QwenVLEngine,
+        QwenVLParams,
+    )
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = qwen25vl_3b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda", torch.bfloat16)
+    input_ids, pixels, grid = request(cfg)
+    req = dict(input_ids=input_ids, pixel_values=pixels, grid_thw=grid)
+    engine = QwenVLEngine(cfg, params, use_selector=True, budget=0.2,
+                          device="cuda")
+    checks, secs = {}, {}
+    t0 = time.perf_counter()
+    w8 = w8a8_phase(cfg, params, engine, req, out_dir, checks)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = tp_kernels(cfg)
+    kernels.update(sp_kernels(cfg, engine, req))
+    secs["b, c kernels"] = time.perf_counter() - t0
+    ref = engine.generate(**req, max_new_tokens=TP_NEW_TOKENS,
+                          eos_token_ids=(-1,))
+    quant_ref = {}  # the unsharded engine under each --quantize spec
+    for spec in QUANT_SPECS:
+        lm_q = copy.deepcopy(params.lm)
+        quantize_lm_params(lm_q, *parse_quantize_spec(spec))
+        quant_ref[spec] = QwenVLEngine(
+            cfg, QwenVLParams(params.visual, lm_q, params.scorer),
+            use_selector=True, budget=0.2, device="cuda").generate(
+                **req, max_new_tokens=TP_NEW_TOKENS, eos_token_ids=(-1,))
+        del lm_q
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel_world(tmp)
+    secs["b, c world"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    g = r0["generate"]
+    lg, want = torch.from_numpy(g["logits"]), ref.logits.float().cpu()
+    scale = want.abs().max().item()
+    err = (lg - want).abs().max().item()
+    print(f"[tp] {TP_WORLD} ranks on one card over gloo, local heads "
+          f"{g['heads']}: tokens {g['tokens']} (unsharded {ref.tokens}); "
+          f"first-token logits max_abs_diff {err!r} of max |logit| "
+          f"{scale!r} (limit {TEACHER_TOL} of it); selected equal "
+          f"{g['selected'] == ref.selected_indices.tolist()}; request wall "
+          f"{g['wall_s']!r} s, prefill {g['prefill_s']!r} s (ranks share "
+          f"one card: not a speed); LM bytes a rank {g['lm_bytes'][1]} of "
+          f"{g['lm_bytes'][0]} ({g['lm_bytes'][1] / g['lm_bytes'][0]!r}); "
+          f"peak memory a rank {g['rank_memory']}; launches {g['counts']}",
+          flush=True)
+    n_layers = cfg.text.num_hidden_layers
+    depth, n_full = cfg.vision.depth, len(cfg.vision.fullatt_block_indexes)
+    steps = ov_steps(ref, TP_NEW_TOKENS)
+    checks["TP: first token = unsharded"] = g["tokens"][0] == ref.tokens[0]
+    checks["TP: logits within TEACHER_TOL"] = err <= TEACHER_TOL * scale
+    checks["TP: every rank the same tokens"] = all(
+        r["generate"]["tokens"] == g["tokens"] for r in ranks)
+    c = g["counts"]
+    checks["TP: launches 28 K4 + 40 K1 (36 causal) + 36 K5 a step"] = (
+        c["diag_attn_fwd"] == depth - n_full
+        and c["flash_varlen_fwd"] == n_full + n_layers
+        and c["causal"] == n_layers
+        and c["decode_blocked_fwd"] == n_layers * steps)
+    checks["TP: LM bytes about half"] = (
+        g["lm_bytes"][1] < 0.55 * g["lm_bytes"][0])
+    s = r0["spec"]
+    print(f"[tp] speculative m={TP_SPEC_M}: tokens equal plain decode's "
+          f"{s['same']}; K5 launches by rows {s['counts']['by_rows']}",
+          flush=True)
+    checks["TP: speculative = plain"] = s["same"]
+    ch = r0["choices"]
+    print(f"[tp] choices {CHOICE_LENS}: log-likelihoods {ch['scores']}; K5 "
+          f"launches by rows {ch['counts']['by_rows']}", flush=True)
+    for quant in ("bf16", "int8"):
+        b = r0[f"batcher_{quant}"]
+        print(f"[tp] 2-slot batcher, {quant} pool ({b['pool_bytes']} bytes "
+              f"a rank): tokens {b['tokens']}, one-shot {b['one_shot']}",
+              flush=True)
+        checks[f"TP batcher {quant}: first tokens = one-shot"] = all(
+            t[0] == o[0] for t, o in zip(b["tokens"], b["one_shot"]))
+        if quant == "bf16":
+            checks["TP batcher bf16: tokens = one-shot"] = (
+                b["tokens"] == b["one_shot"])
+    per = 7 * n_layers  # kernel A per decode step, kernel B per prefill
+    for spec in QUANT_SPECS:
+        qr, want_q = r0[f"quant_{spec}"], quant_ref[spec]
+        lq = torch.from_numpy(qr["logits"])
+        wl = want_q.logits.float().cpu()
+        q_err, q_scale = (lq - wl).abs().max().item(), wl.abs().max().item()
+        qc = qr["counts"]
+        q_steps = qc["decode_blocked_fwd"] // n_layers
+        print(f"[tp] --quantize {spec} over {TP_WORLD} ranks: tokens "
+              f"{qr['tokens']} (unsharded {want_q.tokens}); first-token "
+              f"logits max_abs_diff {q_err!r} of max |logit| {q_scale!r} "
+              f"(limit {TEACHER_TOL} of it); LM bytes a rank "
+              f"{qr['lm_bytes']}; kernel A launches {qc['wq']} ({q_steps} "
+              f"decode steps), kernel B {qc['wq_dequant']}", flush=True)
+        checks[f"TP {spec}: first token = unsharded"] = (
+            qr["tokens"][0] == want_q.tokens[0])
+        checks[f"TP {spec}: logits within TEACHER_TOL"] = (
+            q_err <= TEACHER_TOL * q_scale)
+        checks[f"TP {spec}: every rank the same tokens"] = all(
+            r[f"quant_{spec}"]["tokens"] == qr["tokens"] for r in ranks)
+        checks[f"TP {spec}: kernel A {per} a step, kernel B {per} a "
+               f"prefill"] = (qc["wq"] == per * q_steps
+                              and q_steps == len(qr["tokens"]) - 1
+                              and qc["wq_dequant"] == per)
+    sp, ep = r0["sp"], r0["ep"]
+    print(f"[sp] vit_forward_sp over {TP_WORLD} ranks, S={sp['s_pad']}: "
+          f"max |diff| / max |value| against vit_forward {sp['rel']!r}, "
+          f"{sp['ulps']!r} bf16 ulps (limit {ULP_LIMIT}); wall "
+          f"{sp['wall_s']!r} s; launches {sp['counts']}", flush=True)
+    print(f"[ep] moe_mlp_ep over {TP_WORLD} ranks (64 experts each), "
+          f"{MOE_ROWS[1]} rows: {ep['ulps']!r} bf16 ulps of _moe_mlp (limit "
+          f"{ULP_LIMIT}), max_abs_err {ep['err']!r}; wall {ep['wall_s']!r} "
+          f"s", flush=True)
+    checks["SP: vit_forward_sp = vit_forward"] = sp["ulps"] <= ULP_LIMIT
+    checks["SP: 28 K4 + 4 K1 a rank"] = (
+        sp["counts"]["diag_attn_fwd"] == depth - n_full
+        and sp["counts"]["flash_varlen_fwd"] == n_full)
+    checks["EP: moe_mlp_ep = _moe_mlp"] = ep["ulps"] <= ULP_LIMIT
+    launches = {
+        "flash_varlen_fwd_tp2": c["causal"],
+        "decode_blocked_fwd_tp2": c["by_rows"].get(1, 0),
+        f"decode_blocked_fwd_tp2_t_c{TP_SPEC_M + 1}":
+            s["counts"]["by_rows"].get(TP_SPEC_M + 1, 0),
+        "decode_blocked_fwd_tp2_t_c32": ch["counts"]["by_rows"].get(32, 0),
+        "wq_dequant_fwd_tp2": r0["quant_int8"]["counts"]["wq_dequant"],
+        **{WQ_ENTRY[spec] + "_tp2": r0[f"quant_{spec}"]["counts"]["wq"]
+           for spec in QUANT_SPECS},
+        "flash_varlen_fwd_sp2": sp["counts"]["flash_varlen_fwd"],
+        "diag_attn_fwd_sp2": sp["counts"]["diag_attn_fwd"],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[parallel] checks: {checks}", flush=True)
+    print(f"[parallel] phase seconds {time.perf_counter() - t_phase!r}; "
+          f"parts {secs}; W8A8 {w8}", flush=True)
+    if bad:
+        raise AssertionError(f"W8A8 / parallel phase failed: {bad}")
+    return launches, kernels
+
+
 def main() -> int:
     import torch
 
@@ -9108,6 +9862,12 @@ def main() -> int:
         seven_launches, seven_kernels = seven_b_phase(out_dir, tmp)
         launches.update(seven_launches)
         kernels.update(seven_kernels)
+        # The W8A8 ViT and the parallel paths (phase 18): the kernels at
+        # the tensor-parallel shapes counted in its world's rank 0 (zeroed
+        # just before each counted run, read just after)
+        par_launches, par_kernels = parallel_phase(out_dir, tmp)
+        launches.update(par_launches)
+        kernels.update(par_kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1664,3 +1664,66 @@ def test_decode_n_rep_7(dev, quant, t_c):
     assert _err(got, want) <= ULP_LIMIT
     assert _err(A.decode_blocked_fwd(q, k, v, base + 1, None, ks, vs),
                 want) > ULP_LIMIT
+
+
+# Tensor-parallel ranks' local heads (phase 18): the 3B at tp 2 (8 query
+# heads on 1 kv head, n_rep 8), the 7B at tp 2 (14 / 2) and tp 4 (7 / 1).
+
+
+@pytest.mark.parametrize("hq, hkv", [(8, 1), (14, 2), (7, 1)])
+@pytest.mark.parametrize("t", [384, 1664])
+def test_flash_causal_tp_local_heads(dev, hq, hkv, t):
+    """K1 causal at a tensor-parallel rank's heads, D = 128, the 3B / 7B
+    prefill's valid prefixes; kv heads rolled by one fail where there are
+    two."""
+    gen = torch.Generator(device=dev).manual_seed(1100 + t + hq)
+    valid = {384: 294, 1664: 1302}[t]
+    q, k, v, seg = _prefix_inputs(gen, 2, t, hq, hkv, 128, [valid, t // 3])
+    got = A.flash_varlen_fwd(q, k, v, seg, seg, causal=True)
+    want = A.flash_plain(q, k, v, seg, seg, causal=True)
+    assert _err(got, want) <= ULP_LIMIT
+    assert (got[seg == 0] == 0).all()
+    if hkv > 1:
+        rolled = A.flash_varlen_fwd(q, k.roll(1, 2), v.roll(1, 2), seg, seg,
+                                    causal=True)
+        assert _err(rolled, want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t_c", [1, 8, 32])
+def test_decode_one_kv_head_n_rep_8(dev, quant, t_c):
+    """K5 at the 3B's tp-2 heads (8 query heads on its one kv head: one
+    cluster per slot), bf16 and int8, bases at tile edges; the in-chunk
+    causal limit off by one fails."""
+    t = 2048
+    gen = torch.Generator(device=dev).manual_seed(1200 + 10 * t_c + quant)
+    q, k, v, ks, vs = _decode_inputs(gen, 6, t_c, 8, 1, t, 128, quant)
+    base = torch.tensor([0, 63, 64, 65, 1302, t - t_c - 1], device=dev)
+    got = A.decode_blocked_fwd(q, k, v, base, None, ks, vs)
+    want = A.decode_blocked_plain(q, k, v, base, None, ks, vs)
+    assert _err(got, want) <= ULP_LIMIT
+    assert _err(A.decode_blocked_fwd(q, k, v, base + 1, None, ks, vs),
+                want) > ULP_LIMIT
+
+
+@pytest.mark.parametrize("rows", [17, 64, 6144])
+def test_w8a8_int_mm_padded_is_exact(dev, rows):
+    """The W8A8 ViT's padded ``torch._int_mm`` at the 3B MLP's widths
+    (3,420 padded to 3,424, column-major stored kernels) equals the plain
+    int product of the unpadded operands (fp64: exact below 2^53)."""
+    from visionselector_tpu_torch.models.qwen25vl import vit as V
+
+    gen = torch.Generator(device=dev).manual_seed(1300 + rows)
+    for din, dout in ((1280, 3420), (3420, 1280)):
+        q = torch.randint(-127, 128, (din, dout), generator=gen, device=dev,
+                          dtype=torch.int8)
+        blk = torch.nn.Module()
+        V.register_vit_quantized(blk, "k", q, torch.ones(dout, device=dev))
+        a = torch.randint(-127, 128, (rows, din), generator=gen, device=dev,
+                          dtype=torch.int8)
+        n0 = V.INT_MM_LAUNCHES
+        got = V.int8_matmul(a, blk.k)
+        assert V.INT_MM_LAUNCHES == n0 + 1
+        assert got.shape == (rows, blk.k.shape[1]) and not got[:, dout:].any()
+        assert torch.equal(got[:, :dout].long(),
+                           (a.double() @ q.double()).long())

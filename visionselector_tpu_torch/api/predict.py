@@ -73,29 +73,40 @@ def load_model(family: str, model_path, device: str, seed: int = 0,
     return cfg, apply_weight_quantization(params, quantize)
 
 
-def _load_weights(family: str, model_path, device: str, seed: int):
-    import torch
-
+def load_config(family: str, model_path):
+    """The config ``load_model`` would load (the HF directory's, or the
+    family's tiny one), without the weights."""
     if family == "llava_ov15":
         from visionselector_tpu_torch.core.config import llava_ov_tiny as tiny
-        from visionselector_tpu_torch.models.llava_ov15.model import (
-            init_ov_params as init,
-        )
         from visionselector_tpu_torch.models.llava_ov15.weights import (
-            load_ov_checkpoint as load,
             ov_config_from_hf as config_from,
         )
     else:
         from visionselector_tpu_torch.core.config import qwen25vl_tiny as tiny
         from visionselector_tpu_torch.models.qwen25vl.weights import (
             config_from_hf as config_from,
+        )
+    return config_from(model_path) if model_path else tiny()
+
+
+def _load_weights(family: str, model_path, device: str, seed: int):
+    import torch
+
+    if family == "llava_ov15":
+        from visionselector_tpu_torch.models.llava_ov15.model import (
+            init_ov_params as init,
+        )
+        from visionselector_tpu_torch.models.llava_ov15.weights import (
+            load_ov_checkpoint as load,
+        )
+    else:
+        from visionselector_tpu_torch.models.qwen25vl.weights import (
             init_params as init,
             load_hf_checkpoint as load,
         )
+    cfg = load_config(family, model_path)
     if model_path:
-        cfg = config_from(model_path)
         return cfg, load(model_path, cfg, device)
-    cfg = tiny()
     gen = torch.Generator(device=device).manual_seed(seed)
     return cfg, init(cfg, gen, device,
                      torch.bfloat16 if device == "cuda" else None)

@@ -41,8 +41,9 @@ kernels right after the weights load (``lm.apply_weight_quantization``):
 decode steps and the batcher's slots then run the weight-only GEMM kernel
 on the card.
 
-Not ported yet, raising NotImplementedError with its ROADMAP §1 item:
-``--tp`` (11).
+``--tp N`` (N > 1) serves one engine over N ranks with its decoder
+sharded Megatron-style (``api/serve_tp.py``: this process is rank 0 and
+starts the others; on one card the ranks share it over gloo).
 ``--continuous-auto-window`` raises ValueError: the decode kernel already
 reads only each slot's live prefix (ROADMAP "Do not port").
 """
@@ -97,16 +98,18 @@ class MicroBatcher:
     depend on batch composition)."""
 
     def __init__(self, engine, lock, max_batch: int = 8,
-                 window_ms: float = 4.0):
+                 window_ms: float = 4.0, tp=None, worker: bool = True):
         self.engine = engine
         self.lock = lock
         self.max_batch = max_batch
         self.window_s = window_ms / 1e3
+        self.tp = tp  # rank 0's end of serve_tp.TPLink, or None
         self.queue: list = []
         self.cv = threading.Condition()
-        self._running = True
-        self.worker = threading.Thread(target=self._loop, daemon=True)
-        self.worker.start()
+        self._running = worker
+        if worker:  # a follower rank replays run_batch instead
+            self.worker = threading.Thread(target=self._loop, daemon=True)
+            self.worker.start()
 
     def submit(self, gen_kwargs: dict, max_new_tokens: int,
                temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
@@ -129,7 +132,23 @@ class MicroBatcher:
         with self.cv:
             self._running = False
             self.cv.notify_all()
-        self.worker.join(timeout=10)
+        if hasattr(self, "worker"):
+            self.worker.join(timeout=10)
+
+    def run_batch(self, kws: list, mnt: int, samp: tuple):
+        """The engine call of one batch (with the engine lock held): one
+        ``generate``, or one ``generate_batch`` of several requests.
+        Announced to tensor-parallel followers first."""
+        if self.tp is not None:
+            self.tp.announce("micro", "run_batch", (kws, mnt, samp), False)
+        temp, tp, seed, tk, rp = samp
+        if len(kws) == 1:
+            return [self.engine.generate(
+                **kws[0], max_new_tokens=mnt, temperature=temp, top_p=tp,
+                seed=seed, top_k=tk, repetition_penalty=rp)]
+        return self.engine.generate_batch(
+            kws, max_new_tokens=mnt, temperature=temp, top_p=tp, seed=seed,
+            top_k=tk, repetition_penalty=rp)
 
     @staticmethod
     def _key(b):
@@ -158,19 +177,10 @@ class MicroBatcher:
                 for b in batch:
                     self.queue.remove(b)
             try:
-                temp, tp, seed, tk, rp = batch[0]["samp"]
-                mnt = batch[0]["mnt"]
                 with self.lock:
-                    if len(batch) == 1:
-                        results = [self.engine.generate(
-                            **batch[0]["kw"], max_new_tokens=mnt,
-                            temperature=temp, top_p=tp, seed=seed,
-                            top_k=tk, repetition_penalty=rp)]
-                    else:
-                        results = self.engine.generate_batch(
-                            [b["kw"] for b in batch], max_new_tokens=mnt,
-                            temperature=temp, top_p=tp, seed=seed,
-                            top_k=tk, repetition_penalty=rp)
+                    results = self.run_batch([b["kw"] for b in batch],
+                                             batch[0]["mnt"],
+                                             batch[0]["samp"])
                 for b, r in zip(batch, results):
                     b["result"] = r
             except Exception as e:  # noqa: BLE001 — report to all waiters
@@ -198,12 +208,17 @@ class Server:
                  continuous_kv_quant: str | None = None,
                  continuous_prefill_chunk: int = 0,
                  continuous_prefill_vit_segments: int = 0,
-                 decode_attn: str | None = None, speculative: int = 0):
+                 decode_attn: str | None = None, speculative: int = 0,
+                 tp=None, follower: bool = False):
         from visionselector_tpu_torch.models.qwen25vl.model import (
             PrefixCacheStore,
         )
 
         self.engine = engine
+        # tensor parallelism: rank 0's end of serve_tp.TPLink (the
+        # operations below are announced to the followers), or None;
+        # a follower rank's Server starts no worker threads
+        self.tp = tp
         self.tokenizer = tokenizer
         self.method = method
         self.budget = budget
@@ -234,20 +249,25 @@ class Server:
                 kv_quant=continuous_kv_quant,
                 prefill_chunk=continuous_prefill_chunk,
                 prefill_vit_segments=continuous_prefill_vit_segments,
-                decode_attn=decode_attn)
+                decode_attn=decode_attn, replay=tp, worker=not follower)
         else:
             self.batcher = (MicroBatcher(engine, self.lock, micro_batch,
-                                         batch_window_ms)
+                                         batch_window_ms, tp=tp,
+                                         worker=not follower)
                             if micro_batch > 1 else None)
         # multi-turn chat sessions: the KV cache kept across turns
         self.sessions: dict = {}
         self.max_sessions = 8
 
     def close(self):
-        """Stop the batcher's worker thread (tests and embedding; the
-        serving process never calls it: its daemon threads end with it)."""
+        """Stop the batcher's worker thread and, under tensor parallelism,
+        the follower ranks (tests and embedding; the serving process never
+        calls it: its daemon threads end with it)."""
         if self.batcher is not None:
             self.batcher.shutdown()
+        if self.tp is not None:
+            self.tp.close()
+            self.tp = None
 
     def _prompt_ids(self, prompt: str):
         if self.tokenizer is not None:
@@ -269,7 +289,6 @@ class Server:
                  session: str | None = None, temperature: float = 0.0,
                  top_p: float = 1.0, seed: int = 0, top_k: int = 0,
                  repetition_penalty: float = 1.0) -> dict:
-        from visionselector_tpu_torch.models.qwen25vl import model as M
         from visionselector_tpu_torch.preprocess.image import preprocess_image
         from visionselector_tpu_torch.preprocess.rope import (
             expand_vision_tokens,
@@ -280,26 +299,13 @@ class Server:
             # membership is decided under the lock: another thread's first
             # turn may evict this session between an unlocked check and
             # the read
+            turn = np.asarray(self._turn_ids(prompt), np.int64)
             with self.lock:
-                existing = self.sessions.pop(session, None)
-                if existing is not None:  # most recently used
-                    self.sessions[session] = existing
-            if existing is not None:
-                if image_b64:
-                    raise ValueError(
-                        "chat sessions accept an image only on the first "
-                        "turn (the cached KV already encodes it); start a "
-                        "new session to switch images")
-                if repetition_penalty != 1.0:
-                    raise ValueError(SESSION_PENALTY_REFUSAL)
-                turn = np.asarray(self._turn_ids(prompt), np.int64)
-                with self.lock:
-                    res, sess = M.continue_chat_session(
-                        self.engine, existing, turn,
-                        max_new_tokens=max_new_tokens,
-                        temperature=temperature, top_p=top_p, seed=seed,
-                        top_k=top_k)
-                    self.sessions[session] = sess
+                res = self._run("session_turn", session, turn,
+                                bool(image_b64), max_new_tokens,
+                                temperature, top_p, seed, top_k,
+                                repetition_penalty)
+            if res is not None:
                 return self._result_dict(res, session=session)
         before, after = self._prompt_ids(prompt)
         if image_b64:
@@ -322,13 +328,9 @@ class Server:
             if repetition_penalty != 1.0:
                 raise ValueError(SESSION_PENALTY_REFUSAL)
             with self.lock:
-                res, sess = M.start_chat_session(
-                    self.engine, input_ids, pixels, grid,
-                    max_new_tokens=max_new_tokens, temperature=temperature,
-                    top_p=top_p, seed=seed, top_k=top_k)
-                if len(self.sessions) >= self.max_sessions:
-                    self.sessions.pop(next(iter(self.sessions)))
-                self.sessions[session] = sess
+                res = self._run("start_session", session, input_ids, pixels,
+                                grid, max_new_tokens, temperature, top_p,
+                                seed, top_k)
             return self._result_dict(res, session=session)
         sampling = dict(temperature=temperature, top_p=top_p, seed=seed,
                         top_k=top_k, repetition_penalty=repetition_penalty)
@@ -336,23 +338,91 @@ class Server:
             res = self.batcher.submit(
                 dict(input_ids=input_ids, pixel_values=pixels,
                      grid_thw=grid), max_new_tokens, **sampling)
-        elif self.speculative > 0 and on_token_chunk is None:
-            with self.lock:
-                res = M.generate_speculative(
-                    self.engine, input_ids, pixels, grid,
-                    max_new_tokens=max_new_tokens,
-                    propose_len=self.speculative, **sampling)
-        elif self.prefix_store is not None and on_token_chunk is None:
-            with self.lock:
-                res = M.generate_prefix_cached(
-                    self.engine, self.prefix_store, input_ids, pixels, grid,
-                    max_new_tokens=max_new_tokens, **sampling)
         else:
+            op = ("speculative" if self.speculative > 0
+                  and on_token_chunk is None else "prefix_cached"
+                  if self.prefix_store is not None
+                  and on_token_chunk is None else "generate")
             with self.lock:
-                res = self.engine.generate(
-                    input_ids, pixels, grid, max_new_tokens=max_new_tokens,
-                    on_token_chunk=on_token_chunk, **sampling)
+                res = self._run(op, input_ids, pixels, grid, max_new_tokens,
+                                sampling, on_token_chunk=on_token_chunk)
         return self._result_dict(res)
+
+    # -- engine operations ----------------------------------------------
+    # Every engine call of a request runs as one of these operations,
+    # with self.lock held. Under tensor parallelism (``tp``, rank 0's end
+    # of ``serve_tp.TPLink``) each is announced to the follower ranks
+    # first, which run the same operation on their own Server in the same
+    # order (``serve_tp.follow``); its arguments are host values only,
+    # token ids included (stub ids hash words, which differs between
+    # processes).
+
+    def _run(self, name: str, *args, on_token_chunk=None):
+        if self.tp is not None:
+            self.tp.announce("server", name, args, on_token_chunk is not None)
+        return getattr(self, "_op_" + name)(*args,
+                                            on_token_chunk=on_token_chunk)
+
+    def _op_session_turn(self, session, turn, has_image, max_new_tokens,
+                         temperature, top_p, seed, top_k, repetition_penalty,
+                         on_token_chunk=None):
+        """A follow-up turn (ids ``turn``) of a live session, or None when
+        there is no such session (the request then starts one)."""
+        from visionselector_tpu_torch.models.qwen25vl import model as M
+
+        existing = self.sessions.pop(session, None)
+        if existing is None:
+            return None
+        self.sessions[session] = existing  # most recently used
+        if has_image:
+            raise ValueError(
+                "chat sessions accept an image only on the first "
+                "turn (the cached KV already encodes it); start a "
+                "new session to switch images")
+        if repetition_penalty != 1.0:
+            raise ValueError(SESSION_PENALTY_REFUSAL)
+        res, sess = M.continue_chat_session(
+            self.engine, existing, turn, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_p=top_p, seed=seed, top_k=top_k)
+        self.sessions[session] = sess
+        return res
+
+    def _op_start_session(self, session, input_ids, pixels, grid,
+                          max_new_tokens, temperature, top_p, seed, top_k,
+                          on_token_chunk=None):
+        from visionselector_tpu_torch.models.qwen25vl import model as M
+
+        res, sess = M.start_chat_session(
+            self.engine, input_ids, pixels, grid,
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            top_p=top_p, seed=seed, top_k=top_k)
+        if len(self.sessions) >= self.max_sessions:
+            self.sessions.pop(next(iter(self.sessions)))
+        self.sessions[session] = sess
+        return res
+
+    def _op_speculative(self, input_ids, pixels, grid, max_new_tokens,
+                        sampling, on_token_chunk=None):
+        from visionselector_tpu_torch.models.qwen25vl import model as M
+
+        return M.generate_speculative(
+            self.engine, input_ids, pixels, grid,
+            max_new_tokens=max_new_tokens, propose_len=self.speculative,
+            **sampling)
+
+    def _op_prefix_cached(self, input_ids, pixels, grid, max_new_tokens,
+                          sampling, on_token_chunk=None):
+        from visionselector_tpu_torch.models.qwen25vl import model as M
+
+        return M.generate_prefix_cached(
+            self.engine, self.prefix_store, input_ids, pixels, grid,
+            max_new_tokens=max_new_tokens, **sampling)
+
+    def _op_generate(self, input_ids, pixels, grid, max_new_tokens,
+                     sampling, on_token_chunk=None):
+        return self.engine.generate(
+            input_ids, pixels, grid, max_new_tokens=max_new_tokens,
+            on_token_chunk=on_token_chunk, **sampling)
 
     def metrics_text(self) -> str:
         """Prometheus text exposition of the serving counters."""
@@ -714,13 +784,6 @@ def _refuse_unported(args) -> None:
         AUTO_WINDOW_REFUSAL,
     )
 
-    refused = [
-        (int(getattr(args, "tp", 0) or 0) > 1, "--tp", 11),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP §1 item {item})")
     if getattr(args, "continuous_auto_window", False):
         raise ValueError(f"--continuous-auto-window: {AUTO_WINDOW_REFUSAL}")
 
@@ -729,7 +792,9 @@ def build_server(args) -> ThreadingHTTPServer:
     """The HTTP server for ``args`` (``main``'s flags; missing ones take
     their defaults), bound but not yet serving. ``httpd.server_obj`` is the
     ``Server``: tests call ``httpd.shutdown()``, then
-    ``httpd.server_obj.close()`` to stop its batcher."""
+    ``httpd.server_obj.close()`` to stop its batcher (and, under ``--tp``,
+    its follower ranks). With ``--tp N`` (N > 1) this process is rank 0 of
+    N and starts the other ranks itself (``serve_tp.start``)."""
     import torch
 
     from visionselector_tpu_torch.api.predict import (
@@ -745,18 +810,38 @@ def build_server(args) -> ThreadingHTTPServer:
                          "--device cpu to serve on the CPU)")
     family = getattr(args, "family", "qwen25vl")
     model_path = getattr(args, "model_path", None)
-    cfg, params = load_model(family, model_path, device,
-                             quantize=getattr(args, "quantize", None))
-    tokenizer = load_tokenizer(model_path) if model_path else None
     method = getattr(args, "method", "selector")
     budget = getattr(args, "budget", 0.2)
-    engine = make_engine(family, cfg, params, method, budget, device)
+    link = None
+    if int(getattr(args, "tp", 0) or 0) > 1:
+        from visionselector_tpu_torch.api import serve_tp
+
+        link, engine = serve_tp.start(build_parser().parse_args(
+            [], namespace=argparse.Namespace(**vars(args))))
+    else:
+        cfg, params = load_model(family, model_path, device,
+                                 quantize=getattr(args, "quantize", None))
+        engine = make_engine(family, cfg, params, method, budget, device)
+    tokenizer = load_tokenizer(model_path) if model_path else None
+    srv = server_for(args, engine, tokenizer, tp=link)
+    httpd = ThreadingHTTPServer((getattr(args, "host", "127.0.0.1"),
+                                 getattr(args, "port", 8000)),
+                                make_handler(srv))
+    httpd.server_obj = srv
+    return httpd
+
+
+def server_for(args, engine, tokenizer, tp=None,
+               follower: bool = False) -> Server:
+    """The ``Server`` over ``engine`` that ``args`` (``main``'s flags)
+    describe; a tensor-parallel follower rank's has no worker threads."""
     # the reference's "blocked" decode attention is the port's decode
     # kernel (the default); its dense "xla" one is the plain path
     decode_attn = ("plain" if getattr(args, "decode_attn", None) == "xla"
                    else None)
-    srv = Server(
-        engine, tokenizer, method, budget,
+    return Server(
+        engine, tokenizer, getattr(args, "method", "selector"),
+        getattr(args, "budget", 0.2),
         micro_batch=getattr(args, "micro_batch", 1),
         batch_window_ms=getattr(args, "batch_window_ms", 4.0),
         prefix_cache=getattr(args, "prefix_cache", 0),
@@ -770,12 +855,8 @@ def build_server(args) -> ThreadingHTTPServer:
                                          0),
         continuous_prefill_vit_segments=getattr(
             args, "continuous_prefill_vit_segments", 0),
-        decode_attn=decode_attn, speculative=getattr(args, "speculative", 0))
-    httpd = ThreadingHTTPServer((getattr(args, "host", "127.0.0.1"),
-                                 getattr(args, "port", 8000)),
-                                make_handler(srv))
-    httpd.server_obj = srv
-    return httpd
+        decode_attn=decode_attn, speculative=getattr(args, "speculative", 0),
+        tp=tp, follower=follower)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -832,7 +913,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --continuous-prefill-chunk: run each "
                         "admission's vision tower in N block groups too")
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel serving (not ported)")
+                   help="tensor-parallel serving over N ranks (N > 1): "
+                        "this process is rank 0 and starts the others; "
+                        "the decoder is sharded, the vision tower and the "
+                        "scorer replicated (api/serve_tp.py)")
     p.add_argument("--continuous-auto-window", action="store_true",
                    help="not ported: the decode kernel reads only each "
                         "slot's live prefix")

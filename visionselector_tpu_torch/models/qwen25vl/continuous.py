@@ -272,7 +272,8 @@ class ContinuousBatcher:
                  prefill_chunk: int = 0, prefill_vit_segments: int = 0,
                  decode_attn: str | None = None,
                  auto_window: bool = False,
-                 kv_quant: Optional[str] = None):
+                 kv_quant: Optional[str] = None,
+                 replay=None, worker: bool = True):
         if auto_window:
             raise ValueError(AUTO_WINDOW_REFUSAL)
         if speculative < 0 or not 0 < ngram < SPEC_WINDOW:
@@ -324,9 +325,15 @@ class ContinuousBatcher:
                           spec_steps=0, spec_proposed=0, spec_accepted=0,
                           spec_tokens=0, int4_plain_decode_calls=0)
         self._last_decode_t = None
-        self._running = True
+        # tensor parallelism: rank 0's end of serve_tp.TPLink (every
+        # engine operation below is announced to the follower ranks), or
+        # None; a follower rank's batcher runs no worker thread: it
+        # replays rank 0's operations (``serve_tp.follow``)
+        self.replay = replay
+        self._running = worker
         self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        if worker:
+            self._thread.start()
 
     # -- public API ------------------------------------------------------
 
@@ -365,7 +372,8 @@ class ContinuousBatcher:
         with self.cv:
             self._running = False
             self.cv.notify_all()
-        self._thread.join(timeout=30)
+        if self._thread.is_alive():
+            self._thread.join(timeout=30)
 
     # -- worker ----------------------------------------------------------
 
@@ -392,7 +400,7 @@ class ContinuousBatcher:
             cfg, self.n_slots, self.t_max, self.device, proto_cache.k.dtype,
             quant=self.kv_quant or False)
 
-    def _admit(self, item, slot_idx):
+    def _op_admit(self, item, slot_idx):
         """One-shot admission prefill, then slot install. Through the
         prefix store when there is one, except for penalized requests: its
         reuse path does not give the prefill's last-row logits that the
@@ -672,7 +680,7 @@ class ContinuousBatcher:
             for item, idx in pending:
                 try:
                     with self.engine_lock:
-                        self._admit(item, idx)
+                        self._op("admit", item, idx)
                 except Exception as e:  # noqa: BLE001 — report to waiter
                     item["error"] = e
                     item["done"].set()
@@ -680,32 +688,18 @@ class ContinuousBatcher:
                 item, idx = start_chunked
                 try:
                     with self.engine_lock:
-                        job = self.engine.start_chunked_prefill(
-                            **item["request"], max_new_tokens=item["max_new"],
-                            eos_token_ids=item["eos"],
-                            prefill_chunk=self.prefill_chunk,
-                            vit_segments=self.prefill_vit_segments)
-                        if job is None:  # not eligible after all
-                            self._admit(item, idx)
-                        else:
-                            self._admitting = (job, item, idx)
+                        self._op("start_chunked", item, idx)
                 except Exception as e:  # noqa: BLE001 — report to waiter
                     item["error"] = e
                     item["done"].set()
             if self._admitting is not None:
                 # one step of the segmented admission per iteration; live
                 # slots get their decode chunk in between
-                job, item, idx = self._admitting
+                item = self._admitting[1]
                 try:
                     with self.engine_lock:
-                        done = job.step()
-                        self.stats["prefill_chunks"] += 1
-                        if done:
-                            self._admitting = None
-                            self._install(job.finish(), item, idx)
-                            self.stats["chunked_admissions"] += 1
+                        self._op("admission_step")
                 except Exception as e:  # noqa: BLE001 — report to waiter
-                    self._admitting = None
                     item["error"] = e
                     item["done"].set()
             if not any(self.live):
@@ -713,22 +707,76 @@ class ContinuousBatcher:
                 continue
             try:
                 with self.engine_lock:
-                    int4_0 = A.INT4_DECODE_CALLS
-                    if self.speculative > 0:
-                        out = self._spec_dispatch()
-                    else:
-                        toks = self._dispatch()
-                    self.stats["int4_plain_decode_calls"] += (
-                        A.INT4_DECODE_CALLS - int4_0)
+                    self._op("dispatch")
             except Exception as e:  # noqa: BLE001 — fail fast, not hang
                 # a failed dispatch poisons the shared pool: wake every
                 # waiter with the error rather than leave them hanging
                 self._fail_all(e)
                 return
-            self.stats["chunks"] += 1
-            self._mark_decode()
-            if self.speculative > 0:
-                self.stats["spec_steps"] += self.chunk
-                self._spec_harvest(*out)
-            else:
-                self._harvest(toks)
+
+    # -- engine operations (with the engine lock held) -----------------
+
+    def _op(self, name: str, *args):
+        """Run engine operation ``name``, announced first to the follower
+        ranks under tensor parallelism (requests go as their host fields:
+        ``wire_item``)."""
+        if self.replay is not None:
+            self.replay.announce(
+                "batcher", name,
+                tuple(wire_item(a) if isinstance(a, dict) else a
+                      for a in args), False)
+        return getattr(self, "_op_" + name)(*args)
+
+    def _op_start_chunked(self, item, idx):
+        """Start a segmented admission (one-shot if the engine declines)."""
+        job = self.engine.start_chunked_prefill(
+            **item["request"], max_new_tokens=item["max_new"],
+            eos_token_ids=item["eos"], prefill_chunk=self.prefill_chunk,
+            vit_segments=self.prefill_vit_segments)
+        if job is None:  # not eligible after all
+            self._op_admit(item, idx)
+        else:
+            self._admitting = (job, item, idx)
+
+    def _op_admission_step(self):
+        """One step of the segmented admission; its slot install after
+        the last."""
+        job, item, idx = self._admitting
+        try:
+            done = job.step()
+            self.stats["prefill_chunks"] += 1
+            if done:
+                self._admitting = None
+                self._install(job.finish(), item, idx)
+                self.stats["chunked_admissions"] += 1
+        except BaseException:
+            self._admitting = None
+            raise
+
+    def _op_dispatch(self):
+        """One decode dispatch over the pool and its tokens handed out."""
+        int4_0 = A.INT4_DECODE_CALLS
+        if self.speculative > 0:
+            out = self._spec_dispatch()
+        else:
+            toks = self._dispatch()
+        self.stats["int4_plain_decode_calls"] += (
+            A.INT4_DECODE_CALLS - int4_0)
+        self.stats["chunks"] += 1
+        self._mark_decode()
+        if self.speculative > 0:
+            self.stats["spec_steps"] += self.chunk
+            self._spec_harvest(*out)
+        else:
+            self._harvest(toks)
+
+
+def wire_item(item: dict) -> dict:
+    """A queued request's host fields (no event, result or error): what a
+    tensor-parallel follower is sent (``unwire_item`` rebuilds it)."""
+    return {k: v for k, v in item.items()
+            if k not in ("done", "result", "error")}
+
+
+def unwire_item(fields: dict) -> dict:
+    return dict(fields, done=threading.Event(), result=None, error=None)

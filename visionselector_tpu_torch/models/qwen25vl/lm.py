@@ -40,6 +40,15 @@ Qwen3-MoE MLP of LLaVA-OneVision-1.5's MoE variant):
   h // n_rep inside the kernel, so kv is never expanded; under
   ``attn_variant="packed"`` a head dim that is a multiple of 128 takes the
   packed entry point on the q/k/v slabs (the same kernel),
+- tensor parallelism (``shard_lm``, Megatron-style): each rank of the
+  mesh's "model" axis holds its q / k / v heads' columns and its o rows,
+  its gate / up columns and down rows (an MoE layer's inside every
+  expert), the vocabulary rows of the embedding and columns of the head;
+  ``_prefill_layer`` and ``lm_decode_chunk`` sum the o and MLP outputs over
+  the ranks, ``embed_tokens`` is a masked lookup plus a sum and ``lm_head``
+  gathers the logits; ``lm.cfg`` is the rank-local config, so every
+  caller runs unchanged on local heads. ``moe_mlp_ep`` splits the MoE
+  layer's experts instead (expert parallelism),
 - decode: length-aware attention against the KV cache (the decode kernel
   on the card), which is written in place; the cache may be bf16 / fp32,
   int8 with per-row scales, or int4 packed two values a byte with per-row
@@ -58,11 +67,14 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from visionselector_tpu_torch.core import collectives
 from visionselector_tpu_torch.core.config import TextConfig
+from visionselector_tpu_torch.core.mesh import param_sharding_rules
 from visionselector_tpu_torch.core.params import add_params, init_random_
 from visionselector_tpu_torch.kernels import wq_matmul as wq
 from visionselector_tpu_torch.kernels.attention import (
@@ -334,6 +346,140 @@ def quantize_lm_params(lm: LanguageModel, bits: int = 8,
     return lm
 
 
+def tp_text_config(cfg: TextConfig, tp: int) -> TextConfig:
+    """The rank-local decoder config of ``tp``-way tensor parallelism:
+    ``num_attention_heads / tp`` query heads, ``num_key_value_heads / tp``
+    kv heads (one, replicated over ``tp / num_key_value_heads`` ranks, when
+    tp exceeds them), ``intermediate_size`` (and an MoE layer's
+    ``moe_intermediate_size``) over tp; the head dim is pinned. ValueError
+    for a split that does not divide."""
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    widths = [("num_attention_heads", hq), ("intermediate_size",
+                                            cfg.intermediate_size)]
+    if cfg.num_experts:
+        widths.append(("moe_intermediate_size", cfg.moe_intermediate_size))
+    bad = [n for n, v in widths if v % tp]
+    if (tp % hkv if tp > hkv else hkv % tp) or bad:
+        raise ValueError(f"tensor parallelism over {tp} ranks does not "
+                         f"split {bad or ['num_key_value_heads']} of "
+                         f"{hq} / {hkv} heads")
+    return dataclasses.replace(
+        cfg, num_attention_heads=hq // tp,
+        num_key_value_heads=max(1, hkv // tp),
+        intermediate_size=cfg.intermediate_size // tp,
+        moe_intermediate_size=cfg.moe_intermediate_size // tp,
+        head_dim_override=cfg.head_dim)
+
+
+def _slice_cols(w, s, c0: int, c1: int):
+    """Columns [c0, c1) of a kernel (float, int8, or packed int4 two
+    columns a byte) and of its scales (``s``: [out] or [G, out]; None)."""
+    if w.dtype == torch.uint8:
+        if c0 % 2 or c1 % 2:
+            raise ValueError(f"a packed int4 column slice [{c0}, {c1}) must "
+                             f"start and end on an even column")
+        w = w[:, c0 // 2:c1 // 2]
+    else:
+        w = w[..., c0:c1]
+    return w, None if s is None else s[..., c0:c1]
+
+
+def _slice_rows(w, s, r0: int, r1: int, group: int):
+    """Rows [r0, r1) (the input axis) of a kernel and its scales: per
+    channel scales whole, grouped ones their groups [r0 / g, r1 / g)."""
+    if s is not None and group:
+        if r0 % group or r1 % group:
+            raise ValueError(f"a row slice [{r0}, {r1}) of a grouped int4 "
+                             f"kernel must cover whole groups of {group}")
+        s = s[r0 // group:r1 // group]
+    return w[..., r0:r1, :], s
+
+
+@torch.no_grad()
+def shard_lm(lm: LanguageModel, mesh, axis: str = "model") -> LanguageModel:
+    """Megatron-style tensor parallelism of the decoder over the mesh's
+    ``axis``, IN PLACE: every rank keeps only its slice of each tensor.
+    Which axis of a leaf is split comes from ``mesh.param_sharding_rules``
+    (the reference's rules): q / k / v / gate / up kernels by columns (an
+    MoE layer's expert kernels inside every expert, along the
+    intermediate axis, never the expert axis), o / down by rows, the
+    embedding's vocabulary rows and the head's columns when n divides the
+    vocabulary (else both whole, as the reference replicates a leaf that
+    does not divide); norms and the router stay whole. Rank i of n takes
+    part i of n contiguous parts, with two departures from the rules'
+    contiguous split: a q / k / v bias goes with its kernel's columns
+    (the reference replicates biases and GSPMD re-lays the sum out), and
+    when n exceeds the kv heads each rank keeps the whole kv head its
+    query heads read, the same on n / hkv ranks (the reference cuts head
+    columns). ``--quantize`` buffers are sliced with their scales
+    (ValueError for a packed int4 column slice that is not even, or a row
+    slice of a grouped int4 kernel that does not cover whole groups,
+    before anything changes). The layers and ``lm`` carry the axis's
+    group (``tp``, ``tp_vocab``), which ``_prefill_layer``,
+    ``lm_decode_chunk``, ``embed_tokens`` and ``lm_head`` sum or gather
+    over; ``lm.cfg`` becomes ``tp_text_config``'s."""
+    cfg, n, i = lm.cfg, mesh.size(axis), mesh.index(axis)
+    group = mesh.groups[axis]
+    local = tp_text_config(cfg, n)
+    dh, hkv = cfg.head_dim, local.num_key_value_heads
+    kv0 = (i * hkv if n <= cfg.num_key_value_heads
+           else i // (n // cfg.num_key_value_heads))
+    plan = []  # (layer, name, new tensor, new scale), checked first
+    for layer in lm.layers:
+        named = (dict(layer.named_parameters(recurse=False))
+                 | dict(layer.named_buffers(recurse=False)))
+        for name, w in named.items():
+            if not name.endswith("_kernel"):  # scales and biases follow
+                continue
+            ax = param_sharding_rules(name, w.dim())
+            if ax is None:
+                continue
+            s = named.get(name + "_scale")
+            if ax == w.dim() - 1:  # columns, counted unpacked
+                width = w.shape[-1] if s is None else s.shape[-1]
+                part = ((kv0 * dh, (kv0 + hkv) * dh)
+                        if name in ("k_kernel", "v_kernel")
+                        else (i * width // n, (i + 1) * width // n))
+                plan.append((layer, name, *_slice_cols(w, s, *part)))
+                bias = name.replace("_kernel", "_bias")
+                if bias in named:
+                    plan.append((layer, bias, named[bias][..., slice(*part)],
+                                 None))
+            else:  # rows
+                width = w.shape[-2]
+                group_size = (width // s.shape[0]
+                              if s is not None and s.dim() == 2 else 0)
+                plan.append((layer, name, *_slice_rows(
+                    w, s, i * width // n, (i + 1) * width // n,
+                    group_size)))
+    for layer, name, w, s in plan:
+        _replace(layer, name, w)
+        if s is not None:
+            _replace(layer, name + "_scale", s)
+    for layer in lm.layers:
+        layer.tp = group
+    if cfg.vocab_size % n == 0:
+        rows = (i * cfg.vocab_size // n, (i + 1) * cfg.vocab_size // n)
+        _replace(lm, "embed_tokens", lm.embed_tokens[rows[0]:rows[1]])
+        if not cfg.tie_word_embeddings:
+            _replace(lm, "lm_head_kernel", lm.lm_head_kernel[:, slice(*rows)])
+        lm.tp_vocab = group
+    lm.tp = group
+    lm.cfg = local
+    return lm
+
+
+def _replace(module: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Swap a parameter's or buffer's tensor for a contiguous copy of
+    ``t`` (the whole tensor it was cut from is freed)."""
+    t = t.contiguous().clone()
+    if name in module._parameters:
+        module._parameters[name] = nn.Parameter(
+            t, requires_grad=module._parameters[name].requires_grad)
+    else:
+        module._buffers[name] = t
+
+
 def mrope_axis_selector(cfg: TextConfig, device=None) -> torch.Tensor:
     """[Dh] int64: which of (t, h, w) feeds each rotary channel (channel d
     of the doubled ``mrope_section`` chunks reads axis ``chunk % 3``). With
@@ -445,6 +591,14 @@ def _moe_mlp(x, p: DecoderLayer, cfg: TextConfig):
     added to in the same expert order. One host read a call (the experts'
     row counts). Carries autograd (``index_select`` / ``index_add_``)."""
     topv, topi = moe_route(x, p, cfg)
+    return _moe_routed(x, topv, topi, p.expert_gate_kernel,
+                       p.expert_up_kernel, p.expert_down_kernel, 0, cfg)
+
+
+def _moe_routed(x, topv, topi, gate, up, down, e0: int, cfg: TextConfig):
+    """``_moe_mlp``'s expert loop over experts [e0, e0 + len(gate)) whose
+    kernels are ``gate`` / ``up`` / ``down`` (expert e at index e - e0);
+    routing entries to other experts are left out."""
     k = cfg.num_experts_per_tok
     xf = x.reshape(-1, x.shape[-1])
     flat = topi.reshape(-1)
@@ -453,16 +607,39 @@ def _moe_mlp(x, p: DecoderLayer, cfg: TextConfig):
     wts = topv.reshape(-1)[order].to(x.dtype)
     counts = torch.bincount(flat, minlength=cfg.num_experts).tolist()
     out = torch.zeros_like(xf)
-    start = 0
-    for e, n in enumerate(counts):
+    start = sum(counts[:e0])
+    for j, n in enumerate(counts[e0:e0 + gate.shape[0]]):
         if n:
             r = rows[start:start + n]
             xe = xf.index_select(0, r)
-            y = (F.silu(xe @ p.expert_gate_kernel[e])
-                 * (xe @ p.expert_up_kernel[e])) @ p.expert_down_kernel[e]
+            y = (F.silu(xe @ gate[j]) * (xe @ up[j])) @ down[j]
             out.index_add_(0, r, y * wts[start:start + n, None])
             start += n
     return out.view(x.shape)
+
+
+def moe_mlp_ep(x, p: DecoderLayer, cfg: TextConfig, mesh,
+               axis: str = "model"):
+    """Expert-parallel MoE MLP (the reference's ``moe_mlp_ep``): rank i of
+    the mesh's ``axis`` runs experts [i E / n, (i + 1) E / n) (the routed
+    ``_moe_mlp`` restricted to those ids) on every token, and the partial
+    outputs are summed over the ranks. The router is replicated. ``p``
+    holds the layer's experts: all E (each rank takes its own slice, a
+    view) or this rank's E / n. ValueError when n does not divide E (the
+    reference asserts)."""
+    n, e = mesh.size(axis), cfg.num_experts
+    if e % n:
+        raise ValueError(f"moe_mlp_ep: {e} experts do not split over {n} "
+                         f"ranks")
+    e_local = e // n
+    e0 = mesh.index(axis) * e_local
+    kernels = [getattr(p, name) for name in (
+        "expert_gate_kernel", "expert_up_kernel", "expert_down_kernel")]
+    if kernels[0].shape[0] == e:
+        kernels = [w[e0:e0 + e_local] for w in kernels]
+    topv, topi = moe_route(x, p, cfg)
+    part = _moe_routed(x, topv, topi, *kernels, e0, cfg)
+    return collectives.all_reduce(part, mesh.groups[axis])
 
 
 def moe_mlp_plain(x, p: DecoderLayer, cfg: TextConfig):
@@ -488,9 +665,18 @@ def _mlp(x, p: DecoderLayer, cfg: TextConfig):
     return _dense(h, p, "down_kernel")
 
 
+def _tp_sum(p: nn.Module, y):
+    """A row-parallel output summed over the tensor-parallel ranks (``p``
+    a sharded decoder layer; unsharded layers pass ``y`` through)."""
+    group = getattr(p, "tp", None)
+    return y if group is None else collectives.all_reduce(y, group)
+
+
 def _prefill_layer(x, p: DecoderLayer, cos, sin, seg_ids, cfg: TextConfig,
                    packed: bool, attn_impl):
-    """One decoder layer over the full sequence: (x out, rotated k, v)."""
+    """One decoder layer over the full sequence: (x out, rotated k, v).
+    Under tensor parallelism the o and MLP outputs are summed over the
+    ranks here (``_tp_sum``)."""
     b, t = x.shape[:2]
     h = rms_norm(x, p.input_ln_scale, cfg.rms_norm_eps)
     q, k, v = _qkv(h, p, cfg)
@@ -503,9 +689,9 @@ def _prefill_layer(x, p: DecoderLayer, cos, sin, seg_ids, cfg: TextConfig,
     else:
         attn = attention(q, k, v, seg_ids, seg_ids, causal=True,
                          impl=attn_impl)
-    x = x + _dense(attn.reshape(b, t, -1), p, "o_kernel")
+    x = x + _tp_sum(p, _dense(attn.reshape(b, t, -1), p, "o_kernel"))
     h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
-    return x + _mlp(h, p, cfg), k, v
+    return x + _tp_sum(p, _mlp(h, p, cfg)), k, v
 
 
 def lm_prefill_layers(lm: LanguageModel, layers, inputs_embeds,
@@ -627,7 +813,9 @@ def lm_decode_chunk(lm: LanguageModel, cache, inputs_embeds, position_ids,
     row i attends to the
     cache positions < length + i + 1: causal within the chunk plus the
     committed prefix (``chunk_decode_attention``, the decode kernel on the
-    card). The rows must fit: length + t_c <= T_max. Returns (hidden [B,
+    card). The rows must fit: length + t_c <= T_max. Under tensor
+    parallelism the o and MLP outputs are summed over the ranks here.
+    Returns (hidden [B,
     t_c, D] post-norm, a cache over the same tensors with length + t_c;
     ``cache.length`` itself is not changed, so a caller that scores
     several chunks from one prefix passes the same cache each time).
@@ -662,15 +850,27 @@ def lm_decode_chunk(lm: LanguageModel, cache, inputs_embeds, position_ids,
             scales = {}
         attn = chunk_decode_attention(q, cache.k[li], cache.v[li], base,
                                       impl=attn_impl, **scales)
-        x = x + _dense(attn.reshape(b, t_c, -1), p, "o_kernel")
+        x = x + _tp_sum(p, _dense(attn.reshape(b, t_c, -1), p, "o_kernel"))
         h = rms_norm(x, p.post_ln_scale, cfg.rms_norm_eps)
-        x = x + _mlp(h, p, cfg)
+        x = x + _tp_sum(p, _mlp(h, p, cfg))
     x = rms_norm(x, lm.final_ln_scale, cfg.rms_norm_eps)
     return x, dataclasses.replace(cache, length=cache.length + t_c)
 
 
 def embed_tokens(lm: LanguageModel, input_ids: torch.Tensor) -> torch.Tensor:
-    return lm.embed_tokens[input_ids]
+    """Token embeddings; with the vocabulary split over tensor-parallel
+    ranks (``shard_lm``) each rank looks up the ids in its rows (zeros
+    elsewhere) and the ranks' rows are summed: exactly one rank's is not
+    zero, so the sum is the row itself."""
+    group = getattr(lm, "tp_vocab", None)
+    if group is None:
+        return lm.embed_tokens[input_ids]
+    n = lm.embed_tokens.shape[0]
+    local = input_ids - dist.get_rank(group) * n
+    inside = (local >= 0) & (local < n)
+    rows = lm.embed_tokens[local.clamp(0, n - 1)]
+    return collectives.all_reduce(
+        torch.where(inside[..., None], rows, torch.zeros_like(rows)), group)
 
 
 def lm_head(lm: LanguageModel, hidden: torch.Tensor,
@@ -686,7 +886,17 @@ def lm_head(lm: LanguageModel, hidden: torch.Tensor,
     (torch 2.11), so the training head keeps the upcast. ``upcast=True``
     takes the upcast route in any case: the DPO / GRPO reference policy's
     no-grad forward then computes bit for bit what the trained forward
-    does."""
+    does. With the vocabulary split over tensor-parallel ranks each rank
+    computes its columns and the logits are gathered in rank order, so
+    an argmax breaks ties toward the lower id as on one device."""
+    group = getattr(lm, "tp_vocab", None)
+    if group is not None:
+        return collectives.all_gather(_head(lm, hidden, upcast), group,
+                                      dim=-1)
+    return _head(lm, hidden, upcast)
+
+
+def _head(lm: LanguageModel, hidden, upcast: bool):
     tied = lm.cfg.tie_word_embeddings
     w = lm.embed_tokens.t() if tied else lm.lm_head_kernel  # [D, V]
     carries_grad = torch.is_grad_enabled() and hidden.requires_grad

@@ -60,9 +60,11 @@ from typing import List, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
 from torch import nn
 
+from visionselector_tpu_torch.core import collectives
 from visionselector_tpu_torch.core.config import OVConfig, VLConfig
 from visionselector_tpu_torch.core.params import init_random_
 from visionselector_tpu_torch.models.qwen25vl import lm as lm_mod
@@ -353,7 +355,9 @@ def _stage_a_from_vision(params: VLMParams, target: int, capture: str,
     layers [0, target) each [target, 1, T, H_kv, Dh], fastv_scores [T] or
     None, key_l1 [T] (|k| summed over the GQA-expanded heads, so each kv
     head counts n_rep times, as in the reference), the valid length,
-    position ids [3, T], the selected positions [T]).
+    position ids [3, T], the selected positions [T]). On a
+    tensor-parallel decoder both statistics are summed over the ranks'
+    heads.
     """
     n_pad = vision_embeds.shape[0]
     comp, _ = _select_and_compact(
@@ -367,10 +371,16 @@ def _stage_a_from_vision(params: VLMParams, target: int, capture: str,
         params.lm, range(cap), comp.embeds[None], pos, seg, attn_impl)
     q_cap, k_cap = lm_mod.layer_qk(params.lm, cap, hidden, pos)
     key_l1 = k_cap[0].float().abs().sum(dim=(1, 2))
+    group = getattr(params.lm, "tp", None)  # local heads: sum over ranks
+    if group is not None:
+        key_l1 = collectives.all_reduce(key_l1, group)
     fastv_scores = None
     if capture == "fastv":
         fastv_scores = _fastv_attention_colsum(
             q_cap[0], k_cap[0], comp.seg_ids, cfg.head_dim**-0.5)
+        if group is not None:  # a mean over each rank's equal head count
+            fastv_scores = collectives.all_reduce(
+                fastv_scores, group) / torch.distributed.get_world_size(group)
         # the capture layer itself, to reach layer target's input
         hidden, (k1, v1) = lm_mod.lm_prefill_layers(
             params.lm, range(cap, target), hidden, pos, seg, attn_impl)

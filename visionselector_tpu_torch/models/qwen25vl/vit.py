@@ -19,7 +19,15 @@ Counterpart of ``visionselector_tpu.models.qwen25vl.vit``:
   entry point on the slab's column views, all with the real d ** -0.5;
 - ``vit_forward_stats`` (the training-free baselines' ViT): the default
   route, the last block through ``attention_with_received``, which also
-  returns each key's received attention mass.
+  returns each key's received attention mass;
+- W8A8 (``quantize_vit_params``): every block's five products take int8
+  weights with per-channel scales and int8 activations quantized per token
+  at run time, an int8 x int8 product accumulated in int32
+  (``int8_matmul``: ``torch._int_mm`` on the card) and an fp32 epilogue
+  (``_vit_dense``), under every attention route;
+- ``vit_forward_sp``: the patch axis of the window-aligned layout split
+  over the ranks of a mesh axis (window layers shard-local, full layers on
+  all-gathered k / v).
 
 Shapes: S = padded patch count, L = S / merge_unit merged tokens.
 """
@@ -32,9 +40,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from visionselector_tpu_torch.core import collectives
 from visionselector_tpu_torch.core.config import VisionConfig
 from visionselector_tpu_torch.core.params import add_params, init_random_
 from visionselector_tpu_torch.kernels.attention import (
+    DIAG_BLOCK,
     attention,
     attention_diag,
     attention_packed,
@@ -135,7 +145,14 @@ class VisionTower(nn.Module):
 def head_width(tower: VisionTower) -> int:
     """The attention head width in the weights: the head dim, or the
     zero-padded dp of ``weights.pad_vit_head_dim``."""
-    return tower.blocks[0].qkv_kernel.shape[-1] // (3 * tower.cfg.num_heads)
+    return _qkv_width(tower.blocks[0]) // (3 * tower.cfg.num_heads)
+
+
+def _qkv_width(p) -> int:
+    """Columns of the qkv product (a quantized kernel's may be padded)."""
+    if p.qkv_kernel.dtype == torch.int8:
+        return p.qkv_kernel_scale.shape[0]
+    return p.qkv_kernel.shape[-1]
 
 
 def _block(x, p: VisionBlock, cos, sin, cfg: VisionConfig, attn_fn=None,
@@ -145,11 +162,14 @@ def _block(x, p: VisionBlock, cos, sin, cfg: VisionConfig, attn_fn=None,
     ``fused_fn(qkv) -> [S, H*d]`` takes the raw qkv slab (rotary inside
     the fused kernel); otherwise the slab is viewed as q, k, v [S, H, dp]
     (dp detected from the qkv kernel: padded heads get the padded rotary)
-    and ``attn_fn(q, k, v)`` gets them as [1, S, H, dp]."""
+    and ``attn_fn(q, k, v)`` gets them as [1, S, H, dp]. The five products
+    go through ``_vit_dense`` on every route, so a W8A8 tower keeps them
+    in int8 under "fused" too (the reference's fused branch multiplies the
+    raw int8 proj / MLP kernels with no scale: ROADMAP section 3)."""
     h = rms_norm(x, p.norm1_scale, cfg.rms_norm_eps)
     s = h.shape[0]
-    dp = p.qkv_kernel.shape[-1] // (3 * cfg.num_heads)
-    qkv = h @ p.qkv_kernel + p.qkv_bias  # [S, 3*H*dp]
+    dp = _qkv_width(p) // (3 * cfg.num_heads)
+    qkv = _vit_dense(h, p, "qkv_kernel")  # [S, 3*H*dp]
     if fused_fn is not None:
         attn = fused_fn(qkv)
     else:
@@ -159,11 +179,143 @@ def _block(x, p: VisionBlock, cos, sin, cfg: VisionConfig, attn_fn=None,
         else:
             q, k = apply_rotary_padded(q, k, cos, sin, cfg.head_dim)
         attn = attn_fn(q[None], k[None], v[None])[0]  # v read through strides
-    x = x + attn.reshape(s, -1) @ p.proj_kernel + p.proj_bias
+    x = x + _vit_dense(attn.reshape(s, -1), p, "proj_kernel")
     h = rms_norm(x, p.norm2_scale, cfg.rms_norm_eps)
-    gate = h @ p.gate_kernel + p.gate_bias
-    up = h @ p.up_kernel + p.up_bias
-    return x + (F.silu(gate) * up) @ p.down_kernel + p.down_bias
+    gate = _vit_dense(h, p, "gate_kernel")
+    up = _vit_dense(h, p, "up_kernel")
+    return x + _vit_dense(F.silu(gate) * up, p, "down_kernel")
+
+
+# W8A8: the five block products that ``quantize_vit_params`` takes (the
+# reference's VIT_QUANT_KERNELS); patch embed and merger stay in the model
+# dtype.
+VIT_QUANT_KERNELS = ("qkv_kernel", "proj_kernel", "gate_kernel",
+                     "up_kernel", "down_kernel")
+# ``torch._int_mm`` on the card takes widths that are multiples of 8: the
+# stored int8 kernels are padded with zero rows / columns up to it.
+INT8_ALIGN = 8
+# ``torch._int_mm`` calls on CUDA tensors (the W8A8 products: 5 per block,
+# 160 per 3B tower); calls on CPU tensors take the plain product and do
+# not count.
+INT_MM_LAUNCHES = 0
+
+
+def _align(n: int) -> int:
+    return -(-n // INT8_ALIGN) * INT8_ALIGN
+
+
+def int8_matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain int8 x int8 product: int32 [M, N], exact."""
+    return a.to(torch.int32) @ w.to(torch.int32)
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K'] x int8 [K, N] -> int32 [M, N] (the reference's
+    ``dot_general`` with an int32 accumulator). ``a``'s columns are padded
+    with zeros up to K (a padded kernel's zero rows meet zero columns, so
+    the product is unchanged bit for bit). On CUDA tensors one
+    ``torch._int_mm`` (an int8 tensor-core GEMM; K and N must be multiples
+    of 8, and M is padded to 17 rows where it has fewer); on CPU tensors
+    ``int8_matmul_plain``."""
+    global INT_MM_LAUNCHES
+    if a.shape[1] < w.shape[0]:
+        a = F.pad(a, (0, w.shape[0] - a.shape[1]))
+    if a.device.type == "cpu":
+        return int8_matmul_plain(a, w)
+    m = a.shape[0]
+    if m <= 16:  # _int_mm takes more than 16 rows
+        a = F.pad(a, (0, 0, 0, 17 - m))
+    INT_MM_LAUNCHES += 1
+    return torch._int_mm(a, w)[:m]
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-token symmetric int8 of activations [M, K] (the reference's
+    ``_vit_dense``): fp32 scale ``max(absmax / 127, 1e-12)`` per row,
+    values rounded half to even and clipped to +-127. Returns (int8 [M, K],
+    fp32 scales [M, 1])."""
+    xf = x.float()
+    xs = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    return torch.round(xf / xs).clamp(-127, 127).to(torch.int8), xs
+
+
+def w8a8_epilogue(acc, x_scale, w_scale, bias, dtype):
+    """``acc * x_scale * w_scale + bias`` in fp32, cast to ``dtype``: the
+    reference's epilogue (``acc`` int32 [M, >= N] sliced to the N real
+    columns)."""
+    n = w_scale.shape[0]
+    y = acc[:, :n].float() * x_scale * w_scale
+    return (y + bias.float()).to(dtype)
+
+
+def _vit_dense(x, p, name: str):
+    """x [S, in] @ kernel + bias, or the W8A8 product when the kernel is
+    int8 (``quantize_vit_params``): x quantized per token
+    (``quantize_rows``), the int8 product accumulated in int32
+    (``int8_matmul``), then ``w8a8_epilogue``. The quantize and the
+    epilogue are plain torch ops."""
+    w = getattr(p, name)
+    b = getattr(p, name.replace("_kernel", "_bias"))
+    if w.dtype != torch.int8:
+        return x @ w + b
+    xq, xs = quantize_rows(x)
+    return w8a8_epilogue(int8_matmul(xq, w), xs,
+                         getattr(p, name + "_scale"), b, x.dtype)
+
+
+def is_vit_quantized(tower: VisionTower) -> bool:
+    """Whether the tower's block products are W8A8 (int8 kernels)."""
+    return tower.blocks[0].qkv_kernel.dtype == torch.int8
+
+
+def register_vit_quantized(blk: nn.Module, name: str, q: torch.Tensor,
+                           scale: torch.Tensor) -> None:
+    """Put an int8 kernel [in, out] and its fp32 per-channel scales [out]
+    on ``blk`` as the buffers ``name`` and ``name + "_scale"``, in place of
+    the parameter ``name``. The stored kernel is padded with zero rows and
+    columns up to multiples of ``INT8_ALIGN`` (``int8_matmul``'s widths;
+    the ViT's MLP width, 3,420, is not one); ``q`` itself and the scales
+    are stored as given, so ``vit_quantized_kernel`` gives back the
+    reference's values. The kernel is kept column-major (an [in, out]
+    view of a contiguous [out, in] tensor): ``torch._int_mm`` on the H100
+    took 0.49 ms with a row-major [1,280, 3,840] operand at 6,144 rows and
+    0.097 ms with a column-major one."""
+    din, dout = q.shape
+    padded = F.pad(q, (0, _align(dout) - dout, 0, _align(din) - din))
+    blk._parameters.pop(name, None)
+    blk.register_buffer(name, padded.t().contiguous().t())
+    blk.register_buffer(name + "_scale", scale.float())
+
+
+def vit_quantized_kernel(blk: nn.Module, name: str) -> torch.Tensor:
+    """A W8A8 block kernel without its alignment padding: int8 [in, out]
+    as ``quantize_vit_params`` computed it."""
+    din = {"proj_kernel": _qkv_width(blk) // 3,
+           "down_kernel": blk.up_kernel_scale.shape[0]}.get(
+        name, blk.norm1_scale.shape[0])
+    return getattr(blk, name)[:din, :getattr(blk, name + "_scale").shape[0]]
+
+
+@torch.no_grad()
+def quantize_vit_params(tower: VisionTower) -> VisionTower:
+    """W8A8 ViT (the reference's ``quantize_vit_params``), in place: each
+    block's ``VIT_QUANT_KERNELS`` become symmetric int8 with one scale per
+    output channel, ``s = max(amax / 127, 1e-12)`` by true division and
+    values ``clip(round(w / s), -127, 127)`` rounded half to even
+    (``register_vit_quantized``). Activations are quantized per token at
+    run time (``_vit_dense``). Patch embed and merger stay in the model
+    dtype. Raises ValueError on a tower already quantized. Returns
+    ``tower``."""
+    if is_vit_quantized(tower):
+        raise ValueError("quantize_vit_params: the tower is already W8A8")
+    for blk in tower.blocks:
+        for name in VIT_QUANT_KERNELS:
+            wf = getattr(blk, name).float()
+            scale = (wf.abs().amax(dim=0) / 127.0).clamp_min(1e-12)
+            q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+            del wf
+            register_vit_quantized(blk, name, q, scale)
+    return tower
 
 
 def vit_embed(tower: VisionTower, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -317,6 +469,67 @@ def _default_attn(tower: VisionTower, s_pad: int, window_seg_ids,
                          kv_iters=full_kv_iters or None)
 
     return {False: dict(attn_fn=window_attn), True: dict(attn_fn=full_attn)}
+
+
+def vit_forward_sp(
+    tower: VisionTower,
+    pixel_values: torch.Tensor,
+    rot_pos_ids: torch.Tensor,
+    window_seg_ids: torch.Tensor,
+    full_seg_ids: torch.Tensor,
+    reverse_index: torch.Tensor,
+    mesh,
+    axis: str = "model",
+    attn_impl: str | None = None,
+) -> torch.Tensor:
+    """Sequence-parallel vision tower (the reference's ``vit_forward_sp``):
+    the patch axis split over the ranks of the mesh's ``axis``, weights
+    replicated. Every rank gets the whole window-aligned batch
+    (``build_vision_batch(align_windows=True)``) and takes its contiguous
+    S / n rows: a whole number of window slots, so the window layers (the
+    diag kernel) and every norm and MLP are shard-local with no
+    communication; the full-attention layers all-gather k, v and the
+    full segment ids and run the flash kernel with the local queries
+    against the gathered keys; the merger is local and the merged tokens
+    are all-gathered before the un-permute. Returns the merged hidden
+    states [L, out] in original order on every rank. ValueError unless
+    S % (n * slot) == 0 (slot = the patches of one window; the reference
+    asserts)."""
+    cfg = tower.cfg
+    n, i = mesh.size(axis), mesh.index(axis)
+    group = mesh.groups[axis]
+    s_pad = pixel_values.shape[0]
+    win = cfg.window_size // cfg.spatial_merge_size // cfg.patch_size
+    slot = win * win * cfg.spatial_merge_unit
+    if s_pad % (n * slot):
+        raise ValueError(f"vit_forward_sp: {s_pad} patches do not split "
+                         f"into {n} shards of whole {slot}-patch window "
+                         f"slots")
+    local_s = s_pad // n
+    rows = slice(i * local_s, (i + 1) * local_s)
+    wseg, fseg = window_seg_ids[rows], full_seg_ids[rows]
+    d = cfg.head_dim
+    block = DIAG_BLOCK if local_s % DIAG_BLOCK == 0 else slot
+
+    def window_attn(q, k, v):
+        return attention_diag(q, k, v, wseg[None], scale=d**-0.5,
+                              block_q=block, impl=attn_impl)
+
+    def full_attn(q, k, v):
+        kg = collectives.all_gather(k, group, dim=1)
+        vg = collectives.all_gather(v, group, dim=1)
+        sg = collectives.all_gather(fseg, group)
+        return attention(q, kg, vg, fseg[None], sg[None], scale=d**-0.5,
+                         impl=attn_impl)
+
+    fns = {False: dict(attn_fn=window_attn), True: dict(attn_fn=full_attn)}
+    x = vit_embed(tower, pixel_values[rows])
+    cos, sin = vision_rotary_cos_sin(rot_pos_ids[rows], d)
+    for j, blk in enumerate(tower.blocks):
+        x = _block(x, blk, cos, sin, cfg,
+                   **fns[j in cfg.fullatt_block_indexes])
+    merged = vit_merge(tower, x, slice(None), cfg)
+    return collectives.all_gather(merged, group)[reverse_index]
 
 
 def vit_forward_stats(

@@ -44,8 +44,12 @@ from visionselector_tpu_torch.models.qwen25vl.model import (  # noqa: F401
     init_params,  # random full-width weights on the device
 )
 from visionselector_tpu_torch.models.qwen25vl.vit import (
+    VIT_QUANT_KERNELS,
     VisionTower,
     head_width,
+    is_vit_quantized,
+    register_vit_quantized,
+    vit_quantized_kernel,
 )
 from visionselector_tpu_torch.selector.baselines.dynamic import Predictor
 from visionselector_tpu_torch.selector.scorer import Scorer
@@ -77,14 +81,26 @@ def from_jax_params(tree: dict, cfg: VLConfig, device,
     the port's parameters. Stacked per-layer arrays ``[n_layers, ...]`` are
     split over the port's per-layer modules; the scorer stays fp32. A
     tree whose ViT heads the JAX ``pad_vit_head_dim`` has zero-padded gives
-    a tower with heads of the same width."""
+    a tower with heads of the same width; a W8A8 visual tree (the
+    reference's ``quantize_vit_params``: int8 block kernels with fp32
+    ``<name>_scale`` leaves) a W8A8 tower with the same integers and
+    scales."""
     dtype = dtype or cfg.torch_dtype
-    qkv_width = np.shape(tree["visual"]["blocks"]["qkv_kernel"])[-1]
+    blocks = tree["visual"]["blocks"]
+    qkv_width = np.shape(blocks["qkv_kernel"])[-1]
     visual = VisionTower(cfg.vision, device, dtype,
                          dp=qkv_width // (3 * cfg.vision.num_heads))
     _load(visual, tree["visual"], device, dtype)
+    w8a8 = "qkv_kernel_scale" in blocks
     for i, blk in enumerate(visual.blocks):
-        _load(blk, tree["visual"]["blocks"], device, dtype, layer=i)
+        if w8a8:
+            for name in VIT_QUANT_KERNELS:
+                register_vit_quantized(
+                    blk, name,
+                    _tensor(np.asarray(blocks[name])[i], device, torch.int8),
+                    _tensor(np.asarray(blocks[name + "_scale"])[i], device,
+                            torch.float32))
+        _load(blk, blocks, device, dtype, layer=i)
     return QwenVLParams(visual, lm_from_jax(tree["lm"], cfg.text, device,
                                             dtype),
                         scorer_from_jax(tree, cfg, device))
@@ -181,8 +197,11 @@ def pad_vit_head_dim(tower: VisionTower, cfg: VisionConfig,
     head padded with zeros, proj kernel rows likewise. The pad channels
     carry exact zeros end to end, so the tower computes the same function;
     its full-attention layers then run the packed entry point at head dim
-    dp. ``tower`` is not changed; the new one shares no storage with it.
-    Raises ValueError if ``tower`` is already padded."""
+    dp. A W8A8 tower's int8 qkv / proj kernels are padded the same way
+    (zero values; the qkv scales of pad columns 1), so the padded W8A8
+    tower computes the same function too. ``tower`` is not changed; the
+    new one shares no storage with it. Raises ValueError if ``tower`` is
+    already padded."""
     d, h = cfg.head_dim, cfg.num_heads
     if head_width(tower) != d:
         raise ValueError(f"pad_vit_head_dim: the tower's heads are already "
@@ -195,6 +214,7 @@ def pad_vit_head_dim(tower: VisionTower, cfg: VisionConfig,
     pads = {"qkv_kernel": ((-1, 3, h, d), (0, dp - d)),
             "qkv_bias": ((3, h, d), (0, dp - d)),
             "proj_kernel": ((h, d, -1), (0, 0, 0, dp - d))}
+    w8a8 = is_vit_quantized(tower)
     for src, dst in zip(tower.blocks, out.blocks):
         for name, p in src.named_parameters():
             target = getattr(dst, name)
@@ -202,6 +222,18 @@ def pad_vit_head_dim(tower: VisionTower, cfg: VisionConfig,
                 shape, pad = pads[name]
                 p = torch.nn.functional.pad(p.view(shape), pad)
             target.copy_(p.reshape(target.shape))
+        for name in VIT_QUANT_KERNELS if w8a8 else ():
+            q = vit_quantized_kernel(src, name)
+            s = getattr(src, name + "_scale")
+            if name in pads:
+                shape, pad = pads[name]
+                q = torch.nn.functional.pad(q.view(shape), pad)
+                q = q.reshape(-1 if name == "proj_kernel" else q.shape[0],
+                              s.shape[0] if name == "proj_kernel" else -1)
+            if name == "qkv_kernel":
+                s = torch.nn.functional.pad(s.view(3, h, d), (0, dp - d),
+                                            value=1.0).reshape(-1)
+            register_vit_quantized(dst, name, q.clone(), s.clone())
     return out
 
 
