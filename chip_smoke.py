@@ -186,7 +186,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    4`` with four concurrent requests (first tokens equal one-shot; decode
    tok/s). Then servers built as ``--continuous 8 --continuous-prefill-chunk
    256 --continuous-prefill-vit-segments 4`` take phase 5's arrival pattern
-   (its 14 selector requests, then a text request decoding when phase 5's
+   (its first 4 selector requests, then a text request decoding when phase 5's
    two ``orig`` requests arrive), submitted to their batchers from threads
    as handler threads do, and the same mix with one-shot admissions:
    chunked admissions and steps counted, K1 / K4 / K5 launches (K5 per t_c)
@@ -494,6 +494,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``_moe_mlp``, and ``vit_forward_sp`` of the 3B tower within ULP_LIMIT
    of ``vit_forward`` (28 K4 + 4 K1 a rank). Prints the phase's seconds
    and its parts'.
+19. Data- and pipeline-parallel training, the training CLI under
+   ``torch.distributed.run`` and the warm-up (``dp_pp_phase``, last).
+   K1 causal at a rank's one sample and at a pipeline microbatch (T
+   1,536, GQA 16/2) and K4 at one sample's ViT window layer, each with
+   its planted fault, ms, bound and SDPA; the references in this process
+   (the 3B rebuilt from its seed): phase 6's selector steps at B = 2 (2
+   at accumulation 1, 1 at accumulation 2) and ``lm_prefill_layers`` of
+   the 36 layers at B = 2, T = 1,536 with its gradients; then a world of
+   TP_WORLD spawned ranks over gloo on the card (``dp_pp_rank``): (a) the
+   same steps data-parallel, one sample a rank (losses within
+   DP_LOSS_TOL, step-1 averaged scorer gradients within GRAD_TOL, the
+   ranks' scorers bit-equal, 28 K4 + 40 K1 with 36 through
+   ``FlashAttentionFn`` a micro-batch on rank 0; planted: the gradients
+   not averaged), (b) ``lm_prefill_layers_pp`` over 2 stages of 18
+   layers, M = 2 (hidden states within ULP_LIMIT bf16 ulps, else
+   TEACHER_TOL, the rule printed; the gradients of the input and of each
+   stage's first q kernel within GRAD_TOL; 36 causal K1 forward and 36
+   recomputed under grad a rank; each rank's layer bytes half the whole;
+   planted: the last stage's microbatches swapped, the output's gradient
+   summed over the stages). Beside them, in processes of their own: (c)
+   ``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+   visionselector_tpu_torch.api.train --model-path <phase 6's directory>
+   --batch-size 2 --total-steps 2`` against the same command alone (log
+   lines from rank 0 only, losses within DP_LOSS_TOL, exported scorers
+   within GRAD_TOL) and (d) ``api.warmup --buckets 1024,6144
+   --micro-batch 2`` on that directory (exit 0, one line per bucket,
+   text-only, decode_batch 2). Prints the phase's seconds and its parts'.
 
 The line before the last is a JSON object describing the kernels (K2's
 entry, ``flash_varlen_fwd_capped``, from phase 10; the OV shapes,
@@ -524,7 +551,10 @@ and ``decode_blocked_fwd_tp2`` counted in rank 0's request,
 ``wq_dequant_fwd_tp2`` (16(a)'s times at a rank's slices of the 3B
 layer) in its quantized requests; the sequence-parallel shapes,
 ``flash_varlen_fwd_sp2`` and ``diag_attn_fwd_sp2``, in rank 0's
-``vit_forward_sp``); the last line is
+``vit_forward_sp``; the data- and pipeline-parallel shapes from phase 19:
+``flash_varlen_fwd_dp`` and ``diag_attn_fwd_dp`` counted on rank 0 over
+19(a)'s three steps (the ViT's and the LM's K1), ``flash_varlen_fwd_pp``
+over rank 0's pipelined forward and backward in 19(b)); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -652,6 +682,15 @@ KERNELS = {
     "wq_matmul_fwd_int4_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
     "wq_matmul_fwd_int4_g128_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
     "wq_dequant_fwd_7b": ("wq_matmul_fwd.cu", WQ_REPLACES),
+    # Data- and pipeline-parallel training over 2 ranks (phase 19): K1
+    # causal at a rank's one sample and at a pipeline microbatch (B = 1, T
+    # = 1,536, GQA 16/2), K4 at one sample's ViT window layer
+    "flash_varlen_fwd_dp": ("flash_varlen_fwd.cu",
+                            "visionselector_tpu/kernels/attention.py:203"),
+    "flash_varlen_fwd_pp": ("flash_varlen_fwd.cu",
+                            "visionselector_tpu/kernels/attention.py:203"),
+    "diag_attn_fwd_dp": ("diag_attn_fwd.cu",
+                         "visionselector_tpu/kernels/attention.py:681"),
     # Tensor-parallel serving over 2 ranks (phase 18): K1 causal at the
     # 3B's local 8 / 1 heads (n_rep 8), K5 at n_rep 8 per t_c
     "flash_varlen_fwd_tp2": ("flash_varlen_fwd.cu",
@@ -678,6 +717,7 @@ ABLATE_S = 5632  # the ablation's sequence (the JAX bench's default)
 # and one across a tile edge.
 ADMIT_SEG = 256
 ADMIT_BASES = (256, 0, 1280, 1312)
+ADMIT_SELECTOR = 4  # step 9.8's selector requests: phase 5's first 4
 
 
 def nvidia_smi() -> str:
@@ -2884,13 +2924,17 @@ def start_cli(procs, tmp, name, *args, key=None):
     """Start ``python -m visionselector_tpu_torch.api.<name> args`` with
     its output in files under ``tmp`` named by ``key`` (default ``name``),
     under which ``procs`` holds it."""
-    key = key or name
+    start_cmd(procs, tmp, key or name, [
+        sys.executable, "-m", f"visionselector_tpu_torch.api.{name}", *args])
+
+
+def start_cmd(procs, tmp, key, cmd):
+    """Start ``cmd`` from the repository's root with its output in files
+    under ``tmp`` named by ``key``, under which ``procs`` holds it."""
     out = open(os.path.join(tmp, f"{key}.out"), "w")
     err = open(os.path.join(tmp, f"{key}.err"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", f"visionselector_tpu_torch.api.{name}",
-         *args], stdout=out, stderr=err, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
     out.close()
     err.close()
     procs[key] = (proc, os.path.join(tmp, key), time.perf_counter())
@@ -4032,14 +4076,15 @@ def http_requests(engine, pixels, grid):
 
 
 def admission_mix(cfg, input_ids, pixels, grid):
-    """Step 9.8's traffic: phase 5's 14 selector requests (4 at once, then
-    one every 100 ms), then an orig part: a text request decoding when two
+    """Step 9.8's traffic: the first 4 of phase 5's 14 selector requests
+    (the 4 that arrive at once; the other 10 made this step the script's
+    longest part), then an orig part: a text request decoding when two
     orig image requests (phase 5's) arrive; its budget (192 tokens) keeps
     it live through both admissions, chunked or not."""
     import numpy as np
 
     traffic = serve_traffic(cfg, input_ids, pixels, grid)
-    sel = [x for x in traffic if x[0] == "selector"]
+    sel = [x for x in traffic if x[0] == "selector"][:ADMIT_SELECTOR]
     origs = [x for x in traffic if x[0] == "orig"]
     text = dict(input_ids=np.random.RandomState(SEED + 8).randint(
         100, 5000, 30).astype(np.int64))
@@ -4095,6 +4140,7 @@ def http_phase(cfg, params, engine, input_ids, pixels, grid, hf_dir) -> int:
     checks = http_requests(engine, pixels, grid)
 
     # 9.8: chunked admissions against the same mix admitted one-shot.
+    t98 = time.perf_counter()
     n_layers = cfg.text.num_hidden_layers
     engines = {"selector": engine,
                "orig": QwenVLEngine(cfg, params, use_selector=False,
@@ -4157,6 +4203,9 @@ def http_phase(cfg, params, engine, input_ids, pixels, grid, hf_dir) -> int:
     checks["chunked and one-shot admissions: first tokens == one-shot"] = \
         first_ok
     del engines
+    print(f"[http] step 9.8 seconds {time.perf_counter() - t98!r} "
+          f"({ADMIT_SELECTOR} selector requests + the orig part, chunked "
+          f"and one-shot)", flush=True)
 
     # 9.9: the CLI on phase 6's HF directory, a process of its own.
     checks["api.serve --model-path on cuda"] = serve_cli(hf_dir)
@@ -9175,6 +9224,72 @@ def w8a8_phase(cfg, params, engine, req, out_dir, checks):
     return dict(ms, quantize_s=quant_s, launches=launches)
 
 
+def causal_k1_entry(kname, label, tc, t, valid, gen, tag) -> dict:
+    """K1 causal on one row of ``t`` positions (``valid`` of them before
+    the padding) at ``tc``'s heads, seeded bf16, against its plain version
+    (fault: each q tile's diagonal kv tile cut from the bounds), with ms,
+    bound and one SDPA call (``ov_kernel_entry``)."""
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+
+    hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    q = torch.randn(1, t, hq, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(1, t, hkv, d, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    seg = (torch.arange(t, device="cuda") < valid).int()[None]
+    nq = -(-t // TILE)
+    iq = torch.arange(nq, device="cuda")
+    cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
+    pos = torch.arange(t, device="cuda")
+    mask = ((seg[0, :, None] > 0) & (seg[0, None, :] > 0)
+            & (pos[:, None] >= pos[None]))[None, None]
+    return ov_kernel_entry(
+        kname, f"{label} T={t} valid={valid} Hq={hq} Hkv={hkv} (n_rep "
+        f"{hq // hkv}) D={d}",
+        lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
+        lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
+        lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
+                                   kv_bounds=cut),
+        (2 * hq + 2 * hkv) * t * d * 2 + t * 8,
+        4 * d * hq * (valid * (valid + 1) // 2),
+        lambda: sdpa_ms(q, k, v, mask),
+        lambda got: bool((got[:, seg[0] == 0] == 0).all()), tag=tag)
+
+
+def diag_entry(kname, label, q, k, v, wnp, tag) -> dict:
+    """K4 on q / k / v [1, S, H, D] with window segments ``wnp`` (numpy
+    [S]) against its plain version (fault: the last key of every window
+    dropped, compared on the other rows), with ms, bound and one SDPA
+    call (``ov_kernel_entry``)."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.tools import diag_floor
+
+    n, h, d = q.shape[1], q.shape[2], q.shape[3]
+    wseg = torch.as_tensor(wnp, device="cuda")[None].int()
+    ids, first_rev = np.unique(wnp[::-1], return_index=True)
+    last = (len(wnp) - 1 - first_rev)[ids > 0]
+    cut = wnp.copy()
+    cut[last] = 0
+    cut = torch.as_tensor(cut, device="cuda")[None].int()
+    keep = torch.as_tensor(np.setdiff1d(np.arange(n), last), device="cuda")
+    wpairs = int(sum((wnp == j).sum() ** 2 for j in np.unique(wnp) if j > 0))
+    wmask = ((wseg[0, :, None] == wseg[0, None, :])
+             & (wseg[0, None, :] > 0))[None, None]
+    return ov_kernel_entry(
+        kname, f"{label} S={n} H={h} D={d}",
+        lambda: A.diag_attn_fwd(q, k, v, wseg),
+        lambda: A.diag_plain(q, k, v, wseg),
+        (lambda: A.diag_attn_fwd(q, k, v, cut)[:, keep],
+         lambda: A.diag_plain(q, k, v, wseg)[:, keep]),
+        diag_floor.needed_bytes(wseg, h, d), 4 * d * h * wpairs,
+        lambda: sdpa_ms(q, k, v, wmask),
+        lambda got: bool((got[:, wseg[0] == 0] == 0).all()), tag=tag)
+
+
 def tp_kernels(cfg) -> dict:
     """18(b): the kernels at the tensor-parallel ranks' shapes against
     their plain versions (seeded bf16): K1 causal at the 3B's tp 2 heads
@@ -9186,37 +9301,14 @@ def tp_kernels(cfg) -> dict:
     import torch
 
     from visionselector_tpu_torch.core.config import qwen25vl_7b
-    from visionselector_tpu_torch.kernels import attention as A
     from visionselector_tpu_torch.models.qwen25vl.lm import tp_text_config
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     out = {}
 
     def causal(kname, tc, t, valid):
-        hq, hkv, d = (tc.num_attention_heads, tc.num_key_value_heads,
-                      tc.head_dim)
-        q = torch.randn(1, t, hq, d, generator=gen, device="cuda").bfloat16()
-        k, v = (torch.randn(1, t, hkv, d, generator=gen,
-                            device="cuda").bfloat16() for _ in range(2))
-        seg = (torch.arange(t, device="cuda") < valid).int()[None]
-        nq = -(-t // TILE)
-        iq = torch.arange(nq, device="cuda")
-        cut = torch.stack([torch.zeros_like(iq), iq], 1).int()
-        pos = torch.arange(t, device="cuda")
-        mask = ((seg[0, :, None] > 0) & (seg[0, None, :] > 0)
-                & (pos[:, None] >= pos[None]))[None, None]
-        return ov_kernel_entry(
-            kname, f"tp 2 T={t} valid={valid} Hq={hq} Hkv={hkv} (n_rep "
-            f"{hq // hkv}) D={d}",
-            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True),
-            lambda: A.flash_plain(q, k, v, seg, seg, causal=True),
-            lambda: A.flash_varlen_fwd(q, k, v, seg, seg, causal=True,
-                                       kv_bounds=cut),
-            (2 * hq + 2 * hkv) * t * d * 2 + t * 8,
-            4 * d * hq * (valid * (valid + 1) // 2),
-            lambda: sdpa_ms(q, k, v, mask),
-            lambda got: bool((got[:, seg[0] == 0] == 0).all()),
-            tag="[tp-kernel]")
+        return causal_k1_entry(kname, f"tp {TP_WORLD}", tc, t, valid, gen,
+                               "[tp-kernel]")
 
     tc = tp_text_config(cfg.text, TP_WORLD)
     sel = causal("flash_varlen_fwd_tp2", tc, 384, 294)
@@ -9268,7 +9360,6 @@ def sp_kernels(cfg, engine, req) -> dict:
     import torch
 
     from visionselector_tpu_torch.kernels import attention as A
-    from visionselector_tpu_torch.tools import diag_floor
 
     vb = engine._prep_vision(req["input_ids"], req["pixel_values"],
                              req["grid_thw"], req["grid_thw"], None,
@@ -9303,31 +9394,9 @@ def sp_kernels(cfg, engine, req) -> dict:
             lambda: sdpa_ms(q, k, v, mask),
             lambda got: bool((got[:, fseg[0] == 0] == 0).all()),
             tag="[sp-kernel]"))
-        wnp = wall[rows]
-        wseg = torch.as_tensor(wnp, device="cuda")[None].int()
-        kl, vl = k[:, rows], v[:, rows]
-        ids, first_rev = np.unique(wnp[::-1], return_index=True)
-        last = (len(wnp) - 1 - first_rev)[ids > 0]
-        cut = wnp.copy()
-        cut[last] = 0
-        cut = torch.as_tensor(cut, device="cuda")[None].int()
-        keep = torch.as_tensor(np.setdiff1d(np.arange(ls), last),
-                               device="cuda")
-        wpairs = int(sum((wnp == j).sum() ** 2 for j in np.unique(wnp)
-                         if j > 0))
-        wmask = ((wseg[0, :, None] == wseg[0, None, :])
-                 & (wseg[0, None, :] > 0))[None, None]
-        found["diag_attn_fwd_sp2"].append(ov_kernel_entry(
-            "diag_attn_fwd_sp2", f"shard {i} of {TP_WORLD}: local S={ls} "
-            f"H={h} D={d}",
-            lambda: A.diag_attn_fwd(q, kl, vl, wseg),
-            lambda: A.diag_plain(q, kl, vl, wseg),
-            (lambda: A.diag_attn_fwd(q, kl, vl, cut)[:, keep],
-             lambda: A.diag_plain(q, kl, vl, wseg)[:, keep]),
-            diag_floor.needed_bytes(wseg, h, d), 4 * d * h * wpairs,
-            lambda: sdpa_ms(q, kl, vl, wmask),
-            lambda got: bool((got[:, wseg[0] == 0] == 0).all()),
-            tag="[sp-kernel]"))
+        found["diag_attn_fwd_sp2"].append(diag_entry(
+            "diag_attn_fwd_sp2", f"shard {i} of {TP_WORLD}: local", q,
+            k[:, rows], v[:, rows], wall[rows], "[sp-kernel]"))
     return {name: dict(cases[0], max_abs_err=max(
         c["max_abs_err"] for c in cases)) for name, cases in found.items()}
 
@@ -9516,21 +9585,22 @@ def parallel_rank(rank, world, init_method, results):
         dist.destroy_process_group()
 
 
-def parallel_world(tmp) -> list:
-    """Spawn phase 18's TP_WORLD ranks (``parallel_rank``), wait for their
-    results and stop them."""
+def spawn_world(target, tmp, name, *args, timeout=TP_TIMEOUT) -> list:
+    """Spawn TP_WORLD ranks of ``target(rank, world, init_method, *args,
+    results)``, wait for their results and stop them; raises with a
+    rank's traceback."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    init = f"file://{os.path.join(tmp, 'tp_rendezvous')}"
-    procs = [ctx.Process(target=parallel_rank,
-                         args=(r, TP_WORLD, init, results))
+    init = f"file://{os.path.join(tmp, name + '_rendezvous')}"
+    procs = [ctx.Process(target=target,
+                         args=(r, TP_WORLD, init, *args, results))
              for r in range(TP_WORLD)]
     for proc in procs:
         proc.start()
     try:
-        got = dict(results.get(timeout=TP_TIMEOUT) for _ in procs)
+        got = dict(results.get(timeout=timeout) for _ in procs)
     finally:
         for proc in procs:
             proc.join(60)
@@ -9539,7 +9609,7 @@ def parallel_world(tmp) -> list:
                 proc.join()
     for rank in range(TP_WORLD):
         if "error" in got[rank]:
-            raise AssertionError(f"phase 18 rank {rank}:\n"
+            raise AssertionError(f"{name} rank {rank}:\n"
                                  f"{got[rank]['error']}")
     return [got[r] for r in range(TP_WORLD)]
 
@@ -9608,7 +9678,7 @@ def parallel_phase(out_dir, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = parallel_world(tmp)
+    ranks = spawn_world(parallel_rank, tmp, "phase18")
     secs["b, c world"] = time.perf_counter() - t0
     r0 = ranks[0]
     g = r0["generate"]
@@ -9714,6 +9784,524 @@ def parallel_phase(out_dir, tmp):
           f"parts {secs}; W8A8 {w8}", flush=True)
     if bad:
         raise AssertionError(f"W8A8 / parallel phase failed: {bad}")
+    return launches, kernels
+
+
+# Phase 19 (data- and pipeline-parallel training, the training CLI under
+# torch.distributed.run, the warm-up CLI). Its world is phase 18's kind:
+# TP_WORLD spawned ranks sharing the card over gloo, each rebuilding the 3B
+# from its seed. (a) trains on phase 6's batch (one sample a rank); (b)
+# pipelines the 3B decoder over 2 stages at B = 2, T = 1,536, M = 2, with
+# phase 6.1's padding tails; the card's one process computes both
+# references first and leaves them in a file the ranks read.
+PP_MICRO = 2
+PP_VALID = (TRAIN_T_BUCKET - 202, TRAIN_T_BUCKET - 335)
+# losses of the data-parallel steps against the same steps in one process:
+# the ranks run the decoder at B = 1 where the process runs it at B = 2, so
+# cuBLAS may pick other GEMM kernels; bf16 rounding stays far below this
+DP_LOSS_TOL = 1e-3
+DP_CLI_STEPS = 2
+PHASE19_TIMEOUT = 900  # seconds for the world of phase 19
+
+
+def _digest(module) -> str:
+    """A hash of a module's parameters' bits (bit-equality across
+    processes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in sorted(module.named_parameters()):
+        h.update(name.encode() + p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_steps(cfg, params, host, mesh=None) -> dict:
+    """19(a)'s selector steps from the initial scorer at phase 6's schedule:
+    2 at accumulation 1 on phase 6's batch, then 1 at accumulation 2 (the
+    batch, then its samples in reverse order). With ``mesh`` this rank
+    takes its part of each micro-batch (``batch_sharding``) and
+    ``accumulate`` averages over the ranks. Returns the first update's
+    scorer gradients, the losses, each step's launches (zeroed just before
+    it, read just after) and the scorer's digest after the steps. With
+    ``mesh``, also the planted fault: one update from the initial scorer
+    at lr > 0 with the gradients left each rank's own (``data_mean``
+    averaging the metrics only): its gradients and the scorer's digest."""
+    import numpy as np
+    import torch
+
+    from visionselector_tpu_torch.core.mesh import batch_sharding
+    from visionselector_tpu_torch.kernels import attention as A
+    from visionselector_tpu_torch.train import train_step as TS
+    from visionselector_tpu_torch.train.loss import to_device
+
+    sched = TS.ScheduleConfig(total_steps=TRAIN_STEPS, lr=TRAIN_LR,
+                              reg_weight_start=1.0, reg_weight_end=1.0)
+    k_max = max(1, int(TRAIN_S_BUCKET // cfg.vision.spatial_merge_unit
+                       * 0.2))
+    rev = type(host)(*(np.ascontiguousarray(np.asarray(x)[::-1])
+                       for x in host))
+    local = batch_sharding(mesh) if mesh is not None else None
+    micro = [to_device(b if local is None else type(b)(*map(local, b)),
+                       "cuda") for b in (host, rev)]
+    start = {n: p.detach().clone() for n, p in
+             params.scorer.named_parameters()}
+    update = TS._update
+
+    def recorder(into):
+        def spy(state, s):
+            if not into:
+                into.update({n: p.grad.float().clone()
+                             for n, p in state.trainable().items()})
+            return update(state, s)
+        return spy
+
+    grads, losses, counts = {}, [], []
+    state = TS.init_train_state(params, sched)
+    state.mesh = mesh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(TS, "_update", recorder(grads)):
+        for i in range(3):
+            zero_counts()
+            state, m = TS.train_step_accum(state, params,
+                                           micro[:1 + i // 2], cfg, k_max,
+                                           sched)
+            torch.cuda.synchronize()
+            counts.append(dict(launch_counts(),
+                               causal=A.FLASH_CAUSAL_LAUNCHES,
+                               grad=A.FLASH_GRAD_LAUNCHES))
+            losses.append(float(m["loss"]))
+    out = dict(grads=grads, losses=losses, counts=counts,
+               scorer=_digest(params.scorer),
+               wall_s=time.perf_counter() - t0)
+    if mesh is not None:
+        with torch.no_grad():
+            for n, p in params.scorer.named_parameters():
+                p.copy_(start[n])
+        state = TS.init_train_state(params, sched)
+        state.mesh, state.step = mesh, 1  # lr > 0 from update 1 on
+        mean, bad = TS.data_mean, {}
+        with patched(TS, "data_mean",
+                     lambda mesh, g, metrics: mean(mesh, [], metrics)), \
+                patched(TS, "_update", recorder(bad)):
+            TS.train_step_accum(state, params, micro[:1], cfg, k_max, sched)
+        out.update(fault_grads=bad, fault_scorer=_digest(params.scorer))
+    return out
+
+
+def pp_inputs(lm, cfg):
+    """19(b)'s inputs, the same on every process: the embeddings of
+    seeded token ids [2, 1,536], 1-D positions on the three rope axes,
+    PP_VALID rows valid, and a seeded fp32 cotangent (the loss is
+    sum(h * g))."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    b, t = TRAIN_BATCH, TRAIN_T_BUCKET
+    ids = torch.randint(100, 5000, (b, t), generator=gen, device="cuda")
+    with torch.no_grad():
+        x = lm.embed_tokens[ids].clone()
+    pos = torch.arange(t, device="cuda").expand(3, b, t).contiguous()
+    valid = torch.tensor(PP_VALID, device="cuda")
+    seg = (torch.arange(t, device="cuda")[None] < valid[:, None]).int()
+    g = torch.randn(b, t, cfg.text.hidden_size, generator=gen,
+                    device="cuda")
+    return x, pos, seg, g
+
+
+def pp_reference(cfg, lm) -> dict:
+    """``lm_prefill_layers`` over all 36 layers on 19(b)'s inputs in one
+    process: the hidden states and the gradients of sum(h * g) with
+    respect to the input and to the q kernel of each stage's first layer
+    (layers 0 and 18)."""
+    from visionselector_tpu_torch.models.qwen25vl.lm import lm_prefill_layers
+
+    n = cfg.text.num_hidden_layers
+    x, pos, seg, g = pp_inputs(lm, cfg)
+    x.requires_grad_(True)
+    firsts = [lm.layers[i].q_kernel for i in (0, n // TP_WORLD)]
+    for w in firsts:
+        w.requires_grad_(True)
+    h, _ = lm_prefill_layers(lm, range(n), x, pos, seg)
+    (h.float() * g).sum().backward()
+    out = {"h": h.detach(), "x_grad": x.grad, 0: firsts[0].grad.clone(),
+           n // TP_WORLD: firsts[1].grad.clone()}
+    for w in firsts:
+        w.requires_grad_(False)
+        w.grad = None
+    return out
+
+
+def pp_run(cfg, lm, mesh, ref) -> dict:
+    """19(b) on one rank: the decoder staged (``stage_layers``), then
+    ``lm_prefill_layers_pp`` on ``pp_inputs`` with a gradient (launches of
+    its forward and of its backward counted apart), held to ``ref``; the
+    planted faults, patched into the schedule (the last stage's
+    microbatches swapped; the output's gradient summed over the stages);
+    the decoder's bytes before and after staging."""
+    import torch
+
+    from visionselector_tpu_torch.core import collectives
+    from visionselector_tpu_torch.core.pipeline import (
+        _Pipe,
+        lm_prefill_layers_pp,
+        stage_layers,
+    )
+    from visionselector_tpu_torch.kernels import attention as A
+
+    def counts():
+        return dict(flash=A.FLASH_LAUNCHES, causal=A.FLASH_CAUSAL_LAUNCHES,
+                    grad=A.FLASH_GRAD_LAUNCHES)
+
+    def layer_bytes():
+        return sum(t.nbytes for t in lm.layers.parameters())
+
+    before = (lm_bytes(lm), layer_bytes())
+    x, pos, seg, g = pp_inputs(lm, cfg)
+    stage_layers(lm, mesh)
+    first = lm.stage_layers[0]
+    after = (lm_bytes(lm), layer_bytes())
+    torch.cuda.empty_cache()
+    w = lm.layers[0].q_kernel
+    w.requires_grad_(True)
+
+    def run():
+        xg = x.clone().requires_grad_(True)
+        w.grad = None
+        h = lm_prefill_layers_pp(lm, xg, pos, seg, mesh, PP_MICRO)
+        torch.cuda.synchronize()
+        fwd = counts()
+        zero_counts()
+        (h.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        return h.detach(), xg.grad, w.grad.clone(), fwd, counts()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_counts()
+    h, x_grad, w_grad, fwd, bwd = run()
+    wall = time.perf_counter() - t0
+    want = ref["h"]
+    out = dict(
+        first=first, bytes=(before, after), fwd=fwd, bwd=bwd, wall_s=wall,
+        ulps=bf16_ulp_err(h, want),
+        rel=((h.float() - want.float()).abs().max()
+             / want.float().abs().max()).item(),
+        x_err=rel_err(x_grad, ref["x_grad"]),
+        w_err=rel_err(w_grad, ref[first]),
+        finite=bool(torch.isfinite(h).all() and torch.isfinite(x_grad).all()))
+    forward, backward = _Pipe.forward, _Pipe.backward
+
+    def summed(pipe, grad_out, *rest):
+        return backward(pipe, collectives.all_reduce(grad_out.clone(),
+                                                     pipe.group), *rest)
+
+    with torch.no_grad(), patched(
+            _Pipe, "forward", lambda pipe, x_mb: forward(pipe, x_mb).flip(0)):
+        swapped = lm_prefill_layers_pp(lm, x, pos, seg, mesh, PP_MICRO)
+    out["swap_ulps"] = bf16_ulp_err(swapped, want)
+    with patched(_Pipe, "backward", summed):
+        _, xs, ws, _, _ = run()
+    out["sum_err"] = max(rel_err(xs, ref["x_grad"]), rel_err(ws, ref[first]))
+    w.requires_grad_(False)
+    return out
+
+
+def dp_pp_rank(rank, world, init_method, ref_path, results):
+    """One rank of phase 19's world: joins it over gloo on cuda:0, makes
+    the data mesh and the 2-stage mesh, builds the seeded 3B, runs
+    ``dp_steps`` on its part of phase 6's batch (held to the one-process
+    reference in ``ref_path``), drops the vision tower and the scorer, and
+    runs ``pp_run`` on the decoder. Puts (rank, results)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        from visionselector_tpu_torch.core.config import qwen25vl_3b
+        from visionselector_tpu_torch.core.mesh import (
+            data_mesh,
+            init_world,
+            stage_mesh,
+        )
+        from visionselector_tpu_torch.models.qwen25vl.weights import (
+            init_params,
+        )
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_world(rank, world, init_method, "gloo")
+        mesh = data_mesh(TRAIN_BATCH, device="cuda", backend="gloo")
+        stages = stage_mesh(world, device="cuda", backend="gloo")
+        ref = torch.load(ref_path, map_location="cuda", weights_only=False)
+        cfg = qwen25vl_3b()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda", torch.bfloat16)
+        dp = dp_steps(cfg, params, train_batch(cfg), mesh)
+        out["dp"] = dict(
+            losses=dp["losses"], counts=dp["counts"], scorer=dp["scorer"],
+            wall_s=dp["wall_s"], grad_err=grad_err(dp["grads"], ref["grads"]),
+            fault_err=grad_err(dp["fault_grads"], ref["grads"]),
+            fault_scorer=dp["fault_scorer"])
+        lm = params.lm
+        del params, dp
+        torch.cuda.empty_cache()
+        out["pp"] = pp_run(cfg, lm, stages, ref["pp"])
+    except Exception:  # noqa: BLE001 — the parent raises it
+        out["error"] = traceback.format_exc()
+    results.put((rank, out))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def dp_cli_start(procs, tmp, hf_dir):
+    """19(c, d) started as processes of their own: ``api.train`` on phase
+    6's reduced-depth directory under ``torch.distributed.run`` over 2
+    ranks and the same command alone, and ``api.warmup`` on it."""
+    common = ["--device", "cuda", "--model-path", hf_dir, "--batch-size",
+              "2", "--total-steps", str(DP_CLI_STEPS), "--log-steps", "1"]
+    start_cmd(procs, tmp, "train_dp", [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc-per-node", str(TP_WORLD), "-m",
+        "visionselector_tpu_torch.api.train", *common, "--output-dir",
+        os.path.join(tmp, "train_dp")])
+    start_cli(procs, tmp, "train", *common, "--output-dir",
+              os.path.join(tmp, "train_one"), key="train_one")
+    start_cli(procs, tmp, "warmup", "--device", "cuda", "--model-path",
+              hf_dir, "--buckets", "1024,6144", "--micro-batch", "2")
+
+
+def dp_cli_done(procs, tmp, checks):
+    """19(c, d)'s checks: exit 0; the data-parallel run's log lines from
+    rank 0 only, its losses within DP_LOSS_TOL of the one-process run's,
+    its exported scorer within GRAD_TOL of each leaf's largest |value| of
+    the other's; the warm-up's JSON lines (one per bucket, text-only,
+    decode_batch 2)."""
+    from visionselector_tpu_torch.core.safetensors import open_checkpoint
+
+    logs, scorers = {}, {}
+    for key in ("train_dp", "train_one"):
+        rc, stdout, stderr, secs = finish_cli(procs, key)
+        lines = [json.loads(ln) for ln in stdout.splitlines()
+                 if ln.startswith("{")]
+        logs[key] = (rc, lines)
+        path = os.path.join(tmp, key, "importance_scorer.safetensors")
+        if rc == 0 and os.path.isfile(path):
+            get = open_checkpoint(path)
+            scorers[key] = {n: get(n).float() for n in get.names}
+        print(f"[dp-cli] {key}: rc={rc} in {secs!r} s; log lines {lines}"
+              + ("" if rc == 0 else f"; stderr {stderr[-3000:]}"),
+              flush=True)
+    (rc2, dp_lines), (rc1, one_lines) = logs["train_dp"], logs["train_one"]
+    checks["19c: both runs exit 0"] = rc2 == rc1 == 0
+    checks["19c: log lines from rank 0 only"] = (
+        [m.get("step") for m in dp_lines] == list(range(1, DP_CLI_STEPS + 1)))
+    checks["19c: losses = one process's"] = bool(dp_lines) and len(
+        dp_lines) == len(one_lines) and all(
+        abs(a["loss"] - b["loss"]) <= DP_LOSS_TOL * abs(b["loss"])
+        for a, b in zip(dp_lines, one_lines))
+    errs = ({n: rel_err(t, scorers["train_one"][n])
+             for n, t in scorers["train_dp"].items()}
+            if len(scorers) == 2 else {})
+    print(f"[dp-cli] exported scorers, data parallel against one process: "
+          f"rel_err per leaf {errs!r} (limit {GRAD_TOL})", flush=True)
+    checks["19c: exported scorer = one process's"] = bool(errs) and max(
+        errs.values()) <= GRAD_TOL and scorers["train_dp"].keys() == \
+        scorers["train_one"].keys()
+    rc, stdout, stderr, secs = finish_cli(procs, "warmup")
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+    print(f"[warmup] api.warmup --buckets 1024,6144 --micro-batch 2 (cuda): "
+          f"rc={rc} in {secs!r} s; lines {lines}"
+          + ("" if rc == 0 else f"; stderr {stderr[-3000:]}"), flush=True)
+    checks["19d: api.warmup exit 0 with its lines"] = rc == 0 and (
+        [ln.get("bucket") for ln in lines if "bucket" in ln]
+        == [1024, 6144, "text_only"]
+        and [ln["decode_batch"] for ln in lines if "decode_batch" in ln]
+        == [2] and "kernels_build_s" in lines[0]
+        and all("patches" in ln for ln in lines[1:3]))
+
+
+def dp_kernels(cfg, host) -> dict:
+    """Phase 19's kernel entries: K1 causal at a data-parallel rank's LM
+    shape (one sample of phase 6's batch: T 1,536, its valid rows, GQA
+    16/2, D 128) and at a pipeline microbatch's (T 1,536, the second
+    microbatch's PP_VALID[1] valid), K4 at one sample's ViT window layer
+    (S 6,144, H 16, D 80, its window segments), each against its plain
+    version with a planted fault, ms, bound and one SDPA call."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    out = {
+        "flash_varlen_fwd_dp": causal_k1_entry(
+            "flash_varlen_fwd_dp", "a data-parallel rank's sample",
+            cfg.text, TRAIN_T_BUCKET, int(np.asarray(host.seg_ids)[0].sum()),
+            gen, "[dp-kernel]"),
+        "flash_varlen_fwd_pp": causal_k1_entry(
+            "flash_varlen_fwd_pp", "a pipeline microbatch", cfg.text,
+            TRAIN_T_BUCKET, PP_VALID[1], gen, "[pp-kernel]")}
+    wnp = np.asarray(host.window_seg_ids)[0]
+    h, d = cfg.vision.num_heads, cfg.vision.head_dim
+    q, k, v = (torch.randn(1, len(wnp), h, d, generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    out["diag_attn_fwd_dp"] = diag_entry(
+        "diag_attn_fwd_dp", "a data-parallel rank's sample: window layer",
+        q, k, v, wnp, "[dp-kernel]")
+    return out
+
+
+def dp_pp_phase(out_dir, tmp, hf_dir):
+    """Phase 19: 19(c, d)'s CLIs started; the kernels at the phase's
+    shapes (``dp_kernels``); the one-process references (the 3B's selector
+    steps of ``dp_steps`` at B = 2, ``pp_reference``), saved for the
+    world; then the world (``dp_pp_rank``): (a) the ranks' losses within
+    DP_LOSS_TOL of the one-process steps, their step-1 averaged scorer
+    gradients within GRAD_TOL of its (``grad_err``), their scorers
+    bit-equal, 28 K4 + 4 K1 + 36 causal K1 through FlashAttentionFn a
+    micro-batch on rank 0, the planted fault (gradients not averaged)
+    beyond GRAD_TOL and the ranks' scorers apart; (b) the pipelined hidden
+    states within ULP_LIMIT bf16 ulps of each row's largest |value| of
+    ``lm_prefill_layers`` (else, read as cuBLAS's per-shape choice, within
+    TEACHER_TOL of max |value|; the rule used is printed), the gradients of
+    the input and of each stage's first q kernel within GRAD_TOL, 18 x M
+    causal K1 forward and as many recomputed under grad a rank, the layer
+    bytes a rank half the whole, both planted faults beyond their limits;
+    then 19(c, d)'s checks. Raises if any check failed; returns
+    (launches, kernels line entries)."""
+    import gc
+
+    import torch
+
+    from visionselector_tpu_torch.core.config import qwen25vl_3b
+    from visionselector_tpu_torch.models.qwen25vl.weights import init_params
+
+    t_phase = time.perf_counter()
+    print(f"[dp] card: {nvidia_smi()}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, secs, procs = {}, {}, {}
+    try:
+        dp_cli_start(procs, tmp, hf_dir)
+        cfg = qwen25vl_3b()
+        host = train_batch(cfg)
+        t0 = time.perf_counter()
+        kernels = dp_kernels(cfg, host)
+        secs["kernels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda", torch.bfloat16)
+        one = dp_steps(cfg, params, host)
+        ref = {"grads": {n: g.cpu() for n, g in one["grads"].items()},
+               "pp": {k: v.cpu() for k, v in
+                      pp_reference(cfg, params.lm).items()}}
+        ref_path = os.path.join(tmp, "dp_pp_ref.pt")
+        torch.save(ref, ref_path)
+        del params, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["one process"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_world(dp_pp_rank, tmp, "phase19", ref_path,
+                            timeout=PHASE19_TIMEOUT)
+        secs["world"] = time.perf_counter() - t0
+        n_layers = cfg.text.num_hidden_layers
+        depth, n_full = cfg.vision.depth, len(cfg.vision.fullatt_block_indexes)
+        per = {"diag_attn_fwd": depth - n_full,
+               "flash_varlen_fwd": n_full + n_layers, "causal": n_layers,
+               "grad": n_layers}
+        d0, d1 = ranks[0]["dp"], ranks[1]["dp"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(d0["losses"], one["losses"]))
+        print(f"[dp] (a) selector steps over {TP_WORLD} ranks on one card "
+              f"(gloo), one sample a rank: losses {d0['losses']} (one "
+              f"process at B = 2: {one['losses']}; largest relative "
+              f"difference {loss_err!r}, limit {DP_LOSS_TOL}); step-1 "
+              f"averaged scorer gradients against one process's grad_err "
+              f"{d0['grad_err']!r} / {d1['grad_err']!r} (ranks 0 / 1, limit "
+              f"{GRAD_TOL}); scorers bit-equal {d0['scorer'] == d1['scorer']}"
+              f"; launches a step on rank 0 {d0['counts']} (expected "
+              f"{per} a micro-batch); wall {d0['wall_s']!r} s for 3 steps "
+              f"(ranks share one card: not a speed; one process "
+              f"{one['wall_s']!r} s)", flush=True)
+        print(f"[control] (a) gradients not averaged: grad_err "
+              f"{d0['fault_err']!r} / {d1['fault_err']!r} (must exceed "
+              f"{GRAD_TOL}); scorers apart "
+              f"{d0['fault_scorer'] != d1['fault_scorer']}", flush=True)
+        checks["19a: losses = one process's"] = loss_err <= DP_LOSS_TOL
+        checks["19a: step-1 gradients = one process's"] = max(
+            d0["grad_err"], d1["grad_err"]) <= GRAD_TOL
+        checks["19a: ranks' scorers bit-equal"] = d0["scorer"] == d1["scorer"]
+        checks["19a: launches 28 K4 + 40 K1 (36 under grad) a micro-batch"] \
+            = all(c["diag_attn_fwd"] == a * per["diag_attn_fwd"]
+                  and c["flash_varlen_fwd"] == a * per["flash_varlen_fwd"]
+                  and c["causal"] == a * per["causal"]
+                  and c["grad"] == a * per["grad"]
+                  for c, a in zip(d0["counts"], (1, 1, 2)))
+        checks["19a: planted fault caught"] = (
+            min(d0["fault_err"], d1["fault_err"]) > GRAD_TOL
+            and d0["fault_scorer"] != d1["fault_scorer"])
+        p0, p1 = ranks[0]["pp"], ranks[1]["pp"]
+        ulps = max(p0["ulps"], p1["ulps"])
+        rule = ("ULP_LIMIT" if ulps <= ULP_LIMIT else
+                "TEACHER_TOL (the ranks run B = 1 microbatches where the "
+                "reference runs B = 2: cuBLAS's per-shape GEMM choice)")
+        half = n_layers // TP_WORLD
+        for r, p in enumerate((p0, p1)):
+            (lb, layb), (la, laya) = p["bytes"]
+            print(f"[pp] (b) rank {r} (layers {p['first']}-"
+                  f"{p['first'] + half - 1}): hidden {p['ulps']!r} bf16 ulps "
+                  f"of each row's max |value| (limit {ULP_LIMIT}), max |diff| "
+                  f"/ max |value| {p['rel']!r}; gradients rel_err input "
+                  f"{p['x_err']!r}, layer {p['first']} q_kernel "
+                  f"{p['w_err']!r} (limit {GRAD_TOL}); launches forward "
+                  f"{p['fwd']}, backward {p['bwd']}; decoder layer bytes "
+                  f"{laya} of {layb} ({laya / layb!r}), LM bytes {la} of "
+                  f"{lb}; wall {p['wall_s']!r} s (ranks share one card: not "
+                  f"a speed)", flush=True)
+            print(f"[control] (b) rank {r}: last stage's microbatches "
+                  f"swapped {p['swap_ulps']!r} ulps (must exceed "
+                  f"{ULP_LIMIT}); output gradient summed over the stages "
+                  f"rel_err {p['sum_err']!r} (must exceed {GRAD_TOL})",
+                  flush=True)
+        print(f"[pp] (b) hidden states held by {rule}", flush=True)
+        pps = (p0, p1)
+        checks["19b: hidden = one process's"] = all(
+            p["finite"] for p in pps) and (
+            ulps <= ULP_LIMIT or max(p["rel"] for p in pps) <= TEACHER_TOL)
+        checks["19b: gradients = one process's"] = all(
+            max(p["x_err"], p["w_err"]) <= GRAD_TOL for p in pps)
+        checks["19b: 18 x M causal K1 forward + 18 x M recomputed a rank"] = \
+            all(p["fwd"]["causal"] == p["fwd"]["flash"] == half * PP_MICRO
+                and p["fwd"]["grad"] == 0
+                and p["bwd"]["grad"] == p["bwd"]["causal"] == half * PP_MICRO
+                for p in pps)
+        checks["19b: layer bytes a rank half"] = all(
+            p["bytes"][1][1] * TP_WORLD == p["bytes"][0][1] for p in pps)
+        checks["19b: planted faults caught"] = all(
+            p["swap_ulps"] > ULP_LIMIT and p["sum_err"] > GRAD_TOL
+            for p in pps)
+        t0 = time.perf_counter()
+        dp_cli_done(procs, tmp, checks)
+        secs["c, d (after the world)"] = time.perf_counter() - t0
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    launches = {
+        "flash_varlen_fwd_dp": sum(c["flash_varlen_fwd"]
+                                   for c in d0["counts"]),
+        "diag_attn_fwd_dp": sum(c["diag_attn_fwd"] for c in d0["counts"]),
+        "flash_varlen_fwd_pp": p0["fwd"]["flash"] + p0["bwd"]["flash"]}
+    print(f"[dp] checks: {checks}", flush=True)
+    print(f"[dp] phase seconds {time.perf_counter() - t_phase!r}; parts "
+          f"{secs}; launches {launches}", flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"data / pipeline parallel phase failed: {bad}")
     return launches, kernels
 
 
@@ -9868,6 +10456,13 @@ def main() -> int:
         par_launches, par_kernels = parallel_phase(out_dir, tmp)
         launches.update(par_launches)
         kernels.update(par_kernels)
+        # Data- and pipeline-parallel training, the training CLI under
+        # torch.distributed.run and the warm-up (phase 19): K1 and K4
+        # counted on rank 0 of its world (zeroed just before each counted
+        # run, read just after)
+        dp_launches, dp_kernels_line = dp_pp_phase(out_dir, tmp, hf_dir)
+        launches.update(dp_launches)
+        kernels.update(dp_kernels_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

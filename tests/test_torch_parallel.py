@@ -313,8 +313,7 @@ def test_shard_params_matches_jax_shards(index):
 
 
 def test_batch_sharding_matches_jax():
-    """A rank's part of a batch: axis 0 under ``batch_sharding``, axis 1
-    (the micro-batch axis 0 whole) under ``accum_batch_sharding``, equal
+    """A rank's part of a batch under ``batch_sharding`` (axis 0), equal
     to JAX's shard on the device at that data index."""
     jm = jmesh.make_mesh(n_data=4, n_model=2)
     x = np.arange(4 * 8 * 3, dtype=np.float32).reshape(4, 8, 3)
@@ -322,16 +321,13 @@ def test_batch_sharding_matches_jax():
         mesh = tmesh.Mesh({"data": 4, "model": 2}, rank, torch.device("cpu"),
                           "gloo", {})
         dev = jm.devices[rank // 2, rank % 2]
-        for t_fn, j_fn in ((tmesh.batch_sharding, jmesh.batch_sharding),
-                           (tmesh.accum_batch_sharding,
-                            jmesh.accum_batch_sharding)):
-            sharding = j_fn(jm)(x)
-            assert isinstance(sharding, NamedSharding)
-            placed = jax.device_put(x, sharding)
-            want = next(np.asarray(s.data) for s in placed.addressable_shards
-                        if s.device == dev)
-            got = t_fn(mesh)(torch.from_numpy(x))
-            np.testing.assert_array_equal(got.numpy(), want)
+        sharding = jmesh.batch_sharding(jm)(x)
+        assert isinstance(sharding, NamedSharding)
+        placed = jax.device_put(x, sharding)
+        want = next(np.asarray(s.data) for s in placed.addressable_shards
+                    if s.device == dev)
+        got = tmesh.batch_sharding(mesh)(torch.from_numpy(x))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _stub_mesh(n, index=0):

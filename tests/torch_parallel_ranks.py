@@ -1,24 +1,19 @@
 """The ranks of tests/test_torch_parallel.py's gloo world on the CPU. This
 module imports no jax: each rank is a spawned process that re-imports it.
 
-``start_world(n, tmp_dir, inputs)`` pickles ``inputs`` (numpy trees and
-arrays from the JAX side) under ``tmp_dir``, spawns n ranks with a
-``file://`` rendezvous there, and returns every rank's results (rank
-order). Each rank joins the world, makes a (2, 2) and a (1, 4) mesh and
-runs every case of ``CASES``; a case that raises reports its traceback
-instead of its outputs."""
+``start_world(n, tmp_dir, inputs)`` runs ``run_cases`` on every rank of a
+world of n (``torch_world.World``: ``inputs`` pickled under ``tmp_dir``, a
+``file://`` rendezvous there) and returns every rank's results (rank
+order). Each rank makes a (2, 2) and a (1, 4) mesh and runs every case of
+``CASES``; a case that raises reports its traceback instead of its
+outputs."""
 
 from __future__ import annotations
 
-import os
-import pickle
 import traceback
 
 import numpy as np
 import torch
-
-TIMEOUT = 300  # seconds for the whole world
-
 
 def _qwen(inputs, mesh=None):
     """The tiny Qwen engine from the JAX tree: whole, or its decoder
@@ -111,53 +106,24 @@ def case_vit_sp(inputs, meshes):
 CASES = (case_tp_generate, case_tp_moe_prefill, case_moe_ep, case_vit_sp)
 
 
-def rank_main(rank: int, world: int, init_method: str, inputs_path: str,
-              results) -> None:
-    from visionselector_tpu_torch.core.mesh import init_world, make_mesh
+def run_cases(rank: int, world: int, inputs) -> dict:
+    from visionselector_tpu_torch.core.mesh import make_mesh
 
-    torch.set_num_threads(1)
+    meshes = {"2x2": make_mesh(2, 2, device="cpu"),
+              "1x4": make_mesh(1, 4, device="cpu")}
     out = {}
-    try:
-        with open(inputs_path, "rb") as f:
-            inputs = pickle.load(f)
-        init_world(rank, world, init_method, "gloo")
-        meshes = {"2x2": make_mesh(2, 2, device="cpu"),
-                  "1x4": make_mesh(1, 4, device="cpu")}
-        for case in CASES:
-            try:
-                out[case.__name__] = case(inputs, meshes)
-            except Exception:  # noqa: BLE001 — the test reports it
-                out[case.__name__] = {"error": traceback.format_exc()}
-    except Exception:  # noqa: BLE001
-        out["error"] = traceback.format_exc()
-    results.put((rank, out))
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    for case in CASES:
+        try:
+            out[case.__name__] = case(inputs, meshes)
+        except Exception:  # noqa: BLE001 — the test reports it
+            out[case.__name__] = {"error": traceback.format_exc()}
+    return out
 
 
 def start_world(n: int, tmp_dir: str, inputs: dict) -> list:
-    import torch.multiprocessing as mp
+    from torch_world import World
 
-    path = os.path.join(tmp_dir, "inputs.pkl")
-    with open(path, "wb") as f:
-        pickle.dump(inputs, f, protocol=pickle.HIGHEST_PROTOCOL)
-    init = f"file://{os.path.join(tmp_dir, 'rendezvous')}"
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=rank_main, args=(r, n, init, path, results))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    try:
-        got = dict(results.get(timeout=TIMEOUT) for _ in procs)
-    finally:
-        for p in procs:
-            p.join(30)
-            if p.is_alive():
-                p.kill()
-    return [got[r] for r in range(n)]
+    return World((n,), tmp_dir, run_cases, inputs).results()[n]
 
 
 def as_numpy(tree):

@@ -21,9 +21,9 @@ rank's share is computed once and copied), and each sampler's generator
 is seeded from the request alike, so greedy, sampled, first-token and
 speculative-acceptance draws agree and the ranks' caches stay equal.
 
-Devices: rank r on ``cuda:r`` with NCCL when the host has N cards; all
-ranks on ``cuda:0`` with gloo when it has fewer (NCCL refuses two ranks
-on one device); gloo on the CPU. The backend is printed.
+Devices: ``mesh.placement`` (rank r on ``cuda:r`` with NCCL when the
+host has N cards; all ranks on ``cuda:0`` with gloo when it has fewer;
+gloo on the CPU). The backend is printed.
 """
 
 from __future__ import annotations
@@ -38,15 +38,6 @@ import traceback
 
 import torch
 import torch.distributed as dist
-
-
-def placement(device: str, rank: int, world: int):
-    """(device, backend) of ``rank``: see the module docstring."""
-    if device == "cuda":
-        if torch.cuda.device_count() >= world:
-            return torch.device("cuda", rank), "nccl"
-        return torch.device("cuda", 0), "gloo"
-    return torch.device("cpu"), "gloo"
 
 
 class TPLink:
@@ -91,6 +82,7 @@ def _setup(rank: int, world: int, init_method: str, args):
     from visionselector_tpu_torch.core.mesh import (
         init_world,
         make_mesh,
+        placement,
         tensor_parallel,
     )
 

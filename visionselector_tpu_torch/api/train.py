@@ -62,6 +62,23 @@ family's tiny random-weight config, on synthetic data unless
 ``--annotation`` is given. It runs on the GPU (``--device cuda``, the
 default) and fails without one; ``--device cpu`` asks for the CPU.
 ``transformers`` is imported only for ``--annotation`` (the tokenizer).
+
+Data parallelism (the reference's ``(n_data, 1)`` mesh over its devices):
+started by ``torch.distributed.run``, or with a default process group
+already made, every rank trains on its part of each batch::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m visionselector_tpu_torch.api.train --batch-size 8 ...
+
+The mesh is ``mesh.data_mesh``: n_data = gcd(batch size, world) ranks,
+the rest idle (one line on stderr, exit 0). Every rank builds the same
+seeded global batch stream and keeps its part (``mesh.batch_sharding``;
+under ``--method grpo`` it rolls out only its own prompts, with the
+global seeds); ``train_step.accumulate`` averages the gradients and the
+metrics over the ranks, so every rank takes the same step. Devices and
+backend from ``mesh.placement`` (NCCL with a card per rank, else gloo on
+``cuda:0``). Only rank 0 writes ``train_log.jsonl``, the checkpoints and
+the exports; every rank resumes from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -70,6 +87,7 @@ import argparse
 import itertools
 import json
 import os
+import sys
 import time
 
 LORA_METHODS = ("sft", "dpo", "grpo")
@@ -265,6 +283,68 @@ def _packed_stream(cfg, ds, args, single_builder):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_options(args)
+    import torch
+    import torch.distributed as dist
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(pass --device cpu to run on the CPU)")
+    owned = _join_world(args)
+    try:
+        return _train(args)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _join_world(args) -> bool:
+    """Join the default process group over ``env://`` when
+    ``torch.distributed.run`` started this process (WORLD_SIZE > 1) and
+    none exists yet. True when it joined (``main`` leaves it at the
+    end)."""
+    import torch.distributed as dist
+
+    from visionselector_tpu_torch.core.mesh import init_world, placement
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized() or world <= 1:
+        return False
+    rank = int(os.environ["RANK"])
+    _, backend = placement(args.device,
+                           int(os.environ.get("LOCAL_RANK", rank)), world)
+    init_world(rank, world, "env://", backend)
+    return True
+
+
+def _data_mesh(args):
+    """(this rank's data mesh or None, rank 0?, idle?) in the default
+    process group, if one exists (``mesh.data_mesh``)."""
+    import torch
+    import torch.distributed as dist
+
+    from visionselector_tpu_torch.core.mesh import data_mesh, placement
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None, True, False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device, _ = placement(args.device,
+                          int(os.environ.get("LOCAL_RANK", rank)), world)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)  # "cuda" below is this rank's card
+    mesh = data_mesh(args.batch_size, device=device)
+    if mesh is None:
+        print(f"[train] rank {rank} idle: the mesh takes gcd(batch size "
+              f"{args.batch_size}, world {world}) ranks", file=sys.stderr)
+        return None, False, True
+    if rank == 0:
+        print(f"[train] data parallel over {mesh.size('data')} of {world} "
+              f"ranks, backend {mesh.backend}, rank 0 on {mesh.device}")
+    return mesh, rank == 0, False
+
+
+def _train(args) -> int:
+    """This process's training run (``main`` has joined the world, if
+    any; see the module docstring)."""
     import numpy as np
     import torch
 
@@ -274,15 +354,16 @@ def main(argv=None) -> int:
         maybe_resume,
         save_train_state,
     )
+    from visionselector_tpu_torch.core.mesh import batch_sharding
     from visionselector_tpu_torch.core.params import init_random_
     from visionselector_tpu_torch.selector.scorer import Scorer
     from visionselector_tpu_torch.train.data import stack_samples
     from visionselector_tpu_torch.train.loss import to_device
 
     dev = args.device
-    if dev == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available "
-                         "(pass --device cpu to run on the CPU)")
+    mesh, lead, idle = _data_mesh(args)
+    if idle:
+        return 0
     is_ov = args.family == "llava_ov15"
     tiny = args.smoke or not args.model_path
     cfg, params = load_model(args.family, None if args.smoke
@@ -506,7 +587,7 @@ def main(argv=None) -> int:
         ref = ReferencePolicy(params, state) if sched.beta > 0 else None
         stream = grpo_prompt_stream()
         step_fn = _grpo_stepper(args, cfg, params, ref, sched, stream, dev,
-                                accum, tiny)
+                                accum, tiny, mesh)
     elif args.method == "dynamic":
         from visionselector_tpu_torch.selector.baselines.dynamic import (
             init_predictor,
@@ -546,20 +627,28 @@ def main(argv=None) -> int:
 
         def step_fn(state, micro):
             return train_step_accum(state, params, micro, cfg, k_max, sched)
+    state.mesh = mesh
     state, resumed = maybe_resume(args.output_dir, state)
-    if resumed:
+    if resumed and lead:
         print(f"[train] resumed at step {state.step}")
 
     if stream is None:
         stream = sample_stream()
+    local = None if mesh is None else batch_sharding(mesh)
+
+    def part(batch):
+        """This rank's part of a stacked host batch."""
+        return batch if local is None else type(batch)(*map(local, batch))
 
     def micro_batch():
-        """``batch-size`` samples (pairs under dpo), on the device."""
+        """``batch-size`` samples (pairs under dpo), this rank's part on
+        the device."""
         items = [next(stream) for _ in range(args.batch_size)]
         if args.method == "dpo":
-            return tuple(to_device(stack_samples([it[i] for it in items]),
-                                   dev) for i in range(2))
-        return to_device(stack_samples(items), dev)
+            return tuple(to_device(part(stack_samples([it[i] for it in
+                                                       items])), dev)
+                         for i in range(2))
+        return to_device(part(stack_samples(items)), dev)
 
     def next_batch():
         """``accum`` micro-batches, on the device."""
@@ -577,14 +666,17 @@ def main(argv=None) -> int:
     else:
         batch_iter = iter(next_batch, None)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
     log_path = os.path.join(args.output_dir, "train_log.jsonl")
-    saver = AsyncSaver() if args.async_save else None
+    saver = AsyncSaver() if args.async_save and lead else None
     t0 = time.time()
     try:
         while state.step < args.total_steps:
             state, metrics = step_fn(state, next(batch_iter))
             step = state.step
+            if not lead:
+                continue
             if step % args.log_steps == 0 or step == args.total_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(step=step, wall_s=round(time.time() - t0, 1))
@@ -605,6 +697,8 @@ def main(argv=None) -> int:
             saver.finalize_saves()
 
     out = args.output_dir
+    if not lead:
+        return 0
     if args.method == "dynamic":
         from visionselector_tpu_torch.train.dynamic_train import (
             export_predictor_to_safetensors,
@@ -640,7 +734,7 @@ def main(argv=None) -> int:
 
 
 def _grpo_stepper(args, cfg, params, ref, sched, stream, dev, accum: int,
-                  tiny: bool):
+                  tiny: bool, mesh=None):
     """``step_fn(state, _)`` of ``--method grpo``: per prompt,
     ``num_generations`` rollouts through the serving engine on the current
     policy (the engine holds the very modules AdamW updates, adapters
@@ -651,7 +745,10 @@ def _grpo_stepper(args, cfg, params, ref, sched, stream, dev, accum: int,
     micro-batches). Prompt ``bi`` of micro-batch ``a`` at update n rolls
     out with seed ``(n * batch_size * accum) + a * batch_size + bi``.
     Rollouts and the scored samples share one pixel-bound policy, so the
-    completions are conditioned on exactly the grid the step scores."""
+    completions are conditioned on exactly the grid the step scores.
+    Under data parallelism (``mesh``) each rank takes every prompt from
+    the stream but rolls out only its own part of each micro-batch, with
+    the global seeds; ``mean_reward`` is averaged over the ranks."""
     import numpy as np
     import torch
 
@@ -669,6 +766,10 @@ def _grpo_stepper(args, cfg, params, ref, sched, stream, dev, accum: int,
         rollout_group,
     )
     from visionselector_tpu_torch.train.loss import to_device
+    from visionselector_tpu_torch.train.train_step import (
+        data_mean,
+        data_parallel,
+    )
 
     if args.family == "llava_ov15":
         from visionselector_tpu_torch.models.llava_ov15.model import OVEngine
@@ -684,11 +785,18 @@ def _grpo_stepper(args, cfg, params, ref, sched, stream, dev, accum: int,
           else dict(min_pixels=56 * 56, max_pixels=28 * 28 * 1280))
     reward_fns = [REWARD_FUNCS[n] for n in args.rewards.split(",") if n]
     vc = cfg.vision
+    own = range(args.batch_size)  # this rank's prompts of a micro-batch
+    if data_parallel(mesh):
+        per = args.batch_size // mesh.size("data")
+        own = range(mesh.index("data") * per,
+                    (mesh.index("data") + 1) * per)
 
     def one_micro(seed_base):
         samples, rewards = [], []
         for bi in range(args.batch_size):
             images, raw_ids, slots, solution, tok = next(stream)
+            if bi not in own:
+                continue
             prepped = [preprocess_image(
                 im, patch_size=vc.patch_size,
                 temporal_patch_size=vc.temporal_patch_size,
@@ -733,8 +841,11 @@ def _grpo_stepper(args, cfg, params, ref, sched, stream, dev, accum: int,
             state, metrics = grpo_train_step_accum(
                 state, ref, params, [b for b, _, _ in micros],
                 [a for _, a, _ in micros], cfg, sched)
-        metrics["mean_reward"] = float(np.mean(
-            [r for _, _, rs in micros for r in rs]))
+        mean_reward = {"mean_reward": float(np.mean(
+            [r for _, _, rs in micros for r in rs]))}
+        if data_parallel(mesh):
+            mean_reward = data_mean(mesh, [], mean_reward)
+        metrics.update(mean_reward)
         return state, metrics
 
     return step_fn

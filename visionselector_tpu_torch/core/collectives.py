@@ -1,17 +1,23 @@
 """The collectives of the port's parallel paths, in one module: sum over a
-group (``all_reduce``) and concatenation along a dim (``all_gather``), on
-``torch.distributed`` process groups (``core.mesh``). Nothing broadcasts:
-tensor-parallel ranks agree on every sampled token because they draw it
-from the same bits (``api.serve_tp``).
+group (``all_reduce``), concatenation along a dim (``all_gather``) and
+JAX's ``ppermute`` (``ppermute``: each rank sends to at most one rank and
+receives from at most one), on ``torch.distributed`` process groups
+(``core.mesh``). Nothing broadcasts: tensor-parallel ranks agree on every
+sampled token because they draw it from the same bits
+(``api.serve_tp``).
 
 A tensor that carries a gradient goes through
-``torch.distributed.nn.functional`` (the gradient of a sum is a sum, of a
-gather a slice); otherwise the in-place ``torch.distributed`` call.
+``torch.distributed.nn.functional`` in ``all_reduce`` / ``all_gather``
+(the gradient of a sum is a sum, of a gather a slice); otherwise the
+in-place ``torch.distributed`` call. ``ppermute`` carries no gradient:
+the pipeline (``core.pipeline``) calls it inside one autograd Function
+whose backward runs the reverse permutation itself.
 
 Backends: NCCL where each rank owns a GPU, gloo on the CPU and where ranks
 share one GPU (NCCL refuses two ranks on one device). On the H100 (torch
-2.11) gloo ran all_reduce and all_gather on CUDA tensors
-directly, so no collective stages through the host.
+2.11) gloo ran all_reduce and all_gather on CUDA tensors directly, so
+those stage nothing through the host; gloo's send and recv take CPU
+tensors only, so ``ppermute`` copies through the host under gloo.
 """
 
 from __future__ import annotations
@@ -47,3 +53,33 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
 
+
+
+def ppermute(t: torch.Tensor, perm, group, backend: str) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over ``group``: ``perm`` lists (source,
+    destination) pairs of group ranks; each rank sends ``t`` to its
+    destination and returns what its source sent (zeros where it has
+    none). Every rank of the group calls it with the same ``perm`` and
+    shapes. Under gloo (``backend``, the mesh's) the operands are host
+    copies; under NCCL the device tensors."""
+    me = dist.get_rank(group)
+    host = backend == "gloo" and t.device.type != "cpu"
+    send = t.detach().contiguous()
+    if host:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    ops, receives = [], False
+    for src, dst in perm:
+        if src == me:
+            ops.append(dist.P2POp(dist.isend, send,
+                                  dist.get_global_rank(group, dst), group))
+        if dst == me:
+            ops.append(dist.P2POp(dist.irecv, recv,
+                                  dist.get_global_rank(group, src), group))
+            receives = True
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if not receives:
+        return torch.zeros_like(t)
+    return recv.to(t.device) if host else recv

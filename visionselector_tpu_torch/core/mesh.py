@@ -1,26 +1,31 @@
 """The port's device mesh on ``torch.distributed`` (the reference's
 ``visionselector_tpu.core.mesh``).
 
-A ``Mesh`` lays the ranks of the default process group out as a
-(data, model) grid, as the reference reshapes its devices: rank r sits at
-(r // n_model, r % n_model). Each rank holds the process group of its
-line along each axis (``mesh.groups["model"]``: the ranks of its row) and
-an explicit device and backend: NCCL where each rank owns a GPU, gloo on
-the CPU or where ranks share one GPU. The collectives are in
-``core.collectives``.
+A ``Mesh`` lays ranks [0, n) of the default process group out as a grid
+of named axes, row-major, as the reference reshapes its devices: a
+(data, model) grid puts rank r at (r // n_model, r % n_model), and the
+pipeline's 1-D "stage" grid puts it at stage r. Each rank holds the
+process group of its line along each axis (``mesh.groups["model"]``: the
+ranks of its row) and an explicit device and backend (``placement``):
+NCCL where each rank owns a GPU, gloo on the CPU or where ranks share one
+GPU. A grid smaller than the world leaves the ranks past it idle, as the
+reference's training leaves ``devices[n_data:]`` out of its mesh. The
+collectives are in ``core.collectives``.
 
 The reference leaves layouts to GSPMD; here each rank holds its own slice
 of a sharded tensor, on the axis ``param_sharding_rules`` gives
 (``shard_params`` for any tree; ``lm.shard_lm``, which tensor-parallel
-serving runs, for the decoder), and the forwards that use them say where
-they gather or sum (``lm.shard_lm`` / ``tensor_parallel``,
-``lm.moe_mlp_ep``, ``vit.vit_forward_sp``).
+serving runs, for the decoder; ``pipeline.stage_layers`` for the
+pipeline's layer stack), and the forwards that use them say where they
+gather or sum (``lm.shard_lm`` / ``tensor_parallel``, ``lm.moe_mlp_ep``,
+``vit.vit_forward_sp``, ``pipeline.gpipe``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 from typing import Optional
 
 import numpy as np
@@ -34,9 +39,10 @@ TIMEOUT = datetime.timedelta(seconds=120)
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's view of a (data, model) grid of ranks."""
+    """This rank's view of a grid of ranks: ``shape`` maps each axis to
+    its size, in grid order."""
 
-    shape: dict  # {"data": n_data, "model": n_model}
+    shape: dict  # {"data": n_data, "model": n_model} or {"stage": n}
     rank: int  # in the default group
     device: torch.device
     backend: str
@@ -47,42 +53,83 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
-        d, m = divmod(self.rank, self.shape["model"])
-        return d if axis == "data" else m
+        coords = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return int(coords[list(self.shape).index(axis)])
+
+
+def placement(device: str, rank: int, world: int):
+    """(device, backend) of ``rank`` of ``world`` ranks on this host: rank
+    r on ``cuda:r`` with NCCL when the host has a card for every rank;
+    every rank on ``cuda:0`` with gloo when it has fewer (NCCL refuses two
+    ranks on one device); gloo on the CPU."""
+    if device == "cuda":
+        if torch.cuda.device_count() >= world:
+            return torch.device("cuda", rank), "nccl"
+        return torch.device("cuda", 0), "gloo"
+    return torch.device("cpu"), "gloo"
 
 
 def init_world(rank: int, world: int, init_method: str, backend: str,
                timeout: datetime.timedelta = TIMEOUT) -> None:
-    """Join the default process group (``init_method``: ``tcp://host:port``
-    or ``file://path``) with a finite ``timeout``."""
+    """Join the default process group (``init_method``: ``tcp://host:port``,
+    ``file://path`` or ``env://``) with a finite ``timeout``."""
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world, timeout=timeout)
 
 
-def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *, device,
-              backend: Optional[str] = None) -> Mesh:
-    """The (n_data, n_model) mesh over the default process group (every
-    rank calls this, in the same order: each line's group is made on all
-    ranks). ``n_data`` defaults to world // n_model; the product must be
-    the world size (ValueError)."""
+def grid_mesh(shape: dict, *, device,
+              backend: Optional[str] = None) -> Optional[Mesh]:
+    """The mesh of ``shape`` (axis -> size, in grid order) over ranks
+    [0, prod(sizes)) of the default process group. Every rank of the
+    world calls this, in the same order (each line's group is made on all
+    ranks); ranks past the grid get None. ValueError when the grid needs
+    more ranks than the world has."""
     world = dist.get_world_size()
-    if n_data is None:
-        n_data = world // n_model
-    if n_data * n_model != world:
-        raise ValueError(f"make_mesh: {n_data} x {n_model} ranks for a "
-                         f"world of {world}")
+    n = math.prod(shape.values())
+    if n > world:
+        raise ValueError(f"a {' x '.join(map(str, shape.values()))} mesh "
+                         f"needs {n} ranks; the world has {world}")
     backend = backend or dist.get_backend()
-    grid = np.arange(world).reshape(n_data, n_model)
+    grid = np.arange(n).reshape(tuple(shape.values()))
     rank = dist.get_rank()
     groups = {}
-    for axis, lines in (("model", grid), ("data", grid.T)):
-        for line in lines:
+    for ax, axis in enumerate(shape):
+        for line in np.moveaxis(grid, ax, -1).reshape(-1, grid.shape[ax]):
             g = dist.new_group([int(r) for r in line], timeout=TIMEOUT,
                                backend=backend)
             if rank in line:
                 groups[axis] = g
-    return Mesh({"data": n_data, "model": n_model}, rank,
-                torch.device(device), backend, groups)
+    if rank >= n:
+        return None
+    return Mesh(dict(shape), rank, torch.device(device), backend, groups)
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *, device,
+              backend: Optional[str] = None) -> Optional[Mesh]:
+    """The (n_data, n_model) mesh over ranks [0, n_data * n_model) of the
+    default process group (``grid_mesh``). ``n_data`` defaults to
+    world // n_model."""
+    if n_data is None:
+        n_data = dist.get_world_size() // n_model
+    return grid_mesh({"data": n_data, "model": n_model}, device=device,
+                     backend=backend)
+
+
+def data_mesh(batch_size: int, *, device,
+              backend: Optional[str] = None) -> Optional[Mesh]:
+    """Data-parallel training's mesh (the reference's ``api/train.py``):
+    (gcd(batch_size, world), 1) over the first n_data ranks, so every rank
+    holds an equal part of the batch; None on the ranks past it."""
+    n_data = math.gcd(batch_size, dist.get_world_size())
+    return make_mesh(n_data, 1, device=device, backend=backend)
+
+
+def stage_mesh(n_stages: Optional[int] = None, *, device,
+               backend: Optional[str] = None) -> Optional[Mesh]:
+    """The pipeline's 1-D "stage" mesh over ranks [0, n_stages) (default:
+    the whole world), the reference's ``Mesh(devices, ("stage",))``."""
+    return grid_mesh({"stage": n_stages or dist.get_world_size()},
+                     device=device, backend=backend)
 
 
 # Sharded axis rules, by substring of the leaf name (the reference's
@@ -117,12 +164,13 @@ def param_sharding_rules(name: str, ndim: int) -> Optional[int]:
     return None
 
 
-def local_slice(t: torch.Tensor, axis: int, index: int,
-                n: int) -> torch.Tensor:
-    """Part ``index`` of ``n`` equal contiguous parts of ``t`` along
-    ``axis`` (a view)."""
+def local_slice(t, axis: int, index: int, n: int):
+    """Part ``index`` of ``n`` equal contiguous parts of ``t`` (a tensor
+    or a numpy array) along ``axis`` (a view)."""
     size = t.shape[axis] // n
-    return t.narrow(axis, index * size, size)
+    at = axis % t.ndim
+    return t[(slice(None),) * at + (slice(index * size,
+                                          (index + 1) * size),)]
 
 
 def shard_params(params, mesh: Mesh, qkv_heads: Optional[int] = None,
@@ -162,18 +210,6 @@ def batch_sharding(mesh: Mesh):
         if getattr(leaf, "ndim", 0) < 1:
             return leaf
         return local_slice(leaf, 0, mesh.index("data"), mesh.size("data"))
-
-    return local
-
-
-def accum_batch_sharding(mesh: Mesh):
-    """Data sharding of an accumulation batch [A, B, ...] (the reference's
-    ``accum_batch_sharding``): the micro-step axis A whole, the batch axis
-    B split over "data"; leaves of fewer than 2 dims whole."""
-    def local(leaf):
-        if getattr(leaf, "ndim", 0) < 2:
-            return leaf
-        return local_slice(leaf, 1, mesh.index("data"), mesh.size("data"))
 
     return local
 

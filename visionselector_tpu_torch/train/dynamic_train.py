@@ -31,6 +31,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from visionselector_tpu_torch.core.mesh import batch_sharding
 from visionselector_tpu_torch.core.safetensors import (
     open_checkpoint,
     save_file,
@@ -77,6 +78,7 @@ class DynamicTrainState:
     optimizer: torch.optim.AdamW
     generator: torch.Generator  # the Gumbel draws
     step: int = 0  # updates taken
+    mesh: object = None  # data parallelism (train_step.accumulate)
 
     def trainable(self) -> dict:
         """{name: parameter} of what trains (and what a checkpoint holds)."""
@@ -178,9 +180,21 @@ def dynamic_train_step_accum(state: DynamicTrainState, params,
     tau = tau_schedule(state.step, sched.total_steps, sched.tau_start,
                        sched.tau_end)
 
+    mesh = state.mesh
+    n_data = 1 if mesh is None else mesh.size("data")
+
     def loss_fn(mb):
+        # the global batch's U(0, 1) draws behind the Gumbel noise, from
+        # the same generator on every rank, and this rank's part of them:
+        # the noise of one process over the whole batch
+        b, l_pad = mb.image_positions.shape
+        uniforms = torch.rand((b * n_data, l_pad, 2),
+                              generator=state.generator,
+                              device=state.generator.device)
+        if mesh is not None:
+            uniforms = batch_sharding(mesh)(uniforms)
         losses, metrics = dynamic_batch_forward(
-            state.predictor, params, mb, cfg, tau, sched,
+            state.predictor, params, mb, cfg, tau, sched, uniforms,
             generator=state.generator, attn_impl=attn_impl)
         return losses.mean(), {k: v.mean() for k, v in metrics.items()}
 

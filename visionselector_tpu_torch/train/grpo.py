@@ -31,6 +31,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from visionselector_tpu_torch.core import collectives
 from visionselector_tpu_torch.train.dpo import (
     ReferencePolicy,
     init_dpo_state,
@@ -39,7 +40,10 @@ from visionselector_tpu_torch.train.dpo import (
 )
 from visionselector_tpu_torch.train.loss import IGNORE_INDEX, batch_of_one
 from visionselector_tpu_torch.train.sft import SFTScheduleConfig, SFTState
-from visionselector_tpu_torch.train.train_step import accumulate
+from visionselector_tpu_torch.train.train_step import (
+    accumulate,
+    data_parallel,
+)
 
 LOSS_TYPES = ("grpo", "bnpo", "dr_grpo")
 
@@ -100,10 +104,18 @@ def per_token_logps(params, sample, cfg, remat: bool = False,
 
 
 def grpo_loss(params, ref: Optional[ReferencePolicy], batch, advantages,
-              sched: GRPOScheduleConfig, attn_impl=None):
+              sched: GRPOScheduleConfig, attn_impl=None, mesh=None):
     """The GRPO loss of a [B * G] completion batch with its advantages
     [B * G], under ``sched.loss_type``, and its metrics (``kl`` when beta
-    > 0, ``clip_ratio``, ``completion_tokens``)."""
+    > 0, ``clip_ratio``, ``completion_tokens``, ``advantage_mean``).
+
+    Under data parallelism (``mesh``: this rank holds its part of the
+    global batch) the token count of ``bnpo``, ``kl`` and ``clip_ratio``
+    is the global batch's (summed over the "data" ranks) and ``dr_grpo``
+    divides by the global row count, each rank's sum scaled by the rank
+    count: the mean over the ranks, which ``train_step.accumulate`` takes,
+    is the global batch's value. ``grpo``'s per-sequence mean needs no
+    scaling."""
     if sched.loss_type not in LOSS_TYPES:
         raise ValueError(f"unknown GRPO loss type {sched.loss_type!r}")
     if sched.beta > 0.0:
@@ -119,25 +131,32 @@ def grpo_loss(params, ref: Optional[ReferencePolicy], batch, advantages,
     coef1 = torch.exp(pol_lp - pol_lp.detach())
     coef2 = coef1.clamp(1.0 - sched.epsilon_low, 1.0 + sched.epsilon_high)
     pt_loss = -torch.minimum(coef1 * adv, coef2 * adv)
-    n_tok = maskf.sum().clamp(min=1.0)
+    n_tok, rows, scale = maskf.sum(), pt_loss.shape[0], 1.0
+    if data_parallel(mesh):
+        scale = mesh.size("data")
+        n_tok = collectives.all_reduce(n_tok.detach().clone(),
+                                       mesh.groups["data"])
+        rows *= scale
+    n_tok = n_tok.clamp(min=1.0)
     metrics = {}
     if sched.beta > 0.0:
         delta = ref_lp - pol_lp
         kl = torch.exp(delta) - delta - 1.0
         pt_loss = pt_loss + sched.beta * kl
-        metrics["kl"] = (kl * maskf).sum() / n_tok
+        metrics["kl"] = scale * (kl * maskf).sum() / n_tok
     if sched.loss_type == "bnpo":
-        loss = (pt_loss * maskf).sum() / n_tok
+        loss = scale * (pt_loss * maskf).sum() / n_tok
     elif sched.loss_type == "dr_grpo":
-        loss = (pt_loss * maskf).sum() / (
-            pt_loss.shape[0] * sched.max_completion_length)
+        loss = scale * (pt_loss * maskf).sum() / (
+            rows * sched.max_completion_length)
     else:
         loss = ((pt_loss * maskf).sum(-1)
                 / maskf.sum(-1).clamp(min=1.0)).mean()
     clipped = (((coef1 < 1.0 - sched.epsilon_low) & (adv < 0))
                | ((coef1 > 1.0 + sched.epsilon_high) & (adv > 0)))
-    metrics["clip_ratio"] = (clipped * maskf).sum() / n_tok
+    metrics["clip_ratio"] = scale * (clipped * maskf).sum() / n_tok
     metrics["completion_tokens"] = maskf.sum(-1).mean()
+    metrics["advantage_mean"] = adv.mean()
     return loss, metrics
 
 
@@ -148,11 +167,9 @@ def grpo_train_step(state: SFTState, ref: Optional[ReferencePolicy], params,
     advantages [B * G] (host rewards, group-normalised). Returns (state,
     metrics: loss, kl, clip_ratio, completion_tokens, grad_norm, lr,
     advantage_mean)."""
-    state, metrics = accumulate(state, sched, [(batch, advantages)],
-                                lambda mb: grpo_loss(params, ref, *mb,
-                                                     sched, attn_impl))
-    metrics["advantage_mean"] = torch.as_tensor(advantages).float().mean()
-    return state, metrics
+    return accumulate(state, sched, [(batch, advantages)],
+                      lambda mb: grpo_loss(params, ref, *mb, sched,
+                                           attn_impl, state.mesh))
 
 
 def grpo_train_step_accum(state: SFTState, ref: Optional[ReferencePolicy],
@@ -169,12 +186,9 @@ def grpo_train_step_accum(state: SFTState, ref: Optional[ReferencePolicy],
             "grpo_train_step_accum supports loss_type='grpo' only "
             "(bnpo / dr_grpo weight by the whole batch's token counts); "
             f"got {sched.loss_type!r}")
-    state, metrics = accumulate(state, sched, list(zip(batches, advantages)),
-                                lambda mb: grpo_loss(params, ref, *mb,
-                                                     sched, attn_impl))
-    metrics["advantage_mean"] = torch.cat([
-        torch.as_tensor(a).float().reshape(-1) for a in advantages]).mean()
-    return state, metrics
+    return accumulate(state, sched, list(zip(batches, advantages)),
+                      lambda mb: grpo_loss(params, ref, *mb, sched,
+                                           attn_impl, state.mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,7 @@ class SFTState:
     trainables: dict  # {name: parameter} of the model's trained subset
     optimizer: torch.optim.AdamW
     step: int = 0  # updates taken
+    mesh: object = None  # data parallelism (train_step.accumulate)
 
     def trainable(self) -> dict:
         """{name: parameter} of what trains (and what a checkpoint holds)."""

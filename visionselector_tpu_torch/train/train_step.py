@@ -26,6 +26,16 @@ optax steps:
 selector here, ``dynamic_train`` and ``sft``): a state's ``trainable()``
 names the parameters that train, and only they have gradients, optimizer
 state and a place in the clipping norm (optax's ``masked``).
+
+Data parallelism (the reference's ``(n_data, 1)`` mesh, where GSPMD
+computes the loss of the global batch): a state whose ``mesh`` is set
+holds this rank's part of each batch. Each rank's loss is a mean over its
+equal part, or scaled so that the mean over the ranks is the global
+batch's loss (GRPO's token-count reductions, ``grpo.grpo_loss``); after
+the micro-batch loop ``accumulate`` averages the trainables' gradients
+and the metrics over the mesh's "data" ranks (``data_mean``: one flat
+all-reduce per gradient dtype, outside the autograd graph), so the norm
+is the global one and every rank takes the same AdamW step.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from typing import Callable, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from visionselector_tpu_torch.core import collectives
 from visionselector_tpu_torch.core.config import OVConfig
 from visionselector_tpu_torch.train.loss import (
     reg_weight_schedule,
@@ -63,6 +74,7 @@ class TrainState:
     scorer: torch.nn.Module  # the trained parameters (fp32)
     optimizer: torch.optim.AdamW
     step: int = 0  # updates taken
+    mesh: object = None  # data parallelism: a core.mesh.Mesh, else None
 
     def trainable(self) -> dict:
         """{name: parameter} of what trains (and what a checkpoint holds)."""
@@ -115,6 +127,36 @@ def batch_loss(params, batch, cfg, reg_weight, k_max: int,
     return losses.mean(), {k: v.mean() for k, v in metrics.items()}
 
 
+def data_parallel(mesh) -> bool:
+    """Whether ``mesh`` (a state's) splits batches over more than one
+    rank."""
+    return mesh is not None and mesh.size("data") > 1
+
+
+def data_mean(mesh, grads: List[torch.Tensor], metrics: dict) -> dict:
+    """Average ``grads`` (in place) and the scalar ``metrics`` over the
+    mesh's "data" ranks: one flat all-reduce per gradient dtype, the
+    metrics riding with the fp32 one. Returns the averaged metrics."""
+    n, group = mesh.size("data"), mesh.groups["data"]
+    names = list(metrics)
+    vals = torch.stack([torch.as_tensor(metrics[k]).float().to(mesh.device)
+                        for k in names])
+    buckets = {torch.float32: []}
+    for g in grads:
+        buckets.setdefault(g.dtype, []).append(g)
+    for dtype, part in buckets.items():
+        fp32 = dtype == torch.float32
+        flat = [g.reshape(-1) for g in part] + ([vals] if fp32 else [])
+        total = collectives.all_reduce(torch.cat(flat), group).div_(n)
+        at = 0
+        for g in part:
+            g.copy_(total[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        if fp32:
+            vals = total[at:]
+    return {k: vals[i] for i, k in enumerate(names)}
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
@@ -123,9 +165,6 @@ def _update(state, sched) -> dict:
     """Clip the trainable parameters' gradients (optax's rule) and take
     one AdamW step at the schedule's lr; returns {"grad_norm", "lr"}."""
     params = list(state.trainable().values())
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
     norm = global_norm([p.grad for p in params])
     if sched.max_grad_norm > 0:
         keep = norm < sched.max_grad_norm
@@ -174,8 +213,9 @@ def accumulate(state, sched, batches: List,
     scalar})``; the gradients of the micro-batches' losses summed in
     ``.grad`` and divided by their count (the gradient of the mean over
     the concatenated batch), one micro-batch's activations live at a time.
-    Returns (state, metrics averaged over micro-batches, with "loss",
-    "grad_norm" and "lr")."""
+    Under data parallelism (``state.mesh``) the gradients and metrics are
+    then averaged over the ranks (``data_mean``). Returns (state, metrics
+    averaged over micro-batches, with "loss", "grad_norm" and "lr")."""
     state.optimizer.zero_grad(set_to_none=True)
     losses, metric_list = [], []
     for mb in batches:
@@ -183,11 +223,16 @@ def accumulate(state, sched, batches: List,
         loss.backward()  # .grad accumulates the sum
         losses.append(loss.detach())
         metric_list.append(metrics)
-    for p in state.trainable().values():
-        if p.grad is not None:
-            p.grad.div_(len(batches))
-    metrics = {k: torch.stack([m[k].detach() for m in metric_list]).mean()
+    params = list(state.trainable().values())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        p.grad.div_(len(batches))
+    metrics = {k: torch.stack([torch.as_tensor(m[k]).detach()
+                               for m in metric_list]).mean()
                for k in metric_list[0]}
     metrics["loss"] = torch.stack(losses).mean()
+    if data_parallel(state.mesh):
+        metrics = data_mean(state.mesh, [p.grad for p in params], metrics)
     metrics.update(_update(state, sched))
     return state, metrics
